@@ -1,0 +1,99 @@
+"""Numpy bridge between the reference package's trees and the port's.
+
+Parameters, decode caches and migration payloads cross between the JAX
+reference and the port as nested dicts of numpy arrays. Leaves are walked in
+sorted-key order — the order ``jax.tree.leaves`` walks a dict, and the order
+``state_transfer.fingerprint`` hashes — so the same logical state hashes
+identically on both sides.
+
+bf16 crosses as float32 numpy, which is exact, so neither side needs a numpy
+bf16 type: ``to_numpy`` widens torch bf16 to float32, and ``to_torch`` widens
+any numpy array whose dtype numpy itself cannot compute with (such as an
+``ml_dtypes`` bfloat16 array handed over by the reference) before narrowing
+to the requested torch dtype.
+"""
+
+from __future__ import annotations
+
+from typing import Any, List
+
+import numpy as np
+import torch
+
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import dtype_of
+
+
+def leaves(tree) -> List[Any]:
+    """Leaves of a nested dict/tuple/list tree, dict keys in sorted order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [x for t in tree for x in leaves(t)]
+    return [tree]
+
+
+def tree_map(fn, tree):
+    """``fn`` applied to every leaf; containers keep their structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map(fn, t) for t in tree)
+    return fn(tree)
+
+
+def to_numpy(x) -> np.ndarray:
+    """One leaf to host numpy (torch bf16 widens to float32)."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu()
+        if x.dtype == torch.bfloat16:
+            x = x.float()
+        return x.numpy()
+    return np.asarray(x)
+
+
+def to_torch(x, device=None, dtype=None) -> torch.Tensor:
+    """One leaf (torch tensor, numpy array or anything ``np.asarray`` takes)
+    to a torch tensor on ``device``; ``dtype`` applies to float leaves."""
+    if not isinstance(x, torch.Tensor):
+        a = np.asarray(x)
+        if a.dtype.kind not in "biuf":       # e.g. a bfloat16 extension type
+            a = a.astype(np.float32)
+        x = torch.from_numpy(np.array(a, order="C"))   # owned, writable
+    if dtype is not None and x.is_floating_point():
+        x = x.to(dtype)
+    return x.to(device)
+
+
+def tree_to_numpy(tree):
+    return tree_map(to_numpy, tree)
+
+
+def tree_to_torch(tree, device=None, dtype=None):
+    return tree_map(lambda x: to_torch(x, device, dtype), tree)
+
+
+def params_to_torch(params, cfg: ModelConfig, device=None):
+    """A reference param tree (numpy leaves) as port params: matrices in
+    ``cfg.dtype``, norm scales in float32, as the reference stores them."""
+    def conv(tree, key=""):
+        if isinstance(tree, dict):
+            return {k: conv(v, k) for k, v in tree.items()}
+        return to_torch(tree, device,
+                        torch.float32 if key == "scale" else dtype_of(cfg))
+    return conv(params)
+
+
+def payload_to_numpy(payload: dict) -> dict:
+    """A slot payload with its cache on the host as numpy."""
+    out = dict(payload)
+    out["cache"] = tree_to_numpy(payload["cache"])
+    return out
+
+
+def payload_to_torch(payload: dict, cfg: ModelConfig, device=None) -> dict:
+    """A slot payload (any array leaves) with its cache as port tensors:
+    float leaves in ``cfg.dtype``, integer leaves as they are."""
+    out = dict(payload)
+    out["cache"] = tree_to_torch(payload["cache"], device, dtype_of(cfg))
+    return out

@@ -1,0 +1,115 @@
+"""Build the port's CUDA kernels at first use and load them with ctypes.
+
+Each kernel library is one ``.cu`` file with a plain C interface, compiled
+by ``nvcc`` for ``sm_90a`` into a shared library. The library lands in
+``_build/`` beside this module (listed in ``.gitignore``), in a directory
+named by a hash of the source and the flags, so an edited source rebuilds
+and an unchanged one loads at once. Nothing is fetched or prebuilt: with no
+``nvcc``, or a failing compile, loading raises.
+
+``build_all()`` starts one ``nvcc`` per library, all at once, and waits for
+them — the way a run that needs every kernel should pay for the builds.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+from typing import Dict, List
+
+_HERE = Path(__file__).resolve().parent
+BUILD_DIR = _HERE / "_build"
+
+#: library name -> its source, relative to this directory
+SOURCES: Dict[str, str] = {
+    "decode_attention": "decode_attention/csrc/decode_attention.cu",
+}
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for home in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if home and (Path(home) / "bin" / "nvcc").exists():
+            return str(Path(home) / "bin" / "nvcc")
+    raise RuntimeError("nvcc not found: the port's CUDA kernels are built "
+                       "from source at first use and need the CUDA toolkit")
+
+
+def _target(name: str) -> Path:
+    src = _HERE / SOURCES[name]
+    h = hashlib.sha256(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}" / f"lib{name}.so"
+
+
+def _start(name: str, nvcc: str):
+    """Start nvcc for ``name`` into a temporary file beside its target."""
+    target = _target(name)
+    target.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=target.parent)
+    os.close(fd)
+    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(_HERE / SOURCES[name])]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, target
+
+
+def _finish(name: str, started) -> None:
+    proc, tmp, target = started
+    log, _ = proc.communicate()
+    (target.parent / "build.log").write_text(log)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed for {name} "
+                           f"(exit {proc.returncode}):\n{log}")
+    os.replace(tmp, target)          # atomic: a reader never sees half a file
+
+
+def build_all(names: List[str] = None) -> None:
+    """Compile every missing library, one nvcc process each, in parallel."""
+    names = list(SOURCES) if names is None else names
+    todo = [n for n in names if not _target(n).exists()]
+    if not todo:
+        return
+    nvcc = nvcc_path()
+    started = {n: _start(n, nvcc) for n in todo}
+    errors = []
+    for n, s in started.items():
+        try:
+            _finish(n, s)
+        except RuntimeError as e:
+            errors.append(str(e))
+    if errors:
+        raise RuntimeError("\n".join(errors))
+
+
+def build_log(name: str) -> str:
+    """nvcc's output for the current build of ``name`` (ptxas register and
+    spill report), or '' if it was not built here."""
+    log = _target(name).parent / "build.log"
+    return log.read_text() if log.exists() else ""
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library ``name``, building it first if needed."""
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            build_all([name])
+            lib = ctypes.CDLL(str(_target(name)))
+            _loaded[name] = lib
+        return lib

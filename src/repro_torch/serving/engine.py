@@ -1,0 +1,611 @@
+"""Slot-based continuous-batching inference engine.
+
+One engine instance = one execution anchor's serving plane for one model:
+a fixed decode batch of ``slots`` sequences. Sessions join/leave slots
+independently (per-slot positions in the cache make lockstep unnecessary).
+The engine is the ``v_cmp`` substrate AIS compute leases reserve against,
+and its ``export_slot``/``import_slot`` are the state-transfer primitive
+behind make-before-break migration.
+
+Hot-path disciplines:
+
+* **Fused multi-step decode** — ``decode_round(steps=K)`` runs K decode
+  steps back to back on the device with on-device greedy sampling and an
+  on-device active-slot mask: no host sync inside the K steps and one
+  device→host copy of the [slots, K] token block per chunk.
+* **Bucketed prefill** — prompts are right-padded to power-of-two buckets
+  with the true length passed separately, as in the reference.
+* **In-place slot state** — slot insert (admit / migrate in) writes the
+  slot's rows of the engine cache; decode writes each new K/V row in place.
+
+Adapters (ROADMAP.md queue 1, item 2) and speculative decode (item 3) are
+not ported yet: they raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import itertools
+import time
+import zlib
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Union
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.bridge import payload_to_torch
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.transformer import LM
+from repro_torch.models import kvcache as KV
+
+#: smallest prefill bucket
+_MIN_BUCKET = 16
+
+_NO_ADAPTERS = ("per-session adapters are not ported yet (ROADMAP.md "
+                "queue 1, item 2)")
+_NO_SPEC = ("speculative decode is not ported yet (ROADMAP.md queue 1, "
+            "item 3)")
+
+
+class PagePoolExhausted(RuntimeError):
+    """The paged engine has no free KV pages for an allocation. Running out
+    of MEMORY (pages) is distinct from running out of decode SLOTS — the
+    serving plane maps it to COMPUTE_SCARCITY, and pressure-driven
+    reclamation (hibernate the coldest parked sessions) is supposed to keep
+    it from firing at all."""
+
+
+def prefill_buckets(max_len: int) -> List[int]:
+    """Power-of-two padded prompt lengths, capped at ``max_len``."""
+    out: List[int] = []
+    b = _MIN_BUCKET
+    while b < max_len:
+        out.append(b)
+        b *= 2
+    out.append(max_len)
+    return out
+
+
+@dataclass
+class SlotState:
+    session_id: str
+    position: int
+    tokens_generated: int = 0
+    last_token: int = 0
+    #: tenant adapter bound to this session ("" = base model)
+    adapter_id: str = ""
+    #: parked = bound-but-idle: the session keeps its slot (and pages) but
+    #: rides decode rounds with active=False, so its state never advances
+    parked: bool = False
+    #: monotone use tick (engine-local LRU clock, not wall time)
+    last_used: int = 0
+    #: page ids owned by this slot, in block-table order (paged engines)
+    pages: List[int] = field(default_factory=list)
+
+
+class InferenceEngine:
+    def __init__(self, cfg: ModelConfig, params=None, *, slots: int = 8,
+                 max_len: int = 512, seed: int = 0,
+                 paged: bool = False,
+                 page_size: int = KV.DEFAULT_PAGE_SIZE,
+                 num_pages: Optional[int] = None,
+                 hibernation=None, clock=None, adapters=None, device=None):
+        """``paged=True`` selects the block-table paged KV layout.
+        ``num_pages`` bounds device KV memory (default: enough for every
+        slot at max_len, plus the scratch page). ``hibernation`` is a
+        :class:`~repro_torch.serving.hibernation.HibernationStore` (or
+        ``True`` for a private unbounded one) enabling the host-memory tier.
+        ``clock`` (any object with ``now()``) timestamps hibernation records.
+        ``device`` defaults to the CUDA card; ``params`` must live on it."""
+        if adapters:
+            raise NotImplementedError(_NO_ADAPTERS)
+        self.cfg = cfg
+        self.lm = LM(cfg)
+        self.device = resolve_device(device)
+        self.slots = slots
+        self.max_len = max_len
+        if params is None:
+            params = self.lm.init(seed, self.device)
+        self.params = params
+        self.paged = bool(paged) and KV.supports_paging(cfg)
+        if hibernation is True:
+            from repro_torch.serving.hibernation import HibernationStore
+            hibernation = HibernationStore()
+        if hibernation is False:                   # bool flag, not a store
+            hibernation = None
+        self.hibernation = hibernation
+        self.clock = clock
+        self.adapters = None
+        if self.paged:
+            self.page_size = KV.page_len(cfg, max_len, page_size)
+            self.pages_per_slot = KV.pages_per_slot(max_len, self.page_size)
+            full = 1 + slots * self.pages_per_slot      # incl. scratch page
+            self.num_pages = full if num_pages is None \
+                else max(2, int(num_pages))
+            self.cache = self.lm.init_paged_cache(
+                slots, max_len, self.num_pages, self.page_size,
+                device=self.device)
+            # free list excludes page 0 (the shared scratch/null page);
+            # popped from the tail so allocation order is ascending
+            self._free_page_list: List[int] = \
+                list(range(self.num_pages - 1, 0, -1))
+            self._block_host = np.zeros((slots, self.pages_per_slot),
+                                        np.int32)
+        else:
+            self.page_size = 0
+            self.pages_per_slot = 0
+            self.num_pages = 0
+            self.cache = self.lm.init_cache(slots, max_len,
+                                            device=self.device)
+        self._slot_map: Dict[str, int] = {}
+        self._slots: list[Optional[SlotState]] = [None] * slots
+        self._use_clock = itertools.count(1)
+        #: device "pos" may diverge from host truth once any row parks (the
+        #: fused loop advances pos unconditionally); set -> resync next round
+        self._pos_dirty = False
+        self.buckets = prefill_buckets(max_len)
+
+    # ------------------------------------------------------------------
+    def free_slots(self) -> int:
+        return sum(1 for s in self._slots if s is None)
+
+    def has_slot(self, session_id: str) -> bool:
+        return session_id in self._slot_map
+
+    def position_of(self, session_id: str) -> int:
+        """Current cache position (context length) of one session's slot —
+        the authoritative payload size for migration."""
+        idx = self._slot_map.get(session_id)
+        if idx is None and self.hibernation is not None \
+                and self.hibernation.has(session_id):
+            return self.hibernation.record(session_id).position
+        return self._slots[self._slot_map[session_id]].position
+
+    # -- page-pool / session-tier accounting ----------------------------
+    def free_pages(self) -> int:
+        return len(self._free_page_list) if self.paged else 0
+
+    def total_pages(self) -> int:
+        """Usable pages (the scratch page is never allocatable)."""
+        return self.num_pages - 1 if self.paged else 0
+
+    def page_util(self) -> float:
+        tot = self.total_pages()
+        return 0.0 if tot <= 0 else 1.0 - len(self._free_page_list) / tot
+
+    def pool_bytes(self) -> int:
+        if self.paged:
+            return KV.paged_cache_bytes(self.cfg, self.slots, self.max_len,
+                                        self.num_pages, self.page_size)
+        return KV.cache_bytes(self.cfg, self.slots, self.max_len)
+
+    def resident_sessions(self) -> int:
+        return len(self._slot_map)
+
+    def parked_sessions(self) -> int:
+        return sum(1 for s in self._slots if s is not None and s.parked)
+
+    def hibernated_sessions(self) -> int:
+        return len(self.hibernation) if self.hibernation is not None else 0
+
+    def bound_sessions(self) -> int:
+        """Sessions whose state this engine holds SOMEWHERE (resident slot
+        or hibernation tier)."""
+        return self.resident_sessions() + self.hibernated_sessions()
+
+    def is_parked(self, session_id: str) -> bool:
+        idx = self._slot_map.get(session_id)
+        return idx is not None and self._slots[idx] is not None \
+            and self._slots[idx].parked
+
+    def has_hibernated(self, session_id: str) -> bool:
+        return self.hibernation is not None \
+            and self.hibernation.has(session_id)
+
+    def has_session(self, session_id: str) -> bool:
+        return self.has_slot(session_id) or self.has_hibernated(session_id)
+
+    # -- page allocation -------------------------------------------------
+    def _alloc_pages(self, n: int) -> List[int]:
+        if n > len(self._free_page_list):
+            raise PagePoolExhausted(
+                f"page pool exhausted: need {n} pages, "
+                f"{len(self._free_page_list)} free of {self.total_pages()}")
+        return [self._free_page_list.pop() for _ in range(n)]
+
+    def _free_slot_pages(self, idx: int) -> None:
+        meta = self._slots[idx]
+        if meta is not None and meta.pages:
+            self._free_page_list.extend(reversed(meta.pages))
+            meta.pages = []
+        self._block_host[idx, :] = 0
+
+    def _ensure_pages(self, idx: int, upto_tokens: int) -> bool:
+        """Grow slot ``idx``'s block table to cover token indices
+        [0, upto_tokens). Under pool pressure, hibernates the coldest
+        parked sessions first (LRU reclaim); raises PagePoolExhausted when
+        reclamation cannot free enough."""
+        meta = self._slots[idx]
+        needed = min(-(-max(upto_tokens, 1) // self.page_size),
+                     self.pages_per_slot)
+        grow = needed - len(meta.pages)
+        if grow <= 0:
+            return False
+        if grow > len(self._free_page_list):
+            self._reclaim_pages(grow)
+        new = self._alloc_pages(grow)
+        meta.pages.extend(new)
+        self._block_host[idx, :len(meta.pages)] = meta.pages
+        return True
+
+    def _reclaim_pages(self, need: int) -> None:
+        """Hibernate coldest parked sessions until ``need`` pages are free
+        (best effort; the caller's allocation raises if still short)."""
+        if self.hibernation is None:
+            return
+        while len(self._free_page_list) < need:
+            victim = None
+            best = None
+            for s in self._slots:
+                if s is not None and s.parked and \
+                        (best is None or s.last_used < best):
+                    best, victim = s.last_used, s.session_id
+            if victim is None:
+                return
+            if not self.hibernate_slot(victim):
+                return          # store full: nothing more can page out
+
+    def _bucket(self, n: int) -> int:
+        for b in self.buckets:
+            if n <= b:
+                return b
+        return self.max_len
+
+    def _alloc(self, session_id: str) -> int:
+        for i, s in enumerate(self._slots):
+            if s is None:
+                self._slot_map[session_id] = i
+                return i
+        raise RuntimeError("no free decode slots (lease accounting bug)")
+
+    # -- slot state in and out ---------------------------------------------
+    def _write_slot(self, idx: int, cache1) -> None:
+        """Copy a batch-1 dense cache into slot ``idx`` of the engine cache."""
+        for key in ("k", "v"):
+            self.cache["layers"][key][:, idx].copy_(
+                cache1["layers"][key][:, 0])
+        self.cache["pos"][idx] = cache1["pos"][0]
+
+    def _paged_install(self, k1, v1, idx: int, n: int) -> None:
+        """Copy a batch-1 linear KV cache ([L, 1, S', kh, hd]) into the
+        pages slot ``idx`` owns; rows past ``n`` in them are bucket padding
+        that decode never reads."""
+        owned = self._slots[idx].pages
+        rows = len(owned) * self.page_size
+        ids = torch.as_tensor(owned, dtype=torch.long, device=self.device)
+        for pool, src in ((self.cache["layers"]["k"], k1),
+                          (self.cache["layers"]["v"], v1)):
+            src = src[:, 0, :rows]                       # [L, s, kh, hd]
+            if src.shape[1] < rows:
+                pad = src.new_zeros((src.shape[0], rows - src.shape[1])
+                                    + tuple(src.shape[2:]))
+                src = torch.cat([src, pad], dim=1)
+            pool[:, ids] = src.reshape(
+                src.shape[0], len(owned), self.page_size, src.shape[2],
+                src.shape[3]).to(pool.dtype)
+        self.cache["block"][idx] = torch.from_numpy(
+            self._block_host[idx]).to(self.device)
+        self.cache["pos"][idx] = n
+
+    def _canonical_read(self, idx: int, pos: int) -> dict:
+        """Canonical batch-1 export: the slot's rows as a linear
+        [L, 1, max_len, kh, hd] buffer with the garbage tail (rows >=
+        position: prefill bucket padding, stale rows of re-used slots)
+        zeroed, and the host position — so the SAME logical state
+        fingerprints identically across dense and paged engines and across
+        hibernate/resume round trips."""
+        out = {}
+        for key in ("k", "v"):
+            if self.paged:
+                ids = torch.from_numpy(self._block_host[idx]).long().to(
+                    self.device)
+                full = self.cache["layers"][key][:, ids]  # [L, PPS, page, ..]
+                full = full.reshape(full.shape[0], -1, full.shape[3],
+                                    full.shape[4])[:, :self.max_len]
+            else:
+                full = self.cache["layers"][key][:, idx].clone()
+            full[:, pos:] = 0
+            out[key] = full[:, None]
+        return {"layers": out,
+                "pos": torch.full((1,), pos, dtype=torch.int32,
+                                  device=self.device)}
+
+    def export_slot(self, session_id: str):
+        """Extract this session's state (the migration payload): tensors on
+        this engine's device. Hibernated sessions export straight from the
+        host tier: migrating a cold session needs no resume."""
+        if session_id not in self._slot_map and self.has_hibernated(
+                session_id):
+            return self.hibernation.restore(session_id)
+        meta = self._slots[self._slot_map[session_id]]
+        return {"cache": self._canonical_read(self._slot_map[session_id],
+                                              meta.position),
+                "position": meta.position,
+                "last_token": meta.last_token,
+                "adapter_id": meta.adapter_id}
+
+    def import_slot(self, session_id: str, payload) -> None:
+        """Install a migrated session's state into a free slot. The payload
+        may come from any engine of either package (tensors, numpy arrays);
+        it is moved onto this engine's device. Raises AdmissionDenied when
+        the target has no free slot or, paged, no pages for the payload."""
+        from repro_torch.serving.state_transfer import AdmissionDenied
+        if self.free_slots() == 0:
+            raise AdmissionDenied(
+                f"target admission denied: no free decode slots for "
+                f"{session_id}")
+        adapter_id = str(payload.get("adapter_id", ""))
+        if adapter_id:
+            # the adapter binding is part of the session contract: a
+            # target that cannot realise it must refuse the transfer
+            raise AdmissionDenied(
+                f"target admission denied: adapter {adapter_id!r} not "
+                f"loaded for {session_id}")
+        payload = payload_to_torch(payload, self.cfg, self.device)
+        position = int(payload["position"])
+        idx = self._alloc(session_id)
+        meta = SlotState(session_id, position,
+                         last_token=int(payload["last_token"]),
+                         last_used=next(self._use_clock))
+        self._slots[idx] = meta
+        if self.paged:
+            try:
+                self._ensure_pages(idx, max(position, 1))
+            except PagePoolExhausted as e:
+                self._slot_map.pop(session_id, None)
+                self._slots[idx] = None
+                raise AdmissionDenied(str(e)) from e
+            self._paged_install(payload["cache"]["layers"]["k"],
+                                payload["cache"]["layers"]["v"], idx,
+                                position)
+        else:
+            self._write_slot(idx, payload["cache"])
+
+    def _free_slot(self, session_id: str) -> None:
+        """Free the slot and pages only — hibernated state (if any) stays."""
+        idx = self._slot_map.pop(session_id, None)
+        if idx is not None:
+            if self.paged:
+                self._free_slot_pages(idx)
+            self._slots[idx] = None
+
+    def release_slot(self, session_id: str) -> None:
+        """End of session: free slot/pages AND purge any hibernated copy."""
+        self._free_slot(session_id)
+        if self.hibernation is not None:
+            self.hibernation.drop(session_id)
+
+    # -- tiering: resident <-> parked <-> hibernated ---------------------
+    def park_slot(self, session_id: str) -> None:
+        """Mark a resident session idle: it keeps its slot and pages but
+        rides later decode rounds with active=False, state frozen."""
+        meta = self._slots[self._slot_map[session_id]]
+        meta.parked = True
+        self._pos_dirty = True
+
+    def hibernate_slot(self, session_id: str, *,
+                       now: Optional[float] = None) -> bool:
+        """Page a resident session out to the host tier, freeing its slot
+        and pages. Returns False — session left resident, state intact —
+        when a capacity-bounded store refuses the payload."""
+        if self.hibernation is None:
+            raise RuntimeError(
+                f"cannot hibernate {session_id}: engine has no "
+                f"hibernation store")
+        if now is None:
+            now = self.clock.now() if self.clock is not None else 0.0
+        payload = self.export_slot(session_id)
+        try:
+            self.hibernation.put(session_id, payload, now=now)
+        except MemoryError:
+            return False
+        self._free_slot(session_id)
+        return True
+
+    def resume_slot(self, session_id: str) -> None:
+        """Re-import a hibernated session. The store record is dropped only
+        AFTER the import succeeds."""
+        payload = self.hibernation.restore(session_id)
+        self.import_slot(session_id, payload)
+        self.hibernation.drop(session_id)
+
+    def resume_session(self, session_id: str) -> None:
+        """Bring a bound session back to active-resident from any tier."""
+        idx = self._slot_map.get(session_id)
+        if idx is not None:
+            meta = self._slots[idx]
+            meta.parked = False
+            meta.last_used = next(self._use_clock)
+            return
+        if self.has_hibernated(session_id):
+            self.resume_slot(session_id)
+            return
+        raise KeyError(f"unknown session {session_id}")
+
+    # -- not ported yet ---------------------------------------------------
+    def load_adapter(self, adapter_id: str, a, b) -> int:
+        raise RuntimeError(f"engine has no adapter runtime: {_NO_ADAPTERS}")
+
+    def unload_adapter(self, adapter_id: str) -> None:
+        raise RuntimeError(f"engine has no adapter runtime: {_NO_ADAPTERS}")
+
+    def spec_round(self, session_id: str, gamma: int) -> List[int]:
+        raise NotImplementedError(_NO_SPEC)
+
+    def spec_grade(self, session_id: str, tokens: List[int]) -> List[int]:
+        raise NotImplementedError(_NO_SPEC)
+
+    def spec_accept(self, session_id: str, n_accept: int,
+                    last_token: int) -> None:
+        raise NotImplementedError(_NO_SPEC)
+
+    def spec_abort(self, session_id: str) -> None:
+        raise NotImplementedError(_NO_SPEC)
+
+    def override_last_token(self, session_id: str, token: int) -> None:
+        raise NotImplementedError(_NO_SPEC)
+
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def prefill_session(self, session_id: str, prompt: np.ndarray, *,
+                        adapter_id: str = "") -> dict:
+        """Admit a session: run prefill, install the cache, return TTFT.
+
+        The prompt is right-padded to its power-of-two bucket with the true
+        length passed separately."""
+        t0 = time.perf_counter()
+        if adapter_id:
+            raise ValueError(
+                f"engine has no adapter runtime; cannot bind "
+                f"{adapter_id!r} for {session_id}")
+        prompt = np.asarray(prompt)
+        n = len(prompt)
+        if n > self.max_len:
+            # refuse rather than silently truncate: a truncated prefill
+            # would condition generation on a clipped prefix while
+            # position_of()/migration payload sizing report the full length
+            raise ValueError(
+                f"prompt of {n} tokens exceeds engine max_len "
+                f"{self.max_len} for {session_id}")
+        width = self._bucket(n)
+        padded = np.zeros(width, np.int64)
+        padded[:n] = prompt
+        batch = {"tokens": torch.from_numpy(padded[None, :]).to(self.device),
+                 "length": n}
+        logits, cache1 = self.lm.prefill(self.params, batch, self.max_len)
+        tok = int(torch.argmax(logits[0]))
+        idx = self._alloc(session_id)
+        meta = SlotState(session_id, position=n, tokens_generated=1,
+                         last_token=tok, last_used=next(self._use_clock))
+        self._slots[idx] = meta
+        if self.paged:
+            try:
+                # only ceil(n / page) pages — NOT max_len worth: admission
+                # reserves what the session actually uses
+                self._ensure_pages(idx, n)
+            except PagePoolExhausted:
+                self._slot_map.pop(session_id, None)
+                self._slots[idx] = None
+                raise
+            self._paged_install(cache1["layers"]["k"], cache1["layers"]["v"],
+                                idx, n)
+        else:
+            self._write_slot(idx, cache1)
+        return {"first_token": tok,
+                "ttfb_ms": (time.perf_counter() - t0) * 1e3}
+
+    # ------------------------------------------------------------------
+    def _fused(self, last: np.ndarray, active: np.ndarray,
+               steps: int) -> np.ndarray:
+        """K decode steps with no host sync between them. ``last``:
+        [slots] token feedback; ``active``: [slots] — inactive slots keep
+        feeding their (zero) token so a fused chunk is bit-identical to K
+        single-step rounds regardless of who shares the batch. Returns the
+        [slots, K] token block through one device→host copy."""
+        fed = torch.from_numpy(last).to(self.device)
+        act = torch.from_numpy(active).to(self.device)
+        cache = self.cache
+        toks = []
+        for _ in range(steps):
+            logits, cache = self.lm.decode_step(self.params, cache,
+                                                fed[:, None], active=act)
+            nxt = torch.argmax(logits[:, 0, :], dim=-1).to(torch.int32)
+            fed = torch.where(act, nxt, fed)
+            toks.append(fed)
+        self.cache = cache
+        return torch.stack(toks, dim=1).cpu().numpy()
+
+    @torch.no_grad()
+    def decode_round(self, steps: Optional[int] = None
+                     ) -> Dict[str, Union[int, List[int]]]:
+        """Continuous-batching decode for every active slot.
+
+        ``steps=None`` — single-step form: {session: token}.
+        ``steps=K``    — fused K-step chunk: {session: [token, ...] * K}.
+        """
+        if not self._slot_map:
+            return {}
+        k = 1 if steps is None else max(1, int(steps))
+        last = np.zeros(self.slots, np.int32)
+        active = np.zeros(self.slots, bool)
+        any_parked = False
+        for i, s in enumerate(self._slots):
+            if s is None:
+                continue
+            if s.parked:
+                any_parked = True
+                continue
+            last[i] = s.last_token
+            active[i] = True
+        if not active.any():
+            return {}
+        if self.paged:
+            # grow block tables BEFORE the fused chunk — the loop cannot
+            # allocate mid-flight; under pressure this hibernates coldest
+            # parked sessions or raises PagePoolExhausted
+            for i, s in enumerate(self._slots):
+                if s is not None and not s.parked:
+                    self._ensure_pages(i, s.position + k)
+        if self.paged or any_parked or self._pos_dirty:
+            # resync device pos (and block table) from host truth: parked
+            # rows' device pos advances inside the fused loop even though
+            # their state is frozen
+            pos_host = np.zeros(self.slots, np.int32)
+            for i, s in enumerate(self._slots):
+                if s is not None:
+                    pos_host[i] = s.position
+            self.cache["pos"] = torch.from_numpy(pos_host).to(self.device)
+            if self.paged:
+                self.cache["block"].copy_(torch.from_numpy(self._block_host))
+            self._pos_dirty = any_parked
+        block = self._fused(last, active, k)             # [slots, K]
+        out: Dict[str, Union[int, List[int]]] = {}
+        for i, s in enumerate(self._slots):
+            if s is None or s.parked:
+                continue
+            s.last_token = int(block[i, -1])
+            s.position += k
+            s.tokens_generated += k
+            s.last_used = next(self._use_clock)
+            out[s.session_id] = (int(block[i, 0]) if steps is None
+                                 else [int(t) for t in block[i]])
+        return out
+
+    # ------------------------------------------------------------------
+    def serve(self, session_id: str, prompt_tokens: int, gen_tokens: int,
+              *, prompt: Optional[np.ndarray] = None,
+              chunk: int = 16, adapter_id: str = "") -> dict:
+        """Unary convenience: prefill + chunked decode for one session.
+        Synthetic prompts are crc32-seeded (NOT ``hash()``, which varies
+        per process under PYTHONHASHSEED)."""
+        rng = np.random.default_rng(
+            zlib.crc32(session_id.encode()) % 2**31)
+        if prompt is None:
+            prompt = rng.integers(0, self.cfg.vocab_size,
+                                  size=prompt_tokens).astype(np.int32)
+        t0 = time.perf_counter()
+        pre = self.prefill_session(session_id, prompt,
+                                   adapter_id=adapter_id)
+        toks = [pre["first_token"]]
+        remaining = gen_tokens - 1
+        while remaining > 0:
+            # pow2 chunk schedule, as the reference's
+            k = min(chunk, 1 << (remaining.bit_length() - 1))
+            out = self.decode_round(steps=k)
+            toks.extend(out[session_id])
+            remaining -= k
+        self.release_slot(session_id)
+        total_ms = (time.perf_counter() - t0) * 1e3
+        return {"tokens": toks, "ttfb_ms": pre["ttfb_ms"],
+                "latency_ms": total_ms}
