@@ -4,28 +4,51 @@
     python3 chip_smoke.py
 
 Run from the repository root. It builds the port's CUDA kernels from the
-sources in the checkout and drives the port's main path at the full width of
-minitron-8b (32 layers, d_model 4096, 32 query heads over 8 KV heads,
-head_dim 128, vocab 256000; random bf16 weights from a seed):
+sources in the checkout and drives the port's three main paths at full
+width (random weights from a seed):
+
+* minitron-8b (dense GQA: 32 layers, d_model 4096, 32 query heads over 8
+  KV heads, head_dim 128, vocab 256000; bf16);
+* minitron-8b with per-session LoRA adapters (rank 8, grouped route);
+* qwen3-moe-30b-a3b (MoE: 48 layers, d_model 2048, 32 query heads over 4
+  KV heads, 128 experts top-8, expert d_ff 768, vocab 151936; bf16, 30.5 B
+  params) at full width and depth.
+
+Phases:
 
 1. build   — nvcc for every kernel library, all started together;
-2. kernels — each kernel against its plain PyTorch version at minitron's
-             decode shapes (B 8, S 2048, ragged lengths incl. 1, S-1, S;
-             paged: page 128, a shuffled block table whose unused entries
-             are the scratch page 0), with kernel / plain / library times
-             and the least time the card could take;
+2. kernels — each kernel against its plain PyTorch version on the main
+             paths' shapes, with kernel / plain / library times and the
+             least time the card could take: decode attention at
+             minitron's decode shapes (B 8, S 2048, ragged lengths incl.
+             1, S-1, S; paged: page 128, a shuffled block table whose
+             unused entries are the scratch page 0); the grouped GEMMs at
+             qwen3-moe's expert shapes (decode C 8, prefill C 160) and at
+             the adapter route's two f32 products;
 3. serve   — ``repro_torch.launch.serve.serve`` through the northbound
              gateway: 4 sessions, 8 requests, 8 slots, max_len 2048;
 4. engine  — dense and paged engines, 8 slots with 512-1536-token prompts
-             and 64 decode steps: TTFT, decode tok/s, and token-identical
-             streams between the two layouts;
-5. reference — a small model (edge-tiny, f32) on the card against the same
-             model on the CPU through the plain versions.
+             and 64 decode steps: TTFT, decode tok/s, a profiled decode
+             round, and token-identical streams between the two layouts;
+   adapters — 8 sessions (2 base, 2 for each of 3 adapters from the
+             adapter catalog) through a ServingPlane over a RealEngineBackend
+             on an engine with an AdapterRuntime: the mixed batch gives each
+             session the tokens it gets alone, and base sessions the tokens
+             of an engine without adapters;
+   moe     — minitron freed, qwen3-moe-30b-a3b drawn on the card; phases 3
+             and 4 again for it;
+5. reference — small models in f32 on the card against the same models on
+             the CPU through the plain versions: edge-tiny (dense and
+             paged), edge-tiny with adapters (grouped route on the card,
+             gather on the CPU) and the qwen3-moe smoke config.
 
-Phases 3 and 4 are the main path: the launch counters are set to 0 just
-before phase 3 and read just after phase 4, and each kernel must have been
-launched there. Any failed phase fails the run (exit 1). The last two lines
-are the card's name and power limit, then the result JSON.
+Each main path (minitron: phases 3-4; adapters; moe) is driven with every
+launch counter set to 0 just before it and read just after, and each kernel
+the path runs must have been launched there; the checks of a path's result
+(each adapter session alone, the full-width prefill logits) run after that
+read and are not counted. Any failed phase fails the run
+(exit 1). The last two lines are the card's name and power limit, then the
+result JSON.
 """
 
 from __future__ import annotations
@@ -42,7 +65,9 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 BF16_FLOPS = 989e12             # H100 SXM data sheet, dense tensor cores
+F32_FLOPS = 67e12               # H100 SXM data sheet, f32 outside them
 ATOL = RTOL = 1e-2              # bf16 output vs the f32 plain version
+F32_TOL = 1e-5                  # f32 kernel output vs the plain version
 REF_ATOL = 1e-3                 # f32 logits, card vs CPU (no TF32)
 
 
@@ -209,23 +234,161 @@ def phase_kernels(cfg):
     return rows
 
 
+def phase_moe_kernels(moe_cfg, d_adapter: int):
+    """The grouped GEMMs against their plain versions: qwen3-moe's expert
+    FFN at decode (C 8) and prefill (C 160) capacities, bf16, and the
+    adapter route's two f32 products (9 table rows incl. the null row, 8
+    slots, d 4096, rank 8). Inputs rotate over 4 sets; the expert weights
+    of one set are 2 GB, so each launch reads them from device memory. The
+    adapter tables (1.2 MB a set) fit in the 50 MB L2 together."""
+    import torch
+    from repro_torch.kernels.moe_gemm import moe_gemm as MG
+
+    E, D, Fd = moe_cfg.num_experts, moe_cfg.d_model, moe_cfg.moe_d_ff
+    dev, dt = torch.device("cuda"), torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(4321)
+
+    def randn(shape, scale, dtype):
+        return (torch.randn(shape, generator=gen, device=dev)
+                * scale).to(dtype)
+
+    def weights():
+        wg, wu = randn((E, D, Fd), D ** -0.5, dt), randn((E, D, Fd),
+                                                         D ** -0.5, dt)
+        return {"wg": wg, "wu": wu, "wcat": torch.cat([wg, wu], dim=-1),
+                "wd": randn((E, Fd, D), Fd ** -0.5, dt),
+                "A": randn((9, d_adapter, 8), d_adapter ** -0.5,
+                           torch.float32),
+                "B": randn((9, 8, d_adapter), 8 ** -0.5, torch.float32)}
+
+    sets = [weights() for _ in range(4)]
+    for w in sets:
+        for C in (8, 160):
+            w[f"x{C}"] = randn((E, C, D), 1.0, dt)
+            w[f"a{C}"] = randn((E, C, Fd), 1.0, dt)
+        w["h"] = randn((9, 8, d_adapter), 1.0, torch.float32)
+        w["t"] = randn((9, 8, 8), 1.0, torch.float32)
+    it = {"i": 0}
+
+    def nxt():
+        it["i"] = (it["i"] + 1) % len(sets)
+        return sets[it["i"]]
+
+    def f32(*ts):
+        return [t.float() for t in ts]
+
+    def ffn_case(C):
+        return ("moe_ffn_fused", f"E {E} C {C} D {D} F {Fd} bf16",
+                lambda w: MG.moe_ffn_fused(w[f"x{C}"], w["wg"], w["wu"]),
+                lambda w: MG.moe_ffn_fused_ref(w[f"x{C}"], w["wg"], w["wu"]),
+                lambda w: MG.moe_ffn_fused_ref(*f32(w[f"x{C}"], w["wg"],
+                                                    w["wu"])),
+                lambda w: torch.bmm(w[f"x{C}"], w["wcat"]),
+                2 * (E * C * D + 2 * E * D * Fd + E * C * Fd),
+                4 * E * C * D * Fd, BF16_FLOPS, ATOL)
+
+    def down_case(C):
+        return ("moe_gemm", f"w_down E {E} C {C} D {Fd} F {D} bf16",
+                lambda w: MG.moe_gemm(w[f"a{C}"], w["wd"]),
+                lambda w: MG.moe_gemm_ref(w[f"a{C}"], w["wd"]),
+                lambda w: MG.moe_gemm_ref(*f32(w[f"a{C}"], w["wd"])),
+                lambda w: torch.bmm(w[f"a{C}"], w["wd"]),
+                2 * (E * C * Fd + E * Fd * D + E * C * D),
+                2 * E * C * Fd * D, BF16_FLOPS, ATOL)
+
+    def adapter_case(x, w, label, C, Din, Fo):
+        return ("moe_gemm", f"adapter {label} E 9 C {C} D {Din} F {Fo} f32",
+                lambda s: MG.moe_gemm(s[x], s[w]),
+                lambda s: MG.moe_gemm_ref(s[x], s[w]),
+                lambda s: MG.moe_gemm_ref(s[x], s[w]),
+                lambda s: torch.bmm(s[x], s[w]),
+                4 * (9 * C * Din + 9 * Din * Fo + 9 * C * Fo),
+                2 * 9 * C * Din * Fo, F32_FLOPS, F32_TOL)
+
+    # ragged edges first: C, D, F off every tile size, strided x, empty rows
+    for (Eo, Co, Do, Fo), dtype in (((3, 5, 37, 19), torch.float32),
+                                    ((2, 70, 8, 130), torch.bfloat16),
+                                    ((4, 1, 200, 8), torch.float32),
+                                    ((5, 9, 64, 72), torch.bfloat16)):
+        xo = randn((Eo, Co + 3, Do), 1.0, dtype)[:, 3:]   # row stride Do
+        xo[0] = 0
+        wgo, wuo = randn((Eo, Do, Fo), 0.3, dtype), randn((Eo, Do, Fo), 0.3,
+                                                          dtype)
+        tol = ATOL if dtype == torch.bfloat16 else F32_TOL
+        for name, got, ref in (
+                ("moe_gemm", MG.moe_gemm(xo, wgo),
+                 MG.moe_gemm_ref(xo.float(), wgo.float())),
+                ("moe_ffn_fused", MG.moe_ffn_fused(xo, wgo, wuo),
+                 MG.moe_ffn_fused_ref(xo.float(), wgo.float(),
+                                      wuo.float()))):
+            err = (got.float() - ref).abs()
+            if bool((err > tol + tol * ref.abs()).any()) \
+                    or not torch.isfinite(got).all():
+                fail(f"{name} at E {Eo} C {Co} D {Do} F {Fo} {dtype}: max "
+                     f"abs err {float(err.max()):.3e} past {tol}")
+    log("[kernels] grouped GEMMs agree with their plain versions at ragged "
+        "shapes (C 1-70, D 8-200, F 8-130, strided x, zero rows)")
+
+    cases = [ffn_case(8), ffn_case(160), down_case(8), down_case(160),
+             adapter_case("h", "A", "h@A", 8, d_adapter, 8),
+             adapter_case("t", "B", "t@B", 8, 8, d_adapter)]
+    rows = {}
+    for (name, shape, kern, plain, plain_f32, library, nbytes, flops, peak,
+         tol) in cases:
+        out = kern(sets[0])
+        torch.cuda.synchronize()
+        ref = plain_f32(sets[0])
+        err = (out.float() - ref.float()).abs()
+        bad = err > tol + tol * ref.float().abs()
+        if not torch.isfinite(out).all() or bool(bad.any()):
+            fail(f"{name} ({shape}): kernel disagrees with its plain version "
+                 f"(max abs err {float(err.max()):.3e}, {int(bad.sum())} "
+                 f"elements past atol=rtol={tol})")
+        ms = time_ms(lambda: kern(nxt()))
+        plain_ms = time_ms(lambda: plain(nxt()), iters=10)
+        library_ms = time_ms(lambda: library(nxt()))
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+        bound_ms = max(t_bytes, t_ops) * 1e3
+        bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        log(f"[kernels] {name} ({shape}): max_abs_err "
+            f"{float(err.max()):.3e} kernel_ms {ms:.4f} plain_ms "
+            f"{plain_ms:.4f} library_ms {library_ms:.4f} bound_ms "
+            f"{bound_ms:.4f} ({bound_by}; {nbytes / 1e6:.1f} MB, "
+            f"{flops / 1e9:.2f} GFLOP)")
+        if name not in rows:            # the JSON row: the MoE decode shape
+            rows[name] = {
+                "name": name, "route": "cuda",
+                "source": "src/repro_torch/kernels/moe_gemm/csrc/moe_gemm.cu",
+                "replaces": "src/repro/kernels/moe_gemm/moe_gemm.py:"
+                            + ("90" if name == "moe_ffn_fused" else "65"),
+                "launches": 0, "max_abs_err": float(err.max()), "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": library_ms}
+    log("[kernels] library_ms: torch.bmm; for moe_ffn_fused, torch.bmm on "
+        "the [E, D, 2F] concatenation of w_gate and w_up (the yardstick: no "
+        "single call computes the fused function)")
+    del sets
+    torch.cuda.empty_cache()
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phases 3 and 4: the main path at full width
 # ---------------------------------------------------------------------------
 
-def phase_serve(params):
+def phase_serve(model: str, params):
     from repro_torch.launch.serve import serve
     t0 = time.perf_counter()
-    served, reports = serve("minitron-8b", sessions=4, requests=8, slots=8,
+    served, reports = serve(model, sessions=4, requests=8, slots=8,
                             max_len=2048, gen_tokens=16, params=params,
                             device="cuda", quiet=True)
-    log(f"[serve] minitron-8b: served {served}/8 in "
+    log(f"[serve] {model}: served {served}/8 in "
         f"{time.perf_counter() - t0:.2f} s")
     if served != 8:
-        fail(f"serve() served {served}/8 requests")
+        fail(f"serve() served {served}/8 requests of {model}")
     for sid, rep in reports.items():
-        log(f"[serve] {sid}: n={rep.n} ttft_ms={rep.z.get('t_ff_ms')} "
-            f"q99_ms={rep.z.get('q99_ms')}")
+        log(f"[serve] {model} {sid}: n={rep.n} "
+            f"ttft_ms={rep.z.get('t_ff_ms')} q99_ms={rep.z.get('q99_ms')}")
 
 
 def run_engine(cfg, params, prompts, *, paged: bool, steps: int, chunk: int):
@@ -246,7 +409,7 @@ def run_engine(cfg, params, prompts, *, paged: bool, steps: int, chunk: int):
         for sid, block in eng.decode_round(steps=chunk).items():
             toks[sid].extend(block)
     dt = time.perf_counter() - t0               # decode_round ends in a D2H
-    profile_round(eng, "paged" if paged else "dense")
+    profile_round(eng, f"{cfg.name} {'paged' if paged else 'dense'}")
     return toks, ttft, len(prompts) * steps / dt
 
 
@@ -302,18 +465,148 @@ def phase_engine(cfg, params):
                                      steps=64, chunk=16)
         name = "paged" if paged else "dense"
         out[name] = toks
-        log(f"[engine] {name}: prompts {lens.tolist()} ttft_ms "
+        log(f"[engine] {cfg.name} {name}: prompts {lens.tolist()} ttft_ms "
             f"{[round(t, 2) for t in ttft]} decode {tps:.1f} tok/s "
             f"(8 slots x 64 steps, chunks of 16)")
     for sid in out["dense"]:
         a, b = out["dense"][sid], out["paged"][sid]
         if a != b:
             i = next(j for j in range(len(a)) if a[j] != b[j])
-            fail(f"dense and paged engines diverge for {sid} at step {i}: "
-                 f"{a[i]} vs {b[i]}")
+            fail(f"{cfg.name}: dense and paged engines diverge for {sid} "
+                 f"at step {i}: {a[i]} vs {b[i]}")
         if len(a) != 64 or not all(0 <= t < cfg.vocab_size for t in a):
             fail(f"{sid}: {len(a)} tokens, expected 64 in range")
-    log("[engine] dense and paged token streams identical (8 x 64 tokens)")
+    log(f"[engine] {cfg.name}: dense and paged token streams identical "
+        f"(8 x 64 tokens)")
+
+
+def drive_model(cfg, params):
+    """One model's main path: serve() through the gateway, then the dense
+    and paged engines."""
+    phase_serve(cfg.name, params)
+    release_memory()                # the serve() fleet's four KV caches
+    phase_engine(cfg, params)
+
+
+def init_model(cfg):
+    """Seeded random weights drawn on the card (for MoE, one [E, d, f]
+    tensor at a time)."""
+    import torch
+    from repro_torch.bridge import leaves
+    from repro_torch.models.transformer import LM
+    t0 = time.perf_counter()
+    params = LM(cfg).init(0, "cuda")
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in leaves(params))
+    nbytes = sum(t.numel() * t.element_size() for t in leaves(params))
+    log(f"[init] {cfg.name} {n / 1e9:.2f} B params ({nbytes / 1e9:.1f} GB) "
+        f"in {time.perf_counter() - t0:.1f} s; device memory allocated "
+        f"{torch.cuda.memory_allocated() / 1e9:.1f} GB")
+    return params
+
+
+def release_memory() -> None:
+    """Return the device memory of tensors no longer referenced."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+ADAPTER_IDS = ("acme", "globex", "initech")
+ADAPTER_GEN = 24
+
+
+def adapter_setup(cfg):
+    """Three adapters from the adapter catalog and 8 sessions (2 base, 2
+    for each adapter): (catalog, [(session, adapter id, prompt)])."""
+    import numpy as np
+    from repro_torch.adapters import AdapterCatalog, AdapterSpec
+    catalog = AdapterCatalog()
+    for i, aid in enumerate(ADAPTER_IDS):
+        # scale 10: a delta the size of the hidden state, so adapter
+        # sessions visibly leave the base model's stream
+        catalog.register(AdapterSpec(
+            adapter_id=aid, version="1.0", base_model_id="minitron-8b",
+            base_model_version="1.0", rank=8, scale=10.0, seed=i),
+            d_model=cfg.d_model)
+    rng = np.random.default_rng(11)
+    bound = ("", "") + tuple(a for a in ADAPTER_IDS for _ in range(2))
+    sessions = [(f"a{i}", bound[i], rng.integers(
+        0, cfg.vocab_size, size=int(rng.integers(64, 257))).astype(np.int32))
+        for i in range(8)]
+    return catalog, sessions
+
+
+def adapter_engine(cfg, params, catalog, with_adapters: bool):
+    from repro_torch.adapters import AdapterRuntime
+    from repro_torch.serving.engine import InferenceEngine
+    rt = None
+    if with_adapters:
+        rt = AdapterRuntime(cfg.d_model, max_adapters=8, rank=8,
+                            device="cuda")
+    eng = InferenceEngine(cfg, params=params, slots=8, max_len=512,
+                          adapters=rt, device="cuda")
+    for aid in ADAPTER_IDS if with_adapters else ():
+        eng.load_adapter(aid, *catalog.weights(aid))
+    return eng
+
+
+def phase_adapters(cfg, params, catalog, sessions) -> dict:
+    """The adapter main path at minitron-8b width: the 8 sessions through
+    one ServingPlane over a RealEngineBackend on an engine with an
+    AdapterRuntime (route grouped, the moe_gemm kernel). Returns each
+    session's tokens."""
+    from repro_torch.core.clock import Clock
+    from repro_torch.serving.plane import RealEngineBackend, ServingPlane
+    mux = adapter_engine(cfg, params, catalog, True)
+    if mux.adapters.route != "grouped":
+        fail(f"adapter route on the card is {mux.adapters.route!r}")
+    clock = Clock()
+    plane = ServingPlane(clock, RealEngineBackend(mux, clock), slots=8,
+                         premium_reserved_frac=0.0, site_id="adapters")
+    t0 = time.perf_counter()
+    for sid, aid, prompt in sessions:
+        plane.submit(session_id=sid, klass="assured",
+                     prompt_tokens=len(prompt), gen_tokens=ADAPTER_GEN,
+                     t_max_ms=1e9, prompt=prompt, adapter_id=aid)
+    plane.drain()
+    mixed = {r.session_id: r.token_ids for r in plane.pop_results()}
+    log(f"[adapters] minitron-8b: 8 sessions (2 base, 2 x "
+        f"{list(ADAPTER_IDS)}) through the plane in "
+        f"{time.perf_counter() - t0:.2f} s")
+    if sorted(mixed) != sorted(sid for sid, _, _ in sessions) \
+            or any(len(t or []) != ADAPTER_GEN for t in mixed.values()):
+        fail(f"adapter plane served "
+             f"{ {k: len(v or []) for k, v in mixed.items()} }")
+    return mixed
+
+
+def check_adapters(cfg, params, catalog, sessions, mixed) -> None:
+    """Each session served alone on an engine of the same shape (8 slots,
+    so every product has the mixed run's shape) with the same adapters
+    loaded, and each base session on an engine with no adapter runtime:
+    both must give the mixed batch's tokens."""
+    gen = ADAPTER_GEN
+    solo = adapter_engine(cfg, params, catalog, True)
+    bare = adapter_engine(cfg, params, catalog, False)
+    changed = 0
+    for sid, aid, prompt in sessions:
+        alone = solo.serve(sid, len(prompt), gen, prompt=prompt,
+                           adapter_id=aid)["tokens"]
+        if alone != mixed[sid]:
+            i = next(j for j in range(gen) if alone[j] != mixed[sid][j])
+            fail(f"adapter session {sid} ({aid or 'base'}): mixed batch and "
+                 f"alone diverge at token {i}")
+        base = bare.serve(sid, len(prompt), gen, prompt=prompt)["tokens"]
+        if not aid and base != mixed[sid]:
+            fail(f"base session {sid} differs from the adapter-free engine")
+        changed += bool(aid) and base != mixed[sid]
+    if changed == 0:
+        fail("no adapter session left the base model's stream: the adapter "
+             "delta was not applied")
+    log(f"[adapters] mixed batch == each session alone (8 x {gen} tokens); "
+        f"base sessions == adapter-free engine; {changed}/6 adapter "
+        f"sessions differ from the base model on the same prompt")
 
 
 def check_logits(cfg, params):
@@ -329,7 +622,7 @@ def check_logits(cfg, params):
             or not torch.isfinite(logits[:, :cfg.vocab_size]).all():
         fail(f"full-width prefill logits {tuple(logits.shape)} not finite "
              f"of shape (1, {cfg.padded_vocab})")
-    log(f"[reference] minitron-8b prefill logits finite, shape "
+    log(f"[reference] {cfg.name} prefill logits finite, shape "
         f"{tuple(logits.shape)}")
 
 
@@ -337,61 +630,135 @@ def check_logits(cfg, params):
 # phase 5: small model on the card vs the CPU plain path
 # ---------------------------------------------------------------------------
 
-def phase_reference():
-    import dataclasses
+def card_vs_cpu(cfg, label: str, paged: bool) -> float:
+    """Prefill + 8 greedy decode steps of ``cfg`` (f32) on the CPU and on
+    the card from the same weights and prompt; each side feeds back its own
+    argmax. Fails on a token that differs; returns the largest logit
+    difference."""
     import numpy as np
     import torch
     from repro_torch.bridge import tree_map
-    from repro_torch.configs import get_config
     from repro_torch.models.transformer import LM
 
-    # full f32 matmul products on the card (PyTorch's default, stated)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = dataclasses.replace(get_config("edge-tiny"), dtype="float32")
     lm = LM(cfg)
     cpu_params = lm.init(5, "cpu")
     gpu_params = tree_map(lambda t: t.cuda(), cpu_params)
     prompt = np.random.default_rng(9).integers(0, cfg.vocab_size,
                                                size=(2, 40))
-    worst = 0.0
+    res, toks_seen = [], []
     with torch.no_grad():
-        for paged in (False, True):
-            res = []
-            for params, dev in ((cpu_params, "cpu"), (gpu_params, "cuda")):
-                toks = torch.from_numpy(prompt).to(dev)
-                logits, cache = lm.prefill(params, {"tokens": toks}, 64)
-                if paged:
-                    # the same rows laid out as pages of 16 through a table
-                    L_, b, S, kh, hd = cache["layers"]["k"].shape
-                    pps = S // 16
-                    ids = torch.arange(1, 1 + b * pps, device=dev,
-                                       dtype=torch.int32).reshape(b, pps)
-                    layers = {}
-                    for key in ("k", "v"):
-                        pool = torch.zeros((L_, 1 + b * pps, 16, kh, hd),
-                                           device=dev)
-                        pool[:, 1:] = cache["layers"][key].reshape(
-                            L_, b * pps, 16, kh, hd)
-                        layers[key] = pool
-                    cache = {"layers": layers, "block": ids,
-                             "pos": cache["pos"]}
-                steps = [logits.cpu()]
-                tok = logits.argmax(-1)
-                for _ in range(8):
-                    lg, cache = lm.decode_step(params, cache, tok[:, None])
-                    steps.append(lg[:, 0].cpu())
-                    tok = lg[:, 0].argmax(-1)
-                res.append(torch.stack(steps))
-            err = float((res[0] - res[1]).abs().max())
-            worst = max(worst, err)
-            log(f"[reference] edge-tiny f32 {'paged' if paged else 'dense'}:"
-                f" card vs CPU max |logit diff| {err:.3e} over prefill + 8 "
-                f"decode steps")
+        for params, dev in ((cpu_params, "cpu"), (gpu_params, "cuda")):
+            toks = torch.from_numpy(prompt).to(dev)
+            logits, cache = lm.prefill(params, {"tokens": toks}, 64)
+            if paged:
+                # the same rows laid out as pages of 16 through a table
+                L_, b, S, kh, hd = cache["layers"]["k"].shape
+                pps = S // 16
+                ids = torch.arange(1, 1 + b * pps, device=dev,
+                                   dtype=torch.int32).reshape(b, pps)
+                layers = {}
+                for key in ("k", "v"):
+                    pool = torch.zeros((L_, 1 + b * pps, 16, kh, hd),
+                                       device=dev)
+                    pool[:, 1:] = cache["layers"][key].reshape(
+                        L_, b * pps, 16, kh, hd)
+                    layers[key] = pool
+                cache = {"layers": layers, "block": ids, "pos": cache["pos"]}
+            steps = [logits.cpu()]
+            tok = logits.argmax(-1)
+            seen = [tok.cpu()]
+            for _ in range(8):
+                lg, cache = lm.decode_step(params, cache, tok[:, None])
+                steps.append(lg[:, 0].cpu())
+                tok = lg[:, 0].argmax(-1)
+                seen.append(tok.cpu())
+            res.append(torch.stack(steps))
+            toks_seen.append(torch.stack(seen))
+    err = float((res[0] - res[1]).abs().max())
+    log(f"[reference] {label} f32 {'paged' if paged else 'dense'}: card vs "
+        f"CPU max |logit diff| {err:.3e} over prefill + 8 decode steps")
+    if not torch.equal(toks_seen[0], toks_seen[1]):
+        fail(f"{label}: card and CPU greedy tokens differ")
+    return err
+
+
+def adapters_card_vs_cpu(cfg) -> None:
+    """edge-tiny (f32) with two adapters and a base session: the grouped
+    route on the card (the moe_gemm kernel) against the gather route on
+    the CPU, token for token."""
+    import numpy as np
+    from repro_torch.adapters import AdapterRuntime, AdapterSpec, \
+        init_adapter_weights
+    from repro_torch.bridge import tree_map
+    from repro_torch.models.transformer import LM
+    from repro_torch.serving.engine import InferenceEngine
+
+    cpu_params = LM(cfg).init(6, "cpu")
+    streams = []
+    for dev, params in (("cpu", cpu_params),
+                        ("cuda", tree_map(lambda t: t.cuda(), cpu_params))):
+        rt = AdapterRuntime(cfg.d_model, max_adapters=4, rank=4, device=dev)
+        eng = InferenceEngine(cfg, params=params, slots=4, max_len=64,
+                              adapters=rt, device=dev)
+        for i, aid in enumerate(("acme", "globex")):
+            eng.load_adapter(aid, *init_adapter_weights(AdapterSpec(
+                aid, "1.0", cfg.name, "1.0", rank=4, scale=10.0, seed=i),
+                cfg.d_model))
+        rng = np.random.default_rng(12)
+        for n, (sid, aid) in enumerate((("a", "acme"), ("b", "globex"),
+                                        ("c", ""))):
+            eng.prefill_session(sid, rng.integers(
+                0, cfg.vocab_size, 17 + 5 * n).astype(np.int32),
+                adapter_id=aid)
+        out = {}
+        for _ in range(2):
+            for sid, block in eng.decode_round(steps=6).items():
+                out.setdefault(sid, []).extend(block)
+        streams.append((f"{dev}/{rt.route}", out))
+    (ka, a), (kb, b) = streams
+    if a != b:
+        fail(f"edge-tiny adapters: {ka} and {kb} tokens differ: {a} vs {b}")
+    log(f"[reference] edge-tiny f32 adapters: {kb} == {ka}, 3 sessions x 12 "
+        f"tokens")
+
+
+def phase_reference():
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config, get_smoke_config
+
+    # full f32 matmul products on the card (PyTorch's default, stated)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tiny = dataclasses.replace(get_config("edge-tiny"), dtype="float32")
+    # the smoke config's head_dim 16 is below the decode kernel's smallest
+    # (32): widen the heads, keep the MoE layer (4 experts, top-2)
+    moe = dataclasses.replace(get_smoke_config("qwen3-moe-30b-a3b"),
+                              dtype="float32", head_dim=32)
+    worst = max(card_vs_cpu(tiny, "edge-tiny", False),
+                card_vs_cpu(tiny, "edge-tiny", True),
+                card_vs_cpu(moe, moe.name, False))
     if worst > REF_ATOL:
         fail(f"card and CPU logits differ by {worst:.3e} > {REF_ATOL}")
+    adapters_card_vs_cpu(tiny)
 
 
 # ---------------------------------------------------------------------------
+
+def drive_path(name: str, counters, required, fn, *args):
+    """One main path: every launch counter set to 0 just before ``fn``,
+    read just after; each kernel in ``required`` must have been launched.
+    Checks of the path's result run after this, outside the window.
+    Returns (launches, what ``fn`` returned)."""
+    for c in counters:
+        c.reset_launches()
+    out = fn(*args)
+    launches = {k: v for c in counters for k, v in c.LAUNCHES.items()}
+    log(f"[main path] {name}: launches {launches}")
+    for k in required:
+        if launches[k] == 0:
+            fail(f"{k} was not launched on the {name} path")
+    return launches, out
+
 
 def main() -> None:
     try:
@@ -401,11 +768,10 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device")
     try:
-        from repro_torch.bridge import leaves
         from repro_torch.configs import get_config
         from repro_torch.kernels.decode_attention import decode_attention \
             as DA
-        from repro_torch.models.transformer import LM
+        from repro_torch.kernels.moe_gemm import moe_gemm as MG
     except ImportError as e:
         fail(f"the port is not beside this script ({e})")
     t_start = time.perf_counter()
@@ -414,32 +780,41 @@ def main() -> None:
 
     phase_build()
     cfg = get_config("minitron-8b")
+    moe_cfg = get_config("qwen3-moe-30b-a3b")
     rows = phase_kernels(cfg)
+    rows.update(phase_moe_kernels(moe_cfg, cfg.d_model))
 
-    t0 = time.perf_counter()
-    params = LM(cfg).init(0, "cuda")
-    torch.cuda.synchronize()
-    n = sum(t.numel() for t in leaves(params))
-    log(f"[init] minitron-8b {n / 1e9:.2f} B params in "
-        f"{time.perf_counter() - t0:.1f} s")
+    counters = (DA, MG)
+    attn = ("decode_attention", "paged_decode_attention")
+    paths = []
 
-    DA.reset_launches()
-    phase_serve(params)
-    gc.collect()                    # the serve() fleet's four KV caches
-    torch.cuda.empty_cache()
-    after_serve = dict(DA.LAUNCHES)
-    phase_engine(cfg, params)
-    launches = dict(DA.LAUNCHES)
-    log(f"[main path] launches after serve {after_serve}, after engine "
-        f"{launches}")
-    for name, row in rows.items():
-        row["launches"] = launches[name]
-        if launches[name] == 0:
-            fail(f"{name} was not launched on the main path")
-
+    params = init_model(cfg)
+    launches, _ = drive_path(cfg.name, counters, attn, drive_model, cfg,
+                             params)
+    paths.append(launches)
+    catalog, sessions = adapter_setup(cfg)
+    launches, mixed = drive_path(
+        f"{cfg.name} adapters", counters, ("decode_attention", "moe_gemm"),
+        phase_adapters, cfg, params, catalog, sessions)
+    paths.append(launches)
+    check_adapters(cfg, params, catalog, sessions, mixed)
     check_logits(cfg, params)
     del params
-    torch.cuda.empty_cache()
+    release_memory()
+
+    params = init_model(moe_cfg)
+    launches, _ = drive_path(moe_cfg.name, counters,
+                             attn + ("moe_gemm", "moe_ffn_fused"),
+                             drive_model, moe_cfg, params)
+    paths.append(launches)
+    check_logits(moe_cfg, params)
+    log(f"[moe] peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+    del params
+    release_memory()
+
+    for name, row in rows.items():
+        row["launches"] = sum(p[name] for p in paths)
     phase_reference()
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
 

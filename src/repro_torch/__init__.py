@@ -1,9 +1,10 @@
 """PyTorch/CUDA port of the NE-AIaaS serving stack.
 
 A second package beside the JAX reference ``repro``: the same control plane
-(copied, not imported), the dense GQA model family, the continuous-batching
-engine and the serving front, with hand-written Hopper kernels on the decode
-path. It imports ``torch`` and numpy and nothing of the reference package.
+(copied, not imported), the dense GQA and MoE model families, per-session
+LoRA adapters, the continuous-batching engine and the serving front, with
+hand-written Hopper kernels for decode attention and the grouped expert
+GEMMs. It imports ``torch`` and numpy and nothing of the reference package.
 
 Entry points run on the CUDA card unless the caller asks for the CPU
 (``device="cpu"``, as the tests do); with no card and no explicit device they

@@ -1,7 +1,10 @@
-"""Multi-tenant LoRA adapter fleet: the control-plane catalog.
+"""Multi-tenant LoRA adapter fleet.
 
-The data-plane runtime (stacked A/B tables inside the fused decode) is not
-ported yet: ROADMAP.md queue 1, item 2.
+`catalog` holds the control-plane view: versioned adapter specs
+(rank, target matrices, sovereignty tags, weight fingerprints)
+registered against base models. `runtime` holds the data-plane view:
+stacked per-engine A/B device tables indexed by a per-slot int32
+adapter table inside the fused decode.
 """
 
 from repro_torch.adapters.catalog import (  # noqa: F401
@@ -10,4 +13,9 @@ from repro_torch.adapters.catalog import (  # noqa: F401
     init_adapter_weights,
     version_key,
     weight_fingerprint,
+)
+from repro_torch.adapters.runtime import (  # noqa: F401
+    AdapterRuntime,
+    lora_apply_rows,
+    lora_delta,
 )

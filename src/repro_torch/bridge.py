@@ -73,14 +73,24 @@ def tree_to_torch(tree, device=None, dtype=None):
     return tree_map(lambda x: to_torch(x, device, dtype), tree)
 
 
+# leaves the reference stores in float32 whatever ``cfg.dtype`` is: norm
+# scales (layers.py ``rmsnorm_init``), the MoE router (moe.py ``moe_init``)
+# and int8 dequantisation scales (quant.py ``quantize_weight``)
+F32_KEYS = frozenset(("scale", "router", "s"))
+
+
 def params_to_torch(params, cfg: ModelConfig, device=None):
-    """A reference param tree (numpy leaves) as port params: matrices in
-    ``cfg.dtype``, norm scales in float32, as the reference stores them."""
+    """A reference param tree (numpy leaves, bf16 as float32 or in its own
+    dtype) as port params. Every leaf takes the dtype the reference stores
+    it in, decided by its key and not by the dtype it arrives in: the
+    leaves under ``F32_KEYS`` are float32, other float leaves take
+    ``cfg.dtype``, integer leaves (int8 weights) stay as they are. Works for
+    any family's tree (dense, MoE)."""
     def conv(tree, key=""):
         if isinstance(tree, dict):
             return {k: conv(v, k) for k, v in tree.items()}
-        return to_torch(tree, device,
-                        torch.float32 if key == "scale" else dtype_of(cfg))
+        return to_torch(tree, device, torch.float32 if key in F32_KEYS
+                        else dtype_of(cfg))
     return conv(params)
 
 

@@ -29,6 +29,7 @@ BUILD_DIR = _HERE / "_build"
 #: library name -> its source, relative to this directory
 SOURCES: Dict[str, str] = {
     "decode_attention": "decode_attention/csrc/decode_attention.cu",
+    "moe_gemm": "moe_gemm/csrc/moe_gemm.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

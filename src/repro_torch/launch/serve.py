@@ -7,8 +7,9 @@ serving planes, driven END-TO-END through the northbound session API.
 Every session is established, served, and released by a
 :class:`~repro_torch.api.client.SessionClient` speaking JSON to the
 :class:`~repro_torch.api.gateway.NorthboundGateway`. The engines run on the
-CUDA card (``device=None``) and decode through the hand-written attention
-kernels; ``device="cpu"`` runs their plain PyTorch versions instead.
+CUDA card (``device=None``) through the hand-written kernels (decode
+attention; the grouped expert GEMMs for ``qwen3-moe-30b-a3b``);
+``device="cpu"`` runs their plain PyTorch versions instead.
 """
 
 from __future__ import annotations

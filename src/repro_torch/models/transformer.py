@@ -1,4 +1,4 @@
-"""Decoder-only LM of the dense GQA family.
+"""Decoder-only LM of the dense GQA and MoE families.
 
 Params are nested dicts of tensors shaped like the reference package's
 pytree (layer weights stacked on a leading [L] axis), so the bridge moves
@@ -8,11 +8,14 @@ updated in place.
 
 Public surface:
     init(seed, device)                     -> params
-    prefill(params, batch, max_len)        -> (last_logits [b, V], cache)
-    decode_step(params, cache, tokens [b, 1], active=None)
+    prefill(params, batch, max_len, adapter=None)
+                                           -> (last_logits [b, V], cache)
+    decode_step(params, cache, tokens [b, 1], active=None, adapter=None)
                                            -> (logits [b, 1, V], cache)
 
-The MoE, hybrid, SSM and encoder-decoder families are not ported yet
+MoE layers (``attn_moe`` blocks: attention, then ``models.moe`` in place of
+the MLP) serve configs of family ``moe`` without a sliding window. The
+sliding-window, hybrid, SSM and encoder-decoder families are not ported yet
 (ROADMAP.md queue 1, item 4).
 """
 
@@ -24,10 +27,12 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.adapters.runtime import lora_apply_rows, lora_delta
 from repro_torch.models.config import ModelConfig, validate
 from repro_torch.models import attention as A
 from repro_torch.models import kvcache as KV
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 
 
 def layer_params(tree, i: int):
@@ -48,8 +53,7 @@ def _block_prefill(p, cfg: ModelConfig, x, positions):
     q = A._project_q(p["attn"], cfg, h, positions)
     o = A.full_attention(q, k, v, positions, positions, cfg, causal=True)
     x = x + A._out_proj(p["attn"], cfg, o, x)
-    h2 = L.rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
-    return x + L.mlp_apply(p["mlp"], h2), k, v
+    return x + _ffn(p, cfg, x), k, v
 
 
 def _block_decode(p, cfg: ModelConfig, x, k_layer, v_layer, position,
@@ -64,8 +68,17 @@ def _block_decode(p, cfg: ModelConfig, x, k_layer, v_layer, position,
         y, _, _ = A.decode_self_attention(
             p["attn"], cfg, h, k_layer, v_layer, position, active=active)
     x = x + y
+    return x + _ffn(p, cfg, x)
+
+
+def _ffn(p, cfg: ModelConfig, x):
+    """The block's second half on ``norm2(x)``: the MoE layer of an
+    ``attn_moe`` block (its aux loss is a training term, unused here) or
+    the dense MLP."""
     h2 = L.rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
-    return x + L.mlp_apply(p["mlp"], h2)
+    if "moe" in p:
+        return MOE.moe_apply(p["moe"], cfg, h2)[0]
+    return L.mlp_apply(p["mlp"], h2)
 
 
 class LM:
@@ -73,12 +86,12 @@ class LM:
 
     def __init__(self, cfg: ModelConfig):
         validate(cfg)
-        if cfg.family != "dense" or cfg.sliding_window or cfg.encoder_layers \
-                or cfg.frontend:
+        if cfg.family not in ("dense", "moe") or cfg.sliding_window \
+                or cfg.encoder_layers or cfg.frontend:
             raise NotImplementedError(
-                f"{cfg.name}: only the dense GQA family without a window or "
-                f"frontend is ported; see ROADMAP.md queue 1, item 4 (the "
-                f"other families)")
+                f"{cfg.name}: only the dense GQA and MoE families without a "
+                f"window or frontend are ported; see ROADMAP.md queue 1, "
+                f"item 4 (the other families)")
         self.cfg = cfg
 
     # -- param init -----------------------------------------------------
@@ -127,10 +140,13 @@ class LM:
             "norm1": {"scale": ones(nl, d)},
             "attn": attn,
             "norm2": {"scale": ones(nl, d)},
-            "mlp": {"w_gate": stacked(d, cfg.d_ff),
-                    "w_up": stacked(d, cfg.d_ff),
-                    "w_down": stacked(cfg.d_ff, d)},
         }
+        if cfg.is_moe:
+            params["layers"]["moe"] = MOE.moe_init(cfg, normal, nl, dt, dev)
+        else:
+            params["layers"]["mlp"] = {"w_gate": stacked(d, cfg.d_ff),
+                                       "w_up": stacked(d, cfg.d_ff),
+                                       "w_down": stacked(cfg.d_ff, d)}
         return params
 
     # -- heads ----------------------------------------------------------
@@ -145,7 +161,7 @@ class LM:
         return L.softcap(logits, cfg.logits_softcap)
 
     # -- prefill --------------------------------------------------------
-    def prefill(self, params, batch, max_len: int):
+    def prefill(self, params, batch, max_len: int, adapter=None):
         """Build the decode cache for one prompt batch.
 
         ``batch["tokens"]``: [b, s] ints; ``batch["length"]`` (optional int)
@@ -153,6 +169,10 @@ class LM:
         bucket: the cache position and the final logits are taken at
         ``length``. Returns (logits [b, V] f32, cache) with the cache in the
         dense layout ``{"layers": {"k", "v": [L, b, S, kh, hd]}, "pos"}``.
+
+        ``adapter`` (optional ``(A [d, r], B [r, d])``): per-session LoRA
+        delta applied to the final hidden state before the LM head; the KV
+        cache stays adapter-free.
         """
         cfg = self.cfg
         tokens = batch["tokens"]
@@ -178,17 +198,24 @@ class LM:
                                    device=x.device)}
         x_last = L.rmsnorm_apply(params["final_norm"], x[:, last - 1],
                                  cfg.norm_eps)
+        if adapter is not None:
+            x_last = x_last + lora_apply_rows(x_last, adapter[0], adapter[1])
         return self._logits(params, x_last), cache
 
     # -- decode ---------------------------------------------------------
-    def decode_step(self, params, cache, tokens, active=None):
+    def decode_step(self, params, cache, tokens, active=None, adapter=None):
         """tokens: [b, 1] -> (logits [b, 1, V], cache).
 
         The cache's K/V tensors are updated in place; the returned dict
         shares them and carries ``pos + 1``. ``active`` ([b] bool) rows
         whose state may advance: inactive rows still flow through the batch
         but their K/V rows are left bit-identical. A cache with a
-        ``"block"`` entry selects the paged layout."""
+        ``"block"`` entry selects the paged layout.
+
+        ``adapter`` (optional ``(A [E, d, r], B [E, r, d], idx [b],
+        route)``): stacked LoRA tables plus the per-slot int32 adapter
+        index. Each row's delta is added to the final hidden state before
+        the LM head; index 0 is the null adapter (exact zero delta)."""
         cfg = self.cfg
         position = cache["pos"]
         block = cache.get("block")
@@ -201,6 +228,10 @@ class LM:
         new_cache = dict(cache)
         new_cache["pos"] = position + 1
         x = L.rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
+        if adapter is not None:
+            adp_a, adp_b, adp_idx, route = adapter
+            delta = lora_delta(x[:, 0], adp_a, adp_b, adp_idx, route=route)
+            x = x + delta[:, None]
         return self._logits(params, x), new_cache
 
     # -- cache helpers ----------------------------------------------------

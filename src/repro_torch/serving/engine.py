@@ -17,9 +17,14 @@ Hot-path disciplines:
   with the true length passed separately, as in the reference.
 * **In-place slot state** — slot insert (admit / migrate in) writes the
   slot's rows of the engine cache; decode writes each new K/V row in place.
+* **Per-session adapters** — an :class:`~repro_torch.adapters.runtime.
+  AdapterRuntime` multiplexes LoRA adapters over the base model: each slot
+  carries an int32 index into the runtime's tables, and the fused decode
+  adds every row's delta to its final hidden state (on the card through the
+  grouped-GEMM kernel).
 
-Adapters (ROADMAP.md queue 1, item 2) and speculative decode (item 3) are
-not ported yet: they raise NotImplementedError.
+Speculative decode (ROADMAP.md queue 1, item 3) is not ported yet: it
+raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -42,8 +47,6 @@ from repro_torch.models import kvcache as KV
 #: smallest prefill bucket
 _MIN_BUCKET = 16
 
-_NO_ADAPTERS = ("per-session adapters are not ported yet (ROADMAP.md "
-                "queue 1, item 2)")
 _NO_SPEC = ("speculative decode is not ported yet (ROADMAP.md queue 1, "
             "item 3)")
 
@@ -97,9 +100,10 @@ class InferenceEngine:
         :class:`~repro_torch.serving.hibernation.HibernationStore` (or
         ``True`` for a private unbounded one) enabling the host-memory tier.
         ``clock`` (any object with ``now()``) timestamps hibernation records.
+        ``adapters`` is an :class:`~repro_torch.adapters.runtime.
+        AdapterRuntime` on this engine's device (or ``True`` for a
+        default-sized one) enabling per-session LoRA multiplexing.
         ``device`` defaults to the CUDA card; ``params`` must live on it."""
-        if adapters:
-            raise NotImplementedError(_NO_ADAPTERS)
         self.cfg = cfg
         self.lm = LM(cfg)
         self.device = resolve_device(device)
@@ -116,7 +120,13 @@ class InferenceEngine:
             hibernation = None
         self.hibernation = hibernation
         self.clock = clock
-        self.adapters = None
+        if adapters is True:
+            from repro_torch.adapters.runtime import AdapterRuntime
+            adapters = AdapterRuntime(cfg.d_model, device=self.device)
+        if adapters and adapters.device.type != self.device.type:
+            raise ValueError(f"adapter tables on {adapters.device}, engine "
+                             f"on {self.device}")
+        self.adapters = adapters if adapters else None
         if self.paged:
             self.page_size = KV.page_len(cfg, max_len, page_size)
             self.pages_per_slot = KV.pages_per_slot(max_len, self.page_size)
@@ -346,7 +356,8 @@ class InferenceEngine:
                 f"target admission denied: no free decode slots for "
                 f"{session_id}")
         adapter_id = str(payload.get("adapter_id", ""))
-        if adapter_id:
+        if adapter_id and (self.adapters is None
+                           or not self.adapters.is_loaded(adapter_id)):
             # the adapter binding is part of the session contract: a
             # target that cannot realise it must refuse the transfer
             raise AdmissionDenied(
@@ -357,6 +368,7 @@ class InferenceEngine:
         idx = self._alloc(session_id)
         meta = SlotState(session_id, position,
                          last_token=int(payload["last_token"]),
+                         adapter_id=adapter_id,
                          last_used=next(self._use_clock))
         self._slots[idx] = meta
         if self.paged:
@@ -433,17 +445,42 @@ class InferenceEngine:
             return
         raise KeyError(f"unknown session {session_id}")
 
-    # -- not ported yet ---------------------------------------------------
+    # -- adapter lifecycle ------------------------------------------------
     def load_adapter(self, adapter_id: str, a, b) -> int:
-        raise RuntimeError(f"engine has no adapter runtime: {_NO_ADAPTERS}")
+        """Install adapter weights into this engine's device tables;
+        idempotent. Returns the table index."""
+        if self.adapters is None:
+            raise RuntimeError("engine has no adapter runtime")
+        return self.adapters.load(adapter_id, a, b)
 
     def unload_adapter(self, adapter_id: str) -> None:
-        raise RuntimeError(f"engine has no adapter runtime: {_NO_ADAPTERS}")
+        """Evict an adapter. Refused while any bound session (resident or
+        parked) still references it — unloading under a live binding would
+        silently continue those sessions on the base model."""
+        if self.adapters is None:
+            raise RuntimeError("engine has no adapter runtime")
+        users = [s.session_id for s in self._slots
+                 if s is not None and s.adapter_id == adapter_id]
+        if users:
+            raise RuntimeError(
+                f"adapter {adapter_id!r} still bound by {users}")
+        self.adapters.unload(adapter_id)
+
+    # -- not ported yet ---------------------------------------------------
+    def _refuse_adapter_spec(self, session_id: str) -> None:
+        """The reference's own refusal, which comes before any other."""
+        meta = self._slots[self._slot_map[session_id]]
+        if meta.adapter_id:
+            raise ValueError(
+                f"speculative decode does not support adapter-bound "
+                f"sessions ({session_id} binds {meta.adapter_id!r})")
 
     def spec_round(self, session_id: str, gamma: int) -> List[int]:
+        self._refuse_adapter_spec(session_id)
         raise NotImplementedError(_NO_SPEC)
 
     def spec_grade(self, session_id: str, tokens: List[int]) -> List[int]:
+        self._refuse_adapter_spec(session_id)
         raise NotImplementedError(_NO_SPEC)
 
     def spec_accept(self, session_id: str, n_accept: int,
@@ -463,12 +500,24 @@ class InferenceEngine:
         """Admit a session: run prefill, install the cache, return TTFT.
 
         The prompt is right-padded to its power-of-two bucket with the true
-        length passed separately."""
+        length passed separately.
+
+        ``adapter_id`` binds a tenant adapter for the session's lifetime;
+        it must already be loaded on this engine (ValueError otherwise —
+        the serving plane maps that to NO_FEASIBLE_BINDING)."""
         t0 = time.perf_counter()
+        aidx = 0
         if adapter_id:
-            raise ValueError(
-                f"engine has no adapter runtime; cannot bind "
-                f"{adapter_id!r} for {session_id}")
+            if self.adapters is None:
+                raise ValueError(
+                    f"engine has no adapter runtime; cannot bind "
+                    f"{adapter_id!r} for {session_id}")
+            try:
+                aidx = self.adapters.index_of(adapter_id)
+            except KeyError:
+                raise ValueError(
+                    f"adapter {adapter_id!r} not loaded on this engine "
+                    f"for {session_id}")
         prompt = np.asarray(prompt)
         n = len(prompt)
         if n > self.max_len:
@@ -483,11 +532,15 @@ class InferenceEngine:
         padded[:n] = prompt
         batch = {"tokens": torch.from_numpy(padded[None, :]).to(self.device),
                  "length": n}
-        logits, cache1 = self.lm.prefill(self.params, batch, self.max_len)
+        adapter = ((self.adapters.A[aidx], self.adapters.B[aidx]) if aidx
+                   else None)
+        logits, cache1 = self.lm.prefill(self.params, batch, self.max_len,
+                                         adapter=adapter)
         tok = int(torch.argmax(logits[0]))
         idx = self._alloc(session_id)
         meta = SlotState(session_id, position=n, tokens_generated=1,
-                         last_token=tok, last_used=next(self._use_clock))
+                         last_token=tok, adapter_id=adapter_id,
+                         last_used=next(self._use_clock))
         self._slots[idx] = meta
         if self.paged:
             try:
@@ -511,15 +564,27 @@ class InferenceEngine:
         """K decode steps with no host sync between them. ``last``:
         [slots] token feedback; ``active``: [slots] — inactive slots keep
         feeding their (zero) token so a fused chunk is bit-identical to K
-        single-step rounds regardless of who shares the batch. Returns the
-        [slots, K] token block through one device→host copy."""
+        single-step rounds regardless of who shares the batch. With an
+        adapter runtime, the per-slot int32 table index selects each row's
+        adapter (0, the null adapter, for base sessions and free slots).
+        Returns the [slots, K] token block through one device→host copy."""
         fed = torch.from_numpy(last).to(self.device)
         act = torch.from_numpy(active).to(self.device)
+        adapter = None
+        if self.adapters is not None:
+            aidx = np.zeros(self.slots, np.int32)
+            for i, s in enumerate(self._slots):
+                if s is not None and s.adapter_id:
+                    aidx[i] = self.adapters.index_of(s.adapter_id)
+            adapter = (self.adapters.A, self.adapters.B,
+                       torch.from_numpy(aidx).to(self.device),
+                       self.adapters.route)
         cache = self.cache
         toks = []
         for _ in range(steps):
             logits, cache = self.lm.decode_step(self.params, cache,
-                                                fed[:, None], active=act)
+                                                fed[:, None], active=act,
+                                                adapter=adapter)
             nxt = torch.argmax(logits[:, 0, :], dim=-1).to(torch.int32)
             fed = torch.where(act, nxt, fed)
             toks.append(fed)

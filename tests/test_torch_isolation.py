@@ -2,7 +2,9 @@
 ``chip_smoke.py`` imports JAX, ``ml_dtypes`` or the reference package (the
 machine with the card has none of them); the control-plane modules are
 copies of the reference's with only their imports rewritten; and the entry
-points take the CUDA card unless the caller asks for the CPU."""
+points take the CUDA card unless the caller asks for the CPU. The modules
+the port writes itself (its kernels and the torch versions of JAX code) are
+listed in ``PORTED`` and held to the no-JAX rule by name."""
 
 import ast
 import re
@@ -11,7 +13,8 @@ from pathlib import Path
 import pytest
 import torch
 
-from repro_torch.configs import get_config
+from repro_torch.adapters import AdapterRuntime
+from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.launch.serve import serve
 from repro_torch.models.transformer import LM
 from repro_torch.serving.engine import InferenceEngine
@@ -34,6 +37,14 @@ VERBATIM = sorted(
     + [Path("adapters/catalog.py")]
     + [p.relative_to(REF) for p in (REF / "configs").glob("*.py")
        if p.name != "__init__.py"])
+
+
+#: ported, not copied: the port's own code for these reference modules (its
+#: kernels and the torch versions of JAX code), held to the same rule
+PORTED = ("adapters/runtime.py", "models/moe.py", "models/transformer.py",
+          "serving/engine.py", "bridge.py", "kernels/moe_gemm/__init__.py",
+          "kernels/moe_gemm/moe_gemm.py",
+          "kernels/decode_attention/decode_attention.py")
 
 
 def _sources():
@@ -71,6 +82,21 @@ def test_no_jax_or_reference_imports(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+@pytest.mark.parametrize("rel", PORTED)
+def test_ported_modules_are_the_ports_own(rel):
+    """Each ported module exists, is not a copy of a reference module (so
+    the no-JAX rule, not the copy rule, is what holds it), and imports
+    nothing of JAX or the reference."""
+    path = PORT / rel
+    assert path in _sources() and Path(rel) not in VERBATIM
+    ref = REF / rel
+    if ref.exists():
+        assert path.read_text() != re.sub(r"\brepro\.", "repro_torch.",
+                                          ref.read_text())
+    tree = ast.parse(path.read_text(), filename=str(path))
+    assert not [n for n in _imported(tree) if n.split(".")[0] in FORBIDDEN]
+
+
 @pytest.mark.parametrize("rel", VERBATIM, ids=str)
 def test_control_plane_copies_differ_only_in_imports(rel):
     ref = re.sub(r"\brepro\.", "repro_torch.", (REF / rel).read_text())
@@ -82,9 +108,13 @@ def test_entry_points_take_the_card_by_default(monkeypatch):
     CPU, before any weights are drawn."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = get_config("edge-tiny")
+    moe = get_smoke_config("qwen3-moe-30b-a3b")
     for call in (lambda: serve("edge-tiny", sessions=1, requests=1,
                                quiet=True),
                  lambda: InferenceEngine(cfg, slots=1, max_len=16),
-                 lambda: LM(cfg).init(0)):
+                 lambda: LM(cfg).init(0),
+                 lambda: LM(moe).init(0),
+                 lambda: InferenceEngine(moe, slots=1, max_len=16),
+                 lambda: AdapterRuntime(cfg.d_model)):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()

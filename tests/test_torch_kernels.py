@@ -1,9 +1,10 @@
-"""The port's decode-attention wrappers on the CPU (their plain versions)
-against the reference package's Pallas kernels in interpret mode and its
-ref.py oracles, on the same numpy inputs.
+"""The port's kernel wrappers on the CPU (their plain versions) against the
+reference package's Pallas kernels in interpret mode and its ref.py
+oracles, on the same numpy inputs: decode attention (dense and paged) and
+the grouped expert GEMM (plain and fused SwiGLU).
 
 Tolerance: 1e-5 absolute and relative in f32 — the three compute the same
-masked softmax in f32 and differ only in summation order. The CUDA kernels
+function in f32 and differ only in summation order. The CUDA kernels
 themselves are checked against these plain versions on the card by
 chip_smoke.py.
 """
@@ -18,7 +19,11 @@ from repro.kernels.decode_attention.decode_attention import (
     decode_attention as pallas_decode, paged_decode_attention as pallas_paged)
 from repro.kernels.decode_attention.ref import (decode_attention_ref,
                                                 paged_decode_attention_ref)
+from repro.kernels.moe_gemm.moe_gemm import (
+    moe_ffn_fused as pallas_moe_ffn_fused, moe_gemm as pallas_moe_gemm)
+from repro.kernels.moe_gemm.ref import moe_ffn_fused_ref, moe_gemm_ref
 from repro_torch.kernels.decode_attention import decode_attention as DA
+from repro_torch.kernels.moe_gemm import moe_gemm as MG
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 
@@ -192,3 +197,97 @@ class TestWrappers:
         assert bf.dtype == torch.bfloat16
         np.testing.assert_allclose(bf.float().numpy(), f32.numpy(),
                                    atol=5e-2, rtol=5e-2)
+
+
+# ---------------------------------------------------------------------------
+# grouped expert GEMM (+ fused SwiGLU)
+# ---------------------------------------------------------------------------
+
+def _grouped_case(seed, E, C, D, F, empty=()):
+    """x [E, C, D], w_gate / w_up [E, D, F]; experts in ``empty`` get all-zero
+    capacity rows (an expert no token was routed to)."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((E, C, D)).astype(np.float32)
+    x[list(empty)] = 0.0
+    wg = (rng.standard_normal((E, D, F)) / np.sqrt(D)).astype(np.float32)
+    wu = (rng.standard_normal((E, D, F)) / np.sqrt(D)).astype(np.float32)
+    return x, wg, wu
+
+
+def _check_grouped(x, wg, wu, **blocks):
+    """The port's plain versions == the Pallas kernels (interpret mode) ==
+    the reference's ref.py, for both kernels."""
+    j = [jnp.asarray(a) for a in (x, wg, wu)]
+    t = [torch.from_numpy(a) for a in (x, wg, wu)]
+    plain = MG.moe_gemm(t[0], t[1]).numpy()
+    np.testing.assert_allclose(
+        plain, np.asarray(pallas_moe_gemm(j[0], j[1], interpret=True,
+                                          **blocks)), **TOL)
+    np.testing.assert_allclose(plain, np.asarray(moe_gemm_ref(j[0], j[1])),
+                               **TOL)
+    fused = MG.moe_ffn_fused(*t).numpy()
+    np.testing.assert_allclose(
+        fused, np.asarray(pallas_moe_ffn_fused(*j, interpret=True,
+                                               **blocks)), **TOL)
+    np.testing.assert_allclose(fused, np.asarray(moe_ffn_fused_ref(*j)),
+                               **TOL)
+
+
+class TestGroupedGemm:
+    @pytest.mark.parametrize("E,C,D,F,empty", [
+        (4, 8, 64, 64, ()),          # the MoE smoke config at decode
+        (3, 13, 40, 24, (1,)),       # C off every tile, an empty expert
+        (9, 8, 128, 8, (0,)),        # adapter route h @ A: F = rank 8
+        (9, 8, 8, 128, (0, 4)),      # adapter route t @ B: D = rank 8
+        (2, 160, 48, 72, ()),        # prefill-sized C: several C tiles
+    ])
+    def test_matches_pallas_and_ref(self, E, C, D, F, empty):
+        _check_grouped(*_grouped_case(E * 1000 + C, E, C, D, F, empty))
+
+    @settings(max_examples=3, deadline=None, database=None)
+    @given(E=st.integers(1, 5), C=st.integers(1, 40), D=st.integers(1, 48),
+           F=st.integers(1, 40), seed=st.integers(0, 10_000))
+    def test_ragged_shapes_property(self, E, C, D, F, seed):
+        """Any E, C, D, F — none a multiple of a tile — stays exact, with
+        small Pallas blocks so that its pad-and-slice path is taken too."""
+        _check_grouped(*_grouped_case(seed, E, C, D, F, (0,)),
+                       block_c=8, block_f=16)
+
+    def test_empty_expert_rows_give_zero(self):
+        x, wg, wu = _grouped_case(3, 3, 8, 16, 16, empty=(2,))
+        t = [torch.from_numpy(a) for a in (x, wg, wu)]
+        assert not MG.moe_gemm(t[0], t[1])[2].any()
+        assert not MG.moe_ffn_fused(*t)[2].any()
+
+    def test_cpu_tensors_take_the_plain_version_without_counting(self):
+        x, wg, wu = (torch.from_numpy(a) for a in
+                     _grouped_case(0, 2, 4, 8, 8))
+        before = dict(MG.LAUNCHES)
+        assert torch.equal(MG.moe_gemm(x, wg), MG.moe_gemm_ref(x, wg))
+        assert torch.equal(MG.moe_ffn_fused(x, wg, wu),
+                           MG.moe_ffn_fused_ref(x, wg, wu))
+        assert MG.LAUNCHES == before
+
+    @pytest.mark.parametrize("fused", [False, True])
+    def test_other_devices_raise_instead_of_falling_back(self, fused):
+        x = torch.empty((2, 4, 8), device="meta")
+        w = torch.empty((2, 8, 8), device="meta")
+        with pytest.raises(ValueError):
+            if fused:
+                MG.moe_ffn_fused(x, w, w)
+            else:
+                MG.moe_gemm(x, w)
+
+    def test_bf16_plain_version_is_close_to_f32(self):
+        """The plain versions accumulate in f32 whatever the input dtype and
+        write x's dtype: with bf16 inputs and output (8 mantissa bits) they
+        stay within 5e-2 of the f32 result."""
+        x, wg, wu = (torch.from_numpy(a) for a in
+                     _grouped_case(5, 3, 8, 64, 32))
+        bf = [t.to(torch.bfloat16) for t in (x, wg, wu)]
+        for got, want in ((MG.moe_gemm(bf[0], bf[1]), MG.moe_gemm(x, wg)),
+                          (MG.moe_ffn_fused(*bf), MG.moe_ffn_fused(x, wg,
+                                                                   wu))):
+            assert got.dtype == torch.bfloat16
+            np.testing.assert_allclose(got.float().numpy(), want.numpy(),
+                                       atol=5e-2, rtol=5e-2)

@@ -154,6 +154,44 @@ class TestBridge:
         for a, b in zip(jl, tl):
             np.testing.assert_array_equal(np.asarray(a), b.numpy())
 
+    @pytest.mark.parametrize("arch,quantized", [
+        ("minitron-8b", False), ("qwen3-moe-30b-a3b", False),
+        ("qwen3-moe-30b-a3b", True)])
+    def test_params_keep_the_reference_dtypes_in_bf16(self, arch, quantized):
+        """At a bf16 config every port leaf has the reference leaf's shape
+        and dtype: bf16 matrices, f32 norm scales, the f32 MoE router, and
+        (int8-quantised trees) int8 values with f32 scales."""
+        jcfg, tcfg = jax_smoke_config(arch), get_smoke_config(arch)
+        assert jcfg.dtype == tcfg.dtype == "bfloat16"
+        jp = JaxLM(jcfg).init(jax.random.key(0))
+        if quantized:
+            jp = JQ.quantize_tree(jp, min_size=1)
+        tp = bridge.params_to_torch(jax.tree.map(np.asarray, jp), tcfg, "cpu")
+        jl, tl = jax.tree.leaves(jp), bridge.leaves(tp)
+        assert [(tuple(a.shape), str(a.dtype)) for a in jl] == \
+            [(tuple(b.shape), str(b.dtype).replace("torch.", ""))
+             for b in tl]
+        if arch.startswith("qwen3"):
+            router = tp["layers"]["moe"]["router"]
+            assert router.dtype == torch.float32
+            np.testing.assert_array_equal(
+                router.numpy(), np.asarray(jp["layers"]["moe"]["router"]))
+
+    @pytest.mark.parametrize("arch", ["minitron-8b", "qwen3-moe-30b-a3b"])
+    def test_params_round_trip_through_float32_numpy_in_bf16(self, arch):
+        """bf16 crosses the bridge as float32 numpy (``to_numpy``), so a
+        port tree sent out and back keeps every leaf's dtype and value: the
+        dtype follows the leaf's key, not the dtype it arrives in."""
+        jcfg, tcfg = jax_smoke_config(arch), get_smoke_config(arch)
+        jp = JaxLM(jcfg).init(jax.random.key(1))
+        tp = bridge.params_to_torch(jax.tree.map(np.asarray, jp), tcfg, "cpu")
+        back = bridge.params_to_torch(bridge.tree_to_numpy(tp), tcfg, "cpu")
+        assert all(a.dtype == np.float32
+                   for a in bridge.leaves(bridge.tree_to_numpy(tp)))
+        for a, b in zip(bridge.leaves(tp), bridge.leaves(back)):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+        assert any(a.dtype == torch.bfloat16 for a in bridge.leaves(back))
+
     def test_bf16_crosses_as_exact_float32(self):
         """A reference bf16 array (numpy cannot compute in its dtype) lands
         in the port exactly, and bf16 port tensors leave as float32."""
