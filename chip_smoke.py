@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/H100 port on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # everything (the result line at the end)
+    python3 chip_smoke.py --quick    # build, kernel checks, small models
 
 Run from the repository root. It builds the port's CUDA kernels from the
-sources in the checkout and drives the port's three main paths at full
+sources in the checkout and drives the port's five main paths at full
 width (random weights from a seed):
 
 * minitron-8b (dense GQA: 32 layers, d_model 4096, 32 query heads over 8
@@ -12,7 +13,13 @@ width (random weights from a seed):
 * minitron-8b with per-session LoRA adapters (rank 8, grouped route);
 * qwen3-moe-30b-a3b (MoE: 48 layers, d_model 2048, 32 query heads over 4
   KV heads, 128 experts top-8, expert d_ff 768, vocab 151936; bf16, 30.5 B
-  params) at full width and depth.
+  params) at full width and depth;
+* recurrentgemma-2b (hybrid: 26 layers in the pattern rec, rec, attn —
+  18 RG-LRU blocks of width 2560, 8 local-attention layers, MQA 10 q heads
+  over 1 KV head of 256, window 2048 — vocab 256000; bf16) at full width
+  and depth;
+* mamba2-1.3b (SSM: 48 Mamba-2 SSD layers, d_model 2048, 64 heads of 64,
+  state 128, chunk 128, vocab 50280; bf16) at full width and depth.
 
 Phases:
 
@@ -24,7 +31,10 @@ Phases:
              1, S-1, S; paged: page 128, a shuffled block table whose
              unused entries are the scratch page 0); the grouped GEMMs at
              qwen3-moe's expert shapes (decode C 8, prefill C 160) and at
-             the adapter route's two f32 products;
+             the adapter route's two f32 products; rglru_scan and
+             ssd_chunk at the recurrent paths' 2048-token prefill shapes
+             with a carried state (and ssd_chunk at a ragged l), after
+             ragged shapes down to the smoke configs' widths;
 3. serve   — ``repro_torch.launch.serve.serve`` through the northbound
              gateway: 4 sessions, 8 requests, 8 slots, max_len 2048;
 4. engine  — dense and paged engines, 8 slots with 512-1536-token prompts
@@ -37,18 +47,26 @@ Phases:
              of an engine without adapters;
    moe     — minitron freed, qwen3-moe-30b-a3b drawn on the card; phases 3
              and 4 again for it;
+   recurrent — each recurrent model drawn in turn (the previous one freed):
+             phases 3 and 4 (dense engine) with rglru_scan launched 18 times
+             and ssd_chunk 48 times per prefill, the decode-attention
+             kernels not at all; then, outside the launch window, paged=True
+             keeps the dense layout and its tokens, a mid-stream export
+             (exactly ``kvcache.cache_bytes`` of one slot) imported into a
+             fresh engine continues token-identically, and the full-width
+             prefill logits are finite;
 5. reference — small models in f32 on the card against the same models on
              the CPU through the plain versions: edge-tiny (dense and
              paged), edge-tiny with adapters (grouped route on the card,
-             gather on the CPU) and the qwen3-moe smoke config.
+             gather on the CPU), the qwen3-moe smoke config and the
+             recurrentgemma-2b and mamba2-1.3b smoke configs.
 
-Each main path (minitron: phases 3-4; adapters; moe) is driven with every
-launch counter set to 0 just before it and read just after, and each kernel
-the path runs must have been launched there; the checks of a path's result
-(each adapter session alone, the full-width prefill logits) run after that
-read and are not counted. Any failed phase fails the run
-(exit 1). The last two lines are the card's name and power limit, then the
-result JSON.
+Each main path is driven with every launch counter set to 0 just before it
+and read just after, and each kernel the path runs must have been launched
+there; the checks of a path's result (each adapter session alone, the
+full-width prefill logits, the recurrent checks) run after that read and
+are not counted. Any failed phase fails the run (exit 1). The last two
+lines are the card's name and power limit, then the result JSON.
 """
 
 from __future__ import annotations
@@ -68,6 +86,10 @@ BF16_FLOPS = 989e12             # H100 SXM data sheet, dense tensor cores
 F32_FLOPS = 67e12               # H100 SXM data sheet, f32 outside them
 ATOL = RTOL = 1e-2              # bf16 output vs the f32 plain version
 F32_TOL = 1e-5                  # f32 kernel output vs the plain version
+RG_TOL = 1e-5                   # RG-LRU scan: the kernel's sequential f32
+#                                 recurrence vs the plain log-depth scan
+SSD_TOL = 1e-3                  # SSD scan: f32 sums of 16-128 terms and a
+#                                 2048-step carried state, in another order
 REF_ATOL = 1e-3                 # f32 logits, card vs CPU (no TF32)
 
 
@@ -372,6 +394,165 @@ def phase_moe_kernels(moe_cfg, d_adapter: int):
     return rows
 
 
+def ssd_flops(l: int, chunk: int, nh: int, hp: int, g: int, n: int,
+              b: int = 1) -> int:
+    """f32 operations the chunked SSD function needs (2 per multiply-add),
+    counting each chunk's real rows q: the causal half of C·B^T once per
+    group, then per head the causal half of the diagonal product (q(q+1)/2
+    x hp), the carried-state product and the state update (q x n x hp
+    each)."""
+    Q = min(chunk, l)
+    total = 0
+    for c0 in range(0, l, Q):
+        q = min(Q, l - c0)
+        total += g * q * (q + 1) * n + nh * (q * (q + 1) * hp
+                                             + 4 * q * n * hp)
+    return b * total
+
+
+def phase_recurrent_kernels(rg_cfg, mb_cfg):
+    """rglru_scan and ssd_chunk against their plain versions at the
+    prefill shapes of the recurrent paths (a 2048-token bucket): the RG-LRU
+    scan at (B 1, T 2048, W 2560) f32 with a non-zero h0; the SSD scan at
+    mamba2-1.3b's (b 1, l 2048, nh 64, hp 64, n 128, g 1, Q 128) with bf16
+    x/B/C and a non-zero S0, and at a ragged l. Smaller shapes first: T, W,
+    l off every tile, two groups, and the smoke configs' widths (W 64; hp
+    16, n 16, Q 16) in f32. Inputs in the model's ranges: a in (0.9, 1),
+    dt in [1e-3, 0.1], A = -(1..nh)."""
+    import torch
+    from repro_torch.kernels.rglru_scan import rglru_scan as RS
+    from repro_torch.kernels.ssd_chunk import ssd_chunk as SC
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2468)
+
+    def rand(shape, lo, hi):
+        return torch.rand(shape, generator=gen, device=dev) * (hi - lo) + lo
+
+    def randn(shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=gen, device=dev)
+                * scale).to(dtype)
+
+    def rg_inputs(B, T, W):
+        return {"a": rand((B, T, W), 0.9, 1.0), "b": randn((B, T, W), 0.1),
+                "h0": randn((B, W))}
+
+    def ssd_inputs(b, l, nh, hp, g, n, dtype):
+        return {"x": randn((b, l, nh, hp), dtype=dtype),
+                "dt": rand((b, l, nh), 1e-3, 0.1),
+                "A": -torch.arange(1, nh + 1, device=dev,
+                                   dtype=torch.float32),
+                "B": randn((b, l, g, n), dtype=dtype),
+                "C": randn((b, l, g, n), dtype=dtype),
+                "S0": randn((b, nh, hp, n))}
+
+    def rg_kern(s):
+        return RS.rglru_scan(s["a"], s["b"], s["h0"])
+
+    def rg_plain(s):
+        return RS.rglru_scan_ref(s["a"], s["b"], s["h0"])
+
+    def ssd_run(fn, chunk):
+        return lambda s: fn(s["x"], s["dt"], s["A"], s["B"], s["C"],
+                            s["S0"], chunk)
+
+    def check(name, shape, got, want, tol):
+        worst = 0.0
+        for g_, w_ in zip(got, want):
+            err = (g_.float() - w_.float()).abs()
+            bad = err > tol + tol * w_.float().abs()
+            worst = max(worst, float(err.max()))
+            if not torch.isfinite(g_).all() or bool(bad.any()):
+                fail(f"{name} ({shape}): kernel disagrees with its plain "
+                     f"version (max abs err {float(err.max()):.3e}, "
+                     f"{int(bad.sum())} elements past atol=rtol={tol})")
+        return worst
+
+    for B, T, W in ((3, 37, 100), (2, 300, 64), (1, 1, 2560)):
+        s = rg_inputs(B, T, W)
+        check("rglru_scan", f"B {B} T {T} W {W}", (rg_kern(s),),
+              (rg_plain(s),), RG_TOL)
+    for (b, l, nh, hp, g, n, Q), dt in (
+            ((2, 37, 8, 16, 1, 16, 16), torch.float32),    # mamba2 smoke
+            ((1, 150, 4, 40, 2, 24, 64), torch.float32),   # hp, n off tiles
+            ((2, 10, 4, 8, 2, 8, 128), torch.bfloat16),    # l below a chunk
+            ((1, 300, 4, 64, 1, 128, 128), torch.bfloat16)):
+        s = ssd_inputs(b, l, nh, hp, g, n, dt)
+        check("ssd_chunk", f"b {b} l {l} nh {nh} hp {hp} g {g} n {n} Q {Q}",
+              ssd_run(SC.ssd_chunk, Q)(s), ssd_run(SC.ssd_chunk_ref, Q)(s),
+              SSD_TOL)
+    log("[kernels] rglru_scan and ssd_chunk agree with their plain versions "
+        "at ragged shapes (T 1-300, W 64-2560; l 10-300, hp 8-64, n 8-128, "
+        "g 1-2, Q 16-128, f32 and bf16)")
+
+    T, W = 2048, rg_cfg.lru_width
+    nh, hp, g, n, Q = (mb_cfg.ssm_nheads, mb_cfg.ssm_headdim,
+                       mb_cfg.ssm_ngroups, mb_cfg.ssm_state, mb_cfg.ssm_chunk)
+    bf16 = torch.bfloat16
+
+    def ssd_bytes(l):
+        return (l * nh * hp * 2 + l * nh * 4 + nh * 4 + 2 * l * g * n * 2
+                + 2 * nh * hp * n * 4 + l * nh * hp * 4)
+
+    cases = [
+        ("rglru_scan", f"B 1 T {T} W {W} f32",
+         [rg_inputs(1, T, W) for _ in range(2)], rg_kern, rg_plain,
+         lambda s: torch.cumsum(s["a"], dim=1), RG_TOL,
+         (3 * T * W + W) * 4, 2 * T * W, "rglru_scan/csrc/rglru_scan.cu",
+         "src/repro/kernels/rglru_scan/rglru_scan.py:57"),
+        ("ssd_chunk", f"b 1 l {T} nh {nh} hp {hp} g {g} n {n} Q {Q} bf16",
+         [ssd_inputs(1, T, nh, hp, g, n, bf16) for _ in range(2)],
+         ssd_run(SC.ssd_chunk, Q), ssd_run(SC.ssd_chunk_ref, Q), None,
+         SSD_TOL, ssd_bytes(T), ssd_flops(T, Q, nh, hp, g, n),
+         "ssd_chunk/csrc/ssd_chunk.cu",
+         "src/repro/kernels/ssd_chunk/ssd_chunk.py:81"),
+        ("ssd_chunk", f"b 1 l 1000 (last chunk 104) nh {nh} hp {hp} g {g} "
+         f"n {n} Q {Q} bf16",
+         [ssd_inputs(1, 1000, nh, hp, g, n, bf16) for _ in range(2)],
+         ssd_run(SC.ssd_chunk, Q), ssd_run(SC.ssd_chunk_ref, Q), None,
+         SSD_TOL, ssd_bytes(1000), ssd_flops(1000, Q, nh, hp, g, n), "", ""),
+    ]
+    rows = {}
+    for (name, shape, sets, kern, plain, library, tol, nbytes, flops, src,
+         replaces) in cases:
+        got, want = kern(sets[0]), plain(sets[0])
+        torch.cuda.synchronize()
+        if name == "rglru_scan":
+            got, want = (got,), (want,)
+        err = check(name, shape, got, want, tol)
+        it = {"i": 0}
+
+        def nxt():
+            it["i"] = (it["i"] + 1) % len(sets)
+            return sets[it["i"]]
+
+        ms = time_ms(lambda: kern(nxt()), iters=20)
+        plain_ms = time_ms(lambda: plain(nxt()), iters=5, warmup=2)
+        library_ms = (time_ms(lambda: library(nxt()), iters=20)
+                      if library is not None else None)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+        bound_ms = max(t_bytes, t_ops) * 1e3
+        bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        log(f"[kernels] {name} ({shape}): max_abs_err {err:.3e} kernel_ms "
+            f"{ms:.4f} plain_ms {plain_ms:.4f} library_ms "
+            f"{'-' if library_ms is None else f'{library_ms:.4f}'} bound_ms "
+            f"{bound_ms:.4f} ({bound_by}; {nbytes / 1e6:.1f} MB, "
+            f"{flops / 1e9:.2f} GFLOP)")
+        if name not in rows:          # the JSON row: the 2048-token bucket
+            rows[name] = {
+                "name": name, "route": "cuda",
+                "source": f"src/repro_torch/kernels/{src}",
+                "replaces": replaces, "launches": 0, "max_abs_err": err,
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": library_ms}
+        del sets
+        torch.cuda.empty_cache()
+    log("[kernels] library_ms: rglru_scan — torch.cumsum over T on the same "
+        "[B, T, W] f32 tensor (same bytes, not the same function); "
+        "ssd_chunk — none (no single PyTorch call computes it)")
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phases 3 and 4: the main path at full width
 # ---------------------------------------------------------------------------
@@ -453,14 +634,21 @@ def profile_round(eng, name: str, steps: int = 4) -> None:
             f" ms/step x{e.count // steps:<5d} {e.key[:60]}")
 
 
-def phase_engine(cfg, params):
+def engine_prompts(cfg):
+    """8 prompts of 512-1536 tokens from a fixed seed."""
     import numpy as np
     rng = np.random.default_rng(0)
     lens = rng.integers(512, 1537, size=8)
-    prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).astype(np.int32)
-               for n in lens]
+    return lens, [rng.integers(0, cfg.vocab_size, size=int(n)).astype(
+        np.int32) for n in lens]
+
+
+def phase_engine(cfg, params, layouts=(False, True)):
+    """The engine on each layout in ``layouts`` (paged or not); with both,
+    their streams must be token-identical. Returns {layout: tokens}."""
+    lens, prompts = engine_prompts(cfg)
     out = {}
-    for paged in (False, True):
+    for paged in layouts:
         toks, ttft, tps = run_engine(cfg, params, prompts, paged=paged,
                                      steps=64, chunk=16)
         name = "paged" if paged else "dense"
@@ -468,24 +656,130 @@ def phase_engine(cfg, params):
         log(f"[engine] {cfg.name} {name}: prompts {lens.tolist()} ttft_ms "
             f"{[round(t, 2) for t in ttft]} decode {tps:.1f} tok/s "
             f"(8 slots x 64 steps, chunks of 16)")
-    for sid in out["dense"]:
-        a, b = out["dense"][sid], out["paged"][sid]
+        for sid, a in toks.items():
+            if len(a) != 64 or not all(0 <= t < cfg.vocab_size for t in a):
+                fail(f"{sid}: {len(a)} tokens, expected 64 in range")
+    if len(out) == 2:
+        check_same_streams(cfg, out["dense"], out["paged"], "dense and paged "
+                           "engines")
+    return out
+
+
+def check_same_streams(cfg, a_toks, b_toks, what: str) -> None:
+    for sid in a_toks:
+        a, b = a_toks[sid], b_toks[sid]
         if a != b:
             i = next(j for j in range(len(a)) if a[j] != b[j])
-            fail(f"{cfg.name}: dense and paged engines diverge for {sid} "
-                 f"at step {i}: {a[i]} vs {b[i]}")
-        if len(a) != 64 or not all(0 <= t < cfg.vocab_size for t in a):
-            fail(f"{sid}: {len(a)} tokens, expected 64 in range")
-    log(f"[engine] {cfg.name}: dense and paged token streams identical "
-        f"(8 x 64 tokens)")
+            fail(f"{cfg.name}: {what} diverge for {sid} at step {i}: "
+                 f"{a[i]} vs {b[i]}")
+    log(f"[engine] {cfg.name}: {what} give identical token streams "
+        f"({len(a_toks)} x {len(next(iter(a_toks.values())))} tokens)")
 
 
-def drive_model(cfg, params):
-    """One model's main path: serve() through the gateway, then the dense
-    and paged engines."""
+def drive_model(cfg, params, layouts=(False, True)):
+    """One model's main path: serve() through the gateway, then the
+    engines (dense and paged by default). Returns the engines' streams."""
     phase_serve(cfg.name, params)
-    release_memory()                # the serve() fleet's four KV caches
-    phase_engine(cfg, params)
+    release_memory()                # the serve() fleet's caches
+    return phase_engine(cfg, params, layouts)
+
+
+class PrefillCount:
+    """Counts ``LM.prefill`` calls inside a ``with`` block (an
+    instrumentation of this script, to relate a path's launches to its
+    prefills)."""
+
+    def __enter__(self):
+        from repro_torch.models.transformer import LM
+        self.n, self._orig = 0, LM.prefill
+
+        def counted(lm, *args, **kw):
+            self.n += 1
+            return self._orig(lm, *args, **kw)
+
+        LM.prefill = counted
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models.transformer import LM
+        LM.prefill = self._orig
+
+
+def check_paged_keeps_dense(cfg, params, dense_toks) -> None:
+    """``paged=True`` on a family that does not page keeps the dense slot
+    layout (``eng.paged`` is False) and gives the dense engine's tokens."""
+    from repro_torch.serving.engine import InferenceEngine
+    eng = InferenceEngine(cfg, params=params, slots=1, max_len=64,
+                          paged=True, device="cuda")
+    if eng.paged:
+        fail(f"{cfg.name}: paged=True built a paged engine")
+    del eng
+    _, prompts = engine_prompts(cfg)
+    toks, _, _ = run_engine(cfg, params, prompts, paged=True, steps=64,
+                            chunk=16)
+    check_same_streams(cfg, dense_toks, toks, "dense and paged=True (dense "
+                       "layout) engines")
+
+
+def check_state_transfer(cfg, params) -> None:
+    """A session exported mid-stream (its payload exactly
+    ``kvcache.cache_bytes`` of one slot) and imported into a fresh engine
+    keeps its fingerprint and continues token-identically."""
+    import numpy as np
+    from repro_torch.models import kvcache as KV
+    from repro_torch.serving import state_transfer
+    from repro_torch.serving.engine import InferenceEngine
+    rng = np.random.default_rng(21)
+    src = InferenceEngine(cfg, params=params, slots=8, max_len=2048,
+                          device="cuda")
+    for i, n in enumerate((700, 300, 1100)):
+        src.prefill_session(f"m{i}", rng.integers(
+            0, cfg.vocab_size, size=n).astype(np.int32))
+    src.decode_round(steps=8)
+    payload = src.export_slot("m0")
+    nbytes = state_transfer.payload_bytes(payload)
+    want = KV.cache_bytes(cfg, 1, 2048)
+    if nbytes != want:
+        fail(f"{cfg.name}: payload of {nbytes} bytes, cache_bytes says "
+             f"{want}")
+    dst = InferenceEngine(cfg, params=params, slots=8, max_len=2048,
+                          device="cuda")
+    dst.import_slot("m0", payload)
+    fp = state_transfer.fingerprint(payload)
+    if state_transfer.fingerprint(dst.export_slot("m0")) != fp:
+        fail(f"{cfg.name}: imported state does not fingerprint as exported")
+    a = src.decode_round(steps=16)["m0"]
+    b = dst.decode_round(steps=16)["m0"]
+    if a != b:
+        fail(f"{cfg.name}: the imported session diverges from its source: "
+             f"{a} vs {b}")
+    log(f"[state] {cfg.name}: mid-stream export ({nbytes / 1e6:.2f} MB = "
+        f"cache_bytes of one slot, fingerprint {fp}) -> import into a fresh "
+        f"engine continues token-identically (16 tokens)")
+
+
+def drive_recurrent(cfg, params, kernel: str, per_prefill: int,
+                    counters) -> int:
+    """The main path of a recurrent family: serve() and the dense engine,
+    inside the launch window; ``kernel`` must be launched ``per_prefill``
+    times per prefill of the path and the decode-attention kernels not at
+    all (the hybrid's ring decode is plain, as in the reference). The
+    checks run after the counters are read. Returns the path's launches."""
+    with PrefillCount() as pc:
+        launches, out = drive_path(cfg.name, counters, (kernel,), drive_model,
+                                   cfg, params, (False,))
+    if launches[kernel] != per_prefill * pc.n:
+        fail(f"{cfg.name}: {kernel} launched {launches[kernel]} times in "
+             f"{pc.n} prefills, expected {per_prefill} per prefill")
+    if launches["decode_attention"] or launches["paged_decode_attention"]:
+        fail(f"{cfg.name}: the decode-attention kernels ran on a path with "
+             f"no linear KV cache")
+    log(f"[main path] {cfg.name}: {kernel} launched {launches[kernel]} = "
+        f"{per_prefill} x {pc.n} prefills")
+    check_paged_keeps_dense(cfg, params, out["dense"])
+    check_state_transfer(cfg, params)
+    check_logits(cfg, params)
+    return launches
 
 
 def init_model(cfg):
@@ -736,10 +1030,23 @@ def phase_reference():
                               dtype="float32", head_dim=32)
     worst = max(card_vs_cpu(tiny, "edge-tiny", False),
                 card_vs_cpu(tiny, "edge-tiny", True),
-                card_vs_cpu(moe, moe.name, False))
+                card_vs_cpu(moe, moe.name, False),
+                recurrent_card_vs_cpu())
     if worst > REF_ATOL:
         fail(f"card and CPU logits differ by {worst:.3e} > {REF_ATOL}")
     adapters_card_vs_cpu(tiny)
+
+
+def recurrent_card_vs_cpu() -> float:
+    """The recurrentgemma-2b and mamba2-1.3b smoke configs in f32, card
+    (rglru_scan W 64; ssd_chunk hp 16, n 16, Q 16, a ragged last chunk)
+    against the CPU (the plain versions); the hybrid's 40-token prompt
+    passes its window of 16."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    return max(card_vs_cpu(dataclasses.replace(get_smoke_config(a),
+                                               dtype="float32"), a, False)
+               for a in ("recurrentgemma-2b", "mamba2-1.3b"))
 
 
 # ---------------------------------------------------------------------------
@@ -761,6 +1068,13 @@ def drive_path(name: str, counters, required, fn, *args):
 
 
 def main() -> None:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--quick", action="store_true",
+                    help="build, check every kernel against its plain "
+                         "version and compare the small models card vs CPU; "
+                         "no full-width path and no result line")
+    quick = ap.parse_args().quick
     try:
         import torch
     except ImportError:
@@ -772,6 +1086,8 @@ def main() -> None:
         from repro_torch.kernels.decode_attention import decode_attention \
             as DA
         from repro_torch.kernels.moe_gemm import moe_gemm as MG
+        from repro_torch.kernels.rglru_scan import rglru_scan as RS
+        from repro_torch.kernels.ssd_chunk import ssd_chunk as SC
     except ImportError as e:
         fail(f"the port is not beside this script ({e})")
     t_start = time.perf_counter()
@@ -781,10 +1097,18 @@ def main() -> None:
     phase_build()
     cfg = get_config("minitron-8b")
     moe_cfg = get_config("qwen3-moe-30b-a3b")
+    rg_cfg = get_config("recurrentgemma-2b")
+    mb_cfg = get_config("mamba2-1.3b")
     rows = phase_kernels(cfg)
     rows.update(phase_moe_kernels(moe_cfg, cfg.d_model))
+    rows.update(phase_recurrent_kernels(rg_cfg, mb_cfg))
+    if quick:
+        phase_reference()
+        log(f"[quick] kernels and small models checked in "
+            f"{time.perf_counter() - t_start:.1f} s")
+        return
 
-    counters = (DA, MG)
+    counters = (DA, MG, RS, SC)
     attn = ("decode_attention", "paged_decode_attention")
     paths = []
 
@@ -812,6 +1136,18 @@ def main() -> None:
         f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
     del params
     release_memory()
+
+    for rcfg, kernel, per_prefill in (
+            (rg_cfg, "rglru_scan", rg_cfg._pattern().count("rec")),
+            (mb_cfg, "ssd_chunk", mb_cfg.num_layers)):
+        torch.cuda.reset_peak_memory_stats()
+        params = init_model(rcfg)
+        paths.append(drive_recurrent(rcfg, params, kernel, per_prefill,
+                                     counters))
+        log(f"[{kernel}] {rcfg.name} peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+        del params
+        release_memory()
 
     for name, row in rows.items():
         row["launches"] = sum(p[name] for p in paths)

@@ -74,9 +74,30 @@ def tree_to_torch(tree, device=None, dtype=None):
 
 
 # leaves the reference stores in float32 whatever ``cfg.dtype`` is: norm
-# scales (layers.py ``rmsnorm_init``), the MoE router (moe.py ``moe_init``)
-# and int8 dequantisation scales (quant.py ``quantize_weight``)
-F32_KEYS = frozenset(("scale", "router", "s"))
+# scales (layers.py ``rmsnorm_init``), the MoE router (moe.py ``moe_init``),
+# int8 dequantisation scales (quant.py ``quantize_weight``), the RG-LRU
+# gates and Λ (rglru.py ``rglru_init``) and the SSD's A_log, D and dt bias
+# (ssd.py ``ssd_init``)
+F32_KEYS = frozenset(("scale", "router", "s", "gate_a", "gate_i", "lambda",
+                      "A_log", "D", "dt_bias"))
+
+# decode-cache leaves the reference keeps in float32 (kvcache.py
+# ``init_cache``): the RG-LRU state ``h`` and the SSD state ``ssm``
+CACHE_F32_KEYS = frozenset(("h", "ssm"))
+
+
+def _by_key(tree, f32_keys, device, dtype, key=""):
+    """Port tensors of a tree of any array leaves, dicts walked by key and
+    tuples/lists in order: float leaves under ``f32_keys`` become float32,
+    other float leaves ``dtype``, integer leaves stay as they are."""
+    if isinstance(tree, dict):
+        return {k: _by_key(v, f32_keys, device, dtype, k)
+                for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_by_key(t, f32_keys, device, dtype, key)
+                          for t in tree)
+    return to_torch(tree, device,
+                    torch.float32 if key in f32_keys else dtype)
 
 
 def params_to_torch(params, cfg: ModelConfig, device=None):
@@ -85,13 +106,8 @@ def params_to_torch(params, cfg: ModelConfig, device=None):
     it in, decided by its key and not by the dtype it arrives in: the
     leaves under ``F32_KEYS`` are float32, other float leaves take
     ``cfg.dtype``, integer leaves (int8 weights) stay as they are. Works for
-    any family's tree (dense, MoE)."""
-    def conv(tree, key=""):
-        if isinstance(tree, dict):
-            return {k: conv(v, k) for k, v in tree.items()}
-        return to_torch(tree, device, torch.float32 if key in F32_KEYS
-                        else dtype_of(cfg))
-    return conv(params)
+    any family's tree (dense, MoE, the hybrid's tuple of layers, SSM)."""
+    return _by_key(params, F32_KEYS, device, dtype_of(cfg))
 
 
 def payload_to_numpy(payload: dict) -> dict:
@@ -102,8 +118,11 @@ def payload_to_numpy(payload: dict) -> dict:
 
 
 def payload_to_torch(payload: dict, cfg: ModelConfig, device=None) -> dict:
-    """A slot payload (any array leaves) with its cache as port tensors:
-    float leaves in ``cfg.dtype``, integer leaves as they are."""
+    """A slot payload (any array leaves) with its cache as port tensors in
+    the reference's dtypes: the recurrent states under ``CACHE_F32_KEYS``
+    float32, other float leaves ``cfg.dtype``, integer leaves as they
+    are."""
     out = dict(payload)
-    out["cache"] = tree_to_torch(payload["cache"], device, dtype_of(cfg))
+    out["cache"] = _by_key(payload["cache"], CACHE_F32_KEYS, device,
+                           dtype_of(cfg))
     return out

@@ -30,6 +30,8 @@ BUILD_DIR = _HERE / "_build"
 SOURCES: Dict[str, str] = {
     "decode_attention": "decode_attention/csrc/decode_attention.cu",
     "moe_gemm": "moe_gemm/csrc/moe_gemm.cu",
+    "rglru_scan": "rglru_scan/csrc/rglru_scan.cu",
+    "ssd_chunk": "ssd_chunk/csrc/ssd_chunk.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -8,8 +8,10 @@ Every session is established, served, and released by a
 :class:`~repro_torch.api.client.SessionClient` speaking JSON to the
 :class:`~repro_torch.api.gateway.NorthboundGateway`. The engines run on the
 CUDA card (``device=None``) through the hand-written kernels (decode
-attention; the grouped expert GEMMs for ``qwen3-moe-30b-a3b``);
-``device="cpu"`` runs their plain PyTorch versions instead.
+attention; the grouped expert GEMMs for ``qwen3-moe-30b-a3b``; the RG-LRU
+scan for ``recurrentgemma-2b`` and the SSD chunked scan for
+``mamba2-1.3b`` at prefill); ``device="cpu"`` runs their plain PyTorch
+versions instead.
 """
 
 from __future__ import annotations

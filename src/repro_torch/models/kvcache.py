@@ -1,4 +1,4 @@
-"""Decode-state (cache) construction for the stacked-KV families.
+"""Decode-state (cache) construction per architecture family.
 
 The cache dict is *the* session state that AIS migration transfers between
 execution anchors (see ``repro_torch.serving.state_transfer``). Its size —
@@ -7,14 +7,19 @@ migration deadline feasibility check.
 
 Layouts (the same trees the reference package builds):
 
-* dense  : ``{"layers": {"k", "v": [L, b, S, kh, hd]}, "pos": [b] int32}``
-* paged  : ``{"layers": {"k", "v": [L, P, page, kh, hd]},
+* dense/moe : ``{"layers": {"k", "v": [L, b, S, kh, hd]}, "pos": [b]
+  int32}``, S = context, or a sliding-window ring (S = window)
+* paged     : ``{"layers": {"k", "v": [L, P, page, kh, hd]},
   "block": [slots, pages_per_slot] int32, "pos": [slots] int32}``
+* ssm       : ``{"layers": {"conv": [L, b, K-1, conv_dim], "ssm":
+  [L, b, nh, hp, n] f32}, "pos"}`` — O(1) in context length
+* hybrid    : ``{"layers": (per-layer dicts, slot-first: {"conv":
+  [b, K-1, w], "h": [b, w] f32} for RG-LRU layers, {"k", "v":
+  [b, S, kh, hd]} rings for attention layers), "pos"}``
 
 The byte math covers every family, since the control plane sizes payloads
-for every catalog model; only the dense/moe stacked layouts are built as
-tensors here (the recurrent and encoder-decoder families are not ported
-yet, see ROADMAP.md).
+for every catalog model; the encoder-decoder cache is not built as tensors
+yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -74,20 +79,35 @@ def cache_bytes(cfg: ModelConfig, batch: int, max_len: int) -> int:
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                device=None) -> dict:
-    """Zeroed dense decode cache for the stacked-KV families."""
-    if cfg.family not in ("dense", "moe") or cfg.sliding_window:
+    """Zeroed decode cache in the reference's layout for the family."""
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(
-            f"{cfg.family} (window={cfg.sliding_window}) decode caches are "
-            "not ported yet (ROADMAP.md queue 1, item 4: the other "
-            "families)")
+            f"{cfg.family} decode caches are not ported yet (ROADMAP.md "
+            f"queue 1)")
     from repro_torch.models.layers import dtype_of
-    S = kv_buffer_len(cfg, max_len)
-    shape = (cfg.num_layers, batch, S, cfg.num_kv_heads, cfg.head_dim)
-    return {"layers": {"k": torch.zeros(shape, dtype=dtype_of(cfg),
-                                        device=device),
-                       "v": torch.zeros(shape, dtype=dtype_of(cfg),
-                                        device=device)},
-            "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
+    dt = dtype_of(cfg)
+
+    def zeros(shape, dtype=dt):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    pos = zeros((batch,), torch.int32)
+    L = cfg.num_layers
+    if cfg.family == "ssm":
+        from repro_torch.models.ssd import ssd_state_shapes
+        shp = ssd_state_shapes(cfg, batch)
+        return {"layers": {"conv": zeros((L,) + shp["conv"]),
+                           "ssm": zeros((L,) + shp["ssm"], torch.float32)},
+                "pos": pos}
+    kv = (batch, kv_buffer_len(cfg, max_len), cfg.num_kv_heads, cfg.head_dim)
+    if cfg.family == "hybrid":
+        from repro_torch.models.rglru import rglru_state_shapes
+        shp = rglru_state_shapes(cfg, batch)
+        return {"layers": tuple(
+            {"conv": zeros(shp["conv"]), "h": zeros(shp["h"], torch.float32)}
+            if kind == "rec" else {"k": zeros(kv), "v": zeros(kv)}
+            for kind in cfg._pattern()), "pos": pos}
+    return {"layers": {"k": zeros((L,) + kv), "v": zeros((L,) + kv)},
+            "pos": pos}
 
 
 # ---------------------------------------------------------------------------

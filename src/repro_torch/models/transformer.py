@@ -1,10 +1,13 @@
-"""Decoder-only LM of the dense GQA and MoE families.
+"""Decoder-only LM of the dense GQA, MoE, hybrid (RG-LRU + local attention)
+and SSM (Mamba-2) families.
 
 Params are nested dicts of tensors shaped like the reference package's
-pytree (layer weights stacked on a leading [L] axis), so the bridge moves
-weights between the two packages leaf for leaf. The layer stack is a Python
-loop over per-layer views of the stacked tensors; the decode cache is
-updated in place.
+pytree, so the bridge moves weights between the two packages leaf for leaf:
+homogeneous stacks (dense, MoE, SSM) keep layer weights stacked on a
+leading [L] axis; the hybrid's heterogeneous stack is a tuple of per-layer
+dicts in ``cfg._pattern()`` order. The layer stack is a Python loop (over
+per-layer views of the stacked tensors); the decode cache is updated in
+place.
 
 Public surface:
     init(seed, device)                     -> params
@@ -13,10 +16,13 @@ Public surface:
     decode_step(params, cache, tokens [b, 1], active=None, adapter=None)
                                            -> (logits [b, 1, V], cache)
 
-MoE layers (``attn_moe`` blocks: attention, then ``models.moe`` in place of
-the MLP) serve configs of family ``moe`` without a sliding window. The
-sliding-window, hybrid, SSM and encoder-decoder families are not ported yet
-(ROADMAP.md queue 1, item 4).
+Block kinds: ``attn`` (attention + MLP), ``attn_moe`` (attention, then
+``models.moe`` in place of the MLP), ``rec`` (the RG-LRU block of
+``models.rglru`` + MLP) and ``ssm`` (norm + the SSD layer of
+``models.ssd``, no MLP). Sliding-window attention layers (the hybrid's
+local attention) prefill through ``banded_attention`` and decode against a
+ring buffer. The encoder-decoder family, frontends and windows in the
+dense and MoE families (mixtral) are not ported yet (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -33,6 +39,8 @@ from repro_torch.models import attention as A
 from repro_torch.models import kvcache as KV
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
+from repro_torch.models import rglru as RG
+from repro_torch.models import ssd as SSD
 
 
 def layer_params(tree, i: int):
@@ -42,12 +50,49 @@ def layer_params(tree, i: int):
     return tree[i]
 
 
-def _block_prefill(p, cfg: ModelConfig, x, positions):
-    """Sequence pass of one layer; also returns its K/V [b, s, kh, hd].
+def _stack(trees):
+    """Per-layer param trees -> one tree with leaves stacked on axis 0."""
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def _keep_active(old, new, active) -> None:
+    """Write a recurrent state leaf IN PLACE, frozen for inactive rows:
+    parked sessions share the fused decode batch but their state must not
+    advance — recurrent updates, unlike position-indexed KV writes, touch
+    every row."""
+    new = new.to(old.dtype)
+    if active is not None:
+        a = active.reshape(active.shape + (1,) * (new.dim() - 1))
+        new = torch.where(a, new, old)
+    old.copy_(new)
+
+
+def _ring_buffer(x, S: int, length: Optional[int]):
+    """Place prefill K or V [b, s, kh, hd] in a sliding-window ring of S
+    slots: the token at position p lives in slot p % S. Only positions in
+    ``[n - S, n)`` (n = ``length``, the true prompt length of a right-padded
+    bucket, or s) may land in the ring; padded and evicted positions are
+    routed to a discard row so they cannot clobber live slots."""
+    s = x.shape[1]
+    n = s if length is None else int(length)
+    pos = torch.arange(s, device=x.device)
+    live = (pos < n) & (pos >= n - S)
+    slots = torch.where(live, torch.remainder(pos, S), torch.full_like(pos, S))
+    buf = x.new_zeros((x.shape[0], S + 1) + tuple(x.shape[2:]))
+    buf[:, slots] = x           # live slots are distinct; the discard row
+    return buf[:, :S]           # takes any of the others
+
+
+def _attn_prefill(p, cfg: ModelConfig, x, positions):
+    """Sequence pass of one attention layer; also returns its K/V
+    [b, s, kh, hd].
 
     With a right-padded prompt, padded keys sit strictly after every real
-    query (causality) and decode masks the buffer tail by position, so the
-    cache equals the exact-length cache where it is ever read."""
+    query (causality); decode masks a linear buffer's tail by position and
+    a ring is built from the real positions only, so the cache equals the
+    exact-length cache where it is ever read."""
     h = L.rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
     k, v = A._project_kv(p["attn"], cfg, h, positions)
     q = A._project_q(p["attn"], cfg, h, positions)
@@ -56,9 +101,10 @@ def _block_prefill(p, cfg: ModelConfig, x, positions):
     return x + _ffn(p, cfg, x), k, v
 
 
-def _block_decode(p, cfg: ModelConfig, x, k_layer, v_layer, position,
-                  active=None, block=None):
-    """Single-token pass of one layer; ``block`` selects the paged pool."""
+def _attn_decode(p, cfg: ModelConfig, x, k_layer, v_layer, position,
+                 active=None, block=None):
+    """Single-token pass of one attention layer; ``block`` selects the
+    paged pool."""
     h = L.rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
     if block is not None:
         y, _, _ = A.paged_decode_self_attention(
@@ -66,7 +112,26 @@ def _block_decode(p, cfg: ModelConfig, x, k_layer, v_layer, position,
             active=active)
     else:
         y, _, _ = A.decode_self_attention(
-            p["attn"], cfg, h, k_layer, v_layer, position, active=active)
+            p["attn"], cfg, h, k_layer, v_layer, position,
+            window=cfg.sliding_window, active=active)
+    x = x + y
+    return x + _ffn(p, cfg, x)
+
+
+def _rec_prefill(p, cfg: ModelConfig, x, length):
+    """Sequence pass of one RG-LRU block; returns (x, its cache layer)."""
+    h = L.rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
+    y, conv, hs = RG.rglru_block_prefill(p["rec"], cfg, h, length)
+    x = x + y
+    return x + _ffn(p, cfg, x), {"conv": conv, "h": hs}
+
+
+def _rec_decode(p, cfg: ModelConfig, x, cache_layer, active=None):
+    h = L.rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
+    y, conv, hs = RG.rglru_block_decode(p["rec"], cfg, h, cache_layer["conv"],
+                                        cache_layer["h"])
+    _keep_active(cache_layer["conv"], conv, active)
+    _keep_active(cache_layer["h"], hs, active)
     x = x + y
     return x + _ffn(p, cfg, x)
 
@@ -86,34 +151,43 @@ class LM:
 
     def __init__(self, cfg: ModelConfig):
         validate(cfg)
-        if cfg.family not in ("dense", "moe") or cfg.sliding_window \
+        if cfg.family not in ("dense", "moe", "hybrid", "ssm") \
+                or (cfg.family in ("dense", "moe") and cfg.sliding_window) \
                 or cfg.encoder_layers or cfg.frontend:
             raise NotImplementedError(
-                f"{cfg.name}: only the dense GQA and MoE families without a "
-                f"window or frontend are ported; see ROADMAP.md queue 1, "
-                f"item 4 (the other families)")
+                f"{cfg.name}: the encoder-decoder family, frontends and "
+                f"sliding windows outside the hybrid family are not ported "
+                f"yet; see ROADMAP.md queue 1")
         self.cfg = cfg
 
     # -- param init -----------------------------------------------------
     def init(self, seed: int = 0, device=None) -> Dict[str, Any]:
-        """Random weights with the reference's shapes and scales: normal
-        matrices scaled by 1/sqrt(fan_in), embeddings by 0.02, norm scales
-        one. Drawn from a ``torch.Generator`` seeded with ``seed`` on the
-        target device, one layer at a time (f32 draws, stored in
-        ``cfg.dtype``)."""
+        """Random weights with the reference's shapes, scales and dtypes:
+        normal matrices scaled by 1/sqrt(fan_in), embeddings by 0.02, norm
+        scales one, the recurrent families' f32 leaves as the reference
+        draws them. Drawn from a ``torch.Generator`` seeded with ``seed``
+        on the target device, one layer at a time (f32 draws, stored in
+        ``cfg.dtype`` unless the reference keeps the leaf in f32)."""
         cfg = self.cfg
         dev = resolve_device(device)
         dt = L.dtype_of(cfg)
         gen = torch.Generator(device=dev).manual_seed(seed)
         nl, d = cfg.num_layers, cfg.d_model
 
-        def normal(shape, scale, out=None):
+        def normal(shape, scale, dtype=dt, out=None):
             w = torch.randn(shape, generator=gen, device=dev,
                             dtype=torch.float32).mul_(scale)
             if out is None:
-                return w.to(dt)
+                return w.to(dtype)
             out.copy_(w)
             return out
+
+        def uniform(shape, lo, hi):
+            return torch.rand(shape, generator=gen, device=dev,
+                              dtype=torch.float32) * (hi - lo) + lo
+
+        def dense(fan_in, fan_out):
+            return normal((fan_in, fan_out), 1.0 / math.sqrt(fan_in))
 
         def stacked(fan_in, fan_out):
             w = torch.empty((nl, fan_in, fan_out), dtype=dt, device=dev)
@@ -124,6 +198,18 @@ class LM:
         def ones(*shape):
             return torch.ones(shape, dtype=torch.float32, device=dev)
 
+        def attention(mat, norm):
+            p = {"w_q": mat(d, cfg.q_dim), "w_k": mat(d, cfg.kv_dim),
+                 "w_v": mat(d, cfg.kv_dim), "w_o": mat(cfg.q_dim, d)}
+            if cfg.use_qk_norm:
+                p["q_norm"] = {"scale": norm(cfg.head_dim)}
+                p["k_norm"] = {"scale": norm(cfg.head_dim)}
+            return p
+
+        def mlp(mat):
+            return {"w_gate": mat(d, cfg.d_ff), "w_up": mat(d, cfg.d_ff),
+                    "w_down": mat(cfg.d_ff, d)}
+
         params: Dict[str, Any] = {
             "embed": normal((cfg.padded_vocab, d), 0.02),
             "final_norm": {"scale": ones(d)},
@@ -131,22 +217,34 @@ class LM:
         if not cfg.tie_embeddings:
             params["lm_head"] = normal((d, cfg.padded_vocab),
                                        1.0 / math.sqrt(d))
-        attn = {"w_q": stacked(d, cfg.q_dim), "w_k": stacked(d, cfg.kv_dim),
-                "w_v": stacked(d, cfg.kv_dim), "w_o": stacked(cfg.q_dim, d)}
-        if cfg.use_qk_norm:
-            attn["q_norm"] = {"scale": ones(nl, cfg.head_dim)}
-            attn["k_norm"] = {"scale": ones(nl, cfg.head_dim)}
+        if cfg.family == "hybrid":
+            layers = []
+            for kind in cfg._pattern():
+                p = {"norm1": {"scale": ones(d)}}
+                if kind == "rec":
+                    p["rec"] = RG.rglru_init(cfg, normal, uniform)
+                else:
+                    p["attn"] = attention(dense, ones)
+                p["norm2"] = {"scale": ones(d)}
+                p["mlp"] = mlp(dense)
+                layers.append(p)
+            params["layers"] = tuple(layers)
+            return params
+        if cfg.family == "ssm":
+            params["layers"] = _stack([
+                {"norm1": {"scale": ones(d)},
+                 "ssd": SSD.ssd_init(cfg, normal, uniform)}
+                for _ in range(nl)])
+            return params
         params["layers"] = {
             "norm1": {"scale": ones(nl, d)},
-            "attn": attn,
+            "attn": attention(stacked, lambda n: ones(nl, n)),
             "norm2": {"scale": ones(nl, d)},
         }
         if cfg.is_moe:
             params["layers"]["moe"] = MOE.moe_init(cfg, normal, nl, dt, dev)
         else:
-            params["layers"]["mlp"] = {"w_gate": stacked(d, cfg.d_ff),
-                                       "w_up": stacked(d, cfg.d_ff),
-                                       "w_down": stacked(cfg.d_ff, d)}
+            params["layers"]["mlp"] = mlp(stacked)
         return params
 
     # -- heads ----------------------------------------------------------
@@ -166,12 +264,12 @@ class LM:
 
         ``batch["tokens"]``: [b, s] ints; ``batch["length"]`` (optional int)
         is the true prompt length when the tokens are right-padded to a
-        bucket: the cache position and the final logits are taken at
-        ``length``. Returns (logits [b, V] f32, cache) with the cache in the
-        dense layout ``{"layers": {"k", "v": [L, b, S, kh, hd]}, "pos"}``.
+        bucket: the cache position, the final logits and every family's
+        carried state are taken at ``length``. Returns (logits [b, V] f32,
+        cache) with the cache in the family's layout (``models.kvcache``).
 
         ``adapter`` (optional ``(A [d, r], B [r, d])``): per-session LoRA
-        delta applied to the final hidden state before the LM head; the KV
+        delta applied to the final hidden state before the LM head; the
         cache stays adapter-free.
         """
         cfg = self.cfg
@@ -183,17 +281,41 @@ class LM:
         if pos is None:
             pos = torch.arange(s, dtype=torch.int32, device=x.device)
         length: Optional[int] = batch.get("length")
-        shape = (cfg.num_layers, b, S, cfg.num_kv_heads, cfg.head_dim)
-        ck = torch.zeros(shape, dtype=x.dtype, device=x.device)
-        cv = torch.zeros(shape, dtype=x.dtype, device=x.device)
-        n = min(s, S)
-        for i in range(cfg.num_layers):
-            x, k, v = _block_prefill(layer_params(params["layers"], i), cfg,
-                                     x, pos)
-            ck[i, :, :n] = k[:, :n]
-            cv[i, :, :n] = v[:, :n]
         last = s if length is None else int(length)
-        cache = {"layers": {"k": ck, "v": cv},
+        if cfg.family == "hybrid":
+            layers = []
+            for lp, kind in zip(params["layers"], cfg._pattern()):
+                if kind == "rec":
+                    x, cl = _rec_prefill(lp, cfg, x, length)
+                else:
+                    x, k, v = _attn_prefill(lp, cfg, x, pos)
+                    cl = {"k": _ring_buffer(k, S, length),
+                          "v": _ring_buffer(v, S, length)}
+                layers.append(cl)
+            cache_layers = tuple(layers)
+        elif cfg.family == "ssm":
+            cache_layers = KV.init_cache(cfg, b, max_len,
+                                         device=x.device)["layers"]
+            for i in range(cfg.num_layers):
+                lp = layer_params(params["layers"], i)
+                h = L.rmsnorm_apply(lp["norm1"], x, cfg.norm_eps)
+                y, (conv, ssm) = SSD.ssd_apply(lp["ssd"], cfg, h,
+                                               length=length)
+                x = x + y
+                cache_layers["conv"][i] = conv
+                cache_layers["ssm"][i] = ssm
+        else:
+            shape = (cfg.num_layers, b, S, cfg.num_kv_heads, cfg.head_dim)
+            ck = torch.zeros(shape, dtype=x.dtype, device=x.device)
+            cv = torch.zeros(shape, dtype=x.dtype, device=x.device)
+            n = min(s, S)
+            for i in range(cfg.num_layers):
+                x, k, v = _attn_prefill(layer_params(params["layers"], i),
+                                        cfg, x, pos)
+                ck[i, :, :n] = k[:, :n]
+                cv[i, :, :n] = v[:, :n]
+            cache_layers = {"k": ck, "v": cv}
+        cache = {"layers": cache_layers,
                  "pos": torch.full((b,), last, dtype=torch.int32,
                                    device=x.device)}
         x_last = L.rmsnorm_apply(params["final_norm"], x[:, last - 1],
@@ -206,10 +328,10 @@ class LM:
     def decode_step(self, params, cache, tokens, active=None, adapter=None):
         """tokens: [b, 1] -> (logits [b, 1, V], cache).
 
-        The cache's K/V tensors are updated in place; the returned dict
-        shares them and carries ``pos + 1``. ``active`` ([b] bool) rows
-        whose state may advance: inactive rows still flow through the batch
-        but their K/V rows are left bit-identical. A cache with a
+        The cache's tensors are updated in place; the returned dict shares
+        them and carries ``pos + 1``. ``active`` ([b] bool) rows whose state
+        may advance: inactive rows still flow through the batch but every
+        cache leaf they own is left bit-identical. A cache with a
         ``"block"`` entry selects the paged layout.
 
         ``adapter`` (optional ``(A [E, d, r], B [E, r, d], idx [b],
@@ -220,11 +342,30 @@ class LM:
         position = cache["pos"]
         block = cache.get("block")
         x = params["embed"][tokens.long()]
-        K, V = cache["layers"]["k"], cache["layers"]["v"]
-        for i in range(cfg.num_layers):
-            x = _block_decode(layer_params(params["layers"], i), cfg, x,
-                              K[i], V[i], position, active=active,
-                              block=block)
+        if cfg.family == "hybrid":
+            for lp, cl, kind in zip(params["layers"], cache["layers"],
+                                    cfg._pattern()):
+                if kind == "rec":
+                    x = _rec_decode(lp, cfg, x, cl, active=active)
+                else:
+                    x = _attn_decode(lp, cfg, x, cl["k"], cl["v"], position,
+                                     active=active)
+        elif cfg.family == "ssm":
+            C = cache["layers"]
+            for i in range(cfg.num_layers):
+                lp = layer_params(params["layers"], i)
+                h = L.rmsnorm_apply(lp["norm1"], x, cfg.norm_eps)
+                y, (conv, ssm) = SSD.ssd_decode(lp["ssd"], cfg, h,
+                                                C["conv"][i], C["ssm"][i])
+                _keep_active(C["conv"][i], conv, active)
+                _keep_active(C["ssm"][i], ssm, active)
+                x = x + y
+        else:
+            K, V = cache["layers"]["k"], cache["layers"]["v"]
+            for i in range(cfg.num_layers):
+                x = _attn_decode(layer_params(params["layers"], i), cfg, x,
+                                 K[i], V[i], position, active=active,
+                                 block=block)
         new_cache = dict(cache)
         new_cache["pos"] = position + 1
         x = L.rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)

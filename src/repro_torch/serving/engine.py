@@ -16,7 +16,12 @@ Hot-path disciplines:
 * **Bucketed prefill** — prompts are right-padded to power-of-two buckets
   with the true length passed separately, as in the reference.
 * **In-place slot state** — slot insert (admit / migrate in) writes the
-  slot's rows of the engine cache; decode writes each new K/V row in place.
+  slot's rows of every cache leaf; decode writes each new K/V row, and
+  each recurrent state row, in place.
+* **Every family's cache** — stacked K/V (dense, MoE), a tuple of per-layer
+  RG-LRU states and ring buffers (hybrid, slot-first), stacked conv and SSD
+  states (SSM, layer-first): the slot axis is found per leaf, as in the
+  reference.
 * **Per-session adapters** — an :class:`~repro_torch.adapters.runtime.
   AdapterRuntime` multiplexes LoRA adapters over the base model: each slot
   carries an int32 index into the runtime's tables, and the fused decode
@@ -39,7 +44,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.bridge import payload_to_torch
+from repro_torch.bridge import leaves, payload_to_torch, tree_map
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import LM
 from repro_torch.models import kvcache as KV
@@ -94,9 +99,12 @@ class InferenceEngine:
                  page_size: int = KV.DEFAULT_PAGE_SIZE,
                  num_pages: Optional[int] = None,
                  hibernation=None, clock=None, adapters=None, device=None):
-        """``paged=True`` selects the block-table paged KV layout.
-        ``num_pages`` bounds device KV memory (default: enough for every
-        slot at max_len, plus the scratch page). ``hibernation`` is a
+        """``paged=True`` selects the block-table paged KV layout for
+        families that support it (full-attention stacked KV, see
+        ``kvcache.supports_paging``); other families silently keep the
+        dense slot layout but still park and hibernate. ``num_pages``
+        bounds device KV memory (default: enough for every slot at
+        max_len, plus the scratch page). ``hibernation`` is a
         :class:`~repro_torch.serving.hibernation.HibernationStore` (or
         ``True`` for a private unbounded one) enabling the host-memory tier.
         ``clock`` (any object with ``now()``) timestamps hibernation records.
@@ -120,6 +128,14 @@ class InferenceEngine:
             hibernation = None
         self.hibernation = hibernation
         self.clock = clock
+        #: canonical exports: linear stacked-KV buffers zero their garbage
+        #: tail, so the same logical state fingerprints identically across
+        #: dense and paged engines and across hibernate/resume round trips
+        self._canonical = cfg.family in ("dense", "moe") \
+            and not cfg.sliding_window
+        #: slot axis of every leaf under cache["layers"]: the hybrid's
+        #: per-layer leaves are slot-first, stacked families layer-first
+        self._slot_axis = 0 if cfg.family == "hybrid" else 1
         if adapters is True:
             from repro_torch.adapters.runtime import AdapterRuntime
             adapters = AdapterRuntime(cfg.d_model, device=self.device)
@@ -281,10 +297,12 @@ class InferenceEngine:
 
     # -- slot state in and out ---------------------------------------------
     def _write_slot(self, idx: int, cache1) -> None:
-        """Copy a batch-1 dense cache into slot ``idx`` of the engine cache."""
-        for key in ("k", "v"):
-            self.cache["layers"][key][:, idx].copy_(
-                cache1["layers"][key][:, 0])
+        """Copy a batch-1 dense-layout cache into slot ``idx`` of every
+        leaf of the engine cache."""
+        ax = self._slot_axis
+        for full, one in zip(leaves(self.cache["layers"]),
+                             leaves(cache1["layers"])):
+            full.select(ax, idx).copy_(one.select(ax, 0))
         self.cache["pos"][idx] = cache1["pos"][0]
 
     def _paged_install(self, k1, v1, idx: int, n: int) -> None:
@@ -338,10 +356,20 @@ class InferenceEngine:
         if session_id not in self._slot_map and self.has_hibernated(
                 session_id):
             return self.hibernation.restore(session_id)
-        meta = self._slots[self._slot_map[session_id]]
-        return {"cache": self._canonical_read(self._slot_map[session_id],
-                                              meta.position),
-                "position": meta.position,
+        idx = self._slot_map[session_id]
+        meta = self._slots[idx]
+        if self.paged or self._canonical:
+            state = self._canonical_read(idx, meta.position)
+        else:
+            # recurrent states and rings carry no garbage tail: a copy of
+            # the slot's rows, with the host position (device pos drifts
+            # for parked rows)
+            state = {"layers": tree_map(
+                lambda t: t.narrow(self._slot_axis, idx, 1).clone(),
+                self.cache["layers"]),
+                "pos": torch.full((1,), meta.position, dtype=torch.int32,
+                                  device=self.device)}
+        return {"cache": state, "position": meta.position,
                 "last_token": meta.last_token,
                 "adapter_id": meta.adapter_id}
 

@@ -44,7 +44,11 @@ VERBATIM = sorted(
 PORTED = ("adapters/runtime.py", "models/moe.py", "models/transformer.py",
           "serving/engine.py", "bridge.py", "kernels/moe_gemm/__init__.py",
           "kernels/moe_gemm/moe_gemm.py",
-          "kernels/decode_attention/decode_attention.py")
+          "kernels/decode_attention/decode_attention.py",
+          "models/rglru.py", "models/ssd.py", "models/attention.py",
+          "models/kvcache.py", "kernels/rglru_scan/__init__.py",
+          "kernels/rglru_scan/rglru_scan.py", "kernels/ssd_chunk/__init__.py",
+          "kernels/ssd_chunk/ssd_chunk.py")
 
 
 def _sources():
@@ -109,12 +113,27 @@ def test_entry_points_take_the_card_by_default(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = get_config("edge-tiny")
     moe = get_smoke_config("qwen3-moe-30b-a3b")
+    hybrid = get_smoke_config("recurrentgemma-2b")
+    ssm = get_smoke_config("mamba2-1.3b")
     for call in (lambda: serve("edge-tiny", sessions=1, requests=1,
                                quiet=True),
                  lambda: InferenceEngine(cfg, slots=1, max_len=16),
                  lambda: LM(cfg).init(0),
                  lambda: LM(moe).init(0),
                  lambda: InferenceEngine(moe, slots=1, max_len=16),
-                 lambda: AdapterRuntime(cfg.d_model)):
+                 lambda: AdapterRuntime(cfg.d_model),
+                 lambda: LM(hybrid).init(0),
+                 lambda: InferenceEngine(hybrid, slots=1, max_len=16),
+                 lambda: LM(ssm).init(0),
+                 lambda: InferenceEngine(ssm, slots=1, max_len=16),
+                 lambda: serve("mamba2-1.3b", sessions=1, requests=1,
+                               quiet=True)):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "mamba2-1.3b"])
+def test_recurrent_families_construct_at_full_size(arch):
+    """The LM of both recurrent families takes their catalog configs (no
+    weights are drawn here)."""
+    assert LM(get_config(arch)).cfg.name == arch

@@ -1,13 +1,18 @@
 """The port's kernel wrappers on the CPU (their plain versions) against the
 reference package's Pallas kernels in interpret mode and its ref.py
-oracles, on the same numpy inputs: decode attention (dense and paged) and
-the grouped expert GEMM (plain and fused SwiGLU).
+oracles, on the same numpy inputs: decode attention (dense and paged), the
+grouped expert GEMM (plain and fused SwiGLU), the RG-LRU scan and the SSD
+chunked scan (also against the model functions they compute, ``_scan_lru``
+and ``_ssd_chunked``, with a carried state in and out).
 
 Tolerance: 1e-5 absolute and relative in f32 — the three compute the same
-function in f32 and differ only in summation order. The CUDA kernels
-themselves are checked against these plain versions on the card by
+function in f32 and differ only in summation order; 1e-4 for the SSD scan,
+whose outputs are 16- to 128-term sums taken in another order. The CUDA
+kernels themselves are checked against these plain versions on the card by
 chip_smoke.py.
 """
+
+import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
@@ -22,8 +27,16 @@ from repro.kernels.decode_attention.ref import (decode_attention_ref,
 from repro.kernels.moe_gemm.moe_gemm import (
     moe_ffn_fused as pallas_moe_ffn_fused, moe_gemm as pallas_moe_gemm)
 from repro.kernels.moe_gemm.ref import moe_ffn_fused_ref, moe_gemm_ref
+from repro.kernels.rglru_scan.ref import rglru_scan_ref as jax_rglru_ref
+from repro.kernels.rglru_scan.rglru_scan import rglru_scan as pallas_rglru
+from repro.kernels.ssd_chunk.ssd_chunk import ssd_chunk as pallas_ssd
+from repro.models.rglru import _scan_lru
+from repro.models.ssd import _ssd_chunked
+from repro_torch.configs import get_smoke_config
 from repro_torch.kernels.decode_attention import decode_attention as DA
 from repro_torch.kernels.moe_gemm import moe_gemm as MG
+from repro_torch.kernels.rglru_scan import rglru_scan as RS
+from repro_torch.kernels.ssd_chunk import ssd_chunk as SC
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 
@@ -291,3 +304,166 @@ class TestGroupedGemm:
             assert got.dtype == torch.bfloat16
             np.testing.assert_allclose(got.float().numpy(), want.numpy(),
                                        atol=5e-2, rtol=5e-2)
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU scan
+# ---------------------------------------------------------------------------
+
+def _rglru_case(seed, B, T, W, h0=True):
+    """a in (0.5, 1) (the model's decays lie in (0, 1)), b normal, h0
+    normal or zero."""
+    rng = np.random.default_rng(seed)
+    a = rng.uniform(0.5, 1.0, (B, T, W)).astype(np.float32)
+    b = rng.standard_normal((B, T, W)).astype(np.float32)
+    h0v = (rng.standard_normal((B, W)) if h0 else np.zeros((B, W))).astype(
+        np.float32)
+    return a, b, h0v
+
+
+def _port_rglru(a, b, h0):
+    return RS.rglru_scan(*(torch.from_numpy(x) for x in (a, b, h0))).numpy()
+
+
+class TestRglruScan:
+    @pytest.mark.parametrize("B,T,W", [
+        (1, 37, 64),        # T not a multiple of any block or chunk
+        (2, 300, 16),       # two of the reference's 256-step chunks
+        (3, 1, 8),          # a single step
+    ])
+    def test_matches_scan_lru_with_a_carried_state(self, B, T, W):
+        a, b, h0 = _rglru_case(T * 10 + B, B, T, W)
+        want = np.asarray(_scan_lru(*(jnp.asarray(x) for x in (a, b, h0))))
+        np.testing.assert_allclose(_port_rglru(a, b, h0), want, **TOL)
+
+    @pytest.mark.parametrize("B,T,W", [(2, 40, 64), (1, 96, 130)])
+    def test_matches_pallas_and_ref_from_zero(self, B, T, W):
+        """From h0 = 0, the function of the Pallas kernel (interpret mode,
+        its pad-and-slice path: T and W off its blocks) and of ref.py."""
+        a, b, h0 = _rglru_case(T + W, B, T, W, h0=False)
+        got = _port_rglru(a, b, h0)
+        ja, jb = jnp.asarray(a), jnp.asarray(b)
+        np.testing.assert_allclose(
+            got, np.asarray(pallas_rglru(ja, jb, block_t=16, block_w=128,
+                                         interpret=True)), **TOL)
+        np.testing.assert_allclose(got, np.asarray(jax_rglru_ref(ja, jb)),
+                                   **TOL)
+
+    @settings(max_examples=3, deadline=None, database=None)
+    @given(B=st.integers(1, 3), T=st.integers(1, 600), W=st.integers(1, 24),
+           seed=st.integers(0, 10_000))
+    def test_ragged_shapes_property(self, B, T, W, seed):
+        a, b, h0 = _rglru_case(seed, B, T, W)
+        want = np.asarray(_scan_lru(*(jnp.asarray(x) for x in (a, b, h0))))
+        np.testing.assert_allclose(_port_rglru(a, b, h0), want, **TOL)
+
+    def test_identity_steps_carry_the_state(self):
+        """Padded steps arrive as a = 1, b = 0: the state passes through
+        them, so h[:, -1] is the state at the true length (up to the
+        log-depth scan's other grouping of the same products)."""
+        a, b, h0 = _rglru_case(4, 2, 24, 16)
+        a[:, 17:], b[:, 17:] = 1.0, 0.0
+        h = _port_rglru(a, b, h0)
+        np.testing.assert_allclose(h[:, -1], h[:, 16], **TOL)
+
+    def test_cpu_tensors_take_the_plain_version_without_counting(self):
+        a, b, h0 = (torch.from_numpy(x) for x in _rglru_case(0, 2, 9, 8))
+        before = dict(RS.LAUNCHES)
+        assert torch.equal(RS.rglru_scan(a, b, h0), RS.rglru_scan_ref(a, b,
+                                                                      h0))
+        assert RS.LAUNCHES == before
+
+    def test_other_devices_raise_instead_of_falling_back(self):
+        a = torch.empty((1, 8, 16), device="meta")
+        with pytest.raises(ValueError):
+            RS.rglru_scan(a, a, torch.empty((1, 16), device="meta"))
+
+
+# ---------------------------------------------------------------------------
+# SSD chunked scan
+# ---------------------------------------------------------------------------
+
+SSD_TOL = dict(atol=1e-4, rtol=1e-4)
+
+
+def _ssd_case(seed, b, l, nh, hp, g, n, S0=True):
+    """The model's ranges: dt in [1e-3, 0.1] (post-softplus of the init's
+    bias), A = -(1..nh), x, B, C and S0 normal."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, l, nh, hp)).astype(np.float32)
+    dt = rng.uniform(1e-3, 0.1, (b, l, nh)).astype(np.float32)
+    A = -np.arange(1, nh + 1, dtype=np.float32)
+    B = rng.standard_normal((b, l, g, n)).astype(np.float32)
+    C = rng.standard_normal((b, l, g, n)).astype(np.float32)
+    s0 = (rng.standard_normal((b, nh, hp, n)) if S0
+          else np.zeros((b, nh, hp, n))).astype(np.float32)
+    return x, dt, A, B, C, s0
+
+
+def _port_ssd(case, chunk):
+    y, S = SC.ssd_chunk(*(torch.from_numpy(a) for a in case), chunk)
+    return y.numpy(), S.numpy()
+
+
+class TestSsdChunk:
+    @pytest.mark.parametrize("b,l,nh,hp,g,n,chunk", [
+        (2, 37, 8, 16, 1, 16, 16),     # mamba2 smoke widths, ragged l
+        (1, 64, 4, 8, 2, 16, 16),      # two groups, whole chunks
+        (2, 10, 4, 8, 2, 8, 16),       # l below the chunk: Q = l
+        (1, 150, 2, 8, 1, 12, 64),     # the last chunk ragged past 128
+    ])
+    def test_matches_ssd_chunked_with_a_carried_state(self, b, l, nh, hp, g,
+                                                      n, chunk):
+        case = _ssd_case(l * 7 + nh, b, l, nh, hp, g, n)
+        cfg = dataclasses.replace(get_smoke_config("mamba2-1.3b"),
+                                  ssm_chunk=chunk)
+        yj, Sj = _ssd_chunked(cfg, *(jnp.asarray(a) for a in case))
+        y, S = _port_ssd(case, chunk)
+        np.testing.assert_allclose(y, np.asarray(yj), **SSD_TOL)
+        np.testing.assert_allclose(S, np.asarray(Sj), **SSD_TOL)
+
+    @pytest.mark.parametrize("b,l,nh,hp,g,n,chunk", [
+        (1, 48, 4, 16, 1, 16, 16), (2, 40, 4, 8, 2, 8, 16)])
+    def test_matches_pallas_from_zero(self, b, l, nh, hp, g, n, chunk):
+        """From S0 = 0, the Pallas kernel (interpret mode) on its own
+        layouts: heads before time, B and C expanded to heads, y cast to
+        x's dtype; l = 40 is ragged against its chunk."""
+        x, dt, A, B, C, s0 = _ssd_case(l + g, b, l, nh, hp, g, n, S0=False)
+        y, _ = _port_ssd((x, dt, A, B, C, s0), chunk)
+        hpg = nh // g
+        Bh, Ch = (np.repeat(m, hpg, axis=2) for m in (B, C))
+        yp = pallas_ssd(jnp.asarray(np.moveaxis(x, 1, 2)),
+                        jnp.asarray(np.moveaxis(dt, 1, 2)),
+                        jnp.asarray(np.moveaxis(Bh, 1, 2)),
+                        jnp.asarray(np.moveaxis(Ch, 1, 2)), jnp.asarray(A),
+                        chunk=chunk, interpret=True)
+        np.testing.assert_allclose(y.astype(x.dtype),
+                                   np.moveaxis(np.asarray(yp), 2, 1),
+                                   **SSD_TOL)
+
+    def test_zero_dt_steps_carry_the_state(self):
+        """Padded steps arrive with dt = 0: the recurrence is the identity
+        there, so S_final is the state at the true length."""
+        case = list(_ssd_case(9, 1, 40, 4, 8, 1, 8))
+        _, S_short = _port_ssd([a[:, :29] if a.ndim > 1 and i != 5 else a
+                                for i, a in enumerate(case)], 16)
+        case[1][:, 29:] = 0.0
+        _, S_pad = _port_ssd(case, 16)
+        np.testing.assert_allclose(S_pad, S_short, **SSD_TOL)
+
+    def test_cpu_tensors_take_the_plain_version_without_counting(self):
+        case = [torch.from_numpy(a) for a in _ssd_case(0, 1, 20, 2, 8, 1, 8)]
+        before = dict(SC.LAUNCHES)
+        for got, want in zip(SC.ssd_chunk(*case, 16),
+                             SC.ssd_chunk_ref(*case, 16)):
+            assert torch.equal(got, want)
+        assert SC.LAUNCHES == before
+
+    def test_other_devices_raise_instead_of_falling_back(self):
+        m = dict(device="meta")
+        with pytest.raises(ValueError):
+            SC.ssd_chunk(torch.empty((1, 8, 2, 4), **m),
+                         torch.empty((1, 8, 2), **m), torch.empty((2,), **m),
+                         torch.empty((1, 8, 1, 4), **m),
+                         torch.empty((1, 8, 1, 4), **m),
+                         torch.empty((1, 2, 4, 4), **m), 16)
