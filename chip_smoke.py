@@ -5,7 +5,7 @@
     python3 chip_smoke.py --quick    # build, kernel checks, small models
 
 Run from the repository root. It builds the port's CUDA kernels from the
-sources in the checkout and drives the port's five main paths at full
+sources in the checkout and drives the port's six main paths at full
 width (random weights from a seed):
 
 * minitron-8b (dense GQA: 32 layers, d_model 4096, 32 query heads over 8
@@ -19,7 +19,12 @@ width (random weights from a seed):
   over 1 KV head of 256, window 2048 — vocab 256000; bf16) at full width
   and depth;
 * mamba2-1.3b (SSM: 48 Mamba-2 SSD layers, d_model 2048, 64 heads of 64,
-  state 128, chunk 128, vocab 50280; bf16) at full width and depth.
+  state 128, chunk 128, vocab 50280; bf16) at full width and depth;
+* seamless-m4t-medium (encoder-decoder: 12 encoder and 12 decoder layers,
+  d_model 1024, 16 heads of 64, d_ff 4096, vocab 256206, 1536 source
+  frames from the audio frontend stub; bf16) at full width and depth,
+  through the model's entry points (the engine serves no encdec model, in
+  either package).
 
 Phases:
 
@@ -35,6 +40,11 @@ Phases:
              ssd_chunk at the recurrent paths' 2048-token prefill shapes
              with a carried state (and ssd_chunk at a ragged l), after
              ragged shapes down to the smoke configs' widths;
+             flash_attention at minitron-8b's 2048-token causal prefill
+             and seamless-m4t-medium's encoder (1536 frames) and cross
+             attention (1024 x 1536), after ragged shapes (head dims
+             16-128, -1 key positions, every engine bucket at minitron's
+             widths), compared on the rows that have a valid key;
 3. serve   — ``repro_torch.launch.serve.serve`` through the northbound
              gateway: 4 sessions, 8 requests, 8 slots, max_len 2048;
 4. engine  — dense and paged engines, 8 slots with 512-1536-token prompts
@@ -50,22 +60,35 @@ Phases:
    recurrent — each recurrent model drawn in turn (the previous one freed):
              phases 3 and 4 (dense engine) with rglru_scan launched 18 times
              and ssd_chunk 48 times per prefill, the decode-attention
-             kernels not at all; then, outside the launch window, paged=True
-             keeps the dense layout and its tokens, a mid-stream export
-             (exactly ``kvcache.cache_bytes`` of one slot) imported into a
-             fresh engine continues token-identically, and the full-width
-             prefill logits are finite;
+             kernels and flash_attention not at all; then, outside the
+             launch window, paged=True keeps the dense layout and its
+             tokens, a mid-stream export (exactly ``kvcache.cache_bytes``
+             of one slot) imported into a fresh engine continues
+             token-identically, and the full-width prefill logits are
+             finite;
+   encdec  — seamless-m4t-medium: 8 prompts of 64-1024 tokens, each with
+             1536 frames, right-padded to the engine's buckets and
+             prefilled through ``LM.prefill`` (flash_attention 36 times a
+             prefill: 12 encoder, 12 causal self, 12 cross), then 64 greedy
+             ``LM.decode_step``s on the batch of 8 (decode_attention 12
+             times a step): TTFT split into encoder and decoder, decode
+             ms/step and tok/s, peak memory; outside the window, finite
+             logits and cross K/V unchanged by decode;
 5. reference — small models in f32 on the card against the same models on
              the CPU through the plain versions: edge-tiny (dense and
              paged), edge-tiny with adapters (grouped route on the card,
-             gather on the CPU), the qwen3-moe smoke config and the
-             recurrentgemma-2b and mamba2-1.3b smoke configs.
+             gather on the CPU), the qwen3-moe smoke config, the
+             recurrentgemma-2b and mamba2-1.3b smoke configs and the
+             seamless-m4t-medium smoke config (head_dim 32).
 
 Each main path is driven with every launch counter set to 0 just before it
 and read just after, and each kernel the path runs must have been launched
-there; the checks of a path's result (each adapter session alone, the
-full-width prefill logits, the recurrent checks) run after that read and
-are not counted. Any failed phase fails the run (exit 1). The last two
+there (flash_attention exactly once per full-attention layer of each
+prefill: 32 for minitron-8b, 48 for qwen3-moe-30b-a3b, 36 for
+seamless-m4t-medium, 0 for the recurrent families); the checks of a
+path's result (each adapter session alone, the full-width prefill logits
+and a profiled prefill, the recurrent and encdec checks) run after that
+read and are not counted. Any failed phase fails the run (exit 1). The last two
 lines are the card's name and power limit, then the result JSON.
 """
 
@@ -91,6 +114,7 @@ RG_TOL = 1e-5                   # RG-LRU scan: the kernel's sequential f32
 SSD_TOL = 1e-3                  # SSD scan: f32 sums of 16-128 terms and a
 #                                 2048-step carried state, in another order
 REF_ATOL = 1e-3                 # f32 logits, card vs CPU (no TF32)
+ENCDEC_STEPS = 64               # greedy decode steps of the encdec path
 
 
 def fail(msg: str) -> None:
@@ -553,6 +577,159 @@ def phase_recurrent_kernels(rg_cfg, mb_cfg):
     return rows
 
 
+def attention_pairs(qpos, kpos, causal: bool):
+    """[sq, skv] bool: the (query, key) pairs the attention function
+    computes — keys at a position >= 0 and, when causal, not after the
+    query's position."""
+    ok = (kpos[None, :] >= 0).expand(qpos.shape[0], -1)
+    return ok & (kpos[None, :] <= qpos[:, None]) if causal else ok
+
+
+def phase_flash_kernels(cfg, sm_cfg):
+    """flash_attention against its plain version (the blocked loop, on the
+    same inputs in the same dtype) on the rows that have a valid key — a
+    row with none is garbage in the plain loop and zeros from the kernel,
+    and the model never reads it. Ragged shapes first (head dims 16-128,
+    sq != skv, -1 key positions, queries starting past 0, the seamless
+    smoke config's encoder and cross shapes, every engine bucket at
+    minitron-8b's widths), then the three full-width shapes with times:
+    minitron-8b's 2048-token causal prefill (32 q / 8 KV heads of 128),
+    seamless-m4t-medium's encoder (1536 frames, 16 heads of 64) and its
+    cross attention (1024 x 1536), bf16. Inputs rotate over 4 sets.
+    Library: SDPA on the [b, h, s, d] transposed views."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+    from repro_torch.serving.engine import prefill_buckets
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1357)
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def inputs(b, sq, skv, hq, hkv, d, dtype, holes=False, q_off=0):
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device=dev).to(dtype)
+        x = {"q": randn(b, sq, hq, d), "k": randn(b, skv, hkv, d),
+             "v": randn(b, skv, hkv, d),
+             "qpos": torch.arange(sq, dtype=torch.int32, device=dev) + q_off,
+             "kpos": torch.arange(skv, dtype=torch.int32, device=dev)}
+        if holes:
+            x["kpos"][skv // 3:skv // 3 + 70] = -1
+            x["kpos"][-5:] = -1
+        return x
+
+    def kern(x, causal):
+        return FA.flash_attention(x["q"], x["k"], x["v"], x["qpos"],
+                                  x["kpos"], causal=causal)
+
+    def plain(x, causal, blocks):
+        return FA.blocked_attention(x["q"], x["k"], x["v"], x["qpos"],
+                                    x["kpos"], causal=causal, window=0,
+                                    block_q=blocks[0], block_kv=blocks[1])
+
+    def check(label, x, causal, blocks):
+        got = kern(x, causal)
+        torch.cuda.synchronize()
+        want = plain(x, causal, blocks).float()
+        rows = attention_pairs(x["qpos"], x["kpos"], causal).any(1)
+        tol = ATOL if x["q"].dtype == bf16 else F32_TOL
+        err = (got.float() - want)[:, rows].abs()
+        bad = err > tol + tol * want[:, rows].abs()
+        if not torch.isfinite(got[:, rows]).all() or bool(bad.any()):
+            fail(f"flash_attention ({label}): kernel disagrees with its "
+                 f"plain version (max abs err {float(err.max()):.3e}, "
+                 f"{int(bad.sum())} elements past atol=rtol={tol})")
+        return float(err.max())
+
+    small = (16, 32)
+    for (b, sq, skv, hq, hkv, d, causal, dtype, holes, q_off) in (
+            (1, 257, 257, 4, 2, 16, True, f32, False, 0),
+            (2, 24, 24, 4, 4, 32, False, f32, False, 0),   # seamless smoke
+            (2, 40, 24, 4, 4, 32, False, f32, False, 0),   # its cross
+            (2, 100, 300, 4, 1, 64, False, bf16, True, 0),
+            (1, 70, 150, 4, 2, 48, True, f32, True, 40),
+            (1, 130, 130, 8, 8, 128, True, bf16, False, 0),
+            (2, 33, 33, 6, 2, 80, True, bf16, False, 0),
+            (1, 65, 200, 2, 1, 96, False, bf16, True, 0),
+            (1, 50, 50, 2, 2, 112, True, f32, False, 0),
+            (1, 1, 1, 2, 1, 64, True, bf16, False, 0)):
+        check(f"b {b} sq {sq} skv {skv} hq {hq} hkv {hkv} d {d} causal "
+              f"{causal} {dtype}", inputs(b, sq, skv, hq, hkv, d, dtype,
+                                          holes, q_off), causal, small)
+    blocks = (cfg.attn_block_q, cfg.attn_block_kv)
+    for s in prefill_buckets(2048):
+        check(f"minitron bucket {s}", inputs(1, s, s, cfg.num_heads,
+                                             cfg.num_kv_heads,
+                                             cfg.head_dim, bf16),
+              True, blocks)
+    log("[kernels] flash_attention agrees with its plain version at ragged "
+        "shapes (d 16-128, sq 1-257, skv 1-300, -1 keys, f32 and bf16) and "
+        f"every engine bucket {prefill_buckets(2048)} at minitron-8b's "
+        f"widths, on the rows with a valid key")
+
+    sm_blocks = (sm_cfg.attn_block_q, sm_cfg.attn_block_kv)
+    hs, ds = sm_cfg.num_heads, sm_cfg.head_dim
+    src = sm_cfg.source_len
+    shapes = [
+        (f"{cfg.name} prefill b 1 s 2048 hq {cfg.num_heads} hkv "
+         f"{cfg.num_kv_heads} d {cfg.head_dim} causal",
+         (1, 2048, 2048, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim),
+         True, blocks),
+        (f"{sm_cfg.name} encoder b 1 s {src} h {hs} d {ds}",
+         (1, src, src, hs, hs, ds), False, sm_blocks),
+        (f"{sm_cfg.name} cross b 1 sq 1024 skv {src} h {hs} d {ds}",
+         (1, 1024, src, hs, hs, ds), False, sm_blocks),
+    ]
+    rows = {}
+    for label, (b, sq, skv, hq, hkv, d), causal, blk in shapes:
+        sets = [inputs(b, sq, skv, hq, hkv, d, bf16) for _ in range(4)]
+        err = check(label, sets[0], causal, blk)
+        it = {"i": 0}
+
+        def nxt():
+            it["i"] = (it["i"] + 1) % len(sets)
+            return sets[it["i"]]
+
+        def sdpa(x):
+            return F.scaled_dot_product_attention(
+                x["q"].transpose(1, 2), x["k"].transpose(1, 2),
+                x["v"].transpose(1, 2), is_causal=causal, enable_gqa=True)
+
+        ms = time_ms(lambda: kern(nxt(), causal), iters=20)
+        plain_ms = time_ms(lambda: plain(nxt(), causal, blk), iters=3,
+                           warmup=1)
+        library_ms = time_ms(lambda: sdpa(nxt()), iters=20)
+        pairs = int(attention_pairs(sets[0]["qpos"], sets[0]["kpos"],
+                                    causal).sum())
+        flops = 4 * b * hq * d * pairs
+        nbytes = 2 * (2 * b * sq * hq * d + 2 * b * skv * hkv * d) \
+            + 4 * (sq + skv)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+        bound_ms = max(t_bytes, t_ops) * 1e3
+        bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        log(f"[kernels] flash_attention ({label}): max_abs_err {err:.3e} "
+            f"kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
+            f"{library_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by}; "
+            f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP; kernel "
+            f"{flops / ms / 1e9:.1f} TFLOP/s)")
+        if not rows:                     # the JSON row: minitron's prefill
+            rows["flash_attention"] = {
+                "name": "flash_attention", "route": "cuda",
+                "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                          "flash_attention.cu",
+                "replaces": "src/repro/kernels/flash_attention/"
+                            "flash_attention.py:98",
+                "launches": 0, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": library_ms}
+        del sets
+        torch.cuda.empty_cache()
+    log("[kernels] library_ms: flash_attention — "
+        "torch.nn.functional.scaled_dot_product_attention (is_causal, "
+        "enable_gqa) on the transposed [b, h, s, d] views")
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phases 3 and 4: the main path at full width
 # ---------------------------------------------------------------------------
@@ -608,6 +785,43 @@ def profile_round(eng, name: str, steps: int = 4) -> None:
         t0 = time.perf_counter()
         eng.decode_round(steps=steps)
         wall_us = (time.perf_counter() - t0) * 1e6
+    log_profile(prof, name, wall_us, steps, "step")
+
+
+def profile_prefill(cfg, params, n: int = 1500, width: int = 2048) -> None:
+    """Where a prefill's time goes: one prompt of ``n`` tokens in the
+    ``width`` bucket (with the encoder's frames for encdec) through
+    ``LM.prefill`` under torch.profiler, after the path's launch window."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models.frontends import fake_audio_frames
+    from repro_torch.models.transformer import LM
+    tokens = np.zeros((1, width), np.int32)
+    tokens[0, :n] = np.random.default_rng(5).integers(0, cfg.vocab_size, n)
+    batch = {"tokens": torch.from_numpy(tokens).cuda(), "length": n}
+    if cfg.family == "encdec":
+        batch["frames"] = fake_audio_frames(
+            cfg, torch.Generator(device="cuda").manual_seed(5), 1)
+    lm = LM(cfg)
+    with torch.no_grad():
+        lm.prefill(params, batch, width)          # warm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            lm.prefill(params, batch, width)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    log_profile(prof, f"{cfg.name} prefill {n} tokens (bucket {width})",
+                wall_us, 1, "prefill")
+
+
+def log_profile(prof, name: str, wall_us: float, steps: int,
+                unit: str) -> None:
+    """Device-busy share of the wall time, the kernels that take the most
+    device time and the host ops that take the most host time, per
+    ``unit`` (``steps`` of them in the profile)."""
 
     def dev_us(e):
         return getattr(e, "self_device_time_total",
@@ -619,19 +833,21 @@ def profile_round(eng, name: str, steps: int = 4) -> None:
     events = [e for e in avgs
               if str(e.device_type).endswith("CUDA") and dev_us(e) > 0]
     busy = sum(dev_us(e) for e in events)
-    log(f"[profile] {name}: {steps} steps wall {wall_us / steps / 1e3:.2f} "
-        f"ms/step (profiled), device busy {busy / steps / 1e3:.2f} ms/step "
-        f"= {100 * busy / wall_us:.1f}% of wall")
+    log(f"[profile] {name}: {steps} {unit}s wall "
+        f"{wall_us / steps / 1e3:.2f} ms/{unit} (profiled), device busy "
+        f"{busy / steps / 1e3:.2f} ms/{unit} = {100 * busy / wall_us:.1f}% "
+        f"of wall")
     for e in sorted(events, key=dev_us, reverse=True)[:8]:
-        log(f"[profile] {name}:   {dev_us(e) / steps / 1e3:8.3f} ms/step "
+        log(f"[profile] {name}:   {dev_us(e) / steps / 1e3:8.3f} ms/{unit} "
             f"x{e.count // steps:<4d} {e.key[:90]}")
     host = [e for e in avgs if str(e.device_type).endswith("CPU")]
     log(f"[profile] {name}: host ops "
-        f"{sum(e.count for e in host) // steps} per step; by self CPU time:")
+        f"{sum(e.count for e in host) // steps} per {unit}; by self CPU "
+        f"time:")
     for e in sorted(host, key=lambda e: e.self_cpu_time_total,
                     reverse=True)[:8]:
         log(f"[profile] {name}:   {e.self_cpu_time_total / steps / 1e3:8.3f}"
-            f" ms/step x{e.count // steps:<5d} {e.key[:60]}")
+            f" ms/{unit} x{e.count // steps:<5d} {e.key[:60]}")
 
 
 def engine_prompts(cfg):
@@ -762,9 +978,10 @@ def drive_recurrent(cfg, params, kernel: str, per_prefill: int,
                     counters) -> int:
     """The main path of a recurrent family: serve() and the dense engine,
     inside the launch window; ``kernel`` must be launched ``per_prefill``
-    times per prefill of the path and the decode-attention kernels not at
-    all (the hybrid's ring decode is plain, as in the reference). The
-    checks run after the counters are read. Returns the path's launches."""
+    times per prefill of the path and the decode-attention kernels and
+    flash_attention not at all (the hybrid's ring decode is plain, as in
+    the reference, and its windowed prefill is banded). The checks run
+    after the counters are read. Returns the path's launches."""
     with PrefillCount() as pc:
         launches, out = drive_path(cfg.name, counters, (kernel,), drive_model,
                                    cfg, params, (False,))
@@ -776,10 +993,149 @@ def drive_recurrent(cfg, params, kernel: str, per_prefill: int,
              f"no linear KV cache")
     log(f"[main path] {cfg.name}: {kernel} launched {launches[kernel]} = "
         f"{per_prefill} x {pc.n} prefills")
+    check_flash(cfg.name, launches, 0, pc.n)
     check_paged_keeps_dense(cfg, params, out["dense"])
     check_state_transfer(cfg, params)
     check_logits(cfg, params)
     return launches
+
+
+class EncodeTimer:
+    """Times each ``LM._encode`` call on the device (CUDA events around
+    it) inside a ``with`` block: an instrumentation of this script, to
+    split an encdec TTFT into encoder and decoder."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models.transformer import LM
+        self.events, self._orig = [], LM._encode
+
+        def timed(lm, *args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = self._orig(lm, *args, **kw)
+            end.record()
+            self.events.append((start, end))
+            return out
+
+        LM._encode = timed
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models.transformer import LM
+        LM._encode = self._orig
+
+    def ms(self):
+        return [start.elapsed_time(end) for start, end in self.events]
+
+
+def drive_encdec(cfg, params, max_len: int = 2048) -> dict:
+    """The encdec main path through the model's entry points (the engine
+    serves no encdec model, in either package): 8 prompts of 64-1024
+    tokens, each with 1536 frames from the audio frontend stub,
+    right-padded to the engine's buckets and prefilled one at a time with
+    ``LM.prefill``; their caches laid into one batch-8 cache; then
+    ``ENCDEC_STEPS`` greedy ``LM.decode_step``s on it. Returns what the
+    checks read: the first prefill's and the last step's logits, the
+    cache, a copy of its cross K/V taken before decode, the tokens."""
+    import numpy as np
+    import torch
+    from repro_torch.models import kvcache as KV
+    from repro_torch.models.frontends import fake_audio_frames
+    from repro_torch.models.transformer import LM
+    from repro_torch.serving.engine import prefill_buckets
+
+    lm = LM(cfg)
+    rng = np.random.default_rng(13)
+    lens = rng.integers(64, 1025, size=8)
+    buckets = prefill_buckets(max_len)
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    cache = KV.init_cache(cfg, len(lens), max_len, device="cuda")
+    first, ttft, widths, out = [], [], [], {}
+    with torch.no_grad(), EncodeTimer() as enc:
+        for i, n in enumerate(lens):
+            n = int(n)
+            width = next(b for b in buckets if n <= b)
+            tokens = np.zeros((1, width), np.int32)
+            tokens[0, :n] = rng.integers(0, cfg.vocab_size, size=n)
+            frames = fake_audio_frames(cfg, gen, 1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, one = lm.prefill(params, {
+                "tokens": torch.from_numpy(tokens).cuda(), "length": n,
+                "frames": frames}, max_len)
+            first.append(logits.argmax(-1).to(torch.int32))
+            torch.cuda.synchronize()
+            ttft.append((time.perf_counter() - t0) * 1e3)
+            widths.append(width)
+            out.setdefault("prefill_logits", logits)
+            for key in ("k", "v"):
+                cache["layers"][key][:, i] = one["layers"][key][:, 0]
+            for key in ("cross_k", "cross_v"):
+                cache[key][:, i] = one[key][:, 0]
+            cache["pos"][i] = n
+            del one
+        torch.cuda.synchronize()
+        enc_ms = enc.ms()
+        out["cross_before"] = {k: cache[k].clone()
+                               for k in ("cross_k", "cross_v")}
+        tok = torch.stack(first)                      # [8, 1]
+        toks = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(ENCDEC_STEPS):
+            logits, cache = lm.decode_step(params, cache, tok)
+            tok = logits[:, 0].argmax(-1, keepdim=True).to(torch.int32)
+            toks.append(tok)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    out.update(cache=cache, decode_logits=logits,
+               tokens=torch.cat(toks, dim=1).cpu())
+    log(f"[encdec] {cfg.name}: prompts {lens.tolist()} buckets {widths} "
+        f"({cfg.source_len} frames each)")
+    log(f"[encdec] {cfg.name}: ttft_ms {[round(t, 2) for t in ttft]}")
+    log(f"[encdec] {cfg.name}: encoder_ms (device) "
+        f"{[round(t, 2) for t in enc_ms]}; decoder_ms (ttft - encoder) "
+        f"{[round(t - e, 2) for t, e in zip(ttft, enc_ms)]}")
+    log(f"[encdec] {cfg.name}: decode {dt / ENCDEC_STEPS * 1e3:.2f} ms/step, "
+        f"{len(lens) * ENCDEC_STEPS / dt:.1f} tok/s (8 rows x {ENCDEC_STEPS} "
+        f"greedy steps)")
+    return out
+
+
+def check_encdec(cfg, out) -> None:
+    """The encdec path's results: finite logits of the expected shapes,
+    tokens in range, cross K/V bit-unchanged by decode."""
+    import torch
+    V = cfg.padded_vocab
+    for name, shape in (("prefill_logits", (1, V)),
+                        ("decode_logits", (8, 1, V))):
+        lg = out[name]
+        if tuple(lg.shape) != shape \
+                or not torch.isfinite(lg[..., :cfg.vocab_size]).all():
+            fail(f"{cfg.name}: {name} {tuple(lg.shape)} not finite of shape "
+                 f"{shape}")
+    toks = out["tokens"]
+    if tuple(toks.shape) != (8, ENCDEC_STEPS) or int(toks.min()) < 0 \
+            or int(toks.max()) >= cfg.vocab_size:
+        fail(f"{cfg.name}: decode tokens {tuple(toks.shape)} out of range")
+    for key, before in out["cross_before"].items():
+        if not torch.equal(out["cache"][key], before):
+            fail(f"{cfg.name}: decode changed {key}")
+    log(f"[encdec] {cfg.name}: prefill and decode logits finite; cross_k/"
+        f"cross_v bit-unchanged by {ENCDEC_STEPS} decode steps")
+
+
+def check_flash(name: str, launches, per_prefill: int, prefills: int):
+    """flash_attention launched exactly once per full-attention layer of
+    each prefill of the path."""
+    got = launches["flash_attention"]
+    if got != per_prefill * prefills:
+        fail(f"{name}: flash_attention launched {got} times in {prefills} "
+             f"prefills, expected {per_prefill} per prefill")
+    log(f"[main path] {name}: flash_attention launched {got} = "
+        f"{per_prefill} x {prefills} prefills")
 
 
 def init_model(cfg):
@@ -926,9 +1282,9 @@ def check_logits(cfg, params):
 
 def card_vs_cpu(cfg, label: str, paged: bool) -> float:
     """Prefill + 8 greedy decode steps of ``cfg`` (f32) on the CPU and on
-    the card from the same weights and prompt; each side feeds back its own
-    argmax. Fails on a token that differs; returns the largest logit
-    difference."""
+    the card from the same weights and prompt (and, for encdec, frames);
+    each side feeds back its own argmax. Fails on a token that differs;
+    returns the largest logit difference."""
     import numpy as np
     import torch
     from repro_torch.bridge import tree_map
@@ -937,13 +1293,17 @@ def card_vs_cpu(cfg, label: str, paged: bool) -> float:
     lm = LM(cfg)
     cpu_params = lm.init(5, "cpu")
     gpu_params = tree_map(lambda t: t.cuda(), cpu_params)
-    prompt = np.random.default_rng(9).integers(0, cfg.vocab_size,
-                                               size=(2, 40))
+    rng = np.random.default_rng(9)
+    prompt = rng.integers(0, cfg.vocab_size, size=(2, 40))
+    frames = (rng.standard_normal((2, cfg.source_len, cfg.d_model))
+              * 0.02).astype(np.float32)
     res, toks_seen = [], []
     with torch.no_grad():
         for params, dev in ((cpu_params, "cpu"), (gpu_params, "cuda")):
-            toks = torch.from_numpy(prompt).to(dev)
-            logits, cache = lm.prefill(params, {"tokens": toks}, 64)
+            batch = {"tokens": torch.from_numpy(prompt).to(dev)}
+            if cfg.family == "encdec":
+                batch["frames"] = torch.from_numpy(frames).to(dev)
+            logits, cache = lm.prefill(params, batch, 64)
             if paged:
                 # the same rows laid out as pages of 16 through a table
                 L_, b, S, kh, hd = cache["layers"]["k"].shape
@@ -1028,10 +1388,13 @@ def phase_reference():
     # (32): widen the heads, keep the MoE layer (4 experts, top-2)
     moe = dataclasses.replace(get_smoke_config("qwen3-moe-30b-a3b"),
                               dtype="float32", head_dim=32)
+    encdec = dataclasses.replace(get_smoke_config("seamless-m4t-medium"),
+                                 dtype="float32", head_dim=32)
     worst = max(card_vs_cpu(tiny, "edge-tiny", False),
                 card_vs_cpu(tiny, "edge-tiny", True),
                 card_vs_cpu(moe, moe.name, False),
-                recurrent_card_vs_cpu())
+                recurrent_card_vs_cpu(),
+                card_vs_cpu(encdec, encdec.name, False))
     if worst > REF_ATOL:
         fail(f"card and CPU logits differ by {worst:.3e} > {REF_ATOL}")
     adapters_card_vs_cpu(tiny)
@@ -1085,6 +1448,7 @@ def main() -> None:
         from repro_torch.configs import get_config
         from repro_torch.kernels.decode_attention import decode_attention \
             as DA
+        from repro_torch.kernels.flash_attention import flash_attention as FA
         from repro_torch.kernels.moe_gemm import moe_gemm as MG
         from repro_torch.kernels.rglru_scan import rglru_scan as RS
         from repro_torch.kernels.ssd_chunk import ssd_chunk as SC
@@ -1099,7 +1463,9 @@ def main() -> None:
     moe_cfg = get_config("qwen3-moe-30b-a3b")
     rg_cfg = get_config("recurrentgemma-2b")
     mb_cfg = get_config("mamba2-1.3b")
+    sm_cfg = get_config("seamless-m4t-medium")
     rows = phase_kernels(cfg)
+    rows.update(phase_flash_kernels(cfg, sm_cfg))
     rows.update(phase_moe_kernels(moe_cfg, cfg.d_model))
     rows.update(phase_recurrent_kernels(rg_cfg, mb_cfg))
     if quick:
@@ -1108,30 +1474,39 @@ def main() -> None:
             f"{time.perf_counter() - t_start:.1f} s")
         return
 
-    counters = (DA, MG, RS, SC)
-    attn = ("decode_attention", "paged_decode_attention")
+    counters = (DA, FA, MG, RS, SC)
+    attn = ("decode_attention", "paged_decode_attention", "flash_attention")
     paths = []
 
     params = init_model(cfg)
-    launches, _ = drive_path(cfg.name, counters, attn, drive_model, cfg,
-                             params)
+    with PrefillCount() as pc:
+        launches, _ = drive_path(cfg.name, counters, attn, drive_model, cfg,
+                                 params)
+    check_flash(cfg.name, launches, cfg.num_layers, pc.n)
     paths.append(launches)
     catalog, sessions = adapter_setup(cfg)
-    launches, mixed = drive_path(
-        f"{cfg.name} adapters", counters, ("decode_attention", "moe_gemm"),
-        phase_adapters, cfg, params, catalog, sessions)
+    with PrefillCount() as pc:
+        launches, mixed = drive_path(
+            f"{cfg.name} adapters", counters,
+            ("decode_attention", "moe_gemm", "flash_attention"),
+            phase_adapters, cfg, params, catalog, sessions)
+    check_flash(f"{cfg.name} adapters", launches, cfg.num_layers, pc.n)
     paths.append(launches)
     check_adapters(cfg, params, catalog, sessions, mixed)
     check_logits(cfg, params)
+    profile_prefill(cfg, params)
     del params
     release_memory()
 
     params = init_model(moe_cfg)
-    launches, _ = drive_path(moe_cfg.name, counters,
-                             attn + ("moe_gemm", "moe_ffn_fused"),
-                             drive_model, moe_cfg, params)
+    with PrefillCount() as pc:
+        launches, _ = drive_path(moe_cfg.name, counters,
+                                 attn + ("moe_gemm", "moe_ffn_fused"),
+                                 drive_model, moe_cfg, params)
+    check_flash(moe_cfg.name, launches, moe_cfg.num_layers, pc.n)
     paths.append(launches)
     check_logits(moe_cfg, params)
+    profile_prefill(moe_cfg, params)
     log(f"[moe] peak device memory "
         f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
     del params
@@ -1148,6 +1523,27 @@ def main() -> None:
             f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
         del params
         release_memory()
+
+    torch.cuda.reset_peak_memory_stats()
+    params = init_model(sm_cfg)
+    with PrefillCount() as pc:
+        launches, out = drive_path(sm_cfg.name, counters,
+                                   ("flash_attention", "decode_attention"),
+                                   drive_encdec, sm_cfg, params)
+    check_flash(sm_cfg.name, launches, sm_cfg.encoder_layers
+                + 2 * sm_cfg.num_layers, pc.n)
+    if launches["decode_attention"] != sm_cfg.num_layers * ENCDEC_STEPS \
+            or launches["paged_decode_attention"]:
+        fail(f"{sm_cfg.name}: decode attention launched "
+             f"{launches['decode_attention']} times in {ENCDEC_STEPS} steps, "
+             f"expected {sm_cfg.num_layers} per step (paged: none)")
+    paths.append(launches)
+    check_encdec(sm_cfg, out)
+    profile_prefill(sm_cfg, params, n=700, width=1024)
+    log(f"[encdec] {sm_cfg.name} peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del params, out
+    release_memory()
 
     for name, row in rows.items():
         row["launches"] = sum(p[name] for p in paths)

@@ -2,10 +2,11 @@
 
 A second package beside the JAX reference ``repro``: the same control plane
 (copied, not imported), the dense GQA, MoE, hybrid (RG-LRU + local
-attention) and SSM (Mamba-2) model families, per-session LoRA adapters, the
-continuous-batching engine and the serving front, with hand-written Hopper
-kernels for decode attention, the grouped expert GEMMs, the RG-LRU scan
-and the SSD chunked scan. It imports ``torch`` and numpy and nothing of the reference package.
+attention), SSM (Mamba-2) and encoder-decoder model families, per-session
+LoRA adapters, the continuous-batching engine and the serving front, with
+hand-written Hopper kernels for whole-sequence (flash) attention, decode
+attention, the grouped expert GEMMs, the RG-LRU scan and the SSD chunked
+scan. It imports ``torch`` and numpy and nothing of the reference package.
 
 Entry points run on the CUDA card unless the caller asks for the CPU
 (``device="cpu"``, as the tests do); with no card and no explicit device they

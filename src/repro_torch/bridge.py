@@ -106,7 +106,8 @@ def params_to_torch(params, cfg: ModelConfig, device=None):
     it in, decided by its key and not by the dtype it arrives in: the
     leaves under ``F32_KEYS`` are float32, other float leaves take
     ``cfg.dtype``, integer leaves (int8 weights) stay as they are. Works for
-    any family's tree (dense, MoE, the hybrid's tuple of layers, SSM)."""
+    any family's tree (dense, MoE, the hybrid's tuple of layers, SSM,
+    encdec)."""
     return _by_key(params, F32_KEYS, device, dtype_of(cfg))
 
 

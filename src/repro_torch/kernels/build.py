@@ -29,6 +29,7 @@ BUILD_DIR = _HERE / "_build"
 #: library name -> its source, relative to this directory
 SOURCES: Dict[str, str] = {
     "decode_attention": "decode_attention/csrc/decode_attention.cu",
+    "flash_attention": "flash_attention/csrc/flash_attention.cu",
     "moe_gemm": "moe_gemm/csrc/moe_gemm.cu",
     "rglru_scan": "rglru_scan/csrc/rglru_scan.cu",
     "ssd_chunk": "ssd_chunk/csrc/ssd_chunk.cu",

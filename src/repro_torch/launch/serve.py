@@ -7,11 +7,11 @@ serving planes, driven END-TO-END through the northbound session API.
 Every session is established, served, and released by a
 :class:`~repro_torch.api.client.SessionClient` speaking JSON to the
 :class:`~repro_torch.api.gateway.NorthboundGateway`. The engines run on the
-CUDA card (``device=None``) through the hand-written kernels (decode
-attention; the grouped expert GEMMs for ``qwen3-moe-30b-a3b``; the RG-LRU
-scan for ``recurrentgemma-2b`` and the SSD chunked scan for
-``mamba2-1.3b`` at prefill); ``device="cpu"`` runs their plain PyTorch
-versions instead.
+CUDA card (``device=None``) through the hand-written kernels (flash
+attention at prefill and decode attention for the full-attention models;
+the grouped expert GEMMs for ``qwen3-moe-30b-a3b``; the RG-LRU scan for
+``recurrentgemma-2b`` and the SSD chunked scan for ``mamba2-1.3b`` at
+prefill); ``device="cpu"`` runs their plain PyTorch versions instead.
 """
 
 from __future__ import annotations

@@ -1,16 +1,19 @@
-"""Attention layers: projections, causal prefill attention, and cached
-single-token decode (dense, paged and sliding-window ring KV).
+"""Attention layers: projections, whole-sequence attention (causal
+prefill, the encoder's bidirectional self attention, cross attention) and
+cached single-token decode (dense, paged and sliding-window ring KV, and
+cross attention over the cached encoder K/V).
 
-Prefill runs ``blocked_attention``, a plain-PyTorch port of the reference's
-blocked online-softmax (its scan becomes a loop over blocks), or, for a
-sliding window, ``banded_attention``, the port of the reference's banded
-form (one KV band per query block). Decode over a linear buffer always goes
-through the hand-written kernels of ``repro_torch.kernels.decode_attention``:
-on a CUDA tensor they launch, on a CPU tensor their plain versions run.
-Decode over a ring buffer (sliding window) stays plain PyTorch, as the
-reference keeps it on its jnp path (attention.py:385).
-
-Cross attention (encdec) is not ported yet: ROADMAP.md queue 1.
+Whole-sequence attention without a window or a logit softcap goes through
+the hand-written kernel of ``repro_torch.kernels.flash_attention`` (the
+reference runs its jnp ``blocked_attention`` there, attention.py:283-304 and
+:323-336); the plain blocked loop beside that kernel keeps the windowed and
+softcapped cases, and a sliding window's prefill runs ``banded_attention``,
+the port of the reference's banded form (one KV band per query block).
+Decode over a linear buffer always goes through the hand-written kernels of
+``repro_torch.kernels.decode_attention``. On a CUDA tensor the kernels
+launch, on a CPU tensor their plain versions run. Decode over a ring buffer
+(sliding window) and decode cross attention stay plain PyTorch, as the
+reference keeps them on its jnp path (attention.py:385, :503-518).
 """
 
 from __future__ import annotations
@@ -21,12 +24,12 @@ import torch
 
 from repro_torch.kernels.decode_attention.decode_attention import (
     decode_attention, paged_decode_attention)
+from repro_torch.kernels.flash_attention.flash_attention import (
+    blocked_attention, flash_attention, pad_to)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models import layers as L
 
 NEG_INF = -1e30
-
-_OTHER_FAMILIES = "ROADMAP.md queue 1 (encdec and frontends)"
 
 
 def _project_q(p, cfg: ModelConfig, x, positions):
@@ -56,75 +59,8 @@ def _out_proj(p, cfg: ModelConfig, o, x):
 
 
 # ---------------------------------------------------------------------------
-# prefill: blocked online-softmax attention
+# whole-sequence attention
 # ---------------------------------------------------------------------------
-
-def _pad_to(x, dim, multiple, value=0):
-    n = x.shape[dim]
-    pad = (-n) % multiple
-    if pad == 0:
-        return x
-    shape = list(x.shape)
-    shape[dim] = pad
-    return torch.cat([x, x.new_full(shape, value)], dim=dim)
-
-
-def blocked_attention(q, k, v, q_positions, k_positions, *, causal: bool,
-                      window: int, block_q: int, block_kv: int,
-                      softcap: float = 0.0):
-    """Flash-style attention. q: [b, sq, hq, d]; k/v: [b, skv, kh, d];
-    ``q_positions``/``k_positions``: [sq] / [skv] absolute positions (padding
-    rows carry -1 keys). Scores and the running (m, l, o) statistics are
-    f32; probabilities are rounded to v's dtype before the PV product, as in
-    the reference."""
-    b, sq, hq, d = q.shape
-    kh = k.shape[2]
-    g = hq // kh
-    scale = 1.0 / math.sqrt(d)
-
-    qp = _pad_to(q, 1, block_q)
-    qpos = _pad_to(q_positions, 0, block_q)
-    kp = _pad_to(k, 1, block_kv)
-    vp = _pad_to(v, 1, block_kv)
-    kpos = _pad_to(k_positions, 0, block_kv, value=-1)
-    nq, nk = qp.shape[1] // block_q, kp.shape[1] // block_kv
-
-    outs = []
-    for iq in range(nq):
-        qs = slice(iq * block_q, (iq + 1) * block_q)
-        qblk = qp[:, qs].reshape(b, block_q, kh, g, d).float()
-        qpb = qpos[qs]
-        m = qblk.new_full((b, kh, g, block_q), NEG_INF)
-        l = qblk.new_zeros((b, kh, g, block_q))
-        o = qblk.new_zeros((b, kh, g, block_q, d))
-        for ik in range(nk):
-            ks = slice(ik * block_kv, (ik + 1) * block_kv)
-            vblk = vp[:, ks]
-            kpb = kpos[ks]
-            s = torch.einsum("bqhgd,bkhd->bhgqk", qblk,
-                             kp[:, ks].float()) * scale
-            if softcap:
-                s = L.softcap(s, softcap)
-            valid = (kpb[None, :] >= 0)
-            if causal:
-                valid = valid & (kpb[None, :] <= qpb[:, None])
-            if window:
-                valid = valid & (kpb[None, :] > qpb[:, None] - window)
-            s = torch.where(valid, s, torch.full_like(s, NEG_INF))
-            m_new = torch.maximum(m, s.amax(dim=-1))
-            p = torch.exp(s - m_new[..., None])
-            alpha = torch.exp(m - m_new)
-            l = l * alpha + p.sum(dim=-1)
-            pv = torch.einsum("bhgqk,bkhd->bhgqd",
-                              p.to(vblk.dtype).float(), vblk.float())
-            o = o * alpha[..., None] + pv
-            m = m_new
-        o = o / torch.clamp(l[..., None], min=1e-37)
-        # [b, kh, g, bq, d] -> [b, bq, kh*g, d]
-        outs.append(o.permute(0, 3, 1, 2, 4).reshape(b, block_q, hq, d)
-                    .to(q.dtype))
-    return torch.cat(outs, dim=1)[:, :sq]
-
 
 def banded_attention(q, k, v, q_positions, k_positions, *, window: int,
                      block_q: int, softcap: float = 0.0):
@@ -139,15 +75,15 @@ def banded_attention(q, k, v, q_positions, k_positions, *, window: int,
     g = hq // kh
     scale = 1.0 / math.sqrt(d)
     band = window + block_q
-    qp = _pad_to(q, 1, block_q)
-    qpos = _pad_to(q_positions, 0, block_q)
+    qp = pad_to(q, 1, block_q)
+    qpos = pad_to(q_positions, 0, block_q)
     skv = k.shape[1]
     # left-pad KV by the band so every band slice stays in range; both pads
     # (left band, right round-up) read as invalid positions
     kz = k.new_zeros((b, band, kh, d))
-    kp = _pad_to(torch.cat([kz, k], dim=1), 1, block_q)
-    vp = _pad_to(torch.cat([kz, v], dim=1), 1, block_q)
-    kpos = _pad_to(torch.cat([k_positions.new_full((band,), -1),
+    kp = pad_to(torch.cat([kz, k], dim=1), 1, block_q)
+    vp = pad_to(torch.cat([kz, v], dim=1), 1, block_q)
+    kpos = pad_to(torch.cat([k_positions.new_full((band,), -1),
                               k_positions]), 0, block_q, value=-1)
     outs = []
     for iq in range(qp.shape[1] // block_q):
@@ -174,22 +110,52 @@ def banded_attention(q, k, v, q_positions, k_positions, *, window: int,
 
 
 def full_attention(q, k, v, qpos, kpos, cfg: ModelConfig, *, causal=True):
-    """Dispatch between the banded (sliding window) and blocked paths."""
+    """Dispatch: the banded path for a causal sliding window, the plain
+    blocked loop for any other window or a logit softcap, and otherwise the
+    ``flash_attention`` kernel (the rule the reference applies to its Pallas
+    decode, attention.py:385)."""
     if cfg.sliding_window and causal:
         return banded_attention(q, k, v, qpos, kpos,
                                 window=cfg.sliding_window,
                                 block_q=cfg.attn_block_q,
                                 softcap=cfg.attn_logits_softcap)
-    return blocked_attention(q, k, v, qpos, kpos, causal=causal,
-                             window=cfg.sliding_window,
-                             block_q=cfg.attn_block_q,
-                             block_kv=cfg.attn_block_kv,
-                             softcap=cfg.attn_logits_softcap)
+    if cfg.sliding_window or cfg.attn_logits_softcap:
+        return blocked_attention(q, k, v, qpos, kpos, causal=causal,
+                                 window=cfg.sliding_window,
+                                 block_q=cfg.attn_block_q,
+                                 block_kv=cfg.attn_block_kv,
+                                 softcap=cfg.attn_logits_softcap)
+    return flash_attention(q, k, v, qpos, kpos, causal=causal,
+                           block_q=cfg.attn_block_q,
+                           block_kv=cfg.attn_block_kv)
+
+
+def self_attention(p, cfg: ModelConfig, x, positions, *, causal=True):
+    """Whole-sequence self attention of ``x`` [b, s, d] at ``positions``
+    [s] int32 (the encoder runs it with ``causal=False``)."""
+    q = _project_q(p, cfg, x, positions)
+    k, v = _project_kv(p, cfg, x, positions)
+    o = full_attention(q, k, v, positions, positions, cfg, causal=causal)
+    return _out_proj(p, cfg, o, x)
+
+
+def project_cross_kv(p, cfg: ModelConfig, memory):
+    """The encoder side's K/V [b, src, kh, hd], projected once per session
+    (no RoPE on memory)."""
+    return _project_kv(p, cfg, memory, None)
 
 
 def cross_attention(p, cfg: ModelConfig, x, memory, mem_positions):
-    raise NotImplementedError(
-        f"cross attention (encdec) is not ported yet: {_OTHER_FAMILIES}")
+    """Decoder -> encoder attention of ``x`` [b, sq, d] over ``memory``
+    [b, src, d] at ``mem_positions`` [src] int32: no causal mask, no RoPE.
+    Through the ``flash_attention`` kernel, as the reference runs its
+    ``blocked_attention`` with no window or softcap."""
+    q = _project_q(p, cfg, x, None)
+    k, v = project_cross_kv(p, cfg, memory)
+    qpos = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    o = flash_attention(q, k, v, qpos, mem_positions, causal=False,
+                        block_q=cfg.attn_block_q, block_kv=cfg.attn_block_kv)
+    return _out_proj(p, cfg, o, x)
 
 
 # ---------------------------------------------------------------------------
@@ -312,3 +278,23 @@ def paged_decode_self_attention(p, cfg: ModelConfig, x, k_pages, v_pages,
     lengths = torch.clamp(position + 1, max=S).to(torch.int32)
     o = paged_decode_attention(q[:, 0], k_pages, v_pages, lengths, block)
     return _out_proj(p, cfg, o[:, None], x), k_pages, v_pages
+
+
+def decode_cross_attention(p, cfg: ModelConfig, x, mem_k, mem_v,
+                           mem_positions):
+    """One query per row against the cached encoder K/V ``mem_k``/``mem_v``
+    [b, src, kh, hd] (keys at ``mem_positions`` < 0 masked). Plain
+    PyTorch, as in the reference: f32 scores and softmax, the weights
+    rounded to v's dtype before the PV product. x: [b, 1, d] -> [b, 1, d]."""
+    b = x.shape[0]
+    kh, hd = cfg.num_kv_heads, cfg.head_dim
+    g = cfg.num_heads // kh
+    q = _project_q(p, cfg, x, None)
+    qh = q.reshape(b, 1, kh, g, hd).float()
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qh, mem_k.float()) / math.sqrt(hd)
+    s = torch.where(mem_positions >= 0, s, torch.full_like(s, NEG_INF))
+    w = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgqk,bkhd->bhgqd", w.to(mem_v.dtype).float(),
+                     mem_v.float())
+    o = o.permute(0, 3, 1, 2, 4).reshape(b, 1, cfg.num_heads, hd)
+    return _out_proj(p, cfg, o.to(x.dtype), x)

@@ -16,10 +16,9 @@ Layouts (the same trees the reference package builds):
 * hybrid    : ``{"layers": (per-layer dicts, slot-first: {"conv":
   [b, K-1, w], "h": [b, w] f32} for RG-LRU layers, {"k", "v":
   [b, S, kh, hd]} rings for attention layers), "pos"}``
-
-The byte math covers every family, since the control plane sizes payloads
-for every catalog model; the encoder-decoder cache is not built as tensors
-yet (ROADMAP.md).
+* encdec    : the dense layout of the decoder's self attention plus
+  ``"cross_k"``, ``"cross_v"``: [L, b, src, kh, hd], the encoder side's
+  K/V projected once at prefill and read, never written, by decode
 """
 
 from __future__ import annotations
@@ -80,10 +79,6 @@ def cache_bytes(cfg: ModelConfig, batch: int, max_len: int) -> int:
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                device=None) -> dict:
     """Zeroed decode cache in the reference's layout for the family."""
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
-        raise NotImplementedError(
-            f"{cfg.family} decode caches are not ported yet (ROADMAP.md "
-            f"queue 1)")
     from repro_torch.models.layers import dtype_of
     dt = dtype_of(cfg)
 
@@ -106,8 +101,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
             {"conv": zeros(shp["conv"]), "h": zeros(shp["h"], torch.float32)}
             if kind == "rec" else {"k": zeros(kv), "v": zeros(kv)}
             for kind in cfg._pattern()), "pos": pos}
-    return {"layers": {"k": zeros((L,) + kv), "v": zeros((L,) + kv)},
-            "pos": pos}
+    cache = {"layers": {"k": zeros((L,) + kv), "v": zeros((L,) + kv)},
+             "pos": pos}
+    if cfg.family == "encdec":
+        cross = (L, batch, cfg.source_len, cfg.num_kv_heads, cfg.head_dim)
+        cache["cross_k"], cache["cross_v"] = zeros(cross), zeros(cross)
+    return cache
 
 
 # ---------------------------------------------------------------------------

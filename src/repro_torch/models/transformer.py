@@ -1,5 +1,5 @@
-"""Decoder-only LM of the dense GQA, MoE, hybrid (RG-LRU + local attention)
-and SSM (Mamba-2) families.
+"""LM of the dense GQA, MoE, hybrid (RG-LRU + local attention), SSM
+(Mamba-2) and encoder-decoder (audio frontend) families.
 
 Params are nested dicts of tensors shaped like the reference package's
 pytree, so the bridge moves weights between the two packages leaf for leaf:
@@ -13,20 +13,25 @@ Public surface:
     init(seed, device)                     -> params
     prefill(params, batch, max_len, adapter=None)
                                            -> (last_logits [b, V], cache)
+      (encdec: ``batch["frames"]`` [b, src, d_model] feeds the encoder)
     decode_step(params, cache, tokens [b, 1], active=None, adapter=None)
                                            -> (logits [b, 1, V], cache)
 
 Block kinds: ``attn`` (attention + MLP), ``attn_moe`` (attention, then
-``models.moe`` in place of the MLP), ``rec`` (the RG-LRU block of
-``models.rglru`` + MLP) and ``ssm`` (norm + the SSD layer of
-``models.ssd``, no MLP). Sliding-window attention layers (the hybrid's
-local attention) prefill through ``banded_attention`` and decode against a
-ring buffer. The encoder-decoder family, frontends and windows in the
-dense and MoE families (mixtral) are not ported yet (ROADMAP.md queue 1).
+``models.moe`` in place of the MLP), ``attn_cross`` (the encdec decoder's
+block: causal self attention, cross attention over the encoder's output,
+MLP), ``rec`` (the RG-LRU block of ``models.rglru`` + MLP) and ``ssm``
+(norm + the SSD layer of ``models.ssd``, no MLP). The encdec encoder is a
+stack of ``attn`` blocks with bidirectional attention over the frames.
+Sliding-window attention layers (the hybrid's local attention) prefill
+through ``banded_attention`` and decode against a ring buffer. The vision
+frontend, M-RoPE and windows in the dense and MoE families (mixtral) are
+not ported yet (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, Optional
 
@@ -85,9 +90,11 @@ def _ring_buffer(x, S: int, length: Optional[int]):
     return buf[:, :S]           # takes any of the others
 
 
-def _attn_prefill(p, cfg: ModelConfig, x, positions):
+def _attn_prefill(p, cfg: ModelConfig, x, positions, memory=None,
+                  mem_positions=None):
     """Sequence pass of one attention layer; also returns its K/V
-    [b, s, kh, hd].
+    [b, s, kh, hd]. With ``memory`` (the encoder's output, encdec) the
+    block's cross attention over it follows the self attention.
 
     With a right-padded prompt, padded keys sit strictly after every real
     query (causality); decode masks a linear buffer's tail by position and
@@ -98,13 +105,18 @@ def _attn_prefill(p, cfg: ModelConfig, x, positions):
     q = A._project_q(p["attn"], cfg, h, positions)
     o = A.full_attention(q, k, v, positions, positions, cfg, causal=True)
     x = x + A._out_proj(p["attn"], cfg, o, x)
+    if memory is not None:
+        hx = L.rmsnorm_apply(p["norm_x"], x, cfg.norm_eps)
+        x = x + A.cross_attention(p["xattn"], cfg, hx, memory, mem_positions)
     return x + _ffn(p, cfg, x), k, v
 
 
 def _attn_decode(p, cfg: ModelConfig, x, k_layer, v_layer, position,
-                 active=None, block=None):
+                 active=None, block=None, cross=None):
     """Single-token pass of one attention layer; ``block`` selects the
-    paged pool."""
+    paged pool; ``cross`` (encdec) is the layer's cached encoder K/V
+    ``(cross_k, cross_v)`` [b, src, kh, hd], attended after the self
+    attention and never written."""
     h = L.rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
     if block is not None:
         y, _, _ = A.paged_decode_self_attention(
@@ -115,6 +127,11 @@ def _attn_decode(p, cfg: ModelConfig, x, k_layer, v_layer, position,
             p["attn"], cfg, h, k_layer, v_layer, position,
             window=cfg.sliding_window, active=active)
     x = x + y
+    if cross is not None:
+        ck, cv = cross
+        hx = L.rmsnorm_apply(p["norm_x"], x, cfg.norm_eps)
+        src = torch.arange(ck.shape[1], dtype=torch.int32, device=x.device)
+        x = x + A.decode_cross_attention(p["xattn"], cfg, hx, ck, cv, src)
     return x + _ffn(p, cfg, x)
 
 
@@ -151,13 +168,15 @@ class LM:
 
     def __init__(self, cfg: ModelConfig):
         validate(cfg)
-        if cfg.family not in ("dense", "moe", "hybrid", "ssm") \
-                or (cfg.family in ("dense", "moe") and cfg.sliding_window) \
-                or cfg.encoder_layers or cfg.frontend:
+        encdec = cfg.family == "encdec"
+        if (cfg.family != "hybrid" and cfg.sliding_window) \
+                or cfg.mrope_sections \
+                or cfg.frontend != ("audio" if encdec else "") \
+                or bool(cfg.encoder_layers) != encdec:
             raise NotImplementedError(
-                f"{cfg.name}: the encoder-decoder family, frontends and "
-                f"sliding windows outside the hybrid family are not ported "
-                f"yet; see ROADMAP.md queue 1")
+                f"{cfg.name}: the vision frontend, M-RoPE and sliding "
+                f"windows outside the hybrid family are not ported yet; see "
+                f"ROADMAP.md queue 1")
         self.cfg = cfg
 
     # -- param init -----------------------------------------------------
@@ -189,9 +208,9 @@ class LM:
         def dense(fan_in, fan_out):
             return normal((fan_in, fan_out), 1.0 / math.sqrt(fan_in))
 
-        def stacked(fan_in, fan_out):
-            w = torch.empty((nl, fan_in, fan_out), dtype=dt, device=dev)
-            for i in range(nl):
+        def stacked(fan_in, fan_out, n=nl):
+            w = torch.empty((n, fan_in, fan_out), dtype=dt, device=dev)
+            for i in range(n):
                 normal((fan_in, fan_out), 1.0 / math.sqrt(fan_in), out=w[i])
             return w
 
@@ -236,15 +255,25 @@ class LM:
                  "ssd": SSD.ssd_init(cfg, normal, uniform)}
                 for _ in range(nl)])
             return params
-        params["layers"] = {
-            "norm1": {"scale": ones(nl, d)},
-            "attn": attention(stacked, lambda n: ones(nl, n)),
-            "norm2": {"scale": ones(nl, d)},
-        }
+        def attn_stack(n):
+            mat = functools.partial(stacked, n=n)
+            return {"norm1": {"scale": ones(n, d)},
+                    "attn": attention(mat, lambda m: ones(n, m)),
+                    "norm2": {"scale": ones(n, d)}}, mat
+
+        params["layers"], mat = attn_stack(nl)
         if cfg.is_moe:
             params["layers"]["moe"] = MOE.moe_init(cfg, normal, nl, dt, dev)
         else:
-            params["layers"]["mlp"] = mlp(stacked)
+            params["layers"]["mlp"] = mlp(mat)
+        if cfg.family == "encdec":
+            params["layers"]["norm_x"] = {"scale": ones(nl, d)}
+            params["layers"]["xattn"] = attention(mat, lambda m: ones(nl, m))
+            enc, enc_mat = attn_stack(cfg.encoder_layers)
+            enc["mlp"] = mlp(enc_mat)
+            params["enc_layers"] = enc
+            params["enc_norm"] = {"scale": ones(d)}
+            params["adapter"] = dense(d, d)
         return params
 
     # -- heads ----------------------------------------------------------
@@ -258,6 +287,22 @@ class LM:
             logits = logits.masked_fill(pad, -1e30)
         return L.softcap(logits, cfg.logits_softcap)
 
+    # -- encoder ----------------------------------------------------------
+    def _encode(self, params, frames):
+        """frames [b, src, d_model] -> the encoder's output [b, src,
+        d_model]: the frames in the working dtype through ``adapter``, then
+        the encoder's blocks with bidirectional attention, then
+        ``enc_norm``."""
+        cfg = self.cfg
+        x = L.matmul(frames.to(L.dtype_of(cfg)), params["adapter"])
+        pos = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+        for i in range(cfg.encoder_layers):
+            lp = layer_params(params["enc_layers"], i)
+            h = L.rmsnorm_apply(lp["norm1"], x, cfg.norm_eps)
+            x = x + A.self_attention(lp["attn"], cfg, h, pos, causal=False)
+            x = x + _ffn(lp, cfg, x)
+        return L.rmsnorm_apply(params["enc_norm"], x, cfg.norm_eps)
+
     # -- prefill --------------------------------------------------------
     def prefill(self, params, batch, max_len: int, adapter=None):
         """Build the decode cache for one prompt batch.
@@ -265,8 +310,10 @@ class LM:
         ``batch["tokens"]``: [b, s] ints; ``batch["length"]`` (optional int)
         is the true prompt length when the tokens are right-padded to a
         bucket: the cache position, the final logits and every family's
-        carried state are taken at ``length``. Returns (logits [b, V] f32,
-        cache) with the cache in the family's layout (``models.kvcache``).
+        carried state are taken at ``length``. encdec reads
+        ``batch["frames"]`` [b, src, d_model]: its cross K/V have src rows,
+        whatever ``cfg.source_len`` is. Returns (logits [b, V] f32, cache)
+        with the cache in the family's layout (``models.kvcache``).
 
         ``adapter`` (optional ``(A [d, r], B [r, d])``): per-session LoRA
         delta applied to the final hidden state before the LM head; the
@@ -282,6 +329,7 @@ class LM:
             pos = torch.arange(s, dtype=torch.int32, device=x.device)
         length: Optional[int] = batch.get("length")
         last = s if length is None else int(length)
+        cross = {}                # encdec: the cross K/V, top-level leaves
         if cfg.family == "hybrid":
             layers = []
             for lp, kind in zip(params["layers"], cfg._pattern()):
@@ -309,15 +357,27 @@ class LM:
             ck = torch.zeros(shape, dtype=x.dtype, device=x.device)
             cv = torch.zeros(shape, dtype=x.dtype, device=x.device)
             n = min(s, S)
+            memory = mem_pos = None
+            if cfg.family == "encdec":
+                memory = self._encode(params, batch["frames"])
+                src = memory.shape[1]
+                mem_pos = torch.arange(src, dtype=torch.int32,
+                                       device=x.device)
+                cross = {key: torch.empty((cfg.num_layers, b, src) + shape[3:],
+                                          dtype=x.dtype, device=x.device)
+                         for key in ("cross_k", "cross_v")}
             for i in range(cfg.num_layers):
-                x, k, v = _attn_prefill(layer_params(params["layers"], i),
-                                        cfg, x, pos)
+                lp = layer_params(params["layers"], i)
+                x, k, v = _attn_prefill(lp, cfg, x, pos, memory, mem_pos)
                 ck[i, :, :n] = k[:, :n]
                 cv[i, :, :n] = v[:, :n]
+                if memory is not None:
+                    cross["cross_k"][i], cross["cross_v"][i] = \
+                        A.project_cross_kv(lp["xattn"], cfg, memory)
             cache_layers = {"k": ck, "v": cv}
         cache = {"layers": cache_layers,
                  "pos": torch.full((b,), last, dtype=torch.int32,
-                                   device=x.device)}
+                                   device=x.device), **cross}
         x_last = L.rmsnorm_apply(params["final_norm"], x[:, last - 1],
                                  cfg.norm_eps)
         if adapter is not None:
@@ -337,7 +397,10 @@ class LM:
         ``adapter`` (optional ``(A [E, d, r], B [E, r, d], idx [b],
         route)``): stacked LoRA tables plus the per-slot int32 adapter
         index. Each row's delta is added to the final hidden state before
-        the LM head; index 0 is the null adapter (exact zero delta)."""
+        the LM head; index 0 is the null adapter (exact zero delta).
+
+        encdec: the cache's ``cross_k``/``cross_v`` are read by every layer
+        and returned unchanged."""
         cfg = self.cfg
         position = cache["pos"]
         block = cache.get("block")
@@ -362,10 +425,12 @@ class LM:
                 x = x + y
         else:
             K, V = cache["layers"]["k"], cache["layers"]["v"]
+            CK, CV = cache.get("cross_k"), cache.get("cross_v")
             for i in range(cfg.num_layers):
                 x = _attn_decode(layer_params(params["layers"], i), cfg, x,
                                  K[i], V[i], position, active=active,
-                                 block=block)
+                                 block=block,
+                                 cross=None if CK is None else (CK[i], CV[i]))
         new_cache = dict(cache)
         new_cache["pos"] = position + 1
         x = L.rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)

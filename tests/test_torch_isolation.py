@@ -48,7 +48,10 @@ PORTED = ("adapters/runtime.py", "models/moe.py", "models/transformer.py",
           "models/rglru.py", "models/ssd.py", "models/attention.py",
           "models/kvcache.py", "kernels/rglru_scan/__init__.py",
           "kernels/rglru_scan/rglru_scan.py", "kernels/ssd_chunk/__init__.py",
-          "kernels/ssd_chunk/ssd_chunk.py")
+          "kernels/ssd_chunk/ssd_chunk.py",
+          "kernels/flash_attention/__init__.py",
+          "kernels/flash_attention/flash_attention.py",
+          "models/frontends.py")
 
 
 def _sources():
@@ -115,6 +118,7 @@ def test_entry_points_take_the_card_by_default(monkeypatch):
     moe = get_smoke_config("qwen3-moe-30b-a3b")
     hybrid = get_smoke_config("recurrentgemma-2b")
     ssm = get_smoke_config("mamba2-1.3b")
+    encdec = get_smoke_config("seamless-m4t-medium")
     for call in (lambda: serve("edge-tiny", sessions=1, requests=1,
                                quiet=True),
                  lambda: InferenceEngine(cfg, slots=1, max_len=16),
@@ -127,7 +131,8 @@ def test_entry_points_take_the_card_by_default(monkeypatch):
                  lambda: LM(ssm).init(0),
                  lambda: InferenceEngine(ssm, slots=1, max_len=16),
                  lambda: serve("mamba2-1.3b", sessions=1, requests=1,
-                               quiet=True)):
+                               quiet=True),
+                 lambda: LM(encdec).init(0)):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
 

@@ -28,7 +28,7 @@ from repro_torch.models import attention as A
 from repro_torch.models import kvcache as KV
 from repro_torch.models import layers as L
 from repro_torch.models import quant as Q
-from repro_torch.models.transformer import LM
+from repro_torch.models.transformer import LM, layer_params
 from tests._torch_pairs import configs, prompt, weights
 
 
@@ -217,18 +217,23 @@ class TestAttention:
                                    atol=1e-5, rtol=1e-5)
 
     def test_window_and_cross_attention_are_not_ported_yet(self):
-        """Sliding-window decode is ported (the hybrid family's ring
-        buffers, held against the reference in test_torch_recurrent.py);
-        softcapped logits on the linear-buffer decode kernels and cross
-        attention still raise, naming the ROADMAP."""
+        """Softcapped logits on the linear-buffer decode kernels still
+        raise, naming the ROADMAP. Sliding-window decode and cross attention
+        are ported since: held against the reference in
+        test_torch_recurrent.py and test_torch_encdec.py; here cross
+        attention only runs."""
         _, tcfg = configs()
         x = torch.zeros((1, 1, tcfg.d_model))
         capped = dataclasses.replace(tcfg, attn_logits_softcap=30.0)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             A.decode_self_attention({}, capped, x, None, None,
                                     torch.zeros(1, dtype=torch.int32))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            A.cross_attention({}, tcfg, x, x, None)
+        _, params = weights(*configs())
+        p = layer_params(params["layers"], 0)["attn"]
+        mem = torch.ones((1, 5, tcfg.d_model))
+        out = A.cross_attention(p, tcfg, x, mem,
+                                torch.arange(5, dtype=torch.int32))
+        assert out.shape == x.shape and bool(torch.isfinite(out).all())
 
 
 class TestLM:
@@ -319,13 +324,18 @@ class TestLM:
                 np.testing.assert_allclose(got, ref, atol=1e-5, rtol=1e-5)
 
     @pytest.mark.parametrize("arch", ["mamba2-1.3b", "recurrentgemma-2b",
-                                      "mixtral-8x7b", "seamless-m4t-medium"])
+                                      "mixtral-8x7b", "seamless-m4t-medium",
+                                      "qwen2-vl-72b"])
     def test_other_families_are_not_ported_yet(self, arch):
-        """The families not ported yet (mixtral's windowed MoE, encdec)
-        raise, naming the ROADMAP; the recurrent ones, ported since,
-        construct (test_torch_recurrent.py holds them to the reference)."""
-        if arch in ("mamba2-1.3b", "recurrentgemma-2b"):
-            assert LM(get_smoke_config(arch)).cfg.family in ("ssm", "hybrid")
+        """The configs not ported yet (mixtral's windowed MoE, qwen2-vl's
+        vision frontend and M-RoPE) raise, naming the ROADMAP; the
+        recurrent families and encdec, ported since, construct
+        (test_torch_recurrent.py and test_torch_encdec.py hold them to the
+        reference)."""
+        if arch in ("mamba2-1.3b", "recurrentgemma-2b",
+                    "seamless-m4t-medium"):
+            assert LM(get_smoke_config(arch)).cfg.family in ("ssm", "hybrid",
+                                                             "encdec")
             return
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             LM(get_smoke_config(arch))
