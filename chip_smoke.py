@@ -35,8 +35,11 @@ Phases:
              minitron's decode shapes (B 8, S 2048, ragged lengths incl.
              1, S-1, S; paged: page 128, a shuffled block table whose
              unused entries are the scratch page 0); the grouped GEMMs at
-             qwen3-moe's expert shapes (decode C 8, prefill C 160) and at
-             the adapter route's two f32 products; rglru_scan and
+             qwen3-moe's expert shapes (decode C 8, prefill C 160; the
+             tensor-core variant, asserted, with rows 0-7 at C 160 equal
+             to C 8 bit for bit) and at the adapter route's two f32
+             products (the CUDA-core template), after ragged shapes of
+             both variants (C 1-300, D 8-2048, F 8-768); rglru_scan and
              ssd_chunk at the recurrent paths' 2048-token prefill shapes
              with a carried state (and ssd_chunk at a ragged l), after
              ragged shapes down to the smoke configs' widths;
@@ -88,7 +91,9 @@ prefill: 32 for minitron-8b, 48 for qwen3-moe-30b-a3b, 36 for
 seamless-m4t-medium, 0 for the recurrent families); the checks of a
 path's result (each adapter session alone, the full-width prefill logits
 and a profiled prefill, the recurrent and encdec checks) run after that
-read and are not counted. Any failed phase fails the run (exit 1). The last two
+read and are not counted. Every grouped-GEMM launch of the qwen3-moe path
+must have taken the tensor-core variant, and none of the adapter path's
+(its products are f32). Any failed phase fails the run (exit 1). The last two
 lines are the card's name and power limit, then the result JSON.
 """
 
@@ -152,9 +157,12 @@ def phase_build():
     log(f"[build] {len(build.SOURCES)} kernel libraries in "
         f"{time.perf_counter() - t0:.1f} s")
     for name in build.SOURCES:
+        entry = ""
         for line in build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1]          # mangled kernel name
+            elif "registers" in line or "spill" in line:
+                log(f"[build] {name} {entry}: {line.strip()}")
 
 
 # ---------------------------------------------------------------------------
@@ -351,16 +359,30 @@ def phase_moe_kernels(moe_cfg, d_adapter: int):
                 4 * (9 * C * Din + 9 * Din * Fo + 9 * C * Fo),
                 2 * 9 * C * Din * Fo, F32_FLOPS, F32_TOL)
 
-    # ragged edges first: C, D, F off every tile size, strided x, empty rows
+    # ragged edges first: C, D, F off every tile size, strided x (rows 3..
+    # of a [E, C + 3, D] buffer), an empty expert (row 0). f32, and bf16
+    # with D or F off 8, run the CUDA-core template; the other bf16 cases
+    # the tensor-core variant at its edges: C 1, 9 (a partial n8 tile), 40,
+    # 161 and 300 (two chunks each, past the 160-row cap); F 8, 72, 136; D
+    # 16, 48 and 2048
     for (Eo, Co, Do, Fo), dtype in (((3, 5, 37, 19), torch.float32),
                                     ((2, 70, 8, 130), torch.bfloat16),
                                     ((4, 1, 200, 8), torch.float32),
-                                    ((5, 9, 64, 72), torch.bfloat16)):
+                                    ((5, 9, 64, 72), torch.bfloat16),
+                                    ((3, 1, 48, 136), torch.bfloat16),
+                                    ((4, 9, 16, 8), torch.bfloat16),
+                                    ((3, 161, 48, 72), torch.bfloat16),
+                                    ((2, 300, 16, 136), torch.bfloat16),
+                                    ((5, 40, 2048, 768), torch.bfloat16)):
         xo = randn((Eo, Co + 3, Do), 1.0, dtype)[:, 3:]   # row stride Do
         xo[0] = 0
         wgo, wuo = randn((Eo, Do, Fo), 0.3, dtype), randn((Eo, Do, Fo), 0.3,
                                                           dtype)
         tol = ATOL if dtype == torch.bfloat16 else F32_TOL
+        tc = dtype == torch.bfloat16 and Do % 8 == 0 and Fo % 8 == 0
+        if MG.uses_tensor_cores(xo, wgo, wuo) != tc:
+            fail(f"E {Eo} C {Co} D {Do} F {Fo} {dtype}: the rule sends it "
+                 f"to the {'CUDA-core' if tc else 'tensor-core'} variant")
         for name, got, ref in (
                 ("moe_gemm", MG.moe_gemm(xo, wgo),
                  MG.moe_gemm_ref(xo.float(), wgo.float())),
@@ -373,7 +395,29 @@ def phase_moe_kernels(moe_cfg, d_adapter: int):
                 fail(f"{name} at E {Eo} C {Co} D {Do} F {Fo} {dtype}: max "
                      f"abs err {float(err.max()):.3e} past {tol}")
     log("[kernels] grouped GEMMs agree with their plain versions at ragged "
-        "shapes (C 1-70, D 8-200, F 8-130, strided x, zero rows)")
+        "shapes (C 1-300, D 8-2048, F 8-768, strided x, zero rows; both "
+        "variants)")
+
+    # the main path's four shapes take the tensor-core variant, and a row's
+    # bits depend on D alone: rows 0-7 at C 160 (the prefill block shape,
+    # 16 warps) equal the C 8 output (the decode shape, 8 warps) bit for bit
+    w = sets[0]
+    for x, ws in ((w["x8"], (w["wg"], w["wu"])), (w["x160"], (w["wg"],
+                                                              w["wu"])),
+                  (w["a8"], (w["wd"],)), (w["a160"], (w["wd"],))):
+        if not MG.uses_tensor_cores(x, *ws):
+            fail(f"x {tuple(x.shape)}: a main-path shape does not take the "
+                 f"tensor-core variant")
+    for name, wide, narrow in (
+            ("moe_ffn_fused", MG.moe_ffn_fused(w["x160"], w["wg"], w["wu"]),
+             MG.moe_ffn_fused(w["x160"][:, :8], w["wg"], w["wu"])),
+            ("moe_gemm", MG.moe_gemm(w["a160"], w["wd"]),
+             MG.moe_gemm(w["a160"][:, :8], w["wd"]))):
+        if not torch.equal(wide[:, :8], narrow):
+            fail(f"{name}: rows 0-7 at C 160 differ from the C 8 output "
+                 f"({int((wide[:, :8] != narrow).sum())} elements)")
+    log("[kernels] main-path shapes take the tensor-core variant; rows 0-7 "
+        "at C 160 equal C 8 bit for bit (both kernels)")
 
     cases = [ffn_case(8), ffn_case(160), down_case(8), down_case(160),
              adapter_case("h", "A", "h@A", 8, d_adapter, 8),
@@ -400,7 +444,8 @@ def phase_moe_kernels(moe_cfg, d_adapter: int):
             f"{float(err.max()):.3e} kernel_ms {ms:.4f} plain_ms "
             f"{plain_ms:.4f} library_ms {library_ms:.4f} bound_ms "
             f"{bound_ms:.4f} ({bound_by}; {nbytes / 1e6:.1f} MB, "
-            f"{flops / 1e9:.2f} GFLOP)")
+            f"{flops / 1e9:.2f} GFLOP) x library {ms / library_ms:.2f}, "
+            f"{bound_ms / ms:.1%} of bound")
         if name not in rows:            # the JSON row: the MoE decode shape
             rows[name] = {
                 "name": name, "route": "cuda",
@@ -409,7 +454,15 @@ def phase_moe_kernels(moe_cfg, d_adapter: int):
                             + ("90" if name == "moe_ffn_fused" else "65"),
                 "launches": 0, "max_abs_err": float(err.max()), "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by, "library_ms": library_ms}
+                "bound_by": bound_by, "library_ms": library_ms,
+                "shapes": []}
+        # every measured shape (decode C 8, prefill C 160, the adapter
+        # products) in the row, with its ratio to the library call
+        rows[name]["shapes"].append({
+            "shape": shape, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "ratio": ms / library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "max_abs_err": float(err.max())})
     log("[kernels] library_ms: torch.bmm; for moe_ffn_fused, torch.bmm on "
         "the [E, D, 2F] concatenation of w_gate and w_up (the yardstick: no "
         "single call computes the fused function)")
@@ -1138,6 +1191,21 @@ def check_flash(name: str, launches, per_prefill: int, prefills: int):
         f"{per_prefill} x {prefills} prefills")
 
 
+def check_variant(name: str, launches, tensor_cores: bool) -> None:
+    """Every grouped-GEMM launch of the path just driven took the
+    tensor-core variant (the bf16 expert FFN) or none did (the adapter
+    route's f32 products)."""
+    from repro_torch.kernels.moe_gemm import moe_gemm as MG
+    for k, n in MG.TENSOR_CORE_LAUNCHES.items():
+        if n != (launches[k] if tensor_cores else 0):
+            fail(f"{name}: {n} of {launches[k]} {k} launches took the "
+                 f"tensor-core variant, expected "
+                 f"{'all' if tensor_cores else 'none'}")
+    log(f"[main path] {name}: grouped GEMMs on the "
+        f"{'tensor' if tensor_cores else 'CUDA'} cores "
+        f"{dict(MG.TENSOR_CORE_LAUNCHES)}")
+
+
 def init_model(cfg):
     """Seeded random weights drawn on the card (for MoE, one [E, d, f]
     tensor at a time)."""
@@ -1491,6 +1559,7 @@ def main() -> None:
             ("decode_attention", "moe_gemm", "flash_attention"),
             phase_adapters, cfg, params, catalog, sessions)
     check_flash(f"{cfg.name} adapters", launches, cfg.num_layers, pc.n)
+    check_variant(f"{cfg.name} adapters", launches, tensor_cores=False)
     paths.append(launches)
     check_adapters(cfg, params, catalog, sessions, mixed)
     check_logits(cfg, params)
@@ -1504,6 +1573,7 @@ def main() -> None:
                                  attn + ("moe_gemm", "moe_ffn_fused"),
                                  drive_model, moe_cfg, params)
     check_flash(moe_cfg.name, launches, moe_cfg.num_layers, pc.n)
+    check_variant(moe_cfg.name, launches, tensor_cores=True)
     paths.append(launches)
     check_logits(moe_cfg, params)
     profile_prefill(moe_cfg, params)

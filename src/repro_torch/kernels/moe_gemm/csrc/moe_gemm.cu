@@ -8,37 +8,86 @@
 // epilogue runs in f32 and casts once, as the reference's
 // `(silu(gate) * up).astype(h.dtype)` does).
 //
-// Replaces the Pallas TPU kernels of the reference package:
+// Both variants below replace the Pallas TPU kernels of the reference
+// package:
 //   src/repro/kernels/moe_gemm/moe_gemm.py
 //     moe_gemm       (pl.pallas_call at :65, kernel body _kernel_plain :40)
 //     moe_ffn_fused  (pl.pallas_call at :90, kernel body _kernel_fused :29)
+// The wrapper (moe_gemm.py, `uses_tensor_cores`) picks one by dtype, shape,
+// strides and alignment; both are hand-written, neither is a fallback.
 //
-// What bounds it on this card: bytes, at the shapes the port runs. MoE
-// decode gives C = 8 rows per expert (qwen3-moe: E 128, D 2048, F 768), so
-// a launch does 2 flops per weight element it reads (4 fused); even
-// prefill's C = 160 stays under the ~295 flops/byte where the tensor cores
-// would be the limit. The least time is (x + weights + y) / 3.35 TB/s.
+// What bounds them on this card: bytes, at every shape the port runs. The
+// ridge of bf16 tensor cores over HBM is ~295 flops per byte. qwen3-moe
+// (E 128, gate/up D 2048 -> F 768, down D 768 -> F 2048) gives C = 8 rows
+// per expert at decode, ~8 flops per byte, and C = 160 at a 2048-token
+// prefill: 140 flops per byte fused, 124 for the down product. So the
+// least time is the weights streamed once from HBM (0.242 / 0.122 ms at
+// C 8, 0.275 / 0.155 ms at C 160 with x and y), and a kernel reaches it
+// only if every weight byte is read from HBM once per launch and enough
+// bytes stay in flight.
 //
-// Design (simple and right first; mma.sync / wgmma and TMA come later):
-//   * one block per (C-tile, F-tile, expert), C-tile fastest, so the blocks
-//     that share a weight tile run together; at decode there is one C-tile,
-//     so every weight element is read from device memory once per launch
-//     and used for all C rows of its expert;
-//   * the D loop walks tiles of kBK rows: each thread loads its slice of the
-//     next x and weight tiles into registers (16-byte weight loads where
-//     shapes and alignment allow, bounds-checked scalar loads elsewhere)
-//     while the block computes on the current tile from shared memory;
-//   * bounds checks instead of the reference's pad-and-slice copies: any C,
-//     D and F, down to D = 8 or F = 8 (the adapter route's rank);
-//   * each output element is one thread's f32 accumulator, updated with one
-//     fmaf per d in increasing d. Its summation order therefore depends on
-//     D alone: not on its row c, on C, on the tile shape or on the grid.
-//     That is what makes an adapter session's tokens independent of which
-//     slots share its group, and the dense and paged MoE engines
-//     token-identical on the card.
+// 1. The tensor-core variant (bf16; D and F multiples of 8, 16-byte-aligned
+//    bases and strides: every shape of the MoE expert FFN).
+//    * Swap A and B: y[e]^T = w[e]^T . x[e]^T with mma.sync.m16n8k16 (bf16
+//      in, f32 accumulate). The weight tile, stored [k][f] as w is laid
+//      out, is the 16-row A operand through ldmatrix.trans; x, stored
+//      [c][k] as x is laid out, is the n8 B operand through plain ldmatrix.
+//      C = 8 fills one n8 tile, so decode wastes no product; the gate and
+//      up accumulators of one (f, c) sit in the same thread, so the SwiGLU
+//      runs in registers.
+//    * One block per (F-tile, C-chunk, expert), F-tile fastest: every
+//      weight byte is read from HBM once per launch (the C-chunks of one
+//      F-tile, where C needs more than one, run in the same wave and share
+//      it through L2), and the blocks that re-read one expert's x panel
+//      run together and find it in L2. Two
+//      block shapes, chosen by C (any C is taken: larger C is cut into
+//      equal chunks of whole n8 tiles, one block each):
+//        C <= 64 (decode): 8 warps along F, each one m16 tile by every n8
+//          tile; F-tile 128, up to 64 rows; two blocks an SM;
+//        C > 64 (prefill): 16 warps, 8 along F by 2 along C, each 1 (fused)
+//          or 2 m16 tiles by 10 n8 tiles; F-tile 128 (fused) or 256, up to
+//          160 rows, so qwen3-moe's C 160 is one chunk and each weight
+//          tile is streamed once. 16 warps (not 8 with twice the tiles)
+//          because the products wait on shared memory: more warps hide
+//          more of it, at <= 128 registers a thread (ptxas: a few spills).
+//    * A ring of stages (4 of 32 or 64 rows of D at decode, 3 of 64 at
+//      prefill) filled by 16-byte cp.async with zero-fill past D, F and C:
+//      all but one stage stay in flight while the warps compute on the
+//      oldest, ~96 KB of weights an SM at decode. Rows padded by 16 bytes,
+//      so each ldmatrix phase hits 8 distinct bank groups. Dynamic shared
+//      memory (88-170 KB) above the 48 KB default.
+//    * Fragments run one step ahead of the mma's (the next pair of n8
+//      tiles, or the next k16 step's weight fragments), so shared-memory
+//      reads overlap the tensor-core work within each warp.
+//    * Epilogue: silu(g) * u in f32, one cast, the transposed tile staged
+//      through shared memory as [c][f] and written with 16-byte stores.
+//    * Invariant: no split-K and no atomics. Each output is one f32
+//      accumulator updated by the same chain of k16 mma's in increasing k,
+//      whatever C, the chunking or the block shape: a row's bits depend on
+//      D alone (checked on the card: rows 0-7 at C 160 equal the C 8
+//      output bit for bit). So the dense and paged MoE engines stay
+//      token-identical and a run repeats bit for bit.
+//
+// 2. The CUDA-core template (f32, and bf16 shapes outside that rule; the
+//    adapter runtime's grouped route, f32 with rank 8 as D or F):
+//    * one block per (C-tile, F-tile of 64, expert), C-tile fastest; at
+//      decode there is one C-tile, so every weight element is read from
+//      device memory once per launch;
+//    * the D loop walks tiles of kBK rows: each thread loads its slice of the
+//      next x and weight tiles into registers (16-byte weight loads where
+//      shapes and alignment allow, bounds-checked scalar loads elsewhere)
+//      while the block computes on the current tile from shared memory;
+//    * bounds checks instead of the reference's pad-and-slice copies: any C,
+//      D and F, down to D = 8 or F = 8 (the adapter route's rank);
+//    * each output element is one thread's f32 accumulator, updated with one
+//      fmaf per d in increasing d (f32 on the CUDA cores, no TF32). Its
+//      summation order therefore depends on D alone: not on its row c, on
+//      C, on the tile shape or on the grid. That is what makes an adapter
+//      session's tokens independent of which slots share its group, and
+//      keeps the f32 card-vs-CPU checks within 1e-3.
 //
 // C interface (loaded with ctypes): each launcher returns cudaGetLastError()
-// after the launch, or cudaErrorInvalidValue for an unsupported dtype.
+// after the launch, or cudaErrorInvalidValue for arguments it does not take.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -260,6 +309,307 @@ int dispatch(int dtype, const void* x, long long sxe, long long sxc,
 
 }  // namespace
 
+// ---------------------------------------------------------------------------
+// tensor-core variant (bf16)
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+typedef __nv_bfloat16 bf16;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, or 16 zero bytes when !valid (src unread)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// d += a (16 x 16, row) . b (16 x 8, col), bf16 in, f32 accumulate
+__device__ __forceinline__ void mma16816(float (&d)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Warps: WM along F, each MT m16 tiles; WN along C, each NT n8 tiles, the
+// tiles of a chunk dealt round-robin (tile j * WN + wn) so the warps stay
+// balanced on a partial chunk. Block tile: BF = WM*MT*16 columns of F by
+// BN = WN*NT*8 rows of C; the ring holds S stages of BK rows of D. Every
+// tile row is padded by 16 bytes, so the 8 rows an ldmatrix phase reads
+// fall in 8 distinct 16-byte bank groups.
+template <bool kFused, int WM, int WN, int MT, int NT, int BK, int S>
+struct Tile {
+  static constexpr int kThreads = WM * WN * 32;
+  static constexpr int BF = WM * MT * 16;
+  static constexpr int BN = WN * NT * 8;
+  static constexpr int kW = kFused ? 2 : 1;        // weight tiles per stage
+  static constexpr int kXPitch = BK + 8;            // x tile row, elements
+  static constexpr int kWPitch = BF + 8;            // weight row, elements
+  static constexpr int kXStage = BN * kXPitch;      // elements
+  static constexpr int kWStage = BK * kWPitch;
+  static constexpr int kStage = kXStage + kW * kWStage;
+  static constexpr int kYPitch = BF + 8;            // staged output row
+  static constexpr size_t kSmemBytes =
+      static_cast<size_t>(S) * kStage * sizeof(bf16);
+  static_assert(NT % 2 == 0, "x fragments load two n8 tiles at a time");
+  static_assert(BK % 16 == 0 && S >= 2, "whole k16 steps; a stage ahead");
+  static_assert(BN * kYPitch <= S * kStage, "the output tile fits the ring");
+  static_assert(kSmemBytes <= 232448, "a block's shared memory");
+};
+
+// Grid: (F-tile + nF * C-chunk, expert). Chunk ch holds rows
+// [ch * Cc, min(C, (ch + 1) * Cc)) of its expert, Cc <= BN.
+template <bool kFused, int WM, int WN, int MT, int NT, int BK, int S,
+          int kMinBlocks>
+__global__ void __launch_bounds__(WM * WN * 32, kMinBlocks)
+tc_kernel(const bf16* __restrict__ x, int64_t sxe, int64_t sxc,
+          const bf16* __restrict__ wg, const bf16* __restrict__ wu,
+          int64_t swe, int64_t swd, bf16* __restrict__ y, int C, int D,
+          int F, int nF, int Cc) {
+  using L = Tile<kFused, WM, WN, MT, NT, BK, S>;
+  constexpr int BF = L::BF;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp % WM, wn = warp / WM;
+  const int f0 = (blockIdx.x % nF) * BF;
+  const int c0 = (blockIdx.x / nF) * Cc;
+  const int64_t e = blockIdx.y;
+  const int rows = min(Cc, C - c0);
+  const int rows8 = (rows + 7) & ~7;
+  const bf16* xe = x + e * sxe + c0 * sxc;
+  const bf16* wge = wg + e * swe;
+  const bf16* wue = wu + e * swe;
+  const int nk = (D + BK - 1) / BK;
+
+  // shared memory is addressed as 32-bit byte offsets from one base
+  constexpr uint32_t kEl = sizeof(bf16);
+  const uint32_t sbase = smem_addr(smem);
+  const auto stage_addr = [&](int kt) {
+    return sbase + static_cast<uint32_t>(kt % S) * L::kStage * kEl;
+  };
+
+  // one ring stage: x rows [0, rows8) (zeros past C and D; rows past
+  // rows8 belong to skipped n8 tiles and are never read into a product)
+  // and BK rows of each weight tile (zeros past D and F)
+  auto load_stage = [&](int kt) {
+    const uint32_t st = stage_addr(kt);
+    const int k0 = kt * BK;
+    for (int i = tid; i < rows8 * (BK / 8); i += L::kThreads) {
+      const int r = i / (BK / 8), kc = (i % (BK / 8)) * 8;
+      const bool ok = r < rows && k0 + kc < D;
+      cp_async16(st + (r * L::kXPitch + kc) * kEl,
+                 ok ? xe + r * sxc + k0 + kc : xe, ok);
+    }
+#pragma unroll
+    for (int i = tid; i < BK * BF / 8; i += L::kThreads) {
+      const int r = i / (BF / 8), c = (i % (BF / 8)) * 8;
+      const bool ok = k0 + r < D && f0 + c < F;
+      const int64_t off = ok ? (k0 + r) * swd + f0 + c : 0;
+      const uint32_t dst = st + (L::kXStage + r * L::kWPitch + c) * kEl;
+      cp_async16(dst, wge + off, ok);
+      if constexpr (kFused) cp_async16(dst + L::kWStage * kEl, wue + off, ok);
+    }
+  };
+
+  float acc[L::kW][MT][NT][4];
+#pragma unroll
+  for (int w = 0; w < L::kW; ++w)
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[w][mt][j][q] = 0.f;
+
+  // ldmatrix lane roles: lane supplies row (lane & 7) of matrix lane >> 3
+  const int lr = lane & 7, lm = lane >> 3;
+  // A = w^T for k16 step ks: matrices (f 0-7 | 8-15) x (k 0-7 | 8-15) of
+  // the [k][f] weight tile, through ldmatrix.trans
+  const uint32_t a_lane = (L::kXStage + (lr + (lm >> 1) * 8) * L::kWPitch +
+                           wm * MT * 16 + (lm & 1) * 8) * kEl;
+  auto load_a = [&](uint32_t st, int ks, uint32_t (&a)[L::kW][MT][4]) {
+#pragma unroll
+    for (int w = 0; w < L::kW; ++w)
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+        ldsm_x4_t(st + a_lane +
+                      (w * L::kWStage + ks * 16 * L::kWPitch + mt * 16) * kEl,
+                  a[w][mt]);
+  };
+  // B = x^T for k16 step ks, pair p: n8 tiles 2p and 2p + 1 of this warp
+  // (row blocks (2p + i) * WN + wn), each (k 0-7 | 8-15) of the [c][k] x
+  // tile; a pair with no row of the chunk is not loaded
+  const uint32_t b_lane =
+      (((lm >> 1) * WN + wn) * 8 + lr) * L::kXPitch * kEl + (lm & 1) * 16;
+  auto load_b = [&](uint32_t st, int ks, int p, uint32_t (&b)[4]) {
+    if ((2 * p * WN + wn) * 8 < rows)
+      ldsm_x4(st + b_lane + (2 * p * WN * 8 * L::kXPitch + ks * 16) * kEl, b);
+  };
+
+#pragma unroll
+  for (int s = 0; s < S - 1; ++s) {
+    if (s < nk) load_stage(s);
+    cp_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_wait<S - 2>();                // stage kt has landed (this thread's)
+    __syncthreads();                 // ... everyone's; slot kt-1 is free
+    if (kt + S - 1 < nk) load_stage(kt + S - 1);
+    cp_commit();
+    const uint32_t st = stage_addr(kt);
+    // Fragments run one step ahead of the products: while the mma's of
+    // step (k16 step ks, x pair p) issue, the ldmatrix of the next step is
+    // in flight (the next pair of n8 tiles, or at the last pair the next
+    // k16 step's weight fragments and its first pair), so shared-memory
+    // reads and tensor-core work overlap within each warp.
+    uint32_t a[2][L::kW][MT][4];     // weight (A) fragments, by ks parity
+    uint32_t b[2][4];                // one x pair (B, 2 n8 tiles), by step
+    load_a(st, 0, a[0]);
+    load_b(st, 0, 0, b[0]);
+#pragma unroll
+    for (int ks = 0; ks < BK / 16; ++ks)
+#pragma unroll
+      for (int p = 0; p < NT / 2; ++p) {
+        const int step = ks * (NT / 2) + p;
+        if (p + 1 < NT / 2) {
+          load_b(st, ks, p + 1, b[(step + 1) & 1]);
+        } else if (ks + 1 < BK / 16) {
+          load_a(st, ks + 1, a[(ks + 1) & 1]);
+          load_b(st, ks + 1, 0, b[(step + 1) & 1]);
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int j = 2 * p + h;
+          if ((j * WN + wn) * 8 >= rows) continue;
+#pragma unroll
+          for (int w = 0; w < L::kW; ++w)
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt)
+              mma16816(acc[w][mt][j], a[ks & 1][w][mt], b[step & 1][2 * h],
+                       b[step & 1][2 * h + 1]);
+        }
+      }
+  }
+  cp_wait<0>();
+  __syncthreads();                   // the ring is free for the output tile
+
+  // epilogue: accumulator (f, c) -> ys[c][f] in bf16, then 16-byte rows
+  bf16* ys = smem;
+  const int g = lane >> 2, tg = lane & 3;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    const int t = j * WN + wn;
+    if (t * 8 >= rows) continue;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int f = (wm * MT + mt) * 16 + g + (q >> 1) * 8;
+        const int c = t * 8 + tg * 2 + (q & 1);
+        float v = acc[0][mt][j][q];
+        if constexpr (kFused) v = v / (1.f + expf(-v)) * acc[1][mt][j][q];
+        ys[c * L::kYPitch + f] = __float2bfloat16(v);
+      }
+  }
+  __syncthreads();
+  bf16* ye = y + (e * C + c0) * F;
+  for (int i = tid; i < rows * (BF / 8); i += L::kThreads) {
+    const int r = i / (BF / 8), c = (i % (BF / 8)) * 8;
+    if (f0 + c < F)
+      *reinterpret_cast<uint4*>(ye + static_cast<int64_t>(r) * F + f0 + c) =
+          *reinterpret_cast<const uint4*>(ys + r * L::kYPitch + c);
+  }
+}
+
+template <bool kFused, int WM, int WN, int MT, int NT, int BK, int S,
+          int kMinBlocks>
+int launch_tc(const bf16* x, int64_t sxe, int64_t sxc, const bf16* wg,
+              const bf16* wu, int64_t swe, int64_t swd, bf16* y, int E, int C,
+              int D, int F, cudaStream_t st) {
+  using L = Tile<kFused, WM, WN, MT, NT, BK, S>;
+  auto kern = tc_kernel<kFused, WM, WN, MT, NT, BK, S, kMinBlocks>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(L::kSmemBytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int nF = (F + L::BF - 1) / L::BF;
+  const int chunks = (C + L::BN - 1) / L::BN;
+  const int Cc = ((C + chunks - 1) / chunks + 7) / 8 * 8;   // <= BN
+  const dim3 grid(nF * chunks, E);
+  kern<<<grid, L::kThreads, L::kSmemBytes, st>>>(x, sxe, sxc, wg, wu, swe,
+                                                 swd, y, C, D, F, nF, Cc);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kFused>
+int dispatch(const void* x, long long sxe, long long sxc, const void* wg,
+             const void* wu, long long swe, long long swd, void* y, int E,
+             int C, int D, int F, void* stream) {
+  const auto aligned = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  if (E < 1 || E > 65535 || C < 1 || D < 8 || F < 8 || D % 8 || F % 8 ||
+      sxe % 8 || sxc % 8 || swe % 8 || swd % 8 || !aligned(x) ||
+      !aligned(wg) || !aligned(wu) || !aligned(y))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bf16* xx = static_cast<const bf16*>(x);
+  const bf16* gg = static_cast<const bf16*>(wg);
+  const bf16* uu = static_cast<const bf16*>(wu);
+  bf16* yy = static_cast<bf16*>(y);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // C <= 64 (decode, short prefills): 8 warps along F, each one m16 tile
+  // by every n8 tile (BF 128, BN 64); two blocks an SM, 4-stage rings of
+  // 16 KB of weights a stage
+  if (C <= 64) {
+    if constexpr (kFused)
+      return launch_tc<true, 8, 1, 1, 8, 32, 4, 2>(
+          xx, sxe, sxc, gg, uu, swe, swd, yy, E, C, D, F, st);
+    else
+      return launch_tc<false, 8, 1, 1, 8, 64, 4, 1>(
+          xx, sxe, sxc, gg, uu, swe, swd, yy, E, C, D, F, st);
+  }
+  // C > 64 (prefill): 16 warps, 8 along F by 2 along C, each 1 (fused) or
+  // 2 (down) m16 tiles by 10 n8 tiles: BF 128 / 256, BN 160, so C 160 is
+  // one chunk and each weight tile is streamed once; 3-stage rings of 64
+  // rows of D
+  return launch_tc<kFused, 8, 2, kFused ? 1 : 2, 10, 64, 3, 1>(
+      xx, sxe, sxc, gg, uu, swe, swd, yy, E, C, D, F, st);
+}
+
+}  // namespace tc
+
 // dtype: 0 = bfloat16, 1 = float32. Strides are in elements; x has unit
 // stride along D and w along F; y is a contiguous [E, C, F] output.
 // vec_ok: weight rows may be read with 16-byte loads (base pointer 16-byte
@@ -280,4 +630,24 @@ extern "C" int moe_ffn_fused_launch(int dtype, const void* x, long long sxe,
                                     int D, int F, int vec_ok, void* stream) {
   return dispatch<true>(dtype, x, sxe, sxc, w_gate, w_up, swe, swd, y, E, C,
                         D, F, vec_ok, stream);
+}
+
+// The tensor-core variant: bf16 only; D and F multiples of 8; x, w, y
+// 16-byte aligned and every stride a multiple of 8 elements (y is a
+// contiguous [E, C, F] output).
+extern "C" int moe_gemm_tc_launch(const void* x, long long sxe,
+                                  long long sxc, const void* w, long long swe,
+                                  long long swd, void* y, int E, int C, int D,
+                                  int F, void* stream) {
+  return tc::dispatch<false>(x, sxe, sxc, w, w, swe, swd, y, E, C, D, F,
+                             stream);
+}
+
+extern "C" int moe_ffn_fused_tc_launch(const void* x, long long sxe,
+                                       long long sxc, const void* w_gate,
+                                       const void* w_up, long long swe,
+                                       long long swd, void* y, int E, int C,
+                                       int D, int F, void* stream) {
+  return tc::dispatch<true>(x, sxe, sxc, w_gate, w_up, swe, swd, y, E, C, D,
+                            F, stream);
 }

@@ -3,8 +3,11 @@ wrappers and their plain PyTorch versions.
 
 Replaces the Pallas TPU kernels ``moe_gemm`` and ``moe_ffn_fused`` of
 ``src/repro/kernels/moe_gemm/moe_gemm.py`` (``pl.pallas_call`` at :65 and
-:90). The kernels are in ``csrc/moe_gemm.cu``; its header says what bounds
-them on the card and how their design answers it.
+:90). The kernels are in ``csrc/moe_gemm.cu``, in two variants: a
+tensor-core one (``mma.sync`` on bf16 tiles fed by a ``cp.async`` ring) for
+the shapes ``uses_tensor_cores`` admits, and a CUDA-core template for f32
+and every other bf16 shape. Its header says what bounds them on the card
+and how each design answers it.
 
 Layouts are the reference's: ``x [E, C, D]``, ``w / w_gate / w_up
 [E, D, F]`` -> ``[E, C, F]`` in x's dtype, products accumulated in f32.
@@ -14,7 +17,9 @@ buffers) and the adapter runtime's grouped route
 
 Each wrapper takes its plain version only for tensors on the CPU. For a CUDA
 tensor it launches the kernel or raises: there is no fallback. ``LAUNCHES``
-counts kernel launches (one per successful launch, nowhere else).
+counts kernel launches (one per successful launch of either variant,
+nowhere else); ``TENSOR_CORE_LAUNCHES`` counts those of them that took the
+tensor-core variant.
 """
 
 from __future__ import annotations
@@ -26,6 +31,8 @@ import torch.nn.functional as F
 
 #: kernel name -> launches since the last reset_launches()
 LAUNCHES = {"moe_gemm": 0, "moe_ffn_fused": 0}
+#: kernel name -> launches of the tensor-core variant among LAUNCHES
+TENSOR_CORE_LAUNCHES = {"moe_gemm": 0, "moe_ffn_fused": 0}
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 _VEC = 8             # weight elements per 16-byte load segment
@@ -36,13 +43,17 @@ _ARGTYPES = {
                         _I, _P],
     "moe_ffn_fused_launch": [_I, _P, _LL, _LL, _P, _P, _LL, _LL, _P, _I, _I,
                              _I, _I, _I, _P],
+    "moe_gemm_tc_launch": [_P, _LL, _LL, _P, _LL, _LL, _P, _I, _I, _I, _I,
+                           _P],
+    "moe_ffn_fused_tc_launch": [_P, _LL, _LL, _P, _P, _LL, _LL, _P, _I, _I,
+                                _I, _I, _P],
 }
 _lib = None
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
-        LAUNCHES[k] = 0
+        LAUNCHES[k] = TENSOR_CORE_LAUNCHES[k] = 0
 
 
 def _library():
@@ -108,6 +119,23 @@ def _check(x, ws):
     return E, C, D, ws[0].shape[2], int(vec_ok)
 
 
+def uses_tensor_cores(x, *ws) -> bool:
+    """Whether a launch on ``x [E, C, D]`` and ``ws [E, D, F]`` takes the
+    tensor-core variant: bf16 throughout; D and F multiples of 8; unit
+    inner strides; the outer strides of x and w multiples of 8 elements and
+    every base 16-byte aligned, so each row of a tile is whole 16-byte
+    copies. Every other shape runs the CUDA-core template."""
+    if x.dtype != torch.bfloat16 or any(w.dtype != x.dtype for w in ws):
+        return False
+    D, Fo = x.shape[2], ws[0].shape[2]
+    strides = (x.stride(0), x.stride(1)) + tuple(
+        s for w in ws for s in (w.stride(0), w.stride(1)))
+    return (D % _VEC == 0 and Fo % _VEC == 0
+            and x.stride(2) == 1 and all(w.stride(2) == 1 for w in ws)
+            and all(s % _VEC == 0 for s in strides)
+            and all(t.data_ptr() % 16 == 0 for t in (x, *ws)))
+
+
 def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
@@ -117,20 +145,35 @@ def _raise_on(rc: int, name: str) -> None:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error {rc}")
 
 
+def _launch(name, x, ws):
+    """Check, allocate y, launch the variant the rule picks, count it."""
+    E, C, D, Fo, vec_ok = _check(x, ws)
+    y = torch.empty((E, C, Fo), dtype=x.dtype, device=x.device)
+    tc = uses_tensor_cores(x, *ws)
+    w = ws[0]
+    ptrs = [t.data_ptr() for t in ws]
+    lib = _library()
+    with torch.cuda.device(x.device):
+        if tc:
+            rc = getattr(lib, f"{name}_tc_launch")(
+                x.data_ptr(), x.stride(0), x.stride(1), *ptrs, w.stride(0),
+                w.stride(1), y.data_ptr(), E, C, D, Fo, _stream(x))
+        else:
+            rc = getattr(lib, f"{name}_launch")(
+                _DTYPE_CODE[x.dtype], x.data_ptr(), x.stride(0), x.stride(1),
+                *ptrs, w.stride(0), w.stride(1), y.data_ptr(), E, C, D, Fo,
+                vec_ok, _stream(x))
+    _raise_on(rc, name)
+    LAUNCHES[name] += 1
+    TENSOR_CORE_LAUNCHES[name] += tc
+    return y
+
+
 def moe_gemm(x, w):
     """x [E, C, D] @ w [E, D, F] -> [E, C, F] in x's dtype."""
     if x.device.type == "cpu":
         return moe_gemm_ref(x, w)
-    E, C, D, Fo, vec_ok = _check(x, (w,))
-    y = torch.empty((E, C, Fo), dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        rc = _library().moe_gemm_launch(
-            _DTYPE_CODE[x.dtype], x.data_ptr(), x.stride(0), x.stride(1),
-            w.data_ptr(), w.stride(0), w.stride(1), y.data_ptr(), E, C, D, Fo,
-            vec_ok, _stream(x))
-    _raise_on(rc, "moe_gemm")
-    LAUNCHES["moe_gemm"] += 1
-    return y
+    return _launch("moe_gemm", x, (w,))
 
 
 def moe_ffn_fused(x, w_gate, w_up):
@@ -138,13 +181,4 @@ def moe_ffn_fused(x, w_gate, w_up):
     [E, C, F] in x's dtype."""
     if x.device.type == "cpu":
         return moe_ffn_fused_ref(x, w_gate, w_up)
-    E, C, D, Fo, vec_ok = _check(x, (w_gate, w_up))
-    y = torch.empty((E, C, Fo), dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        rc = _library().moe_ffn_fused_launch(
-            _DTYPE_CODE[x.dtype], x.data_ptr(), x.stride(0), x.stride(1),
-            w_gate.data_ptr(), w_up.data_ptr(), w_gate.stride(0),
-            w_gate.stride(1), y.data_ptr(), E, C, D, Fo, vec_ok, _stream(x))
-    _raise_on(rc, "moe_ffn_fused")
-    LAUNCHES["moe_ffn_fused"] += 1
-    return y
+    return _launch("moe_ffn_fused", x, (w_gate, w_up))

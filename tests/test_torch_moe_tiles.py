@@ -1,0 +1,297 @@
+"""The tensor-core variant of the grouped expert GEMMs
+(``csrc/moe_gemm.cu``, namespace ``tc``), transliterated into numpy lane by
+lane and held to the plain versions on the CPU, and the wrapper's rule that
+picks the variant.
+
+The CUDA kernel runs only on the card (``chip_smoke.py`` holds it to its
+plain version there). This transliteration follows its index arithmetic
+step for step — the cp.async ring with zero-fill, the ldmatrix lane
+addresses (``.trans`` for the weight tile as the A operand, plain for x as
+B), the m16n8k16 fragment layouts, the round-robin n8 tiles, the C-chunks
+and the transposed epilogue through shared memory — on a flat shared
+memory that starts as NaN, so any element the kernel reads without having
+written it and lets into a kept output shows. Values stay f32: this checks
+indexing, not bf16 rounding. Tolerance 1e-5 (f32 sums in another order
+than the einsum of the plain version).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.moe_gemm import moe_gemm as MG
+
+TOL = dict(atol=1e-5, rtol=1e-5)
+
+# the kernel's block shapes (WM, WN, MT, NT, BK, S) as tc::dispatch picks
+# them: by C (up to 64 rows or more) and by kernel (fused or not)
+SHAPES = {(True, True): (8, 1, 1, 8, 32, 4),
+          (True, False): (8, 1, 1, 8, 64, 4),
+          (False, True): (8, 2, 1, 10, 64, 3),
+          (False, False): (8, 2, 2, 10, 64, 3)}
+SMALL_MAX_C = 64
+
+LANES = np.arange(32)
+G, TG = LANES // 4, LANES % 4            # groupID, thread in group
+
+
+def _ldmatrix_x4(smem, addrs, trans):
+    """ldmatrix.m8n8.x4: lane l supplies row l % 8 of matrix l // 8 (8
+    elements from addrs[l]). Returns [32 lanes, 4 regs, 2 halves]."""
+    rows = smem[addrs[:, None] + np.arange(8)]           # [32, 8]
+    mats = rows.reshape(4, 8, 8)                         # [matrix, row, col]
+    if trans:
+        mats = mats.transpose(0, 2, 1)
+    # lane T gets row T // 4, columns 2 (T % 4) + {0, 1} of each matrix
+    return mats[:, G, :].reshape(4, 32, 4, 2)[:, LANES, TG].transpose(1, 0, 2)
+
+
+def _mma(acc, a, b0, b1):
+    """acc [32, 4] += A . B, with A [16, 16] and B [16, 8] gathered from
+    the lanes' fragments as PTX's m16n8k16 layout places them."""
+    A = np.empty((16, 16), np.float32)
+    B = np.empty((16, 8), np.float32)
+    for j in range(2):
+        A[G, 2 * TG + j] = a[:, 0, j]
+        A[G + 8, 2 * TG + j] = a[:, 1, j]
+        A[G, 2 * TG + 8 + j] = a[:, 2, j]
+        A[G + 8, 2 * TG + 8 + j] = a[:, 3, j]
+        B[2 * TG + j, G] = b0[:, j]
+        B[2 * TG + 8 + j, G] = b1[:, j]
+    Dm = A @ B
+    acc += np.stack([Dm[G, 2 * TG], Dm[G, 2 * TG + 1], Dm[G + 8, 2 * TG],
+                     Dm[G + 8, 2 * TG + 1]], axis=1)
+
+
+def tc_transliteration(x, sxe, sxc, wg, wu, swe, swd, E, C, D, F,
+                       shape=None):
+    """y [E, C, F] as tc_kernel computes it. x, wg, wu are flat f32 arrays
+    read through element strides (x unit along D, w along F); wu None is
+    moe_gemm, else moe_ffn_fused. ``shape`` forces a block shape."""
+    fused = wu is not None
+    WM, WN, MT, NT, BK, STAGES = shape or SHAPES[(C <= SMALL_MAX_C, fused)]
+    BF, BN, nw = WM * MT * 16, WN * NT * 8, 2 if fused else 1
+    XPITCH, WPITCH = BK + 8, BF + 8
+    XSTAGE, WSTAGE = BN * XPITCH, BK * WPITCH
+    STAGE = XSTAGE + nw * WSTAGE
+    YPITCH = BF + 8
+    nF = -(-F // BF)
+    chunks = -(-C // BN)
+    Cc = -(-C // chunks)                  # rows per chunk, then whole n8
+    Cc = -(-Cc // 8) * 8
+    assert Cc <= BN and BN * YPITCH <= STAGES * STAGE
+    y = np.full(E * C * F, np.nan, np.float32)
+    nk = -(-D // BK)
+    lr, lm = LANES % 8, LANES // 8
+
+    for e in range(E):
+        for bx in range(nF * chunks):
+            f0, c0 = (bx % nF) * BF, (bx // nF) * Cc
+            rows = min(Cc, C - c0)
+            rows8 = (rows + 7) & ~7
+            xe = e * sxe + c0 * sxc
+            we = e * swe
+            smem = np.full(STAGES * STAGE, np.nan, np.float32)
+
+            def load_stage(kt):
+                st, k0 = (kt % STAGES) * STAGE, kt * BK
+                for i in range(rows8 * (BK // 8)):
+                    r, k = i // (BK // 8), k0 + (i % (BK // 8)) * 8
+                    dst = st + r * XPITCH + k - k0
+                    ok = r < rows and k < D
+                    src = xe + r * sxc + k
+                    smem[dst:dst + 8] = x[src:src + 8] if ok else 0.0
+                for i in range(BK * BF // 8):
+                    r, c = i // (BF // 8), (i % (BF // 8)) * 8
+                    ok = k0 + r < D and f0 + c < F
+                    off = we + (k0 + r) * swd + f0 + c
+                    dst = st + XSTAGE + r * WPITCH + c
+                    for w, buf in enumerate((wg, wu)[:nw]):
+                        d = dst + w * WSTAGE
+                        smem[d:d + 8] = buf[off:off + 8] if ok else 0.0
+
+            accs = {}
+            for kt in range(min(STAGES - 1, nk)):
+                load_stage(kt)
+            for kt in range(nk):
+                if kt + STAGES - 1 < nk:
+                    load_stage(kt + STAGES - 1)
+                st = (kt % STAGES) * STAGE
+                for warp in range(WM * WN):
+                    wm, wn = warp % WM, warp // WM
+
+                    def load_a(ks):
+                        return {(w, mt): _ldmatrix_x4(
+                            smem, st + XSTAGE + w * WSTAGE
+                            + (ks * 16 + lr + (lm >> 1) * 8) * WPITCH
+                            + (wm * MT + mt) * 16 + (lm & 1) * 8, True)
+                            for w in range(nw) for mt in range(MT)}
+
+                    def load_b(ks, p):
+                        if (2 * p * WN + wn) * 8 >= rows:
+                            return None
+                        return _ldmatrix_x4(
+                            smem, st + (((2 * p + (lm >> 1)) * WN + wn) * 8
+                                        + lr) * XPITCH + ks * 16
+                            + (lm & 1) * 8, False)
+
+                    # the kernel's order: fragments one step ahead, in
+                    # buffers indexed by the parity of ks (A) and step (B)
+                    a, b = [load_a(0), None], [load_b(0, 0), None]
+                    for ks in range(BK // 16):
+                        for p in range(NT // 2):
+                            step = ks * (NT // 2) + p
+                            if p + 1 < NT // 2:
+                                b[(step + 1) & 1] = load_b(ks, p + 1)
+                            elif ks + 1 < BK // 16:
+                                a[(ks + 1) & 1] = load_a(ks + 1)
+                                b[(step + 1) & 1] = load_b(ks + 1, 0)
+                            for h in range(2):
+                                j = 2 * p + h
+                                if (j * WN + wn) * 8 >= rows:
+                                    continue
+                                bb = b[step & 1]
+                                for (w, mt), av in a[ks & 1].items():
+                                    acc = accs.setdefault(
+                                        (warp, w, mt, j),
+                                        np.zeros((32, 4), np.float32))
+                                    _mma(acc, av, bb[:, 2 * h],
+                                         bb[:, 2 * h + 1])
+
+            # epilogue: (f, c) -> ys[c][f], then whole 8-element rows out
+            ys = smem                                    # the ring, reused
+            for warp in range(WM * WN):
+                wm, wn = warp % WM, warp // WM
+                for j in range(NT):
+                    t = j * WN + wn
+                    if t * 8 >= rows:
+                        continue
+                    for mt in range(MT):
+                        for q in range(4):
+                            f = (wm * MT + mt) * 16 + G + (q >> 1) * 8
+                            c = t * 8 + TG * 2 + (q & 1)
+                            v = accs[(warp, 0, mt, j)][:, q]
+                            if fused:
+                                u = accs[(warp, 1, mt, j)][:, q]
+                                v = v / (1.0 + np.exp(-v)) * u
+                            ys[c * YPITCH + f] = v
+            for i in range(rows * (BF // 8)):
+                r, c = i // (BF // 8), (i % (BF // 8)) * 8
+                if f0 + c < F:
+                    dst = (e * C + c0 + r) * F + f0 + c
+                    y[dst:dst + 8] = ys[r * YPITCH + c:r * YPITCH + c + 8]
+    return y.reshape(E, C, F)
+
+
+def _case(seed, E, C, D, F, row_pad=0, empty=()):
+    """x as a strided view (row_pad extra rows before row 0, so sxc = D and
+    the base moves) and contiguous weights; the experts in ``empty`` get
+    zero rows."""
+    rng = np.random.default_rng(seed)
+    xb = rng.standard_normal((E, C + row_pad, D)).astype(np.float32)
+    for e in empty:
+        xb[e] = 0.0
+    wg = (rng.standard_normal((E, D, F)) / np.sqrt(D)).astype(np.float32)
+    wu = (rng.standard_normal((E, D, F)) / np.sqrt(D)).astype(np.float32)
+    return xb, wg, wu
+
+
+def _run(xb, wg, wu, C, row_pad, fused, shape=None):
+    E, _, D = xb.shape
+    F = wg.shape[2]
+    flat = np.concatenate([xb.reshape(-1), np.zeros(8, np.float32)])
+    x_view = flat[row_pad * D:]          # the view's base
+    return tc_transliteration(
+        x_view, (C + row_pad) * D, D, wg.reshape(-1),
+        wu.reshape(-1) if fused else None, D * F, F, E, C, D, F, shape)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("E,C,D,F,row_pad,shape", [
+    (2, 8, 48, 136, 0, None),       # decode C 8, F past one 128 tile, D 48
+    (2, 9, 16, 72, 3, None),        # C 9 (a second, partial n8 tile), D 16
+    (1, 1, 32, 8, 0, None),         # C 1, F 8
+    (1, 161, 24, 24, 0, None),      # C > 64: chunks of 88 and 73 rows
+    (2, 70, 40, 40, 1, (2, 2, 1, 2, 32, 4)),  # past a 32-row cap: 3 chunks
+])
+def test_transliteration_matches_plain(fused, E, C, D, F, row_pad, shape):
+    xb, wg, wu = _case(E * 100 + C, E, C, D, F, row_pad, empty=(E - 1,))
+    x = torch.from_numpy(xb[:, row_pad:])
+    want = (MG.moe_ffn_fused_ref(x, torch.from_numpy(wg),
+                                 torch.from_numpy(wu)) if fused
+            else MG.moe_gemm_ref(x, torch.from_numpy(wg))).numpy()
+    got = _run(xb, wg, wu, C, row_pad, fused, shape)
+    np.testing.assert_allclose(got, want, **TOL)
+    assert not got[E - 1].any()             # the empty expert gives zeros
+
+
+def test_transliteration_past_the_cap_of_the_large_shape():
+    """C 300 > the 160 rows a prefill block holds: two chunks of 152 and
+    148 rows, each reading the whole D of its F-tile."""
+    xb, wg, wu = _case(7, 1, 300, 16, 16)
+    got = _run(xb, wg, wu, 300, 0, True)
+    want = MG.moe_ffn_fused_ref(*(torch.from_numpy(a) for a in (xb, wg, wu)))
+    np.testing.assert_allclose(got, want.numpy(), **TOL)
+
+
+def test_a_row_depends_on_d_alone():
+    """Rows 0-7 at C 160 (the prefill shape, 16 warps) equal the C 8
+    output (the decode shape, 8 warps) bit for bit: each output is the
+    same chain of k16 products in increasing k, whatever the chunking or
+    the block shape."""
+    xb, wg, wu = _case(11, 1, 160, 64, 32)
+    wide = _run(xb, wg, wu, 160, 0, True)
+    narrow = _run(xb[:, :8], wg, wu, 8, 0, True)
+    assert np.array_equal(wide[:, :8], narrow)
+
+
+# ---------------------------------------------------------------------------
+# the rule
+# ---------------------------------------------------------------------------
+
+def _bf16(*shape):
+    return torch.zeros(shape, dtype=torch.bfloat16)
+
+
+class TestTensorCoreRule:
+    @pytest.mark.parametrize("C,D,F", [
+        (8, 2048, 768), (160, 2048, 768),   # qwen3-moe gate/up
+        (8, 768, 2048), (160, 768, 2048),   # qwen3-moe down
+    ])
+    def test_main_path_shapes_take_the_tensor_cores(self, C, D, F):
+        # E 2 of the 128 experts: the rule does not read E
+        x, w = _bf16(2, C, D), _bf16(2, D, F)
+        assert MG.uses_tensor_cores(x, w)
+        assert MG.uses_tensor_cores(x, w, _bf16(2, D, F))
+
+    def test_f32_keeps_the_cuda_core_template(self):
+        x, w = torch.zeros(9, 8, 4096), torch.zeros(9, 4096, 8)
+        assert not MG.uses_tensor_cores(x, w)
+        assert not MG.uses_tensor_cores(x.bfloat16(), w)
+
+    @pytest.mark.parametrize("D,F", [(12, 16), (16, 12), (37, 19)])
+    def test_d_and_f_must_be_multiples_of_8(self, D, F):
+        assert not MG.uses_tensor_cores(_bf16(2, 4, D), _bf16(2, D, F))
+
+    def test_a_row_slice_of_x_keeps_the_tensor_cores(self):
+        # rows 3.. of [E, C + 3, 16]: base moves 96 bytes, row stride 16
+        x = _bf16(2, 12, 16)[:, 3:]
+        assert MG.uses_tensor_cores(x, _bf16(2, 16, 8))
+
+    def test_strides_off_8_take_the_template(self):
+        x = _bf16(2, 4, 17)[:, :, :16]          # row stride 17
+        assert not MG.uses_tensor_cores(x, _bf16(2, 16, 8))
+        w = _bf16(2, 16, 12)[:, :, :8]          # w row stride 12
+        assert not MG.uses_tensor_cores(_bf16(2, 4, 16), w)
+
+    def test_unaligned_bases_take_the_template(self):
+        x = _bf16(2 * 4 * 16 + 1)[1:].view(2, 4, 16)   # base + 2 bytes
+        assert x.data_ptr() % 16 == 2
+        assert not MG.uses_tensor_cores(x, _bf16(2, 16, 8))
+        wu = _bf16(2 * 16 * 8 + 4)[4:].view(2, 16, 8)  # base + 8 bytes
+        assert not MG.uses_tensor_cores(_bf16(2, 4, 16), _bf16(2, 16, 8),
+                                        wu)
+
+    def test_non_unit_inner_strides_take_the_template(self):
+        w = _bf16(2, 8, 16).transpose(1, 2)     # [2, 16, 8], stride 16 on F
+        assert not MG.uses_tensor_cores(_bf16(2, 4, 16), w)
