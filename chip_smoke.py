@@ -46,8 +46,11 @@ Phases:
              flash_attention at minitron-8b's 2048-token causal prefill
              and seamless-m4t-medium's encoder (1536 frames) and cross
              attention (1024 x 1536), after ragged shapes (head dims
-             16-128, -1 key positions, every engine bucket at minitron's
-             widths), compared on the rows that have a valid key;
+             16-128 in f32 and bf16, -1 key positions, a first kv-tile
+             with no valid key, reversed key positions, every engine
+             bucket at minitron's widths), compared on the rows that have
+             a valid key, and the ptxas registers and spills of its bf16
+             route at head dims 64 and 128;
 3. serve   — ``repro_torch.launch.serve.serve`` through the northbound
              gateway: 4 sessions, 8 requests, 8 slots, max_len 2048;
 4. engine  — dense and paged engines, 8 slots with 512-1536-token prompts
@@ -642,10 +645,12 @@ def phase_flash_kernels(cfg, sm_cfg):
     """flash_attention against its plain version (the blocked loop, on the
     same inputs in the same dtype) on the rows that have a valid key — a
     row with none is garbage in the plain loop and zeros from the kernel,
-    and the model never reads it. Ragged shapes first (head dims 16-128,
-    sq != skv, -1 key positions, queries starting past 0, the seamless
-    smoke config's encoder and cross shapes, every engine bucket at
-    minitron-8b's widths), then the three full-width shapes with times:
+    and the model never reads it. Ragged shapes first (head dims 16-128 in
+    f32 and bf16, sq != skv and off the 64-row q-tile, -1 key positions,
+    a first kv-tile with no valid key for some rows, reversed key
+    positions, queries starting past 0, the seamless smoke config's
+    encoder and cross shapes, every engine bucket at minitron-8b's widths),
+    then the three full-width shapes with times:
     minitron-8b's 2048-token causal prefill (32 q / 8 KV heads of 128),
     seamless-m4t-medium's encoder (1536 frames, 16 heads of 64) and its
     cross attention (1024 x 1536), bf16. Inputs rotate over 4 sets.
@@ -666,7 +671,11 @@ def phase_flash_kernels(cfg, sm_cfg):
              "v": randn(b, skv, hkv, d),
              "qpos": torch.arange(sq, dtype=torch.int32, device=dev) + q_off,
              "kpos": torch.arange(skv, dtype=torch.int32, device=dev)}
-        if holes:
+        if holes == "first64":           # the first kv-tile all -1
+            x["kpos"][:64] = -1
+        elif holes == "reversed":        # tile 0 holds the latest keys
+            x["kpos"] = x["kpos"].flip(0).contiguous()
+        elif holes:
             x["kpos"][skv // 3:skv // 3 + 70] = -1
             x["kpos"][-5:] = -1
         return x
@@ -705,7 +714,19 @@ def phase_flash_kernels(cfg, sm_cfg):
             (2, 33, 33, 6, 2, 80, True, bf16, False, 0),
             (1, 65, 200, 2, 1, 96, False, bf16, True, 0),
             (1, 50, 50, 2, 2, 112, True, f32, False, 0),
-            (1, 1, 1, 2, 1, 64, True, bf16, False, 0)):
+            (1, 1, 1, 2, 1, 64, True, bf16, False, 0),
+            # the bf16 route at the head dims above that run only in f32,
+            # and at sq off its 64-row q-tile
+            (1, 257, 257, 4, 2, 16, True, bf16, False, 0),
+            (2, 40, 24, 4, 4, 32, False, bf16, False, 0),
+            (1, 70, 150, 4, 2, 48, True, bf16, True, 40),
+            (1, 50, 50, 2, 2, 112, True, bf16, False, 0),
+            (2, 200, 200, 8, 2, 128, True, bf16, False, 0),
+            # rows whose first kv-tile has no valid key: the first 64 keys
+            # -1 (queries at 30-129: rows 0-33 see no key at all, beside
+            # rows that do), and reversed key positions under causal
+            (1, 100, 180, 4, 1, 64, True, bf16, "first64", 30),
+            (1, 130, 130, 4, 1, 128, True, bf16, "reversed", 0)):
         check(f"b {b} sq {sq} skv {skv} hq {hq} hkv {hkv} d {d} causal "
               f"{causal} {dtype}", inputs(b, sq, skv, hq, hkv, d, dtype,
                                           holes, q_off), causal, small)
@@ -716,9 +737,20 @@ def phase_flash_kernels(cfg, sm_cfg):
                                              cfg.head_dim, bf16),
               True, blocks)
     log("[kernels] flash_attention agrees with its plain version at ragged "
-        "shapes (d 16-128, sq 1-257, skv 1-300, -1 keys, f32 and bf16) and "
+        "shapes (d 16-128 in f32 and bf16, sq 1-257, skv 1-300, -1 keys, "
+        "a first kv-tile with no valid key, reversed key positions) and "
         f"every engine bucket {prefill_buckets(2048)} at minitron-8b's "
         f"widths, on the rows with a valid key")
+    from repro_torch.kernels import build
+    entry = ""
+    for line in build.build_log("flash_attention").splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif "registers" in line or "spill" in line:
+            for d in (64, 128):
+                if f"flash_tc_kernelILi{d}E" in entry:
+                    log(f"[build] flash_attention bf16 d {d}: "
+                        f"{line.strip()}")
 
     sm_blocks = (sm_cfg.attn_block_q, sm_cfg.attn_block_kv)
     hs, ds = sm_cfg.num_heads, sm_cfg.head_dim
@@ -764,7 +796,8 @@ def phase_flash_kernels(cfg, sm_cfg):
             f"kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
             f"{library_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by}; "
             f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP; kernel "
-            f"{flops / ms / 1e9:.1f} TFLOP/s)")
+            f"{flops / ms / 1e9:.1f} TFLOP/s, {bound_ms / ms:.1%} of bound, "
+            f"x library {ms / library_ms:.2f})")
         if not rows:                     # the JSON row: minitron's prefill
             rows["flash_attention"] = {
                 "name": "flash_attention", "route": "cuda",

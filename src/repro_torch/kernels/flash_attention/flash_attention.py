@@ -10,9 +10,16 @@ model's layout, query and key positions [sq] / [skv] shared across the
 batch (a key at position -1 is invalid), ``causal`` masking keys after the
 query's position, scale 1/sqrt(d), f32 scores and statistics, probabilities
 rounded to v's dtype before the PV product. With positions ``arange`` and
-sq == skv this is the Pallas kernel's function. The kernel is in
-``csrc/flash_attention.cu``; its header says what bounds it on the card and
-how its design answers it.
+sq == skv this is the Pallas kernel's function.
+
+The kernel (``csrc/flash_attention.cu``) is bound by operations: 34.4 GFLOP
+at minitron-8b's 2048-token causal prefill, 0.035 ms at the card's bf16
+rate. Its bf16 route keeps S, P and O in registers on ``mma.sync``
+(m16n8k16, f32 accumulate), with Q held as A fragments, P reused from the S
+accumulators as the A operand of PV, the online softmax on the registers
+with quad shuffles, and K/V tiles of 64 keys double-buffered by
+``cp.async``; ``wgmma`` and TMA are left to later work. Its f32 route (for
+checks) runs on the CUDA cores without TF32.
 
 The plain version is ``blocked_attention``, the port's loop over query and
 key blocks (it also takes the window and softcap the model's other paths
