@@ -31,10 +31,18 @@ Phases:
 1. build   — nvcc for every kernel library, all started together;
 2. kernels — each kernel against its plain PyTorch version on the main
              paths' shapes, with kernel / plain / library times and the
-             least time the card could take: decode attention at
-             minitron's decode shapes (B 8, S 2048, ragged lengths incl.
-             1, S-1, S; paged: page 128, a shuffled block table whose
-             unused entries are the scratch page 0); the grouped GEMMs at
+             least time the card could take: decode attention (ptxas
+             registers and spills of each instantiation) at lengths 0, 1,
+             kChunk - 1, kChunk, kChunk + 1 and S in bf16 and f32, its
+             splits' combine order pinned by an f32 cancellation, then
+             minitron-8b's, qwen3-moe-30b-a3b's and seamless-m4t-medium's
+             decoder shapes (B 8, S 2048, lengths 1 ... 2048; paged: a
+             shuffled block table whose unused entries are the scratch
+             page 0), timed beside SDPA by eager calls (``ms``, host side
+             included, as every kernel row) and by CUDA-graph replay
+             (``device_ms``), and paged output equal to dense output bit
+             for bit throughout;
+             the grouped GEMMs at
              qwen3-moe's expert shapes (decode C 8, prefill C 160; the
              tensor-core variant, asserted, with rows 0-7 at C 160 equal
              to C 8 bit for bit) and at the adapter route's two f32
@@ -96,7 +104,8 @@ path's result (each adapter session alone, the full-width prefill logits
 and a profiled prefill, the recurrent and encdec checks) run after that
 read and are not counted. Every grouped-GEMM launch of the qwen3-moe path
 must have taken the tensor-core variant, and none of the adapter path's
-(its products are f32). Any failed phase fails the run (exit 1). The last two
+(its products are f32). Each profiled decode round prints its decode
+attention share. Any failed phase fails the run (exit 1). The last two
 lines are the card's name and power limit, then the result JSON.
 """
 
@@ -149,6 +158,35 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters: int = 20, reps: int = 5) -> float:
+    """Device time of one ``fn()``: ``iters`` calls captured in a CUDA graph,
+    the graph replayed ``reps`` times between two events. A call whose host
+    side (checks, allocation, two launches) takes longer than its kernels
+    is timed by ``time_ms`` at the host's rate; a replay has no host side."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (reps * iters)
+
+
 # ---------------------------------------------------------------------------
 # phase 1: build
 # ---------------------------------------------------------------------------
@@ -169,125 +207,301 @@ def phase_build():
 
 
 # ---------------------------------------------------------------------------
-# phase 2: each kernel against its plain version at minitron's decode shapes
+# phase 2: each kernel against its plain version at the main paths' shapes
 # ---------------------------------------------------------------------------
 
-def phase_kernels(cfg):
+def decode_table(lens_host, S: int, page: int, seed: int):
+    """A shuffled block table [B, pps] (pps * page >= S) for rows of the
+    given lengths: each row's pages scattered over a pool of P pages, the
+    entries past a row's length at the scratch page 0. Returns (tables,
+    P)."""
     import numpy as np
-    import torch
-    import torch.nn.functional as F
-    from repro_torch.kernels.decode_attention import decode_attention as DA
-
-    B, Hq, Hkv, D, S, page = 8, cfg.num_heads, cfg.num_kv_heads, \
-        cfg.head_dim, 2048, 128
-    pps = S // page
-    dev, dt = torch.device("cuda"), torch.bfloat16
-    gen = torch.Generator(device=dev).manual_seed(1234)
-    lens_host = np.array([1, S - 1, S, 517, 1024, 1500, 129, 64], np.int32)
-    lengths = torch.from_numpy(lens_host).to(dev)
-    mask = (torch.arange(S, device=dev)[None, :]
-            < lengths[:, None])[:, None, None, :]            # [B, 1, 1, S]
-
-    # paged pool: every row's pages scattered over a shuffled pool; table
-    # entries past a row's length stay at the scratch page 0; pool pages no
-    # row owns (page 0 included) hold finite garbage that must never reach
-    # the softmax
-    rng = np.random.default_rng(7)
+    rng = np.random.default_rng(seed)
+    B, pps = len(lens_host), -(-S // page)
     P = 1 + B * pps + 5
     perm = 1 + rng.permutation(P - 1)[:B * pps]
     tables = np.zeros((B, pps), np.int32)
     for b in range(B):
         used = -(-int(lens_host[b]) // page)
         tables[b, :used] = perm[b * pps:b * pps + used]
-    tbl = torch.from_numpy(tables).to(dev)
+    return tables, P
 
-    def inputs():
-        q = torch.randn((B, Hq, D), generator=gen, device=dev).to(dt)
-        # dense cache in the engine's own layout [B, S, Hkv, D]
-        ck = torch.randn((B, S, Hkv, D), generator=gen, device=dev).to(dt)
-        cv = torch.randn((B, S, Hkv, D), generator=gen, device=dev).to(dt)
-        pk = torch.full((P, page, Hkv, D), 3e4, device=dev, dtype=dt)
-        pv = torch.full((P, page, Hkv, D), -3e4, device=dev, dtype=dt)
-        for b in range(B):
-            for j in range(-(-int(lens_host[b]) // page)):
-                pk[tables[b, j]] = ck[b, j * page:(j + 1) * page]
-                pv[tables[b, j]] = cv[b, j * page:(j + 1) * page]
-        return {"q": q, "k": ck.transpose(1, 2), "v": cv.transpose(1, 2),
-                "pk": pk, "pv": pv}
 
-    # timed launches rotate over input sets larger than the 50 MB L2
-    # together, so each launch reads its K/V from device memory, as a
-    # decode step does after the other layers have passed through L2
-    sets = [inputs() for _ in range(4)]
-    it = {"i": 0}
+def decode_inputs(gen, B, Hkv, g, D, S, dtype, tables, P, page):
+    """q [B, Hq, D]; the dense cache in the engine's layout [B, S, Hkv, D]
+    (as the [B, Hkv, S, D] views the model passes); and a page pool [P,
+    page, Hkv, D] holding the same rows through ``tables``. Pool pages no
+    row owns (page 0 included) hold finite garbage that must never reach
+    the softmax."""
+    import torch
+    dev = torch.device("cuda")
+    q = torch.randn((B, Hkv * g, D), generator=gen, device=dev).to(dtype)
+    ck = torch.randn((B, S, Hkv, D), generator=gen, device=dev).to(dtype)
+    cv = torch.randn((B, S, Hkv, D), generator=gen, device=dev).to(dtype)
+    pk = torch.full((P, page, Hkv, D), 3e4, device=dev, dtype=dtype)
+    pv = torch.full((P, page, Hkv, D), -3e4, device=dev, dtype=dtype)
+    for b in range(B):
+        for j in range(tables.shape[1]):
+            if tables[b, j]:
+                n = min(page, S - j * page)
+                pk[tables[b, j], :n] = ck[b, j * page:j * page + n]
+                pv[tables[b, j], :n] = cv[b, j * page:j * page + n]
+    return {"q": q, "k": ck.transpose(1, 2), "v": cv.transpose(1, 2),
+            "pk": pk, "pv": pv}
 
-    def nxt():
-        it["i"] = (it["i"] + 1) % len(sets)
-        return sets[it["i"]]
 
-    def sdpa(x):
-        return F.scaled_dot_product_attention(
-            x["q"][:, :, None], x["k"], x["v"], attn_mask=mask,
-            enable_gqa=True)
+def decode_kv_chunk() -> int:
+    """The decode kernels' split length ``kChunk``, read from their source
+    (the ragged lengths sit around it)."""
+    import re
+    src = (ROOT / "src" / "repro_torch" / "kernels" / "decode_attention" /
+           "csrc" / "decode_attention.cu").read_text()
+    return int(re.search(r"constexpr int kChunk = (\d+);", src).group(1))
 
-    valid_rows = int(lens_host.sum())
-    kv_bytes = 2 * valid_rows * Hkv * D * 2
-    qo_bytes = 2 * B * Hq * D * 2 + B * 4
-    flops = 4 * valid_rows * Hq * D
-    cases = [
-        ("decode_attention", "src/repro/kernels/decode_attention/"
-         "decode_attention.py:88",
-         lambda x: DA.decode_attention(x["q"], x["k"], x["v"], lengths),
-         lambda x: DA.decode_attention_ref(x["q"], x["k"], x["v"], lengths),
-         lambda x: DA.decode_attention_ref(x["q"].float(), x["k"].float(),
-                                           x["v"].float(), lengths),
-         kv_bytes + qo_bytes),
-        ("paged_decode_attention", "src/repro/kernels/decode_attention/"
-         "decode_attention.py:205",
-         lambda x: DA.paged_decode_attention(x["q"], x["pk"], x["pv"],
-                                             lengths, tbl),
-         lambda x: DA.paged_decode_attention_ref(x["q"], x["pk"], x["pv"],
-                                                 lengths, tbl),
-         lambda x: DA.paged_decode_attention_ref(
-             x["q"].float(), x["pk"].float(), x["pv"].float(), lengths, tbl),
-         kv_bytes + qo_bytes + B * pps * 4),
-    ]
-    rows = {}
-    outs = {}
-    for name, replaces, kern, plain, plain_f32, nbytes in cases:
-        out = kern(sets[0])
+
+def log_decode_build() -> None:
+    """ptxas registers and spills of each decode-attention instantiation
+    (the split kernel by dtype, head_dim and layout; the combine by dtype
+    and head_dim)."""
+    import re
+    from repro_torch.kernels import build
+    entry = ""
+    for line in build.build_log("decode_attention").splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif "registers" in line or "spill" in line:
+            m = re.search(r"decode_attn_splitI(13__nv_bfloat16|f)Li(\d+)ELb"
+                          r"([01])E", entry)
+            c = re.search(r"decode_attn_combineI(13__nv_bfloat16|f)Li(\d+)E",
+                          entry)
+            if m:
+                what = (f"split {'f32' if m.group(1) == 'f' else 'bf16'} d "
+                        f"{m.group(2)} "
+                        f"{'paged' if m.group(3) == '1' else 'dense'}")
+            elif c:
+                what = (f"combine {'f32' if c.group(1) == 'f' else 'bf16'} d "
+                        f"{c.group(2)}")
+            else:
+                continue
+            log(f"[build] decode_attention {what}: {line.strip()}")
+
+
+def log_decode_kernels(label: str, fn, calls: int = 20) -> None:
+    """Device time per call of each kernel ``fn`` launches (the split and
+    the combine), from torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
-        ref = plain_f32(sets[0])
-        err = (out.float() - ref).abs()
-        bad = err > ATOL + RTOL * ref.abs()
-        if not torch.isfinite(out).all() or bool(bad.any()):
-            fail(f"{name}: kernel disagrees with its plain version "
-                 f"(max abs err {float(err.max()):.3e}, "
-                 f"{int(bad.sum())} elements past atol=rtol={ATOL})")
-        outs[name] = out
-        ms = time_ms(lambda: kern(nxt()))
-        plain_ms = time_ms(lambda: plain(nxt()), iters=10)
-        # the library call on the linear [B, Hkv, S, D] view (for the paged
-        # row too: PyTorch has no single call that reads a block table)
-        library_ms = time_ms(lambda: sdpa(nxt()))
-        bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
-        rows[name] = {
-            "name": name, "route": "cuda",
-            "source": "src/repro_torch/kernels/decode_attention/csrc/"
-                      "decode_attention.cu",
-            "replaces": replaces, "launches": 0,
-            "max_abs_err": float(err.max()), "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": "bytes",
-            "library_ms": library_ms}
-        log(f"[kernels] {name}: max_abs_err {float(err.max()):.3e} "
-            f"kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} "
-            f"library_ms {library_ms:.4f} bound_ms {bound_ms:.4f} "
-            f"({nbytes / 1e6:.1f} MB moved at least)")
-    if not torch.equal(outs["decode_attention"],
-                       outs["paged_decode_attention"]):
-        fail("paged kernel is not bit-identical to the dense kernel on the "
-             "same logical cache")
-    log("[kernels] paged output bit-identical to dense output")
+    parts = []
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total",
+                    getattr(e, "self_cuda_time_total", 0.0))
+        if "decode_attn" in e.key and t > 0:
+            kind = "split" if "split" in e.key else "combine"
+            parts.append(f"{kind} {t / calls / 1e3:.4f} ms "
+                         f"x{e.count // calls}")
+    log(f"[kernels] {label} device time per call: {', '.join(parts)}")
+
+
+def phase_kernels(cfg, moe_cfg, sm_cfg):
+    """decode_attention and paged_decode_attention against their plain
+    versions. First ragged lengths 0, 1, kChunk - 1, kChunk, kChunk + 1 and
+    S at the three served shapes — minitron-8b (Hkv 8, g 4, D 128),
+    qwen3-moe-30b-a3b (Hkv 4, g 8, D 128) and seamless-m4t-medium's decoder
+    (Hkv 16, g 1, D 64) — in bf16 (against the f32 plain version, atol =
+    rtol = 1e-2) and f32 (1e-5), paged through page 48 (off kChunk, pps *
+    page != S); a row of length 0 gives zeros, as from the Pallas kernels
+    (the plain version gives the mean of V there). Then the splits'
+    combine order, pinned exactly by a cancellation in f32. Then each
+    served shape at the engines' lengths (1 ... 2048, page 128) with
+    kernel / plain / SDPA times and the least time the card could take.
+    Paged output must equal dense output bit for bit in every case. Inputs
+    of the timed launches rotate over 4 sets."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import decode_attention as DA
+
+    log_decode_build()
+    S = 2048
+    dev, bf16, f32 = torch.device("cuda"), torch.bfloat16, torch.float32
+    gen = torch.Generator(device=dev).manual_seed(1234)
+    kc = decode_kv_chunk()
+    shapes = [(cfg.name, cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads,
+               cfg.head_dim),
+              (moe_cfg.name, moe_cfg.num_kv_heads,
+               moe_cfg.num_heads // moe_cfg.num_kv_heads, moe_cfg.head_dim),
+              (f"{sm_cfg.name} decoder", sm_cfg.num_kv_heads,
+               sm_cfg.num_heads // sm_cfg.num_kv_heads, sm_cfg.head_dim)]
+
+    def run(x, lengths, tbl):
+        return (DA.decode_attention(x["q"], x["k"], x["v"], lengths),
+                DA.paged_decode_attention(x["q"], x["pk"], x["pv"], lengths,
+                                          tbl))
+
+    def check(label, x, lengths, outs, tol):
+        ref = DA.decode_attention_ref(x["q"].float(), x["k"].float(),
+                                      x["v"].float(), lengths)
+        ref[lengths == 0] = 0            # the Pallas kernels' zeros
+        worst = 0.0
+        for name, out in zip(("decode_attention", "paged_decode_attention"),
+                             outs):
+            err = (out.float() - ref).abs()
+            bad = err > tol + tol * ref.abs()
+            worst = max(worst, float(err.max()))
+            if not torch.isfinite(out).all() or bool(bad.any()):
+                fail(f"{name} ({label}): kernel disagrees with its plain "
+                     f"version (max abs err {float(err.max()):.3e}, "
+                     f"{int(bad.sum())} elements past atol=rtol={tol})")
+        if not torch.equal(outs[0], outs[1]):
+            fail(f"paged_decode_attention ({label}): not bit-identical to "
+                 f"the dense kernel on the same logical cache "
+                 f"({int((outs[0] != outs[1]).sum())} elements)")
+        return worst
+
+    ragged = np.array([0, 1, kc - 1, kc, kc + 1, S], np.int32)
+    tables, P = decode_table(ragged, S, 48, seed=11)
+    lengths = torch.from_numpy(ragged).to(dev)
+    tbl = torch.from_numpy(tables).to(dev)
+    for label, Hkv, g, D in shapes:
+        for dtype, tol in ((bf16, ATOL), (f32, F32_TOL)):
+            x = decode_inputs(gen, len(ragged), Hkv, g, D, S, dtype, tables,
+                              P, 48)
+            torch.cuda.synchronize()
+            check(f"{label} ragged {dtype}", x, lengths,
+                  run(x, lengths, tbl), tol)
+    torch.cuda.synchronize()
+    log(f"[kernels] decode attention agrees with its plain version at "
+        f"lengths {ragged.tolist()} (kChunk {kc}) at the three served "
+        f"shapes in bf16 (atol=rtol={ATOL}) and f32 ({F32_TOL}); paged "
+        f"(page 48, pps * page {tables.shape[1] * 48} != S {S}) == dense "
+        f"bit for bit")
+
+    # the splits are combined in split order: V rows of 2^16 in split 0, a
+    # single 1 in split 1, -2^16 in split 2, all scores 0. In f32,
+    # (2^24 + 1) - 2^24 = 0, while any other order gives 1/(3 kChunk)
+    one = np.array([3 * kc], np.int32)
+    ot, oP = decode_table(one, 3 * kc, 48, seed=12)
+    x = decode_inputs(gen, 1, 1, 2, 64, 3 * kc, f32, ot, oP, 48)
+    x["q"].fill_(1.0)
+    for key in ("k", "v", "pk", "pv"):
+        x[key].zero_()
+    x["v"][0, 0, :kc] = 2.0 ** 16
+    x["v"][0, 0, kc] = 1.0
+    x["v"][0, 0, 2 * kc:] = -2.0 ** 16
+    for b, j in zip(*np.nonzero(ot)):
+        x["pv"][ot[b, j], :, 0] = x["v"][b, 0, j * 48:(j + 1) * 48]
+    outs = run(x, torch.from_numpy(one).to(dev), torch.from_numpy(ot).to(dev))
+    torch.cuda.synchronize()
+    for name, out in zip(("decode_attention", "paged_decode_attention"),
+                         outs):
+        if bool(out.any()):
+            fail(f"{name}: the splits were not combined in split order "
+                 f"(max {float(out.abs().max()):.3e}, expected exactly 0)")
+    log("[kernels] decode attention combines its splits in split order "
+        "(an f32 cancellation across three splits gives exactly 0)")
+
+    # the served shapes at the engines' lengths, timed
+    lens_host = np.array([1, S - 1, S, 517, 1024, 1500, 129, 64], np.int32)
+    B, page = len(lens_host), 128
+    tables, P = decode_table(lens_host, S, page, seed=7)
+    lengths = torch.from_numpy(lens_host).to(dev)
+    tbl = torch.from_numpy(tables).to(dev)
+    mask = (torch.arange(S, device=dev)[None, :]
+            < lengths[:, None])[:, None, None, :]            # [B, 1, 1, S]
+    valid_rows = int(lens_host.sum())
+    rows = {}
+    for label, Hkv, g, D in shapes:
+        Hq = Hkv * g
+        # timed launches rotate over input sets larger than the 50 MB L2
+        # together, so each launch reads its K/V from device memory, as a
+        # decode step does after the other layers have passed through L2
+        sets = [decode_inputs(gen, B, Hkv, g, D, S, bf16, tables, P, page)
+                for _ in range(4)]
+        it = {"i": 0}
+
+        def nxt():
+            it["i"] = (it["i"] + 1) % len(sets)
+            return sets[it["i"]]
+
+        def sdpa(x):
+            return F.scaled_dot_product_attention(
+                x["q"][:, :, None], x["k"], x["v"], attn_mask=mask,
+                enable_gqa=True)
+
+        err = check(f"{label} B {B} S {S}", sets[0], lengths,
+                    run(sets[0], lengths, tbl), ATOL)
+        kv_bytes = 2 * valid_rows * Hkv * D * 2
+        qo_bytes = 2 * B * Hq * D * 2 + B * 4
+        flops = 4 * valid_rows * Hq * D
+        shape = f"{label} B {B} Hq {Hq} Hkv {Hkv} D {D} S {S} bf16"
+        for name, kern, plain, nbytes in (
+                ("decode_attention",
+                 lambda x: DA.decode_attention(x["q"], x["k"], x["v"],
+                                               lengths),
+                 lambda x: DA.decode_attention_ref(x["q"], x["k"], x["v"],
+                                                   lengths),
+                 kv_bytes + qo_bytes),
+                ("paged_decode_attention",
+                 lambda x: DA.paged_decode_attention(x["q"], x["pk"],
+                                                     x["pv"], lengths, tbl),
+                 lambda x: DA.paged_decode_attention_ref(
+                     x["q"], x["pk"], x["pv"], lengths, tbl),
+                 kv_bytes + qo_bytes + B * tables.shape[1] * 4)):
+            # ms: eager calls back to back, as every kernel row is timed
+            # (host-bound here: a call's host side outlasts its kernels);
+            # device_ms: the same calls replayed from a CUDA graph, which
+            # has no host side
+            ms = time_ms(lambda: kern(nxt()))
+            device_ms = graph_ms(lambda: kern(nxt()))
+            plain_ms = time_ms(lambda: plain(nxt()), iters=10)
+            # the library call on the linear [B, Hkv, S, D] view (for the
+            # paged row too: PyTorch has no single call that reads a block
+            # table), timed both ways
+            library_ms = time_ms(lambda: sdpa(nxt()))
+            library_device_ms = graph_ms(lambda: sdpa(nxt()))
+            bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
+            log(f"[kernels] {name} ({shape}): max_abs_err {err:.3e} "
+                f"kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
+                f"{library_ms:.4f} bound_ms {bound_ms:.4f} (bytes; "
+                f"{nbytes / 1e6:.1f} MB moved at least) x library "
+                f"{ms / library_ms:.2f}; by graph replay: kernel "
+                f"{device_ms:.4f}, library {library_device_ms:.4f}, x "
+                f"library {device_ms / library_device_ms:.2f}, "
+                f"{bound_ms / device_ms:.1%} of bound")
+            log_decode_kernels(f"{name} ({label})", lambda: kern(nxt()))
+            if name not in rows:          # the JSON row: minitron's shape
+                rows[name] = {
+                    "name": name, "route": "cuda",
+                    "source": "src/repro_torch/kernels/decode_attention/"
+                              "csrc/decode_attention.cu",
+                    "replaces": "src/repro/kernels/decode_attention/"
+                                "decode_attention.py:"
+                                + ("88" if name == "decode_attention"
+                                   else "205"),
+                    "launches": 0, "max_abs_err": err, "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": "bytes", "library_ms": library_ms,
+                    "device_ms": device_ms,
+                    "library_device_ms": library_device_ms, "shapes": []}
+            rows[name]["shapes"].append({
+                "shape": shape, "ms": ms, "plain_ms": plain_ms,
+                "library_ms": library_ms, "ratio": ms / library_ms,
+                "device_ms": device_ms,
+                "library_device_ms": library_device_ms,
+                "device_ratio": device_ms / library_device_ms,
+                "bound_ms": bound_ms, "bound_by": "bytes",
+                "max_abs_err": err})
+        del sets
+        torch.cuda.empty_cache()
+    log("[kernels] library_ms: decode attention — "
+        "torch.nn.functional.scaled_dot_product_attention (boolean length "
+        "mask, enable_gqa) on the linear [B, Hkv, S, D] views; paged output "
+        "bit-identical to dense output at every shape")
     return rows
 
 
@@ -835,7 +1049,8 @@ def phase_serve(model: str, params):
             f"ttft_ms={rep.z.get('t_ff_ms')} q99_ms={rep.z.get('q99_ms')}")
 
 
-def run_engine(cfg, params, prompts, *, paged: bool, steps: int, chunk: int):
+def run_engine(cfg, params, prompts, *, paged: bool, steps: int, chunk: int,
+               profile: bool = True):
     import torch
     from repro_torch.serving.engine import InferenceEngine
     eng = InferenceEngine(cfg, params=params, slots=len(prompts),
@@ -853,7 +1068,8 @@ def run_engine(cfg, params, prompts, *, paged: bool, steps: int, chunk: int):
         for sid, block in eng.decode_round(steps=chunk).items():
             toks[sid].extend(block)
     dt = time.perf_counter() - t0               # decode_round ends in a D2H
-    profile_round(eng, f"{cfg.name} {'paged' if paged else 'dense'}")
+    if profile:
+        profile_round(eng, f"{cfg.name} {'paged' if paged else 'dense'}")
     return toks, ttft, len(prompts) * steps / dt
 
 
@@ -926,6 +1142,12 @@ def log_profile(prof, name: str, wall_us: float, steps: int,
     for e in sorted(events, key=dev_us, reverse=True)[:8]:
         log(f"[profile] {name}:   {dev_us(e) / steps / 1e3:8.3f} ms/{unit} "
             f"x{e.count // steps:<4d} {e.key[:90]}")
+    decode = [e for e in events if "decode_attn" in e.key]
+    if decode:
+        t = sum(dev_us(e) for e in decode)
+        log(f"[profile] {name}: decode attention {t / steps / 1e3:.3f} "
+            f"ms/{unit} ({100 * t / busy:.1f}% of device busy) in "
+            f"{sum(e.count for e in decode) // steps} kernels/{unit}")
     host = [e for e in avgs if str(e.device_type).endswith("CPU")]
     log(f"[profile] {name}: host ops "
         f"{sum(e.count for e in host) // steps} per {unit}; by self CPU "
@@ -1565,7 +1787,7 @@ def main() -> None:
     rg_cfg = get_config("recurrentgemma-2b")
     mb_cfg = get_config("mamba2-1.3b")
     sm_cfg = get_config("seamless-m4t-medium")
-    rows = phase_kernels(cfg)
+    rows = phase_kernels(cfg, moe_cfg, sm_cfg)
     rows.update(phase_flash_kernels(cfg, sm_cfg))
     rows.update(phase_moe_kernels(moe_cfg, cfg.d_model))
     rows.update(phase_recurrent_kernels(rg_cfg, mb_cfg))

@@ -5,7 +5,15 @@ Replaces the Pallas TPU kernels ``decode_attention`` and
 ``paged_decode_attention`` of ``src/repro/kernels/decode_attention/
 decode_attention.py`` (``pl.pallas_call`` at :88 and :205). The kernels are
 in ``csrc/decode_attention.cu``; its header says what bounds them on the
-card and how their design answers it.
+card and how their design answers it: split-KV flash-decode. Each block
+takes one split of ``kChunk`` logical rows of one (batch row, KV head)
+and writes its partial softmax state (m, l, acc) in f32 to a workspace
+the wrapper allocates (sized by the library's
+``decode_attention_ws_floats``); a second kernel, launched by the same C call,
+reduces the splits below the row's length in split order. bf16 runs its
+products on the tensor cores, f32 on the CUDA cores. Both layouts run the
+same core, so the paged kernel's output is bit-identical to the dense
+kernel's on the same logical cache.
 
 Public layouts are the reference package's, so tests compare like with like:
 
@@ -16,15 +24,20 @@ Public layouts are the reference package's, so tests compare like with like:
 * ``paged_decode_attention(q, k/v_pages [P, page, Hkv, D], lengths [B],
   block_tables [B, PPS] int32)``.
 
+A row whose length is 0 comes out as zeros from the kernels, as from the
+Pallas kernels; the plain versions (ports of the reference's ref.py
+oracles) give the mean of V there. The engines never ask for length 0.
+
 Each wrapper takes its plain version only for tensors on the CPU. For a CUDA
-tensor it launches the kernel or raises: there is no fallback. ``LAUNCHES``
-counts kernel launches (one per successful launch, nowhere else), so a run
-can show that its main path went through the kernels.
+tensor it launches the kernels or raises: there is no fallback. ``LAUNCHES``
+counts wrapper calls that launched (one per successful call, nowhere else),
+so a run can show that its main path went through the kernels.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -40,12 +53,14 @@ _MAX_GROUP = 8       # query heads per KV head the kernel holds in registers
 
 _P, _LL, _I, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, \
     ctypes.c_float
-_ARGTYPES = {
-    "decode_attention_launch": [_I, _I, _P, _LL, _LL, _P, _P, _LL, _LL, _LL,
-                                _P, _P, _I, _I, _I, _I, _F, _P],
-    "paged_decode_attention_launch": [_I, _I, _P, _LL, _LL, _P, _P, _LL, _LL,
-                                      _LL, _P, _P, _I, _I, _P, _I, _I, _I,
-                                      _F, _P],
+_SIGNATURES = {        # C function -> (return type, argument types)
+    "decode_attention_launch": (_I, [_I, _I, _P, _LL, _LL, _P, _P, _LL, _LL,
+                                     _LL, _P, _P, _I, _I, _I, _I, _F, _P,
+                                     _LL, _P]),
+    "paged_decode_attention_launch": (_I, [_I, _I, _P, _LL, _LL, _P, _P, _LL,
+                                           _LL, _LL, _P, _P, _I, _I, _P, _I,
+                                           _I, _I, _F, _P, _LL, _P]),
+    "decode_attention_ws_floats": (_LL, [_I, _I, _I, _I, _I]),
 }
 _lib = None
 
@@ -60,9 +75,9 @@ def _library():
     if _lib is None:
         from repro_torch.kernels.build import load
         lib = load("decode_attention")
-        for fn, args in _ARGTYPES.items():
+        for fn, (res, args) in _SIGNATURES.items():
             getattr(lib, fn).argtypes = args
-            getattr(lib, fn).restype = ctypes.c_int
+            getattr(lib, fn).restype = res
         _lib = lib
     return _lib
 
@@ -105,34 +120,39 @@ def paged_decode_attention_ref(q, k_pages, v_pages, lengths, block_tables):
 # ---------------------------------------------------------------------------
 
 def _check_common(q, k, v, lengths, B, Hkv):
-    if q.device.type != "cuda":
+    """What the kernels assume of their inputs; raises ValueError if not.
+    Returns (g, D). It runs on every decode step of every layer, so each
+    property is read once."""
+    dev = q.device
+    if dev.type != "cuda":
         raise ValueError(f"decode attention runs on cpu or cuda tensors, "
-                         f"got {q.device}")
-    for name, t in (("k", k), ("v", v), ("lengths", lengths)):
-        if t.device != q.device:
-            raise ValueError(f"{name} on {t.device}, q on {q.device}")
-    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype \
-            or v.dtype != q.dtype:
-        raise ValueError(f"q/k/v dtypes {q.dtype}/{k.dtype}/{v.dtype}: the "
+                         f"got {dev}")
+    if k.device != dev or v.device != dev or lengths.device != dev:
+        raise ValueError(f"k, v, lengths on {k.device}, {v.device}, "
+                         f"{lengths.device}; q on {dev}")
+    dt = q.dtype
+    if dt not in _DTYPE_CODE or k.dtype != dt or v.dtype != dt:
+        raise ValueError(f"q/k/v dtypes {dt}/{k.dtype}/{v.dtype}: the "
                          f"kernel takes one of {list(_DTYPE_CODE)} for all")
-    if q.dim() != 3 or k.dim() != 4 or k.shape != v.shape:
-        raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
+    qs, ks = q.shape, k.shape
+    if len(qs) != 3 or len(ks) != 4 or ks != v.shape:
+        raise ValueError(f"shapes q {tuple(qs)}, k {tuple(ks)}, "
                          f"v {tuple(v.shape)}")
-    D = q.shape[2]
-    if D not in _HEAD_DIMS or k.shape[3] != D:
-        raise ValueError(f"head_dim {D} (k: {k.shape[3]}): the kernel is "
+    Hq, D = qs[1], qs[2]
+    if D not in _HEAD_DIMS or ks[3] != D:
+        raise ValueError(f"head_dim {D} (k: {ks[3]}): the kernel is "
                          f"built for {_HEAD_DIMS}")
-    Hq = q.shape[1]
-    if q.shape[0] != B or Hq % Hkv or not 1 <= Hq // Hkv <= _MAX_GROUP:
-        raise ValueError(f"q {tuple(q.shape)} vs {B} rows, {Hkv} KV heads "
+    if qs[0] != B or Hq % Hkv or not 1 <= Hq // Hkv <= _MAX_GROUP:
+        raise ValueError(f"q {tuple(qs)} vs {B} rows, {Hkv} KV heads "
                          f"(group size must be 1..{_MAX_GROUP})")
-    if k.stride() != v.stride():
+    kst = k.stride()
+    if kst != v.stride():
         raise ValueError("k and v must share strides")
-    vec = 16 // q.element_size()
-    if q.stride(-1) != 1 or k.stride(-1) != 1:
+    if q.stride(2) != 1 or kst[3] != 1:
         raise ValueError("q and k/v need unit stride along head_dim")
-    if any(s % vec for s in k.stride()[:-1]) \
-            or any(t.data_ptr() % 16 for t in (k, v)):
+    vec = 16 // q.element_size()
+    if kst[0] % vec or kst[1] % vec or kst[2] % vec \
+            or k.data_ptr() % 16 or v.data_ptr() % 16:
         raise ValueError("k/v rows must be 16-byte aligned")
     if lengths.dtype != torch.int32 or lengths.shape != (B,) \
             or not lengths.is_contiguous():
@@ -140,8 +160,31 @@ def _check_common(q, k, v, lengths, B, Hkv):
     return Hq // Hkv, D
 
 
-def _stream(t):
-    return torch.cuda.current_stream(t.device).cuda_stream
+@functools.lru_cache(maxsize=None)
+def _ws_floats(B: int, Hkv: int, g: int, D: int, S: int) -> int:
+    return _library().decode_attention_ws_floats(B, Hkv, g, D, S)
+
+
+def _workspace(q, B, Hkv, g, D, S):
+    """f32 scratch for the splits' partials, written by the kernel before
+    it is read; its size is the library's."""
+    return torch.empty(_ws_floats(B, Hkv, g, D, S), dtype=torch.float32,
+                       device=q.device)
+
+
+def _launch(fn, q, *args) -> int:
+    """``fn(*args, stream)`` with q's card current, on that card's current
+    stream; returns fn's CUDA error code. A decode step calls this once a
+    layer on a host-bound path, so it reads the raw stream handle (as
+    PyTorch's generated kernel launchers do) and enters a device guard
+    only when q is not on the current card: a ``torch.cuda.Stream`` and a
+    guard cost 6-10 and 4-8 us a call on the H100 machine's host, against
+    0.1-0.6 for these (``tools/decode_ab.py``)."""
+    idx = q.device.index
+    if idx == torch.cuda.current_device():
+        return fn(*args, torch._C._cuda_getCurrentRawStream(idx))
+    with torch.cuda.device(idx):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(idx))
 
 
 def _raise_on(rc: int, name: str) -> None:
@@ -157,12 +200,13 @@ def decode_attention(q, k, v, lengths):
     B, Hkv, S = k.shape[0], k.shape[1], k.shape[2]
     g, D = _check_common(q, k, v, lengths, B, Hkv)
     out = torch.empty((B, q.shape[1], D), dtype=q.dtype, device=q.device)
-    with torch.cuda.device(q.device):
-        rc = _library().decode_attention_launch(
-            _DTYPE_CODE[q.dtype], D, q.data_ptr(), q.stride(0), q.stride(1),
-            k.data_ptr(), v.data_ptr(), k.stride(0), k.stride(2),
-            k.stride(1), lengths.data_ptr(), out.data_ptr(), B, Hkv, g, S,
-            1.0 / math.sqrt(D), _stream(q))
+    ws = _workspace(q, B, Hkv, g, D, S)
+    rc = _launch(
+        _library().decode_attention_launch, q, _DTYPE_CODE[q.dtype], D,
+        q.data_ptr(), q.stride(0), q.stride(1), k.data_ptr(), v.data_ptr(),
+        k.stride(0), k.stride(2), k.stride(1), lengths.data_ptr(),
+        out.data_ptr(), B, Hkv, g, S, 1.0 / math.sqrt(D), ws.data_ptr(),
+        ws.numel())
     _raise_on(rc, "decode_attention")
     LAUNCHES["decode_attention"] += 1
     return out
@@ -186,13 +230,14 @@ def paged_decode_attention(q, k_pages, v_pages, lengths, block_tables):
                          f"on {q.device}")
     pps = block_tables.shape[1]
     out = torch.empty((B, q.shape[1], D), dtype=q.dtype, device=q.device)
-    with torch.cuda.device(q.device):
-        rc = _library().paged_decode_attention_launch(
-            _DTYPE_CODE[q.dtype], D, q.data_ptr(), q.stride(0), q.stride(1),
-            k_pages.data_ptr(), v_pages.data_ptr(), k_pages.stride(0),
-            k_pages.stride(1), k_pages.stride(2), lengths.data_ptr(),
-            block_tables.data_ptr(), pps, page, out.data_ptr(), B, Hkv, g,
-            1.0 / math.sqrt(D), _stream(q))
+    ws = _workspace(q, B, Hkv, g, D, pps * page)
+    rc = _launch(
+        _library().paged_decode_attention_launch, q, _DTYPE_CODE[q.dtype], D,
+        q.data_ptr(), q.stride(0), q.stride(1), k_pages.data_ptr(),
+        v_pages.data_ptr(), k_pages.stride(0), k_pages.stride(1),
+        k_pages.stride(2), lengths.data_ptr(), block_tables.data_ptr(), pps,
+        page, out.data_ptr(), B, Hkv, g, 1.0 / math.sqrt(D), ws.data_ptr(),
+        ws.numel())
     _raise_on(rc, "paged_decode_attention")
     LAUNCHES["paged_decode_attention"] += 1
     return out

@@ -55,7 +55,8 @@ PORTED = ("adapters/runtime.py", "models/moe.py", "models/transformer.py",
 
 
 def _sources():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+            + sorted((ROOT / "tools").glob("*.py")))
 
 
 def _imported(tree):
