@@ -46,11 +46,17 @@ Phases:
              qwen3-moe's expert shapes (decode C 8, prefill C 160; the
              tensor-core variant, asserted, with rows 0-7 at C 160 equal
              to C 8 bit for bit) and at the adapter route's two f32
-             products (the CUDA-core template), after ragged shapes of
-             both variants (C 1-300, D 8-2048, F 8-768); rglru_scan and
-             ssd_chunk at the recurrent paths' 2048-token prefill shapes
-             with a carried state (and ssd_chunk at a ragged l), after
-             ragged shapes down to the smoke configs' widths;
+             products (the narrow variant, asserted, with a row's bits
+             equal at C 1, 8 and 72 and any position), after ragged shapes
+             of all three variants (C 1-300, D 4-4100, F 4-4096), timed
+             eager and by CUDA-graph replay beside ``torch.bmm`` both ways
+             (and, for the adapter products, the host µs a call);
+             rglru_scan and ssd_chunk at the recurrent paths' 2048-token
+             prefill shapes with a carried state (and ssd_chunk at a
+             ragged l), eager and by replay, the SSD route's two kernels'
+             device times, after ragged shapes down to the smoke configs'
+             widths (l 1-1000, both routes, strided views of one buffer,
+             strides off 8, zero-dt steps carrying the state);
              flash_attention at minitron-8b's 2048-token causal prefill
              and seamless-m4t-medium's encoder (1536 frames) and cross
              attention (1024 x 1536), after ragged shapes (head dims
@@ -78,8 +84,8 @@ Phases:
              launch window, paged=True keeps the dense layout and its
              tokens, a mid-stream export (exactly ``kvcache.cache_bytes``
              of one slot) imported into a fresh engine continues
-             token-identically, and the full-width prefill logits are
-             finite;
+             token-identically, the full-width prefill logits are finite,
+             and (mamba2-1.3b) a profiled 2048-bucket prefill;
    encdec  — seamless-m4t-medium: 8 prompts of 64-1024 tokens, each with
              1536 frames, right-padded to the engine's buckets and
              prefilled through ``LM.prefill`` (flash_attention 36 times a
@@ -91,7 +97,8 @@ Phases:
 5. reference — small models in f32 on the card against the same models on
              the CPU through the plain versions: edge-tiny (dense and
              paged), edge-tiny with adapters (grouped route on the card,
-             gather on the CPU), the qwen3-moe smoke config, the
+             its products on the narrow variant, gather on the CPU), the
+             qwen3-moe smoke config, the
              recurrentgemma-2b and mamba2-1.3b smoke configs and the
              seamless-m4t-medium smoke config (head_dim 32).
 
@@ -103,10 +110,12 @@ seamless-m4t-medium, 0 for the recurrent families); the checks of a
 path's result (each adapter session alone, the full-width prefill logits
 and a profiled prefill, the recurrent and encdec checks) run after that
 read and are not counted. Every grouped-GEMM launch of the qwen3-moe path
-must have taken the tensor-core variant, and none of the adapter path's
-(its products are f32). Each profiled decode round prints its decode
-attention share. Any failed phase fails the run (exit 1). The last two
-lines are the card's name and power limit, then the result JSON.
+must have taken the tensor-core variant, and every one of the adapter
+path's the narrow variant (its products are f32 and rank-sized). Each
+profiled decode round prints its decode attention share, the profiled
+mamba2 prefill its ssd_chunk share. Any failed phase fails the run (exit
+1). The last two lines are the card's name and power limit, then the
+result JSON.
 """
 
 from __future__ import annotations
@@ -156,6 +165,22 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """Host time of one ``fn()`` in µs: ``calls`` calls issued without a
+    sync (the card keeps up with a short kernel, so this is the call's host
+    side: checks, allocation, launches)."""
+    import torch
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / calls * 1e6
 
 
 def graph_ms(fn, iters: int = 20, reps: int = 5) -> float:
@@ -286,9 +311,11 @@ def log_decode_build() -> None:
             log(f"[build] decode_attention {what}: {line.strip()}")
 
 
-def log_decode_kernels(label: str, fn, calls: int = 20) -> None:
-    """Device time per call of each kernel ``fn`` launches (the split and
-    the combine), from torch.profiler."""
+def log_kernel_parts(label: str, fn, key: str, calls: int = 20) -> None:
+    """Device time per call of each kernel ``fn`` launches whose name holds
+    ``key`` (a split and its combine; the SSD route's two kernels), from
+    torch.profiler."""
+    import re
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -300,8 +327,8 @@ def log_decode_kernels(label: str, fn, calls: int = 20) -> None:
     for e in prof.key_averages():
         t = getattr(e, "self_device_time_total",
                     getattr(e, "self_cuda_time_total", 0.0))
-        if "decode_attn" in e.key and t > 0:
-            kind = "split" if "split" in e.key else "combine"
+        if key in e.key and t > 0:
+            kind = re.search(key + r"\w*", e.key).group(0)
             parts.append(f"{kind} {t / calls / 1e3:.4f} ms "
                          f"x{e.count // calls}")
     log(f"[kernels] {label} device time per call: {', '.join(parts)}")
@@ -473,7 +500,8 @@ def phase_kernels(cfg, moe_cfg, sm_cfg):
                 f"{device_ms:.4f}, library {library_device_ms:.4f}, x "
                 f"library {device_ms / library_device_ms:.2f}, "
                 f"{bound_ms / device_ms:.1%} of bound")
-            log_decode_kernels(f"{name} ({label})", lambda: kern(nxt()))
+            log_kernel_parts(f"{name} ({label})", lambda: kern(nxt()),
+                             "decode_attn")
             if name not in rows:          # the JSON row: minitron's shape
                 rows[name] = {
                     "name": name, "route": "cuda",
@@ -612,8 +640,41 @@ def phase_moe_kernels(moe_cfg, d_adapter: int):
                 fail(f"{name} at E {Eo} C {Co} D {Do} F {Fo} {dtype}: max "
                      f"abs err {float(err.max()):.3e} past {tol}")
     log("[kernels] grouped GEMMs agree with their plain versions at ragged "
-        "shapes (C 1-300, D 8-2048, F 8-768, strided x, zero rows; both "
-        "variants)")
+        "shapes (C 1-300, D 8-2048, F 8-768, strided x, zero rows; all "
+        "three variants)")
+
+    # the narrow variant (f32 moe_gemm, D or F rank-sized): ranks 4-16 as D
+    # or F, D off a 128-row split, C 1-72, strided x, an empty group; then
+    # a row's bits at C 1, 8 and 72, at any position, in another expert
+    for Eo, Co, Do, Fo in ((9, 8, 4096, 8), (9, 8, 8, 4096), (3, 4, 256, 4),
+                           (3, 4, 4, 256), (2, 72, 300, 12), (2, 1, 12, 264),
+                           (5, 9, 4100, 16), (2, 70, 16, 4096)):
+        xo = randn((Eo, Co + 3, Do), 1.0, torch.float32)[:, 3:]
+        xo[0] = 0
+        wo = randn((Eo, Do, Fo), Do ** -0.5, torch.float32)
+        if not MG.uses_narrow(xo, wo):
+            fail(f"E {Eo} C {Co} D {Do} F {Fo} f32: not the narrow variant")
+        got, ref = MG.moe_gemm(xo, wo), MG.moe_gemm_ref(xo, wo)
+        err = (got - ref).abs()
+        if bool((err > F32_TOL + F32_TOL * ref.abs()).any()) \
+                or not torch.isfinite(got).all() or bool(got[0].any()):
+            fail(f"moe_gemm narrow at E {Eo} C {Co} D {Do} F {Fo}: max abs "
+                 f"err {float(err.max()):.3e} past {F32_TOL}")
+    for Do, Fo in ((d_adapter, 8), (8, d_adapter), (256, 4), (4, 256)):
+        wo = randn((1, Do, Fo), Do ** -0.5, torch.float32).expand(2, -1, -1)
+        row = randn((Do,), 1.0, torch.float32)
+        outs = []
+        for Co, pos, e in ((1, 0, 0), (8, 0, 0), (8, 5, 1), (72, 71, 0),
+                           (72, 37, 1)):
+            xo = randn((2, Co, Do), 1.0, torch.float32)
+            xo[e, pos] = row
+            outs.append(MG.moe_gemm(xo, wo.contiguous())[e, pos])
+        if not all(torch.equal(o, outs[0]) for o in outs):
+            fail(f"moe_gemm narrow D {Do} F {Fo}: a row's output depends on "
+                 f"C or its position")
+    log("[kernels] narrow variant agrees with its plain version (ranks 4-16 "
+        "as D or F, D off a split, C 1-72, strided x, an empty group); a "
+        "row's bits equal at C 1, 8, 72, any position, either expert")
 
     # the main path's four shapes take the tensor-core variant, and a row's
     # bits depend on D alone: rows 0-7 at C 160 (the prefill block shape,
@@ -636,6 +697,9 @@ def phase_moe_kernels(moe_cfg, d_adapter: int):
     log("[kernels] main-path shapes take the tensor-core variant; rows 0-7 "
         "at C 160 equal C 8 bit for bit (both kernels)")
 
+    for x, w in (("h", "A"), ("t", "B")):
+        if not MG.uses_narrow(sets[0][x], sets[0][w]):
+            fail(f"adapter {x}@{w}: does not take the narrow variant")
     cases = [ffn_case(8), ffn_case(160), down_case(8), down_case(160),
              adapter_case("h", "A", "h@A", 8, d_adapter, 8),
              adapter_case("t", "B", "t@B", 8, 8, d_adapter)]
@@ -651,9 +715,13 @@ def phase_moe_kernels(moe_cfg, d_adapter: int):
             fail(f"{name} ({shape}): kernel disagrees with its plain version "
                  f"(max abs err {float(err.max()):.3e}, {int(bad.sum())} "
                  f"elements past atol=rtol={tol})")
+        # ms: eager calls back to back (host side included); device_ms:
+        # the same calls replayed from a CUDA graph (no host side)
         ms = time_ms(lambda: kern(nxt()))
+        device_ms = graph_ms(lambda: kern(nxt()))
         plain_ms = time_ms(lambda: plain(nxt()), iters=10)
         library_ms = time_ms(lambda: library(nxt()))
+        library_device_ms = graph_ms(lambda: library(nxt()))
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
         bound_ms = max(t_bytes, t_ops) * 1e3
         bound_by = "bytes" if t_bytes >= t_ops else "operations"
@@ -661,8 +729,15 @@ def phase_moe_kernels(moe_cfg, d_adapter: int):
             f"{float(err.max()):.3e} kernel_ms {ms:.4f} plain_ms "
             f"{plain_ms:.4f} library_ms {library_ms:.4f} bound_ms "
             f"{bound_ms:.4f} ({bound_by}; {nbytes / 1e6:.1f} MB, "
-            f"{flops / 1e9:.2f} GFLOP) x library {ms / library_ms:.2f}, "
-            f"{bound_ms / ms:.1%} of bound")
+            f"{flops / 1e9:.2f} GFLOP) x library {ms / library_ms:.2f}; by "
+            f"graph replay: kernel {device_ms:.4f}, library "
+            f"{library_device_ms:.4f}, x library "
+            f"{device_ms / library_device_ms:.2f}, "
+            f"{bound_ms / device_ms:.1%} of bound")
+        if shape.startswith("adapter"):   # eager here is the host side
+            log(f"[kernels] {name} ({shape}): host µs a call, kernel "
+                f"{host_us(lambda: kern(nxt())):.2f}, library "
+                f"{host_us(lambda: library(nxt())):.2f}")
         if name not in rows:            # the JSON row: the MoE decode shape
             rows[name] = {
                 "name": name, "route": "cuda",
@@ -672,17 +747,21 @@ def phase_moe_kernels(moe_cfg, d_adapter: int):
                 "launches": 0, "max_abs_err": float(err.max()), "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": bound_ms,
                 "bound_by": bound_by, "library_ms": library_ms,
-                "shapes": []}
+                "device_ms": device_ms,
+                "library_device_ms": library_device_ms, "shapes": []}
         # every measured shape (decode C 8, prefill C 160, the adapter
         # products) in the row, with its ratio to the library call
         rows[name]["shapes"].append({
             "shape": shape, "ms": ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "ratio": ms / library_ms,
+            "device_ms": device_ms, "library_device_ms": library_device_ms,
+            "device_ratio": device_ms / library_device_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "max_abs_err": float(err.max())})
-    log("[kernels] library_ms: torch.bmm; for moe_ffn_fused, torch.bmm on "
-        "the [E, D, 2F] concatenation of w_gate and w_up (the yardstick: no "
-        "single call computes the fused function)")
+    log("[kernels] library_ms: torch.bmm (f32 products in full f32, no "
+        "TF32); for moe_ffn_fused, torch.bmm on the [E, D, 2F] concatenation "
+        "of w_gate and w_up (the yardstick: no single call computes the "
+        "fused function)")
     del sets
     torch.cuda.empty_cache()
     return rows
@@ -690,7 +769,7 @@ def phase_moe_kernels(moe_cfg, d_adapter: int):
 
 def ssd_flops(l: int, chunk: int, nh: int, hp: int, g: int, n: int,
               b: int = 1) -> int:
-    """f32 operations the chunked SSD function needs (2 per multiply-add),
+    """Operations the chunked SSD function needs (2 per multiply-add),
     counting each chunk's real rows q: the causal half of C·B^T once per
     group, then per head the causal half of the diagonal product (q(q+1)/2
     x hp), the carried-state product and the state update (q x n x hp
@@ -769,15 +848,46 @@ def phase_recurrent_kernels(rg_cfg, mb_cfg):
     for (b, l, nh, hp, g, n, Q), dt in (
             ((2, 37, 8, 16, 1, 16, 16), torch.float32),    # mamba2 smoke
             ((1, 150, 4, 40, 2, 24, 64), torch.float32),   # hp, n off tiles
+            ((1, 1, 4, 16, 1, 16, 128), torch.float32),    # l 1
+            ((2, 37, 8, 16, 1, 16, 16), torch.bfloat16),   # smoke widths
             ((2, 10, 4, 8, 2, 8, 128), torch.bfloat16),    # l below a chunk
+            ((1, 1, 4, 16, 1, 16, 128), torch.bfloat16),   # l 1
+            ((1, 150, 4, 40, 2, 24, 64), torch.bfloat16),  # hp, n off 16
+            ((1, 70, 2, 12, 1, 20, 32), torch.bfloat16),   # off 8: scalar
+            ((1, 200, 2, 72, 1, 128, 128), torch.bfloat16),  # 2 hp tiles
             ((1, 300, 4, 64, 1, 128, 128), torch.bfloat16)):
         s = ssd_inputs(b, l, nh, hp, g, n, dt)
-        check("ssd_chunk", f"b {b} l {l} nh {nh} hp {hp} g {g} n {n} Q {Q}",
+        check("ssd_chunk", f"b {b} l {l} nh {nh} hp {hp} g {g} n {n} Q {Q} "
+              f"{'bf16' if dt == torch.bfloat16 else 'f32'}",
               ssd_run(SC.ssd_chunk, Q)(s), ssd_run(SC.ssd_chunk_ref, Q)(s),
               SSD_TOL)
+    # the model's layout: x, B and C strided views of one [b, l, di + 2 g n]
+    # buffer (mamba2-1.3b's widths), a ragged last chunk; then dt = 0 on
+    # padded steps carries the state exactly to the true length
+    b, l, nh, hp, g, n, Q = 2, 1000, mb_cfg.ssm_nheads, mb_cfg.ssm_headdim, \
+        mb_cfg.ssm_ngroups, mb_cfg.ssm_state, mb_cfg.ssm_chunk
+    di = nh * hp
+    xbc = randn((b, l, di + 2 * g * n), dtype=torch.bfloat16)
+    s = {"x": xbc[..., :di].reshape(b, l, nh, hp),
+         "B": xbc[..., di:di + g * n].reshape(b, l, g, n),
+         "C": xbc[..., di + g * n:].reshape(b, l, g, n),
+         "dt": rand((b, l, nh), 1e-3, 0.1),
+         "A": -torch.arange(1, nh + 1, device=dev, dtype=torch.float32),
+         "S0": randn((b, nh, hp, n))}
+    check("ssd_chunk", f"strided views of xbc b {b} l {l} nh {nh} hp {hp} "
+          f"g {g} n {n} Q {Q} bf16", ssd_run(SC.ssd_chunk, Q)(s),
+          ssd_run(SC.ssd_chunk_ref, Q)(s), SSD_TOL)
+    short = dict(s, x=s["x"][:, :700], B=s["B"][:, :700], C=s["C"][:, :700],
+                 dt=s["dt"][:, :700].contiguous())
+    s["dt"][:, 700:] = 0
+    _, S_pad = ssd_run(SC.ssd_chunk, Q)(s)
+    _, S_short = ssd_run(SC.ssd_chunk, Q)(short)
+    check("ssd_chunk", "dt = 0 past step 700 of 1000: S_final", (S_pad,),
+          (S_short,), SSD_TOL)
     log("[kernels] rglru_scan and ssd_chunk agree with their plain versions "
-        "at ragged shapes (T 1-300, W 64-2560; l 10-300, hp 8-64, n 8-128, "
-        "g 1-2, Q 16-128, f32 and bf16)")
+        "at ragged shapes (T 1-300, W 64-2560; l 1-1000, hp 8-72, n 8-128, "
+        "g 1-2, Q 16-128, f32 and bf16, strided views of one buffer, "
+        "strides off 8); zero-dt steps carry the state")
 
     T, W = 2048, rg_cfg.lru_width
     nh, hp, g, n, Q = (mb_cfg.ssm_nheads, mb_cfg.ssm_headdim,
@@ -787,6 +897,11 @@ def phase_recurrent_kernels(rg_cfg, mb_cfg):
     def ssd_bytes(l):
         return (l * nh * hp * 2 + l * nh * 4 + nh * 4 + 2 * l * g * n * 2
                 + 2 * nh * hp * n * 4 + l * nh * hp * 4)
+
+    # the bf16 route runs its products on the tensor cores: its least time
+    # is max(bytes, operations at the bf16 rate); the f32 route's operations
+    # at the f32 rate are logged beside it
+    peaks = {"rglru_scan": F32_FLOPS, "ssd_chunk": BF16_FLOPS}
 
     cases = [
         ("rglru_scan", f"B 1 T {T} W {W} f32",
@@ -820,25 +935,36 @@ def phase_recurrent_kernels(rg_cfg, mb_cfg):
             it["i"] = (it["i"] + 1) % len(sets)
             return sets[it["i"]]
 
+        # ms: eager calls back to back (host side included); device_ms:
+        # the same calls replayed from a CUDA graph (no host side)
         ms = time_ms(lambda: kern(nxt()), iters=20)
+        device_ms = graph_ms(lambda: kern(nxt()), iters=10)
         plain_ms = time_ms(lambda: plain(nxt()), iters=5, warmup=2)
         library_ms = (time_ms(lambda: library(nxt()), iters=20)
                       if library is not None else None)
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peaks[name]
         bound_ms = max(t_bytes, t_ops) * 1e3
         bound_by = "bytes" if t_bytes >= t_ops else "operations"
         log(f"[kernels] {name} ({shape}): max_abs_err {err:.3e} kernel_ms "
             f"{ms:.4f} plain_ms {plain_ms:.4f} library_ms "
             f"{'-' if library_ms is None else f'{library_ms:.4f}'} bound_ms "
             f"{bound_ms:.4f} ({bound_by}; {nbytes / 1e6:.1f} MB, "
-            f"{flops / 1e9:.2f} GFLOP)")
+            f"{flops / 1e9:.2f} GFLOP; f32 operations alone "
+            f"{flops / F32_FLOPS * 1e3:.4f} ms); by graph replay: kernel "
+            f"{device_ms:.4f}, {bound_ms / device_ms:.1%} of bound")
+        if name == "ssd_chunk":
+            log_kernel_parts(f"{name} ({shape})", lambda: kern(nxt()), "ssd_")
+            occ = SC._library().ssd_chunk_occupancy
+            log(f"[kernels] ssd_chunk bf16 route: resident blocks an SM, "
+                f"ssd_states {occ(0)}, ssd_outputs {occ(1)}")
         if name not in rows:          # the JSON row: the 2048-token bucket
             rows[name] = {
                 "name": name, "route": "cuda",
                 "source": f"src/repro_torch/kernels/{src}",
                 "replaces": replaces, "launches": 0, "max_abs_err": err,
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by, "library_ms": library_ms}
+                "bound_by": bound_by, "library_ms": library_ms,
+                "device_ms": device_ms}
         del sets
         torch.cuda.empty_cache()
     log("[kernels] library_ms: rglru_scan — torch.cumsum over T on the same "
@@ -1142,12 +1268,14 @@ def log_profile(prof, name: str, wall_us: float, steps: int,
     for e in sorted(events, key=dev_us, reverse=True)[:8]:
         log(f"[profile] {name}:   {dev_us(e) / steps / 1e3:8.3f} ms/{unit} "
             f"x{e.count // steps:<4d} {e.key[:90]}")
-    decode = [e for e in events if "decode_attn" in e.key]
-    if decode:
-        t = sum(dev_us(e) for e in decode)
-        log(f"[profile] {name}: decode attention {t / steps / 1e3:.3f} "
-            f"ms/{unit} ({100 * t / busy:.1f}% of device busy) in "
-            f"{sum(e.count for e in decode) // steps} kernels/{unit}")
+    for label, key in (("decode attention", "decode_attn"),
+                       ("ssd_chunk", "ssd_")):
+        mine = [e for e in events if key in e.key]
+        if mine:
+            t = sum(dev_us(e) for e in mine)
+            log(f"[profile] {name}: {label} {t / steps / 1e3:.3f} "
+                f"ms/{unit} ({100 * t / busy:.1f}% of device busy) in "
+                f"{sum(e.count for e in mine) // steps} kernels/{unit}")
     host = [e for e in avgs if str(e.device_type).endswith("CPU")]
     log(f"[profile] {name}: host ops "
         f"{sum(e.count for e in host) // steps} per {unit}; by self CPU "
@@ -1446,19 +1574,21 @@ def check_flash(name: str, launches, per_prefill: int, prefills: int):
         f"{per_prefill} x {prefills} prefills")
 
 
-def check_variant(name: str, launches, tensor_cores: bool) -> None:
-    """Every grouped-GEMM launch of the path just driven took the
-    tensor-core variant (the bf16 expert FFN) or none did (the adapter
-    route's f32 products)."""
+def check_variant(name: str, launches, variant: str) -> None:
+    """Every grouped-GEMM launch of the path just driven took ``variant``
+    and none took another: "tensor" (the bf16 expert FFN) or "narrow" (the
+    adapter route's f32 rank-sized products, moe_gemm only)."""
     from repro_torch.kernels.moe_gemm import moe_gemm as MG
-    for k, n in MG.TENSOR_CORE_LAUNCHES.items():
-        if n != (launches[k] if tensor_cores else 0):
-            fail(f"{name}: {n} of {launches[k]} {k} launches took the "
-                 f"tensor-core variant, expected "
-                 f"{'all' if tensor_cores else 'none'}")
-    log(f"[main path] {name}: grouped GEMMs on the "
-        f"{'tensor' if tensor_cores else 'CUDA'} cores "
-        f"{dict(MG.TENSOR_CORE_LAUNCHES)}")
+    for counts, which in ((MG.TENSOR_CORE_LAUNCHES, "tensor"),
+                          (MG.NARROW_LAUNCHES, "narrow")):
+        for k, n in counts.items():
+            if n != (launches[k] if which == variant else 0):
+                fail(f"{name}: {n} of {launches[k]} {k} launches took the "
+                     f"{which} variant, expected "
+                     f"{'all' if which == variant else 'none'}")
+    log(f"[main path] {name}: grouped GEMMs on the {variant} variant "
+        f"(tensor {dict(MG.TENSOR_CORE_LAUNCHES)}, narrow "
+        f"{dict(MG.NARROW_LAUNCHES)})")
 
 
 def init_model(cfg):
@@ -1667,11 +1797,14 @@ def adapters_card_vs_cpu(cfg) -> None:
     from repro_torch.adapters import AdapterRuntime, AdapterSpec, \
         init_adapter_weights
     from repro_torch.bridge import tree_map
+    from repro_torch.kernels.moe_gemm import moe_gemm as MG
     from repro_torch.models.transformer import LM
     from repro_torch.serving.engine import InferenceEngine
 
     cpu_params = LM(cfg).init(6, "cpu")
     streams = []
+    launches0 = MG.LAUNCHES["moe_gemm"]
+    narrow0 = MG.NARROW_LAUNCHES["moe_gemm"]
     for dev, params in (("cpu", cpu_params),
                         ("cuda", tree_map(lambda t: t.cuda(), cpu_params))):
         rt = AdapterRuntime(cfg.d_model, max_adapters=4, rank=4, device=dev)
@@ -1695,8 +1828,14 @@ def adapters_card_vs_cpu(cfg) -> None:
     (ka, a), (kb, b) = streams
     if a != b:
         fail(f"edge-tiny adapters: {ka} and {kb} tokens differ: {a} vs {b}")
-    log(f"[reference] edge-tiny f32 adapters: {kb} == {ka}, 3 sessions x 12 "
-        f"tokens")
+    if MG.NARROW_LAUNCHES["moe_gemm"] - narrow0 != \
+            MG.LAUNCHES["moe_gemm"] - launches0 or \
+            MG.LAUNCHES["moe_gemm"] == launches0:
+        fail("edge-tiny adapters: the grouped route's products did not all "
+             "take the narrow variant")
+    log(f"[reference] edge-tiny f32 adapters (rank 4): {kb} (narrow "
+        f"variant, {MG.LAUNCHES['moe_gemm'] - launches0} launches) == {ka}, "
+        f"3 sessions x 12 tokens")
 
 
 def phase_reference():
@@ -1814,7 +1953,7 @@ def main() -> None:
             ("decode_attention", "moe_gemm", "flash_attention"),
             phase_adapters, cfg, params, catalog, sessions)
     check_flash(f"{cfg.name} adapters", launches, cfg.num_layers, pc.n)
-    check_variant(f"{cfg.name} adapters", launches, tensor_cores=False)
+    check_variant(f"{cfg.name} adapters", launches, "narrow")
     paths.append(launches)
     check_adapters(cfg, params, catalog, sessions, mixed)
     check_logits(cfg, params)
@@ -1828,7 +1967,7 @@ def main() -> None:
                                  attn + ("moe_gemm", "moe_ffn_fused"),
                                  drive_model, moe_cfg, params)
     check_flash(moe_cfg.name, launches, moe_cfg.num_layers, pc.n)
-    check_variant(moe_cfg.name, launches, tensor_cores=True)
+    check_variant(moe_cfg.name, launches, "tensor")
     paths.append(launches)
     check_logits(moe_cfg, params)
     profile_prefill(moe_cfg, params)
@@ -1844,6 +1983,8 @@ def main() -> None:
         params = init_model(rcfg)
         paths.append(drive_recurrent(rcfg, params, kernel, per_prefill,
                                      counters))
+        if kernel == "ssd_chunk":
+            profile_prefill(rcfg, params)
         log(f"[{kernel}] {rcfg.name} peak device memory "
             f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
         del params

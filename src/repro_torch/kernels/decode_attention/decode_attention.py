@@ -42,6 +42,8 @@ import math
 
 import torch
 
+from repro_torch.kernels.build import call_on_stream, load
+
 NEG_INF = -1e30
 
 #: kernel name -> launches since the last reset_launches()
@@ -73,7 +75,6 @@ def reset_launches() -> None:
 def _library():
     global _lib
     if _lib is None:
-        from repro_torch.kernels.build import load
         lib = load("decode_attention")
         for fn, (res, args) in _SIGNATURES.items():
             getattr(lib, fn).argtypes = args
@@ -172,21 +173,6 @@ def _workspace(q, B, Hkv, g, D, S):
                        device=q.device)
 
 
-def _launch(fn, q, *args) -> int:
-    """``fn(*args, stream)`` with q's card current, on that card's current
-    stream; returns fn's CUDA error code. A decode step calls this once a
-    layer on a host-bound path, so it reads the raw stream handle (as
-    PyTorch's generated kernel launchers do) and enters a device guard
-    only when q is not on the current card: a ``torch.cuda.Stream`` and a
-    guard cost 6-10 and 4-8 us a call on the H100 machine's host, against
-    0.1-0.6 for these (``tools/decode_ab.py``)."""
-    idx = q.device.index
-    if idx == torch.cuda.current_device():
-        return fn(*args, torch._C._cuda_getCurrentRawStream(idx))
-    with torch.cuda.device(idx):
-        return fn(*args, torch._C._cuda_getCurrentRawStream(idx))
-
-
 def _raise_on(rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error {rc}")
@@ -201,7 +187,7 @@ def decode_attention(q, k, v, lengths):
     g, D = _check_common(q, k, v, lengths, B, Hkv)
     out = torch.empty((B, q.shape[1], D), dtype=q.dtype, device=q.device)
     ws = _workspace(q, B, Hkv, g, D, S)
-    rc = _launch(
+    rc = call_on_stream(
         _library().decode_attention_launch, q, _DTYPE_CODE[q.dtype], D,
         q.data_ptr(), q.stride(0), q.stride(1), k.data_ptr(), v.data_ptr(),
         k.stride(0), k.stride(2), k.stride(1), lengths.data_ptr(),
@@ -231,7 +217,7 @@ def paged_decode_attention(q, k_pages, v_pages, lengths, block_tables):
     pps = block_tables.shape[1]
     out = torch.empty((B, q.shape[1], D), dtype=q.dtype, device=q.device)
     ws = _workspace(q, B, Hkv, g, D, pps * page)
-    rc = _launch(
+    rc = call_on_stream(
         _library().paged_decode_attention_launch, q, _DTYPE_CODE[q.dtype], D,
         q.data_ptr(), q.stride(0), q.stride(1), k_pages.data_ptr(),
         v_pages.data_ptr(), k_pages.stride(0), k_pages.stride(1),

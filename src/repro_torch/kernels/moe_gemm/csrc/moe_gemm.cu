@@ -8,13 +8,14 @@
 // epilogue runs in f32 and casts once, as the reference's
 // `(silu(gate) * up).astype(h.dtype)` does).
 //
-// Both variants below replace the Pallas TPU kernels of the reference
-// package:
+// The three variants below replace the Pallas TPU kernels of the
+// reference package:
 //   src/repro/kernels/moe_gemm/moe_gemm.py
 //     moe_gemm       (pl.pallas_call at :65, kernel body _kernel_plain :40)
 //     moe_ffn_fused  (pl.pallas_call at :90, kernel body _kernel_fused :29)
-// The wrapper (moe_gemm.py, `uses_tensor_cores`) picks one by dtype, shape,
-// strides and alignment; both are hand-written, neither is a fallback.
+// The wrapper (moe_gemm.py, `uses_tensor_cores`, `uses_narrow`) picks one
+// by dtype, shape, strides and alignment; all are hand-written, none is a
+// fallback.
 //
 // What bounds them on this card: bytes, at every shape the port runs. The
 // ridge of bf16 tensor cores over HBM is ~295 flops per byte. qwen3-moe
@@ -68,8 +69,8 @@
 //      output bit for bit). So the dense and paged MoE engines stay
 //      token-identical and a run repeats bit for bit.
 //
-// 2. The CUDA-core template (f32, and bf16 shapes outside that rule; the
-//    adapter runtime's grouped route, f32 with rank 8 as D or F):
+// 2. The CUDA-core template (f32 and bf16 shapes outside the other two
+//    rules, e.g. the f32 expert products of the small f32 MoE configs):
 //    * one block per (C-tile, F-tile of 64, expert), C-tile fastest; at
 //      decode there is one C-tile, so every weight element is read from
 //      device memory once per launch;
@@ -78,13 +79,37 @@
 //      shapes and alignment allow, bounds-checked scalar loads elsewhere)
 //      while the block computes on the current tile from shared memory;
 //    * bounds checks instead of the reference's pad-and-slice copies: any C,
-//      D and F, down to D = 8 or F = 8 (the adapter route's rank);
+//      D and F;
 //    * each output element is one thread's f32 accumulator, updated with one
-//      fmaf per d in increasing d (f32 on the CUDA cores, no TF32). Its
-//      summation order therefore depends on D alone: not on its row c, on
-//      C, on the tile shape or on the grid. That is what makes an adapter
-//      session's tokens independent of which slots share its group, and
-//      keeps the f32 card-vs-CPU checks within 1e-3.
+//      fmaf per d in increasing d (f32 on the CUDA cores, no TF32), so its
+//      summation order depends on D alone.
+//
+// 3. The narrow variant (f32 moe_gemm whose D or F is rank-sized, <= 16:
+//    the adapter runtime's grouped route, h [E, C, d] @ A [E, d, r] and
+//    t [E, C, r] @ B [E, r, d] at rank r 4-16). The template spends a block
+//    per (C-tile, 64 columns, expert) on them: for h@A (d 4096, r 8) 9
+//    blocks on 132 SMs, each walking d in series with 7/8 of its columns
+//    empty; for t@B each block fills a quarter of one 32-deep D tile. Both
+//    products move ~2.4 MB (0.0007 ms at 3.35 TB/s), so what bounds them is
+//    the latency of a few dependent steps, and the design cuts the steps:
+//    * narrow F (h@A): D is split into kSplit = 128 rows from d = 0, one
+//      warp a (split, chunk of rows of C, expert): 288 warps at d 4096.
+//      Each lane takes 4 consecutive rows of D with 16-byte loads of x and
+//      of the weight rows, reduces them in registers, and the warp folds its
+//      lanes by a fixed butterfly (no shared memory, no barrier); the
+//      partials go to a workspace, and a second kernel sums them in split
+//      order;
+//    * narrow D (t@B): one block per (256 columns, expert); each thread
+//      reads its 4 columns of the r weight rows once into registers and
+//      computes its rows from x's [C, r] panel staged in shared memory,
+//      writing 16-byte stores;
+//    * f32 on the CUDA cores, no TF32 (the adapter checks compare f32).
+//    * Invariant: each output is summed in an order fixed by D alone: the
+//      same fma chain per lane, the same butterfly, the same split order
+//      (narrow F), or one fma per d in increasing d (narrow D). Not by its
+//      row c, C, E or which rows are live, so an adapter session's tokens
+//      do not depend on which slots share its group (checked on the card:
+//      the mixed batch equals each session alone).
 //
 // C interface (loaded with ctypes): each launcher returns cudaGetLastError()
 // after the launch, or cudaErrorInvalidValue for arguments it does not take.
@@ -560,10 +585,14 @@ int launch_tc(const bf16* x, int64_t sxe, int64_t sxc, const bf16* wg,
               int D, int F, cudaStream_t st) {
   using L = Tile<kFused, WM, WN, MT, NT, BK, S>;
   auto kern = tc_kernel<kFused, WM, WN, MT, NT, BK, S, kMinBlocks>;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(L::kSmemBytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
+  static bool configured = false;    // once per instantiation
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(L::kSmemBytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
   const int nF = (F + L::BF - 1) / L::BF;
   const int chunks = (C + L::BN - 1) / L::BN;
   const int Cc = ((C + chunks - 1) / chunks + 7) / 8 * 8;   // <= BN
@@ -610,6 +639,204 @@ int dispatch(const void* x, long long sxe, long long sxc, const void* wg,
 
 }  // namespace tc
 
+// ---------------------------------------------------------------------------
+// narrow variant (f32 moe_gemm with D or F rank-sized)
+// ---------------------------------------------------------------------------
+
+namespace narrow {
+
+constexpr int kNarrow = 16;      // the largest rank-sized D or F
+constexpr int kSplit = 128;      // D rows of one split: 32 lanes x 4
+constexpr int kVals = 64;        // partial sums a lane carries (rows x kF)
+constexpr int kCols = 256;       // narrow D: output columns per block
+constexpr int kRows = 64;        // narrow D: rows of x staged at a time
+constexpr int kBatch = 32;       // combine: partials loaded at once (d 4096)
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// One butterfly step: the lane keeps the half of its 2N values that its
+// bit o selects (upper if set) and adds the partner's copy of that half.
+template <int N>
+__device__ __forceinline__ void fold(float (&v)[kVals], int lane, int o) {
+  const bool up = lane & o;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const float send = up ? v[i] : v[i + N];
+    const float keep = up ? v[i + N] : v[i];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, o);
+  }
+}
+
+// Narrow F (h@A): one warp per (split s of kSplit rows of D, chunk of kR
+// rows of C, expert). Lane l takes the 4 rows d = s * kSplit + 4 l .. + 3:
+// a 16-byte load of x per row of C, and the weight rows d .. d + 3 whole
+// (kF / 4 16-byte loads each; columns past F and rows past D read as
+// zeros). Its partial for (c, f) is one fma chain over its 4 rows in
+// increasing d. The warp then sums the 32 lanes' partials by a fixed
+// butterfly: at the step of offset o every lane hands the half of its
+// values that the lane o away keeps, and adds what it gets; after offsets
+// 16, 8, 4, 2, 1 lane l holds values 2 l and 2 l + 1, each the same tree
+// over the lanes. The split's partials go to ws [nsplit, E, C, F].
+template <int kF>
+__global__ void __launch_bounds__(32)
+split_kernel(const float* __restrict__ x, int64_t sxe, int64_t sxc,
+             const float* __restrict__ w, int64_t swe, int64_t swd,
+             float* __restrict__ ws, int E, int C, int D, int F) {
+  constexpr int kR = kVals / kF;
+  const int lane = threadIdx.x;
+  const int s = blockIdx.x, c0 = blockIdx.y * kR;
+  const int64_t e = blockIdx.z;
+  const int d = s * kSplit + 4 * lane;
+  const bool dok = d < D;                    // D % 4 == 0: all 4 or none
+
+  float wr[4][kF];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int q = 0; q < kF / 4; ++q) {
+      const float4 v = (dok && 4 * q < F)
+                           ? ld4(w + e * swe + (d + r) * swd + 4 * q)
+                           : make_float4(0.f, 0.f, 0.f, 0.f);
+      wr[r][4 * q] = v.x; wr[r][4 * q + 1] = v.y;
+      wr[r][4 * q + 2] = v.z; wr[r][4 * q + 3] = v.w;
+    }
+  float v[kVals];
+#pragma unroll
+  for (int i = 0; i < kR; ++i) {
+    const int c = c0 + i;
+    const float4 xv = (dok && c < C) ? ld4(x + e * sxe + c * sxc + d)
+                                     : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int f = 0; f < kF; ++f)
+      v[i * kF + f] = fmaf(xv.w, wr[3][f], fmaf(xv.z, wr[2][f],
+                           fmaf(xv.y, wr[1][f], xv.x * wr[0][f])));
+  }
+  fold<kVals / 2>(v, lane, 16);
+  fold<kVals / 4>(v, lane, 8);
+  fold<kVals / 8>(v, lane, 4);
+  fold<kVals / 16>(v, lane, 2);
+  fold<kVals / 32>(v, lane, 1);
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    const int idx = 2 * lane + q, c = c0 + idx / kF, f = idx % kF;
+    if (c < C && f < F)
+      ws[((static_cast<int64_t>(s) * E + e) * C + c) * F + f] = v[q];
+  }
+}
+
+// y[i] = the splits' partials of output i summed in split order, from 0.
+__global__ void __launch_bounds__(128)
+combine_kernel(const float* __restrict__ ws, float* __restrict__ y, int n,
+               int nsplit) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float acc = 0.f;
+  for (int s0 = 0; s0 < nsplit; s0 += kBatch) {
+    float p[kBatch];                         // a batch of loads in flight
+#pragma unroll
+    for (int q = 0; q < kBatch; ++q)
+      p[q] = s0 + q < nsplit ? ws[static_cast<int64_t>(s0 + q) * n + i] : 0.f;
+#pragma unroll
+    for (int q = 0; q < kBatch; ++q) acc += p[q];
+  }
+  y[i] = acc;
+}
+
+// Narrow D (t@B): one block per (kCols columns of F, expert); thread
+// (column group cg, row phase rp) holds w[0 .. D)[f .. f + 4) in registers,
+// read once, and computes rows rp, rp + 4, ... of x's staged panel; each
+// output is one fma chain over d in increasing d (the template's order),
+// stored as 16 bytes.
+__global__ void __launch_bounds__(256)
+narrow_d_kernel(const float* __restrict__ x, int64_t sxe, int64_t sxc,
+                const float* __restrict__ w, int64_t swe, int64_t swd,
+                float* __restrict__ y, int C, int D, int F) {
+  __shared__ float ts[kRows][kNarrow + 1];
+  const int tid = threadIdx.x, cg = tid % (kCols / 4), rp = tid / (kCols / 4);
+  const int f = blockIdx.x * kCols + 4 * cg;
+  const int64_t e = blockIdx.y;
+  const bool fok = f < F;                    // F % 4 == 0: all 4 or none
+  float4 wr[kNarrow];
+#pragma unroll
+  for (int k = 0; k < kNarrow; ++k)
+    wr[k] = (fok && k < D) ? ld4(w + e * swe + k * swd + f)
+                           : make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int c0 = 0; c0 < C; c0 += kRows) {
+    __syncthreads();                         // the previous panel is read
+    for (int i = tid; i < kRows * kNarrow; i += 256) {
+      const int r = i / kNarrow, k = i % kNarrow;
+      ts[r][k] = (c0 + r < C && k < D) ? x[e * sxe + (c0 + r) * sxc + k]
+                                       : 0.f;
+    }
+    __syncthreads();
+    if (!fok) continue;
+    for (int r = rp; r < kRows && c0 + r < C; r += 256 / (kCols / 4)) {
+      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int k = 0; k < kNarrow; ++k) {
+        if (k < D) {
+          const float t = ts[r][k];
+          acc.x = fmaf(t, wr[k].x, acc.x); acc.y = fmaf(t, wr[k].y, acc.y);
+          acc.z = fmaf(t, wr[k].z, acc.z); acc.w = fmaf(t, wr[k].w, acc.w);
+        }
+      }
+      *reinterpret_cast<float4*>(y + (e * C + c0 + r) * F + f) = acc;
+    }
+  }
+}
+
+template <int kF>
+int launch_split(const float* x, int64_t sxe, int64_t sxc, const float* w,
+                 int64_t swe, int64_t swd, float* y, float* ws, int E, int C,
+                 int D, int F, cudaStream_t st) {
+  const int nsplit = (D + kSplit - 1) / kSplit;
+  constexpr int kR = kVals / kF;
+  if ((C + kR - 1) / kR > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  split_kernel<kF><<<dim3(nsplit, (C + kR - 1) / kR, E), 32, 0, st>>>(
+      x, sxe, sxc, w, swe, swd, ws, E, C, D, F);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n = E * C * F;
+  combine_kernel<<<(n + 127) / 128, 128, 0, st>>>(ws, y, n, nsplit);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int dispatch(const void* x, long long sxe, long long sxc, const void* w,
+             long long swe, long long swd, void* y, void* ws, int E, int C,
+             int D, int F, void* stream) {
+  const auto aligned = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  if (E < 1 || E > 65535 || C < 1 || D < 4 || F < 4 || D % 4 || F % 4 ||
+      (D > kNarrow && F > kNarrow) || sxe % 4 || sxc % 4 || swe % 4 ||
+      swd % 4 || !aligned(x) || !aligned(w) || !aligned(y) ||
+      static_cast<long long>(E) * C * F > INT32_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const float* xx = static_cast<const float*>(x);
+  const float* ww = static_cast<const float*>(w);
+  float* yy = static_cast<float*>(y);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D <= kNarrow) {
+    if (C > 65535 * kRows) return static_cast<int>(cudaErrorInvalidValue);
+    narrow_d_kernel<<<dim3((F + kCols - 1) / kCols, E), 256, 0, st>>>(
+        xx, sxe, sxc, ww, swe, swd, yy, C, D, F);
+    return static_cast<int>(cudaGetLastError());
+  }
+  float* wsf = static_cast<float*>(ws);
+  if (F <= 4)
+    return launch_split<4>(xx, sxe, sxc, ww, swe, swd, yy, wsf, E, C, D, F,
+                           st);
+  if (F <= 8)
+    return launch_split<8>(xx, sxe, sxc, ww, swe, swd, yy, wsf, E, C, D, F,
+                           st);
+  return launch_split<16>(xx, sxe, sxc, ww, swe, swd, yy, wsf, E, C, D, F,
+                          st);
+}
+
+}  // namespace narrow
+
 // dtype: 0 = bfloat16, 1 = float32. Strides are in elements; x has unit
 // stride along D and w along F; y is a contiguous [E, C, F] output.
 // vec_ok: weight rows may be read with 16-byte loads (base pointer 16-byte
@@ -650,4 +877,25 @@ extern "C" int moe_ffn_fused_tc_launch(const void* x, long long sxe,
                                        int D, int F, void* stream) {
   return tc::dispatch<true>(x, sxe, sxc, w_gate, w_up, swe, swd, y, E, C, D,
                             F, stream);
+}
+
+// The narrow variant: f32 moe_gemm with D or F at most 16 (D <= 16 takes
+// the narrow-D kernel, else the split kernel and its combine), D and F
+// multiples of 4, x, w and y 16-byte aligned and every stride a multiple of
+// 4 elements (y is a contiguous [E, C, F] output). ws holds
+// moe_gemm_narrow_ws_floats(E, C, D, F) floats, written before they are
+// read.
+extern "C" int moe_gemm_narrow_launch(const void* x, long long sxe,
+                                      long long sxc, const void* w,
+                                      long long swe, long long swd, void* y,
+                                      void* ws, int E, int C, int D, int F,
+                                      void* stream) {
+  return narrow::dispatch(x, sxe, sxc, w, swe, swd, y, ws, E, C, D, F,
+                          stream);
+}
+
+extern "C" long long moe_gemm_narrow_ws_floats(int E, int C, int D, int F) {
+  if (D <= narrow::kNarrow) return 0;
+  return static_cast<long long>((D + narrow::kSplit - 1) / narrow::kSplit) *
+         E * C * F;
 }

@@ -3,11 +3,13 @@ wrappers and their plain PyTorch versions.
 
 Replaces the Pallas TPU kernels ``moe_gemm`` and ``moe_ffn_fused`` of
 ``src/repro/kernels/moe_gemm/moe_gemm.py`` (``pl.pallas_call`` at :65 and
-:90). The kernels are in ``csrc/moe_gemm.cu``, in two variants: a
+:90). The kernels are in ``csrc/moe_gemm.cu``, in three variants: a
 tensor-core one (``mma.sync`` on bf16 tiles fed by a ``cp.async`` ring) for
-the shapes ``uses_tensor_cores`` admits, and a CUDA-core template for f32
-and every other bf16 shape. Its header says what bounds them on the card
-and how each design answers it.
+the shapes ``uses_tensor_cores`` admits, a narrow one for the f32
+``moe_gemm`` products whose D or F is rank-sized (``uses_narrow``: split-D
+warps and a combine, or one pass over a rank-deep panel), and a CUDA-core
+template for every other shape. Its header says what bounds them on the
+card and how each design answers it.
 
 Layouts are the reference's: ``x [E, C, D]``, ``w / w_gate / w_up
 [E, D, F]`` -> ``[E, C, F]`` in x's dtype, products accumulated in f32.
@@ -17,25 +19,32 @@ buffers) and the adapter runtime's grouped route
 
 Each wrapper takes its plain version only for tensors on the CPU. For a CUDA
 tensor it launches the kernel or raises: there is no fallback. ``LAUNCHES``
-counts kernel launches (one per successful launch of either variant,
-nowhere else); ``TENSOR_CORE_LAUNCHES`` counts those of them that took the
-tensor-core variant.
+counts kernel launches (one per successful wrapper call, whatever the
+variant, nowhere else); ``TENSOR_CORE_LAUNCHES`` and ``NARROW_LAUNCHES``
+count those of them that took the tensor-core or the narrow variant.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.kernels.build import call_on_stream, load
 
 #: kernel name -> launches since the last reset_launches()
 LAUNCHES = {"moe_gemm": 0, "moe_ffn_fused": 0}
 #: kernel name -> launches of the tensor-core variant among LAUNCHES
 TENSOR_CORE_LAUNCHES = {"moe_gemm": 0, "moe_ffn_fused": 0}
+#: kernel name -> launches of the narrow variant among LAUNCHES (only
+#: moe_gemm has one)
+NARROW_LAUNCHES = {"moe_gemm": 0, "moe_ffn_fused": 0}
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 _VEC = 8             # weight elements per 16-byte load segment
+NARROW = 16          # the largest rank-sized D or F of the narrow variant
 
 _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _ARGTYPES = {
@@ -47,23 +56,26 @@ _ARGTYPES = {
                            _P],
     "moe_ffn_fused_tc_launch": [_P, _LL, _LL, _P, _P, _LL, _LL, _P, _I, _I,
                                 _I, _I, _P],
+    "moe_gemm_narrow_launch": [_P, _LL, _LL, _P, _LL, _LL, _P, _P, _I, _I,
+                               _I, _I, _P],
 }
 _lib = None
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
-        LAUNCHES[k] = TENSOR_CORE_LAUNCHES[k] = 0
+        LAUNCHES[k] = TENSOR_CORE_LAUNCHES[k] = NARROW_LAUNCHES[k] = 0
 
 
 def _library():
     global _lib
     if _lib is None:
-        from repro_torch.kernels.build import load
         lib = load("moe_gemm")
         for fn, args in _ARGTYPES.items():
             getattr(lib, fn).argtypes = args
             getattr(lib, fn).restype = ctypes.c_int
+        lib.moe_gemm_narrow_ws_floats.argtypes = [_I, _I, _I, _I]
+        lib.moe_gemm_narrow_ws_floats.restype = _LL
         _lib = lib
     return _lib
 
@@ -89,34 +101,38 @@ def moe_ffn_fused_ref(x, w_gate, w_up):
 # ---------------------------------------------------------------------------
 
 def _check(x, ws):
-    if x.device.type != "cuda":
+    dev, dt = x.device, x.dtype
+    if dev.type != "cuda":
         raise ValueError(f"grouped GEMM runs on cpu or cuda tensors, got "
-                         f"{x.device}")
-    if x.dtype not in _DTYPE_CODE or any(w.dtype != x.dtype for w in ws):
-        raise ValueError(f"dtypes x {x.dtype}, w {[w.dtype for w in ws]}: "
+                         f"{dev}")
+    w0 = ws[0]
+    shape, stride = w0.shape, w0.stride()
+    if dt not in _DTYPE_CODE or any(w.dtype != dt for w in ws):
+        raise ValueError(f"dtypes x {dt}, w {[w.dtype for w in ws]}: "
                          f"the kernel takes one of {list(_DTYPE_CODE)} for "
                          f"all")
-    if any(w.device != x.device for w in ws):
+    if any(w.device != dev for w in ws):
         raise ValueError(f"weights on {[str(w.device) for w in ws]}, x on "
-                         f"{x.device}")
-    if x.dim() != 3 or any(w.dim() != 3 for w in ws):
+                         f"{dev}")
+    if x.dim() != 3 or len(shape) != 3:
         raise ValueError(f"x {tuple(x.shape)} and w "
                          f"{[tuple(w.shape) for w in ws]} must be 3-d")
     E, C, D = x.shape
-    if any(w.shape[:2] != (E, D) for w in ws) \
-            or any(w.shape != ws[0].shape for w in ws):
+    if shape[0] != E or shape[1] != D \
+            or any(w.shape != shape for w in ws[1:]):
         raise ValueError(f"x {tuple(x.shape)} vs w "
                          f"{[tuple(w.shape) for w in ws]}: need [E, D, F]")
-    if any(w.stride() != ws[0].stride() for w in ws):
+    if any(w.stride() != stride for w in ws[1:]):
         raise ValueError("w_gate and w_up must share strides")
-    if x.stride(2) != 1 or ws[0].stride(2) != 1:
+    if x.stride(2) != 1 or stride[2] != 1:
         raise ValueError("x needs unit stride along D and w along F")
-    if not 1 <= E <= 65535 or min(C, D, ws[0].shape[2]) < 1:
-        raise ValueError(f"E {E}, C {C}, D {D}, F {ws[0].shape[2]}: need "
+    Fo = shape[2]
+    if not 1 <= E <= 65535 or min(C, D, Fo) < 1:
+        raise ValueError(f"E {E}, C {C}, D {D}, F {Fo}: need "
                          f"1 <= E <= 65535 and C, D, F >= 1")
-    vec_ok = all(w.data_ptr() % 16 == 0 for w in ws) \
-        and ws[0].stride(0) % _VEC == 0 and ws[0].stride(1) % _VEC == 0
-    return E, C, D, ws[0].shape[2], int(vec_ok)
+    vec_ok = stride[0] % _VEC == 0 and stride[1] % _VEC == 0 \
+        and all(w.data_ptr() % 16 == 0 for w in ws)
+    return E, C, D, Fo, int(vec_ok)
 
 
 def uses_tensor_cores(x, *ws) -> bool:
@@ -136,8 +152,21 @@ def uses_tensor_cores(x, *ws) -> bool:
             and all(t.data_ptr() % 16 == 0 for t in (x, *ws)))
 
 
-def _stream(t):
-    return torch.cuda.current_stream(t.device).cuda_stream
+def uses_narrow(x, w) -> bool:
+    """Whether ``moe_gemm(x [E, C, D], w [E, D, F])`` takes the narrow
+    variant: f32 throughout; D or F at most ``NARROW`` (a LoRA rank), both
+    multiples of 4; unit inner strides, the outer strides of x and w
+    multiples of 4 elements and both bases 16-byte aligned, so every row is
+    whole 16-byte loads. ``moe_ffn_fused`` has no narrow variant."""
+    if x.dtype != torch.float32 or w.dtype != torch.float32:
+        return False
+    D, Fo = x.shape[2], w.shape[2]
+    xs, wst = x.stride(), w.stride()
+    return (min(D, Fo) <= NARROW and D % 4 == 0 and Fo % 4 == 0
+            and xs[2] == 1 and wst[2] == 1
+            and xs[0] % 4 == 0 and xs[1] % 4 == 0
+            and wst[0] % 4 == 0 and wst[1] % 4 == 0
+            and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
 
 
 def _raise_on(rc: int, name: str) -> None:
@@ -145,24 +174,48 @@ def _raise_on(rc: int, name: str) -> None:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error {rc}")
 
 
+@functools.lru_cache(maxsize=None)
+def _narrow_ws_floats(E: int, C: int, D: int, F: int) -> int:
+    return _library().moe_gemm_narrow_ws_floats(E, C, D, F)
+
+
+def _launch_narrow(x, w, E, C, D, Fo):
+    """The narrow variant: y, and for split D the workspace of the
+    splits' partials."""
+    y = torch.empty((E, C, Fo), dtype=torch.float32, device=x.device)
+    n_ws = _narrow_ws_floats(E, C, D, Fo)
+    ws = torch.empty(n_ws, dtype=torch.float32, device=x.device) \
+        if n_ws else y
+    rc = call_on_stream(
+        _library().moe_gemm_narrow_launch, x, x.data_ptr(), x.stride(0),
+        x.stride(1), w.data_ptr(), w.stride(0), w.stride(1), y.data_ptr(),
+        ws.data_ptr(), E, C, D, Fo)
+    _raise_on(rc, "moe_gemm")
+    LAUNCHES["moe_gemm"] += 1
+    NARROW_LAUNCHES["moe_gemm"] += 1
+    return y
+
+
 def _launch(name, x, ws):
-    """Check, allocate y, launch the variant the rule picks, count it."""
+    """Check, allocate y, launch the variant the rules pick, count it."""
     E, C, D, Fo, vec_ok = _check(x, ws)
+    if name == "moe_gemm" and uses_narrow(x, ws[0]):
+        return _launch_narrow(x, ws[0], E, C, D, Fo)
     y = torch.empty((E, C, Fo), dtype=x.dtype, device=x.device)
     tc = uses_tensor_cores(x, *ws)
     w = ws[0]
     ptrs = [t.data_ptr() for t in ws]
     lib = _library()
-    with torch.cuda.device(x.device):
-        if tc:
-            rc = getattr(lib, f"{name}_tc_launch")(
-                x.data_ptr(), x.stride(0), x.stride(1), *ptrs, w.stride(0),
-                w.stride(1), y.data_ptr(), E, C, D, Fo, _stream(x))
-        else:
-            rc = getattr(lib, f"{name}_launch")(
-                _DTYPE_CODE[x.dtype], x.data_ptr(), x.stride(0), x.stride(1),
-                *ptrs, w.stride(0), w.stride(1), y.data_ptr(), E, C, D, Fo,
-                vec_ok, _stream(x))
+    if tc:
+        rc = call_on_stream(
+            getattr(lib, f"{name}_tc_launch"), x, x.data_ptr(), x.stride(0),
+            x.stride(1), *ptrs, w.stride(0), w.stride(1), y.data_ptr(), E, C,
+            D, Fo)
+    else:
+        rc = call_on_stream(
+            getattr(lib, f"{name}_launch"), x, _DTYPE_CODE[x.dtype],
+            x.data_ptr(), x.stride(0), x.stride(1), *ptrs, w.stride(0),
+            w.stride(1), y.data_ptr(), E, C, D, Fo, vec_ok)
     _raise_on(rc, name)
     LAUNCHES[name] += 1
     TENSOR_CORE_LAUNCHES[name] += tc

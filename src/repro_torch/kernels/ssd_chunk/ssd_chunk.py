@@ -1,4 +1,4 @@
-"""Mamba-2 SSD chunked scan: the CUDA kernel's wrapper and its plain
+"""Mamba-2 SSD chunked scan: the CUDA kernels' wrapper and its plain
 PyTorch version.
 
 Replaces the Pallas TPU kernel ``ssd_chunk`` of
@@ -7,20 +7,27 @@ The port keeps the TPU kernel's name, but the function and signature are
 those of what the model calls, the reference's ``_ssd_chunked``
 (``src/repro/models/ssd.py:81-135``): it starts from a state ``S0`` and
 returns the final state, and B and C arrive grouped, not expanded to heads.
-The kernel is in ``csrc/ssd_chunk.cu``; its header says what bounds it on
-the card and how its design answers it.
+The kernels are in ``csrc/ssd_chunk.cu``; its header says what bounds them
+on the card and how their design answers it. bf16 inputs take two
+kernels in one call (the state carried across the chunks, tile by tile;
+then every chunk's outputs in parallel; products on the tensor cores), f32
+inputs one (a block walks the chunks in order; products on the CUDA
+cores).
 
 The wrapper takes the plain version only for tensors on the CPU. For a CUDA
-tensor it launches the kernel or raises: there is no fallback.
-``LAUNCHES`` counts kernel launches (one per successful launch, nowhere
-else).
+tensor it launches the kernels or raises: there is no fallback.
+``LAUNCHES`` counts wrapper calls that launched (one per successful call,
+whatever the number of kernels, nowhere else).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
+
+from repro_torch.kernels.build import call_on_stream, load
 
 #: kernel name -> launches since the last reset_launches()
 LAUNCHES = {"ssd_chunk": 0}
@@ -31,7 +38,7 @@ MAX_CHUNK = MAX_STATE = 128
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _ARGTYPES = [_I, _P, _LL, _LL, _P, _P, _P, _LL, _LL, _P, _LL, _LL, _P, _P, _P,
-             _I, _I, _I, _I, _I, _I, _I, _P]
+             _P, _I, _I, _I, _I, _I, _I, _I, _P]
 _lib = None
 
 
@@ -43,12 +50,23 @@ def reset_launches() -> None:
 def _library():
     global _lib
     if _lib is None:
-        from repro_torch.kernels.build import load
         lib = load("ssd_chunk")
         lib.ssd_chunk_launch.argtypes = _ARGTYPES
         lib.ssd_chunk_launch.restype = ctypes.c_int
+        lib.ssd_chunk_ws_floats.argtypes = [_I] * 7
+        lib.ssd_chunk_ws_floats.restype = _LL
+        lib.ssd_chunk_occupancy.argtypes = [_I]
+        lib.ssd_chunk_occupancy.restype = _I
         _lib = lib
     return _lib
+
+
+@functools.lru_cache(maxsize=None)
+def _ws_floats(code: int, b: int, l: int, nh: int, hp: int, n: int,
+               Q: int) -> int:
+    """f32 scratch of a launch (the bf16 route's state entering each
+    chunk), its size the library's."""
+    return _library().ssd_chunk_ws_floats(code, b, l, nh, hp, n, Q)
 
 
 def ssd_chunk_ref(x, dt, A, B, C, S0, chunk: int):
@@ -143,15 +161,17 @@ def ssd_chunk(x, dt, A, B, C, S0, chunk: int):
     if x.device.type == "cpu":
         return ssd_chunk_ref(x, dt, A, B, C, S0, chunk)
     b, l, nh, hp, g, n, Q = _check(x, dt, A, B, C, S0, chunk)
+    code = _DTYPE_CODE[x.dtype]
     y = torch.empty((b, l, nh, hp), dtype=torch.float32, device=x.device)
     S_final = torch.empty_like(S0)
-    with torch.cuda.device(x.device):
-        rc = _library().ssd_chunk_launch(
-            _DTYPE_CODE[x.dtype], x.data_ptr(), x.stride(0), x.stride(1),
-            dt.data_ptr(), A.data_ptr(), B.data_ptr(), B.stride(0),
-            B.stride(1), C.data_ptr(), C.stride(0), C.stride(1),
-            S0.data_ptr(), y.data_ptr(), S_final.data_ptr(), b, l, nh, hp, g,
-            n, Q, torch.cuda.current_stream(x.device).cuda_stream)
+    ws = torch.empty(_ws_floats(code, b, l, nh, hp, n, Q),
+                     dtype=torch.float32, device=x.device)
+    rc = call_on_stream(
+        _library().ssd_chunk_launch, x, code, x.data_ptr(), x.stride(0),
+        x.stride(1), dt.data_ptr(), A.data_ptr(), B.data_ptr(), B.stride(0),
+        B.stride(1), C.data_ptr(), C.stride(0), C.stride(1), S0.data_ptr(),
+        y.data_ptr(), S_final.data_ptr(), ws.data_ptr(), b, l, nh, hp, g, n,
+        Q)
     if rc != 0:
         raise RuntimeError(f"ssd_chunk kernel launch failed with CUDA error "
                            f"{rc}")

@@ -1,7 +1,7 @@
-"""The tensor-core variant of the grouped expert GEMMs
-(``csrc/moe_gemm.cu``, namespace ``tc``), transliterated into numpy lane by
-lane and held to the plain versions on the CPU, and the wrapper's rule that
-picks the variant.
+"""The tensor-core and the narrow variants of the grouped expert GEMMs
+(``csrc/moe_gemm.cu``, namespaces ``tc`` and ``narrow``), transliterated
+into numpy lane by lane and held to the plain versions on the CPU, and the
+wrapper's rules that pick the variants.
 
 The CUDA kernel runs only on the card (``chip_smoke.py`` holds it to its
 plain version there). This transliteration follows its index arithmetic
@@ -13,6 +13,11 @@ memory that starts as NaN, so any element the kernel reads without having
 written it and lets into a kept output shows. Values stay f32: this checks
 indexing, not bf16 rounding. Tolerance 1e-5 (f32 sums in another order
 than the einsum of the plain version).
+
+The narrow variant (f32 ``moe_gemm`` with D or F rank-sized) is
+transliterated in f32 with its fma chains, its butterfly over the lanes and
+its split order, so the bits of a row can be compared across C and row
+positions.
 """
 
 import numpy as np
@@ -246,7 +251,146 @@ def test_a_row_depends_on_d_alone():
 
 
 # ---------------------------------------------------------------------------
-# the rule
+# the narrow variant
+# ---------------------------------------------------------------------------
+
+KSPLIT, KVALS, KROWS, NARROW, KBATCH = 128, 64, 64, 16, 32
+F32 = np.float32
+
+
+def _fma(a, b, c):
+    """fmaf: one rounding of the exact a * b + c (f64 holds a * b exactly)."""
+    d = np.float64
+    return (np.asarray(a, d) * np.asarray(b, d) + np.asarray(c, d)).astype(F32)
+
+
+def narrow_f_transliteration(x, w):
+    """split_kernel + combine_kernel: y [E, C, F] for x [E, C, D] and w
+    [E, D, F] (F <= 16 < D), f32."""
+    E, C, D = x.shape
+    F = w.shape[2]
+    kF = 4 if F <= 4 else 8 if F <= 8 else 16
+    kR = KVALS // kF
+    nsplit = -(-D // KSPLIT)
+    ws = np.full((nsplit, E, C, F), np.nan, F32)
+    for e in range(E):
+        for s in range(nsplit):
+            d = s * KSPLIT + 4 * LANES
+            dok = d < D
+            wr = np.zeros((32, 4, kF), F32)           # [lane, row, column]
+            for r in range(4):
+                wr[dok, r, :F] = w[e, d[dok] + r]
+            for c0 in range(0, C, kR):
+                v = np.zeros((32, KVALS), F32)
+                for i in range(kR):
+                    xv = np.zeros((32, 4), F32)
+                    if c0 + i < C:
+                        xv[dok] = x[e, c0 + i, d[dok, None] + np.arange(4)]
+                    for f in range(kF):
+                        v[:, i * kF + f] = _fma(
+                            xv[:, 3], wr[:, 3, f], _fma(
+                                xv[:, 2], wr[:, 2, f], _fma(
+                                    xv[:, 1], wr[:, 1, f],
+                                    xv[:, 0] * wr[:, 0, f])))
+                for o, n in ((16, 32), (8, 16), (4, 8), (2, 4), (1, 2)):
+                    up = (LANES & o).astype(bool)[:, None]
+                    send = np.where(up, v[:, :n], v[:, n:2 * n])
+                    keep = np.where(up, v[:, n:2 * n], v[:, :n])
+                    v[:, :n] = keep + send[LANES ^ o]
+                for q in range(2):
+                    idx = 2 * LANES + q
+                    c, f = c0 + idx // kF, idx % kF
+                    ok = (c < C) & (f < F)
+                    ws[s, e, c[ok], f[ok]] = v[ok, q]
+    y = np.zeros((E, C, F), F32)
+    for s0 in range(0, nsplit, KBATCH):
+        parts = [ws[s] if s < nsplit else np.zeros_like(y)
+                 for s in range(s0, s0 + KBATCH)]
+        for p in parts:
+            y = y + p
+    return y
+
+
+def narrow_d_transliteration(x, w):
+    """narrow_d_kernel: y [E, C, F] for x [E, C, D] (D <= 16) and w [E, D,
+    F], f32; x's rows staged 64 at a time in a NaN-initialised panel."""
+    E, C, D = x.shape
+    F = w.shape[2]
+    y = np.full((E, C, F), np.nan, F32)
+    for e in range(E):
+        wr = np.zeros((NARROW, F), F32)
+        wr[:D] = w[e]
+        for c0 in range(0, C, KROWS):
+            ts = np.full((KROWS, NARROW + 1), np.nan, F32)
+            ts[:, :NARROW] = 0.0
+            rows = min(KROWS, C - c0)
+            ts[:rows, :D] = x[e, c0:c0 + rows]
+            acc = np.zeros((rows, F), F32)
+            for k in range(D):
+                acc = _fma(ts[:rows, k, None], wr[k][None, :], acc)
+            y[e, c0:c0 + rows] = acc
+    return y
+
+
+def _narrow_case(seed, E, C, D, F):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((E, C, D)).astype(F32),
+            (rng.standard_normal((E, D, F)) / np.sqrt(D)).astype(F32))
+
+
+@pytest.mark.parametrize("E,C,D,F", [
+    (9, 8, 4096, 8),       # minitron-8b's h@A: d 4096, rank 8
+    (3, 4, 256, 4),        # edge-tiny's h@A at rank 4
+    (2, 17, 300, 12),      # D off a split (300 = 2 x 128 + 44), F 12 -> 16
+    (2, 5, 200, 16),
+])
+def test_narrow_f_matches_plain(E, C, D, F):
+    x, w = _narrow_case(E * D + F, E, C, D, F)
+    x[0] = 0.0                                   # an empty group
+    want = MG.moe_gemm_ref(torch.from_numpy(x), torch.from_numpy(w)).numpy()
+    got = narrow_f_transliteration(x, w)
+    np.testing.assert_allclose(got, want, **TOL)
+    assert not got[0].any()
+
+
+@pytest.mark.parametrize("E,C,D,F", [
+    (9, 8, 8, 4096),       # minitron-8b's t@B
+    (3, 4, 4, 256),        # edge-tiny's t@B at rank 4
+    (2, 70, 16, 264),      # two panels of rows, F past a 256-column block
+    (2, 3, 12, 8),
+])
+def test_narrow_d_matches_plain(E, C, D, F):
+    x, w = _narrow_case(E * F + D, E, C, D, F)
+    want = MG.moe_gemm_ref(torch.from_numpy(x), torch.from_numpy(w)).numpy()
+    np.testing.assert_allclose(narrow_d_transliteration(x, w), want, **TOL)
+
+
+@pytest.mark.parametrize("narrow,D,F", [
+    (narrow_f_transliteration, 4096, 8), (narrow_f_transliteration, 300, 4),
+    (narrow_d_transliteration, 8, 4096), (narrow_d_transliteration, 4, 72)])
+def test_a_row_of_the_narrow_variant_depends_on_d_alone(narrow, D, F):
+    """One row's output bits at C 1, 8 and 72, at every position of its
+    group and in another expert, among other rows: the same bits, so an
+    adapter session's tokens do not depend on which slots share its
+    group."""
+    rng = np.random.default_rng(D + F)
+    row = rng.standard_normal(D).astype(F32)
+    w1 = (rng.standard_normal((D, F)) / np.sqrt(D)).astype(F32)
+    w = np.stack([w1, w1])                   # the same adapter in both rows
+    want = None
+    for C, pos, e in ((1, 0, 0), (8, 0, 0), (8, 5, 1), (72, 71, 0),
+                      (72, 37, 1)):
+        x = rng.standard_normal((2, C, D)).astype(F32)
+        x[e, pos] = row
+        got = narrow(x, w)[e, pos]
+        if want is None:
+            want = got
+            np.testing.assert_allclose(got, row @ w1, **TOL)
+        assert np.array_equal(got, want), (C, pos, e)
+
+
+# ---------------------------------------------------------------------------
+# the rules
 # ---------------------------------------------------------------------------
 
 def _bf16(*shape):
@@ -295,3 +439,46 @@ class TestTensorCoreRule:
     def test_non_unit_inner_strides_take_the_template(self):
         w = _bf16(2, 8, 16).transpose(1, 2)     # [2, 16, 8], stride 16 on F
         assert not MG.uses_tensor_cores(_bf16(2, 4, 16), w)
+
+
+def _f32(*shape):
+    return torch.zeros(shape, dtype=torch.float32)
+
+
+class TestNarrowRule:
+    @pytest.mark.parametrize("C,D,F", [
+        (8, 4096, 8), (8, 8, 4096),          # minitron-8b adapters, rank 8
+        (4, 256, 4), (4, 4, 256),            # edge-tiny adapters, rank 4
+        (64, 4096, 16), (1, 16, 4096)])      # rank 16, the largest
+    def test_adapter_products_take_the_narrow_variant(self, C, D, F):
+        x, w = _f32(9, C, D), _f32(9, D, F)
+        assert MG.uses_narrow(x, w)
+        assert not MG.uses_tensor_cores(x, w)
+
+    def test_expert_shapes_keep_their_variants(self):
+        # qwen3-moe (bf16) and its f32 smoke config (d 64, d_ff 64)
+        assert not MG.uses_narrow(_bf16(2, 8, 2048), _bf16(2, 2048, 768))
+        assert not MG.uses_narrow(_f32(4, 8, 64), _f32(4, 64, 64))
+
+    def test_bf16_rank_sized_products_are_not_narrow(self):
+        assert not MG.uses_narrow(_bf16(9, 8, 4096), _bf16(9, 4096, 8))
+
+    @pytest.mark.parametrize("D,F", [(4096, 20), (32, 32), (4096, 6),
+                                     (6, 4096), (4097, 8)])
+    def test_wider_or_off_4_shapes_take_the_template(self, D, F):
+        assert not MG.uses_narrow(_f32(2, 4, D), _f32(2, D, F))
+
+    def test_strides_and_alignment_off_4_take_the_template(self):
+        x = _f32(2, 4, 4098)[:, :, :4096]       # row stride 4098
+        assert not MG.uses_narrow(x, _f32(2, 4096, 8))
+        w = _f32(2, 8, 4097)[:, :, :4096]       # w row stride 4097
+        assert not MG.uses_narrow(_f32(2, 4, 8), w)
+        xo = _f32(2 * 4 * 4096 + 1)[1:].view(2, 4, 4096)   # base + 4 bytes
+        assert not MG.uses_narrow(xo, _f32(2, 4096, 8))
+        wt = _f32(2, 8, 4096).transpose(1, 2)   # unit stride along D, not F
+        assert not MG.uses_narrow(_f32(2, 4, 4096), wt)
+
+    def test_a_row_slice_of_x_keeps_the_narrow_variant(self):
+        # the adapter route's rows 3.. of a buffer: base moves 48 bytes
+        x = _f32(9, 11, 8)[:, 3:]
+        assert MG.uses_narrow(x, _f32(9, 8, 4096))
