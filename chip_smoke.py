@@ -54,9 +54,13 @@ Phases:
              rglru_scan and ssd_chunk at the recurrent paths' 2048-token
              prefill shapes with a carried state (and ssd_chunk at a
              ragged l), eager and by replay, the SSD route's two kernels'
-             device times, after ragged shapes down to the smoke configs'
-             widths (l 1-1000, both routes, strided views of one buffer,
-             strides off 8, zero-dt steps carrying the state);
+             and the RG-LRU scan's kernel and memset device times and its
+             wrapper's host µs a call, after ragged shapes down to the
+             smoke configs' widths (T 1-4200, W 1-2560, B 1-3, rows off 16
+             bytes; l 1-1000, both routes, strided views of one buffer,
+             strides off 8, zero-dt steps carrying the state), the RG-LRU
+             scan's bits (eager == eager == graph replay, a row's bits
+             equal at B 1 and 3, identity steps keep the state exactly);
              flash_attention at minitron-8b's 2048-token causal prefill
              and seamless-m4t-medium's encoder (1536 frames) and cross
              attention (1024 x 1536), after ragged shapes (head dims
@@ -85,7 +89,7 @@ Phases:
              tokens, a mid-stream export (exactly ``kvcache.cache_bytes``
              of one slot) imported into a fresh engine continues
              token-identically, the full-width prefill logits are finite,
-             and (mamba2-1.3b) a profiled 2048-bucket prefill;
+             and a profiled 2048-bucket prefill;
    encdec  — seamless-m4t-medium: 8 prompts of 64-1024 tokens, each with
              1536 frames, right-padded to the engine's buckets and
              prefilled through ``LM.prefill`` (flash_attention 36 times a
@@ -113,9 +117,9 @@ read and are not counted. Every grouped-GEMM launch of the qwen3-moe path
 must have taken the tensor-core variant, and every one of the adapter
 path's the narrow variant (its products are f32 and rank-sized). Each
 profiled decode round prints its decode attention share, the profiled
-mamba2 prefill its ssd_chunk share. Any failed phase fails the run (exit
-1). The last two lines are the card's name and power limit, then the
-result JSON.
+recurrent prefills their rglru_scan or ssd_chunk share. Any failed phase
+fails the run (exit 1). The last two lines are the card's name and power
+limit, then the result JSON.
 """
 
 from __future__ import annotations
@@ -135,8 +139,9 @@ BF16_FLOPS = 989e12             # H100 SXM data sheet, dense tensor cores
 F32_FLOPS = 67e12               # H100 SXM data sheet, f32 outside them
 ATOL = RTOL = 1e-2              # bf16 output vs the f32 plain version
 F32_TOL = 1e-5                  # f32 kernel output vs the plain version
-RG_TOL = 1e-5                   # RG-LRU scan: the kernel's sequential f32
-#                                 recurrence vs the plain log-depth scan
+RG_TOL = 1e-5                   # RG-LRU scan: the kernel's chunk-parallel
+#                                 f32 scan (64-step chunk products, folded
+#                                 in chunk order) vs the plain log-depth scan
 SSD_TOL = 1e-3                  # SSD scan: f32 sums of 16-128 terms and a
 #                                 2048-step carried state, in another order
 REF_ATOL = 1e-3                 # f32 logits, card vs CPU (no TF32)
@@ -783,6 +788,47 @@ def ssd_flops(l: int, chunk: int, nh: int, hp: int, g: int, n: int,
     return b * total
 
 
+def check_rglru_bits(inputs, kern, W: int) -> None:
+    """rglru_scan's bits on the card: the same call made twice eagerly and
+    replayed (twice) from a CUDA graph gives equal outputs; each row of a B
+    3 call equals the B 1 call on that row; identity steps (a 1, b 0) after
+    step 700 of 1000 keep h[:, -1] == h[:, 699]."""
+    import torch
+    s = inputs(1, 2048, W)
+    first, second = kern(s), kern(s)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        kern(s)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = kern(s)
+    for _ in range(2):
+        replayed.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        if not (torch.equal(first, second) and torch.equal(first, replayed)):
+            fail("rglru_scan: the same call gives other bits eagerly, again "
+                 "or replayed from a CUDA graph")
+    del graph
+    s = inputs(3, 1000, W)
+    three = kern(s)
+    for r in range(3):
+        if not torch.equal(three[r], kern({k: v[r:r + 1].contiguous()
+                                           for k, v in s.items()})[0]):
+            fail(f"rglru_scan: row {r} of a B 3 call differs from the same "
+                 f"row alone")
+    s = inputs(2, 1000, W)
+    s["a"][:, 700:], s["b"][:, 700:] = 1.0, 0.0
+    h = kern(s)
+    if not torch.equal(h[:, -1], h[:, 699]):
+        fail("rglru_scan: identity steps after step 700 changed the state")
+    log(f"[kernels] rglru_scan bits (W {W}): eager == eager again == graph "
+        f"replay (T 2048), each row of B 3 == that row alone (T 1000), "
+        f"identity steps after 700 of 1000 keep h[:, -1] == h[:, 699]")
+
+
 def phase_recurrent_kernels(rg_cfg, mb_cfg):
     """rglru_scan and ssd_chunk against their plain versions at the
     prefill shapes of the recurrent paths (a 2048-token bucket): the RG-LRU
@@ -841,10 +887,23 @@ def phase_recurrent_kernels(rg_cfg, mb_cfg):
                      f"{int(bad.sum())} elements past atol=rtol={tol})")
         return worst
 
-    for B, T, W in ((3, 37, 100), (2, 300, 64), (1, 1, 2560)):
+    # T 1, below one chunk, off the chunk and the warp split, past 64
+    # chunks (two words of done bits); W 1, 3 (off float4: the scalar
+    # path), 64, 100, 130 (off the 128-channel tile)
+    for B, T, W in ((3, 37, 100), (2, 300, 64), (1, 1, 2560), (1, 1000, 130),
+                    (3, 300, 3), (2, 37, 1), (1, 5, 64), (3, 1000, 2560),
+                    (2, 4200, 100)):
         s = rg_inputs(B, T, W)
         check("rglru_scan", f"B {B} T {T} W {W}", (rg_kern(s),),
               (rg_plain(s),), RG_TOL)
+    # rows off 16 bytes (W a multiple of 4): the scalar path again
+    s, n = rg_inputs(2, 300, 64), 2 * 300 * 64
+    buf = torch.empty(2 * n + 1, device=dev)
+    for i, k in enumerate(("a", "b")):
+        s[k] = buf[1 + i * n:1 + (i + 1) * n].view(2, 300, 64).copy_(s[k])
+    check("rglru_scan", "B 2 T 300 W 64, rows off 16 bytes", (rg_kern(s),),
+          (rg_plain(s),), RG_TOL)
+    check_rglru_bits(rg_inputs, rg_kern, rg_cfg.lru_width)
     for (b, l, nh, hp, g, n, Q), dt in (
             ((2, 37, 8, 16, 1, 16, 16), torch.float32),    # mamba2 smoke
             ((1, 150, 4, 40, 2, 24, 64), torch.float32),   # hp, n off tiles
@@ -885,7 +944,8 @@ def phase_recurrent_kernels(rg_cfg, mb_cfg):
     check("ssd_chunk", "dt = 0 past step 700 of 1000: S_final", (S_pad,),
           (S_short,), SSD_TOL)
     log("[kernels] rglru_scan and ssd_chunk agree with their plain versions "
-        "at ragged shapes (T 1-300, W 64-2560; l 1-1000, hp 8-72, n 8-128, "
+        "at ragged shapes (T 1-4200, W 1-2560, B 1-3, rows off 16 bytes; "
+        "l 1-1000, hp 8-72, n 8-128, "
         "g 1-2, Q 16-128, f32 and bf16, strided views of one buffer, "
         "strides off 8); zero-dt steps carry the state")
 
@@ -952,6 +1012,15 @@ def phase_recurrent_kernels(rg_cfg, mb_cfg):
             f"{flops / 1e9:.2f} GFLOP; f32 operations alone "
             f"{flops / F32_FLOPS * 1e3:.4f} ms); by graph replay: kernel "
             f"{device_ms:.4f}, {bound_ms / device_ms:.1%} of bound")
+        if name == "rglru_scan":
+            log_kernel_parts(f"{name} ({shape})", lambda: kern(nxt()),
+                             "rglru")
+            log_kernel_parts(f"{name} ({shape}) memset", lambda: kern(nxt()),
+                             "Memset")
+            small = rg_inputs(1, 64, 128)
+            log(f"[kernels] rglru_scan wrapper host side: "
+                f"{host_us(lambda: kern(small)):.1f} us a call (B 1 T 64 W "
+                f"128, 200 calls without a sync)")
         if name == "ssd_chunk":
             log_kernel_parts(f"{name} ({shape})", lambda: kern(nxt()), "ssd_")
             occ = SC._library().ssd_chunk_occupancy
@@ -1269,7 +1338,7 @@ def log_profile(prof, name: str, wall_us: float, steps: int,
         log(f"[profile] {name}:   {dev_us(e) / steps / 1e3:8.3f} ms/{unit} "
             f"x{e.count // steps:<4d} {e.key[:90]}")
     for label, key in (("decode attention", "decode_attn"),
-                       ("ssd_chunk", "ssd_")):
+                       ("ssd_chunk", "ssd_"), ("rglru_scan", "rglru")):
         mine = [e for e in events if key in e.key]
         if mine:
             t = sum(dev_us(e) for e in mine)
@@ -1983,8 +2052,7 @@ def main() -> None:
         params = init_model(rcfg)
         paths.append(drive_recurrent(rcfg, params, kernel, per_prefill,
                                      counters))
-        if kernel == "ssd_chunk":
-            profile_prefill(rcfg, params)
+        profile_prefill(rcfg, params)
         log(f"[{kernel}] {rcfg.name} peak device memory "
             f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
         del params

@@ -39,6 +39,8 @@ import math
 
 import torch
 
+from repro_torch.kernels.build import call_on_stream, load
+
 NEG_INF = -1e30
 
 #: kernel name -> launches since the last reset_launches()
@@ -62,7 +64,6 @@ def reset_launches() -> None:
 def _library():
     global _lib
     if _lib is None:
-        from repro_torch.kernels.build import load
         lib = load("flash_attention")
         lib.flash_attention_launch.argtypes = _ARGTYPES
         lib.flash_attention_launch.restype = ctypes.c_int
@@ -202,14 +203,12 @@ def flash_attention(q, k, v, q_positions, k_positions, *, causal: bool,
     b, sq, hq, d = q.shape
     skv, kh = k.shape[1], k.shape[2]
     out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
-    with torch.cuda.device(q.device):
-        rc = _library().flash_attention_launch(
-            _DTYPE_CODE[q.dtype], d, q.data_ptr(), q.stride(0), q.stride(1),
-            q.stride(2), k.data_ptr(), v.data_ptr(), k.stride(0),
-            k.stride(1), k.stride(2), q_positions.data_ptr(),
-            k_positions.data_ptr(), out.data_ptr(), b, sq, skv, hq, kh,
-            int(causal), 1.0 / math.sqrt(d),
-            torch.cuda.current_stream(q.device).cuda_stream)
+    rc = call_on_stream(
+        _library().flash_attention_launch, q, _DTYPE_CODE[q.dtype], d,
+        q.data_ptr(), q.stride(0), q.stride(1), q.stride(2), k.data_ptr(),
+        v.data_ptr(), k.stride(0), k.stride(1), k.stride(2),
+        q_positions.data_ptr(), k_positions.data_ptr(), out.data_ptr(), b, sq,
+        skv, hq, kh, int(causal), 1.0 / math.sqrt(d))
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed with CUDA "
                            f"error {rc}")

@@ -18,8 +18,11 @@ else).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
+
+from repro_torch.kernels.build import call_on_stream, load
 
 #: kernel name -> launches since the last reset_launches()
 LAUNCHES = {"rglru_scan": 0}
@@ -27,7 +30,11 @@ LAUNCHES = {"rglru_scan": 0}
 #: time chunk of the reference's scan (rglru.py ``_CHUNK``)
 _CHUNK = 256
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_SIGNATURES = {        # C function -> (return type, argument types)
+    "rglru_scan_launch": (_I, [_P, _P, _P, _P, _P, _LL, _I, _I, _I, _P]),
+    "rglru_scan_ws_bytes": (_LL, [_I, _I, _I]),
+}
 _lib = None
 
 
@@ -39,10 +46,10 @@ def reset_launches() -> None:
 def _library():
     global _lib
     if _lib is None:
-        from repro_torch.kernels.build import load
         lib = load("rglru_scan")
-        lib.rglru_scan_launch.argtypes = [_P, _P, _P, _P, _I, _I, _I, _P]
-        lib.rglru_scan_launch.restype = ctypes.c_int
+        for fn, (res, args) in _SIGNATURES.items():
+            getattr(lib, fn).argtypes = args
+            getattr(lib, fn).restype = res
         _lib = lib
     return _lib
 
@@ -99,6 +106,11 @@ def _check(a, b, h0) -> None:
                          f"T, W >= 1")
 
 
+@functools.lru_cache(maxsize=None)
+def _ws_bytes(B: int, T: int, W: int) -> int:
+    return _library().rglru_scan_ws_bytes(B, T, W)
+
+
 def rglru_scan(a, b, h0):
     """h_t = a_t * h_{t-1} + b_t over axis 1 from h0. a, b: [B, T, W] f32;
     h0: [B, W] f32 -> h [B, T, W] f32."""
@@ -107,10 +119,12 @@ def rglru_scan(a, b, h0):
     _check(a, b, h0)
     B, T, W = a.shape
     h = torch.empty_like(a)
-    with torch.cuda.device(a.device):
-        rc = _library().rglru_scan_launch(
-            a.data_ptr(), b.data_ptr(), h0.data_ptr(), h.data_ptr(), B, T, W,
-            torch.cuda.current_stream(a.device).cuda_stream)
+    # chunk aggregates, done bits and the ticket (the launcher zeroes the
+    # last two)
+    ws = torch.empty(_ws_bytes(B, T, W), dtype=torch.uint8, device=a.device)
+    rc = call_on_stream(
+        _library().rglru_scan_launch, a, a.data_ptr(), b.data_ptr(),
+        h0.data_ptr(), h.data_ptr(), ws.data_ptr(), ws.numel(), B, T, W)
     if rc != 0:
         raise RuntimeError(f"rglru_scan kernel launch failed with CUDA error "
                            f"{rc}")
