@@ -5,7 +5,7 @@
     python3 chip_smoke.py --quick    # build, kernel checks, small models
 
 Run from the repository root. It builds the port's CUDA kernels from the
-sources in the checkout and drives the port's six main paths at full
+sources in the checkout and drives the port's seven main paths at full
 width (random weights from a seed):
 
 * minitron-8b (dense GQA: 32 layers, d_model 4096, 32 query heads over 8
@@ -24,7 +24,9 @@ width (random weights from a seed):
   d_model 1024, 16 heads of 64, d_ff 4096, vocab 256206, 1536 source
   frames from the audio frontend stub; bf16) at full width and depth,
   through the model's entry points (the engine serves no encdec model, in
-  either package).
+  either package);
+* a split session: a recurrentgemma-2b draft verified by minitron-8b,
+  both at full width and depth, speculative decode on one card.
 
 Phases:
 
@@ -98,6 +100,17 @@ Phases:
              times a step): TTFT split into encoder and decoder, decode
              ms/step and tok/s, peak memory; outside the window, finite
              logits and cross K/V unchanged by decode;
+   split   — a session established through the port's control plane
+             (``split_policy="require"``: an edge draft anchor hosting
+             recurrentgemma-2b, a regional verify anchor hosting
+             minitron-8b), one engine per anchor, a 1000-token prompt, 32
+             committed tokens an arm, γ 4: target-only greedy, the real
+             pair, oracle proposals (~30% corrupted), a twin draft and a
+             mid-stream verify migration into a paged engine; every arm's
+             stream bitwise the target-only one, the oracle arm's
+             acceptance strictly in (0, 1), the twin's 1.0; outside the
+             window, the draft's rolled-back states equal a plain decode's
+             and the release frees both anchors;
 5. reference — small models in f32 on the card against the same models on
              the CPU through the plain versions: edge-tiny (dense and
              paged), edge-tiny with adapters (grouped route on the card,
@@ -110,7 +123,9 @@ Each main path is driven with every launch counter set to 0 just before it
 and read just after, and each kernel the path runs must have been launched
 there (flash_attention exactly once per full-attention layer of each
 prefill: 32 for minitron-8b, 48 for qwen3-moe-30b-a3b, 36 for
-seamless-m4t-medium, 0 for the recurrent families); the checks of a
+seamless-m4t-medium, 0 for the recurrent families; on the split path
+32 per minitron-8b prefill, rglru_scan 18 per recurrentgemma-2b prefill,
+the decode kernels 32 per dense or paged minitron-8b step); the checks of a
 path's result (each adapter session alone, the full-width prefill logits
 and a profiled prefill, the recurrent and encdec checks) run after that
 read and are not counted. Every grouped-GEMM launch of the qwen3-moe path
@@ -1411,11 +1426,13 @@ class PrefillCount:
     prefills)."""
 
     def __enter__(self):
+        from collections import Counter
         from repro_torch.models.transformer import LM
-        self.n, self._orig = 0, LM.prefill
+        self.n, self.by_model, self._orig = 0, Counter(), LM.prefill
 
         def counted(lm, *args, **kw):
             self.n += 1
+            self.by_model[lm.cfg.name] += 1
             return self._orig(lm, *args, **kw)
 
         LM.prefill = counted
@@ -1944,6 +1961,231 @@ def recurrent_card_vs_cpu() -> float:
 
 
 # ---------------------------------------------------------------------------
+# the split path: speculative decode over two anchors of one session
+
+SPLIT_TOKENS = 32               # committed tokens of each arm
+SPLIT_GAMMA = 4                 # draft window
+SPLIT_PROMPT = 1000             # prompt tokens
+
+
+def split_session(draft_id: str, target_id: str):
+    """A split session established through the port's control plane: an
+    edge site hosting the draft model and two regional sites hosting the
+    target (8 H100 cards each by the data sheet), a ``SplitManager``, and
+    an ASP with ``split_policy="require"``. Returns (orchestrator,
+    manager, session)."""
+    import dataclasses
+    from repro_torch.core import Orchestrator, default_asp
+    from repro_torch.core.asp import QualityTier
+    from repro_torch.core.catalog import Catalog, default_catalog
+    from repro_torch.core.clock import VirtualClock
+    from repro_torch.core.sites import ExecutionSite, SiteSpec
+    from repro_torch.splitserve import SplitManager
+    clock = VirtualClock()
+    cat = Catalog()
+    for model in (draft_id, target_id):
+        cat.register(default_catalog().get(model))
+
+    def site(sid, kind, rtt, slots, model):
+        return ExecutionSite(SiteSpec(
+            sid, kind, "eu", chips=8, hbm_bytes_total=8 * 80e9,
+            peak_flops=8 * BF16_FLOPS, hbm_bw=8 * HBM_BYTES_PER_S,
+            decode_slots=slots, rtt_ms={"zone-a": rtt},
+            hosted_models=(f"{model}@1.0",), price_per_chip_s=2.0e-4),
+            clock)
+
+    orch = Orchestrator(clock=clock, catalog=cat, sites={
+        "edge-a": site("edge-a", "edge", 2.0, 32, draft_id),
+        "regional-1": site("regional-1", "regional", 12.0, 64, target_id),
+        "regional-2": site("regional-2", "regional", 30.0, 64, target_id)})
+    mgr = SplitManager(orch)
+    asp = dataclasses.replace(default_asp(tier=QualityTier.STANDARD),
+                              split_policy="require",
+                              max_cost_per_1k_tokens=4.0)
+    session = orch.establish(asp, invoker="chip-smoke", zone="zone-a")
+    return orch, mgr, session
+
+
+def phase_split(orch, mgr, session, draft_cfg, target_cfg, dparams,
+                tparams) -> dict:
+    """The split path's five arms on one card, each committing
+    ``SPLIT_TOKENS`` tokens from one ``SPLIT_PROMPT``-token prompt, 8-slot
+    engines of max_len 2048, γ ``SPLIT_GAMMA``: (1) target-only greedy on
+    the verify anchor's engine, the oracle stream; (2) the real pair,
+    engine-drafted; (3) oracle proposals, the target stream with ~30% of
+    its tokens corrupted (the draft grades and accepts 0 < n < γ); (4) a
+    twin draft, the target's params in a second engine; (5) the real pair
+    with a mid-stream verify migration, in the control plane and into a
+    fresh paged engine of the new verify site. The draft keeps the
+    sessions of arms 2-3 for the state check. Returns what the checks and
+    the launch counts read."""
+    import numpy as np
+    import torch
+    from repro_torch.serving.engine import InferenceEngine
+    from repro_torch.splitserve import SpecDecoder
+
+    def engine(cfg, params, site=None, paged=False):
+        eng = InferenceEngine(cfg, params=params, slots=8, max_len=2048,
+                              paged=paged, device="cuda")
+        if site is not None:
+            orch.sites[site].attach_engine(eng)
+        return eng
+
+    sid = session.session_id
+    verify_site = mgr.states[sid].verify_binding.site_id
+    draft = engine(draft_cfg, dparams, session.binding.site_id)
+    verify = engine(target_cfg, tparams, verify_site)
+    prompt = np.random.default_rng(41).integers(
+        0, target_cfg.vocab_size, size=SPLIT_PROMPT).astype(np.int32)
+
+    first = verify.prefill_session(f"{sid}/target", prompt)["first_token"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rest = verify.decode_round(steps=SPLIT_TOKENS - 1)[f"{sid}/target"]
+    target_ms = (time.perf_counter() - t0) * 1e3 / (SPLIT_TOKENS - 1)
+    verify.release_slot(f"{sid}/target")
+    base = [first] + rest
+
+    def start(name, d, v=verify):
+        dec = SpecDecoder(d, v, gamma=SPLIT_GAMMA, session_id=f"{sid}/{name}")
+        dec.start(prompt)
+        return dec
+
+    def steps(dec):
+        return dec.stats.drafted + dec.stats.rounds     # Σ(γ_round + 1)
+
+    rng = np.random.default_rng(3)
+    proposals = [t if rng.random() >= 0.3 else (t + 1) % target_cfg.vocab_size
+                 for t in base[1:]]
+    arms = {}
+    for name, props in (("pair", None), ("oracle", proposals)):
+        arms[name] = start(name, draft)
+        arms[name].decode(SPLIT_TOKENS - 1, proposals=props)
+        verify.release_slot(arms[name].sid)  # the draft keeps its state
+    arms["twin"] = start("twin", engine(target_cfg, tparams))
+    arms["twin"].decode(SPLIT_TOKENS - 1)
+    arms["twin"].close()
+    arms["migrate"] = mig = start("migrate", draft)
+    mig.decode(SPLIT_TOKENS // 2 - 1)
+    dense_before = steps(mig)
+    new_site = mgr.migrate_verify(session)
+    mig.migrate_verify(engine(target_cfg, tparams, new_site, paged=True))
+    mig.decode(max(SPLIT_TOKENS - len(mig.tokens), 1))
+    mig.close()
+    dense = (SPLIT_TOKENS - 1 + steps(arms["pair"]) + steps(arms["oracle"])
+             + 2 * steps(arms["twin"]) + dense_before)
+    for name, dec in arms.items():
+        st = dec.stats
+        log(f"[split] {name}: rounds {st.rounds} drafted {st.drafted} "
+            f"accepted {st.accepted} committed {st.committed} acceptance "
+            f"{st.acceptance:.4f} tokens/round {st.tokens_per_round:.4f}; "
+            f"draft {st.draft_ms / st.rounds:.2f} ms/round, verify "
+            f"{st.verify_ms / st.rounds:.2f} ms/round (host clock)")
+    log(f"[split] target-only: {target_ms:.2f} ms/token (host clock, one "
+        f"fused round of {SPLIT_TOKENS - 1} steps, 8 slots)")
+    return {"base": base, "arms": arms, "prompt": prompt, "draft": draft,
+            "sites": (session.binding.site_id, verify_site, new_site),
+            "dense_steps": dense, "paged_steps": steps(mig) - dense_before}
+
+
+def check_draft_state(cfg, params, prompt, dec) -> None:
+    """The draft's state for ``dec``'s session, after rounds that were
+    rolled back in place (RG-LRU states and ring buffers restored from
+    per-step copies), fingerprints as the state of a plain engine, the
+    session in the same slot, that consumed the same tokens one decode
+    step at a time."""
+    from repro_torch.serving.engine import InferenceEngine
+    from repro_torch.serving.state_transfer import fingerprint
+    eng = InferenceEngine(cfg, params=params, slots=8, max_len=2048,
+                          device="cuda")
+    slot = dec.draft._slot_map[dec.sid]
+    for i in range(slot):
+        eng.prefill_session(f"pad{i}", prompt[:16])
+    eng.prefill_session(dec.sid, prompt)
+    for i in range(slot):
+        eng.release_slot(f"pad{i}")
+    for t in dec.tokens[:-1]:           # the newest is not consumed yet
+        eng.override_last_token(dec.sid, t)
+        eng.decode_round()
+    want = fingerprint(eng.export_slot(dec.sid))
+    got = fingerprint(dec.draft.export_slot(dec.sid))
+    if got != want:
+        fail(f"{cfg.name}: the draft's state for {dec.sid} after its "
+             f"rounds fingerprints {got}, a plain decode of the same "
+             f"{len(dec.tokens) - 1} tokens {want}")
+    log(f"[split] draft state of {dec.sid.rsplit('/', 1)[-1]} == a plain "
+        f"decode of the same {len(dec.tokens) - 1} tokens (fingerprint "
+        f"{got})")
+
+
+def check_split(orch, mgr, session, draft_cfg, target_cfg, dparams, launches,
+                prefills, out) -> None:
+    """Every arm's committed stream is bitwise the target-only stream; the
+    oracle arm accepts strictly between 0 and 1, the twin arm everything
+    (γ + 1 tokens a round); the launches match the prefills and decode
+    steps of the path; the draft's states are exact; and releasing the
+    session frees both anchors."""
+    base, arms = out["base"], out["arms"]
+    for name, dec in arms.items():
+        got = dec.tokens[:SPLIT_TOKENS]
+        if got != base:
+            i = next(j for j in range(len(got)) if got[j] != base[j])
+            fail(f"split arm {name} diverges from target-only greedy at "
+                 f"token {i}: {got[i]} vs {base[i]}")
+    log(f"[split] every arm's {SPLIT_TOKENS} committed tokens == the "
+        f"target-only greedy stream ({target_cfg.dtype})")
+    acc = arms["oracle"].stats.acceptance
+    if not 0.0 < acc < 1.0:
+        fail(f"oracle arm acceptance {acc}, expected strictly in (0, 1)")
+    twin = arms["twin"].stats
+    if twin.acceptance != 1.0 or twin.tokens_per_round != SPLIT_GAMMA + 1:
+        fail(f"twin arm acceptance {twin.acceptance}, tokens/round "
+             f"{twin.tokens_per_round}, expected 1.0 and {SPLIT_GAMMA + 1}")
+    n_layers = target_cfg.num_layers
+    want = {"flash_attention": n_layers * prefills[target_cfg.name],
+            "rglru_scan": draft_cfg._pattern().count("rec")
+            * prefills[draft_cfg.name],
+            "decode_attention": n_layers * out["dense_steps"],
+            "paged_decode_attention": n_layers * out["paged_steps"],
+            "moe_gemm": 0, "moe_ffn_fused": 0, "ssd_chunk": 0}
+    for k, n in want.items():
+        if launches[k] != n:
+            fail(f"split path: {k} launched {launches[k]} times, expected "
+                 f"{n}")
+    log(f"[main path] split: launches match {prefills[target_cfg.name]} "
+        f"{target_cfg.name} and {prefills[draft_cfg.name]} "
+        f"{draft_cfg.name} prefills, {out['dense_steps']} dense and "
+        f"{out['paged_steps']} paged {target_cfg.name} decode steps")
+    for name in ("pair", "oracle"):
+        check_draft_state(draft_cfg, dparams, out["prompt"], arms[name])
+        out["draft"].release_slot(arms[name].sid)
+    orch.release(session)
+    busy = {k: s.slots_in_use() for k, s in orch.sites.items()
+            if s.slots_in_use()}
+    if mgr.states or busy:
+        fail(f"split session release left {busy} in use, states "
+             f"{list(mgr.states)}")
+    for site in out["sites"]:
+        eng = orch.sites[site].engine
+        if eng.free_slots() != eng.slots:
+            fail(f"{site}'s engine still holds {eng._slot_map}")
+    log(f"[split] session {session.session_id} released: every anchor's "
+        f"slots free, in the control plane and the engines")
+
+
+
+# ---------------------------------------------------------------------------
+
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    if smi.returncode != 0:
+        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    return smi.stdout.strip().splitlines()[0]
+
 
 def drive_path(name: str, counters, required, fn, *args):
     """One main path: every launch counter set to 0 just before ``fn``,
@@ -1977,6 +2219,7 @@ def main() -> None:
         fail("no CUDA device")
     try:
         from repro_torch.configs import get_config
+        from repro_torch.configs.registry import DRAFT_PAIRINGS
         from repro_torch.kernels.decode_attention import decode_attention \
             as DA
         from repro_torch.kernels.flash_attention import flash_attention as FA
@@ -2079,19 +2322,38 @@ def main() -> None:
     del params, out
     release_memory()
 
+    draft_id, target_id = "recurrentgemma-2b", "minitron-8b"
+    if target_id not in DRAFT_PAIRINGS[draft_id]:
+        fail(f"{draft_id} does not draft for {target_id}")
+    torch.cuda.reset_peak_memory_stats()
+    orch, mgr, session = split_session(draft_id, target_id)
+    verify_binding = mgr.states[session.session_id].verify_binding
+    log(f"[split] session {session.session_id}: draft "
+        f"{session.binding.site_id}/{session.binding.model_id}, verify "
+        f"{verify_binding.site_id}/{verify_binding.model_id}")
+    draft_cfg = get_config(session.binding.model_id)
+    target_cfg = get_config(verify_binding.model_id)
+    dparams, tparams = init_model(draft_cfg), init_model(target_cfg)
+    name = f"split {draft_cfg.name} -> {target_cfg.name}"
+    with PrefillCount() as pc:
+        launches, out = drive_path(name, counters, attn + ("rglru_scan",),
+                                   phase_split, orch, mgr, session,
+                                   draft_cfg, target_cfg, dparams, tparams)
+    paths.append(launches)
+    log(f"[split] peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB; {card()}")
+    check_split(orch, mgr, session, draft_cfg, target_cfg, dparams,
+                launches, pc.by_model, out)
+    del dparams, tparams, out
+    release_memory()
+
     for name, row in rows.items():
         row["launches"] = sum(p[name] for p in paths)
     phase_reference()
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
 
     log(json.dumps({"kernels": list(rows.values())}))
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60)
-    if smi.returncode != 0:
-        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
-    log(smi.stdout.strip().splitlines()[0])
+    log(card())
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -27,9 +27,11 @@ Hot-path disciplines:
   carries an int32 index into the runtime's tables, and the fused decode
   adds every row's delta to its final hidden state (on the card through the
   grouped-GEMM kernel).
-
-Speculative decode (ROADMAP.md queue 1, item 3) is not ported yet: it
-raises NotImplementedError.
+* **Rollback-able speculative rounds** — ``spec_round`` (draft) and
+  ``spec_grade`` (verify) run the same fused decode loop, one session
+  active, and keep per-step copies of the session's rows of every
+  destructive cache leaf, so ``spec_accept`` can restore the state after
+  any prefix of the round.
 """
 
 from __future__ import annotations
@@ -51,9 +53,6 @@ from repro_torch.models import kvcache as KV
 
 #: smallest prefill bucket
 _MIN_BUCKET = 16
-
-_NO_SPEC = ("speculative decode is not ported yet (ROADMAP.md queue 1, "
-            "item 3)")
 
 
 class PagePoolExhausted(RuntimeError):
@@ -171,6 +170,11 @@ class InferenceEngine:
         #: fused loop advances pos unconditionally); set -> resync next round
         self._pos_dirty = False
         self.buckets = prefill_buckets(max_len)
+        self._compiled_buckets: set = set()
+        # speculative decode: which cache leaves must be snapshotted per
+        # step to make a round rollback-able (empty = pos-only)
+        self._spec_paths = self._spec_stack_paths()
+        self._spec_pending: Dict[str, dict] = {}
 
     # ------------------------------------------------------------------
     def free_slots(self) -> int:
@@ -281,6 +285,13 @@ class InferenceEngine:
                 return
             if not self.hibernate_slot(victim):
                 return          # store full: nothing more can page out
+
+    @property
+    def prefill_compiles(self) -> int:
+        """Distinct prefill buckets used so far: the reference's count of
+        its jitted prefill variants (the padded width is the only shape
+        that varies across prompts)."""
+        return len(self._compiled_buckets)
 
     def _bucket(self, n: int) -> int:
         for b in self.buckets:
@@ -494,33 +505,6 @@ class InferenceEngine:
                 f"adapter {adapter_id!r} still bound by {users}")
         self.adapters.unload(adapter_id)
 
-    # -- not ported yet ---------------------------------------------------
-    def _refuse_adapter_spec(self, session_id: str) -> None:
-        """The reference's own refusal, which comes before any other."""
-        meta = self._slots[self._slot_map[session_id]]
-        if meta.adapter_id:
-            raise ValueError(
-                f"speculative decode does not support adapter-bound "
-                f"sessions ({session_id} binds {meta.adapter_id!r})")
-
-    def spec_round(self, session_id: str, gamma: int) -> List[int]:
-        self._refuse_adapter_spec(session_id)
-        raise NotImplementedError(_NO_SPEC)
-
-    def spec_grade(self, session_id: str, tokens: List[int]) -> List[int]:
-        self._refuse_adapter_spec(session_id)
-        raise NotImplementedError(_NO_SPEC)
-
-    def spec_accept(self, session_id: str, n_accept: int,
-                    last_token: int) -> None:
-        raise NotImplementedError(_NO_SPEC)
-
-    def spec_abort(self, session_id: str) -> None:
-        raise NotImplementedError(_NO_SPEC)
-
-    def override_last_token(self, session_id: str, token: int) -> None:
-        raise NotImplementedError(_NO_SPEC)
-
     # ------------------------------------------------------------------
     @torch.no_grad()
     def prefill_session(self, session_id: str, prompt: np.ndarray, *,
@@ -558,6 +542,7 @@ class InferenceEngine:
         width = self._bucket(n)
         padded = np.zeros(width, np.int64)
         padded[:n] = prompt
+        self._compiled_buckets.add(width)
         batch = {"tokens": torch.from_numpy(padded[None, :]).to(self.device),
                  "length": n}
         adapter = ((self.adapters.A[aidx], self.adapters.B[aidx]) if aidx
@@ -587,17 +572,25 @@ class InferenceEngine:
                 "ttfb_ms": (time.perf_counter() - t0) * 1e3}
 
     # ------------------------------------------------------------------
-    def _fused(self, last: np.ndarray, active: np.ndarray,
-               steps: int) -> np.ndarray:
+    def _fused(self, last: np.ndarray, active: np.ndarray, steps: int, *,
+               forced: Optional[np.ndarray] = None, snap_rows=None):
         """K decode steps with no host sync between them. ``last``:
         [slots] token feedback; ``active``: [slots] — inactive slots keep
         feeding their (zero) token so a fused chunk is bit-identical to K
         single-step rounds regardless of who shares the batch. With an
         adapter runtime, the per-slot int32 table index selects each row's
         adapter (0, the null adapter, for base sessions and free slots).
-        Returns the [slots, K] token block through one device→host copy."""
+
+        ``forced`` ([slots, K]): step t consumes ``forced[:, t]`` instead
+        of the previous step's token (the teacher-forced verify round).
+        ``snap_rows``: tensors copied after every step but the last (the
+        rollback snapshots of a speculative round; the last step's state
+        is the live one). Returns the [slots, K] token block, through one
+        device→host copy, and the list of per-step copies."""
         fed = torch.from_numpy(last).to(self.device)
         act = torch.from_numpy(active).to(self.device)
+        if forced is not None:
+            forced = torch.from_numpy(forced).to(self.device)
         adapter = None
         if self.adapters is not None:
             aidx = np.zeros(self.slots, np.int32)
@@ -608,16 +601,190 @@ class InferenceEngine:
                        torch.from_numpy(aidx).to(self.device),
                        self.adapters.route)
         cache = self.cache
-        toks = []
-        for _ in range(steps):
+        toks, snaps = [], []
+        for t in range(steps):
+            if forced is not None:
+                fed = forced[:, t]
             logits, cache = self.lm.decode_step(self.params, cache,
                                                 fed[:, None], active=act,
                                                 adapter=adapter)
             nxt = torch.argmax(logits[:, 0, :], dim=-1).to(torch.int32)
             fed = torch.where(act, nxt, fed)
             toks.append(fed)
+            if snap_rows is not None and t < steps - 1:
+                snaps.append([r.clone() for r in snap_rows])
         self.cache = cache
-        return torch.stack(toks, dim=1).cpu().numpy()
+        return torch.stack(toks, dim=1).cpu().numpy(), snaps
+
+    def _resync_pos(self) -> None:
+        """Device pos (and block table) from host truth: parked rows'
+        device pos advances inside the fused loop even though their state
+        is frozen, and a speculative round runs ahead of its accept."""
+        pos_host = np.zeros(self.slots, np.int32)
+        for i, s in enumerate(self._slots):
+            if s is not None:
+                pos_host[i] = s.position
+        self.cache["pos"] = torch.from_numpy(pos_host).to(self.device)
+        if self.paged:
+            self.cache["block"].copy_(torch.from_numpy(self._block_host))
+
+    # ------------------------------------------------------------------
+    # Speculative decode: rollback-able rounds.
+    #
+    # Both the draft and verify role run the SAME shape of round: γ+1
+    # fused decode steps consuming [ℓ, t_1..t_γ] (ℓ = the slot's
+    # unconsumed last token), whose post-step state at index n is exactly
+    # the engine state after committing n of the γ candidate tokens. The
+    # draft consumes its own outputs (autoregressive, producing the
+    # proposals), the verifier consumes the proposals teacher-forced
+    # (producing the target-greedy continuation y_0..y_γ in ONE fused
+    # round). ``spec_accept(n, y_n)`` then restores the index-n snapshot:
+    # committed stream = d_1..d_n, y_n — bitwise what target-only greedy
+    # decode would have produced.
+    #
+    # Rollback cost depends on the cache family: full-attention caches
+    # written at absolute positions need NO snapshots (rows >= pos are
+    # never attended and later overwritten — pos-only rollback, including
+    # paged); recurrent and ring-buffer leaves (ssm conv/ssm, hybrid conv/h
+    # and windowed k/v) are overwritten IN PLACE by every step, so each
+    # step's snapshot is a copy of the session's row of each of them (the
+    # other rows ride inactive and stay bit-identical), and a restore
+    # copies it back into the live leaf, whose storage never changes.
+    # ------------------------------------------------------------------
+    def _spec_stack_paths(self) -> List[tuple]:
+        """Cache-leaf paths that must be snapshotted per step."""
+        if self.cfg.family in ("dense", "moe", "encdec") \
+                and not self.cfg.sliding_window:
+            return []                       # pos-only rollback
+        layers = self.cache["layers"]
+        if isinstance(layers, tuple):       # hybrid: per-layer dicts
+            return [("layers", i, key) for i, layer in enumerate(layers)
+                    for key in sorted(layer)]
+        return [("layers", key) for key in sorted(layers)
+                if key not in ("cross_k", "cross_v")]   # static after prefill
+
+    def _spec_rows(self, idx: int) -> List[torch.Tensor]:
+        """Views of slot ``idx``'s row of every leaf a round snapshots."""
+        rows = []
+        for path in self._spec_paths:
+            leaf = self.cache
+            for p in path:
+                leaf = leaf[p]
+            rows.append(leaf.select(self._slot_axis, idx))
+        return rows
+
+    def _spec_prologue(self, session_id: str, gamma: int):
+        """Shared admission for a spec round: slot lookup, bounds, page
+        growth, device pos/block resync from host truth (a spec round
+        always ends with host-side position authority)."""
+        idx = self._slot_map[session_id]
+        meta = self._slots[idx]
+        if meta.adapter_id:
+            raise ValueError(
+                f"speculative decode does not support adapter-bound "
+                f"sessions ({session_id} binds {meta.adapter_id!r})")
+        if gamma < 1:
+            raise ValueError("spec round needs gamma >= 1")
+        if meta.position + gamma + 1 > self.max_len:
+            raise ValueError(
+                f"spec round of gamma={gamma} overruns max_len "
+                f"{self.max_len} from position {meta.position}")
+        if session_id in self._spec_pending:
+            raise RuntimeError(
+                f"spec round already pending for {session_id}; "
+                f"spec_accept it first")
+        last = np.zeros(self.slots, np.int32)
+        active = np.zeros(self.slots, bool)
+        last[idx] = meta.last_token
+        active[idx] = True
+        if self.paged:
+            self._ensure_pages(idx, meta.position + gamma + 2)
+        self._resync_pos()
+        return idx, meta, last, active
+
+    def _spec_run(self, session_id: str, gamma: int,
+                  tokens: Optional[List[int]] = None) -> np.ndarray:
+        """γ+1 steps of ``session_id`` alone (co-resident slots ride with
+        active=False, frozen): autoregressive from its last token, or
+        teacher-forced over [ℓ, *tokens]. The host state does NOT advance:
+        the round is pending until ``spec_accept`` or ``spec_abort``.
+        Returns the session's row of the token block."""
+        idx, meta, last, active = self._spec_prologue(session_id, gamma)
+        forced = None
+        if tokens is not None:
+            forced = np.zeros((self.slots, gamma + 1), np.int32)
+            forced[idx, 0] = meta.last_token
+            forced[idx, 1:] = tokens
+        rows = self._spec_rows(idx)
+        pre = [r.clone() for r in rows]
+        block, stacks = self._fused(last, active, gamma + 1, forced=forced,
+                                    snap_rows=rows)
+        self._spec_pending[session_id] = {"stacks": stacks, "pre": pre,
+                                          "base_pos": meta.position,
+                                          "gamma": gamma}
+        self._pos_dirty = True      # device pos ran ahead of host truth
+        return block[idx]
+
+    @torch.no_grad()
+    def spec_round(self, session_id: str, gamma: int) -> List[int]:
+        """Draft role: propose γ tokens autoregressively from the current
+        state. Pending until ``spec_accept`` commits a prefix of it."""
+        gamma = int(gamma)
+        return [int(t) for t in self._spec_run(session_id, gamma)[:gamma]]
+
+    @torch.no_grad()
+    def spec_grade(self, session_id: str, tokens: List[int]) -> List[int]:
+        """Verify role: consume ``tokens`` = [d_1..d_γ] teacher-forced in
+        one fused round and return the target-greedy continuation
+        y_0..y_γ (y_t = greedy next after [.., ℓ, d_1..d_t]). Pending
+        until ``spec_accept``."""
+        return [int(t) for t in
+                self._spec_run(session_id, len(tokens), list(tokens))]
+
+    @torch.no_grad()
+    def spec_accept(self, session_id: str, n_accept: int,
+                    last_token: int) -> None:
+        """Commit the longest agreeing prefix: restore the index-n
+        snapshot (state after consuming ℓ, d_1..d_n), advance the host
+        position by n+1 committed tokens, and make ``last_token`` (= y_n,
+        the verifier's correction/extension) the new unconsumed token.
+        n ∈ [0, γ]; n = γ accepts the whole round (the live state)."""
+        pend = self._spec_pending.pop(session_id)
+        n = int(n_accept)
+        if not (0 <= n <= pend["gamma"]):
+            raise ValueError(
+                f"n_accept {n} outside [0, {pend['gamma']}]")
+        idx = self._slot_map[session_id]
+        if n < pend["gamma"]:
+            for row, snap in zip(self._spec_rows(idx), pend["stacks"][n]):
+                row.copy_(snap)
+        meta = self._slots[idx]
+        meta.position = pend["base_pos"] + n + 1
+        meta.last_token = int(last_token)
+        meta.tokens_generated += n + 1
+        meta.last_used = next(self._use_clock)
+        self._pos_dirty = True      # next round resyncs device pos
+
+    @torch.no_grad()
+    def spec_abort(self, session_id: str) -> None:
+        """Drop a pending round without committing anything: restore the
+        pre-round copy of every destructive leaf (host position never
+        advanced; device pos resyncs on the next round)."""
+        pend = self._spec_pending.pop(session_id, None)
+        if pend is not None:
+            idx = self._slot_map[session_id]
+            for row, snap in zip(self._spec_rows(idx), pend["pre"]):
+                row.copy_(snap)
+        self._pos_dirty = True
+
+    def override_last_token(self, session_id: str, token: int) -> None:
+        """Re-point the slot's unconsumed token at an externally committed
+        one. The draft half of a split session decodes the VERIFIER's
+        token stream, not its own: after the draft-side prefill (and
+        after every accepted round) the next token it must consume is
+        whatever the verifier committed."""
+        meta = self._slots[self._slot_map[session_id]]
+        meta.last_token = int(token)
 
     @torch.no_grad()
     def decode_round(self, steps: Optional[int] = None
@@ -651,18 +818,9 @@ class InferenceEngine:
                 if s is not None and not s.parked:
                     self._ensure_pages(i, s.position + k)
         if self.paged or any_parked or self._pos_dirty:
-            # resync device pos (and block table) from host truth: parked
-            # rows' device pos advances inside the fused loop even though
-            # their state is frozen
-            pos_host = np.zeros(self.slots, np.int32)
-            for i, s in enumerate(self._slots):
-                if s is not None:
-                    pos_host[i] = s.position
-            self.cache["pos"] = torch.from_numpy(pos_host).to(self.device)
-            if self.paged:
-                self.cache["block"].copy_(torch.from_numpy(self._block_host))
+            self._resync_pos()
             self._pos_dirty = any_parked
-        block = self._fused(last, active, k)             # [slots, K]
+        block, _ = self._fused(last, active, k)          # [slots, K]
         out: Dict[str, Union[int, List[int]]] = {}
         for i, s in enumerate(self._slots):
             if s is None or s.parked:

@@ -254,17 +254,23 @@ class TestAdapterEngine:
         assert not eng.adapters.is_loaded("acme")
 
     def test_spec_decode_refuses_adapter_bound_sessions_first(self, pair):
-        """The reference's own refusal comes before the port's
-        not-ported-yet error."""
-        _, tcfg, _, tp = pair
+        """Adapter-bound sessions get the reference's refusal; a base
+        session on the same engine runs its speculative round and gets the
+        reference engine's tokens."""
+        jcfg, tcfg, jp, tp = pair
         eng = _port_engine(tcfg, tp)
         _admit_all(eng, tcfg.vocab_size)
         for call in (lambda: eng.spec_round("s-acme", 2),
                      lambda: eng.spec_grade("s-acme", [1, 2])):
             with pytest.raises(ValueError, match="adapter-bound"):
                 call()
-        with pytest.raises(NotImplementedError):
-            eng.spec_round("s-base", 2)
+        jrt = JaxRuntime(jcfg.d_model, max_adapters=4, rank=4)
+        for aid in ("acme", "globex"):
+            jrt.load(aid, *weights_for(aid, jcfg.d_model))
+        jeng = JaxEngine(jcfg, params=jp, slots=4, max_len=MAX_LEN,
+                         adapters=jrt)
+        _admit_all(jeng, jcfg.vocab_size)
+        assert eng.spec_round("s-base", 2) == jeng.spec_round("s-base", 2)
 
     def test_engine_rejects_tables_on_another_device(self, pair):
         _, tcfg, _, tp = pair

@@ -194,6 +194,21 @@ class TestTiers:
         assert eng.free_pages() == 1
 
 
+def test_prefill_compiles_counts_the_reference_buckets(pair):
+    """The number of distinct prefill buckets a mix of prompt lengths
+    uses: the reference's count of its jitted prefill variants."""
+    jcfg, tcfg, jp, tp = pair
+    jeng = JaxEngine(jcfg, params=jp, slots=2, max_len=MAX_LEN)
+    teng = _port_engine(pair, False)
+    assert teng.prefill_compiles == jeng.prefill_compiles == 0
+    for i, n in enumerate((3, 17, 20, 16, 40, 5)):
+        for eng in (jeng, teng):
+            eng.prefill_session(f"s{i}", prompt(n, tcfg.vocab_size, i))
+            eng.release_slot(f"s{i}")
+        assert teng.prefill_compiles == jeng.prefill_compiles
+    assert teng.prefill_compiles == 3           # buckets 16, 32, 64
+
+
 def test_serve_matches_reference_launcher(monkeypatch):
     """Same sessions, same requests served, through both northbound stacks
     (the session-id counters of both packages are pinned and restored)."""

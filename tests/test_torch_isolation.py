@@ -28,7 +28,8 @@ FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "repro")
 #: other copies differ on purpose (core/sites.py states H100 figures,
 #: models/config.py drops the reference's decode-kernel switches)
 VERBATIM = sorted(
-    [p.relative_to(REF) for d in ("core", "netfault") for p in
+    [p.relative_to(REF) for d in ("core", "netfault", "splitserve",
+                                  "federation", "sim") for p in
      (REF / d).glob("*.py") if p.name != "sites.py"]
     + [Path("api") / f for f in ("__init__.py", "messages.py", "gateway.py",
                                  "client.py")]
