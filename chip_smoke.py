@@ -5,7 +5,7 @@
     python3 chip_smoke.py --quick    # build, kernel checks, small models
 
 Run from the repository root. It builds the port's CUDA kernels from the
-sources in the checkout and drives the port's seven main paths at full
+sources in the checkout and drives the port's eight main paths at full
 width (random weights from a seed):
 
 * minitron-8b (dense GQA: 32 layers, d_model 4096, 32 query heads over 8
@@ -14,6 +14,11 @@ width (random weights from a seed):
 * qwen3-moe-30b-a3b (MoE: 48 layers, d_model 2048, 32 query heads over 4
   KV heads, 128 experts top-8, expert d_ff 768, vocab 151936; bf16, 30.5 B
   params) at full width and depth;
+* mixtral-8x7b (MoE with a sliding window: 32 layers, d_model 4096, 32
+  query heads over 8 KV heads of 128, window 4096, 8 experts top-2, expert
+  d_ff 14336, vocab 32000; 46.7 B params) at full width and depth with
+  int8 weights (47.0 GB), drawn on the card by ``LM.init`` at
+  ``serve_weight_dtype="int8"``;
 * recurrentgemma-2b (hybrid: 26 layers in the pattern rec, rec, attn —
   18 RG-LRU blocks of width 2560, 8 local-attention layers, MQA 10 q heads
   over 1 KV head of 256, window 2048 — vocab 256000; bf16) at full width
@@ -52,7 +57,15 @@ Phases:
              equal at C 1, 8 and 72 and any position), after ragged shapes
              of all three variants (C 1-300, D 4-4100, F 4-4096), timed
              eager and by CUDA-graph replay beside ``torch.bmm`` both ways
-             (and, for the adapter products, the host µs a call);
+             (and, for the adapter products, the host µs a call); the
+             int8-weight variant at ragged shapes (C 1-300, F 8-768, an
+             empty expert, strided x, a zero weight column) and at
+             mixtral's four expert shapes (gate/up and down, C 8 and
+             640), each output equal to the tensor-core variant's on
+             ``as_weight(w)`` bit for bit, int8 weights it does not take
+             raising, timed eager and by replay beside ``as_weight`` +
+             the bf16 kernel, ``as_weight`` + ``torch.bmm`` and
+             ``torch.bmm`` on bf16 weights;
              rglru_scan and ssd_chunk at the recurrent paths' 2048-token
              prefill shapes with a carried state (and ssd_chunk at a
              ragged l), eager and by replay, the SSD route's two kernels'
@@ -83,6 +96,20 @@ Phases:
              of an engine without adapters;
    moe     — minitron freed, qwen3-moe-30b-a3b drawn on the card; phases 3
              and 4 again for it;
+   mixtral — qwen3-moe freed, mixtral-8x7b drawn on the card in int8: 8
+             sessions (prompts of 1000-6000 tokens, two past the window,
+             one of 4090 whose decode wraps the ring) x 64 greedy tokens
+             through a ServingPlane over a RealEngineBackend on an
+             InferenceEngine (8 slots, max_len 8192), then the same
+             prompts on a direct engine (TTFT, decode tok/s, a profiled
+             round); every expert-kernel launch on the int8 variant, no
+             attention kernel (banded prefill, ring decode); outside the
+             window, the plane's streams equal the direct engine's,
+             paged=True keeps the dense layout and its tokens, a wrapped
+             session's mid-stream export (``kvcache.cache_bytes`` of one
+             slot) continues in a fresh engine, finite prefill logits, a
+             profiled 8192-bucket prefill with the expert kernels' share
+             and peak memory under 80 GB;
    recurrent — each recurrent model drawn in turn (the previous one freed):
              phases 3 and 4 (dense engine) with rglru_scan launched 18 times
              and ssd_chunk 48 times per prefill, the decode-attention
@@ -116,8 +143,9 @@ Phases:
              paged), edge-tiny with adapters (grouped route on the card,
              its products on the narrow variant, gather on the CPU), the
              qwen3-moe smoke config, the
-             recurrentgemma-2b and mamba2-1.3b smoke configs and the
-             seamless-m4t-medium smoke config (head_dim 32).
+             recurrentgemma-2b and mamba2-1.3b smoke configs, the
+             seamless-m4t-medium smoke config (head_dim 32) and the
+             mixtral-8x7b smoke config with int8 weights (window 16).
 
 Each main path is driven with every launch counter set to 0 just before it
 and read just after, and each kernel the path runs must have been launched
@@ -127,10 +155,11 @@ seamless-m4t-medium, 0 for the recurrent families; on the split path
 32 per minitron-8b prefill, rglru_scan 18 per recurrentgemma-2b prefill,
 the decode kernels 32 per dense or paged minitron-8b step); the checks of a
 path's result (each adapter session alone, the full-width prefill logits
-and a profiled prefill, the recurrent and encdec checks) run after that
-read and are not counted. Every grouped-GEMM launch of the qwen3-moe path
-must have taken the tensor-core variant, and every one of the adapter
-path's the narrow variant (its products are f32 and rank-sized). Each
+and a profiled prefill, the recurrent, encdec and mixtral checks) run
+after that read and are not counted. Every grouped-GEMM launch of the
+qwen3-moe path must have taken the tensor-core variant, every one of the
+adapter path's the narrow variant (its products are f32 and rank-sized)
+and every one of the mixtral path's the int8 variant. Each
 profiled decode round prints its decode attention share, the profiled
 recurrent prefills their rglru_scan or ssd_chunk share. Any failed phase
 fails the run (exit 1). The last two lines are the card's name and power
@@ -787,6 +816,164 @@ def phase_moe_kernels(moe_cfg, d_adapter: int):
     return rows
 
 
+def phase_int8_kernels(mx_cfg):
+    """The int8-weight variant of the grouped GEMMs (``{q, s}`` weights as
+    ``models.quant`` makes them, bf16 x): ragged edges (C 1, 9, 40, 161,
+    300; F 8, 72, 136; an empty expert, strided x, a zero weight column),
+    then mixtral-8x7b's expert shapes (gate/up E 8 D 4096 F 14336, down
+    D 14336 F 4096; decode C 8 and a 2048-token prefill chunk's C 640).
+    Every output equals the tensor-core variant's on ``as_weight(w)`` bit
+    for bit and agrees with the plain version (f32 products of the
+    dequantised weights) within atol = rtol = 1e-2; an int8 weight the
+    variant does not take raises. Timed eager and by CUDA-graph replay
+    beside ``as_weight`` + the bf16 kernel, ``as_weight`` + ``torch.bmm``
+    (``library_ms``) and ``torch.bmm`` on weights already in bf16. One
+    weight set: each matrix (470 MB of int8) is far past the 50 MB L2, so
+    every launch streams it from device memory."""
+    import torch
+    from repro_torch.kernels.moe_gemm import moe_gemm as MG
+    from repro_torch.models.quant import as_weight, quantize_weight
+
+    E, D, Fd = mx_cfg.num_experts, mx_cfg.d_model, mx_cfg.moe_d_ff
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2468)
+
+    def randn(shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev)
+                * scale).to(torch.bfloat16)
+
+    def q8(shape):
+        w = randn(shape, shape[1] ** -0.5)
+        w[:, :, 1] = 0                    # a zero column: scale 1e-12
+        return quantize_weight(w)
+
+    def launch(name, x, *ws):
+        fn = MG.moe_ffn_fused if name == "moe_ffn_fused" else MG.moe_gemm
+        return fn(x, *ws)
+
+    def plain_f32(name, x, *ws):
+        ref = MG.moe_ffn_fused_ref if name == "moe_ffn_fused" \
+            else MG.moe_gemm_ref
+        return ref(x.float(), *(as_weight(w).float() for w in ws))
+
+    def check(name, label, x, ws):
+        """The int8 variant vs the tensor-core one on as_weight(w) (bits)
+        and the plain version (tolerance); returns the max abs error."""
+        deq = [as_weight(w) for w in ws]
+        if not MG.uses_int8(x, *ws) or not MG.uses_tensor_cores(x, *deq):
+            fail(f"{name} {label}: not the int8 / tensor-core variants")
+        n8 = MG.INT8_LAUNCHES[name]
+        got = launch(name, x, *ws)
+        bits = launch(name, x, *deq)
+        torch.cuda.synchronize()
+        if MG.INT8_LAUNCHES[name] != n8 + 1:
+            fail(f"{name} {label}: the int8 variant was not launched")
+        if not torch.equal(got, bits):
+            fail(f"{name} {label}: int8 variant differs from the tensor-core "
+                 f"variant on as_weight(w) in {int((got != bits).sum())} "
+                 f"elements")
+        ref = plain_f32(name, x, *ws)
+        err = (got.float() - ref).abs()
+        if bool((err > ATOL + RTOL * ref.abs()).any()) \
+                or not torch.isfinite(got).all():
+            fail(f"{name} {label}: max abs err {float(err.max()):.3e} past "
+                 f"{ATOL}")
+        return float(err.max())
+
+    for Eo, Co, Do, Fo in ((3, 1, 48, 136), (5, 9, 64, 72), (4, 9, 16, 8),
+                           (3, 161, 48, 72), (2, 300, 16, 136),
+                           (5, 40, 2048, 768), (2, 70, 24, 8)):
+        xo = randn((Eo, Co + 3, Do))[:, 3:]       # row stride Do, base + 3
+        xo[0] = 0                                  # an empty expert
+        wg, wu = q8((Eo, Do, Fo)), q8((Eo, Do, Fo))
+        label = f"E {Eo} C {Co} D {Do} F {Fo}"
+        check("moe_ffn_fused", label, xo, (wg, wu))
+        check("moe_gemm", label, xo, (wg,))
+        if bool(launch("moe_gemm", xo, wg)[0].any()):
+            fail(f"moe_gemm int8 {label}: the empty expert is not zero")
+    for bad, why in ((lambda: MG.moe_gemm(randn((2, 8, 16)).float(),
+                                          q8((2, 16, 24))), "f32 x"),
+                     (lambda: MG.moe_gemm(randn((2, 8, 16)),
+                                          q8((2, 16, 20))), "F off 8")):
+        try:
+            bad()
+        except ValueError:
+            continue
+        fail(f"an int8 weight with {why} did not raise on the card")
+    log("[kernels] int8 variant == tensor-core variant on as_weight(w) bit "
+        "for bit and agrees with its plain version at ragged shapes (C "
+        "1-300, D 16-2048, F 8-768, strided x, empty expert, zero column); "
+        "int8 weights it does not take raise")
+
+    wg, wu, wd = q8((E, D, Fd)), q8((E, D, Fd)), q8((E, Fd, D))
+    deq = {k: as_weight(w) for k, w in (("g", wg), ("u", wu), ("d", wd))}
+    wcat = torch.cat([deq["g"], deq["u"]], dim=-1)
+    qcat = {k: torch.cat([wg[k], wu[k]], dim=-1) for k in ("q", "s")}
+    rows = {}
+    for name, C in (("moe_ffn_fused", 8), ("moe_ffn_fused", 640),
+                    ("moe_gemm", 8), ("moe_gemm", 640)):
+        fused = name == "moe_ffn_fused"
+        Din, Fo = (D, Fd) if fused else (Fd, D)
+        x = randn((E, C, Din))
+        ws = (wg, wu) if fused else (wd,)
+        bf = (deq["g"], deq["u"]) if fused else (deq["d"],)
+        label = f"E {E} C {C} D {Din} F {Fo}"
+        err = check(name, label, x, ws)
+        if fused:
+            lib = lambda: torch.bmm(x, as_weight(qcat))       # noqa: E731
+            lib_bf16 = lambda: torch.bmm(x, wcat)             # noqa: E731
+        else:
+            lib = lambda: torch.bmm(x, as_weight(wd))         # noqa: E731
+            lib_bf16 = lambda: torch.bmm(x, deq["d"])         # noqa: E731
+        kern = lambda: launch(name, x, *ws)                   # noqa: E731
+        deq_tc = lambda: launch(name, x, *(as_weight(w)        # noqa: E731
+                                           for w in ws))
+        ref = MG.moe_ffn_fused_ref if fused else MG.moe_gemm_ref
+        plain = lambda: ref(x, *(as_weight(w) for w in ws))   # noqa: E731
+        t = {"ms": time_ms(kern), "device_ms": graph_ms(kern),
+             "dequant_tc_ms": time_ms(deq_tc),
+             "dequant_tc_device_ms": graph_ms(deq_tc),
+             "plain_ms": time_ms(plain, iters=5, warmup=1),
+             "library_ms": time_ms(lib),
+             "library_device_ms": graph_ms(lib),
+             "library_bf16_ms": time_ms(lib_bf16),
+             "library_bf16_device_ms": graph_ms(lib_bf16)}
+        nbytes = (2 * E * C * Din + len(ws) * (E * Din * Fo + 4 * E * Fo)
+                  + 2 * E * C * Fo)
+        flops = 2 * len(ws) * E * C * Din * Fo
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+        bound_ms = max(t_bytes, t_ops) * 1e3
+        bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        log(f"[kernels] {name} int8 ({label}): max_abs_err {err:.3e} "
+            f"kernel_ms {t['ms']:.4f} (replay {t['device_ms']:.4f}) "
+            f"as_weight+bf16 kernel {t['dequant_tc_ms']:.4f} (replay "
+            f"{t['dequant_tc_device_ms']:.4f}) plain_ms {t['plain_ms']:.4f} "
+            f"library as_weight+bmm {t['library_ms']:.4f} (replay "
+            f"{t['library_device_ms']:.4f}) bmm on bf16 "
+            f"{t['library_bf16_ms']:.4f} (replay "
+            f"{t['library_bf16_device_ms']:.4f}) bound_ms {bound_ms:.4f} "
+            f"({bound_by}; {nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP), "
+            f"{bound_ms / t['device_ms']:.1%} of bound by replay")
+        key = f"{name} (int8)"
+        if key not in rows:             # the JSON row: the decode shape
+            rows[key] = {
+                "name": key, "route": "cuda",
+                "source": "src/repro_torch/kernels/moe_gemm/csrc/moe_gemm.cu",
+                "replaces": "src/repro/kernels/moe_gemm/moe_gemm.py:"
+                            + ("90" if fused else "65"),
+                "launches": 0, "max_abs_err": err, "bound_ms": bound_ms,
+                "bound_by": bound_by, **t, "shapes": []}
+        rows[key]["shapes"].append({"shape": label, "max_abs_err": err,
+                                    "bound_ms": bound_ms,
+                                    "bound_by": bound_by, **t})
+    log("[kernels] int8 rows: library_ms is as_weight + torch.bmm (for "
+        "moe_ffn_fused on the [E, D, 2F] concatenation of w_gate and w_up), "
+        "library_bf16_ms torch.bmm on the weights already in bf16")
+    del wg, wu, wd, deq, wcat, qcat
+    torch.cuda.empty_cache()
+    return rows
+
+
 def ssd_flops(l: int, chunk: int, nh: int, hp: int, g: int, n: int,
               b: int = 1) -> int:
     """Operations the chunked SSD function needs (2 per multiply-add),
@@ -1260,11 +1447,11 @@ def phase_serve(model: str, params):
 
 
 def run_engine(cfg, params, prompts, *, paged: bool, steps: int, chunk: int,
-               profile: bool = True):
+               profile: bool = True, max_len: int = 2048):
     import torch
     from repro_torch.serving.engine import InferenceEngine
     eng = InferenceEngine(cfg, params=params, slots=len(prompts),
-                          max_len=2048, paged=paged, device="cuda")
+                          max_len=max_len, paged=paged, device="cuda")
     ttft = []
     for i, p in enumerate(prompts):
         torch.cuda.synchronize()
@@ -1353,7 +1540,8 @@ def log_profile(prof, name: str, wall_us: float, steps: int,
         log(f"[profile] {name}:   {dev_us(e) / steps / 1e3:8.3f} ms/{unit} "
             f"x{e.count // steps:<4d} {e.key[:90]}")
     for label, key in (("decode attention", "decode_attn"),
-                       ("ssd_chunk", "ssd_"), ("rglru_scan", "rglru")):
+                       ("ssd_chunk", "ssd_"), ("rglru_scan", "rglru"),
+                       ("expert kernels", "tc::tc_kernel<")):
         mine = [e for e in events if key in e.key]
         if mine:
             t = sum(dev_us(e) for e in mine)
@@ -1443,44 +1631,50 @@ class PrefillCount:
         LM.prefill = self._orig
 
 
-def check_paged_keeps_dense(cfg, params, dense_toks) -> None:
+def check_paged_keeps_dense(cfg, params, dense_toks, prompts=None,
+                            max_len: int = 2048) -> None:
     """``paged=True`` on a family that does not page keeps the dense slot
-    layout (``eng.paged`` is False) and gives the dense engine's tokens."""
+    layout (``eng.paged`` is False) and gives the dense engine's tokens
+    (on ``prompts``, by default ``engine_prompts``)."""
     from repro_torch.serving.engine import InferenceEngine
     eng = InferenceEngine(cfg, params=params, slots=1, max_len=64,
                           paged=True, device="cuda")
     if eng.paged:
         fail(f"{cfg.name}: paged=True built a paged engine")
     del eng
-    _, prompts = engine_prompts(cfg)
-    toks, _, _ = run_engine(cfg, params, prompts, paged=True, steps=64,
-                            chunk=16)
+    if prompts is None:
+        _, prompts = engine_prompts(cfg)
+    steps = len(next(iter(dense_toks.values())))
+    toks, _, _ = run_engine(cfg, params, prompts, paged=True, steps=steps,
+                            chunk=16, max_len=max_len)
     check_same_streams(cfg, dense_toks, toks, "dense and paged=True (dense "
                        "layout) engines")
 
 
-def check_state_transfer(cfg, params) -> None:
+def check_state_transfer(cfg, params, max_len: int = 2048,
+                         lens=(700, 300, 1100)) -> None:
     """A session exported mid-stream (its payload exactly
     ``kvcache.cache_bytes`` of one slot) and imported into a fresh engine
-    keeps its fingerprint and continues token-identically."""
+    keeps its fingerprint and continues token-identically. The exported
+    session is the first of ``lens``."""
     import numpy as np
     from repro_torch.models import kvcache as KV
     from repro_torch.serving import state_transfer
     from repro_torch.serving.engine import InferenceEngine
     rng = np.random.default_rng(21)
-    src = InferenceEngine(cfg, params=params, slots=8, max_len=2048,
+    src = InferenceEngine(cfg, params=params, slots=8, max_len=max_len,
                           device="cuda")
-    for i, n in enumerate((700, 300, 1100)):
+    for i, n in enumerate(lens):
         src.prefill_session(f"m{i}", rng.integers(
             0, cfg.vocab_size, size=n).astype(np.int32))
     src.decode_round(steps=8)
     payload = src.export_slot("m0")
     nbytes = state_transfer.payload_bytes(payload)
-    want = KV.cache_bytes(cfg, 1, 2048)
+    want = KV.cache_bytes(cfg, 1, max_len)
     if nbytes != want:
         fail(f"{cfg.name}: payload of {nbytes} bytes, cache_bytes says "
              f"{want}")
-    dst = InferenceEngine(cfg, params=params, slots=8, max_len=2048,
+    dst = InferenceEngine(cfg, params=params, slots=8, max_len=max_len,
                           device="cuda")
     dst.import_slot("m0", payload)
     fp = state_transfer.fingerprint(payload)
@@ -1662,11 +1856,13 @@ def check_flash(name: str, launches, per_prefill: int, prefills: int):
 
 def check_variant(name: str, launches, variant: str) -> None:
     """Every grouped-GEMM launch of the path just driven took ``variant``
-    and none took another: "tensor" (the bf16 expert FFN) or "narrow" (the
-    adapter route's f32 rank-sized products, moe_gemm only)."""
+    and none took another: "tensor" (the bf16 expert FFN), "narrow" (the
+    adapter route's f32 rank-sized products, moe_gemm only) or "int8" (the
+    expert FFN on int8 weights)."""
     from repro_torch.kernels.moe_gemm import moe_gemm as MG
     for counts, which in ((MG.TENSOR_CORE_LAUNCHES, "tensor"),
-                          (MG.NARROW_LAUNCHES, "narrow")):
+                          (MG.NARROW_LAUNCHES, "narrow"),
+                          (MG.INT8_LAUNCHES, "int8")):
         for k, n in counts.items():
             if n != (launches[k] if which == variant else 0):
                 fail(f"{name}: {n} of {launches[k]} {k} launches took the "
@@ -1674,7 +1870,7 @@ def check_variant(name: str, launches, variant: str) -> None:
                      f"{'all' if which == variant else 'none'}")
     log(f"[main path] {name}: grouped GEMMs on the {variant} variant "
         f"(tensor {dict(MG.TENSOR_CORE_LAUNCHES)}, narrow "
-        f"{dict(MG.NARROW_LAUNCHES)})")
+        f"{dict(MG.NARROW_LAUNCHES)}, int8 {dict(MG.INT8_LAUNCHES)})")
 
 
 def init_model(cfg):
@@ -1768,6 +1964,79 @@ def phase_adapters(cfg, params, catalog, sessions) -> dict:
         fail(f"adapter plane served "
              f"{ {k: len(v or []) for k, v in mixed.items()} }")
     return mixed
+
+
+#: the mixtral-8x7b path: prompt lengths (two past the window of 4096; 4090
+#: wraps the ring while it decodes), greedy tokens a session, context
+MIXTRAL_LENS = (1000, 4090, 6000, 2500, 5200, 1800, 3300, 1400)
+MIXTRAL_GEN = 64
+MIXTRAL_MAX_LEN = 8192
+
+
+def mixtral_prompts(cfg):
+    import numpy as np
+    rng = np.random.default_rng(8)
+    return [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+            for n in MIXTRAL_LENS]
+
+
+def drive_mixtral(cfg, params) -> dict:
+    """The mixtral-8x7b main path on int8 weights: 8 sessions through a
+    ServingPlane over a RealEngineBackend on an InferenceEngine of 8 slots
+    at max_len 8192 (a ring of 4096 slots a layer), 64 greedy tokens each;
+    then the same prompts on an engine of the same shape, driven directly:
+    TTFT of each prompt, decode tok/s over 64 steps and a profiled decode
+    round. Returns {"plane": tokens, "engine": tokens}."""
+    from repro_torch.core.clock import Clock
+    from repro_torch.serving.engine import InferenceEngine
+    from repro_torch.serving.plane import RealEngineBackend, ServingPlane
+    prompts = mixtral_prompts(cfg)
+    eng = InferenceEngine(cfg, params=params, slots=8,
+                          max_len=MIXTRAL_MAX_LEN, device="cuda")
+    clock = Clock()
+    plane = ServingPlane(clock, RealEngineBackend(eng, clock), slots=8,
+                         premium_reserved_frac=0.0, site_id="mixtral")
+    t0 = time.perf_counter()
+    for i, prompt in enumerate(prompts):
+        plane.submit(session_id=f"s{i}", klass="assured",
+                     prompt_tokens=len(prompt), gen_tokens=MIXTRAL_GEN,
+                     t_max_ms=1e9, prompt=prompt)
+    plane.drain()
+    served = {r.session_id: r.token_ids for r in plane.pop_results()}
+    log(f"[mixtral] {cfg.name} int8: 8 sessions (prompts "
+        f"{list(MIXTRAL_LENS)}) x {MIXTRAL_GEN} tokens through the plane in "
+        f"{time.perf_counter() - t0:.2f} s")
+    if sorted(served) != [f"s{i}" for i in range(8)] or any(
+            len(t or []) != MIXTRAL_GEN or not all(
+                0 <= x < cfg.vocab_size for x in t)
+            for t in served.values()):
+        fail(f"mixtral plane served "
+             f"{ {k: len(v or []) for k, v in served.items()} }")
+    del plane, eng
+    release_memory()
+    toks, ttft, tps = run_engine(cfg, params, prompts, paged=False,
+                                 steps=MIXTRAL_GEN, chunk=16,
+                                 max_len=MIXTRAL_MAX_LEN)
+    log(f"[engine] {cfg.name} int8 dense: prompts {list(MIXTRAL_LENS)} "
+        f"ttft_ms {[round(t, 2) for t in ttft]} decode {tps:.1f} tok/s "
+        f"(8 slots x {MIXTRAL_GEN} steps, chunks of 16)")
+    return {"plane": served, "engine": toks}
+
+
+def check_mixtral(cfg, params, out) -> None:
+    """After the mixtral path's launch window: the plane's streams are the
+    direct engine's (one token later); paged=True keeps the dense layout and its tokens; a
+    session whose ring has wrapped moves mid-stream into a fresh engine
+    and continues; full-width prefill logits are finite."""
+    # a plane result starts with the prefill's token, the engine's decode
+    # tokens after it
+    check_same_streams(cfg, {k: v[:-1] for k, v in out["engine"].items()},
+                       {k: v[1:] for k, v in out["plane"].items()},
+                       "plane and direct engines")
+    check_paged_keeps_dense(cfg, params, out["engine"],
+                            mixtral_prompts(cfg), MIXTRAL_MAX_LEN)
+    check_state_transfer(cfg, params, MIXTRAL_MAX_LEN, (5000, 300, 4090))
+    check_logits(cfg, params)
 
 
 def check_adapters(cfg, params, catalog, sessions, mixed) -> None:
@@ -1938,11 +2207,15 @@ def phase_reference():
                               dtype="float32", head_dim=32)
     encdec = dataclasses.replace(get_smoke_config("seamless-m4t-medium"),
                                  dtype="float32", head_dim=32)
+    # int8 weights, window 16: the 40-token prompt wraps the ring
+    mixtral = dataclasses.replace(get_smoke_config("mixtral-8x7b"),
+                                  dtype="float32", serve_weight_dtype="int8")
     worst = max(card_vs_cpu(tiny, "edge-tiny", False),
                 card_vs_cpu(tiny, "edge-tiny", True),
                 card_vs_cpu(moe, moe.name, False),
                 recurrent_card_vs_cpu(),
-                card_vs_cpu(encdec, encdec.name, False))
+                card_vs_cpu(encdec, encdec.name, False),
+                card_vs_cpu(mixtral, f"{mixtral.name} int8", False))
     if worst > REF_ATOL:
         fail(f"card and CPU logits differ by {worst:.3e} > {REF_ATOL}")
     adapters_card_vs_cpu(tiny)
@@ -2205,6 +2478,7 @@ def drive_path(name: str, counters, required, fn, *args):
 
 def main() -> None:
     import argparse
+    import dataclasses
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--quick", action="store_true",
                     help="build, check every kernel against its plain "
@@ -2235,12 +2509,15 @@ def main() -> None:
     phase_build()
     cfg = get_config("minitron-8b")
     moe_cfg = get_config("qwen3-moe-30b-a3b")
+    mx_cfg = dataclasses.replace(get_config("mixtral-8x7b"),
+                                 serve_weight_dtype="int8")
     rg_cfg = get_config("recurrentgemma-2b")
     mb_cfg = get_config("mamba2-1.3b")
     sm_cfg = get_config("seamless-m4t-medium")
     rows = phase_kernels(cfg, moe_cfg, sm_cfg)
     rows.update(phase_flash_kernels(cfg, sm_cfg))
     rows.update(phase_moe_kernels(moe_cfg, cfg.d_model))
+    rows.update(phase_int8_kernels(mx_cfg))
     rows.update(phase_recurrent_kernels(rg_cfg, mb_cfg))
     if quick:
         phase_reference()
@@ -2286,6 +2563,29 @@ def main() -> None:
     log(f"[moe] peak device memory "
         f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
     del params
+    release_memory()
+
+    torch.cuda.reset_peak_memory_stats()
+    params = init_model(mx_cfg)
+    name = f"{mx_cfg.name} int8"
+    launches, out = drive_path(name, counters, ("moe_gemm", "moe_ffn_fused"),
+                               drive_mixtral, mx_cfg, params)
+    launches.update({f"{k} (int8)": n for k, n in MG.INT8_LAUNCHES.items()})
+    check_variant(name, launches, "int8")
+    if any(launches[k] for k in attn):
+        fail(f"{name}: an attention kernel ran on a path whose prefill is "
+             f"banded and whose decode reads a ring "
+             f"({ {k: launches[k] for k in attn} })")
+    log(f"[main path] {name}: no attention kernel launched (banded prefill, "
+        f"ring decode)")
+    paths.append(launches)
+    check_mixtral(mx_cfg, params, out)
+    profile_prefill(mx_cfg, params, n=6000, width=MIXTRAL_MAX_LEN)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[mixtral] peak device memory {peak / 1e9:.1f} GB; {card()}")
+    if peak >= 80e9:
+        fail(f"mixtral peak device memory {peak / 1e9:.1f} GB >= 80 GB")
+    del params, out
     release_memory()
 
     for rcfg, kernel, per_prefill in (
@@ -2348,7 +2648,10 @@ def main() -> None:
     release_memory()
 
     for name, row in rows.items():
-        row["launches"] = sum(p[name] for p in paths)
+        # a grouped-GEMM row counts its variant's launches: the int8 rows
+        # the int8 variant's, the others every launch but those
+        row["launches"] = sum(p.get(name, 0) - p.get(f"{name} (int8)", 0)
+                              for p in paths)
     phase_reference()
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
 

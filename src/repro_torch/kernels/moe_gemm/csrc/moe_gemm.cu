@@ -3,19 +3,20 @@
 //   moe_gemm:       y[e] = x[e] @ w[e]                          [E, C, F]
 //   moe_ffn_fused:  y[e] = silu(x[e] @ wg[e]) * (x[e] @ wu[e])  [E, C, F]
 //
-// x [E, C, D] and w [E, D, F] are both bf16 or both f32; products
+// x [E, C, D] and w [E, D, F] are both bf16 or both f32, or x is bf16 and
+// w int8 with f32 scales [E, 1, F] (w = as_weight({q, s})); products
 // accumulate in f32 and the output is written once in x's dtype (the fused
 // epilogue runs in f32 and casts once, as the reference's
 // `(silu(gate) * up).astype(h.dtype)` does).
 //
-// The three variants below replace the Pallas TPU kernels of the
+// The four variants below replace the Pallas TPU kernels of the
 // reference package:
 //   src/repro/kernels/moe_gemm/moe_gemm.py
 //     moe_gemm       (pl.pallas_call at :65, kernel body _kernel_plain :40)
 //     moe_ffn_fused  (pl.pallas_call at :90, kernel body _kernel_fused :29)
-// The wrapper (moe_gemm.py, `uses_tensor_cores`, `uses_narrow`) picks one
-// by dtype, shape, strides and alignment; all are hand-written, none is a
-// fallback.
+// The wrapper (moe_gemm.py, `uses_tensor_cores`, `uses_int8`,
+// `uses_narrow`) picks one by dtype, shape, strides and alignment; all are
+// hand-written, none is a fallback.
 //
 // What bounds them on this card: bytes, at every shape the port runs. The
 // ridge of bf16 tensor cores over HBM is ~295 flops per byte. qwen3-moe
@@ -111,12 +112,39 @@
 //      do not depend on which slots share its group (checked on the card:
 //      the mixed batch equals each session alone).
 //
+// 4. The int8-weight variant (bf16 x, int8 weights with per-column f32
+//    scales: mixtral-8x7b's experts, E 8, D 4096 / 14336, F 14336 / 4096,
+//    served from a 47 GB int8 tree). Bound by bytes at decode, where it
+//    reads half the bf16 variant's (0.28 / 0.14 ms at C 8), by the
+//    products at C 640. The tensor-core variant's kernel with kInt8:
+//    * the int8 tiles arrive by cp.async into a ring of 32-row stages,
+//      unpadded: 16-byte copies where F and the strides are multiples of
+//      16 (every mixtral shape), else 8-byte ones (half the copies for
+//      the same bytes: 0.76 -> 0.63 ms at the fused decode shape); the
+//      scales of the block's columns sit in shared memory;
+//    * while the warps compute on stage kt from one set of bf16 tiles,
+//      they dequantise stage kt + 1 into the other: bf16(float(q) * s),
+//      as_weight's f32 product and rounding, float(q) exact by a byte
+//      permute into the mantissa of 2^23 and one subtraction (the
+//      int-to-float unit runs at a quarter of the FP32 rate). One barrier
+//      a stage, as in the bf16 variant;
+//    * the ldmatrix.trans / mma.sync code then runs unchanged on the bf16
+//      tiles, so each output is the same k16 chain as the bf16 variant's
+//      on as_weight(w), bit for bit (checked on the card at ragged and
+//      mixtral's shapes);
+//    * decode (C <= 64) takes 8 warps of 2 n8 tiles (16 rows; C 8 fills
+//      one), so the x tile is small and 7 (fused) or 10 (down) stages fit
+//      beside two bf16 buffers at two blocks an SM; prefill keeps the bf16
+//      variant's 16 warps with 5 stages.
+//
 // C interface (loaded with ctypes): each launcher returns cudaGetLastError()
 // after the launch, or cudaErrorInvalidValue for arguments it does not take.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -352,6 +380,12 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
                "l"(src), "r"(valid ? 16 : 0));
 }
+// 8 bytes global -> shared (int8 weight rows), or 8 zero bytes when !valid
+__device__ __forceinline__ void cp_async8(uint32_t dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 8 : 0));
+}
 __device__ __forceinline__ void cp_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -374,6 +408,20 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t (&r)[4]) {
       : "r"(addr));
 }
 
+// byte j of w (an int8) as an exact float: the byte with its sign bit
+// flipped (q + 128) placed in the mantissa of 2^23, minus 2^23 + 128
+template <int J>
+__device__ __forceinline__ float q_at(uint32_t w) {
+  const uint32_t u = __byte_perm(w ^ 0x80808080u, 0x4B000000u, 0x7540 | J);
+  return __uint_as_float(u) - 8388736.f;
+}
+
+// two floats rounded to bf16 (nearest even), packed low | high
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
 // d += a (16 x 16, row) . b (16 x 8, col), bf16 in, f32 accumulate
 __device__ __forceinline__ void mma16816(float (&d)[4],
                                          const uint32_t (&a)[4], uint32_t b0,
@@ -390,9 +438,15 @@ __device__ __forceinline__ void mma16816(float (&d)[4],
 // tiles of a chunk dealt round-robin (tile j * WN + wn) so the warps stay
 // balanced on a partial chunk. Block tile: BF = WM*MT*16 columns of F by
 // BN = WN*NT*8 rows of C; the ring holds S stages of BK rows of D. Every
-// tile row is padded by 16 bytes, so the 8 rows an ldmatrix phase reads
-// fall in 8 distinct 16-byte bank groups.
-template <bool kFused, int WM, int WN, int MT, int NT, int BK, int S>
+// bf16 tile row is padded by 16 bytes, so the 8 rows an ldmatrix phase
+// reads fall in 8 distinct 16-byte bank groups.
+//
+// kInt8: a stage holds the x tile and the int8 weight tiles [BK][BF]
+// (unpadded bytes). After the ring sit two sets of bf16 weight tiles, the
+// ones the fragments read (stage kt's, buffer kt & 1) and the ones stage
+// kt + 1 is dequantised into meanwhile, then the block's scales [kW][BF].
+template <bool kFused, int WM, int WN, int MT, int NT, int BK, int S,
+          bool kInt8 = false>
 struct Tile {
   static constexpr int kThreads = WM * WN * 32;
   static constexpr int BF = WM * MT * 16;
@@ -401,27 +455,50 @@ struct Tile {
   static constexpr int kXPitch = BK + 8;            // x tile row, elements
   static constexpr int kWPitch = BF + 8;            // weight row, elements
   static constexpr int kXStage = BN * kXPitch;      // elements
-  static constexpr int kWStage = BK * kWPitch;
-  static constexpr int kStage = kXStage + kW * kWStage;
-  static constexpr int kYPitch = BF + 8;            // staged output row
+  static constexpr int kWStage = BK * kWPitch;      // elements (bf16)
+  static constexpr int kQStage = BK * BF;           // bytes (int8)
+  static constexpr size_t kStageBytes =
+      sizeof(bf16) * kXStage +
+      (kInt8 ? kW * kQStage : sizeof(bf16) * kW * kWStage);
+  static constexpr size_t kRingBytes = S * kStageBytes;
+  static constexpr size_t kBufBytes = sizeof(bf16) * kW * kWStage;
   static constexpr size_t kSmemBytes =
-      static_cast<size_t>(S) * kStage * sizeof(bf16);
+      kRingBytes + (kInt8 ? 2 * kBufBytes + sizeof(float) * kW * BF : 0);
+  static constexpr int kYPitch = BF + 8;            // staged output row
   static_assert(NT % 2 == 0, "x fragments load two n8 tiles at a time");
   static_assert(BK % 16 == 0 && S >= 2, "whole k16 steps; a stage ahead");
-  static_assert(BN * kYPitch <= S * kStage, "the output tile fits the ring");
+  static_assert(sizeof(bf16) * BN * kYPitch <= kSmemBytes,
+                "the output tile fits the shared memory");
   static_assert(kSmemBytes <= 232448, "a block's shared memory");
+  static_assert(!kInt8 || kThreads % (BF / 8) == 0,
+                "a thread dequantises the same 8 columns in every row");
+  static_assert(!kInt8 || S >= 3, "stage kt + 1 lands while kt computes");
+  static_assert(kStageBytes % 16 == 0 && kBufBytes % 16 == 0,
+                "16-byte aligned regions");
 };
 
 // Grid: (F-tile + nF * C-chunk, expert). Chunk ch holds rows
 // [ch * Cc, min(C, (ch + 1) * Cc)) of its expert, Cc <= BN.
+//
+// kInt8 (the int8-weight variant): wg / wu are int8 [E, D, F] with f32
+// scales sg / su [E, 1, F] (expert stride sse, unit stride along F). Each
+// stage's int8 tiles arrive by cp.async, half the bytes of bf16.
+// While the warps compute on stage kt, they write stage kt + 1's weights
+// as bf16(float(q) * s[f]) -- as_weight's arithmetic and rounding -- into
+// the other set of bf16 tiles (float(q) by a byte permute and one add, off
+// the slow int-to-float path), one barrier a stage as in the bf16 variant;
+// the fragment and mma code below runs unchanged on the bf16 tiles. So the
+// output equals the bf16 variant's on as_weight(w), bit for bit.
 template <bool kFused, int WM, int WN, int MT, int NT, int BK, int S,
-          int kMinBlocks>
+          int kMinBlocks, bool kInt8 = false, int kQV = 16>
 __global__ void __launch_bounds__(WM * WN * 32, kMinBlocks)
 tc_kernel(const bf16* __restrict__ x, int64_t sxe, int64_t sxc,
-          const bf16* __restrict__ wg, const bf16* __restrict__ wu,
-          int64_t swe, int64_t swd, bf16* __restrict__ y, int C, int D,
-          int F, int nF, int Cc) {
-  using L = Tile<kFused, WM, WN, MT, NT, BK, S>;
+          const std::conditional_t<kInt8, int8_t, bf16>* __restrict__ wg,
+          const std::conditional_t<kInt8, int8_t, bf16>* __restrict__ wu,
+          int64_t swe, int64_t swd, const float* __restrict__ sg,
+          const float* __restrict__ su, int64_t sse, bf16* __restrict__ y,
+          int C, int D, int F, int nF, int Cc) {
+  using L = Tile<kFused, WM, WN, MT, NT, BK, S, kInt8>;
   constexpr int BF = L::BF;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* smem = reinterpret_cast<bf16*>(smem_raw);
@@ -434,16 +511,34 @@ tc_kernel(const bf16* __restrict__ x, int64_t sxe, int64_t sxc,
   const int rows = min(Cc, C - c0);
   const int rows8 = (rows + 7) & ~7;
   const bf16* xe = x + e * sxe + c0 * sxc;
-  const bf16* wge = wg + e * swe;
-  const bf16* wue = wu + e * swe;
+  const auto* wge = wg + e * swe;
+  const auto* wue = wu + e * swe;
   const int nk = (D + BK - 1) / BK;
 
   // shared memory is addressed as 32-bit byte offsets from one base
   constexpr uint32_t kEl = sizeof(bf16);
   const uint32_t sbase = smem_addr(smem);
   const auto stage_addr = [&](int kt) {
-    return sbase + static_cast<uint32_t>(kt % S) * L::kStage * kEl;
+    return sbase + static_cast<uint32_t>((kt % S) * L::kStageBytes);
   };
+  // the bf16 weight tiles the fragments read at step kt: in the stage
+  // (bf16), or dequantised buffer kt & 1 after the ring (int8)
+  const auto wtile_addr = [&](uint32_t st, int kt) {
+    return kInt8 ? sbase + static_cast<uint32_t>(L::kRingBytes +
+                                                 (kt & 1) * L::kBufBytes)
+                 : st + L::kXStage * kEl;
+  };
+  // int8: the block's scales (0 past F) after the bf16 buffers; this
+  // thread dequantises columns qc .. qc + 7 of every row it takes
+  float* ssc = reinterpret_cast<float*>(smem_raw + L::kRingBytes +
+                                        2 * L::kBufBytes);
+  const int qc = (tid % (BF / 8)) * 8;
+  if constexpr (kInt8) {
+    for (int i = tid; i < L::kW * BF; i += L::kThreads) {
+      const int w = i / BF, f = f0 + i % BF;
+      ssc[i] = f < F ? (w ? su : sg)[e * sse + f] : 0.f;
+    }
+  }
 
   // one ring stage: x rows [0, rows8) (zeros past C and D; rows past
   // rows8 belong to skipped n8 tiles and are never read into a product)
@@ -457,14 +552,56 @@ tc_kernel(const bf16* __restrict__ x, int64_t sxe, int64_t sxc,
       cp_async16(st + (r * L::kXPitch + kc) * kEl,
                  ok ? xe + r * sxc + k0 + kc : xe, ok);
     }
+    // int8 rows in copies of kQV bytes: 16 (cp.async.cg, L2 only) where
+    // F, the strides and the bases allow, else 8 (cp.async.ca).
+    constexpr int kV = kInt8 ? kQV : 8;        // weights per copy
 #pragma unroll
-    for (int i = tid; i < BK * BF / 8; i += L::kThreads) {
-      const int r = i / (BF / 8), c = (i % (BF / 8)) * 8;
+    for (int i = tid; i < BK * BF / kV; i += L::kThreads) {
+      const int r = i / (BF / kV), c = (i % (BF / kV)) * kV;
       const bool ok = k0 + r < D && f0 + c < F;
       const int64_t off = ok ? (k0 + r) * swd + f0 + c : 0;
-      const uint32_t dst = st + (L::kXStage + r * L::kWPitch + c) * kEl;
-      cp_async16(dst, wge + off, ok);
-      if constexpr (kFused) cp_async16(dst + L::kWStage * kEl, wue + off, ok);
+      if constexpr (kInt8) {
+        const uint32_t dst = st + L::kXStage * kEl + r * BF + c;
+        if constexpr (kQV == 16) {
+          cp_async16(dst, wge + off, ok);
+          if constexpr (kFused) cp_async16(dst + L::kQStage, wue + off, ok);
+        } else {
+          cp_async8(dst, wge + off, ok);
+          if constexpr (kFused) cp_async8(dst + L::kQStage, wue + off, ok);
+        }
+      } else {
+        const uint32_t dst = st + (L::kXStage + r * L::kWPitch + c) * kEl;
+        cp_async16(dst, wge + off, ok);
+        if constexpr (kFused)
+          cp_async16(dst + L::kWStage * kEl, wue + off, ok);
+      }
+    }
+  };
+
+  // int8: stage kt's int8 tiles -> bf16 buffer kt & 1, 8 weights a
+  // thread a row: one 8-byte and two 16-byte (scales) shared loads, 8
+  // exact conversions and products in f32, one 16-byte store
+  auto dequant_stage = [&](int kt) {
+    const unsigned char* qs = smem_raw + (kt % S) * L::kStageBytes +
+                              L::kXStage * kEl;
+    bf16* ws = reinterpret_cast<bf16*>(smem_raw + L::kRingBytes +
+                                       (kt & 1) * L::kBufBytes);
+    for (int r = tid / (BF / 8); r < BK; r += L::kThreads / (BF / 8)) {
+#pragma unroll
+      for (int w = 0; w < L::kW; ++w) {
+        const uint2 q = *reinterpret_cast<const uint2*>(
+            qs + w * L::kQStage + r * BF + qc);
+        const float4 s0 = *reinterpret_cast<const float4*>(ssc + w * BF + qc);
+        const float4 s1 =
+            *reinterpret_cast<const float4*>(ssc + w * BF + qc + 4);
+        uint4 out;
+        out.x = pack_bf16(q_at<0>(q.x) * s0.x, q_at<1>(q.x) * s0.y);
+        out.y = pack_bf16(q_at<2>(q.x) * s0.z, q_at<3>(q.x) * s0.w);
+        out.z = pack_bf16(q_at<0>(q.y) * s1.x, q_at<1>(q.y) * s1.y);
+        out.w = pack_bf16(q_at<2>(q.y) * s1.z, q_at<3>(q.y) * s1.w);
+        *reinterpret_cast<uint4*>(ws + w * L::kWStage + r * L::kWPitch +
+                                  qc) = out;
+      }
     }
   };
 
@@ -482,14 +619,14 @@ tc_kernel(const bf16* __restrict__ x, int64_t sxe, int64_t sxc,
   const int lr = lane & 7, lm = lane >> 3;
   // A = w^T for k16 step ks: matrices (f 0-7 | 8-15) x (k 0-7 | 8-15) of
   // the [k][f] weight tile, through ldmatrix.trans
-  const uint32_t a_lane = (L::kXStage + (lr + (lm >> 1) * 8) * L::kWPitch +
+  const uint32_t a_lane = ((lr + (lm >> 1) * 8) * L::kWPitch +
                            wm * MT * 16 + (lm & 1) * 8) * kEl;
-  auto load_a = [&](uint32_t st, int ks, uint32_t (&a)[L::kW][MT][4]) {
+  auto load_a = [&](uint32_t wt, int ks, uint32_t (&a)[L::kW][MT][4]) {
 #pragma unroll
     for (int w = 0; w < L::kW; ++w)
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt)
-        ldsm_x4_t(st + a_lane +
+        ldsm_x4_t(wt + a_lane +
                       (w * L::kWStage + ks * 16 * L::kWPitch + mt * 16) * kEl,
                   a[w][mt]);
   };
@@ -508,12 +645,27 @@ tc_kernel(const bf16* __restrict__ x, int64_t sxe, int64_t sxc,
     if (s < nk) load_stage(s);
     cp_commit();
   }
+  if constexpr (kInt8) {
+    cp_wait<S - 2>();                // stage 0 and the scales are in shared
+    __syncthreads();                 // memory (everyone's)
+    dequant_stage(0);
+  }
   for (int kt = 0; kt < nk; ++kt) {
-    cp_wait<S - 2>();                // stage kt has landed (this thread's)
-    __syncthreads();                 // ... everyone's; slot kt-1 is free
-    if (kt + S - 1 < nk) load_stage(kt + S - 1);
-    cp_commit();
+    if constexpr (kInt8) {
+      cp_wait<S - 3>();              // stage kt + 1 has landed (this
+      __syncthreads();               // thread's, then everyone's); bf16
+      // buffer kt & 1 is full, the other one and ring slot kt - 1 are free
+      if (kt + S - 1 < nk) load_stage(kt + S - 1);
+      cp_commit();
+      if (kt + 1 < nk) dequant_stage(kt + 1);
+    } else {
+      cp_wait<S - 2>();              // stage kt has landed (this thread's)
+      __syncthreads();               // ... everyone's; slot kt-1 is free
+      if (kt + S - 1 < nk) load_stage(kt + S - 1);
+      cp_commit();
+    }
     const uint32_t st = stage_addr(kt);
+    const uint32_t wt = wtile_addr(st, kt);
     // Fragments run one step ahead of the products: while the mma's of
     // step (k16 step ks, x pair p) issue, the ldmatrix of the next step is
     // in flight (the next pair of n8 tiles, or at the last pair the next
@@ -521,7 +673,7 @@ tc_kernel(const bf16* __restrict__ x, int64_t sxe, int64_t sxc,
     // reads and tensor-core work overlap within each warp.
     uint32_t a[2][L::kW][MT][4];     // weight (A) fragments, by ks parity
     uint32_t b[2][4];                // one x pair (B, 2 n8 tiles), by step
-    load_a(st, 0, a[0]);
+    load_a(wt, 0, a[0]);
     load_b(st, 0, 0, b[0]);
 #pragma unroll
     for (int ks = 0; ks < BK / 16; ++ks)
@@ -531,7 +683,7 @@ tc_kernel(const bf16* __restrict__ x, int64_t sxe, int64_t sxc,
         if (p + 1 < NT / 2) {
           load_b(st, ks, p + 1, b[(step + 1) & 1]);
         } else if (ks + 1 < BK / 16) {
-          load_a(st, ks + 1, a[(ks + 1) & 1]);
+          load_a(wt, ks + 1, a[(ks + 1) & 1]);
           load_b(st, ks + 1, 0, b[(step + 1) & 1]);
         }
 #pragma unroll
@@ -579,12 +731,14 @@ tc_kernel(const bf16* __restrict__ x, int64_t sxe, int64_t sxc,
 }
 
 template <bool kFused, int WM, int WN, int MT, int NT, int BK, int S,
-          int kMinBlocks>
-int launch_tc(const bf16* x, int64_t sxe, int64_t sxc, const bf16* wg,
-              const bf16* wu, int64_t swe, int64_t swd, bf16* y, int E, int C,
-              int D, int F, cudaStream_t st) {
-  using L = Tile<kFused, WM, WN, MT, NT, BK, S>;
-  auto kern = tc_kernel<kFused, WM, WN, MT, NT, BK, S, kMinBlocks>;
+          int kMinBlocks, bool kInt8 = false, int kQV = 16, typename WT>
+int launch_tc(const bf16* x, int64_t sxe, int64_t sxc, const WT* wg,
+              const WT* wu, int64_t swe, int64_t swd, bf16* y, int E, int C,
+              int D, int F, cudaStream_t st, const float* sg = nullptr,
+              const float* su = nullptr, int64_t sse = 0) {
+  using L = Tile<kFused, WM, WN, MT, NT, BK, S, kInt8>;
+  auto kern =
+      tc_kernel<kFused, WM, WN, MT, NT, BK, S, kMinBlocks, kInt8, kQV>;
   static bool configured = false;    // once per instantiation
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -597,8 +751,8 @@ int launch_tc(const bf16* x, int64_t sxe, int64_t sxc, const bf16* wg,
   const int chunks = (C + L::BN - 1) / L::BN;
   const int Cc = ((C + chunks - 1) / chunks + 7) / 8 * 8;   // <= BN
   const dim3 grid(nF * chunks, E);
-  kern<<<grid, L::kThreads, L::kSmemBytes, st>>>(x, sxe, sxc, wg, wu, swe,
-                                                 swd, y, C, D, F, nF, Cc);
+  kern<<<grid, L::kThreads, L::kSmemBytes, st>>>(
+      x, sxe, sxc, wg, wu, swe, swd, sg, su, sse, y, C, D, F, nF, Cc);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -635,6 +789,55 @@ int dispatch(const void* x, long long sxe, long long sxc, const void* wg,
   // rows of D
   return launch_tc<kFused, 8, 2, kFused ? 1 : 2, 10, 64, 3, 1>(
       xx, sxe, sxc, gg, uu, swe, swd, yy, E, C, D, F, st);
+}
+
+// The int8-weight variant: 32-row stages, deeper rings (an int8 stage is
+// half a bf16 one) and the double-buffered bf16 tiles. C <= 64: 8 warps
+// along F by 2 n8 tiles (a decode step's 8 rows fill the first; a larger
+// C is cut into chunks of 16 rows), 7 (fused) or 10 (down) stages, two
+// blocks an SM, 100-115 KB of weights in flight an SM; C > 64: the bf16
+// variant's 16 warps, 5 stages. Each output is still the one k16 chain in
+// increasing k, so the bits equal the bf16 variant's whatever the shape.
+template <bool kFused>
+int dispatch_i8(const void* x, long long sxe, long long sxc, const void* qg,
+                const void* qu, long long swe, long long swd, const void* sg,
+                const void* su, long long sse, void* y, int E, int C, int D,
+                int F, void* stream) {
+  const auto aligned = [](const void* p, uintptr_t n) {
+    return reinterpret_cast<uintptr_t>(p) % n == 0;
+  };
+  if (E < 1 || E > 65535 || C < 1 || D < 8 || F < 8 || D % 8 || F % 8 ||
+      sxe % 8 || sxc % 8 || swe % 8 || swd % 8 || sse < F ||
+      !aligned(x, 16) || !aligned(qg, 16) || !aligned(qu, 16) ||
+      !aligned(sg, 4) || !aligned(su, 4) || !aligned(y, 16))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bf16* xx = static_cast<const bf16*>(x);
+  const int8_t* gg = static_cast<const int8_t*>(qg);
+  const int8_t* uu = static_cast<const int8_t*>(qu);
+  const float* sgg = static_cast<const float*>(sg);
+  const float* suu = static_cast<const float*>(su);
+  bf16* yy = static_cast<bf16*>(y);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // 16-byte int8 copies: whole 16-byte pieces of every row (F, strides
+  // and bases multiples of 16, as at every mixtral shape)
+  const bool q16 = F % 16 == 0 && swe % 16 == 0 && swd % 16 == 0;
+  const auto go = [&](auto kern_q16) {
+    constexpr bool kQ16 = decltype(kern_q16)::value;
+    constexpr int kQV = kQ16 ? 16 : 8;
+    if (C <= 64) {
+      if constexpr (kFused)
+        return launch_tc<true, 8, 1, 1, 2, 32, 7, 2, true, kQV>(
+            xx, sxe, sxc, gg, uu, swe, swd, yy, E, C, D, F, st, sgg, suu,
+            sse);
+      else
+        return launch_tc<false, 8, 1, 1, 2, 32, 10, 2, true, kQV>(
+            xx, sxe, sxc, gg, uu, swe, swd, yy, E, C, D, F, st, sgg, suu,
+            sse);
+    }
+    return launch_tc<kFused, 8, 2, kFused ? 1 : 2, 10, 32, 5, 1, true, kQV>(
+        xx, sxe, sxc, gg, uu, swe, swd, yy, E, C, D, F, st, sgg, suu, sse);
+  };
+  return q16 ? go(std::true_type{}) : go(std::false_type{});
 }
 
 }  // namespace tc
@@ -877,6 +1080,30 @@ extern "C" int moe_ffn_fused_tc_launch(const void* x, long long sxe,
                                        int D, int F, void* stream) {
   return tc::dispatch<true>(x, sxe, sxc, w_gate, w_up, swe, swd, y, E, C, D,
                             F, stream);
+}
+
+// The int8-weight variant: bf16 x and y, int8 weights q [E, D, F] with f32
+// scales s [E, 1, F] (expert stride sse >= F, unit stride along F); the
+// tensor-core variant's rules on x, q and y otherwise. The output is the
+// tensor-core variant's on the bf16 weights bf16(float(q) * s), bit for bit.
+extern "C" int moe_gemm_i8_launch(const void* x, long long sxe,
+                                  long long sxc, const void* q, long long swe,
+                                  long long swd, const void* s,
+                                  long long sse, void* y, int E, int C, int D,
+                                  int F, void* stream) {
+  return tc::dispatch_i8<false>(x, sxe, sxc, q, q, swe, swd, s, s, sse, y, E,
+                                C, D, F, stream);
+}
+
+extern "C" int moe_ffn_fused_i8_launch(const void* x, long long sxe,
+                                       long long sxc, const void* q_gate,
+                                       const void* q_up, long long swe,
+                                       long long swd, const void* s_gate,
+                                       const void* s_up, long long sse,
+                                       void* y, int E, int C, int D, int F,
+                                       void* stream) {
+  return tc::dispatch_i8<true>(x, sxe, sxc, q_gate, q_up, swe, swd, s_gate,
+                               s_up, sse, y, E, C, D, F, stream);
 }
 
 // The narrow variant: f32 moe_gemm with D or F at most 16 (D <= 16 takes

@@ -8,20 +8,28 @@ tensor-core one (``mma.sync`` on bf16 tiles fed by a ``cp.async`` ring) for
 the shapes ``uses_tensor_cores`` admits, a narrow one for the f32
 ``moe_gemm`` products whose D or F is rank-sized (``uses_narrow``: split-D
 warps and a combine, or one pass over a rank-deep panel), and a CUDA-core
-template for every other shape. Its header says what bounds them on the
-card and how each design answers it.
+template for every other shape; and beside the tensor-core variant an
+int8-weight one (``uses_int8``) that reads int8 weights with their f32
+scales and dequantises each tile in shared memory. Its header says what
+bounds them on the card and how each design answers it.
 
 Layouts are the reference's: ``x [E, C, D]``, ``w / w_gate / w_up
-[E, D, F]`` -> ``[E, C, F]`` in x's dtype, products accumulated in f32.
+[E, D, F]`` -> ``[E, C, F]`` in x's dtype, products accumulated in f32. A
+weight may also be int8 ``{"q": [E, D, F], "s": [E, 1, F] f32}`` (as
+``models.quant`` makes it): the function is then the one on
+``as_weight(w)``.
 Two callers: the MoE expert FFN (``repro_torch.models.moe``, bf16 capacity
 buffers) and the adapter runtime's grouped route
 (``repro_torch.adapters.runtime``, f32 LoRA tables).
 
-Each wrapper takes its plain version only for tensors on the CPU. For a CUDA
-tensor it launches the kernel or raises: there is no fallback. ``LAUNCHES``
-counts kernel launches (one per successful wrapper call, whatever the
-variant, nowhere else); ``TENSOR_CORE_LAUNCHES`` and ``NARROW_LAUNCHES``
-count those of them that took the tensor-core or the narrow variant.
+Each wrapper takes its plain version only for tensors on the CPU (for an
+int8 weight: ``as_weight``, then the plain version). For a CUDA tensor it
+launches the kernel or raises: there is no fallback, and an int8 weight
+that the int8 variant does not take raises rather than being dequantised
+for another route. ``LAUNCHES`` counts kernel launches (one per
+successful wrapper call, whatever the variant, nowhere else);
+``TENSOR_CORE_LAUNCHES``, ``NARROW_LAUNCHES`` and ``INT8_LAUNCHES`` count
+those of them that took the tensor-core, the narrow or the int8 variant.
 """
 
 from __future__ import annotations
@@ -41,6 +49,8 @@ TENSOR_CORE_LAUNCHES = {"moe_gemm": 0, "moe_ffn_fused": 0}
 #: kernel name -> launches of the narrow variant among LAUNCHES (only
 #: moe_gemm has one)
 NARROW_LAUNCHES = {"moe_gemm": 0, "moe_ffn_fused": 0}
+#: kernel name -> launches of the int8-weight variant among LAUNCHES
+INT8_LAUNCHES = {"moe_gemm": 0, "moe_ffn_fused": 0}
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 _VEC = 8             # weight elements per 16-byte load segment
@@ -58,13 +68,18 @@ _ARGTYPES = {
                                 _I, _I, _P],
     "moe_gemm_narrow_launch": [_P, _LL, _LL, _P, _LL, _LL, _P, _P, _I, _I,
                                _I, _I, _P],
+    "moe_gemm_i8_launch": [_P, _LL, _LL, _P, _LL, _LL, _P, _LL, _P, _I, _I,
+                           _I, _I, _P],
+    "moe_ffn_fused_i8_launch": [_P, _LL, _LL, _P, _P, _LL, _LL, _P, _P, _LL,
+                                _P, _I, _I, _I, _I, _P],
 }
 _lib = None
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
-        LAUNCHES[k] = TENSOR_CORE_LAUNCHES[k] = NARROW_LAUNCHES[k] = 0
+        LAUNCHES[k] = TENSOR_CORE_LAUNCHES[k] = NARROW_LAUNCHES[k] = \
+            INT8_LAUNCHES[k] = 0
 
 
 def _library():
@@ -84,6 +99,20 @@ def _library():
 # plain PyTorch versions (ports of the reference's ref.py oracles)
 # ---------------------------------------------------------------------------
 
+def _is_int8(w) -> bool:
+    return isinstance(w, dict) and set(w) == {"q", "s"}
+
+
+def _plain(w):
+    """A weight as the plain versions take it: an int8 ``{q, s}`` through
+    ``models.quant.as_weight`` (imported here: the models package imports
+    this module)."""
+    if _is_int8(w):
+        from repro_torch.models.quant import as_weight
+        return as_weight(w)
+    return w
+
+
 def moe_gemm_ref(x, w):
     """x [E, C, D] @ w [E, D, F] -> [E, C, F] in x's dtype, f32 products."""
     return torch.einsum("ecd,edf->ecf", x.float(), w.float()).to(x.dtype)
@@ -100,17 +129,20 @@ def moe_ffn_fused_ref(x, w_gate, w_up):
 # wrappers
 # ---------------------------------------------------------------------------
 
-def _check(x, ws):
+def _check(x, ws, wdtype=None):
+    """Shapes, strides, devices and dtypes (weights in x's dtype, or
+    ``wdtype``) of a launch; returns (E, C, D, F, vec_ok)."""
     dev, dt = x.device, x.dtype
+    wdt = dt if wdtype is None else wdtype
     if dev.type != "cuda":
         raise ValueError(f"grouped GEMM runs on cpu or cuda tensors, got "
                          f"{dev}")
     w0 = ws[0]
     shape, stride = w0.shape, w0.stride()
-    if dt not in _DTYPE_CODE or any(w.dtype != dt for w in ws):
+    if dt not in _DTYPE_CODE or any(w.dtype != wdt for w in ws):
         raise ValueError(f"dtypes x {dt}, w {[w.dtype for w in ws]}: "
                          f"the kernel takes one of {list(_DTYPE_CODE)} for "
-                         f"all")
+                         f"all, or int8 weights for bf16 x")
     if any(w.device != dev for w in ws):
         raise ValueError(f"weights on {[str(w.device) for w in ws]}, x on "
                          f"{dev}")
@@ -143,6 +175,30 @@ def uses_tensor_cores(x, *ws) -> bool:
     copies. Every other shape runs the CUDA-core template."""
     if x.dtype != torch.bfloat16 or any(w.dtype != x.dtype for w in ws):
         return False
+    return _tile_layout(x, ws)
+
+
+def uses_int8(x, *ws) -> bool:
+    """Whether a launch on ``x [E, C, D]`` and int8 weights ``ws`` (each
+    ``{"q": [E, D, F], "s": [E, 1, F]}``) takes the int8-weight variant:
+    bf16 x, int8 q, f32 s with unit stride along F; the tensor-core rules
+    on the layout of x and q (each int8 tile row is then whole 8-byte
+    copies, 16-byte ones where F and the strides are multiples of 16)."""
+    if x.dtype != torch.bfloat16 or not all(_is_int8(w) for w in ws):
+        return False
+    qs = [w["q"] for w in ws]
+    E, Fo = x.shape[0], qs[0].shape[2]
+    return (all(q.dtype == torch.int8 for q in qs)
+            and all(w["s"].dtype == torch.float32
+                    and tuple(w["s"].shape) == (E, 1, Fo)
+                    and w["s"].stride(2) == 1 and w["s"].device == x.device
+                    and w["s"].stride(0) == ws[0]["s"].stride(0) >= Fo
+                    for w in ws)
+            and _tile_layout(x, qs))
+
+
+def _tile_layout(x, ws) -> bool:
+    """The tensor-core variants' layout rule (any dtypes)."""
     D, Fo = x.shape[2], ws[0].shape[2]
     strides = (x.stride(0), x.stride(1)) + tuple(
         s for w in ws for s in (w.stride(0), w.stride(1)))
@@ -196,8 +252,33 @@ def _launch_narrow(x, w, E, C, D, Fo):
     return y
 
 
+def _launch_int8(name, x, ws):
+    """The int8-weight variant on ``{q, s}`` weights, or raise."""
+    qs = [w["q"] for w in ws]
+    E, C, D, Fo, _ = _check(x, qs, torch.int8)
+    if not uses_int8(x, *ws):
+        raise ValueError(
+            f"{name}: int8 weights on {x.device} need bf16 x, q int8 and s "
+            f"f32 [E, 1, F], and the tensor-core layout (D, F and the "
+            f"strides multiples of 8, 16-byte bases); got x {x.dtype} "
+            f"{tuple(x.shape)}, q {[tuple(q.shape) for q in qs]}")
+    y = torch.empty((E, C, Fo), dtype=x.dtype, device=x.device)
+    ss = [w["s"] for w in ws]
+    rc = call_on_stream(
+        getattr(_library(), f"{name}_i8_launch"), x, x.data_ptr(),
+        x.stride(0), x.stride(1), *[q.data_ptr() for q in qs],
+        qs[0].stride(0), qs[0].stride(1), *[t.data_ptr() for t in ss],
+        ss[0].stride(0), y.data_ptr(), E, C, D, Fo)
+    _raise_on(rc, name)
+    LAUNCHES[name] += 1
+    INT8_LAUNCHES[name] += 1
+    return y
+
+
 def _launch(name, x, ws):
     """Check, allocate y, launch the variant the rules pick, count it."""
+    if any(_is_int8(w) for w in ws):
+        return _launch_int8(name, x, ws)
     E, C, D, Fo, vec_ok = _check(x, ws)
     if name == "moe_gemm" and uses_narrow(x, ws[0]):
         return _launch_narrow(x, ws[0], E, C, D, Fo)
@@ -223,15 +304,16 @@ def _launch(name, x, ws):
 
 
 def moe_gemm(x, w):
-    """x [E, C, D] @ w [E, D, F] -> [E, C, F] in x's dtype."""
+    """x [E, C, D] @ w [E, D, F] -> [E, C, F] in x's dtype; w a tensor or
+    int8 ``{q, s}``."""
     if x.device.type == "cpu":
-        return moe_gemm_ref(x, w)
+        return moe_gemm_ref(x, _plain(w))
     return _launch("moe_gemm", x, (w,))
 
 
 def moe_ffn_fused(x, w_gate, w_up):
-    """silu(x @ w_gate) * (x @ w_up): x [E, C, D]; w_* [E, D, F] ->
-    [E, C, F] in x's dtype."""
+    """silu(x @ w_gate) * (x @ w_up): x [E, C, D]; w_* [E, D, F] (tensors
+    or int8 ``{q, s}``) -> [E, C, F] in x's dtype."""
     if x.device.type == "cpu":
-        return moe_ffn_fused_ref(x, w_gate, w_up)
+        return moe_ffn_fused_ref(x, _plain(w_gate), _plain(w_up))
     return _launch("moe_ffn_fused", x, (w_gate, w_up))

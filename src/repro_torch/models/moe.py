@@ -13,11 +13,13 @@ reference package:
 
 The expert FFN over the ``[E, C, d]`` capacity buffers runs the hand-written
 grouped kernels of ``repro_torch.kernels.moe_gemm``: ``moe_ffn_fused`` for
-gate and up, ``moe_gemm`` for down (their plain versions on the CPU).
+gate and up, ``moe_gemm`` for down (their plain versions on the CPU), on
+bf16 or int8 expert weights.
 Routing is f32, on an f32 router, as in the reference.
 
 Expert weights are stored stacked: ``w_gate/w_up: [E, d, f]``,
-``w_down: [E, f, d]``, ``router: [d, E]`` (f32).
+``w_down: [E, f, d]`` (or int8 ``{q, s}`` of those shapes with
+``[E, 1, f]`` f32 scales), ``router: [d, E]`` (f32).
 """
 
 from __future__ import annotations
@@ -29,25 +31,26 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.moe_gemm.moe_gemm import moe_ffn_fused, moe_gemm
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.quant import as_weight
+from repro_torch.models.quant import as_weight, stacked_init
 
 
-def moe_init(cfg: ModelConfig, normal, layers: int, dt, dev):
+def moe_init(cfg: ModelConfig, normal, layers: int, dt, dev,
+             int8: bool = False):
     """Stacked expert weights for ``layers`` layers with the reference's
-    shapes and scales. ``normal(shape, scale, out)`` fills ``out`` with
-    seeded N(0, 1) * scale draws made in f32; matrices are drawn one
-    ``[E, d, f]`` tensor at a time (805 MB in f32 at qwen3-moe width) and
-    stored in ``dt``, the router in f32."""
+    shapes and scales. ``normal(shape, scale, dtype)`` returns seeded
+    N(0, 1) * scale draws made in f32 and rounded to ``dtype``; matrices
+    are drawn one ``[E, d, f]`` tensor at a time (805 MB in f32 at
+    qwen3-moe width, 1.88 GB at mixtral's) and stored in ``dt``, or with
+    ``int8`` quantised as they are drawn into ``{q: int8 [L, E, d, f],
+    s: f32 [L, E, 1, f]}``; the router stays f32."""
     E, d, f = cfg.num_experts, cfg.d_model, cfg.moe_d_ff
 
-    def stacked(shape, scale, dtype):
-        w = torch.empty((layers,) + shape, dtype=dtype, device=dev)
-        for i in range(layers):
-            normal(shape, scale, out=w[i])
-        return w
+    def stacked(shape, scale, dtype, q8=int8):
+        return stacked_init((layers,) + shape, dtype, dev,
+                            lambda: normal(shape, scale, dtype), q8)
 
     return {
-        "router": stacked((d, E), 1.0 / math.sqrt(d), torch.float32),
+        "router": stacked((d, E), 1.0 / math.sqrt(d), torch.float32, False),
         "w_gate": stacked((E, d, f), 1.0 / math.sqrt(d), dt),
         "w_up": stacked((E, d, f), 1.0 / math.sqrt(d), dt),
         "w_down": stacked((E, f, d), 1.0 / math.sqrt(f), dt),
@@ -76,10 +79,16 @@ def _route(p, cfg: ModelConfig, x):
 
 
 def _expert_ffn(p, h):
-    """h: [E, C, d] capacity buffers -> per-expert SwiGLU, in h's dtype."""
-    act = moe_ffn_fused(h, as_weight(p["w_gate"], h.dtype),
-                        as_weight(p["w_up"], h.dtype))
-    return moe_gemm(act, as_weight(p["w_down"], h.dtype))
+    """h: [E, C, d] capacity buffers -> per-expert SwiGLU, in h's dtype.
+
+    bf16 buffers hand an int8 weight ``{q, s}`` to the kernels as it is: on
+    the card the int8 variant dequantises it in shared memory, on the CPU
+    the plain version runs ``as_weight`` first. Other dtypes dequantise
+    here, to bf16 and then h's dtype, as the reference's einsums do."""
+    wg, wu, wd = p["w_gate"], p["w_up"], p["w_down"]
+    if h.dtype != torch.bfloat16:
+        wg, wu, wd = (as_weight(w).to(h.dtype) for w in (wg, wu, wd))
+    return moe_gemm(moe_ffn_fused(h, wg, wu), wd)
 
 
 def _capacity(cfg: ModelConfig, tokens: int) -> int:

@@ -23,10 +23,14 @@ block: causal self attention, cross attention over the encoder's output,
 MLP), ``rec`` (the RG-LRU block of ``models.rglru`` + MLP) and ``ssm``
 (norm + the SSD layer of ``models.ssd``, no MLP). The encdec encoder is a
 stack of ``attn`` blocks with bidirectional attention over the frames.
-Sliding-window attention layers (the hybrid's local attention) prefill
-through ``banded_attention`` and decode against a ring buffer. The vision
-frontend, M-RoPE and windows in the dense and MoE families (mixtral) are
-not ported yet (ROADMAP.md queue 1).
+Sliding-window attention layers (the hybrid's local attention, every layer
+of a windowed dense or MoE model such as mixtral) prefill through
+``banded_attention`` and decode against a ring buffer. The vision frontend
+and M-RoPE are not ported yet (ROADMAP.md queue 1).
+
+Weights may be int8 (``models.quant``): every consumer dequantises on read,
+and ``init`` draws an int8 tree directly when ``cfg.serve_weight_dtype`` is
+"int8".
 """
 
 from __future__ import annotations
@@ -44,6 +48,7 @@ from repro_torch.models import attention as A
 from repro_torch.models import kvcache as KV
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
+from repro_torch.models import quant as Q
 from repro_torch.models import rglru as RG
 from repro_torch.models import ssd as SSD
 
@@ -169,14 +174,12 @@ class LM:
     def __init__(self, cfg: ModelConfig):
         validate(cfg)
         encdec = cfg.family == "encdec"
-        if (cfg.family != "hybrid" and cfg.sliding_window) \
-                or cfg.mrope_sections \
+        if cfg.mrope_sections \
                 or cfg.frontend != ("audio" if encdec else "") \
                 or bool(cfg.encoder_layers) != encdec:
             raise NotImplementedError(
-                f"{cfg.name}: the vision frontend, M-RoPE and sliding "
-                f"windows outside the hybrid family are not ported yet; see "
-                f"ROADMAP.md queue 1")
+                f"{cfg.name}: the vision frontend and M-RoPE are not ported "
+                f"yet; see ROADMAP.md queue 1")
         self.cfg = cfg
 
     # -- param init -----------------------------------------------------
@@ -186,20 +189,32 @@ class LM:
         scales one, the recurrent families' f32 leaves as the reference
         draws them. Drawn from a ``torch.Generator`` seeded with ``seed``
         on the target device, one layer at a time (f32 draws, stored in
-        ``cfg.dtype`` unless the reference keeps the leaf in f32)."""
+        ``cfg.dtype`` unless the reference keeps the leaf in f32).
+
+        With ``cfg.serve_weight_dtype == "int8"`` the same draws, in the
+        same order, pass through ``quant.quantize_tree``'s rule (its name,
+        ndim, dtype and the default ``min_size``) as they are made: a
+        layer-stacked matrix is filled one layer's draw at a time into an
+        int8 stack and its f32 scales, never held whole in ``cfg.dtype``,
+        so the tree equals ``quantize_tree`` of the bf16 init bit for bit
+        and a model whose bf16 weights exceed the card (mixtral-8x7b, 93
+        GB) is drawn on it at 47 GB. The reference's ``LM.init`` ignores
+        this field (its int8 trees come from ``quantize_tree`` after init,
+        as ``launch/dryrun.py`` serves them); here it is the way to draw
+        an int8 model too large to draw in bf16 first."""
         cfg = self.cfg
         dev = resolve_device(device)
         dt = L.dtype_of(cfg)
         gen = torch.Generator(device=dev).manual_seed(seed)
         nl, d = cfg.num_layers, cfg.d_model
+        int8 = cfg.serve_weight_dtype == "int8"
 
-        def normal(shape, scale, dtype=dt, out=None):
-            w = torch.randn(shape, generator=gen, device=dev,
-                            dtype=torch.float32).mul_(scale)
-            if out is None:
-                return w.to(dtype)
-            out.copy_(w)
-            return out
+        def quantized(tree):
+            return Q.quantize_tree(tree) if int8 else tree
+
+        def normal(shape, scale, dtype=dt):
+            return torch.randn(shape, generator=gen, device=dev,
+                               dtype=torch.float32).mul_(scale).to(dtype)
 
         def uniform(shape, lo, hi):
             return torch.rand(shape, generator=gen, device=dev,
@@ -209,10 +224,10 @@ class LM:
             return normal((fan_in, fan_out), 1.0 / math.sqrt(fan_in))
 
         def stacked(fan_in, fan_out, n=nl):
-            w = torch.empty((n, fan_in, fan_out), dtype=dt, device=dev)
-            for i in range(n):
-                normal((fan_in, fan_out), 1.0 / math.sqrt(fan_in), out=w[i])
-            return w
+            return Q.stacked_init((n, fan_in, fan_out), dt, dev,
+                                  lambda: normal((fan_in, fan_out),
+                                                 1.0 / math.sqrt(fan_in)),
+                                  int8)
 
         def ones(*shape):
             return torch.ones(shape, dtype=torch.float32, device=dev)
@@ -246,14 +261,14 @@ class LM:
                     p["attn"] = attention(dense, ones)
                 p["norm2"] = {"scale": ones(d)}
                 p["mlp"] = mlp(dense)
-                layers.append(p)
+                layers.append(quantized(p))
             params["layers"] = tuple(layers)
             return params
         if cfg.family == "ssm":
-            params["layers"] = _stack([
+            params["layers"] = quantized(_stack([
                 {"norm1": {"scale": ones(d)},
                  "ssd": SSD.ssd_init(cfg, normal, uniform)}
-                for _ in range(nl)])
+                for _ in range(nl)]))
             return params
         def attn_stack(n):
             mat = functools.partial(stacked, n=n)
@@ -263,7 +278,8 @@ class LM:
 
         params["layers"], mat = attn_stack(nl)
         if cfg.is_moe:
-            params["layers"]["moe"] = MOE.moe_init(cfg, normal, nl, dt, dev)
+            params["layers"]["moe"] = MOE.moe_init(cfg, normal, nl, dt, dev,
+                                                   int8)
         else:
             params["layers"]["mlp"] = mlp(mat)
         if cfg.family == "encdec":
@@ -273,7 +289,8 @@ class LM:
             enc["mlp"] = mlp(enc_mat)
             params["enc_layers"] = enc
             params["enc_norm"] = {"scale": ones(d)}
-            params["adapter"] = dense(d, d)
+            params["adapter"] = quantized({"adapter": dense(d, d)})[
+                "adapter"]
         return params
 
     # -- heads ----------------------------------------------------------
@@ -357,6 +374,7 @@ class LM:
             ck = torch.zeros(shape, dtype=x.dtype, device=x.device)
             cv = torch.zeros(shape, dtype=x.dtype, device=x.device)
             n = min(s, S)
+            ring = functools.partial(_ring_buffer, S=S, length=length)
             memory = mem_pos = None
             if cfg.family == "encdec":
                 memory = self._encode(params, batch["frames"])
@@ -369,8 +387,11 @@ class LM:
             for i in range(cfg.num_layers):
                 lp = layer_params(params["layers"], i)
                 x, k, v = _attn_prefill(lp, cfg, x, pos, memory, mem_pos)
-                ck[i, :, :n] = k[:, :n]
-                cv[i, :, :n] = v[:, :n]
+                if cfg.sliding_window:
+                    ck[i], cv[i] = ring(k), ring(v)
+                else:
+                    ck[i, :, :n] = k[:, :n]
+                    cv[i, :, :n] = v[:, :n]
                 if memory is not None:
                     cross["cross_k"][i], cross["cross_v"][i] = \
                         A.project_cross_kv(lp["xattn"], cfg, memory)

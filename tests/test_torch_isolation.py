@@ -52,7 +52,7 @@ PORTED = ("adapters/runtime.py", "models/moe.py", "models/transformer.py",
           "kernels/ssd_chunk/ssd_chunk.py",
           "kernels/flash_attention/__init__.py",
           "kernels/flash_attention/flash_attention.py",
-          "models/frontends.py")
+          "models/frontends.py", "models/quant.py")
 
 
 def _sources():

@@ -327,15 +327,15 @@ class TestLM:
                                       "mixtral-8x7b", "seamless-m4t-medium",
                                       "qwen2-vl-72b"])
     def test_other_families_are_not_ported_yet(self, arch):
-        """The configs not ported yet (mixtral's windowed MoE, qwen2-vl's
-        vision frontend and M-RoPE) raise, naming the ROADMAP; the
-        recurrent families and encdec, ported since, construct
-        (test_torch_recurrent.py and test_torch_encdec.py hold them to the
-        reference)."""
+        """The config not ported yet (qwen2-vl's vision frontend and
+        M-RoPE) raises, naming the ROADMAP; the recurrent families, encdec
+        and mixtral's windowed MoE, ported since, construct
+        (test_torch_recurrent.py, test_torch_encdec.py and
+        test_torch_mixtral.py hold them to the reference)."""
         if arch in ("mamba2-1.3b", "recurrentgemma-2b",
-                    "seamless-m4t-medium"):
+                    "seamless-m4t-medium", "mixtral-8x7b"):
             assert LM(get_smoke_config(arch)).cfg.family in ("ssm", "hybrid",
-                                                             "encdec")
+                                                             "encdec", "moe")
             return
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             LM(get_smoke_config(arch))

@@ -14,6 +14,12 @@ written it and lets into a kept output shows. Values stay f32: this checks
 indexing, not bf16 rounding. Tolerance 1e-5 (f32 sums in another order
 than the einsum of the plain version).
 
+The int8-weight variant (``tc_kernel<..., kInt8>``) is transliterated by
+the same function: int8 tiles and their scales land in the ring, each stage
+is dequantised into the bf16 tiles after it lands, and the tile loop runs
+on those; its output equals ``as_weight`` followed by the bf16 variant's
+transliteration bit for bit.
+
 The narrow variant (f32 ``moe_gemm`` with D or F rank-sized) is
 transliterated in f32 with its fma chains, its butterfly over the lanes and
 its split order, so the bits of a row can be compared across C and row
@@ -25,6 +31,7 @@ import pytest
 import torch
 
 from repro_torch.kernels.moe_gemm import moe_gemm as MG
+from repro_torch.models import quant as Q
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 
@@ -34,6 +41,12 @@ SHAPES = {(True, True): (8, 1, 1, 8, 32, 4),
           (True, False): (8, 1, 1, 8, 64, 4),
           (False, True): (8, 2, 1, 10, 64, 3),
           (False, False): (8, 2, 2, 10, 64, 3)}
+#: the int8-weight variant's (tc::dispatch_i8): 32-row stages, deeper
+#: rings, two n8 tiles a warp at decode
+SHAPES_I8 = {(True, True): (8, 1, 1, 2, 32, 7),
+             (True, False): (8, 1, 1, 2, 32, 10),
+             (False, True): (8, 2, 1, 10, 32, 5),
+             (False, False): (8, 2, 2, 10, 32, 5)}
 SMALL_MAX_C = 64
 
 LANES = np.arange(32)
@@ -68,23 +81,42 @@ def _mma(acc, a, b0, b1):
                      Dm[G + 8, 2 * TG + 1]], axis=1)
 
 
+def _round_bf16(a):
+    """f32 values rounded to bf16 (round to nearest even), as f32."""
+    return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(
+        torch.bfloat16).float().numpy()
+
+
 def tc_transliteration(x, sxe, sxc, wg, wu, swe, swd, E, C, D, F,
-                       shape=None):
+                       shape=None, scales=None):
     """y [E, C, F] as tc_kernel computes it. x, wg, wu are flat f32 arrays
     read through element strides (x unit along D, w along F); wu None is
-    moe_gemm, else moe_ffn_fused. ``shape`` forces a block shape."""
-    fused = wu is not None
-    WM, WN, MT, NT, BK, STAGES = shape or SHAPES[(C <= SMALL_MAX_C, fused)]
+    moe_gemm, else moe_ffn_fused. ``shape`` forces a block shape.
+
+    ``scales`` ((s_gate, s_up or None), sse): the int8-weight variant. wg
+    and wu then hold int8 values, s_* flat f32 scales [E, 1, F] with
+    expert stride sse. A stage holds the int8 tiles unpadded [BK][BF],
+    copied 16 weights at a time where F and the strides are multiples of
+    16, else 8.
+    After the ring sit two sets of bf16 tiles: while step kt computes on
+    set kt & 1, stage kt + 1 (landed) is dequantised into the other, every
+    weight bf16(f32(q) * s[f])."""
+    fused, int8 = wu is not None, scales is not None
+    WM, WN, MT, NT, BK, STAGES = shape or (SHAPES_I8 if int8 else SHAPES)[
+        (C <= SMALL_MAX_C, fused)]
     BF, BN, nw = WM * MT * 16, WN * NT * 8, 2 if fused else 1
     XPITCH, WPITCH = BK + 8, BF + 8
-    XSTAGE, WSTAGE = BN * XPITCH, BK * WPITCH
-    STAGE = XSTAGE + nw * WSTAGE
+    XSTAGE, WSTAGE, QSTAGE = BN * XPITCH, BK * WPITCH, BK * BF
+    STAGE = XSTAGE + nw * (QSTAGE if int8 else WSTAGE)
+    RING = STAGES * STAGE
+    SMEM = RING + (2 * nw * WSTAGE if int8 else 0)
+    QV = 16 if int8 and F % 16 == swe % 16 == swd % 16 == 0 else 8
     YPITCH = BF + 8
     nF = -(-F // BF)
     chunks = -(-C // BN)
     Cc = -(-C // chunks)                  # rows per chunk, then whole n8
     Cc = -(-Cc // 8) * 8
-    assert Cc <= BN and BN * YPITCH <= STAGES * STAGE
+    assert Cc <= BN and BN * YPITCH <= SMEM
     y = np.full(E * C * F, np.nan, np.float32)
     nk = -(-D // BK)
     lr, lm = LANES % 8, LANES // 8
@@ -96,7 +128,12 @@ def tc_transliteration(x, sxe, sxc, wg, wu, swe, swd, E, C, D, F,
             rows8 = (rows + 7) & ~7
             xe = e * sxe + c0 * sxc
             we = e * swe
-            smem = np.full(STAGES * STAGE, np.nan, np.float32)
+            smem = np.full(SMEM, np.nan, np.float32)
+            if int8:      # this block's scales, 0 past F
+                cols = f0 + np.arange(BF)
+                sc = [np.where(cols < F, s[e * scales[1] + np.minimum(
+                    cols, F - 1)], 0).astype(np.float32)
+                    for s in scales[0][:nw]]
 
             def load_stage(kt):
                 st, k0 = (kt % STAGES) * STAGE, kt * BK
@@ -106,28 +143,45 @@ def tc_transliteration(x, sxe, sxc, wg, wu, swe, swd, E, C, D, F,
                     ok = r < rows and k < D
                     src = xe + r * sxc + k
                     smem[dst:dst + 8] = x[src:src + 8] if ok else 0.0
-                for i in range(BK * BF // 8):
-                    r, c = i // (BF // 8), (i % (BF // 8)) * 8
+                for i in range(BK * BF // QV):
+                    r, c = i // (BF // QV), (i % (BF // QV)) * QV
                     ok = k0 + r < D and f0 + c < F
                     off = we + (k0 + r) * swd + f0 + c
-                    dst = st + XSTAGE + r * WPITCH + c
+                    dst = st + XSTAGE + (r * BF + c if int8 else
+                                         r * WPITCH + c)
                     for w, buf in enumerate((wg, wu)[:nw]):
-                        d = dst + w * WSTAGE
-                        smem[d:d + 8] = buf[off:off + 8] if ok else 0.0
+                        d = dst + w * (QSTAGE if int8 else WSTAGE)
+                        smem[d:d + QV] = buf[off:off + QV] if ok else 0.0
+
+            def dequant_stage(kt):
+                qs = (kt % STAGES) * STAGE + XSTAGE
+                buf = RING + (kt & 1) * nw * WSTAGE
+                for w in range(nw):
+                    for r in range(BK):
+                        for c in range(0, BF, 8):
+                            src = qs + w * QSTAGE + r * BF + c
+                            dst = buf + w * WSTAGE + r * WPITCH + c
+                            smem[dst:dst + 8] = _round_bf16(
+                                smem[src:src + 8] * sc[w][c:c + 8])
 
             accs = {}
             for kt in range(min(STAGES - 1, nk)):
                 load_stage(kt)
+            if int8:
+                dequant_stage(0)
             for kt in range(nk):
                 if kt + STAGES - 1 < nk:
                     load_stage(kt + STAGES - 1)
+                if int8 and kt + 1 < nk:
+                    dequant_stage(kt + 1)
                 st = (kt % STAGES) * STAGE
+                wt = RING + (kt & 1) * nw * WSTAGE if int8 else st + XSTAGE
                 for warp in range(WM * WN):
                     wm, wn = warp % WM, warp // WM
 
                     def load_a(ks):
                         return {(w, mt): _ldmatrix_x4(
-                            smem, st + XSTAGE + w * WSTAGE
+                            smem, wt + w * WSTAGE
                             + (ks * 16 + lr + (lm >> 1) * 8) * WPITCH
                             + (wm * MT + mt) * 16 + (lm & 1) * 8, True)
                             for w in range(nw) for mt in range(MT)}
@@ -482,3 +536,109 @@ class TestNarrowRule:
         # the adapter route's rows 3.. of a buffer: base moves 48 bytes
         x = _f32(9, 11, 8)[:, 3:]
         assert MG.uses_narrow(x, _f32(9, 8, 4096))
+
+
+# ---------------------------------------------------------------------------
+# the int8-weight variant
+# ---------------------------------------------------------------------------
+
+def _int8_run(xb, qg, qu, C, row_pad, fused, shape=None):
+    """The int8 variant's transliteration on x rows row_pad.. of xb and
+    {q, s} weights (torch)."""
+    E, _, D = xb.shape
+    F = qg["q"].shape[2]
+    flat = np.concatenate([xb.reshape(-1), np.zeros(8, np.float32)])
+    sg = qg["s"].numpy().reshape(-1)
+    su = qu["s"].numpy().reshape(-1) if fused else None
+    return tc_transliteration(
+        flat[row_pad * D:], (C + row_pad) * D, D,
+        qg["q"].numpy().reshape(-1).astype(np.float32),
+        qu["q"].numpy().reshape(-1).astype(np.float32) if fused else None,
+        D * F, F, E, C, D, F, shape, scales=((sg, su), F))
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("E,C,D,F,row_pad", [
+    (2, 8, 48, 136, 0),         # decode C 8, F past one 128 tile
+    (2, 9, 16, 72, 3),          # C 9 (a partial n8 tile), F 72, strided x
+    (1, 1, 32, 8, 0),           # C 1, F 8
+    (2, 40, 40, 16, 1),         # C 40: three 16-row chunks, D off a stage,
+                                # 16-weight copies
+    (2, 161, 24, 24, 0),        # C > 64: two chunks
+])
+def test_int8_transliteration_is_the_bf16_one_on_as_weight(fused, E, C, D,
+                                                           F, row_pad):
+    """int8 tiles and scales, the bf16 tile in shared memory, then the
+    tile loop: bit for bit ``as_weight`` followed by the bf16 variant's
+    transliteration (in its own block shape), with an empty expert and a
+    zero weight column (scale 1e-12)."""
+    xb, wg, wu = _case(E * 100 + C + 7, E, C, D, F, row_pad, empty=(E - 1,))
+    xb = _round_bf16(xb)                 # x is bf16 on the card
+    wg[:, :, 3] = 0.0
+    qg, qu = (Q.quantize_weight(torch.from_numpy(w).bfloat16())
+              for w in (wg, wu))
+    got = _int8_run(xb, qg, qu, C, row_pad, fused)
+    deq = [Q.as_weight(q).float().numpy() for q in (qg, qu)]
+    want = _run(xb, deq[0], deq[1], C, row_pad, fused)
+    assert np.array_equal(got, want)
+    assert not got[E - 1].any()
+    # and the plain version the CPU wrapper runs on a {q, s} weight
+    x = torch.from_numpy(xb[:, row_pad:])
+    plain = (MG.moe_ffn_fused(x, qg, qu) if fused else
+             MG.moe_gemm(x, qg)).numpy()
+    np.testing.assert_allclose(got, plain, **TOL)
+
+
+def test_int8_rows_depend_on_d_alone():
+    """The int8 variant at C 160 (prefill shape) and C 8 (decode shape,
+    other warps and ring): rows 0-7 equal bit for bit."""
+    xb, wg, wu = _case(13, 1, 160, 64, 32)
+    xb = _round_bf16(xb)
+    qg, qu = (Q.quantize_weight(torch.from_numpy(w)) for w in (wg, wu))
+    wide = _int8_run(xb, qg, qu, 160, 0, True)
+    narrow = _int8_run(xb[:, :8], qg, qu, 8, 0, True)
+    assert np.array_equal(wide[:, :8], narrow)
+
+
+def _q8(E, D, F):
+    return {"q": torch.zeros((E, D, F), dtype=torch.int8),
+            "s": torch.ones((E, 1, F))}
+
+
+class TestInt8Rule:
+    @pytest.mark.parametrize("C,D,F", [
+        (8, 4096, 14336), (640, 4096, 14336),   # mixtral gate/up
+        (8, 14336, 4096), (640, 14336, 4096),   # mixtral down
+    ])
+    def test_main_path_shapes_take_the_int8_variant(self, C, D, F):
+        # E 1 of the 8 experts, D and F cut to 1/64: the rule reads neither
+        # E nor the sizes beyond their multiples of 8
+        D, F = D // 64, F // 64
+        x, w = _bf16(1, C, D), _q8(1, D, F)
+        assert MG.uses_int8(x, w) and MG.uses_int8(x, w, _q8(1, D, F))
+        assert not MG.uses_tensor_cores(x, w["q"])
+
+    def test_a_layer_view_of_a_stacked_weight_takes_it(self):
+        q = torch.zeros((3, 2, 16, 24), dtype=torch.int8)
+        s = torch.ones((3, 2, 1, 24))
+        assert MG.uses_int8(_bf16(2, 8, 16), {"q": q[1], "s": s[1]})
+
+    @pytest.mark.parametrize("what", ["f32 x", "f32 q", "f16 s", "F off 8",
+                                      "mixed", "s shape", "q stride"])
+    def test_what_the_variant_does_not_take(self, what):
+        x, wg, wu = _bf16(2, 8, 16), _q8(2, 16, 24), _q8(2, 16, 24)
+        if what == "f32 x":
+            x = x.float()
+        elif what == "f32 q":
+            wg["q"] = wg["q"].float()
+        elif what == "f16 s":
+            wg["s"] = wg["s"].half()
+        elif what == "F off 8":
+            wg, wu = _q8(2, 16, 20), _q8(2, 16, 20)
+        elif what == "mixed":
+            wu = _bf16(2, 16, 24)
+        elif what == "s shape":
+            wg["s"] = torch.ones((2, 16, 24))
+        else:
+            wg["q"] = torch.zeros((2, 16, 28), dtype=torch.int8)[:, :, :24]
+        assert not MG.uses_int8(x, wg, wu)
