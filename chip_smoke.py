@@ -5,7 +5,7 @@
     python3 chip_smoke.py --quick    # build, kernel checks, small models
 
 Run from the repository root. It builds the port's CUDA kernels from the
-sources in the checkout and drives the port's eight main paths at full
+sources in the checkout and drives the port's nine main paths at full
 width (random weights from a seed):
 
 * minitron-8b (dense GQA: 32 layers, d_model 4096, 32 query heads over 8
@@ -19,6 +19,11 @@ width (random weights from a seed):
   d_ff 14336, vocab 32000; 46.7 B params) at full width and depth with
   int8 weights (47.0 GB), drawn on the card by ``LM.init`` at
   ``serve_weight_dtype="int8"``;
+* qwen2-vl-72b (dense GQA with M-RoPE and the vision frontend stub: 80
+  layers, d_model 8192, 64 query heads over 8 KV heads of 128, d_ff
+  29568, vocab 152064, M-RoPE sections (16, 24, 24), 256 vision tokens)
+  at full width and depth with int8 weights (75.3 GB), drawn the same
+  way;
 * recurrentgemma-2b (hybrid: 26 layers in the pattern rec, rec, attn —
   18 RG-LRU blocks of width 2560, 8 local-attention layers, MQA 10 q heads
   over 1 KV head of 256, window 2048 — vocab 256000; bf16) at full width
@@ -45,10 +50,12 @@ Phases:
              minitron-8b's, qwen3-moe-30b-a3b's and seamless-m4t-medium's
              decoder shapes (B 8, S 2048, lengths 1 ... 2048; paged: a
              shuffled block table whose unused entries are the scratch
-             page 0), timed beside SDPA by eager calls (``ms``, host side
-             included, as every kernel row) and by CUDA-graph replay
-             (``device_ms``), and paged output equal to dense output bit
-             for bit throughout;
+             page 0; qwen2-vl-72b's shape is checked at the ragged lengths
+             here and timed on its path, at the batches it decodes),
+             timed beside SDPA by eager calls
+             (``ms``, host side included, as every kernel row) and by
+             CUDA-graph replay (``device_ms``), and paged output equal to
+             dense output bit for bit throughout;
              the grouped GEMMs at
              qwen3-moe's expert shapes (decode C 8, prefill C 160; the
              tensor-core variant, asserted, with rows 0-7 at C 160 equal
@@ -76,14 +83,16 @@ Phases:
              strides off 8, zero-dt steps carrying the state), the RG-LRU
              scan's bits (eager == eager == graph replay, a row's bits
              equal at B 1 and 3, identity steps keep the state exactly);
-             flash_attention at minitron-8b's 2048-token causal prefill
-             and seamless-m4t-medium's encoder (1536 frames) and cross
-             attention (1024 x 1536), after ragged shapes (head dims
-             16-128 in f32 and bf16, -1 key positions, a first kv-tile
-             with no valid key, reversed key positions, every engine
-             bucket at minitron's widths), compared on the rows that have
-             a valid key, and the ptxas registers and spills of its bf16
-             route at head dims 64 and 128;
+             flash_attention at minitron-8b's and qwen2-vl-72b's
+             2048-token causal prefills and seamless-m4t-medium's encoder
+             (1536 frames) and cross attention (1024 x 1536), after ragged
+             shapes (head dims 16-128 in f32 and bf16, -1 key positions,
+             a first kv-tile with no valid key, reversed key positions,
+             every engine bucket at minitron's and qwen2-vl's widths,
+             qwen2-vl's 1024-token vision prompt with stream 0 tied over
+             its 256 image tokens), compared on the
+             rows that have a valid key, and the ptxas registers and
+             spills of its bf16 route at head dims 64 and 128;
 3. serve   — ``repro_torch.launch.serve.serve`` through the northbound
              gateway: 4 sessions, 8 requests, 8 slots, max_len 2048;
 4. engine  — dense and paged engines, 8 slots with 512-1536-token prompts
@@ -110,6 +119,29 @@ Phases:
              slot) continues in a fresh engine, finite prefill logits, a
              profiled 8192-bucket prefill with the expert kernels' share
              and peak memory under 80 GB;
+   qwen2-vl — mixtral freed (device memory allocated near 0),
+             qwen2-vl-72b drawn on the card in int8; the engines' slots
+             from a predicted peak (8 at max_len 2048 if it leaves 1.5 GB
+             of the card's total_memory, else 4; never two engines of this
+             model at once); both decode kernels timed at the path's
+             batches (the slots, and the vision prompt's B 1, S 1040)
+             before its window: 8 text sessions (prompts of 500-1900 tokens)
+             x 32 greedy tokens through a ServingPlane over a
+             RealEngineBackend, then the same prompts on direct dense
+             engines (TTFT, decode tok/s, a profiled round) and paged
+             engines, then a 1024-token vision prompt through ``LM.prefill``
+             (``vision_embeds`` [1, 256, 8192] over the first 256 tokens,
+             explicit [3, 1, s] positions with the image's 16 x 16 grid in
+             streams 1-2) and 16 ``LM.decode_step``s; flash_attention 80
+             times a prefill, the decode kernels 80 a step of their
+             layout, no other kernel; outside the window, the plane's
+             streams equal the direct engines', paged equal dense, a
+             mid-stream export continues in a fresh engine (2 slots),
+             finite prefill logits, the vision prompt's logits finite and
+             its cache not a text-only prefill's, a profiled 2048-bucket
+             prefill (each profile sums ``as_weight``'s kinds of kernel —
+             copies, casts, f32 products — beside the cuBLAS GEMMs), and
+             the peak memory printed beside total_memory and under it;
    recurrent — each recurrent model drawn in turn (the previous one freed):
              phases 3 and 4 (dense engine) with rglru_scan launched 18 times
              and ssd_chunk 48 times per prefill, the decode-attention
@@ -144,22 +176,28 @@ Phases:
              its products on the narrow variant, gather on the CPU), the
              qwen3-moe smoke config, the
              recurrentgemma-2b and mamba2-1.3b smoke configs, the
-             seamless-m4t-medium smoke config (head_dim 32) and the
-             mixtral-8x7b smoke config with int8 weights (window 16).
+             seamless-m4t-medium smoke config (head_dim 32), the
+             mixtral-8x7b smoke config with int8 weights (window 16) and
+             the qwen2-vl-72b smoke config (head_dim 32, M-RoPE (8, 4, 4))
+             with vision embeddings and distinct [3, b, s] streams, stream
+             0 first ``arange``, then tied over the image (Qwen2-VL's
+             layout, which the causal mask of the flash kernel reads).
 
 Each main path is driven with every launch counter set to 0 just before it
 and read just after, and each kernel the path runs must have been launched
 there (flash_attention exactly once per full-attention layer of each
-prefill: 32 for minitron-8b, 48 for qwen3-moe-30b-a3b, 36 for
-seamless-m4t-medium, 0 for the recurrent families; on the split path
-32 per minitron-8b prefill, rglru_scan 18 per recurrentgemma-2b prefill,
-the decode kernels 32 per dense or paged minitron-8b step); the checks of a
-path's result (each adapter session alone, the full-width prefill logits
-and a profiled prefill, the recurrent, encdec and mixtral checks) run
-after that read and are not counted. Every grouped-GEMM launch of the
-qwen3-moe path must have taken the tensor-core variant, every one of the
-adapter path's the narrow variant (its products are f32 and rank-sized)
-and every one of the mixtral path's the int8 variant. Each
+prefill: 32 for minitron-8b, 48 for qwen3-moe-30b-a3b, 80 for
+qwen2-vl-72b, 36 for seamless-m4t-medium, 0 for the recurrent families;
+the decode kernels 80 per qwen2-vl-72b step of their layout; on the split
+path 32 per minitron-8b prefill, rglru_scan 18 per recurrentgemma-2b
+prefill, the decode kernels 32 per dense or paged minitron-8b step); the
+checks of a path's result (each adapter session alone, the full-width
+prefill logits and a profiled prefill, the recurrent, encdec, mixtral and
+qwen2-vl checks) run after that read and are not counted. Every grouped-GEMM
+launch of the qwen3-moe path must have taken the tensor-core variant,
+every one of the adapter path's the narrow variant (its products are f32
+and rank-sized) and every one of the mixtral path's the int8 variant.
+Each
 profiled decode round prints its decode attention share, the profiled
 recurrent prefills their rglru_scan or ssd_chunk share. Any failed phase
 fails the run (exit 1). The last two lines are the card's name and power
@@ -383,24 +421,56 @@ def log_kernel_parts(label: str, fn, key: str, calls: int = 20) -> None:
     log(f"[kernels] {label} device time per call: {', '.join(parts)}")
 
 
-def phase_kernels(cfg, moe_cfg, sm_cfg):
+def decode_run(x, lengths, tbl):
+    """Both decode kernels on the dense and paged copies of one cache."""
+    from repro_torch.kernels.decode_attention import decode_attention as DA
+    return (DA.decode_attention(x["q"], x["k"], x["v"], lengths),
+            DA.paged_decode_attention(x["q"], x["pk"], x["pv"], lengths, tbl))
+
+
+def decode_check(label, x, lengths, outs, tol) -> float:
+    """Both decode kernels' outputs against the f32 plain version (rows of
+    length 0 give zeros, as from the Pallas kernels) and paged against
+    dense bit for bit; returns the largest error."""
+    import torch
+    from repro_torch.kernels.decode_attention import decode_attention as DA
+    ref = DA.decode_attention_ref(x["q"].float(), x["k"].float(),
+                                  x["v"].float(), lengths)
+    ref[lengths == 0] = 0
+    worst = 0.0
+    for name, out in zip(("decode_attention", "paged_decode_attention"),
+                         outs):
+        err = (out.float() - ref).abs()
+        bad = err > tol + tol * ref.abs()
+        worst = max(worst, float(err.max()))
+        if not torch.isfinite(out).all() or bool(bad.any()):
+            fail(f"{name} ({label}): kernel disagrees with its plain "
+                 f"version (max abs err {float(err.max()):.3e}, "
+                 f"{int(bad.sum())} elements past atol=rtol={tol})")
+    if not torch.equal(outs[0], outs[1]):
+        fail(f"paged_decode_attention ({label}): not bit-identical to "
+             f"the dense kernel on the same logical cache "
+             f"({int((outs[0] != outs[1]).sum())} elements)")
+    return worst
+
+
+def phase_kernels(cfg, moe_cfg, sm_cfg, vl_cfg):
     """decode_attention and paged_decode_attention against their plain
     versions. First ragged lengths 0, 1, kChunk - 1, kChunk, kChunk + 1 and
-    S at the three served shapes — minitron-8b (Hkv 8, g 4, D 128),
-    qwen3-moe-30b-a3b (Hkv 4, g 8, D 128) and seamless-m4t-medium's decoder
-    (Hkv 16, g 1, D 64) — in bf16 (against the f32 plain version, atol =
-    rtol = 1e-2) and f32 (1e-5), paged through page 48 (off kChunk, pps *
-    page != S); a row of length 0 gives zeros, as from the Pallas kernels
-    (the plain version gives the mean of V there). Then the splits'
-    combine order, pinned exactly by a cancellation in f32. Then each
-    served shape at the engines' lengths (1 ... 2048, page 128) with
-    kernel / plain / SDPA times and the least time the card could take.
-    Paged output must equal dense output bit for bit in every case. Inputs
-    of the timed launches rotate over 4 sets."""
+    S at the four served shapes — minitron-8b (Hkv 8, g 4, D 128),
+    qwen3-moe-30b-a3b (Hkv 4, g 8, D 128), seamless-m4t-medium's decoder
+    (Hkv 16, g 1, D 64) and qwen2-vl-72b (Hkv 8, g 8, D 128) — in bf16
+    (against the f32 plain version, atol = rtol = 1e-2) and f32 (1e-5),
+    paged through page 48 (off kChunk, pps * page != S); a row of length
+    0 gives zeros, as from the Pallas kernels (the plain version gives the
+    mean of V there). Then the splits'
+    combine order, pinned exactly by a cancellation in f32. Then the
+    first three served shapes at the engines' lengths (1 ... 2048, page
+    128), timed by ``time_decode`` (qwen2-vl-72b's are timed on its path,
+    at the batches it serves). Paged output must equal dense output bit
+    for bit in every case."""
     import numpy as np
     import torch
-    import torch.nn.functional as F
-    from repro_torch.kernels.decode_attention import decode_attention as DA
 
     log_decode_build()
     S = 2048
@@ -412,32 +482,9 @@ def phase_kernels(cfg, moe_cfg, sm_cfg):
               (moe_cfg.name, moe_cfg.num_kv_heads,
                moe_cfg.num_heads // moe_cfg.num_kv_heads, moe_cfg.head_dim),
               (f"{sm_cfg.name} decoder", sm_cfg.num_kv_heads,
-               sm_cfg.num_heads // sm_cfg.num_kv_heads, sm_cfg.head_dim)]
-
-    def run(x, lengths, tbl):
-        return (DA.decode_attention(x["q"], x["k"], x["v"], lengths),
-                DA.paged_decode_attention(x["q"], x["pk"], x["pv"], lengths,
-                                          tbl))
-
-    def check(label, x, lengths, outs, tol):
-        ref = DA.decode_attention_ref(x["q"].float(), x["k"].float(),
-                                      x["v"].float(), lengths)
-        ref[lengths == 0] = 0            # the Pallas kernels' zeros
-        worst = 0.0
-        for name, out in zip(("decode_attention", "paged_decode_attention"),
-                             outs):
-            err = (out.float() - ref).abs()
-            bad = err > tol + tol * ref.abs()
-            worst = max(worst, float(err.max()))
-            if not torch.isfinite(out).all() or bool(bad.any()):
-                fail(f"{name} ({label}): kernel disagrees with its plain "
-                     f"version (max abs err {float(err.max()):.3e}, "
-                     f"{int(bad.sum())} elements past atol=rtol={tol})")
-        if not torch.equal(outs[0], outs[1]):
-            fail(f"paged_decode_attention ({label}): not bit-identical to "
-                 f"the dense kernel on the same logical cache "
-                 f"({int((outs[0] != outs[1]).sum())} elements)")
-        return worst
+               sm_cfg.num_heads // sm_cfg.num_kv_heads, sm_cfg.head_dim),
+              (vl_cfg.name, vl_cfg.num_kv_heads,
+               vl_cfg.num_heads // vl_cfg.num_kv_heads, vl_cfg.head_dim)]
 
     ragged = np.array([0, 1, kc - 1, kc, kc + 1, S], np.int32)
     tables, P = decode_table(ragged, S, 48, seed=11)
@@ -448,11 +495,11 @@ def phase_kernels(cfg, moe_cfg, sm_cfg):
             x = decode_inputs(gen, len(ragged), Hkv, g, D, S, dtype, tables,
                               P, 48)
             torch.cuda.synchronize()
-            check(f"{label} ragged {dtype}", x, lengths,
-                  run(x, lengths, tbl), tol)
+            decode_check(f"{label} ragged {dtype}", x, lengths,
+                         decode_run(x, lengths, tbl), tol)
     torch.cuda.synchronize()
     log(f"[kernels] decode attention agrees with its plain version at "
-        f"lengths {ragged.tolist()} (kChunk {kc}) at the three served "
+        f"lengths {ragged.tolist()} (kChunk {kc}) at the four served "
         f"shapes in bf16 (atol=rtol={ATOL}) and f32 ({F32_TOL}); paged "
         f"(page 48, pps * page {tables.shape[1] * 48} != S {S}) == dense "
         f"bit for bit")
@@ -471,7 +518,8 @@ def phase_kernels(cfg, moe_cfg, sm_cfg):
     x["v"][0, 0, 2 * kc:] = -2.0 ** 16
     for b, j in zip(*np.nonzero(ot)):
         x["pv"][ot[b, j], :, 0] = x["v"][b, 0, j * 48:(j + 1) * 48]
-    outs = run(x, torch.from_numpy(one).to(dev), torch.from_numpy(ot).to(dev))
+    outs = decode_run(x, torch.from_numpy(one).to(dev),
+                      torch.from_numpy(ot).to(dev))
     torch.cuda.synchronize()
     for name, out in zip(("decode_attention", "paged_decode_attention"),
                          outs):
@@ -483,6 +531,27 @@ def phase_kernels(cfg, moe_cfg, sm_cfg):
 
     # the served shapes at the engines' lengths, timed
     lens_host = np.array([1, S - 1, S, 517, 1024, 1500, 129, 64], np.int32)
+    rows = {}
+    for label, Hkv, g, D in shapes[:3]:
+        time_decode(rows, gen, label, Hkv, g, D, lens_host, S)
+    return rows
+
+
+def time_decode(rows, gen, label, Hkv, g, D, lens_host, S: int) -> None:
+    """Both decode kernels at one served shape — rows of ``lens_host``
+    lengths in a cache of S (paged: pages of 128) — checked against the
+    plain version, then timed beside the plain version and SDPA by eager
+    calls (``ms``, host side included, as every kernel row) and by
+    CUDA-graph replay (``device_ms``), with the least time the card could
+    take; the kernel's parts by device time. Appends a shape to each
+    kernel's JSON row in ``rows`` (made by the first shape). Inputs of the
+    timed launches rotate over 4 sets."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import decode_attention as DA
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    lens_host = np.asarray(lens_host, np.int32)
     B, page = len(lens_host), 128
     tables, P = decode_table(lens_host, S, page, seed=7)
     lengths = torch.from_numpy(lens_host).to(dev)
@@ -490,96 +559,90 @@ def phase_kernels(cfg, moe_cfg, sm_cfg):
     mask = (torch.arange(S, device=dev)[None, :]
             < lengths[:, None])[:, None, None, :]            # [B, 1, 1, S]
     valid_rows = int(lens_host.sum())
-    rows = {}
-    for label, Hkv, g, D in shapes:
-        Hq = Hkv * g
-        # timed launches rotate over input sets larger than the 50 MB L2
-        # together, so each launch reads its K/V from device memory, as a
-        # decode step does after the other layers have passed through L2
-        sets = [decode_inputs(gen, B, Hkv, g, D, S, bf16, tables, P, page)
-                for _ in range(4)]
-        it = {"i": 0}
+    Hq = Hkv * g
+    # timed launches rotate over input sets larger than the 50 MB L2
+    # together, so each launch reads its K/V from device memory, as a
+    # decode step does after the other layers have passed through L2
+    sets = [decode_inputs(gen, B, Hkv, g, D, S, bf16, tables, P, page)
+            for _ in range(4)]
+    it = {"i": 0}
 
-        def nxt():
-            it["i"] = (it["i"] + 1) % len(sets)
-            return sets[it["i"]]
+    def nxt():
+        it["i"] = (it["i"] + 1) % len(sets)
+        return sets[it["i"]]
 
-        def sdpa(x):
-            return F.scaled_dot_product_attention(
-                x["q"][:, :, None], x["k"], x["v"], attn_mask=mask,
-                enable_gqa=True)
+    def sdpa(x):
+        return F.scaled_dot_product_attention(
+            x["q"][:, :, None], x["k"], x["v"], attn_mask=mask,
+            enable_gqa=True)
 
-        err = check(f"{label} B {B} S {S}", sets[0], lengths,
-                    run(sets[0], lengths, tbl), ATOL)
-        kv_bytes = 2 * valid_rows * Hkv * D * 2
-        qo_bytes = 2 * B * Hq * D * 2 + B * 4
-        flops = 4 * valid_rows * Hq * D
-        shape = f"{label} B {B} Hq {Hq} Hkv {Hkv} D {D} S {S} bf16"
-        for name, kern, plain, nbytes in (
-                ("decode_attention",
-                 lambda x: DA.decode_attention(x["q"], x["k"], x["v"],
+    err = decode_check(f"{label} B {B} S {S}", sets[0], lengths,
+                       decode_run(sets[0], lengths, tbl), ATOL)
+    kv_bytes = 2 * valid_rows * Hkv * D * 2
+    qo_bytes = 2 * B * Hq * D * 2 + B * 4
+    flops = 4 * valid_rows * Hq * D
+    shape = (f"{label} B {B} Hq {Hq} Hkv {Hkv} D {D} S {S} lengths "
+             f"{lens_host.tolist() if B <= 4 else '1 ... ' + str(S)} bf16")
+    for name, kern, plain, nbytes in (
+            ("decode_attention",
+             lambda x: DA.decode_attention(x["q"], x["k"], x["v"], lengths),
+             lambda x: DA.decode_attention_ref(x["q"], x["k"], x["v"],
                                                lengths),
-                 lambda x: DA.decode_attention_ref(x["q"], x["k"], x["v"],
-                                                   lengths),
-                 kv_bytes + qo_bytes),
-                ("paged_decode_attention",
-                 lambda x: DA.paged_decode_attention(x["q"], x["pk"],
-                                                     x["pv"], lengths, tbl),
-                 lambda x: DA.paged_decode_attention_ref(
-                     x["q"], x["pk"], x["pv"], lengths, tbl),
-                 kv_bytes + qo_bytes + B * tables.shape[1] * 4)):
-            # ms: eager calls back to back, as every kernel row is timed
-            # (host-bound here: a call's host side outlasts its kernels);
-            # device_ms: the same calls replayed from a CUDA graph, which
-            # has no host side
-            ms = time_ms(lambda: kern(nxt()))
-            device_ms = graph_ms(lambda: kern(nxt()))
-            plain_ms = time_ms(lambda: plain(nxt()), iters=10)
-            # the library call on the linear [B, Hkv, S, D] view (for the
-            # paged row too: PyTorch has no single call that reads a block
-            # table), timed both ways
-            library_ms = time_ms(lambda: sdpa(nxt()))
-            library_device_ms = graph_ms(lambda: sdpa(nxt()))
-            bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
-            log(f"[kernels] {name} ({shape}): max_abs_err {err:.3e} "
-                f"kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
-                f"{library_ms:.4f} bound_ms {bound_ms:.4f} (bytes; "
-                f"{nbytes / 1e6:.1f} MB moved at least) x library "
-                f"{ms / library_ms:.2f}; by graph replay: kernel "
-                f"{device_ms:.4f}, library {library_device_ms:.4f}, x "
-                f"library {device_ms / library_device_ms:.2f}, "
-                f"{bound_ms / device_ms:.1%} of bound")
-            log_kernel_parts(f"{name} ({label})", lambda: kern(nxt()),
-                             "decode_attn")
-            if name not in rows:          # the JSON row: minitron's shape
-                rows[name] = {
-                    "name": name, "route": "cuda",
-                    "source": "src/repro_torch/kernels/decode_attention/"
-                              "csrc/decode_attention.cu",
-                    "replaces": "src/repro/kernels/decode_attention/"
-                                "decode_attention.py:"
-                                + ("88" if name == "decode_attention"
-                                   else "205"),
-                    "launches": 0, "max_abs_err": err, "ms": ms,
-                    "plain_ms": plain_ms, "bound_ms": bound_ms,
-                    "bound_by": "bytes", "library_ms": library_ms,
-                    "device_ms": device_ms,
-                    "library_device_ms": library_device_ms, "shapes": []}
-            rows[name]["shapes"].append({
-                "shape": shape, "ms": ms, "plain_ms": plain_ms,
-                "library_ms": library_ms, "ratio": ms / library_ms,
+             kv_bytes + qo_bytes),
+            ("paged_decode_attention",
+             lambda x: DA.paged_decode_attention(x["q"], x["pk"], x["pv"],
+                                                 lengths, tbl),
+             lambda x: DA.paged_decode_attention_ref(
+                 x["q"], x["pk"], x["pv"], lengths, tbl),
+             kv_bytes + qo_bytes + B * tables.shape[1] * 4)):
+        # ms: eager calls back to back, as every kernel row is timed
+        # (host-bound here: a call's host side outlasts its kernels);
+        # device_ms: the same calls replayed from a CUDA graph, which has
+        # no host side
+        ms = time_ms(lambda: kern(nxt()))
+        device_ms = graph_ms(lambda: kern(nxt()))
+        plain_ms = time_ms(lambda: plain(nxt()), iters=10)
+        # the library call on the linear [B, Hkv, S, D] view (for the
+        # paged row too: PyTorch has no single call that reads a block
+        # table), timed both ways
+        library_ms = time_ms(lambda: sdpa(nxt()))
+        library_device_ms = graph_ms(lambda: sdpa(nxt()))
+        bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
+        log(f"[kernels] {name} ({shape}): max_abs_err {err:.3e} "
+            f"kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
+            f"{library_ms:.4f} bound_ms {bound_ms:.4f} (bytes; "
+            f"{nbytes / 1e6:.1f} MB moved at least) x library "
+            f"{ms / library_ms:.2f}; by graph replay: kernel "
+            f"{device_ms:.4f}, library {library_device_ms:.4f}, x "
+            f"library {device_ms / library_device_ms:.2f}, "
+            f"{bound_ms / device_ms:.1%} of bound")
+        log_kernel_parts(f"{name} ({label} B {B})", lambda: kern(nxt()),
+                         "decode_attn")
+        if name not in rows:              # the JSON row: the first shape
+            rows[name] = {
+                "name": name, "route": "cuda",
+                "source": "src/repro_torch/kernels/decode_attention/"
+                          "csrc/decode_attention.cu",
+                "replaces": "src/repro/kernels/decode_attention/"
+                            "decode_attention.py:"
+                            + ("88" if name == "decode_attention" else "205"),
+                "launches": 0, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": "bytes", "library_ms": library_ms,
                 "device_ms": device_ms,
-                "library_device_ms": library_device_ms,
-                "device_ratio": device_ms / library_device_ms,
-                "bound_ms": bound_ms, "bound_by": "bytes",
-                "max_abs_err": err})
-        del sets
-        torch.cuda.empty_cache()
-    log("[kernels] library_ms: decode attention — "
-        "torch.nn.functional.scaled_dot_product_attention (boolean length "
-        "mask, enable_gqa) on the linear [B, Hkv, S, D] views; paged output "
-        "bit-identical to dense output at every shape")
-    return rows
+                "library_device_ms": library_device_ms, "shapes": []}
+        rows[name]["shapes"].append({
+            "shape": shape, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "ratio": ms / library_ms,
+            "device_ms": device_ms, "library_device_ms": library_device_ms,
+            "device_ratio": device_ms / library_device_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes", "max_abs_err": err})
+    log(f"[kernels] library_ms: decode attention ({label} B {B}) — "
+        f"torch.nn.functional.scaled_dot_product_attention (boolean length "
+        f"mask, enable_gqa) on the linear [B, Hkv, S, D] views; paged "
+        f"output bit-identical to dense output")
+    del sets
+    torch.cuda.empty_cache()
 
 
 def phase_moe_kernels(moe_cfg, d_adapter: int):
@@ -1252,7 +1315,7 @@ def attention_pairs(qpos, kpos, causal: bool):
     return ok & (kpos[None, :] <= qpos[:, None]) if causal else ok
 
 
-def phase_flash_kernels(cfg, sm_cfg):
+def phase_flash_kernels(cfg, sm_cfg, vl_cfg):
     """flash_attention against its plain version (the blocked loop, on the
     same inputs in the same dtype) on the rows that have a valid key — a
     row with none is garbage in the plain loop and zeros from the kernel,
@@ -1260,12 +1323,16 @@ def phase_flash_kernels(cfg, sm_cfg):
     f32 and bf16, sq != skv and off the 64-row q-tile, -1 key positions,
     a first kv-tile with no valid key for some rows, reversed key
     positions, queries starting past 0, the seamless smoke config's
-    encoder and cross shapes, every engine bucket at minitron-8b's widths),
-    then the three full-width shapes with times:
+    encoder and cross shapes, every engine bucket at minitron-8b's and
+    qwen2-vl-72b's widths, qwen2-vl-72b's vision prompt with its image's
+    tokens all at stream-0 position 0),
+    then the four full-width shapes with times:
     minitron-8b's 2048-token causal prefill (32 q / 8 KV heads of 128),
     seamless-m4t-medium's encoder (1536 frames, 16 heads of 64) and its
-    cross attention (1024 x 1536), bf16. Inputs rotate over 4 sets.
-    Library: SDPA on the [b, h, s, d] transposed views."""
+    cross attention (1024 x 1536), and qwen2-vl-72b's 2048-token causal
+    prefill (64 q / 8 KV heads of 128), bf16. Inputs rotate over 4 sets.
+    Library: SDPA on the [b, h, s, d] transposed views. The JSON row is
+    minitron's, with every shape in its ``shapes``."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention as FA
@@ -1286,6 +1353,11 @@ def phase_flash_kernels(cfg, sm_cfg):
             x["kpos"][:64] = -1
         elif holes == "reversed":        # tile 0 holds the latest keys
             x["kpos"] = x["kpos"].flip(0).contiguous()
+        elif holes == "tied":            # an image's patches share t 0
+            nv = vl_cfg.num_frontend_tokens
+            t = torch.from_numpy(vision_positions(
+                1, sq, nv, int(round(nv ** 0.5)), repeat_t=True)[0, 0])
+            x["qpos"] = x["kpos"] = t.to(dev)
         elif holes:
             x["kpos"][skv // 3:skv // 3 + 70] = -1
             x["kpos"][-5:] = -1
@@ -1347,11 +1419,21 @@ def phase_flash_kernels(cfg, sm_cfg):
                                              cfg.num_kv_heads,
                                              cfg.head_dim, bf16),
               True, blocks)
+    vl_blocks = (vl_cfg.attn_block_q, vl_cfg.attn_block_kv)
+    vl_heads = (vl_cfg.num_heads, vl_cfg.num_kv_heads, vl_cfg.head_dim)
+    for s in prefill_buckets(QWEN2VL_MAX_LEN):
+        check(f"qwen2-vl bucket {s}", inputs(1, s, s, *vl_heads, bf16),
+              True, vl_blocks)
+    n = QWEN2VL_VISION_TOKENS
+    check(f"qwen2-vl vision prompt {n}, stream 0 tied over the image",
+          inputs(1, n, n, *vl_heads, bf16, holes="tied"), True, vl_blocks)
     log("[kernels] flash_attention agrees with its plain version at ragged "
         "shapes (d 16-128 in f32 and bf16, sq 1-257, skv 1-300, -1 keys, "
-        "a first kv-tile with no valid key, reversed key positions) and "
-        f"every engine bucket {prefill_buckets(2048)} at minitron-8b's "
-        f"widths, on the rows with a valid key")
+        "a first kv-tile with no valid key, reversed key positions), at "
+        f"every engine bucket {prefill_buckets(2048)} at minitron-8b's and "
+        f"qwen2-vl-72b's widths, and at qwen2-vl-72b's {n}-token vision "
+        f"prompt whose {vl_cfg.num_frontend_tokens} image tokens share "
+        f"stream-0 position 0, on the rows with a valid key")
     from repro_torch.kernels import build
     entry = ""
     for line in build.build_log("flash_attention").splitlines():
@@ -1375,6 +1457,10 @@ def phase_flash_kernels(cfg, sm_cfg):
          (1, src, src, hs, hs, ds), False, sm_blocks),
         (f"{sm_cfg.name} cross b 1 sq 1024 skv {src} h {hs} d {ds}",
          (1, 1024, src, hs, hs, ds), False, sm_blocks),
+        (f"{vl_cfg.name} prefill b 1 s 2048 hq {vl_cfg.num_heads} hkv "
+         f"{vl_cfg.num_kv_heads} d {vl_cfg.head_dim} causal",
+         (1, 2048, 2048, vl_cfg.num_heads, vl_cfg.num_kv_heads,
+          vl_cfg.head_dim), True, (vl_cfg.attn_block_q, vl_cfg.attn_block_kv)),
     ]
     rows = {}
     for label, (b, sq, skv, hq, hkv, d), causal, blk in shapes:
@@ -1418,7 +1504,13 @@ def phase_flash_kernels(cfg, sm_cfg):
                             "flash_attention.py:98",
                 "launches": 0, "max_abs_err": err, "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by, "library_ms": library_ms}
+                "bound_by": bound_by, "library_ms": library_ms,
+                "shapes": []}
+        rows["flash_attention"]["shapes"].append({
+            "shape": label, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "ratio": ms / library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "max_abs_err": err})
         del sets
         torch.cuda.empty_cache()
     log("[kernels] library_ms: flash_attention — "
@@ -1539,10 +1631,17 @@ def log_profile(prof, name: str, wall_us: float, steps: int,
     for e in sorted(events, key=dev_us, reverse=True)[:8]:
         log(f"[profile] {name}:   {dev_us(e) / steps / 1e3:8.3f} ms/{unit} "
             f"x{e.count // steps:<4d} {e.key[:90]}")
-    for label, key in (("decode attention", "decode_attn"),
-                       ("ssd_chunk", "ssd_"), ("rglru_scan", "rglru"),
-                       ("expert kernels", "tc::tc_kernel<")):
-        mine = [e for e in events if key in e.key]
+    # int8 weights: as_weight's int8 -> f32 copy, scale product and bf16
+    # cast (with the path's other copies and f32 products, which are
+    # activation-sized), beside the cuBLAS GEMMs on its output
+    for label, keys in (("decode attention", ("decode_attn",)),
+                        ("ssd_chunk", ("ssd_",)), ("rglru_scan", ("rglru",)),
+                        ("expert kernels", ("tc::tc_kernel<",)),
+                        ("copies, casts and f32 products", (
+                            "direct_copy_kernel_cuda",
+                            "bfloat16_copy_kernel_cuda", "MulFunctor<float>")),
+                        ("cuBLAS GEMMs", ("nvjet", "gemm_", "cutlass"))):
+        mine = [e for e in events if any(k in e.key for k in keys)]
         if mine:
             t = sum(dev_us(e) for e in mine)
             log(f"[profile] {name}: {label} {t / steps / 1e3:.3f} "
@@ -1609,26 +1708,32 @@ def drive_model(cfg, params, layouts=(False, True)):
 
 
 class PrefillCount:
-    """Counts ``LM.prefill`` calls inside a ``with`` block (an
-    instrumentation of this script, to relate a path's launches to its
-    prefills)."""
+    """Counts ``LM.prefill`` calls inside a ``with`` block, and
+    ``LM.decode_step`` calls by cache layout ("dense" or "paged") in
+    ``steps`` (an instrumentation of this script, to relate a path's
+    launches to its prefills and decode steps)."""
 
     def __enter__(self):
         from collections import Counter
         from repro_torch.models.transformer import LM
-        self.n, self.by_model, self._orig = 0, Counter(), LM.prefill
+        self.n, self.by_model, self.steps = 0, Counter(), Counter()
+        self._orig = LM.prefill, LM.decode_step
 
         def counted(lm, *args, **kw):
             self.n += 1
             self.by_model[lm.cfg.name] += 1
-            return self._orig(lm, *args, **kw)
+            return self._orig[0](lm, *args, **kw)
 
-        LM.prefill = counted
+        def stepped(lm, params, cache, *args, **kw):
+            self.steps["paged" if "block" in cache else "dense"] += 1
+            return self._orig[1](lm, params, cache, *args, **kw)
+
+        LM.prefill, LM.decode_step = counted, stepped
         return self
 
     def __exit__(self, *exc):
         from repro_torch.models.transformer import LM
-        LM.prefill = self._orig
+        LM.prefill, LM.decode_step = self._orig
 
 
 def check_paged_keeps_dense(cfg, params, dense_toks, prompts=None,
@@ -1652,17 +1757,18 @@ def check_paged_keeps_dense(cfg, params, dense_toks, prompts=None,
 
 
 def check_state_transfer(cfg, params, max_len: int = 2048,
-                         lens=(700, 300, 1100)) -> None:
+                         lens=(700, 300, 1100), slots: int = 8) -> None:
     """A session exported mid-stream (its payload exactly
     ``kvcache.cache_bytes`` of one slot) and imported into a fresh engine
     keeps its fingerprint and continues token-identically. The exported
-    session is the first of ``lens``."""
+    session is the first of ``lens``; both engines have ``slots`` slots
+    (at least ``len(lens)``)."""
     import numpy as np
     from repro_torch.models import kvcache as KV
     from repro_torch.serving import state_transfer
     from repro_torch.serving.engine import InferenceEngine
     rng = np.random.default_rng(21)
-    src = InferenceEngine(cfg, params=params, slots=8, max_len=max_len,
+    src = InferenceEngine(cfg, params=params, slots=slots, max_len=max_len,
                           device="cuda")
     for i, n in enumerate(lens):
         src.prefill_session(f"m{i}", rng.integers(
@@ -1674,7 +1780,7 @@ def check_state_transfer(cfg, params, max_len: int = 2048,
     if nbytes != want:
         fail(f"{cfg.name}: payload of {nbytes} bytes, cache_bytes says "
              f"{want}")
-    dst = InferenceEngine(cfg, params=params, slots=8, max_len=max_len,
+    dst = InferenceEngine(cfg, params=params, slots=slots, max_len=max_len,
                           device="cuda")
     dst.import_slot("m0", payload)
     fp = state_transfer.fingerprint(payload)
@@ -1891,9 +1997,13 @@ def init_model(cfg):
 
 
 def release_memory() -> None:
-    """Return the device memory of tensors no longer referenced."""
+    """Return the device memory of tensors no longer referenced, and
+    cuBLAS's workspaces (32 MiB for each stream that ran a GEMM: left
+    live, each pins the cached segment it was carved from, and a
+    qwen2-vl-72b stack of 18 GiB then finds no room)."""
     import torch
     gc.collect()
+    torch._C._cuda_clearCublasWorkspaces()
     torch.cuda.empty_cache()
 
 
@@ -1980,6 +2090,41 @@ def mixtral_prompts(cfg):
             for n in MIXTRAL_LENS]
 
 
+def serve_plane(cfg, params, prompts, *, slots: int, max_len: int,
+                gen: int, tag: str) -> dict:
+    """``prompts`` as sessions s0, s1, ... through a ServingPlane over a
+    RealEngineBackend on an InferenceEngine of ``slots`` slots at
+    ``max_len``, ``gen`` greedy tokens each; the engine is freed before
+    this returns. Returns each session's tokens (the prefill's first)."""
+    from repro_torch.core.clock import Clock
+    from repro_torch.serving.engine import InferenceEngine
+    from repro_torch.serving.plane import RealEngineBackend, ServingPlane
+    eng = InferenceEngine(cfg, params=params, slots=slots, max_len=max_len,
+                          device="cuda")
+    clock = Clock()
+    plane = ServingPlane(clock, RealEngineBackend(eng, clock), slots=slots,
+                         premium_reserved_frac=0.0, site_id=tag)
+    t0 = time.perf_counter()
+    for i, prompt in enumerate(prompts):
+        plane.submit(session_id=f"s{i}", klass="assured",
+                     prompt_tokens=len(prompt), gen_tokens=gen,
+                     t_max_ms=1e9, prompt=prompt)
+    plane.drain()
+    served = {r.session_id: r.token_ids for r in plane.pop_results()}
+    log(f"[{tag}] {cfg.name} int8: {len(prompts)} sessions (prompts "
+        f"{[len(p) for p in prompts]}) x {gen} tokens through the plane on "
+        f"{slots} slots in {time.perf_counter() - t0:.2f} s")
+    if sorted(served) != sorted(f"s{i}" for i in range(len(prompts))) \
+            or any(len(t or []) != gen or not all(
+                0 <= x < cfg.vocab_size for x in t)
+                for t in served.values()):
+        fail(f"{tag} plane served "
+             f"{ {k: len(v or []) for k, v in served.items()} }")
+    del plane, eng
+    release_memory()
+    return served
+
+
 def drive_mixtral(cfg, params) -> dict:
     """The mixtral-8x7b main path on int8 weights: 8 sessions through a
     ServingPlane over a RealEngineBackend on an InferenceEngine of 8 slots
@@ -1987,33 +2132,10 @@ def drive_mixtral(cfg, params) -> dict:
     then the same prompts on an engine of the same shape, driven directly:
     TTFT of each prompt, decode tok/s over 64 steps and a profiled decode
     round. Returns {"plane": tokens, "engine": tokens}."""
-    from repro_torch.core.clock import Clock
-    from repro_torch.serving.engine import InferenceEngine
-    from repro_torch.serving.plane import RealEngineBackend, ServingPlane
     prompts = mixtral_prompts(cfg)
-    eng = InferenceEngine(cfg, params=params, slots=8,
-                          max_len=MIXTRAL_MAX_LEN, device="cuda")
-    clock = Clock()
-    plane = ServingPlane(clock, RealEngineBackend(eng, clock), slots=8,
-                         premium_reserved_frac=0.0, site_id="mixtral")
-    t0 = time.perf_counter()
-    for i, prompt in enumerate(prompts):
-        plane.submit(session_id=f"s{i}", klass="assured",
-                     prompt_tokens=len(prompt), gen_tokens=MIXTRAL_GEN,
-                     t_max_ms=1e9, prompt=prompt)
-    plane.drain()
-    served = {r.session_id: r.token_ids for r in plane.pop_results()}
-    log(f"[mixtral] {cfg.name} int8: 8 sessions (prompts "
-        f"{list(MIXTRAL_LENS)}) x {MIXTRAL_GEN} tokens through the plane in "
-        f"{time.perf_counter() - t0:.2f} s")
-    if sorted(served) != [f"s{i}" for i in range(8)] or any(
-            len(t or []) != MIXTRAL_GEN or not all(
-                0 <= x < cfg.vocab_size for x in t)
-            for t in served.values()):
-        fail(f"mixtral plane served "
-             f"{ {k: len(v or []) for k, v in served.items()} }")
-    del plane, eng
-    release_memory()
+    served = serve_plane(cfg, params, prompts, slots=8,
+                         max_len=MIXTRAL_MAX_LEN, gen=MIXTRAL_GEN,
+                         tag="mixtral")
     toks, ttft, tps = run_engine(cfg, params, prompts, paged=False,
                                  steps=MIXTRAL_GEN, chunk=16,
                                  max_len=MIXTRAL_MAX_LEN)
@@ -2037,6 +2159,219 @@ def check_mixtral(cfg, params, out) -> None:
                             mixtral_prompts(cfg), MIXTRAL_MAX_LEN)
     check_state_transfer(cfg, params, MIXTRAL_MAX_LEN, (5000, 300, 4090))
     check_logits(cfg, params)
+
+
+#: the qwen2-vl-72b path: prompt lengths, greedy tokens a session,
+#: context; the vision prompt's tokens and its greedy decode steps
+QWEN2VL_LENS = (500, 1900, 1210, 760, 1530, 980, 1750, 640)
+QWEN2VL_GEN = 32
+QWEN2VL_MAX_LEN = 2048
+QWEN2VL_VISION_TOKENS = 1024
+QWEN2VL_VISION_STEPS = 16
+QWEN2VL_HEADROOM = 1.5e9        # bytes the predicted peak must leave free
+
+
+def qwen2vl_prompts(cfg):
+    import numpy as np
+    rng = np.random.default_rng(9)
+    return [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+            for n in QWEN2VL_LENS]
+
+
+def vision_positions(b: int, s: int, nv: int, width: int,
+                     repeat_t: bool = False):
+    """[3, b, s] int32 M-RoPE positions of a prompt whose first nv tokens
+    are an image's patches in rows of ``width``: stream 0 is ``arange(s)``
+    (with ``repeat_t``, every image token at 0 as Qwen2-VL places one
+    image, the text after it from 1); streams 1 and 2 are the patch's row
+    and column over the image, then ``arange``. Row r adds r to streams
+    1-2, so rows differ."""
+    import numpy as np
+    i = np.arange(s)
+    img = i < nv
+    t = np.where(img, 0, i - nv + 1) if repeat_t else i
+    out = np.stack([t, np.where(img, i // width, i),
+                    np.where(img, i % width, i)])[:, None].repeat(b, 1)
+    out[1:] += np.arange(b)[None, :, None]
+    return out.astype(np.int32)
+
+
+def qwen2vl_slots(cfg, weights: int):
+    """The engines' slots: 8 at ``QWEN2VL_MAX_LEN`` if the predicted peak
+    leaves ``QWEN2VL_HEADROOM`` under the card's ``total_memory``, else 4.
+    Predicted peak: the weights on the card, the engine's K/V, and a
+    prefill's transients (its batch-1 cache, ``as_weight``'s two f32 copies
+    and bf16 cast of the largest matrix, the MLP's f32 and bf16
+    activations of a full bucket). Returns (slots, predicted peak, total)."""
+    import torch
+    from repro_torch.models import kvcache as KV
+    total = torch.cuda.get_device_properties(0).total_memory
+    n = QWEN2VL_MAX_LEN
+    transient = (KV.cache_bytes(cfg, 1, n) + 10 * cfg.d_model * cfg.d_ff
+                 + 16 * n * cfg.d_ff)
+    for slots in (8, 4):
+        peak = weights + KV.cache_bytes(cfg, slots, n) + transient
+        log(f"[qwen2-vl] predicted peak at {slots} slots x max_len {n}: "
+            f"{peak / 1e9:.2f} GB (weights {weights / 1e9:.2f}, K/V "
+            f"{KV.cache_bytes(cfg, slots, n) / 1e9:.2f}, prefill transients "
+            f"{transient / 1e9:.2f}) of total_memory {total / 1e9:.2f} GB")
+        if peak + QWEN2VL_HEADROOM <= total:
+            break
+    return slots, peak, total
+
+
+def time_qwen2vl_decode(rows, cfg, slots: int) -> None:
+    """Both decode kernels at the batches the qwen2-vl path decodes, by
+    ``time_decode``: ``slots`` rows at the first group's prompt lengths
+    half way through their tokens in a cache of ``QWEN2VL_MAX_LEN``, and
+    the vision prompt's one row half way through its steps."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    heads = (cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads,
+             cfg.head_dim)
+    n = QWEN2VL_VISION_TOKENS + QWEN2VL_VISION_STEPS
+    for lens, S in (([m + QWEN2VL_GEN // 2 for m in QWEN2VL_LENS[:slots]],
+                     QWEN2VL_MAX_LEN),
+                    ([n - QWEN2VL_VISION_STEPS // 2], n)):
+        time_decode(rows, gen, cfg.name, *heads, lens, S)
+
+
+def drive_qwen2vl(cfg, params, slots: int) -> dict:
+    """The qwen2-vl-72b main path on int8 weights: 8 text sessions through
+    a ServingPlane over a RealEngineBackend on an InferenceEngine of
+    ``slots`` slots at max_len 2048, ``QWEN2VL_GEN`` greedy tokens each;
+    then the same prompts on direct engines of the same shape, dense
+    (TTFT of each prompt, decode tok/s, a profiled round) and paged,
+    ``slots`` prompts at a time; then a vision prompt through the model's
+    entry points (the engine builds text batches only, in both packages):
+    ``LM.prefill`` of ``QWEN2VL_VISION_TOKENS`` tokens with
+    ``vision_embeds`` [1, 256, d_model] from the frontend stub over the
+    first 256 and explicit [3, 1, s] positions (the image's 16 x 16 grid
+    in streams 1-2), then ``QWEN2VL_VISION_STEPS`` greedy
+    ``LM.decode_step``s. Returns what the checks read."""
+    import numpy as np
+    import torch
+    from repro_torch.models.frontends import fake_vision_embeds
+    from repro_torch.models.transformer import LM
+    prompts = qwen2vl_prompts(cfg)
+    out = {"plane": serve_plane(cfg, params, prompts, slots=slots,
+                                max_len=QWEN2VL_MAX_LEN, gen=QWEN2VL_GEN,
+                                tag="qwen2-vl")}
+    for paged in (False, True):
+        name = "paged" if paged else "dense"
+        toks, ttfts, rates = {}, [], []
+        for g in range(0, len(prompts), slots):
+            t, ttft, tps = run_engine(
+                cfg, params, prompts[g:g + slots], paged=paged,
+                steps=QWEN2VL_GEN, chunk=16, max_len=QWEN2VL_MAX_LEN,
+                profile=g == 0 and not paged)
+            toks.update({f"s{g + int(k[1:])}": v for k, v in t.items()})
+            ttfts += ttft
+            rates.append(round(tps, 2))
+            release_memory()
+        out[name] = toks
+        log(f"[engine] {cfg.name} int8 {name}: prompts "
+            f"{list(QWEN2VL_LENS)} ttft_ms {[round(t, 2) for t in ttfts]} "
+            f"decode {rates} tok/s ({slots} slots x {QWEN2VL_GEN} steps a "
+            f"group of {slots} prompts, chunks of 16)")
+
+    n, steps = QWEN2VL_VISION_TOKENS, QWEN2VL_VISION_STEPS
+    lm = LM(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    embeds = fake_vision_embeds(cfg, gen, 1)
+    nv = embeds.shape[1]
+    side = int(round(nv ** 0.5))
+    tokens = torch.from_numpy(np.random.default_rng(30).integers(
+        0, cfg.vocab_size, size=(1, n)).astype(np.int32)).cuda()
+    positions = torch.from_numpy(vision_positions(1, n, nv, side)).cuda()
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = lm.prefill(params, {
+            "tokens": tokens, "vision_embeds": embeds,
+            "positions": positions}, n + steps)
+        tok = logits.argmax(-1, keepdim=True).to(torch.int32)
+        torch.cuda.synchronize()
+        ttft = (time.perf_counter() - t0) * 1e3
+        seen, step_logits = [tok], []
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            lg, cache = lm.decode_step(params, cache, tok)
+            tok = lg[:, 0].argmax(-1, keepdim=True).to(torch.int32)
+            seen.append(tok)
+            step_logits.append(lg[:, 0])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    log(f"[qwen2-vl] vision prompt: {n} tokens, the first {nv} an image of "
+        f"{side} x {side} patches (vision_embeds {tuple(embeds.shape)}, "
+        f"positions {tuple(positions.shape)}): ttft {ttft:.2f} ms, then "
+        f"{steps} greedy decode steps at {dt / steps * 1e3:.2f} ms/step")
+    out["vision"] = {"tokens": tokens, "prefill_logits": logits,
+                     "step_logits": torch.stack(step_logits),
+                     "cache": cache, "seen": torch.cat(seen, 1).cpu()}
+    return out
+
+
+def check_qwen2vl_launches(cfg, launches, pc) -> None:
+    """flash_attention once a layer a prefill, the decode kernels once a
+    layer a step of their layout, and no grouped GEMM, scan or SSD
+    kernel."""
+    L = cfg.num_layers
+    want = {"flash_attention": L * pc.n,
+            "decode_attention": L * pc.steps["dense"],
+            "paged_decode_attention": L * pc.steps["paged"]}
+    for k, n in launches.items():
+        if n != want.get(k, 0):
+            fail(f"{cfg.name}: {k} launched {n} times, expected "
+                 f"{want.get(k, 0)} ({pc.n} prefills, "
+                 f"{dict(pc.steps)} decode steps, {L} layers)")
+    log(f"[main path] {cfg.name} int8: flash_attention "
+        f"{want['flash_attention']} = {L} x {pc.n} prefills; "
+        f"decode_attention {want['decode_attention']} = {L} x "
+        f"{pc.steps['dense']} dense steps; paged_decode_attention "
+        f"{want['paged_decode_attention']} = {L} x {pc.steps['paged']} "
+        f"paged steps; no grouped GEMM, scan or SSD kernel")
+
+
+def check_qwen2vl(cfg, params, out) -> None:
+    """After the qwen2-vl path's launch window: the plane's streams are
+    the direct engine's (one token later), the paged engine's the dense
+    one's; a session moves mid-stream into a fresh engine and continues;
+    full-width prefill logits are finite; the vision prompt's logits are
+    finite and its cache is not a text-only prefill's of the same
+    tokens."""
+    import torch
+    from repro_torch.models.transformer import LM
+    check_same_streams(cfg, {k: v[:-1] for k, v in out["dense"].items()},
+                       {k: v[1:] for k, v in out["plane"].items()},
+                       "plane and direct engines")
+    check_same_streams(cfg, out["dense"], out["paged"], "dense and paged "
+                       "engines")
+    check_state_transfer(cfg, params, QWEN2VL_MAX_LEN, (1500, 300),
+                         slots=2)
+    check_logits(cfg, params)
+    vis = out["vision"]
+    V = cfg.vocab_size
+    for name, lg in (("prefill", vis["prefill_logits"]),
+                     ("decode", vis["step_logits"])):
+        if not torch.isfinite(lg[..., :V]).all():
+            fail(f"{cfg.name}: vision {name} logits not finite")
+    seen = vis["seen"]
+    if int(seen.min()) < 0 or int(seen.max()) >= V:
+        fail(f"{cfg.name}: vision decode tokens out of range")
+    n = vis["tokens"].shape[1]
+    with torch.no_grad():
+        _, text = LM(cfg).prefill(params, {"tokens": vis["tokens"]}, n)
+    diff = {key: float((vis["cache"]["layers"][key][:, :, :n].float()
+                        - text["layers"][key].float()).abs().max())
+            for key in ("k", "v")}
+    if min(diff.values()) == 0.0:
+        fail(f"{cfg.name}: the vision prompt's cache equals a text-only "
+             f"prefill's ({diff})")
+    log(f"[qwen2-vl] vision prompt: prefill and {seen.shape[1] - 1} decode "
+        f"logits finite, tokens {seen[0, :8].tolist()}...; its cache "
+        f"differs from a text-only prefill of the same tokens (max |diff| "
+        f"k {diff['k']:.3e}, v {diff['v']:.3e})")
 
 
 def check_adapters(cfg, params, catalog, sessions, mixed) -> None:
@@ -2088,11 +2423,14 @@ def check_logits(cfg, params):
 # phase 5: small model on the card vs the CPU plain path
 # ---------------------------------------------------------------------------
 
-def card_vs_cpu(cfg, label: str, paged: bool) -> float:
+def card_vs_cpu(cfg, label: str, paged: bool,
+                repeat_t: bool = False) -> float:
     """Prefill + 8 greedy decode steps of ``cfg`` (f32) on the CPU and on
-    the card from the same weights and prompt (and, for encdec, frames);
-    each side feeds back its own argmax. Fails on a token that differs;
-    returns the largest logit difference."""
+    the card from the same weights and prompt (and, for encdec, frames;
+    for the vision frontend, patch embeddings over the first tokens and
+    distinct [3, b, s] M-RoPE streams, stream 0 tied over the image with
+    ``repeat_t``); each side feeds back its own argmax. Fails on a token
+    that differs; returns the largest logit difference."""
     import numpy as np
     import torch
     from repro_torch.bridge import tree_map
@@ -2105,12 +2443,19 @@ def card_vs_cpu(cfg, label: str, paged: bool) -> float:
     prompt = rng.integers(0, cfg.vocab_size, size=(2, 40))
     frames = (rng.standard_normal((2, cfg.source_len, cfg.d_model))
               * 0.02).astype(np.float32)
+    nv = cfg.num_frontend_tokens
+    embeds = (rng.standard_normal((2, nv, cfg.d_model)) * 0.02).astype(
+        np.float32)
     res, toks_seen = [], []
     with torch.no_grad():
         for params, dev in ((cpu_params, "cpu"), (gpu_params, "cuda")):
             batch = {"tokens": torch.from_numpy(prompt).to(dev)}
             if cfg.family == "encdec":
                 batch["frames"] = torch.from_numpy(frames).to(dev)
+            if cfg.frontend == "vision":
+                batch["vision_embeds"] = torch.from_numpy(embeds).to(dev)
+                batch["positions"] = torch.from_numpy(vision_positions(
+                    2, prompt.shape[1], nv, 4, repeat_t)).to(dev)
             logits, cache = lm.prefill(params, batch, 64)
             if paged:
                 # the same rows laid out as pages of 16 through a table
@@ -2210,12 +2555,21 @@ def phase_reference():
     # int8 weights, window 16: the 40-token prompt wraps the ring
     mixtral = dataclasses.replace(get_smoke_config("mixtral-8x7b"),
                                   dtype="float32", serve_weight_dtype="int8")
+    # head_dim 32 for the decode kernels, M-RoPE's sections widened with it
+    vision = dataclasses.replace(get_smoke_config("qwen2-vl-72b"),
+                                 dtype="float32", head_dim=32,
+                                 mrope_sections=(8, 4, 4))
     worst = max(card_vs_cpu(tiny, "edge-tiny", False),
                 card_vs_cpu(tiny, "edge-tiny", True),
                 card_vs_cpu(moe, moe.name, False),
                 recurrent_card_vs_cpu(),
                 card_vs_cpu(encdec, encdec.name, False),
-                card_vs_cpu(mixtral, f"{mixtral.name} int8", False))
+                card_vs_cpu(mixtral, f"{mixtral.name} int8", False),
+                card_vs_cpu(vision, f"{vision.name} (vision, M-RoPE)",
+                            False),
+                card_vs_cpu(vision, f"{vision.name} (vision, M-RoPE, "
+                            f"stream 0 tied over the image)", False,
+                            repeat_t=True))
     if worst > REF_ATOL:
         fail(f"card and CPU logits differ by {worst:.3e} > {REF_ATOL}")
     adapters_card_vs_cpu(tiny)
@@ -2514,8 +2868,10 @@ def main() -> None:
     rg_cfg = get_config("recurrentgemma-2b")
     mb_cfg = get_config("mamba2-1.3b")
     sm_cfg = get_config("seamless-m4t-medium")
-    rows = phase_kernels(cfg, moe_cfg, sm_cfg)
-    rows.update(phase_flash_kernels(cfg, sm_cfg))
+    vl_cfg = dataclasses.replace(get_config("qwen2-vl-72b"),
+                                 serve_weight_dtype="int8")
+    rows = phase_kernels(cfg, moe_cfg, sm_cfg, vl_cfg)
+    rows.update(phase_flash_kernels(cfg, sm_cfg, vl_cfg))
     rows.update(phase_moe_kernels(moe_cfg, cfg.d_model))
     rows.update(phase_int8_kernels(mx_cfg))
     rows.update(phase_recurrent_kernels(rg_cfg, mb_cfg))
@@ -2585,6 +2941,35 @@ def main() -> None:
     log(f"[mixtral] peak device memory {peak / 1e9:.1f} GB; {card()}")
     if peak >= 80e9:
         fail(f"mixtral peak device memory {peak / 1e9:.1f} GB >= 80 GB")
+    del params, out
+    release_memory()
+
+    left = torch.cuda.memory_allocated()
+    log(f"[qwen2-vl] device memory allocated after the mixtral path: "
+        f"{left / 1e9:.3f} GB")
+    if left > 0.1e9:
+        fail(f"{left / 1e9:.2f} GB still allocated before qwen2-vl-72b")
+    torch.cuda.reset_peak_memory_stats()
+    params = init_model(vl_cfg)
+    slots, predicted, total = qwen2vl_slots(vl_cfg,
+                                            torch.cuda.memory_allocated())
+    time_qwen2vl_decode(rows, vl_cfg, slots)
+    name = f"{vl_cfg.name} int8"
+    with PrefillCount() as pc:
+        launches, out = drive_path(name, counters, attn, drive_qwen2vl,
+                                   vl_cfg, params, slots)
+    check_qwen2vl_launches(vl_cfg, launches, pc)
+    paths.append(launches)
+    check_qwen2vl(vl_cfg, params, out)
+    profile_prefill(vl_cfg, params, n=1500, width=QWEN2VL_MAX_LEN)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[qwen2-vl] peak device memory {peak / 1e9:.2f} GB (predicted "
+        f"{predicted / 1e9:.2f} at {slots} slots; reserved at most "
+        f"{torch.cuda.max_memory_reserved() / 1e9:.2f}) of total_memory "
+        f"{total / 1e9:.2f} GB; {card()}")
+    if peak >= total:
+        fail(f"qwen2-vl peak device memory {peak / 1e9:.2f} GB >= "
+             f"total_memory {total / 1e9:.2f} GB")
     del params, out
     release_memory()
 

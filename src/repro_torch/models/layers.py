@@ -69,13 +69,16 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
                 sections: tuple) -> torch.Tensor:
     """Qwen2-VL multimodal RoPE. positions: [3, ..., seq]; section i of the
-    half-dim takes its rotation angle from position stream i."""
+    half-dim takes its rotation angle from position stream i. The angles
+    are built section by section from slices, so no section index tensor
+    crosses to the device (a host sync on a card)."""
     freqs = rope_frequencies(x.shape[-1], theta, x.device)  # [half]
-    sec_ids = torch.repeat_interleave(
-        torch.arange(len(sections), device=x.device),
-        torch.tensor(sections, device=x.device))             # [half]
-    pos_sel = positions.float()[sec_ids]                     # [half, ..., seq]
-    angles = torch.movedim(pos_sel, 0, -1) * freqs           # [..., seq, half]
+    pos = positions.float()
+    parts, start = [], 0
+    for i, n in enumerate(sections):
+        parts.append(pos[i][..., None] * freqs[start:start + n])
+        start += n
+    angles = torch.cat(parts, dim=-1)                        # [..., seq, half]
     return _rotate(x, angles)
 
 

@@ -13,7 +13,9 @@ Public surface:
     init(seed, device)                     -> params
     prefill(params, batch, max_len, adapter=None)
                                            -> (last_logits [b, V], cache)
-      (encdec: ``batch["frames"]`` [b, src, d_model] feeds the encoder)
+      (encdec: ``batch["frames"]`` [b, src, d_model] feeds the encoder;
+      vision: ``batch["vision_embeds"]`` [b, nv, d_model] is spliced over
+      the first nv token slots; M-RoPE: ``batch["positions"]`` [3, b, s])
     decode_step(params, cache, tokens [b, 1], active=None, adapter=None)
                                            -> (logits [b, 1, V], cache)
 
@@ -26,7 +28,9 @@ stack of ``attn`` blocks with bidirectional attention over the frames.
 Sliding-window attention layers (the hybrid's local attention, every layer
 of a windowed dense or MoE model such as mixtral) prefill through
 ``banded_attention`` and decode against a ring buffer. The vision frontend
-and M-RoPE are not ported yet (ROADMAP.md queue 1).
+is the reference's stub: patch embeddings given as input pass through
+``vision_adapter`` into the first token slots; M-RoPE rotates each
+half-dim section by its own position stream (``layers.rope_for``).
 
 Weights may be int8 (``models.quant``): every consumer dequantises on read,
 and ``init`` draws an int8 tree directly when ``cfg.serve_weight_dtype`` is
@@ -95,11 +99,22 @@ def _ring_buffer(x, S: int, length: Optional[int]):
     return buf[:, :S]           # takes any of the others
 
 
+def _mask_positions(positions):
+    """The [s] int32 positions the attention mask reads: stream 0 of row 0
+    of RoPE positions [s], [b, s] or M-RoPE's [3, b, s], as the
+    reference's ``_block_prefill`` takes them."""
+    while positions.dim() > 1:
+        positions = positions[0]
+    return positions.to(torch.int32).contiguous()
+
+
 def _attn_prefill(p, cfg: ModelConfig, x, positions, memory=None,
                   mem_positions=None):
     """Sequence pass of one attention layer; also returns its K/V
-    [b, s, kh, hd]. With ``memory`` (the encoder's output, encdec) the
-    block's cross attention over it follows the self attention.
+    [b, s, kh, hd]. ``positions`` rotate q and k (all of them); the mask
+    reads ``_mask_positions`` of them. With ``memory`` (the encoder's
+    output, encdec) the block's cross attention over it follows the self
+    attention.
 
     With a right-padded prompt, padded keys sit strictly after every real
     query (causality); decode masks a linear buffer's tail by position and
@@ -108,7 +123,8 @@ def _attn_prefill(p, cfg: ModelConfig, x, positions, memory=None,
     h = L.rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
     k, v = A._project_kv(p["attn"], cfg, h, positions)
     q = A._project_q(p["attn"], cfg, h, positions)
-    o = A.full_attention(q, k, v, positions, positions, cfg, causal=True)
+    mpos = _mask_positions(positions)
+    o = A.full_attention(q, k, v, mpos, mpos, cfg, causal=True)
     x = x + A._out_proj(p["attn"], cfg, o, x)
     if memory is not None:
         hx = L.rmsnorm_apply(p["norm_x"], x, cfg.norm_eps)
@@ -173,13 +189,17 @@ class LM:
 
     def __init__(self, cfg: ModelConfig):
         validate(cfg)
-        encdec = cfg.family == "encdec"
-        if cfg.mrope_sections \
-                or cfg.frontend != ("audio" if encdec else "") \
+        # the reference's pairings: audio and an encoder with encdec,
+        # the vision frontend and M-RoPE with dense (qwen2-vl)
+        encdec, dense = cfg.family == "encdec", cfg.family == "dense"
+        allowed = ("audio",) if encdec else ("", "vision") if dense else ("",)
+        if cfg.frontend not in allowed \
+                or (cfg.mrope_sections and not dense) \
                 or bool(cfg.encoder_layers) != encdec:
             raise NotImplementedError(
-                f"{cfg.name}: the vision frontend and M-RoPE are not ported "
-                f"yet; see ROADMAP.md queue 1")
+                f"{cfg.name}: no config of the reference pairs this frontend "
+                f"({cfg.frontend!r}) or M-RoPE with the {cfg.family} family; "
+                f"see ROADMAP.md queue 1")
         self.cfg = cfg
 
     # -- param init -----------------------------------------------------
@@ -201,7 +221,11 @@ class LM:
         GB) is drawn on it at 47 GB. The reference's ``LM.init`` ignores
         this field (its int8 trees come from ``quantize_tree`` after init,
         as ``launch/dryrun.py`` serves them); here it is the way to draw
-        an int8 model too large to draw in bf16 first."""
+        an int8 model too large to draw in bf16 first.
+
+        The vision frontend's ``vision_adapter`` [d, d] is drawn after
+        every other leaf, so no other leaf's draw depends on the frontend
+        (the reference draws it from a key of its own)."""
         cfg = self.cfg
         dev = resolve_device(device)
         dt = L.dtype_of(cfg)
@@ -263,34 +287,37 @@ class LM:
                 p["mlp"] = mlp(dense)
                 layers.append(quantized(p))
             params["layers"] = tuple(layers)
-            return params
-        if cfg.family == "ssm":
+        elif cfg.family == "ssm":
             params["layers"] = quantized(_stack([
                 {"norm1": {"scale": ones(d)},
                  "ssd": SSD.ssd_init(cfg, normal, uniform)}
                 for _ in range(nl)]))
-            return params
-        def attn_stack(n):
-            mat = functools.partial(stacked, n=n)
-            return {"norm1": {"scale": ones(n, d)},
-                    "attn": attention(mat, lambda m: ones(n, m)),
-                    "norm2": {"scale": ones(n, d)}}, mat
-
-        params["layers"], mat = attn_stack(nl)
-        if cfg.is_moe:
-            params["layers"]["moe"] = MOE.moe_init(cfg, normal, nl, dt, dev,
-                                                   int8)
         else:
-            params["layers"]["mlp"] = mlp(mat)
-        if cfg.family == "encdec":
-            params["layers"]["norm_x"] = {"scale": ones(nl, d)}
-            params["layers"]["xattn"] = attention(mat, lambda m: ones(nl, m))
-            enc, enc_mat = attn_stack(cfg.encoder_layers)
-            enc["mlp"] = mlp(enc_mat)
-            params["enc_layers"] = enc
-            params["enc_norm"] = {"scale": ones(d)}
-            params["adapter"] = quantized({"adapter": dense(d, d)})[
-                "adapter"]
+            def attn_stack(n):
+                mat = functools.partial(stacked, n=n)
+                return {"norm1": {"scale": ones(n, d)},
+                        "attn": attention(mat, lambda m: ones(n, m)),
+                        "norm2": {"scale": ones(n, d)}}, mat
+
+            params["layers"], mat = attn_stack(nl)
+            if cfg.is_moe:
+                params["layers"]["moe"] = MOE.moe_init(cfg, normal, nl, dt,
+                                                       dev, int8)
+            else:
+                params["layers"]["mlp"] = mlp(mat)
+            if cfg.family == "encdec":
+                params["layers"]["norm_x"] = {"scale": ones(nl, d)}
+                params["layers"]["xattn"] = attention(
+                    mat, lambda m: ones(nl, m))
+                enc, enc_mat = attn_stack(cfg.encoder_layers)
+                enc["mlp"] = mlp(enc_mat)
+                params["enc_layers"] = enc
+                params["enc_norm"] = {"scale": ones(d)}
+                params["adapter"] = quantized({"adapter": dense(d, d)})[
+                    "adapter"]
+        if cfg.frontend == "vision":       # after every other leaf
+            params["vision_adapter"] = quantized(
+                {"vision_adapter": dense(d, d)})["vision_adapter"]
         return params
 
     # -- heads ----------------------------------------------------------
@@ -303,6 +330,29 @@ class LM:
                 >= cfg.vocab_size
             logits = logits.masked_fill(pad, -1e30)
         return L.softcap(logits, cfg.logits_softcap)
+
+    # -- input embedding ------------------------------------------------
+    def _embed(self, params, batch):
+        """Token embeddings [b, s, d]; for the vision frontend,
+        ``batch["vision_embeds"]`` [b, nv, d] (in the working dtype)
+        through ``vision_adapter`` with f32 accumulation, cast back, over
+        the first nv token slots."""
+        x = params["embed"][batch["tokens"].long()]
+        if self.cfg.frontend == "vision" and "vision_embeds" in batch:
+            ve = batch["vision_embeds"].to(x.dtype).float()
+            w = Q.as_weight(params["vision_adapter"]).float()
+            x[:, :ve.shape[1]] = torch.matmul(ve, w).to(x.dtype)
+        return x
+
+    def _positions(self, batch, s: int, device):
+        """``batch["positions"]`` as given, else ``arange(s)`` int32: [s],
+        or under M-RoPE its three equal streams [3, 1, s]."""
+        if "positions" in batch:
+            return batch["positions"]
+        pos = torch.arange(s, dtype=torch.int32, device=device)
+        if self.cfg.mrope_sections:
+            return pos[None, None].expand(3, 1, s)
+        return pos
 
     # -- encoder ----------------------------------------------------------
     def _encode(self, params, frames):
@@ -329,21 +379,22 @@ class LM:
         bucket: the cache position, the final logits and every family's
         carried state are taken at ``length``. encdec reads
         ``batch["frames"]`` [b, src, d_model]: its cross K/V have src rows,
-        whatever ``cfg.source_len`` is. Returns (logits [b, V] f32, cache)
-        with the cache in the family's layout (``models.kvcache``).
+        whatever ``cfg.source_len`` is. The vision frontend reads
+        ``batch["vision_embeds"]`` [b, nv, d_model] if given (``_embed``);
+        ``batch["positions"]`` (optional: [s], or [3, b, s] under M-RoPE)
+        rotate q and k, and the mask reads stream 0 of row 0. Returns
+        (logits [b, V] f32, cache) with the cache in the family's layout
+        (``models.kvcache``).
 
         ``adapter`` (optional ``(A [d, r], B [r, d])``): per-session LoRA
         delta applied to the final hidden state before the LM head; the
         cache stays adapter-free.
         """
         cfg = self.cfg
-        tokens = batch["tokens"]
-        x = params["embed"][tokens.long()]
+        x = self._embed(params, batch)
         b, s = x.shape[0], x.shape[1]
         S = KV.kv_buffer_len(cfg, max_len)
-        pos = batch.get("positions")
-        if pos is None:
-            pos = torch.arange(s, dtype=torch.int32, device=x.device)
+        pos = self._positions(batch, s, x.device)
         length: Optional[int] = batch.get("length")
         last = s if length is None else int(length)
         cross = {}                # encdec: the cross K/V, top-level leaves

@@ -33,3 +33,24 @@ def weights(jcfg, tcfg, seed: int = 0):
 def prompt(n: int, vocab: int, seed: int = 0) -> np.ndarray:
     return np.random.default_rng(seed).integers(0, vocab, size=n).astype(
         np.int32)
+
+
+def fresh(engine):
+    """``engine`` with every slot released, for reuse by the next test."""
+    for sid in list(engine._slot_map):
+        engine.release_slot(sid)
+    return engine
+
+
+class Bridged:
+    """A port engine as the reference package sees it: payloads cross as
+    numpy, through the bridge."""
+
+    def __init__(self, engine):
+        self.engine = engine
+
+    def __getattr__(self, name):
+        return getattr(self.engine, name)
+
+    def export_slot(self, sid):
+        return bridge.payload_to_numpy(self.engine.export_slot(sid))

@@ -327,15 +327,14 @@ class TestLM:
                                       "mixtral-8x7b", "seamless-m4t-medium",
                                       "qwen2-vl-72b"])
     def test_other_families_are_not_ported_yet(self, arch):
-        """The config not ported yet (qwen2-vl's vision frontend and
-        M-RoPE) raises, naming the ROADMAP; the recurrent families, encdec
-        and mixtral's windowed MoE, ported since, construct
-        (test_torch_recurrent.py, test_torch_encdec.py and
-        test_torch_mixtral.py hold them to the reference)."""
-        if arch in ("mamba2-1.3b", "recurrentgemma-2b",
-                    "seamless-m4t-medium", "mixtral-8x7b"):
-            assert LM(get_smoke_config(arch)).cfg.family in ("ssm", "hybrid",
-                                                             "encdec", "moe")
+        """Every config the port once refused constructs now: the
+        recurrent families, encdec, mixtral's windowed MoE and qwen2-vl's
+        vision frontend with M-RoPE (a dense model; test_torch_recurrent.py,
+        test_torch_encdec.py, test_torch_mixtral.py and test_torch_qwen2vl.py
+        hold them to the reference)."""
+        cfg = LM(get_smoke_config(arch)).cfg
+        if arch == "qwen2-vl-72b":
+            assert (cfg.family, cfg.frontend) == ("dense", "vision")
+            assert cfg.mrope_sections
             return
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            LM(get_smoke_config(arch))
+        assert cfg.family in ("ssm", "hybrid", "encdec", "moe")
