@@ -36,7 +36,12 @@ width (random weights from a seed):
   through the model's entry points (the engine serves no encdec model, in
   either package);
 * a split session: a recurrentgemma-2b draft verified by minitron-8b,
-  both at full width and depth, speculative decode on one card.
+  both at full width and depth, speculative decode on one card;
+* training: minitron-8b at full width and 4 of its 32 layers (its f32
+  train state at full depth, 158 GB, needs more than one card), sequence
+  4096, batch 2 in 2 microbatches, full remat, bf16 compute on f32 master
+  weights, AdamW, through ``make_train_step`` with the flash forward and
+  backward kernels.
 
 Phases:
 
@@ -93,6 +98,17 @@ Phases:
              its 256 image tokens), compared on the
              rows that have a valid key, and the ptxas registers and
              spills of its bf16 route at head dims 64 and 128;
+             flash_attention's backward (dq, dk, dv from q, k, v, the
+             forward's output and lse, and dO) against its plain version
+             at ragged shapes in f32 (1e-5) and bf16 (each row within
+             2e-2 of its norm in L2), then at the training path's
+             4096-token microbatch (where three planted faults, a key
+             tile or a query tile dropped, must fail that bound),
+             minitron-8b's 2048 prefill and
+             seamless-m4t-medium's encoder and cross shapes, each with
+             the forward with lse equal to the forward without it bit for
+             bit and a CUDA-graph replay equal to the eager call, timed
+             eager and by replay beside SDPA's backward;
 3. serve   — ``repro_torch.launch.serve.serve`` through the northbound
              gateway: 4 sessions, 8 requests, 8 slots, max_len 2048;
 4. engine  — dense and paged engines, 8 slots with 512-1536-token prompts
@@ -170,6 +186,20 @@ Phases:
              acceptance strictly in (0, 1), the twin's 1.0; outside the
              window, the draft's rolled-back states equal a plain decode's
              and the release frees both anchors;
+   train   — minitron-8b at 4 layers (the previous paths' memory
+             released): ``init_train_state`` on the card, 3 steps of
+             ``make_train_step`` on the synthetic data stream and 4 on one
+             repeated batch (AdamW, lr 1e-4 after a 1-step warmup), each
+             timed (step ms, tokens/s, model TFLOP/s against the bf16
+             peak); every step launches flash_attention twice a layer and
+             microbatch (forward and remat recompute) and
+             flash_attention_bwd once; the repeated batch's loss falls;
+             the peak memory beside its prediction and total_memory; then,
+             outside the window, a 1-layer step at full width with the
+             attention's kernels against the same step with its plain
+             forward and backward on the card (loss 1e-3, each gradient
+             leaf within 2e-2 of its norm in L2), and two planted faults
+             in the backward kernel's outputs that must fail it;
 5. reference — small models in f32 on the card against the same models on
              the CPU through the plain versions: edge-tiny (dense and
              paged), edge-tiny with adapters (grouped route on the card,
@@ -181,7 +211,10 @@ Phases:
              the qwen2-vl-72b smoke config (head_dim 32, M-RoPE (8, 4, 4))
              with vision embeddings and distinct [3, b, s] streams, stream
              0 first ``arange``, then tied over the image (Qwen2-VL's
-             layout, which the causal mask of the flash kernel reads).
+             layout, which the causal mask of the flash kernel reads);
+             and edge-tiny's f32 train microbatch with full remat: loss and
+             every gradient leaf (the flash kernels' f32 routes, forward
+             and backward).
 
 Each main path is driven with every launch counter set to 0 just before it
 and read just after, and each kernel the path runs must have been launched
@@ -190,7 +223,9 @@ prefill: 32 for minitron-8b, 48 for qwen3-moe-30b-a3b, 80 for
 qwen2-vl-72b, 36 for seamless-m4t-medium, 0 for the recurrent families;
 the decode kernels 80 per qwen2-vl-72b step of their layout; on the split
 path 32 per minitron-8b prefill, rglru_scan 18 per recurrentgemma-2b
-prefill, the decode kernels 32 per dense or paged minitron-8b step); the
+prefill, the decode kernels 32 per dense or paged minitron-8b step; on
+the training path flash_attention 16 and flash_attention_bwd 8 a step);
+the
 checks of a path's result (each adapter session alone, the full-width
 prefill logits and a profiled prefill, the recurrent, encdec, mixtral and
 qwen2-vl checks) run after that read and are not counted. Every grouped-GEMM
@@ -208,6 +243,7 @@ from __future__ import annotations
 
 import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -227,6 +263,25 @@ RG_TOL = 1e-5                   # RG-LRU scan: the kernel's chunk-parallel
 SSD_TOL = 1e-3                  # SSD scan: f32 sums of 16-128 terms and a
 #                                 2048-step carried state, in another order
 REF_ATOL = 1e-3                 # f32 logits, card vs CPU (no TF32)
+BWD_ROW = 2e-2                  # bf16 flash backward vs its plain version:
+#                                 each row of dq, dk, dv (one position's
+#                                 head vector) in L2, of that row's norm,
+#                                 floored at 1e-3 of the rows' rms norm or
+#                                 of a row of ones (a row with a single key
+#                                 cancels to ~0, and so may every row).
+#                                 H100: the kernel 2.4e-3 to 6.2e-3 (dS is
+#                                 rounded to bf16), planted faults >= 0.63
+TRAIN_LAYERS = 4                # minitron-8b's training path: full width,
+TRAIN_SEQ = 4096                # 4 of its 32 layers (f32 state of 32
+TRAIN_BATCH = 2                 # layers: 158 GB), the reference's train_4k
+TRAIN_MICRO = 2                 # sequence, batch 2 in 2 microbatches
+TRAIN_STEPS = 3                 # steps on the data stream
+REPEAT_STEPS = 4                # then steps on one repeated batch
+GRAD_REL = 2e-2                 # 1-layer step, kernel vs plain attention:
+#                                 each gradient leaf in L2, of its norm.
+#                                 H100: the kernels 6.6e-3, the planted
+#                                 faults 4.7e-2 (dq) and 7.3e-2 (dk, dv)
+FAULT_TILE = slice(1024, 1088)  # the 64-key tile a planted fault drops
 ENCDEC_STEPS = 64               # greedy decode steps of the encdec path
 
 
@@ -237,6 +292,16 @@ def fail(msg: str) -> None:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def row_err(got, want):
+    """Each [..., d] row's ``||got - want|| / ||want||``, the norm floored
+    at 1e-3 of the larger of the rows' rms norm and a row of ones'."""
+    got, want = got.float(), want.float()
+    norm = want.norm(dim=-1)
+    floor = 1e-3 * max(float(norm.square().mean().sqrt()),
+                       want.shape[-1] ** 0.5)
+    return (got - want).norm(dim=-1) / norm.clamp(min=floor)
 
 
 def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
@@ -1519,6 +1584,254 @@ def phase_flash_kernels(cfg, sm_cfg, vl_cfg):
     return rows
 
 
+def phase_flash_bwd_kernels(cfg, sm_cfg):
+    """flash_attention's backward kernels (csrc/flash_attention_bwd.cu)
+    against their plain version (``flash_attention_bwd_ref``) on the same
+    inputs: q, k, v, dO, and the output and lse of the forward kernel.
+    Both compute zero gradients for a row with no valid key, so every row
+    is compared. Ragged shapes in f32 (within atol = rtol = 1e-5) and bf16
+    (each row of dq, dk, dv within BWD_ROW of its norm: bf16 inputs and
+    outputs, P and dS rounded to bf16 before their products),
+    then four full-width bf16 shapes with times: the training path's
+    4096-token causal microbatch of minitron-8b, minitron-8b's 2048-token
+    prefill, seamless-m4t-medium's encoder and cross attention. At the
+    first, three planted faults made from the kernel's own outputs must
+    fail that check: dq without one key tile's share for the later half
+    of the queries, dk and dv without one query tile's share, dv of the
+    last 256 keys zeroed. At each:
+    the forward with lse gives the output of the forward without it bit
+    for bit, and a CUDA-graph replay of the backward gives the eager call's
+    bits. Times: eager (``ms``) and by replay (``device_ms``); library:
+    SDPA's backward through autograd on the [b, h, s, d] views."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2468)
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def inputs(b, sq, skv, hq, hkv, d, dtype, holes=False, q_off=0):
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device=dev).to(dtype)
+        x = {"q": randn(b, sq, hq, d), "k": randn(b, skv, hkv, d),
+             "v": randn(b, skv, hkv, d), "do": randn(b, sq, hq, d),
+             "qpos": torch.arange(sq, dtype=torch.int32, device=dev) + q_off,
+             "kpos": torch.arange(skv, dtype=torch.int32, device=dev)}
+        if holes == "first64":
+            x["kpos"][:64] = -1
+        elif holes == "reversed":
+            x["kpos"] = x["kpos"].flip(0).contiguous()
+        elif holes:
+            x["kpos"][skv // 3:skv // 3 + 70] = -1
+            x["kpos"][-5:] = -1
+        return x
+
+    def fwd(x, causal):
+        return FA.flash_attention_lse(x["q"], x["k"], x["v"], x["qpos"],
+                                      x["kpos"], causal=causal)
+
+    def bwd(x, causal):
+        return FA.flash_attention_bwd(x["q"], x["k"], x["v"], x["o"],
+                                      x["lse"], x["do"], x["qpos"],
+                                      x["kpos"], causal=causal)
+
+    def plain(x, causal):
+        return FA.flash_attention_bwd_ref(
+            x["q"], x["k"], x["v"], x["o"], x["lse"], x["do"], x["qpos"],
+            x["kpos"], causal=causal, block_q=256, block_kv=1024)
+
+    def row_errs(got, want):
+        return [float(row_err(g, w).max()) for g, w in zip(got, want)]
+
+    def check(label, x, causal):
+        """(max abs err, each gradient's worst row error)."""
+        x["o"], x["lse"] = fwd(x, causal)
+        plain_o = FA.flash_attention(x["q"], x["k"], x["v"], x["qpos"],
+                                     x["kpos"], causal=causal)
+        if not torch.equal(x["o"], plain_o):
+            fail(f"flash_attention ({label}): the forward with lse differs "
+                 f"from the forward without it")
+        got = bwd(x, causal)
+        torch.cuda.synchronize()
+        want = plain(x, causal)
+        errs, rerrs = [], row_errs(got, want)
+        for name, g, w, rerr in zip(("dq", "dk", "dv"), got, want, rerrs):
+            g, w = g.float(), w.float()
+            err = (g - w).abs()
+            if x["q"].dtype == f32:
+                bad = bool((err > F32_TOL + F32_TOL * w.abs()).any())
+            else:
+                bad = rerr > BWD_ROW
+            if bad or not torch.isfinite(g).all():
+                fail(f"flash_attention_bwd ({label}): {name} disagrees with "
+                     f"the plain version (max abs err {float(err.max()):.3e}, "
+                     f"worst row {rerr:.3e} of its norm)")
+            errs.append(float(err.max()))
+        return max(errs), rerrs
+
+    def planted(label, x, causal):
+        """Faults made from the kernel's outputs, each of which the bf16
+        check must reject."""
+        sq = x["q"].shape[1]
+        want = plain(x, causal)
+        dq, dk, dv = bwd(x, causal)
+        holed = dict(x, kpos=x["kpos"].clone())
+        holed["kpos"][FAULT_TILE] = -1
+        dq_holed = bwd(holed, causal)[0]
+        quiet = dict(x, do=x["do"].clone())
+        quiet["do"][:, 3 * sq // 4:3 * sq // 4 + 64] = 0
+        _, dk_quiet, dv_quiet = bwd(quiet, causal)
+        dv_cut = dv.clone()
+        dv_cut[:, -256:] = 0
+        faults = (
+            (f"dq without keys {FAULT_TILE.start}-{FAULT_TILE.stop - 1} for "
+             f"queries {sq // 2}-", (torch.cat(
+                 [dq[:, :sq // 2], dq_holed[:, sq // 2:]], 1), dk, dv)),
+            (f"dk, dv without queries {3 * sq // 4}-{3 * sq // 4 + 63}",
+             (dq, dk_quiet, dv_quiet)),
+            ("dv of the last 256 keys zeroed", (dq, dk, dv_cut)))
+        for name, got in faults:
+            rerrs = row_errs(got, want)
+            log(f"[kernels] flash_attention_bwd ({label}): planted fault "
+                f"'{name}': worst row error dq/dk/dv "
+                + " / ".join(f"{e:.3e}" for e in rerrs)
+                + f" (bound {BWD_ROW})")
+            if max(rerrs) <= BWD_ROW:
+                fail(f"flash_attention_bwd ({label}): the check passes the "
+                     f"planted fault '{name}'")
+
+    worst = 0.0
+    for (b, sq, skv, hq, hkv, d, causal, holes, q_off) in (
+            (1, 257, 257, 4, 2, 16, True, False, 0),
+            (2, 40, 24, 4, 4, 32, False, False, 0),
+            (2, 100, 300, 4, 1, 64, False, True, 0),
+            (1, 70, 150, 4, 2, 48, True, True, 40),
+            (1, 130, 130, 8, 8, 128, True, False, 0),
+            (2, 33, 33, 6, 2, 80, True, False, 0),
+            (1, 65, 200, 2, 1, 96, False, True, 0),
+            (1, 50, 50, 2, 2, 112, True, False, 0),
+            (1, 1, 1, 2, 1, 64, True, False, 0),
+            (1, 100, 180, 4, 1, 64, True, "first64", 30),
+            (1, 130, 130, 4, 1, 128, True, "reversed", 0)):
+        for dtype in (f32, bf16):
+            _, rerrs = check(
+                f"b {b} sq {sq} skv {skv} hq {hq} hkv {hkv} d {d} causal "
+                f"{causal} {holes or ''} {dtype}",
+                inputs(b, sq, skv, hq, hkv, d, dtype, holes, q_off), causal)
+            if dtype == bf16:
+                worst = max([worst] + rerrs)
+    log(f"[kernels] flash_attention_bwd agrees with its plain version at "
+        f"ragged shapes in f32 (1e-5) and bf16 (worst row error {worst:.3e}"
+        f" of the row's norm; d 16-128, sq 1-257, skv 1-300, -1 keys, a "
+        f"first kv-tile with no valid key, reversed key positions); the "
+        f"forward with lse equals the forward without it")
+
+    hs, ds, src = sm_cfg.num_heads, sm_cfg.head_dim, sm_cfg.source_len
+    heads = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
+    shapes = [
+        (f"{cfg.name} train microbatch b 1 s {TRAIN_SEQ} hq {heads[0]} hkv "
+         f"{heads[1]} d {heads[2]} causal", (1, TRAIN_SEQ, TRAIN_SEQ) + heads,
+         True),
+        (f"{cfg.name} prefill b 1 s 2048 causal", (1, 2048, 2048) + heads,
+         True),
+        (f"{sm_cfg.name} encoder b 1 s {src} h {hs} d {ds}",
+         (1, src, src, hs, hs, ds), False),
+        (f"{sm_cfg.name} cross b 1 sq 1024 skv {src} h {hs} d {ds}",
+         (1, 1024, src, hs, hs, ds), False),
+    ]
+    rows = {}
+    for label, (b, sq, skv, hq, hkv, d), causal in shapes:
+        sets = [inputs(b, sq, skv, hq, hkv, d, bf16) for _ in range(4)]
+        err, rerrs = check(label, sets[0], causal)
+        log(f"[kernels] flash_attention_bwd ({label}): worst row error "
+            f"dq/dk/dv " + " / ".join(f"{e:.3e}" for e in rerrs)
+            + f" of the row's norm (bound {BWD_ROW})")
+        if not rows:
+            planted(label, sets[0], causal)
+        for x in sets[1:]:
+            x["o"], x["lse"] = fwd(x, causal)
+        eager = bwd(sets[0], causal)
+        graph = torch.cuda.CUDAGraph()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            bwd(sets[0], causal)
+        torch.cuda.current_stream().wait_stream(side)
+        with torch.cuda.graph(graph):
+            replayed = bwd(sets[0], causal)
+        graph.replay()
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, r) for a, r in zip(eager, replayed)):
+            fail(f"flash_attention_bwd ({label}): graph replay differs from "
+                 f"the eager call")
+        del graph, replayed
+        it = {"i": 0}
+
+        def nxt():
+            it["i"] = (it["i"] + 1) % len(sets)
+            return sets[it["i"]]
+
+        lib = []
+        for x in sets:
+            qs, ks, vs = (x[n].transpose(1, 2).detach().requires_grad_(True)
+                          for n in ("q", "k", "v"))
+            out = F.scaled_dot_product_attention(qs, ks, vs,
+                                                 is_causal=causal,
+                                                 enable_gqa=True)
+            lib.append((out, (qs, ks, vs), x["do"].transpose(1, 2)))
+        il = {"i": 0}
+
+        def sdpa_bwd():
+            il["i"] = (il["i"] + 1) % len(lib)
+            out, ins, do = lib[il["i"]]
+            return torch.autograd.grad(out, ins, do, retain_graph=True)
+
+        ms = time_ms(lambda: bwd(nxt(), causal), iters=10)
+        device_ms = graph_ms(lambda: bwd(nxt(), causal), iters=4, reps=3)
+        plain_ms = time_ms(lambda: (lambda x: FA.flash_attention_bwd_ref(
+            x["q"], x["k"], x["v"], x["o"], x["lse"], x["do"], x["qpos"],
+            x["kpos"], causal=causal, block_q=256, block_kv=1024))(nxt()),
+            iters=2, warmup=1)
+        library_ms = time_ms(sdpa_bwd, iters=10)
+        pairs = int(attention_pairs(sets[0]["qpos"], sets[0]["kpos"],
+                                    causal).sum())
+        flops = 10 * b * hq * d * pairs          # S, dP, dV, dK, dQ
+        nbytes = 2 * (3 * b * sq * hq * d + 2 * b * skv * hkv * d) \
+            + 4 * b * hq * sq + 4 * (sq + skv) \
+            + 2 * (b * sq * hq * d + 2 * b * skv * hkv * d)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+        bound_ms = max(t_bytes, t_ops) * 1e3
+        bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        log(f"[kernels] flash_attention_bwd ({label}): max_abs_err "
+            f"{err:.3e} kernel_ms {ms:.4f} device_ms {device_ms:.4f} "
+            f"plain_ms {plain_ms:.4f} library_ms {library_ms:.4f} (SDPA "
+            f"backward) bound_ms {bound_ms:.4f} ({bound_by}; "
+            f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP; kernel "
+            f"{flops / device_ms / 1e9:.1f} TFLOP/s by replay, "
+            f"{bound_ms / device_ms:.1%} of bound, x library "
+            f"{ms / library_ms:.2f}); eager == replay bitwise")
+        if not rows:                     # the JSON row: the train shape
+            rows["flash_attention_bwd"] = {
+                "name": "flash_attention_bwd", "route": "cuda",
+                "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                          "flash_attention_bwd.cu",
+                "replaces": "src/repro/kernels/flash_attention/"
+                            "flash_attention.py:98",
+                "launches": 0, "max_abs_err": err, "ms": ms,
+                "device_ms": device_ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": library_ms, "shapes": []}
+        rows["flash_attention_bwd"]["shapes"].append({
+            "shape": label, "ms": ms, "device_ms": device_ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "ratio": ms / library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "max_abs_err": err})
+        del sets, lib, eager
+        torch.cuda.empty_cache()
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phases 3 and 4: the main path at full width
 # ---------------------------------------------------------------------------
@@ -1634,7 +1947,11 @@ def log_profile(prof, name: str, wall_us: float, steps: int,
     # int8 weights: as_weight's int8 -> f32 copy, scale product and bf16
     # cast (with the path's other copies and f32 products, which are
     # activation-sized), beside the cuBLAS GEMMs on its output
-    for label, keys in (("decode attention", ("decode_attn",)),
+    for label, keys in (("flash_attention", ("flash_tc_kernel",)),
+                        ("flash_attention_bwd", ("dkdv_tc_kernel",
+                                                 "dq_tc_kernel",
+                                                 "::dot_kernel<")),
+                        ("decode attention", ("decode_attn",)),
                         ("ssd_chunk", ("ssd_",)), ("rglru_scan", ("rglru",)),
                         ("expert kernels", ("tc::tc_kernel<",)),
                         ("copies, casts and f32 products", (
@@ -2573,6 +2890,47 @@ def phase_reference():
     if worst > REF_ATOL:
         fail(f"card and CPU logits differ by {worst:.3e} > {REF_ATOL}")
     adapters_card_vs_cpu(tiny)
+    train_card_vs_cpu(dataclasses.replace(tiny, remat="full"))
+
+
+def train_card_vs_cpu(cfg) -> None:
+    """edge-tiny in f32 with full remat: a microbatch's loss and every
+    gradient leaf on the card (both flash kernels' f32 routes) against the
+    CPU (their plain versions), on the same weights; each leaf within
+    REF_ATOL of its largest magnitude."""
+    import torch
+    from repro_torch.bridge import leaves, tree_map
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+    from repro_torch.models.transformer import LM
+    from repro_torch.training.train_step import (accumulate_grads,
+                                                 init_train_state)
+    lm = LM(cfg)
+    rng = torch.Generator().manual_seed(5)
+    toks = torch.randint(0, cfg.vocab_size, (2, 96), generator=rng,
+                         dtype=torch.int32)
+    labels = torch.roll(toks, -1, 1)
+    labels[:, -1] = -1
+    cpu = init_train_state(lm, 0, device="cpu").params
+    out = []
+    for dev in ("cpu", "cuda"):
+        params = tree_map(
+            lambda p: p.detach().to(dev).requires_grad_(True), cpu)
+        before = FA.LAUNCHES["flash_attention_bwd"]
+        loss, _ = accumulate_grads(lm, params, {
+            "tokens": toks.to(dev), "labels": labels.to(dev)},
+            torch.float32)
+        if dev == "cuda" and FA.LAUNCHES["flash_attention_bwd"] - before \
+                != cfg.num_layers:
+            fail("train card vs CPU: the backward kernel did not run")
+        out.append((loss.item(), [p.grad.cpu() for p in leaves(params)]))
+    (lc, gc_), (lg, gg) = out
+    rel = max(float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+              for a, b in zip(gg, gc_))
+    log(f"[reference] {cfg.name} f32 train microbatch (remat full), card vs "
+        f"CPU: loss {lg:.6f} vs {lc:.6f}, worst gradient leaf {rel:.3e} of "
+        f"its largest magnitude")
+    if abs(lg - lc) > REF_ATOL or rel > REF_ATOL:
+        fail(f"train card vs CPU: loss {lg} vs {lc}, worst leaf {rel:.3e}")
 
 
 def recurrent_card_vs_cpu() -> float:
@@ -2803,6 +3161,287 @@ def check_split(orch, mgr, session, draft_cfg, target_cfg, dparams, launches,
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# training: minitron-8b at full width, 4 layers, on the card
+# ---------------------------------------------------------------------------
+
+def train_config(cfg):
+    """minitron-8b at full width and TRAIN_LAYERS of its layers, full
+    remat (its f32 train state at 32 layers, 16 B a parameter, is 158 GB:
+    full depth waits for the port's distribution)."""
+    import dataclasses
+    return dataclasses.replace(cfg, num_layers=TRAIN_LAYERS, remat="full")
+
+
+def train_bytes(cfg, params) -> int:
+    """Predicted peak device memory of a train step: the f32 state (master,
+    m, v and the f32 gradients: 16 B a parameter), the bf16 compute copies
+    of the matrices, the largest leaf's bf16 and f32 gradients in flight at
+    the end of a backward, and a microbatch's activations under full remat
+    (one layer's MLP recompute and its gradients, f32 gate and up
+    included; a 512-position CE chunk's f32 logits, their log-sum-exp and
+    gradient)."""
+    from repro_torch.bridge import leaves
+    n = sum(p.numel() for p in leaves(params))
+    mats = sum(p.numel() for p in leaves(params) if p.dim() >= 2)
+    largest = max(p.numel() for p in leaves(params))
+    mb = TRAIN_BATCH // TRAIN_MICRO
+    act = 2 * 5 * mb * TRAIN_SEQ * cfg.d_ff * 4 \
+        + 4 * mb * 512 * cfg.padded_vocab * 4
+    return 16 * n + 2 * mats + 6 * largest + act
+
+
+def train_flops(cfg, params) -> float:
+    """Model FLOPs of one train step (no remat recompute): 6 per token
+    and parameter of every product (the layers and the LM head; the
+    embedding is a lookup), and the attention's 4 * hq * d per causal
+    (query, key) pair in the forward, 3 times for forward and backward."""
+    from repro_torch.bridge import leaves
+    n = sum(p.numel() for p in leaves(params)) - params["embed"].numel()
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    pairs = TRAIN_SEQ * (TRAIN_SEQ + 1) // 2
+    attn = 3 * 4 * cfg.num_heads * cfg.head_dim * pairs * TRAIN_BATCH \
+        * cfg.num_layers
+    return 6.0 * n * tokens + attn
+
+
+def train_batches(cfg, n: int, seed: int = 0):
+    """n batches [TRAIN_BATCH, TRAIN_SEQ] of the synthetic LM stream on
+    the card."""
+    import torch
+    from repro_torch.training.data import DataConfig, SyntheticLMStream
+    stream = SyntheticLMStream(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+        global_batch=TRAIN_BATCH, seed=seed))
+    return [{k: torch.from_numpy(v).to("cuda")
+             for k, v in stream.next_batch().items()} for _ in range(n)]
+
+
+def drive_train(cfg) -> dict:
+    """The training path: ``init_train_state`` on the card (f32 masters),
+    ``make_train_step`` (bf16 compute, TRAIN_MICRO microbatches, AdamW)
+    for TRAIN_STEPS steps on the data stream, then REPEAT_STEPS steps on
+    one batch with ``AdamWHyper(warmup_steps=1, lr=1e-4)`` and one more
+    under the profiler. Each step is timed to a synchronize; the kernels'
+    launch counts are read around each step."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+    from repro_torch.models.transformer import LM
+    from repro_torch.training.optimizer import AdamWHyper
+    from repro_torch.training.train_step import (init_train_state,
+                                                 make_train_step)
+    lm = LM(cfg)
+    t0 = time.perf_counter()
+    state = init_train_state(lm, 0, device="cuda")
+    torch.cuda.synchronize()
+    from repro_torch.bridge import leaves
+    n = sum(p.numel() for p in leaves(state.params))
+    predicted = train_bytes(cfg, state.params)
+    flops = train_flops(cfg, state.params)
+    log(f"[train] {cfg.name}, {cfg.num_layers} layers at full width: "
+        f"{n / 1e9:.3f} B params, f32 state drawn in "
+        f"{time.perf_counter() - t0:.1f} s; device memory allocated "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    out = {"steps": [], "repeat": [], "launches": [], "predicted": predicted,
+           "n": n, "flops": flops}
+    where = card()
+    runs = (("stream", make_train_step(lm, hyper=AdamWHyper(total_steps=100),
+                                       microbatches=TRAIN_MICRO),
+             train_batches(cfg, TRAIN_STEPS)),
+            ("repeat", make_train_step(
+                lm, hyper=AdamWHyper(warmup_steps=1, lr=1e-4),
+                microbatches=TRAIN_MICRO),
+             train_batches(cfg, 1, seed=1) * REPEAT_STEPS))
+    for kind, step, batches in runs:
+        for batch in batches:
+            before = dict(FA.LAUNCHES)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            loss = float(metrics["loss"])
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            out["launches"].append({k: FA.LAUNCHES[k] - before[k]
+                                    for k in before})
+            out["steps" if kind == "stream" else "repeat"].append(
+                (loss, float(metrics["grad_norm"]), ms))
+            log(f"[train] {kind} step {int(metrics['step'])}: loss "
+                f"{loss:.4f} grad_norm {float(metrics['grad_norm']):.4f} "
+                f"{ms:.1f} ms, {TRAIN_BATCH * TRAIN_SEQ / ms * 1e3:.0f} "
+                f"tokens/s, model {flops / ms / 1e9:.1f} TFLOP/s "
+                f"({flops / ms / 1e9 / (BF16_FLOPS / 1e12):.1%} of the bf16 "
+                f"peak; {where}); launches {out['launches'][-1]}")
+    # one more step on the repeated batch under the profiler: where a
+    # step's device time goes (not in the step times above)
+    from torch.profiler import ProfilerActivity, profile
+    step, batch = runs[1][1], runs[1][2][0]
+    torch.cuda.synchronize()
+    before = dict(FA.LAUNCHES)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        float(metrics["loss"])
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    out["launches"].append({k: FA.LAUNCHES[k] - before[k] for k in before})
+    log_profile(prof, f"{cfg.name} train step ({cfg.num_layers} layers)",
+                wall_us, 1, "step")
+    out["finite"] = all(torch.isfinite(p).all() for p in leaves(state.params))
+    del state
+    return out
+
+
+def check_train(cfg, out) -> None:
+    """The step's launch counts (the forward kernel twice a layer and
+    microbatch: the forward and the remat recompute; the backward once),
+    finite losses and weights, a falling loss on the repeated batch, the
+    times and the peak memory."""
+    import torch
+    want = {"flash_attention": 2 * cfg.num_layers * TRAIN_MICRO,
+            "flash_attention_bwd": cfg.num_layers * TRAIN_MICRO}
+    for i, got in enumerate(out["launches"]):
+        if any(got[k] != n for k, n in want.items()):
+            fail(f"train step {i}: launches {got}, expected {want} "
+                 f"({cfg.num_layers} layers x {TRAIN_MICRO} microbatches)")
+    log(f"[train] every step launched flash_attention "
+        f"{want['flash_attention']} times (forward and remat recompute) and "
+        f"flash_attention_bwd {want['flash_attention_bwd']} times")
+    losses = [x[0] for x in out["steps"] + out["repeat"]]
+    if not all(math.isfinite(x) for x in losses) or not out["finite"]:
+        fail(f"train: a loss or a weight is not finite ({losses})")
+    rep = [x[0] for x in out["repeat"]]
+    if not rep[-1] < rep[0]:
+        fail(f"train: the loss on one repeated batch did not fall ({rep})")
+    log(f"[train] the loss on one repeated batch falls: "
+        f"{' -> '.join(f'{x:.4f}' for x in rep)}")
+    ms = sorted(x[2] for x in out["steps"][1:] + out["repeat"][1:])
+    med = ms[len(ms) // 2]
+    log(f"[train] step ms median {med:.1f} (min {ms[0]:.1f}, max "
+        f"{ms[-1]:.1f}; the first step of each run excluded): "
+        f"{TRAIN_BATCH * TRAIN_SEQ / med * 1e3:.0f} tokens/s, model "
+        f"{out['flops'] / med / 1e9:.1f} TFLOP/s, "
+        f"{out['flops'] / med / 1e9 / (BF16_FLOPS / 1e12):.1%} of the bf16 "
+        f"peak; {card()}")
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(0).total_memory
+    log(f"[train] peak device memory {peak / 1e9:.2f} GB (predicted "
+        f"{out['predicted'] / 1e9:.2f}; reserved at most "
+        f"{torch.cuda.max_memory_reserved() / 1e9:.2f}) of total_memory "
+        f"{total / 1e9:.2f} GB ({peak / total:.1%}); {card()}")
+    if peak >= total:
+        fail(f"train peak {peak / 1e9:.2f} GB >= {total / 1e9:.2f} GB")
+
+
+def train_grad_check(cfg) -> None:
+    """One layer at full width: a microbatch's loss and every gradient leaf
+    with the flash kernels (forward and backward) against the same step
+    with the attention's plain forward and backward on the card; each
+    leaf within GRAD_REL of its norm in L2 (bf16 compute, the two
+    attentions rounding at other places). Two planted faults in the
+    backward kernel's outputs must fail that bound: dk and dv of one key
+    tile zeroed, and dq without that tile's share for the later half of
+    the queries."""
+    import dataclasses
+    import torch
+    from repro_torch.bridge import leaves
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+    from repro_torch.models import attention as A
+    from repro_torch.models.transformer import LM
+    from repro_torch.training.train_step import (accumulate_grads,
+                                                 init_train_state)
+
+    class Plain(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v, qpos, kpos, causal, bq, bkv):
+            o, lse = FA.blocked_attention(q, k, v, qpos, kpos, causal=causal,
+                                          window=0, block_q=bq, block_kv=bkv,
+                                          return_lse=True)
+            ctx.save_for_backward(q, k, v, o, lse, qpos, kpos)
+            ctx.args = (causal, bq, bkv)
+            return o
+
+        @staticmethod
+        def backward(ctx, do):
+            causal, bq, bkv = ctx.args
+            q, k, v, o, lse, qpos, kpos = ctx.saved_tensors
+            grads = FA.flash_attention_bwd_ref(
+                q, k, v, o, lse, do, qpos, kpos, causal=causal, block_q=bq,
+                block_kv=bkv)
+            return grads + (None,) * 5
+
+    def plain(q, k, v, qpos, kpos, *, causal, block_q, block_kv):
+        return Plain.apply(q, k, v, qpos, kpos, causal, block_q, block_kv)
+
+    kernel_bwd = FA.flash_attention_bwd
+
+    def drop_dkdv(q, k, v, o, lse, do, qpos, kpos, **kw):
+        dq, dk, dv = kernel_bwd(q, k, v, o, lse, do, qpos, kpos, **kw)
+        dk[:, FAULT_TILE] = 0
+        dv[:, FAULT_TILE] = 0
+        return dq, dk, dv
+
+    def drop_dq(q, k, v, o, lse, do, qpos, kpos, **kw):
+        dq, dk, dv = kernel_bwd(q, k, v, o, lse, do, qpos, kpos, **kw)
+        holed = kpos.clone()
+        holed[FAULT_TILE] = -1
+        half = q.shape[1] // 2
+        dq[:, half:] = kernel_bwd(q, k, v, o, lse, do, qpos, holed,
+                                  **kw)[0][:, half:]
+        return dq, dk, dv
+
+    one = dataclasses.replace(cfg, num_layers=1)
+    lm = LM(one)
+    params = init_train_state(lm, 3, device="cuda").params
+    batch = {k: v[:1] for k, v in train_batches(one, 1, seed=2)[0].items()}
+    tile = f"keys {FAULT_TILE.start}-{FAULT_TILE.stop - 1}"
+    arms = {"plain": (plain, kernel_bwd),
+            "kernels": (FA.flash_attention, kernel_bwd),
+            f"dk, dv of {tile} dropped": (FA.flash_attention, drop_dkdv),
+            f"dq without {tile} for the later half": (FA.flash_attention,
+                                                      drop_dq)}
+    worst, losses, launched = {}, {}, {}
+    for arm, (attention, backward) in arms.items():
+        for p in leaves(params):
+            p.requires_grad_(True)
+            p.grad = None
+        before = dict(FA.LAUNCHES)
+        A.flash_attention, FA.flash_attention_bwd = attention, backward
+        try:
+            loss, _ = accumulate_grads(lm, params, batch)
+        finally:
+            A.flash_attention = FA.flash_attention
+            FA.flash_attention_bwd = kernel_bwd
+        launched[arm] = {k: FA.LAUNCHES[k] - before[k] for k in before}
+        losses[arm] = loss.item()
+        if arm == "plain":
+            gp = [p.grad for p in leaves(params)]
+            continue
+        rel = [float((p.grad - b).norm() / b.norm().clamp(min=1e-30))
+               for p, b in zip(leaves(params), gp)]
+        worst[arm] = max(rel)
+        log(f"[train] grad check, {one.name} 1 layer at full width, b 1 s "
+            f"{TRAIN_SEQ}, {arm}: loss {losses[arm]:.6f} plain "
+            f"{losses['plain']:.6f}; each leaf's ||diff|| / ||plain||: "
+            + ", ".join(f"{r:.2e}" for r in rel))
+    nk, np_ = launched["kernels"], launched["plain"]
+    if nk != {"flash_attention": 2, "flash_attention_bwd": 1} \
+            or any(np_.values()):
+        fail(f"train grad check: launches kernels {nk}, plain {np_}")
+    lk, lp = losses["kernels"], losses["plain"]
+    if abs(lk - lp) > 1e-3 * abs(lp) or worst["kernels"] > GRAD_REL:
+        fail(f"train grad check: kernels and plain attention differ (loss "
+             f"{lk} vs {lp}, worst leaf {worst['kernels']:.3e} > "
+             f"{GRAD_REL})")
+    for arm, w in worst.items():
+        if arm != "kernels" and w <= GRAD_REL:
+            fail(f"train grad check: the planted fault '{arm}' passes "
+                 f"(worst leaf {w:.3e} <= {GRAD_REL})")
+    for p in leaves(params):
+        p.requires_grad_(False)
+        p.grad = None
+
+
 def card() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     smi = subprocess.run(
@@ -2872,6 +3511,7 @@ def main() -> None:
                                  serve_weight_dtype="int8")
     rows = phase_kernels(cfg, moe_cfg, sm_cfg, vl_cfg)
     rows.update(phase_flash_kernels(cfg, sm_cfg, vl_cfg))
+    rows.update(phase_flash_bwd_kernels(cfg, sm_cfg))
     rows.update(phase_moe_kernels(moe_cfg, cfg.d_model))
     rows.update(phase_int8_kernels(mx_cfg))
     rows.update(phase_recurrent_kernels(rg_cfg, mb_cfg))
@@ -3029,7 +3669,25 @@ def main() -> None:
         f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB; {card()}")
     check_split(orch, mgr, session, draft_cfg, target_cfg, dparams,
                 launches, pc.by_model, out)
-    del dparams, tparams, out
+    del dparams, tparams, out, orch, mgr, session
+    release_memory()
+
+    left = torch.cuda.memory_allocated()
+    log(f"[train] device memory allocated after the split path: "
+        f"{left / 1e9:.3f} GB")
+    if left > 0.1e9:
+        fail(f"{left / 1e9:.2f} GB still allocated before the training path")
+    torch.cuda.reset_peak_memory_stats()
+    tcfg = train_config(cfg)
+    name = f"{tcfg.name} train ({tcfg.num_layers} layers)"
+    launches, out = drive_path(name, counters, ("flash_attention",
+                                                "flash_attention_bwd"),
+                               drive_train, tcfg)
+    paths.append(launches)
+    check_train(tcfg, out)
+    del out
+    release_memory()
+    train_grad_check(tcfg)
     release_memory()
 
     for name, row in rows.items():

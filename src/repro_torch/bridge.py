@@ -127,3 +127,30 @@ def payload_to_torch(payload: dict, cfg: ModelConfig, device=None) -> dict:
     out["cache"] = _by_key(payload["cache"], CACHE_F32_KEYS, device,
                            dtype_of(cfg))
     return out
+
+
+def train_state_to_numpy(state) -> dict:
+    """A train state (either package's ``TrainState``: params, opt with
+    m, v and step, ef) as a dict of numpy trees with the same fields."""
+    return {"params": tree_to_numpy(state.params),
+            "opt": {"m": tree_to_numpy(state.opt["m"]),
+                    "v": tree_to_numpy(state.opt["v"]),
+                    "step": to_numpy(state.opt["step"])},
+            "ef": None if state.ef is None else tree_to_numpy(state.ef)}
+
+
+def train_state_to_torch(state, device=None):
+    """A train state (either package's ``TrainState``, or the dict
+    ``train_state_to_numpy`` makes) as the port's ``TrainState``: every
+    float leaf f32 (master weights, moments, residuals), the step int32."""
+    from repro_torch.training.train_step import TrainState
+    if not isinstance(state, dict):
+        state = train_state_to_numpy(state)
+
+    def f32(tree):
+        return tree_to_torch(tree, device, torch.float32)
+    return TrainState(
+        params=f32(state["params"]),
+        opt={"m": f32(state["opt"]["m"]), "v": f32(state["opt"]["v"]),
+             "step": to_torch(state["opt"]["step"], device).to(torch.int32)},
+        ef=None if state["ef"] is None else f32(state["ef"]))

@@ -32,6 +32,7 @@ BUILD_DIR = _HERE / "_build"
 SOURCES: Dict[str, str] = {
     "decode_attention": "decode_attention/csrc/decode_attention.cu",
     "flash_attention": "flash_attention/csrc/flash_attention.cu",
+    "flash_attention_bwd": "flash_attention/csrc/flash_attention_bwd.cu",
     "moe_gemm": "moe_gemm/csrc/moe_gemm.cu",
     "rglru_scan": "rglru_scan/csrc/rglru_scan.cu",
     "ssd_chunk": "ssd_chunk/csrc/ssd_chunk.cu",
@@ -133,3 +134,20 @@ def call_on_stream(fn, t, *args) -> int:
         return fn(*args, torch._C._cuda_getCurrentRawStream(idx))
     with torch.cuda.device(idx):
         return fn(*args, torch._C._cuda_getCurrentRawStream(idx))
+
+
+def refuse_autograd(name: str, *tensors) -> None:
+    """Raise where a kernel that has no backward would be launched while
+    autograd records: its output would carry no ``grad_fn``, and the
+    parameters upstream would silently get no gradient. ``tensors`` may
+    hold int8 ``{q, s}`` weight dicts. The CPU runs the plain version
+    instead, which autograd differentiates."""
+    if not torch.is_grad_enabled():
+        return
+    flat = [t for x in tensors
+            for t in (x.values() if isinstance(x, dict) else (x,))]
+    if any(isinstance(t, torch.Tensor) and t.requires_grad for t in flat):
+        raise RuntimeError(
+            f"{name} has no backward kernel yet (ROADMAP.md queue 1): on a "
+            f"CUDA tensor it cannot be differentiated; run it under "
+            f"torch.no_grad(), or train on the CPU")

@@ -258,8 +258,9 @@ flash_kernel(const float* __restrict__ q, int64_t sqb, int64_t sqs,
              int64_t sqh, const float* __restrict__ k,
              const float* __restrict__ v, int64_t skb, int64_t sks,
              int64_t skh, const int* __restrict__ q_pos,
-             const int* __restrict__ k_pos, float* __restrict__ out, int sq,
-             int skv, int hq, int g, int causal, float scale) {
+             const int* __restrict__ k_pos, float* __restrict__ out,
+             float* __restrict__ lse, int sq, int skv, int hq, int g,
+             int causal, float scale) {
   using L = Smem<D>;
   extern __shared__ __align__(128) unsigned char smem[];
   float* sQ = reinterpret_cast<float*>(smem + L::kQ);
@@ -342,6 +343,8 @@ flash_kernel(const float* __restrict__ q, int64_t sqb, int64_t sqs,
 
   // normalise, then write the tile's rows with 16-byte stores
   const float den = fmaxf(l, 1e-37f);
+  if (lse != nullptr && half == 0 && q0 + row < sq)
+    lse[(static_cast<int64_t>(b) * hq + h) * sq + q0 + row] = m + logf(den);
   __syncwarp();
   for (int c = half; c < D; c += 2) sO[row * L::kLdO + c] /= den;
   __syncthreads();
@@ -362,7 +365,7 @@ int launch(int sq, int skv, int b, int hq, int g, cudaStream_t st,
            const void* q, int64_t sqb, int64_t sqs, int64_t sqh,
            const void* k, const void* v, int64_t skb, int64_t sks,
            int64_t skh, const void* q_pos, const void* k_pos, void* out,
-           int causal, float scale) {
+           void* lse, int causal, float scale) {
   constexpr size_t bytes = Smem<D>::kBytes;
   static bool configured = false;
   if (!configured) {
@@ -377,7 +380,8 @@ int launch(int sq, int skv, int b, int hq, int g, cudaStream_t st,
       static_cast<const float*>(q), sqb, sqs, sqh,
       static_cast<const float*>(k), static_cast<const float*>(v), skb, sks,
       skh, static_cast<const int*>(q_pos), static_cast<const int*>(k_pos),
-      static_cast<float*>(out), sq, skv, hq, g, causal, scale);
+      static_cast<float*>(out), static_cast<float*>(lse), sq, skv, hq, g,
+      causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -538,8 +542,8 @@ flash_tc_kernel(const bf16* __restrict__ q, int64_t sqb, int64_t sqs,
                 const bf16* __restrict__ v, int64_t skb, int64_t sks,
                 int64_t skh, const int* __restrict__ q_pos,
                 const int* __restrict__ k_pos, bf16* __restrict__ out,
-                int sq, int skv, int hq, int g, int causal,
-                float scale_log2) {
+                float* __restrict__ lse, int sq, int skv, int hq, int g,
+                int causal, float scale_log2) {
   using L = Tile<D>;
   constexpr int kThreads = L::kThreads, kBQ = L::kBQ, P = L::kPitch;
   constexpr int CPR = D / 8;                 // 16-byte chunks per row
@@ -766,11 +770,17 @@ flash_tc_kernel(const bf16* __restrict__ q, int64_t sqb, int64_t sqs,
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    const float inv = 1.f / fmaxf(l[r], 1e-37f);
+    const float den = fmaxf(l[r], 1e-37f);
+    const float inv = 1.f / den;
 #pragma unroll
     for (int j = 0; j < NO; ++j)
       sO[((row0 + 8 * r + gq) * P + j * 8 + 2 * tg) / 2] =
           pack_bf16(o[j][2 * r] * inv, o[j][2 * r + 1] * inv);
+    // natural-log lse of the row, from the log2-domain max and the sum
+    const int qr = q0 + row0 + 8 * r + gq;
+    if (lse != nullptr && tg == 0 && qr < sq)
+      lse[(static_cast<int64_t>(b) * hq + h) * sq + qr] =
+          (m[r] + log2f(den)) * 0.6931471805599453f;
   }
   __syncwarp();
   for (int i = lane; i < 16 * CPR; i += 32) {
@@ -787,7 +797,7 @@ int launch(int sq, int skv, int b, int hq, int g, cudaStream_t st,
            const void* q, int64_t sqb, int64_t sqs, int64_t sqh,
            const void* k, const void* v, int64_t skb, int64_t sks,
            int64_t skh, const void* q_pos, const void* k_pos, void* out,
-           int causal, float scale) {
+           void* lse, int causal, float scale) {
   using L = Tile<D>;
   static bool configured = false;
   if (!configured) {
@@ -802,8 +812,8 @@ int launch(int sq, int skv, int b, int hq, int g, cudaStream_t st,
       static_cast<const bf16*>(q), sqb, sqs, sqh, static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), skb, sks, skh,
       static_cast<const int*>(q_pos), static_cast<const int*>(k_pos),
-      static_cast<bf16*>(out), sq, skv, hq, g, causal,
-      scale * 1.4426950408889634f);
+      static_cast<bf16*>(out), static_cast<float*>(lse), sq, skv, hq, g,
+      causal, scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -814,10 +824,10 @@ int launch_d(int dtype, int sq, int skv, int b, int hq, int g,
              cudaStream_t st, const void* q, int64_t sqb, int64_t sqs,
              int64_t sqh, const void* k, const void* v, int64_t skb,
              int64_t sks, int64_t skh, const void* q_pos, const void* k_pos,
-             void* out, int causal, float scale) {
+             void* out, void* lse, int causal, float scale) {
 #define FLASH_ARGS                                                          \
   sq, skv, b, hq, g, st, q, sqb, sqs, sqh, k, v, skb, sks, skh, q_pos,      \
-      k_pos, out, causal, scale
+      k_pos, out, lse, causal, scale
   if (dtype == 0) return tc::launch<D>(FLASH_ARGS);
   if (dtype == 1) return f32::launch<D>(FLASH_ARGS);
 #undef FLASH_ARGS
@@ -828,13 +838,16 @@ int launch_d(int dtype, int sq, int skv, int b, int hq, int g,
 
 // dtype: 0 = bfloat16, 1 = float32. Strides are in elements; q [b, sq, hq, d]
 // by (sqb, sqs, sqh), k and v [b, skv, hkv, d] by (skb, sks, skh); q_pos [sq]
-// and k_pos [skv] int32; out [b, sq, hq, d] contiguous.
+// and k_pos [skv] int32; out [b, sq, hq, d] contiguous; lse, when not null,
+// [b, hq, sq] f32 contiguous: each row's natural-log log-sum-exp of its
+// scaled scores, m + log(max(l, 1e-37)), which the backward reads (a null lse
+// leaves the launch as it was without one, bit for bit).
 extern "C" int flash_attention_launch(
     int dtype, int d, const void* q, long long sqb, long long sqs,
     long long sqh, const void* k, const void* v, long long skb,
     long long sks, long long skh, const void* q_pos, const void* k_pos,
-    void* out, int b, int sq, int skv, int hq, int hkv, int causal,
-    float scale, void* stream) {
+    void* out, void* lse, int b, int sq, int skv, int hq, int hkv,
+    int causal, float scale, void* stream) {
   if (b < 1 || b > 65535 || sq < 1 || skv < 1 || hkv < 1 || hq > 65535 ||
       hq % hkv)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -842,7 +855,7 @@ extern "C" int flash_attention_launch(
 #define FLASH_CASE(DIM)                                                      \
   case DIM:                                                                  \
     return launch_d<DIM>(dtype, sq, skv, b, hq, hq / hkv, st, q, sqb, sqs,  \
-                         sqh, k, v, skb, sks, skh, q_pos, k_pos, out,        \
+                         sqh, k, v, skb, sks, skh, q_pos, k_pos, out, lse,   \
                          causal, scale);
   switch (d) {
     FLASH_CASE(16)

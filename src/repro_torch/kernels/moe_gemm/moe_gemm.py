@@ -40,7 +40,8 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.build import call_on_stream, load
+from repro_torch.kernels.build import (call_on_stream, load,
+                                      refuse_autograd)
 
 #: kernel name -> launches since the last reset_launches()
 LAUNCHES = {"moe_gemm": 0, "moe_ffn_fused": 0}
@@ -277,6 +278,7 @@ def _launch_int8(name, x, ws):
 
 def _launch(name, x, ws):
     """Check, allocate y, launch the variant the rules pick, count it."""
+    refuse_autograd(name, x, *ws)
     if any(_is_int8(w) for w in ws):
         return _launch_int8(name, x, ws)
     E, C, D, Fo, vec_ok = _check(x, ws)

@@ -22,7 +22,8 @@ import functools
 
 import torch
 
-from repro_torch.kernels.build import call_on_stream, load
+from repro_torch.kernels.build import (call_on_stream, load,
+                                      refuse_autograd)
 
 #: kernel name -> launches since the last reset_launches()
 LAUNCHES = {"rglru_scan": 0}
@@ -116,6 +117,7 @@ def rglru_scan(a, b, h0):
     h0: [B, W] f32 -> h [B, T, W] f32."""
     if a.device.type == "cpu":
         return rglru_scan_ref(a, b, h0)
+    refuse_autograd("rglru_scan", a, b, h0)
     _check(a, b, h0)
     B, T, W = a.shape
     h = torch.empty_like(a)

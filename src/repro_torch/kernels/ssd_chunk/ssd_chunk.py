@@ -27,7 +27,8 @@ import functools
 
 import torch
 
-from repro_torch.kernels.build import call_on_stream, load
+from repro_torch.kernels.build import (call_on_stream, load,
+                                      refuse_autograd)
 
 #: kernel name -> launches since the last reset_launches()
 LAUNCHES = {"ssd_chunk": 0}
@@ -160,6 +161,7 @@ def ssd_chunk(x, dt, A, B, C, S0, chunk: int):
     S_final [b, nh, hp, n] f32). See ``ssd_chunk_ref`` for the layouts."""
     if x.device.type == "cpu":
         return ssd_chunk_ref(x, dt, A, B, C, S0, chunk)
+    refuse_autograd("ssd_chunk", x, dt, A, B, C, S0)
     b, l, nh, hp, g, n, Q = _check(x, dt, A, B, C, S0, chunk)
     code = _DTYPE_CODE[x.dtype]
     y = torch.empty((b, l, nh, hp), dtype=torch.float32, device=x.device)

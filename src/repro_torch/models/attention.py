@@ -130,15 +130,6 @@ def full_attention(q, k, v, qpos, kpos, cfg: ModelConfig, *, causal=True):
                            block_kv=cfg.attn_block_kv)
 
 
-def self_attention(p, cfg: ModelConfig, x, positions, *, causal=True):
-    """Whole-sequence self attention of ``x`` [b, s, d] at ``positions``
-    [s] int32 (the encoder runs it with ``causal=False``)."""
-    q = _project_q(p, cfg, x, positions)
-    k, v = _project_kv(p, cfg, x, positions)
-    o = full_attention(q, k, v, positions, positions, cfg, causal=causal)
-    return _out_proj(p, cfg, o, x)
-
-
 def project_cross_kv(p, cfg: ModelConfig, memory):
     """The encoder side's K/V [b, src, kh, hd], projected once per session
     (no RoPE on memory)."""

@@ -117,6 +117,23 @@ def rglru_block_prefill(p, cfg: ModelConfig, x, length=None):
     return L.matmul(out, p["w_out"]), conv_state, hs[:, -1]
 
 
+def rglru_block_apply(p, cfg: ModelConfig, x):
+    """Sequence path of one block for the full-sequence forward (training):
+    x [b, l, d] -> [b, l, d]. As the reference's ``rglru_block_apply``, the
+    scanned state is rounded to x's dtype before the gate product (the
+    prefill path keeps it in f32, as the reference's ``_block_prefill``
+    does)."""
+    xw = L.matmul(x, p["w_x"])
+    xw, _ = causal_conv(p["conv"], xw)
+    a, mult = _gates(p, xw)
+    b = mult * xw.float()
+    h0 = torch.zeros((x.shape[0], xw.shape[-1]), dtype=torch.float32,
+                     device=x.device)
+    h = rglru_scan(a.contiguous(), b.contiguous(), h0).to(x.dtype)
+    out = (h.float() * _gate_branch(p, x)).to(x.dtype)
+    return L.matmul(out, p["w_out"])
+
+
 def rglru_block_decode(p, cfg: ModelConfig, x, conv_state, h_state):
     """Single-token path. x: [b, 1, d]; conv_state: [b, K-1, w]; h_state:
     [b, w] f32. Returns (out, conv_state, h_state)."""

@@ -18,6 +18,17 @@ Public surface:
       the first nv token slots; M-RoPE: ``batch["positions"]`` [3, b, s])
     decode_step(params, cache, tokens [b, 1], active=None, adapter=None)
                                            -> (logits [b, 1, V], cache)
+    forward(params, batch)                 -> (logits [b, s, V] f32, aux)
+    forward_hidden(params, batch)          -> (hidden [b, s, d], aux)
+    loss(params, batch, ce_chunk=512)      -> (ce + 0.01 aux, metrics)
+    param_specs()                          -> init's tree on ``meta``
+
+The full-sequence forward (training) runs every block through
+``_block_seq`` under ``cfg.remat``: "full" checkpoints each block
+(non-reentrant ``torch.utils.checkpoint``), "dots" keeps only the matrix
+products' outputs (selective checkpointing), stacks of 48 layers or more
+also checkpoint √L groups whole, as the reference's two-level scan; the
+cross-entropy runs in chunks of positions, each recomputed in the backward.
 
 Block kinds: ``attn`` (attention + MLP), ``attn_moe`` (attention, then
 ``models.moe`` in place of the MLP), ``attn_cross`` (the encdec decoder's
@@ -44,6 +55,8 @@ import math
 from typing import Any, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch import resolve_device
 from repro_torch.adapters.runtime import lora_apply_rows, lora_delta
@@ -108,28 +121,107 @@ def _mask_positions(positions):
     return positions.to(torch.int32).contiguous()
 
 
+def _attn_half(p, cfg: ModelConfig, x, positions, memory=None,
+               mem_positions=None, causal=True):
+    """The attention half of an attention block: x after its self
+    attention and, with ``memory`` (the encoder's output, encdec), the
+    cross attention over it; also the self attention's K/V [b, s, kh, hd].
+    ``positions`` rotate q and k (all of them); the mask reads
+    ``_mask_positions`` of them."""
+    h = L.rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
+    k, v = A._project_kv(p["attn"], cfg, h, positions)
+    q = A._project_q(p["attn"], cfg, h, positions)
+    mpos = _mask_positions(positions)
+    o = A.full_attention(q, k, v, mpos, mpos, cfg, causal=causal)
+    x = x + A._out_proj(p["attn"], cfg, o, x)
+    if memory is not None:
+        hx = L.rmsnorm_apply(p["norm_x"], x, cfg.norm_eps)
+        x = x + A.cross_attention(p["xattn"], cfg, hx, memory, mem_positions)
+    return x, k, v
+
+
 def _attn_prefill(p, cfg: ModelConfig, x, positions, memory=None,
                   mem_positions=None):
     """Sequence pass of one attention layer; also returns its K/V
-    [b, s, kh, hd]. ``positions`` rotate q and k (all of them); the mask
-    reads ``_mask_positions`` of them. With ``memory`` (the encoder's
-    output, encdec) the block's cross attention over it follows the self
-    attention.
+    [b, s, kh, hd].
 
     With a right-padded prompt, padded keys sit strictly after every real
     query (causality); decode masks a linear buffer's tail by position and
     a ring is built from the real positions only, so the cache equals the
     exact-length cache where it is ever read."""
-    h = L.rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
-    k, v = A._project_kv(p["attn"], cfg, h, positions)
-    q = A._project_q(p["attn"], cfg, h, positions)
-    mpos = _mask_positions(positions)
-    o = A.full_attention(q, k, v, mpos, mpos, cfg, causal=True)
-    x = x + A._out_proj(p["attn"], cfg, o, x)
-    if memory is not None:
-        hx = L.rmsnorm_apply(p["norm_x"], x, cfg.norm_eps)
-        x = x + A.cross_attention(p["xattn"], cfg, hx, memory, mem_positions)
+    x, k, v = _attn_half(p, cfg, x, positions, memory, mem_positions)
     return x + _ffn(p, cfg, x), k, v
+
+
+def _block_seq(p, cfg: ModelConfig, kind: str, x, positions, memory=None,
+               mem_positions=None, causal=True):
+    """Full-sequence block (the training forward, the encoder): returns
+    (x, aux), aux the MoE layer's load-balancing loss (zero for the other
+    kinds)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if kind in ("ssm", "rec"):
+        h = L.rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
+        if kind == "ssm":
+            return x + SSD.ssd_apply(p["ssd"], cfg, h)[0], aux
+        x = x + RG.rglru_block_apply(p["rec"], cfg, h)
+    else:
+        x, _, _ = _attn_half(p, cfg, x, positions, memory, mem_positions,
+                             causal)
+    y, moe_aux = _ffn_aux(p, cfg, x)
+    return x + y, aux if moe_aux is None else moe_aux
+
+
+def _dots(ctx, op, *args, **kwargs):
+    """Selective checkpointing's policy for ``remat="dots"`` (the
+    reference's ``checkpoint_dots``): keep the matrix products' outputs,
+    recompute everything else."""
+    if op in _DOT_OPS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_DOT_OPS = frozenset((torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                      torch.ops.aten.addmm.default,
+                      torch.ops.aten.baddbmm.default))
+
+
+def _maybe_remat(fn, cfg: ModelConfig):
+    """``fn`` under activation checkpointing by ``cfg.remat`` ("none",
+    "dots": only matrix products' outputs saved, "full": only the inputs),
+    non-reentrant, and only while autograd records (under ``no_grad`` the
+    plain call). Remat changes memory, never values."""
+    if cfg.remat == "none":
+        return fn
+    kw = {"use_reentrant": False}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots)
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return checkpoint(fn, *args, **kw)
+    return run
+
+
+def _scan_groups(cfg: ModelConfig) -> int:
+    """Two-level checkpoint group count: deep stacks checkpoint √L
+    boundaries."""
+    if cfg.remat == "none" or cfg.num_layers < 48:
+        return 1
+    for g in (8, 6, 4, 3, 2):
+        if cfg.num_layers % g == 0:
+            return g
+    return 1
+
+
+def _unstack(tree, n: int):
+    """A layer-stacked tree as n per-layer trees (``unbind``: one backward
+    node that stacks the layers' gradients, not n full-size scatters)."""
+    if isinstance(tree, dict):
+        per = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: per[k][i] for k in per} for i in range(n)]
+    return list(tree.unbind(0))
 
 
 def _attn_decode(p, cfg: ModelConfig, x, k_layer, v_layer, position,
@@ -174,14 +266,20 @@ def _rec_decode(p, cfg: ModelConfig, x, cache_layer, active=None):
     return x + _ffn(p, cfg, x)
 
 
-def _ffn(p, cfg: ModelConfig, x):
-    """The block's second half on ``norm2(x)``: the MoE layer of an
-    ``attn_moe`` block (its aux loss is a training term, unused here) or
-    the dense MLP."""
+def _ffn_aux(p, cfg: ModelConfig, x):
+    """The block's second half on ``norm2(x)``: (the MoE layer's output and
+    its aux loss) for an ``attn_moe`` block, (the dense MLP's, None)
+    otherwise."""
     h2 = L.rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
     if "moe" in p:
-        return MOE.moe_apply(p["moe"], cfg, h2)[0]
-    return L.mlp_apply(p["mlp"], h2)
+        return MOE.moe_apply(p["moe"], cfg, h2)
+    return L.mlp_apply(p["mlp"], h2), None
+
+
+def _ffn(p, cfg: ModelConfig, x):
+    """``_ffn_aux``'s output alone (decode and prefill: the aux loss is a
+    training term)."""
+    return _ffn_aux(p, cfg, x)[0]
 
 
 class LM:
@@ -229,7 +327,8 @@ class LM:
         cfg = self.cfg
         dev = resolve_device(device)
         dt = L.dtype_of(cfg)
-        gen = torch.Generator(device=dev).manual_seed(seed)
+        gen = None if dev.type == "meta" else \
+            torch.Generator(device=dev).manual_seed(seed)
         nl, d = cfg.num_layers, cfg.d_model
         int8 = cfg.serve_weight_dtype == "int8"
 
@@ -320,6 +419,11 @@ class LM:
                 {"vision_adapter": dense(d, d)})["vision_adapter"]
         return params
 
+    def param_specs(self):
+        """The tree ``init`` draws, as tensors on the ``meta`` device:
+        shapes and dtypes without weights."""
+        return self.init(0, device="meta")
+
     # -- heads ----------------------------------------------------------
     def _logits(self, params, h):
         cfg = self.cfg
@@ -363,12 +467,102 @@ class LM:
         cfg = self.cfg
         x = L.matmul(frames.to(L.dtype_of(cfg)), params["adapter"])
         pos = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
-        for i in range(cfg.encoder_layers):
-            lp = layer_params(params["enc_layers"], i)
-            h = L.rmsnorm_apply(lp["norm1"], x, cfg.norm_eps)
-            x = x + A.self_attention(lp["attn"], cfg, h, pos, causal=False)
-            x = x + _ffn(lp, cfg, x)
+        block = _maybe_remat(lambda lp, h: _block_seq(
+            lp, cfg, "attn", h, pos, causal=False), cfg)
+        for lp in _unstack(params["enc_layers"], cfg.encoder_layers):
+            x, _ = block(lp, x)
         return L.rmsnorm_apply(params["enc_norm"], x, cfg.norm_eps)
+
+    # -- full-sequence forward (training) ---------------------------------
+    def forward(self, params, batch):
+        """(logits [b, s, V'] f32, aux)."""
+        h, aux = self.forward_hidden(params, batch)
+        return self._logits(params, h), aux
+
+    def forward_hidden(self, params, batch):
+        """(final-normed hidden states [b, s, d], aux): every block over the
+        whole sequence, each under ``cfg.remat`` (deep stacks in √L groups
+        checkpointed as wholes too, as the reference's two-level scan).
+        ``batch`` as ``prefill`` reads it (tokens; frames for encdec;
+        vision embeds and positions for the vision frontend); aux sums the
+        MoE layers' losses in layer order."""
+        cfg = self.cfg
+        x = self._embed(params, batch)
+        pos = self._positions(batch, x.shape[1], x.device)
+        memory = mem_pos = None
+        if cfg.family == "encdec":
+            memory = self._encode(params, batch["frames"])
+            mem_pos = torch.arange(memory.shape[1], dtype=torch.int32,
+                                   device=x.device)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if cfg.family == "hybrid":
+            for lp, kind in zip(params["layers"], cfg._pattern()):
+                kk = "rec" if kind == "rec" else "attn"
+                x, a = _maybe_remat(lambda lp_, h, kk=kk: _block_seq(
+                    lp_, cfg, kk, h, pos), cfg)(lp, x)
+                aux = aux + a
+        else:
+            kind = ("attn_cross" if cfg.family == "encdec"
+                    else "ssm" if cfg.family == "ssm"
+                    else "attn_moe" if cfg.is_moe else "attn")
+            block = _maybe_remat(lambda lp, h: _block_seq(
+                lp, cfg, kind, h, pos, memory, mem_pos), cfg)
+
+            def run(layers, h, ax):
+                for lp in layers:
+                    h, a = block(lp, h)
+                    ax = ax + a
+                return h, ax
+
+            layers = _unstack(params["layers"], cfg.num_layers)
+            groups = _scan_groups(cfg)
+            if groups > 1:
+                # two-level checkpointing: only group boundaries are saved
+                # in the forward; one group's layer inputs come back at a
+                # time in the backward
+                per = cfg.num_layers // groups
+                group = _maybe_remat(run, cfg)
+                for gi in range(groups):
+                    x, aux = group(layers[gi * per:(gi + 1) * per], x, aux)
+            else:
+                x, aux = run(layers, x, aux)
+        return L.rmsnorm_apply(params["final_norm"], x, cfg.norm_eps), aux
+
+    def loss(self, params, batch, *, ce_chunk: int = 512):
+        """(ce + 0.01 aux, {"ce", "aux", "ntok"}) over ``batch["labels"]``
+        [b, s] (-1: no target). Cross-entropy in chunks of ``ce_chunk``
+        positions (rounded down to a divisor of s), each chunk's logits
+        [b, chunk, V'] f32 made and dropped in turn and, unless
+        ``cfg.remat`` is "none", recomputed in the backward: the [b, s, V']
+        slab never lives whole."""
+        cfg = self.cfg
+        h, aux = self.forward_hidden(params, batch)
+        labels = batch["labels"]
+        s = h.shape[1]
+        cs = min(ce_chunk, s)
+        if s % cs:
+            cs = next(c for c in range(cs, 0, -1) if s % c == 0)
+
+        def chunk_ce(hc, lc):
+            logits = self._logits(params, hc)          # [b, cs, V'] f32
+            mask = (lc >= 0).float()
+            gold = torch.gather(logits, -1, torch.clamp(lc, min=0).long()
+                                [..., None])[..., 0]
+            nll = (torch.logsumexp(logits, dim=-1) - gold) * mask
+            return nll.sum(), mask.sum()
+
+        if cfg.remat != "none" and s > cs and torch.is_grad_enabled():
+            ce_fn = functools.partial(checkpoint, chunk_ce,
+                                      use_reentrant=False)
+        else:
+            ce_fn = chunk_ce
+        tot = ntok = torch.zeros((), dtype=torch.float32, device=h.device)
+        for j in range(0, s, cs):
+            tt, nn = ce_fn(h[:, j:j + cs], labels[:, j:j + cs])
+            tot, ntok = tot + tt, ntok + nn
+        ntok = torch.clamp(ntok, min=1.0)
+        ce = tot / ntok
+        return ce + 0.01 * aux, {"ce": ce, "aux": aux, "ntok": ntok}
 
     # -- prefill --------------------------------------------------------
     def prefill(self, params, batch, max_len: int, adapter=None):

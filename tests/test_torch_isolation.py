@@ -36,6 +36,8 @@ VERBATIM = sorted(
     + [Path("serving") / f for f in ("plane.py", "scheduler.py",
                                      "supervisor.py")]
     + [Path("adapters/catalog.py")]
+    + [Path("training") / f for f in ("__init__.py", "data.py",
+                                      "fault_tolerance.py")]
     + [p.relative_to(REF) for p in (REF / "configs").glob("*.py")
        if p.name != "__init__.py"])
 
@@ -52,7 +54,10 @@ PORTED = ("adapters/runtime.py", "models/moe.py", "models/transformer.py",
           "kernels/ssd_chunk/ssd_chunk.py",
           "kernels/flash_attention/__init__.py",
           "kernels/flash_attention/flash_attention.py",
-          "models/frontends.py", "models/quant.py")
+          "models/frontends.py", "models/quant.py",
+          "training/optimizer.py", "training/compression.py",
+          "training/checkpoint.py", "training/train_step.py",
+          "launch/train.py")
 
 
 def _sources():
