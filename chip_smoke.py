@@ -99,16 +99,20 @@ Phases:
              rows that have a valid key, and the ptxas registers and
              spills of its bf16 route at head dims 64 and 128;
              flash_attention's backward (dq, dk, dv from q, k, v, the
-             forward's output and lse, and dO) against its plain version
-             at ragged shapes in f32 (1e-5) and bf16 (each row within
-             2e-2 of its norm in L2), then at the training path's
-             4096-token microbatch (where three planted faults, a key
-             tile or a query tile dropped, must fail that bound),
-             minitron-8b's 2048 prefill and
+             forward's output and lse, and dO): the ptxas registers and
+             spills of its wgmma kernels and their HGMMA instructions
+             (none fails), then against its plain version at ragged
+             shapes in f32 (1e-5) and bf16 (each row within 2e-2 of its
+             norm in L2), every route the launcher dispatches to, a row's
+             bits at b 1 equal to the same row's at b 2, then at the
+             training path's 4096-token microbatch (where three planted
+             faults, a key tile or a query tile dropped, must fail that
+             bound), minitron-8b's 2048 prefill and
              seamless-m4t-medium's encoder and cross shapes, each with
              the forward with lse equal to the forward without it bit for
              bit and a CUDA-graph replay equal to the eager call, timed
-             eager and by replay beside SDPA's backward;
+             eager and by replay beside SDPA's backward (eager, and its
+             kernels' device time from the profiler, by name);
 3. serve   — ``repro_torch.launch.serve.serve`` through the northbound
              gateway: 4 sessions, 8 requests, 8 slots, max_len 2048;
 4. engine  — dense and paged engines, 8 slots with 512-1536-token prompts
@@ -263,6 +267,7 @@ RG_TOL = 1e-5                   # RG-LRU scan: the kernel's chunk-parallel
 SSD_TOL = 1e-3                  # SSD scan: f32 sums of 16-128 terms and a
 #                                 2048-step carried state, in another order
 REF_ATOL = 1e-3                 # f32 logits, card vs CPU (no TF32)
+BWD_KERNELS = ("dkdv_wgmma_kernel", "dq_wgmma_kernel")  # its bf16 route
 BWD_ROW = 2e-2                  # bf16 flash backward vs its plain version:
 #                                 each row of dq, dk, dv (one position's
 #                                 head vector) in L2, of that row's norm,
@@ -362,6 +367,25 @@ def graph_ms(fn, iters: int = 20, reps: int = 5) -> float:
     torch.cuda.synchronize()
     del graph
     return start.elapsed_time(end) / (reps * iters)
+
+
+def profiled_ms(fn, calls: int = 5):
+    """Device time of one ``fn()`` summed over the kernels it launches,
+    from torch.profiler over ``calls`` calls after a warm-up, and those
+    kernels by name: [(name, ms a call)], the longest first."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [(e.key, getattr(e, "self_device_time_total",
+                               getattr(e, "self_cuda_time_total", 0.0))
+                / calls / 1e3) for e in prof.key_averages()]
+    kernels = sorted([k for k in kernels if k[1] > 0], key=lambda k: -k[1])
+    return sum(t for _, t in kernels), kernels
 
 
 # ---------------------------------------------------------------------------
@@ -1584,6 +1608,48 @@ def phase_flash_kernels(cfg, sm_cfg, vl_cfg):
     return rows
 
 
+def log_bwd_build() -> None:
+    """ptxas registers and spills of the backward's wgmma kernels at each
+    padded head dim, and the HGMMA (wgmma) instructions ``cuobjdump -sass``
+    finds in each: fails where one has none."""
+    import re
+    from repro_torch.kernels import build
+    name = re.compile(f"({'|'.join(BWD_KERNELS)})ILi(\\d+)E")
+    entry = ""
+    for line in build.build_log("flash_attention_bwd").splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif "registers" in line or "spill" in line or "C75" in line:
+            m = name.search(line if "C75" in line else entry)
+            if m:
+                log(f"[build] flash_attention_bwd {m.group(1)}<{m.group(2)}>"
+                    f": {line.strip()[:160]}")
+    lib = build._target("flash_attention_bwd")
+    tool = Path(build.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300)
+    if sass.returncode != 0:
+        fail(f"cuobjdump -sass failed: {sass.stderr.strip()[:500]}")
+    counts, fn = {}, None
+    for line in sass.stdout.splitlines():
+        m = name.search(line)
+        if "Function :" in line:
+            fn = f"{m.group(1)}<{m.group(2)}>" if m else None
+            if fn:
+                counts[fn] = 0
+        elif fn and "HGMMA" in line:
+            counts[fn] += 1
+    log(f"[build] flash_attention_bwd HGMMA instructions (cuobjdump -sass): "
+        + ", ".join(f"{k} {v}" for k, v in sorted(counts.items()))
+        + " (ptxas reports the registers a thread has at launch; "
+        "setmaxnreg then moves them from the producer warpgroup to the "
+        "consumers)")
+    want = {f"{k}<{dp}>" for k in BWD_KERNELS for dp in (64, 128)}
+    if set(counts) != want or not all(counts.values()):
+        fail(f"flash_attention_bwd: wgmma kernels {want} with HGMMA "
+             f"instructions expected, found {counts}")
+
+
 def phase_flash_bwd_kernels(cfg, sm_cfg):
     """flash_attention's backward kernels (csrc/flash_attention_bwd.cu)
     against their plain version (``flash_attention_bwd_ref``) on the same
@@ -1601,12 +1667,20 @@ def phase_flash_bwd_kernels(cfg, sm_cfg):
     last 256 keys zeroed. At each:
     the forward with lse gives the output of the forward without it bit
     for bit, and a CUDA-graph replay of the backward gives the eager call's
-    bits. Times: eager (``ms``) and by replay (``device_ms``); library:
-    SDPA's backward through autograd on the [b, h, s, d] views."""
+    bits. Before them: the wgmma kernels' build (``log_bwd_build``), and
+    row b 1 of a b-2 call equal bit for bit to the same row alone. Times:
+    eager (``ms``) and by replay (``device_ms``); library: SDPA's backward
+    through autograd on the [b, h, s, d] views, eager and its kernels'
+    device time (``library_device_ms``, the profiler's sum over its
+    kernels; it is not timed by replay). Bounds:
+    the five products the function needs (``bound_ms``) and the seven the
+    kernels do (``bound_7_products_ms``: dQ's kernel takes S and dP
+    again)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention as FA
 
+    log_bwd_build()
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(2468)
     bf16, f32 = torch.bfloat16, torch.float32
@@ -1725,7 +1799,25 @@ def phase_flash_bwd_kernels(cfg, sm_cfg):
         f"ragged shapes in f32 (1e-5) and bf16 (worst row error {worst:.3e}"
         f" of the row's norm; d 16-128, sq 1-257, skv 1-300, -1 keys, a "
         f"first kv-tile with no valid key, reversed key positions); the "
-        f"forward with lse equals the forward without it")
+        f"forward with lse equals the forward without it; every route the "
+        f"launcher dispatches to ran: bf16 on dkdv/dq_wgmma_kernel<64> (d "
+        f"16-64) and <128> (d 80-128), f32 on the CUDA cores (d 16-128)")
+    for b2, sq, skv, hq, hkv, d, causal in ((2, 300, 300, 8, 2, 128, True),
+                                            (3, 200, 260, 4, 4, 64, False)):
+        x = inputs(b2, sq, skv, hq, hkv, d, bf16)
+        x["o"], x["lse"] = fwd(x, causal)
+        whole = bwd(x, causal)
+        alone = bwd({k: t[1:2].contiguous() if k in ("q", "k", "v", "do",
+                                                       "o", "lse") else t
+                     for k, t in x.items()}, causal)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a[1:2], r) for a, r in zip(whole, alone)):
+            fail(f"flash_attention_bwd: row b 1 of a b-{b2} call (sq {sq} "
+                 f"skv {skv} hq {hq} hkv {hkv} d {d}) differs from the same "
+                 f"row alone")
+    log("[kernels] flash_attention_bwd: row b 1 of a b-2 (d 128, causal, "
+        "GQA 4) and a b-3 (d 64, full) call equals the same row alone, bit "
+        "for bit")
 
     hs, ds, src = sm_cfg.num_heads, sm_cfg.head_dim, sm_cfg.source_len
     heads = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
@@ -1794,6 +1886,7 @@ def phase_flash_bwd_kernels(cfg, sm_cfg):
             x["kpos"], causal=causal, block_q=256, block_kv=1024))(nxt()),
             iters=2, warmup=1)
         library_ms = time_ms(sdpa_bwd, iters=10)
+        library_device_ms, lib_kernels = profiled_ms(sdpa_bwd)
         pairs = int(attention_pairs(sets[0]["qpos"], sets[0]["kpos"],
                                     causal).sum())
         flops = 10 * b * hq * d * pairs          # S, dP, dV, dK, dQ
@@ -1803,14 +1896,21 @@ def phase_flash_bwd_kernels(cfg, sm_cfg):
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
         bound_ms = max(t_bytes, t_ops) * 1e3
         bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        bound7_ms = max(t_bytes, 1.4 * t_ops) * 1e3   # + S, dP in dQ's
         log(f"[kernels] flash_attention_bwd ({label}): max_abs_err "
             f"{err:.3e} kernel_ms {ms:.4f} device_ms {device_ms:.4f} "
-            f"plain_ms {plain_ms:.4f} library_ms {library_ms:.4f} (SDPA "
-            f"backward) bound_ms {bound_ms:.4f} ({bound_by}; "
-            f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP; kernel "
-            f"{flops / device_ms / 1e9:.1f} TFLOP/s by replay, "
-            f"{bound_ms / device_ms:.1%} of bound, x library "
-            f"{ms / library_ms:.2f}); eager == replay bitwise")
+            f"plain_ms {plain_ms:.4f} library_ms {library_ms:.4f} / "
+            f"{library_device_ms:.4f} by its kernels (SDPA backward) "
+            f"bound_ms {bound_ms:.4f} ({bound_by}; {nbytes / 1e6:.1f} MB, "
+            f"{flops / 1e9:.1f} GFLOP), {bound7_ms:.4f} for the 7 products "
+            f"done; kernel {flops / device_ms / 1e9:.1f} TFLOP/s of the 5 "
+            f"by replay, {bound_ms / device_ms:.1%} of bound, x library "
+            f"{ms / library_ms:.2f} eager, "
+            f"{device_ms / library_device_ms:.2f} on the device); eager == "
+            f"replay bitwise")
+        log(f"[kernels] flash_attention_bwd ({label}): SDPA backward's "
+            f"kernels, device ms a call: " + "; ".join(
+                f"{t:.4f} {n[:70]}" for n, t in lib_kernels))
         if not rows:                     # the JSON row: the train shape
             rows["flash_attention_bwd"] = {
                 "name": "flash_attention_bwd", "route": "cuda",
@@ -1821,12 +1921,16 @@ def phase_flash_bwd_kernels(cfg, sm_cfg):
                 "launches": 0, "max_abs_err": err, "ms": ms,
                 "device_ms": device_ms, "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by,
-                "library_ms": library_ms, "shapes": []}
+                "bound_7_products_ms": bound7_ms,
+                "library_ms": library_ms,
+                "library_device_ms": library_device_ms, "shapes": []}
         rows["flash_attention_bwd"]["shapes"].append({
             "shape": label, "ms": ms, "device_ms": device_ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
+            "library_device_ms": library_device_ms,
             "ratio": ms / library_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "max_abs_err": err})
+            "bound_7_products_ms": bound7_ms, "bound_by": bound_by,
+            "max_abs_err": err})
         del sets, lib, eager
         torch.cuda.empty_cache()
     return rows
@@ -1948,9 +2052,8 @@ def log_profile(prof, name: str, wall_us: float, steps: int,
     # cast (with the path's other copies and f32 products, which are
     # activation-sized), beside the cuBLAS GEMMs on its output
     for label, keys in (("flash_attention", ("flash_tc_kernel",)),
-                        ("flash_attention_bwd", ("dkdv_tc_kernel",
-                                                 "dq_tc_kernel",
-                                                 "::dot_kernel<")),
+                        ("flash_attention_bwd", BWD_KERNELS
+                         + ("::dot_kernel<",)),
                         ("decode attention", ("decode_attn",)),
                         ("ssd_chunk", ("ssd_",)), ("rglru_scan", ("rglru",)),
                         ("expert kernels", ("tc::tc_kernel<",)),

@@ -35,38 +35,59 @@
 // forward's 4 * d. At a 4096-token causal microbatch of minitron-8b (32 heads
 // of 128 over 8 KV heads) that is 343.6 GFLOP, 0.35 ms at 989 TFLOP/s of
 // bf16, against 0.05 ms for its 0.17 GB of inputs and outputs at 3.35 TB/s.
+// This design does seven (dQ's kernel takes S and dP again): 0.49 ms there.
 //
-// Three kernels a call, each right and simple first:
+// Three kernels a call:
 //   * dot: D = rowsum(dO * O), one warp a row;
-//   * dK/dV: one block of 4 warps per (64-key tile, KV head, batch row); each
-//     warp owns 16 keys and keeps their dK and dV accumulators (16 x d f32)
-//     in registers for the whole block. The block walks the g query heads of
-//     its KV head and, for each, the 32-query tiles that can see one of its
-//     keys (from the positions), so GQA sums in registers and needs no
-//     atomics. Q, dO and the tile's positions, lse and D come through a
-//     two-stage cp.async ring;
-//   * dQ: one block of 4 warps per (64-query tile, query head, batch row),
-//     16 rows a warp with their dQ (16 x d f32) in registers, over the
-//     64-key tiles that hold a key valid for one of its rows (a tile whose
-//     keys are all invalid for every row is skipped before its copy), K and
-//     V through a two-stage cp.async ring; the heaviest causal tiles first.
-// bf16 route (the model's): every product on mma.sync.m16n8k16 (bf16 in, f32
-// accumulate) with operands from shared memory by ldmatrix (plain for a
-// [row][d] operand, .trans for a [k][n] one), P and dS taken straight from
-// the accumulators as the A operand of the next product, rounded to bf16.
-// Rows are padded by 16 bytes, so the 8 rows an ldmatrix phase reads fall in
-// 8 distinct bank groups. p is one FFMA and one ex2 in the log2 domain.
-// f32 route (for checks against the plain version): the same blocks with
-// f32 FMAs on the CUDA cores (no TF32), two lanes a row, S, P and dS through
-// shared memory.
-// Left to later work: wgmma and TMA with a producer warp; dQ accumulated in
-// the dK/dV kernel's pass (FA2's atomics, which this design avoids for
-// determinism, or a second reduction pass).
+//   * dK/dV: one block per (128-key tile, KV head, batch row), heads
+//     fastest so that the heaviest causal tiles (the first keys) start
+//     first. A producer warp loads the block's K and V tiles once by TMA,
+//     then for each item, (query head, 64-query tile) over the g query
+//     heads of the KV head and the query tiles that can see one of the
+//     block's keys (from the positions), the Q and dO tiles by TMA and the
+//     tile's positions, lse (log2 domain) and D by its lanes, into a ring of
+//     three stages (full and empty mbarriers). Two consumer warpgroups
+//     own 64 keys each and keep their dK and dV (64 x d f32 each) in
+//     registers over every item: GQA sums in registers, no atomics.
+//   * dQ: one block per (128-query tile, query head, batch row), the
+//     heaviest causal tiles (the last queries) first. The producer warp
+//     loads Q and dO once, then walks the 64-key tiles in order into the
+//     ring, skipping a tile whose keys are all invalid for every query of
+//     the block (a vote over its positions), and ends with a tile index of
+//     -1. Two consumer warpgroups own 64 queries and their dQ each.
+// bf16 route (the model's): every product on wgmma (bf16 in, f32
+// accumulate). S^T = K Q^T and dP^T = V dO^T (dQ: S = Q K^T, dP = dO V^T)
+// take both operands from shared memory, K-major; P and dS are taken from
+// the accumulators under the forward's mask (one FFMA and one ex2 a score),
+// rounded to bf16 as register A operands of dV += P^T dO, dK += dS^T Q
+// (dQ += dS K), whose B is the streamed tile read MN-major (the transpose
+// bit). Tiles are [d / 64][rows][64] with 128-byte rows, TMA's 128-byte
+// swizzle matching the descriptors'. The head dim is padded to 64 (d
+// 16-64) or 128 (d 80-128) by the maps' zero fill past d, so the route
+// takes every d the launcher accepts. setmaxnreg gives the producer
+// warpgroup 40 registers and the consumers 232: at d 128 a dK/dV consumer
+// holds 192 f32 accumulators (dK, dV, S^T, dP^T), and with 240 the
+// producer spills and the kernel runs slower. The consumer warpgroups take
+// turns issuing their products (two named barriers), so that one's mask
+// and exponentials run under the other's products. dQ is a second kernel,
+// not FA3's sum into an f32 workspace inside the dK/dV pass: its order is
+// fixed by construction, at two extra products.
+// f32 route (for checks against the plain version): one block of 128
+// threads per 64-key (dK/dV) or 64-query (dQ) tile, f32 FMAs on the CUDA
+// cores (no TF32), two lanes a row, S, P and dS through shared memory.
+// Left to later work: the dK/dV kernel's S^T and dP^T read both operands
+// from shared memory, whose bandwidth then bounds them as much as the
+// tensor cores do (K and V as register fragments need 64 registers more
+// than d 128 leaves); at a 2048-token causal prefill its 128 blocks fill
+// one wave unevenly (the first key tile sees every query); a TMA store
+// epilogue.
 //
 // C interface (loaded with ctypes): the launcher returns the first CUDA
 // error of its three launches, or cudaErrorInvalidValue for an unsupported
-// dtype, head dim or grid.
+// dtype, head dim, grid or tensor map (cudaErrorNotSupported when the driver
+// has no cuTensorMapEncodeTiled).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -451,61 +472,25 @@ int launch(int sq, int skv, int b, int hq, int hkv, cudaStream_t st,
 }  // namespace f32
 
 // ---------------------------------------------------------------------------
-// bf16 route: mma.sync, accumulators in registers, cp.async rings
+// bf16 route: wgmma fed by TMA from a producer warp through an mbarrier ring
 // ---------------------------------------------------------------------------
 
 namespace tc {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kRows = 16 * kWarps;   // keys (dK/dV) or queries (dQ) a block
-constexpr int kStepQ = 32;           // queries a step of the dK/dV kernel
-constexpr int kStepK = 64;           // keys a step of the dQ kernel
+constexpr int kThreads = 384;      // a producer warpgroup, two consumer ones
+constexpr int kWgRows = 64;        // rows a consumer warpgroup owns (wgmma M)
+constexpr int kBlockRows = 2 * kWgRows;  // resident rows: keys (dK/dV) or
+                                         // queries (dQ)
+constexpr int kStep = 64;          // streamed rows a stage: queries (dK/dV)
+                                   // or keys (dQ)
+constexpr int kStages = 3;         // depth of the ring
+constexpr int kProducerRegs = 40;  // setmaxnreg: 128 x 40 + 256 x 232 =
+constexpr int kConsumerRegs = 232; // 64512 of the SM's 65536
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, or 16 zero bytes when !valid (src unread)
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// d += a (16 x 16, row) . b (16 x 8, col), bf16 in, f32 accumulate
-__device__ __forceinline__ void mma16816(float (&d)[4],
-                                         const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // 2^x on the special-function unit (ftz)
@@ -521,377 +506,717 @@ __device__ __forceinline__ uint32_t pack_bf16(float x, float y) {
   return *reinterpret_cast<const uint32_t*>(&p);
 }
 
-// c[NT][4] = A . B^T with A the 16 rows at `a` and B the NT * 8 rows at `b`,
-// both [row][d] in shared memory at pitch P (elements); the ldmatrix lane
-// offsets a_lane / b_lane select each lane's row and half. c's n8 tile j
-// holds B rows j * 8 + 2 tg + {0, 1} of A rows gq (c0, c1), gq + 8 (c2, c3).
-template <int D, int NT>
-__device__ __forceinline__ void mma_abt(uint32_t a, uint32_t b,
-                                        float (&c)[NT][4]) {
-  constexpr int P = D + 8;
-  const int lane = threadIdx.x & 31, lr = lane & 7, lm = lane >> 3;
-  const uint32_t a_lane = 2 * (((lm & 1) * 8 + lr) * P + (lm >> 1) * 8);
-  const uint32_t b_lane = 2 * (((lm >> 1) * 8 + lr) * P + (lm & 1) * 8);
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) c[j][e] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t af[4];
-    ldsm_x4(a + a_lane + 2 * kk * 16, af);
-#pragma unroll
-    for (int np = 0; np < NT / 2; ++np) {
-      uint32_t bf[4];
-      ldsm_x4(b + b_lane + 2 * (np * 16 * P + kk * 16), bf);
-      mma16816(c[2 * np], af, bf[0], bf[1]);
-      mma16816(c[2 * np + 1], af, bf[2], bf[3]);
-    }
-  }
+// --- mbarriers -------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count));
+}
+// one arrival, and `bytes` more to come from TMA before the phase completes
+__device__ __forceinline__ void mbar_arrive_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :
+               : "r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+// until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
 }
 
-// acc[D / 8][4] += X . B with X (16 x NT * 8) the accumulators x rounded to
-// bf16 (n8 tiles 2 kk and 2 kk + 1 are the A fragment of k16 step kk) and B
-// the NT * 8 rows at `b`, [k][d] in shared memory at pitch P (.trans)
-template <int D, int NT>
-__device__ __forceinline__ void mma_xb(const float (&x)[NT][4], uint32_t b,
-                                       float (&acc)[D / 8][4]) {
-  constexpr int P = D + 8;
-  const int lane = threadIdx.x & 31, lr = lane & 7, lm = lane >> 3;
-  const uint32_t b_lane = 2 * (((lm & 1) * 8 + lr) * P + (lm >> 1) * 8);
-#pragma unroll
-  for (int kk = 0; kk < NT / 2; ++kk) {
-    const uint32_t pa[4] = {pack_bf16(x[2 * kk][0], x[2 * kk][1]),
-                            pack_bf16(x[2 * kk][2], x[2 * kk][3]),
-                            pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]),
-                            pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3])};
-#pragma unroll
-    for (int dp = 0; dp < D / 16; ++dp) {
-      uint32_t bf[4];
-      ldsm_x4_t(b + b_lane + 2 * (kk * 16 * P + dp * 16), bf);
-      mma16816(acc[2 * dp], pa, bf[0], bf[1]);
-      mma16816(acc[2 * dp + 1], pa, bf[2], bf[3]);
-    }
-  }
+// --- TMA -------------------------------------------------------------------
+
+// one box (64 columns x 64 rows of one head and batch row) of a
+// [b, rows, heads, d] map into shared memory at `dst`, completing on `bar`
+__device__ __forceinline__ void tma_box(uint32_t dst, const CUtensorMap* map,
+                                        int col, int head, int row, int batch,
+                                        uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(head), "r"(row),
+      "r"(batch), "r"(bar)
+      : "memory");
 }
 
-// rows [r0, r0 + n_rows) of a [*, D] bf16 matrix with row stride `stride`
-// into shared memory at pitch D + 8 by cp.async, zeros at or past `n`
-template <int D>
-__device__ __forceinline__ void copy_rows(uint32_t dst,
-                                          const bf16* __restrict__ src,
-                                          int64_t stride, int r0, int n,
-                                          int n_rows) {
-  constexpr int CPR = D / 8, P = D + 8;
-  for (int i = threadIdx.x; i < n_rows * CPR; i += kThreads) {
-    const int r = i / CPR, c = (i % CPR) * 8;
-    const bool ok = r0 + r < n;
-    cp_async16(dst + 2 * (r * P + c),
-               ok ? src + static_cast<int64_t>(r0 + r) * stride + c : src,
-               ok);
-  }
+// rows [row0, row0 + R) of one head and batch row, all DP columns, as the
+// tile [DP / 64][R][64] (128-byte rows, 128-byte swizzle) at `dst`; rows and
+// columns past the tensor's edge arrive as zeros. R * DP * 2 bytes.
+template <int DP, int R>
+__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
+                                         int head, int row0, int batch,
+                                         uint32_t bar) {
+#pragma unroll
+  for (int c = 0; c < DP / 64; ++c)
+#pragma unroll
+    for (int r = 0; r < R / 64; ++r)
+      tma_box(dst + (c * R + r * 64) * 128, map, c * 64, head, row0 + r * 64,
+              batch, bar);
 }
 
-// A warp's accumulators (16 rows x D, C layout) scaled by `scale`, as bf16
-// pairs into rows row0 + gq (+ 8) of `out` (row stride `stride` elements);
-// rows at or past n are not written.
-template <int D>
-__device__ __forceinline__ void store_rows(const float (&acc)[D / 8][4],
-                                           float scale, bf16* out,
-                                           int64_t stride, int row0, int n) {
-  const int lane = threadIdx.x & 31, gq = lane >> 2, tg = lane & 3;
+// --- wgmma -----------------------------------------------------------------
+
+// a shared-memory matrix descriptor, 128-byte swizzle
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
+                                         uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>(lbo >> 4) << 16 |
+         static_cast<uint64_t>(sbo >> 4) << 32 | 1ull << 62;
+}
+// K-major operand: 64 rows from r0, the 16 columns of k step kk, of a
+// [DP / 64][R][64] tile (8-row groups 1024 bytes apart)
+template <int R>
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int r0, int kk) {
+  return desc(tile + (kk >> 2) * R * 128 + r0 * 128 + (kk & 3) * 32, 16, 1024);
+}
+// MN-major (transposed) operand: rows 16 kk .. 16 kk + 15 (the k step) and
+// every column of a [DP / 64][64][64] streamed tile (64-column blocks 8 KB
+// apart, 8-row groups 1024 bytes apart)
+__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk) {
+  return desc(tile + kk * 2048, kStep * 128, 1024);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// pins the registers in place: reads of them after a wg_wait stay after it
+template <int N>
+__device__ __forceinline__ void keep(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+// Named barrier 1 + w is consumer warpgroup w's turn to issue products:
+// turn_wait(w) takes it, turn_pass(w) hands the turn to the other one.
+__device__ __forceinline__ void turn_wait(int w) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(1 + w) : "memory");
+}
+__device__ __forceinline__ void turn_pass(int w) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(2 - w) : "memory");
+}
+template <int N>
+__device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// d (m64n64, f32) = A . B^T, or += where `accumulate`: A (64 x 16) and B
+// (64 x 16) K-major bf16 in shared memory, 128-byte swizzle
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
+                                             uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (m64n64, f32) += A . B: A (64 x 16) bf16 fragments in registers, B
+// (16 x 64) MN-major bf16 in shared memory (the transpose bit), 128-byte
+// swizzle
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (m64n128, f32) += A . B: A (64 x 16) bf16 fragments in registers, B
+// (16 x 128) MN-major bf16 in shared memory (the transpose bit), 128-byte
+// swizzle
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <int DP>
+__device__ __forceinline__ void wgmma_rs(float (&d)[DP / 2],
+                                         const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (DP == 128)
+    wgmma_rs_n128(d, a, b);
+  else
+    wgmma_rs_n64(d, a, b);
+}
+
+// x (m64n64 accumulators) rounded to bf16 as the A fragments of four k16
+// steps: the accumulator's n8 tiles 2 kk and 2 kk + 1 are k step kk
+__device__ __forceinline__ void to_a(const float (&x)[32],
+                                     uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      a[kk][r] = pack_bf16(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1]);
+}
+
+// A warpgroup's accumulators (64 x DP, this thread's rows `row` and
+// row + 8) scaled by `scale`, as bf16 pairs into `out` (row stride `stride`
+// elements): rows at or past n and columns at or past d are not written
+template <int DP>
+__device__ __forceinline__ void store_acc(const float (&acc)[DP / 2],
+                                          float scale, bf16* out,
+                                          int64_t stride, int row, int n,
+                                          int d) {
+  const int tg = threadIdx.x & 3;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = row0 + gq + 8 * r;
-    if (row >= n) continue;
+    const int rr = row + 8 * r;
+    if (rr >= n) continue;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<uint32_t*>(out + row * stride + j * 8 + 2 * tg) =
-          pack_bf16(acc[j][2 * r] * scale, acc[j][2 * r + 1] * scale);
+    for (int j = 0; j < DP / 8; ++j) {
+      const int col = 8 * j + 2 * tg;
+      if (col < d)
+        *reinterpret_cast<uint32_t*>(out + rr * stride + col) =
+            pack_bf16(acc[4 * j + 2 * r] * scale,
+                      acc[4 * j + 2 * r + 1] * scale);
+    }
   }
 }
 
-template <int D>
-struct DkdvTile {
-  static constexpr int P = D + 8;                                  // elements
-  static constexpr uint32_t kK = 0;                                // bytes
-  static constexpr uint32_t kV = kK + 2 * kRows * P;
-  static constexpr uint32_t kRing = kV + 2 * kRows * P;            // Q dO x 2
-  static constexpr uint32_t kStage = 2 * 2 * kStepQ * P;
-  static constexpr uint32_t kQPos = kRing + 2 * kStage;            // 2 x kStepQ
-  static constexpr uint32_t kLse = kQPos + 4 * 2 * kStepQ;
-  static constexpr uint32_t kDsum = kLse + 4 * 2 * kStepQ;
-  static constexpr uint32_t kKPos = kDsum + 4 * 2 * kStepQ;
-  static constexpr uint32_t kRed = kKPos + 4 * kRows;
-  static constexpr size_t kBytes = kRed + 4 * 2 * kWarps;
-  static_assert(D % 16 == 0 && D <= 128, "k16 steps, pairs of n8 tiles");
-  static_assert(kBytes <= 232448, "a block's shared memory");
+// the largest v over the block (sRed: kThreads / 32 ints)
+__device__ __forceinline__ int block_max(int v, int* sRed) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int o = 16; o; o >>= 1) v = max(v, __shfl_xor_sync(0xffffffffu, v, o));
+  __syncthreads();
+  if (lane == 0) sRed[warp] = v;
+  __syncthreads();
+  v = INT_MIN;
+  for (int w = 0; w < kThreads / 32; ++w) v = max(v, sRed[w]);
+  return v;
+}
+
+// Shared memory of the dK/dV kernel (bytes from a 1024-aligned base): the
+// block's K and V tiles, the ring of Q and dO tiles, each stage's query
+// positions, lse (log2 domain) and D, the block's key positions, the
+// reductions' scratch and the mbarriers (K/V, full[], empty[]).
+template <int DP>
+struct DkdvSmem {
+  static constexpr uint32_t kTile = 2 * kBlockRows * DP;
+  static constexpr uint32_t kStage = 2 * 2 * kStep * DP;
+  static constexpr uint32_t kK = 0;
+  static constexpr uint32_t kV = kK + kTile;
+  static constexpr uint32_t kRing = kV + kTile;
+  static constexpr uint32_t kMeta = kRing + kStages * kStage;
+  static constexpr uint32_t kMetaStage = 3 * 4 * kStep;
+  static constexpr uint32_t kKPos = kMeta + kStages * kMetaStage;
+  static constexpr uint32_t kRed = kKPos + 4 * kBlockRows;
+  static constexpr uint32_t kBar = kRed + 4 * 2 * (kThreads / 32);
+  static constexpr uint32_t kBytes = kBar + 8 * (1 + 2 * kStages);
+  static constexpr size_t kAlloc = kBytes + 1024;    // room to align
+  static_assert(kAlloc <= 232448, "a block's shared memory");
 };
 
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-dkdv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-               const bf16* __restrict__ v, const bf16* __restrict__ dout,
-               const float* __restrict__ lse, const float* __restrict__ dsum,
-               const int* __restrict__ q_pos, const int* __restrict__ k_pos,
-               bf16* __restrict__ dk, bf16* __restrict__ dv, int sq, int skv,
-               int hq, int hkv, int causal, float scale_log2, float scale) {
-  using L = DkdvTile<D>;
-  constexpr int NS = kStepQ / 8;             // n8 tiles of S^T a warp
-  constexpr int NO = D / 8;                  // n8 tiles of dK, dV
-  extern __shared__ __align__(128) unsigned char smem[];
-  int* sQPos = reinterpret_cast<int*>(smem + L::kQPos);     // [2][kStepQ]
-  float* sLse = reinterpret_cast<float*>(smem + L::kLse);   // log2 domain
-  float* sDsum = reinterpret_cast<float*>(smem + L::kDsum);
+// dK, dV of one 128-key tile of one KV head and batch row. The producer
+// warp loads K and V once, then for each (query head, 64-query tile) item
+// the tiles of Q and dO into the ring; each consumer warpgroup owns 64 keys
+// and keeps their dK and dV in registers over every item.
+template <int DP>
+__global__ void __launch_bounds__(kThreads, 1)
+dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                  const __grid_constant__ CUtensorMap tm_k,
+                  const __grid_constant__ CUtensorMap tm_v,
+                  const __grid_constant__ CUtensorMap tm_do,
+                  const float* __restrict__ lse,
+                  const float* __restrict__ dsum,
+                  const int* __restrict__ q_pos,
+                  const int* __restrict__ k_pos, bf16* __restrict__ dk,
+                  bf16* __restrict__ dv, int sq, int skv, int hq, int hkv,
+                  int d, int causal, float scale_log2, float scale) {
+  using L = DkdvSmem<DP>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
   int* sKPos = reinterpret_cast<int*>(smem + L::kKPos);
   int* sRed = reinterpret_cast<int*>(smem + L::kRed);
-  const uint32_t sbase = smem_addr(smem);
-  const auto q_addr = [&](int slot) {
-    return sbase + L::kRing + slot * L::kStage;
+  const uint32_t kv_bar = base + L::kBar;
+  const auto full = [&](int s) { return base + L::kBar + 8 * (1 + s); };
+  const auto empty = [&](int s) {
+    return base + L::kBar + 8 * (1 + kStages + s);
   };
-  const auto do_addr = [&](int slot) {
-    return q_addr(slot) + 2 * kStepQ * L::P;
+  const auto meta = [&](int s) {            // q_pos, lse (log2), D
+    return reinterpret_cast<int*>(smem + L::kMeta + s * L::kMetaStage);
   };
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int gq = lane >> 2, tg = lane & 3;
-  const int k0 = blockIdx.x * kRows;
-  const int kh = blockIdx.y, b = blockIdx.z, g = hq / hkv;
-  const int64_t kstride = static_cast<int64_t>(hkv) * D;
-  const int64_t qstride = static_cast<int64_t>(hq) * D;
-  const int64_t kb = (static_cast<int64_t>(b) * skv * hkv + kh) * D;
-
-  // K and V tiles: with the first Q/dO stage, the first cp.async group
-  copy_rows<D>(sbase + L::kK, k + kb, kstride, k0, skv, kRows);
-  copy_rows<D>(sbase + L::kV, v + kb, kstride, k0, skv, kRows);
-  for (int i = tid; i < kRows; i += kThreads)
+  const int tid = threadIdx.x;
+  const int kh = blockIdx.x, k0 = blockIdx.y * kBlockRows, b = blockIdx.z;
+  const int g = hq / hkv;
+  if (tid == 0) {
+    mbar_init(kv_bar, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full(s), 32);                // the producer warp's lanes
+      mbar_init(empty(s), 2 * 128);          // every consumer thread
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  for (int i = tid; i < kBlockRows; i += kThreads)
     sKPos[i] = k0 + i < skv ? k_pos[k0 + i] : -1;
   __syncthreads();
+  // the least valid key position of the tile, and the queries it can see
   int kmin = INT_MAX;
-  for (int r = 0; r < kRows; ++r)
+  for (int r = 0; r < kBlockRows; ++r)
     if (sKPos[r] >= 0) kmin = min(kmin, sKPos[r]);
   int q_lo, q_hi;
   index_range<kThreads>(
       q_pos, kmin == INT_MAX ? 0 : sq,
       [&](int p) { return !causal || p >= kmin; }, sRed, q_lo, q_hi);
-  const int t_lo = q_hi < 0 ? 0 : q_lo / kStepQ;
-  const int nt = q_hi < 0 ? 0 : q_hi / kStepQ + 1 - t_lo;
+  const int t_lo = q_hi < 0 ? 0 : q_lo / kStep;
+  const int nt = q_hi < 0 ? 0 : q_hi / kStep + 1 - t_lo;
   const int items = g * nt;                  // (query head, query tile)
-  // this lane's keys: gq and gq + 8 of the warp's 16
-  const int kr0 = warp * 16;
-  const int kp[2] = {sKPos[kr0 + gq], sKPos[kr0 + 8 + gq]};
 
-  // Q and dO rows of item n, with their positions, lse and D -> slot
-  const auto load_item = [&](int n, int slot) {
-    const int h = kh * g + n / nt;
-    const int q0 = (t_lo + n % nt) * kStepQ;
-    const int64_t qb = (static_cast<int64_t>(b) * sq * hq + h) * D;
-    copy_rows<D>(q_addr(slot), q + qb, qstride, q0, sq, kStepQ);
-    copy_rows<D>(do_addr(slot), dout + qb, qstride, q0, sq, kStepQ);
-    const int64_t lb = (static_cast<int64_t>(b) * hq + h) * sq;
-    for (int i = tid; i < kStepQ; i += kThreads) {
-      const bool in = q0 + i < sq;
-      sQPos[slot * kStepQ + i] = in ? q_pos[q0 + i] : INT_MIN;
-      sLse[slot * kStepQ + i] = in ? lse[lb + q0 + i] * kLog2e : 0.f;
-      sDsum[slot * kStepQ + i] = in ? dsum[lb + q0 + i] : 0.f;
-    }
-  };
-
-  float dka[NO][4], dva[NO][4];
-#pragma unroll
-  for (int j = 0; j < NO; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.f;
-
-  if (items > 0) load_item(0, 0);
-  cp_commit();
-  for (int n = 0; n < items; ++n) {
-    const int slot = n & 1;
-    cp_wait<0>();                            // item n (and K, V) landed
-    __syncthreads();                         // for every thread; and every
-    // warp is done with item n - 1, so the other slot takes the next copy
-    if (n + 1 < items) load_item(n + 1, slot ^ 1);
-    cp_commit();
-
-    // S^T = K Q^T and dP^T = V dO^T: 16 keys x 32 queries a warp
-    float s[NS][4], dp[NS][4];
-    mma_abt<D, NS>(sbase + L::kK + 2 * kr0 * L::P, q_addr(slot), s);
-    mma_abt<D, NS>(sbase + L::kV + 2 * kr0 * L::P, do_addr(slot), dp);
-    const int* qpos = sQPos + slot * kStepQ;
-    const float* lse2 = sLse + slot * kStepQ;
-    const float* dd = sDsum + slot * kStepQ;
-#pragma unroll
-    for (int j = 0; j < NS; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = j * 8 + 2 * tg + (e & 1);
-        const int key = kp[e >> 1], qp = qpos[c];
-        const bool ok = key >= 0 && qp != INT_MIN && (!causal || key <= qp);
-        const float p =
-            ok ? exp2_approx(fmaf(s[j][e], scale_log2, -lse2[c])) : 0.f;
-        s[j][e] = p;                         // P^T
-        dp[j][e] = p * (dp[j][e] - dd[c]);   // dS^T
+  if (tid < 128) {
+    // ---- producer: one warp issues every copy --------------------------
+    regs_dec<kProducerRegs>();
+    if (tid < 32) {
+      const int lane = tid;
+      if (lane == 0) {
+        mbar_arrive_tx(kv_bar, 2 * L::kTile);
+        tma_tile<DP, kBlockRows>(base + L::kK, &tm_k, kh, k0, b, kv_bar);
+        tma_tile<DP, kBlockRows>(base + L::kV, &tm_v, kh, k0, b, kv_bar);
       }
-    // dV += P^T dO, dK += dS^T Q
-    mma_xb<D, NS>(s, do_addr(slot), dva);
-    mma_xb<D, NS>(dp, q_addr(slot), dka);
+      for (int n = 0; n < items; ++n) {
+        const int s = n % kStages;
+        mbar_wait(empty(s), ((n / kStages) & 1) ^ 1);
+        const int h = kh * g + n / nt;
+        const int q0 = (t_lo + n % nt) * kStep;
+        const int64_t lb = (static_cast<int64_t>(b) * hq + h) * sq;
+        int* qp = meta(s);
+        float* l2 = reinterpret_cast<float*>(qp + kStep);
+        float* dd = l2 + kStep;
+        for (int i = lane; i < kStep; i += 32) {
+          const bool in = q0 + i < sq;
+          qp[i] = in ? q_pos[q0 + i] : INT_MIN;
+          l2[i] = in ? lse[lb + q0 + i] * kLog2e : 0.f;
+          dd[i] = in ? dsum[lb + q0 + i] : 0.f;
+        }
+        if (lane == 0) {
+          const uint32_t st = base + L::kRing + s * L::kStage;
+          mbar_arrive_tx(full(s), L::kStage);
+          tma_tile<DP, kStep>(st, &tm_q, h, q0, b, full(s));
+          tma_tile<DP, kStep>(st + L::kStage / 2, &tm_do, h, q0, b, full(s));
+        } else {
+          mbar_arrive(full(s));
+        }
+      }
+    }
+  } else {
+    // ---- consumers: 64 keys a warpgroup ---------------------------------
+    regs_inc<kConsumerRegs>();
+    const int cw = tid / 128 - 1;
+    const int lane = tid & 31, wi = (tid >> 5) & 3;
+    const int gq = lane >> 2, tg = lane & 3;
+    const int row = cw * kWgRows + wi * 16 + gq;   // and row + 8
+    const int kp0 = sKPos[row], kp1 = sKPos[row + 8];
+    float dka[DP / 2], dva[DP / 2];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) dka[i] = dva[i] = 0.f;
+    mbar_wait(kv_bar, 0);
+    if (cw == 1) turn_pass(cw);              // warpgroup 0 goes first
+    for (int n = 0; n < items; ++n) {
+      const int s = n % kStages;
+      mbar_wait(full(s), (n / kStages) & 1);
+      const uint32_t sQ = base + L::kRing + s * L::kStage;
+      const uint32_t sDO = sQ + L::kStage / 2;
+      const uint32_t sK = base + L::kK, sV = sK + L::kTile;
+      // S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 queries
+      float st[32], dpt[32];
+      turn_wait(cw);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk)
+        wgmma_ss_n64(st, desc_k<kBlockRows>(sK, cw * kWgRows, kk),
+                     desc_k<kStep>(sQ, 0, kk), kk > 0);
+      wg_commit();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk)
+        wgmma_ss_n64(dpt, desc_k<kBlockRows>(sV, cw * kWgRows, kk),
+                     desc_k<kStep>(sDO, 0, kk), kk > 0);
+      wg_commit();
+      turn_pass(cw);
+      const int* qp = meta(s);
+      const float* l2 = reinterpret_cast<const float*>(qp + kStep);
+      const float* dd = l2 + kStep;
+      wg_wait<1>();
+      keep(st);
+      // P^T under the forward's mask: one FFMA and one ex2 a score
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = 8 * j + 2 * tg;
+        const int2 qq = *reinterpret_cast<const int2*>(qp + c);
+        const float2 ll = *reinterpret_cast<const float2*>(l2 + c);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = e < 2 ? kp0 : kp1;
+          const int qc = (e & 1) ? qq.y : qq.x;
+          const bool ok = key >= 0 && qc != INT_MIN && (!causal || key <= qc);
+          st[4 * j + e] = ok ? exp2_approx(fmaf(st[4 * j + e], scale_log2,
+                                                -((e & 1) ? ll.y : ll.x)))
+                             : 0.f;
+        }
+      }
+      wg_wait<0>();
+      keep(dpt);
+      // dS^T = P^T (dP^T - D)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 dj = *reinterpret_cast<const float2*>(dd + 8 * j + 2 * tg);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dpt[4 * j + e] = st[4 * j + e] * (dpt[4 * j + e] -
+                                            ((e & 1) ? dj.y : dj.x));
+      }
+      // dV += P^T dO, dK += dS^T Q: P and dS rounded to bf16 as A
+      uint32_t pa[4][4], da[4][4];
+      to_a(st, pa);
+      to_a(dpt, da);
+      turn_wait(cw);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs<DP>(dva, pa[kk], desc_mn(sDO, kk));
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs<DP>(dka, da[kk], desc_mn(sQ, kk));
+      wg_commit();
+      turn_pass(cw);
+      wg_wait<0>();
+      keep(dka);
+      keep(dva);
+      mbar_arrive(empty(s));
+    }
+    if (cw == 0) turn_wait(cw);              // the last pass of warpgroup 1
+    const int64_t kstride = static_cast<int64_t>(hkv) * d;
+    const int64_t at = ((static_cast<int64_t>(b) * skv + k0) * hkv + kh) * d;
+    store_acc<DP>(dka, scale, dk + at, kstride, row, skv - k0, d);
+    store_acc<DP>(dva, 1.f, dv + at, kstride, row, skv - k0, d);
   }
-  cp_wait<0>();
-
-  bf16* dkb = dk + kb + static_cast<int64_t>(k0) * kstride;
-  bf16* dvb = dv + kb + static_cast<int64_t>(k0) * kstride;
-  store_rows<D>(dka, scale, dkb, kstride, kr0, skv - k0);
-  store_rows<D>(dva, 1.f, dvb, kstride, kr0, skv - k0);
 }
 
-template <int D>
-struct DqTile {
-  static constexpr int P = D + 8;
-  static constexpr uint32_t kQ = 0;                                // bytes
-  static constexpr uint32_t kDO = kQ + 2 * kRows * P;
-  static constexpr uint32_t kRing = kDO + 2 * kRows * P;           // K V x 2
-  static constexpr uint32_t kStage = 2 * 2 * kStepK * P;
-  static constexpr uint32_t kKPos = kRing + 2 * kStage;            // 2 x kStepK
-  static constexpr uint32_t kQPos = kKPos + 4 * 2 * kStepK;
-  static constexpr uint32_t kRed = kQPos + 4 * kRows;
-  static constexpr size_t kBytes = kRed + 4 * 2 * kWarps;
-  static_assert(kBytes <= 232448, "a block's shared memory");
+// Shared memory of the dQ kernel: the block's Q and dO tiles, the ring of
+// K and V tiles, each stage's key positions and key-tile index (-1: no more
+// tiles), the reductions' scratch and the mbarriers (Q/dO, full[], empty[]).
+template <int DP>
+struct DqSmem {
+  static constexpr uint32_t kTile = 2 * kBlockRows * DP;
+  static constexpr uint32_t kStage = 2 * 2 * kStep * DP;
+  static constexpr uint32_t kQ = 0;
+  static constexpr uint32_t kDO = kQ + kTile;
+  static constexpr uint32_t kRing = kDO + kTile;
+  static constexpr uint32_t kMeta = kRing + kStages * kStage;
+  static constexpr uint32_t kMetaStage = 4 * kStep + 16;
+  static constexpr uint32_t kRed = kMeta + kStages * kMetaStage;
+  static constexpr uint32_t kBar = kRed + 4 * 2 * (kThreads / 32);
+  static constexpr uint32_t kBytes = kBar + 8 * (1 + 2 * kStages);
+  static constexpr size_t kAlloc = kBytes + 1024;
+  static_assert(kAlloc <= 232448, "a block's shared memory");
 };
 
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-             const bf16* __restrict__ v, const bf16* __restrict__ dout,
-             const float* __restrict__ lse, const float* __restrict__ dsum,
-             const int* __restrict__ q_pos, const int* __restrict__ k_pos,
-             bf16* __restrict__ dq, int sq, int skv, int hq, int hkv,
-             int causal, float scale_log2, float scale) {
-  using L = DqTile<D>;
-  constexpr int NS = kStepK / 8;             // n8 tiles of S a warp
-  constexpr int NO = D / 8;                  // n8 tiles of dQ
-  extern __shared__ __align__(128) unsigned char smem[];
-  int* sKPos = reinterpret_cast<int*>(smem + L::kKPos);     // [2][kStepK]
-  int* sQPos = reinterpret_cast<int*>(smem + L::kQPos);
+// dQ of one 128-query tile of one query head and batch row, the heaviest
+// causal tiles first. The producer warp loads Q and dO once, then walks the
+// 64-key tiles in order, skipping a tile with no key valid for any query
+// of the block (a vote over its positions), and ends the ring with the
+// index -1; each consumer warpgroup owns 64 queries and their dQ.
+template <int DP>
+__global__ void __launch_bounds__(kThreads, 1)
+dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                const __grid_constant__ CUtensorMap tm_k,
+                const __grid_constant__ CUtensorMap tm_v,
+                const __grid_constant__ CUtensorMap tm_do,
+                const float* __restrict__ lse, const float* __restrict__ dsum,
+                const int* __restrict__ q_pos, const int* __restrict__ k_pos,
+                bf16* __restrict__ dq, int sq, int skv, int hq, int hkv,
+                int d, int causal, float scale_log2, float scale) {
+  using L = DqSmem<DP>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
   int* sRed = reinterpret_cast<int*>(smem + L::kRed);
-  const uint32_t sbase = smem_addr(smem);
-  const auto k_addr = [&](int slot) {
-    return sbase + L::kRing + slot * L::kStage;
+  const uint32_t q_bar = base + L::kBar;
+  const auto full = [&](int s) { return base + L::kBar + 8 * (1 + s); };
+  const auto empty = [&](int s) {
+    return base + L::kBar + 8 * (1 + kStages + s);
   };
-  const auto v_addr = [&](int slot) {
-    return k_addr(slot) + 2 * kStepK * L::P;
+  const auto meta = [&](int s) {            // k_pos[kStep], the tile index
+    return reinterpret_cast<int*>(smem + L::kMeta + s * L::kMetaStage);
   };
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int gq = lane >> 2, tg = lane & 3;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kRows;
-  const int h = blockIdx.y, b = blockIdx.z, g = hq / hkv, kh = h / g;
-  const int64_t qstride = static_cast<int64_t>(hq) * D;
-  const int64_t kstride = static_cast<int64_t>(hkv) * D;
-  const int64_t qb = (static_cast<int64_t>(b) * sq * hq + h) * D;
-  const int64_t kb = (static_cast<int64_t>(b) * skv * hkv + kh) * D;
-
-  copy_rows<D>(sbase + L::kQ, q + qb, qstride, q0, sq, kRows);
-  copy_rows<D>(sbase + L::kDO, dout + qb, qstride, q0, sq, kRows);
-  for (int i = tid; i < kRows; i += kThreads)
-    sQPos[i] = q0 + i < sq ? q_pos[q0 + i] : INT_MIN;
-  __syncthreads();
-  int qmax = INT_MIN;
-  for (int r = 0; r < kRows; ++r) qmax = max(qmax, sQPos[r]);
+  const int tid = threadIdx.x;
+  const int h = blockIdx.x, b = blockIdx.z;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBlockRows;
+  const int g = hq / hkv, kh = h / g;
+  if (tid == 0) {
+    mbar_init(q_bar, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full(s), 32);
+      mbar_init(empty(s), 2 * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // the largest query position of the block bounds the causal keys
+  const int qmax = block_max(
+      tid < kBlockRows && q0 + tid < sq ? q_pos[q0 + tid] : INT_MIN, sRed);
   int k_lo, k_hi;
   index_range<kThreads>(
       k_pos, skv, [&](int p) { return p >= 0 && (!causal || p <= qmax); },
       sRed, k_lo, k_hi);
-  const int t_lo = k_hi < 0 ? 0 : k_lo / kStepK;
-  const int t_hi = k_hi < 0 ? 0 : k_hi / kStepK + 1;
-  // this lane's rows: gq and gq + 8 of the warp's
-  const int r0 = warp * 16;
-  int qp[2];
-  float lse2[2], dd[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int i = q0 + r0 + gq + 8 * r;
-    const int64_t at = (static_cast<int64_t>(b) * hq + h) * sq + i;
-    qp[r] = sQPos[r0 + gq + 8 * r];
-    lse2[r] = i < sq ? lse[at] * kLog2e : 0.f;
-    dd[r] = i < sq ? dsum[at] : 0.f;
-  }
+  const int t_lo = k_hi < 0 ? 0 : k_lo / kStep;
+  const int t_hi = k_hi < 0 ? 0 : k_hi / kStep + 1;
 
-  // key positions of tile t for this lane: keys lane and lane + 32 (-1 past
-  // skv, and for t >= t_hi)
-  const auto load_kp = [&](int t, int (&kp)[2]) {
-    const int j = t * kStepK + lane;
-    kp[0] = t < t_hi && j < skv ? k_pos[j] : -1;
-    kp[1] = t < t_hi && j + 32 < skv ? k_pos[j + 32] : -1;
-  };
-  // the first tile >= t (below t_hi) with a key valid for some row of the
-  // block, given kp of tile t; every warp votes alike, so no barrier
-  const auto next_live = [&](int t, int (&kp)[2]) {
-    while (t < t_hi &&
-           !__any_sync(0xffffffffu,
-                       (kp[0] >= 0 && (!causal || kp[0] <= qmax)) ||
-                           (kp[1] >= 0 && (!causal || kp[1] <= qmax))))
-      load_kp(++t, kp);
-    return t;
-  };
-  const auto load_kv = [&](int t, int slot, const int (&kp)[2]) {
-    copy_rows<D>(k_addr(slot), k + kb, kstride, t * kStepK, skv, kStepK);
-    copy_rows<D>(v_addr(slot), v + kb, kstride, t * kStepK, skv, kStepK);
-    if (warp == 0) {
-      sKPos[slot * kStepK + lane] = kp[0];
-      sKPos[slot * kStepK + lane + 32] = kp[1];
-    }
-  };
-
-  int kp_cur[2], kp_nxt[2];
-  load_kp(t_lo, kp_cur);
-  int t = next_live(t_lo, kp_cur);
-  if (t < t_hi) load_kv(t, 0, kp_cur);
-  cp_commit();
-  load_kp(t + 1, kp_nxt);
-
-  float dqa[NO][4];
-#pragma unroll
-  for (int j = 0; j < NO; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dqa[j][e] = 0.f;
-
-  for (int n = 0; t < t_hi; ++n) {
-    const int slot = n & 1;
-    const int t_next = next_live(t + 1, kp_nxt);
-    cp_wait<0>();                            // tile t (and Q, dO) landed
-    __syncthreads();
-    if (t_next < t_hi) load_kv(t_next, slot ^ 1, kp_nxt);
-    cp_commit();
-    load_kp(t_next + 1, kp_nxt);
-
-    // S = Q K^T and dP = dO V^T: 16 rows x 64 keys a warp
-    float s[NS][4], dp[NS][4];
-    mma_abt<D, NS>(sbase + L::kQ + 2 * r0 * L::P, k_addr(slot), s);
-    mma_abt<D, NS>(sbase + L::kDO + 2 * r0 * L::P, v_addr(slot), dp);
-    const int* kpos = sKPos + slot * kStepK;
-#pragma unroll
-    for (int j = 0; j < NS; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        const int key = kpos[j * 8 + 2 * tg + (e & 1)];
-        const bool ok =
-            key >= 0 && qp[r] != INT_MIN && (!causal || key <= qp[r]);
-        const float p =
-            ok ? exp2_approx(fmaf(s[j][e], scale_log2, -lse2[r])) : 0.f;
-        dp[j][e] = p * (dp[j][e] - dd[r]);   // dS
+  if (tid < 128) {
+    // ---- producer ---------------------------------------------------------
+    regs_dec<kProducerRegs>();
+    if (tid < 32) {
+      const int lane = tid;
+      if (lane == 0) {
+        mbar_arrive_tx(q_bar, 2 * L::kTile);
+        tma_tile<DP, kBlockRows>(base + L::kQ, &tm_q, h, q0, b, q_bar);
+        tma_tile<DP, kBlockRows>(base + L::kDO, &tm_do, h, q0, b, q_bar);
       }
-    // dQ += dS K
-    mma_xb<D, NS>(dp, k_addr(slot), dqa);
-    t = t_next;
+      int t = t_lo;
+      for (int n = 0;; ++n, ++t) {
+        // the next tile >= t with a key valid for some query of the block
+        int kp0 = -1, kp1 = -1;
+        for (; t < t_hi; ++t) {
+          const int j = t * kStep + lane;
+          kp0 = j < skv ? k_pos[j] : -1;
+          kp1 = j + 32 < skv ? k_pos[j + 32] : -1;
+          if (__any_sync(0xffffffffu,
+                         (kp0 >= 0 && (!causal || kp0 <= qmax)) ||
+                             (kp1 >= 0 && (!causal || kp1 <= qmax))))
+            break;
+        }
+        const int s = n % kStages;
+        mbar_wait(empty(s), ((n / kStages) & 1) ^ 1);
+        int* kp = meta(s);
+        kp[lane] = kp0;
+        kp[lane + 32] = kp1;
+        if (lane == 0) kp[kStep] = t < t_hi ? t : -1;
+        if (t < t_hi && lane == 0) {
+          const uint32_t st = base + L::kRing + s * L::kStage;
+          mbar_arrive_tx(full(s), L::kStage);
+          tma_tile<DP, kStep>(st, &tm_k, kh, t * kStep, b, full(s));
+          tma_tile<DP, kStep>(st + L::kStage / 2, &tm_v, kh, t * kStep, b,
+                              full(s));
+        } else {
+          mbar_arrive(full(s));
+        }
+        if (t >= t_hi) break;
+      }
+    }
+  } else {
+    // ---- consumers: 64 queries a warpgroup -------------------------------
+    regs_inc<kConsumerRegs>();
+    const int cw = tid / 128 - 1;
+    const int lane = tid & 31, wi = (tid >> 5) & 3;
+    const int gq = lane >> 2, tg = lane & 3;
+    const int row = cw * kWgRows + wi * 16 + gq;   // and row + 8
+    int qp[2];
+    float l2[2], dd[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int i = q0 + row + 8 * r;
+      const int64_t at = (static_cast<int64_t>(b) * hq + h) * sq + i;
+      qp[r] = i < sq ? q_pos[i] : INT_MIN;
+      l2[r] = i < sq ? lse[at] * kLog2e : 0.f;
+      dd[r] = i < sq ? dsum[at] : 0.f;
+    }
+    float dqa[DP / 2];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) dqa[i] = 0.f;
+    mbar_wait(q_bar, 0);
+    if (cw == 1) turn_pass(cw);
+    for (int n = 0;; ++n) {
+      const int s = n % kStages;
+      mbar_wait(full(s), (n / kStages) & 1);
+      const int* kp = meta(s);
+      if (kp[kStep] < 0) break;
+      const uint32_t sK = base + L::kRing + s * L::kStage;
+      const uint32_t sV = sK + L::kStage / 2;
+      // S = Q K^T and dP = dO V^T: 64 queries x 64 keys
+      const uint32_t sQ = base + L::kQ, sDO = sQ + L::kTile;
+      float sc[32], dp[32];
+      turn_wait(cw);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk)
+        wgmma_ss_n64(sc, desc_k<kBlockRows>(sQ, cw * kWgRows, kk),
+                     desc_k<kStep>(sK, 0, kk), kk > 0);
+      wg_commit();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk)
+        wgmma_ss_n64(dp, desc_k<kBlockRows>(sDO, cw * kWgRows, kk),
+                     desc_k<kStep>(sV, 0, kk), kk > 0);
+      wg_commit();
+      turn_pass(cw);
+      wg_wait<1>();
+      keep(sc);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int2 kk2 = *reinterpret_cast<const int2*>(kp + 8 * j + 2 * tg);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          const int key = (e & 1) ? kk2.y : kk2.x;
+          const bool ok =
+              key >= 0 && qp[r] != INT_MIN && (!causal || key <= qp[r]);
+          sc[4 * j + e] =
+              ok ? exp2_approx(fmaf(sc[4 * j + e], scale_log2, -l2[r])) : 0.f;
+        }
+      }
+      wg_wait<0>();
+      keep(dp);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dp[i] = sc[i] * (dp[i] - dd[(i >> 1) & 1]);
+      // dQ += dS K: dS rounded to bf16 as A, K transposed
+      uint32_t da[4][4];
+      to_a(dp, da);
+      turn_wait(cw);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs<DP>(dqa, da[kk], desc_mn(sK, kk));
+      wg_commit();
+      turn_pass(cw);
+      wg_wait<0>();
+      keep(dqa);
+      mbar_arrive(empty(s));
+    }
+    if (cw == 0) turn_wait(cw);
+    const int64_t qstride = static_cast<int64_t>(hq) * d;
+    const int64_t at = ((static_cast<int64_t>(b) * sq + q0) * hq + h) * d;
+    store_acc<DP>(dqa, scale, dq + at, qstride, row, sq - q0, d);
   }
-  cp_wait<0>();
-  store_rows<D>(dqa, scale, dq + qb + static_cast<int64_t>(q0) * qstride,
-                qstride, r0, sq - q0);
 }
 
-template <int D>
-int launch(int sq, int skv, int b, int hq, int hkv, cudaStream_t st,
+// cuTensorMapEncodeTiled from the driver, through the runtime (no -lcuda)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// the map of a contiguous bf16 [b, rows, heads, d]: boxes of 64 columns x
+// 64 rows of one head and batch row, 128-byte swizzle, zeros past the edges
+bool make_map(CUtensorMap* map, EncodeTiled encode, const void* ptr, int b,
+              int rows, int heads, int d) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(b)};
+  const cuuint64_t strides[3] = {2ull * d, 2ull * d * heads,
+                                 2ull * d * heads * rows};
+  const cuuint32_t box[4] = {64, 1, kStep, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(ptr), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// DP: the head dim padded to the wgmma route's 64 or 128 (the maps fill the
+// padding with zeros)
+template <int DP>
+int launch(int d, int sq, int skv, int b, int hq, int hkv, cudaStream_t st,
            const void* q, const void* k, const void* v, const void* dout,
            const void* lse, const void* dsum, const void* q_pos,
            const void* k_pos, void* dq, void* dk, void* dv, int causal,
@@ -899,34 +1224,44 @@ int launch(int sq, int skv, int b, int hq, int hkv, cudaStream_t st,
   static bool configured = false;
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(
-        dkdv_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(DkdvTile<D>::kBytes));
+        dkdv_wgmma_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(DkdvSmem<DP>::kAlloc));
     if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(dq_tc_kernel<D>,
+      e = cudaFuncSetAttribute(dq_wgmma_kernel<DP>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(DqTile<D>::kBytes));
+                               static_cast<int>(DqSmem<DP>::kAlloc));
     if (e != cudaSuccess) return static_cast<int>(e);
     configured = true;
   }
-  const auto* qb = static_cast<const bf16*>(q);
-  const auto* kb = static_cast<const bf16*>(k);
-  const auto* vb = static_cast<const bf16*>(v);
-  const auto* db = static_cast<const bf16*>(dout);
+  const int k_tiles = (skv + kBlockRows - 1) / kBlockRows;
+  const int q_tiles = (sq + kBlockRows - 1) / kBlockRows;
+  if (k_tiles > 65535 || q_tiles > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap mq, mk, mv, mdo;
+  if (!make_map(&mq, encode, q, b, sq, hq, d) ||
+      !make_map(&mk, encode, k, b, skv, hkv, d) ||
+      !make_map(&mv, encode, v, b, skv, hkv, d) ||
+      !make_map(&mdo, encode, dout, b, sq, hq, d))
+    return static_cast<int>(cudaErrorInvalidValue);
   const auto* lf = static_cast<const float*>(lse);
   const auto* sf = static_cast<const float*>(dsum);
   const auto* qp = static_cast<const int*>(q_pos);
   const auto* kp = static_cast<const int*>(k_pos);
   const float scale_log2 = scale * kLog2e;
-  dkdv_tc_kernel<D><<<dim3((skv + kRows - 1) / kRows, hkv, b), kThreads,
-                      DkdvTile<D>::kBytes, st>>>(
-      qb, kb, vb, db, lf, sf, qp, kp, static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), sq, skv, hq, hkv, causal, scale_log2, scale);
+  // heads fastest: the heaviest causal tiles (the first keys, the last
+  // queries) of every head start first
+  dkdv_wgmma_kernel<DP><<<dim3(hkv, k_tiles, b), kThreads,
+                          DkdvSmem<DP>::kAlloc, st>>>(
+      mq, mk, mv, mdo, lf, sf, qp, kp, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), sq, skv, hq, hkv, d, causal, scale_log2, scale);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  dq_tc_kernel<D><<<dim3((sq + kRows - 1) / kRows, hq, b), kThreads,
-                    DqTile<D>::kBytes, st>>>(
-      qb, kb, vb, db, lf, sf, qp, kp, static_cast<bf16*>(dq), sq, skv, hq,
-      hkv, causal, scale_log2, scale);
+  dq_wgmma_kernel<DP><<<dim3(hq, q_tiles, b), kThreads, DqSmem<DP>::kAlloc,
+                        st>>>(mq, mk, mv, mdo, lf, sf, qp, kp,
+                              static_cast<bf16*>(dq), sq, skv, hq, hkv, d,
+                              causal, scale_log2, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -942,28 +1277,6 @@ int launch_dot(cudaStream_t st, const void* dout, const void* o, void* dsum,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
-int launch_d(int dtype, int sq, int skv, int b, int hq, int hkv,
-             cudaStream_t st, const void* q, const void* k, const void* v,
-             const void* o, const void* lse, const void* dout,
-             const void* q_pos, const void* k_pos, void* dq, void* dk,
-             void* dv, void* dsum, int causal, float scale) {
-  int rc;
-  if (dtype == 0)
-    rc = launch_dot<__nv_bfloat16>(st, dout, o, dsum, b, sq, hq, D);
-  else if (dtype == 1)
-    rc = launch_dot<float>(st, dout, o, dsum, b, sq, hq, D);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (rc != 0) return rc;
-#define BWD_ARGS                                                            \
-  sq, skv, b, hq, hkv, st, q, k, v, dout, lse, dsum, q_pos, k_pos, dq, dk, \
-      dv, causal, scale
-  if (dtype == 0) return tc::launch<D>(BWD_ARGS);
-  return f32::launch<D>(BWD_ARGS);
-#undef BWD_ARGS
-}
-
 }  // namespace
 
 // dtype: 0 = bfloat16, 1 = float32. q, o, dout, dq [b, sq, hq, d] and k, v,
@@ -977,14 +1290,25 @@ extern "C" int flash_attention_bwd_launch(
     int sq, int skv, int hq, int hkv, int causal, float scale,
     void* stream) {
   if (b < 1 || b > 65535 || sq < 1 || skv < 1 || hkv < 1 || hq > 65535 ||
-      hkv > 65535 || hq % hkv)
+      hkv > 65535 || hq % hkv || d < 16 || d > 128 || d % 16 ||
+      (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define BWD_CASE(DIM)                                                         \
-  case DIM:                                                                   \
-    return launch_d<DIM>(dtype, sq, skv, b, hq, hkv, st, q, k, v, o, lse,     \
-                         dout, q_pos, k_pos, dq, dk, dv, dsum, causal, scale);
+  const int rc =
+      dtype == 0
+          ? launch_dot<__nv_bfloat16>(st, dout, o, dsum, b, sq, hq, d)
+          : launch_dot<float>(st, dout, o, dsum, b, sq, hq, d);
+  if (rc != 0) return rc;
+#define BWD_ARGS                                                            \
+  sq, skv, b, hq, hkv, st, q, k, v, dout, lse, dsum, q_pos, k_pos, dq, dk, \
+      dv, causal, scale
+  if (dtype == 0)
+    return d <= 64 ? tc::launch<64>(d, BWD_ARGS)
+                   : tc::launch<128>(d, BWD_ARGS);
   switch (d) {
+#define BWD_CASE(DIM) \
+  case DIM:           \
+    return f32::launch<DIM>(BWD_ARGS);
     BWD_CASE(16)
     BWD_CASE(32)
     BWD_CASE(48)
@@ -993,8 +1317,8 @@ extern "C" int flash_attention_bwd_launch(
     BWD_CASE(96)
     BWD_CASE(112)
     BWD_CASE(128)
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
 #undef BWD_CASE
+  }
+#undef BWD_ARGS
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -19,20 +19,21 @@
 * The forward's lse is the log-sum-exp of each row's scaled valid scores,
   and ``flash_attention`` records a graph only when autograd does.
 * The bf16 route's two backward kernels (``csrc/flash_attention_bwd.cu``,
-  namespace ``tc``: ``dkdv_tc_kernel`` and ``dq_tc_kernel``) transliterated
-  into numpy lane by lane, as ``test_torch_flash_tiles.py`` does for the
-  forward, against the plain backward: the cp.async copies with zero-fill
-  past sq and skv, the query range a key tile can see and the key tiles a
-  query tile skips, from the positions (the dQ kernel's vote one tile
-  ahead); the two-stage rings and their per-slot positions, lse (log2
-  domain) and D; the ldmatrix lane addresses (plain for [row][d] operands,
-  .trans for [k][d] ones) over rows padded by 16 bytes; the m16n8k16
-  fragment layouts; the mask; P and dS reused from the accumulators as A
-  operands; the GQA loop over query heads in the dK/dV block; the
-  epilogues' row guards. Shared memory starts as NaN and the position
-  slots as a poison value, so anything read before it is written shows.
-  Values stay f32: this checks indexing, not bf16 rounding. Tolerance
-  1e-5.
+  namespace ``tc``: ``dkdv_wgmma_kernel`` and ``dq_wgmma_kernel``)
+  transliterated into numpy tile by tile against the plain backward: the
+  blocks in grid order; TMA's tiles with zeros past sq, skv and d (the
+  head dim padded to 64 or 128); the query tiles a key tile visits (from
+  the positions) over the g query heads, in order, and the key tiles a
+  query tile visits, a tile with no valid key skipped by the producer's
+  vote and the ring ended by the index -1; the ring of three stages with
+  its full and empty barriers' phases, each stage's positions, lse (log2
+  domain) and D, a slot poisoned until written; each consumer
+  warpgroup's 64 rows; the mask and the ex2 of P; P and dS rounded to
+  bf16 before their products (``bf16=True``); the epilogues' row and
+  column guards. The order of the sums inside one wgmma is the
+  hardware's, so f32 inputs are held at 1e-5 with no rounding, and bf16
+  inputs, rounded as the kernel rounds, within 2e-2 of each row's norm
+  (``chip_smoke.BWD_ROW``), as the card's check holds the kernel.
 """
 
 import math
@@ -45,8 +46,6 @@ import torch
 
 from repro.models import attention as JA
 from repro_torch.kernels.flash_attention import flash_attention as FA
-from tests.test_torch_flash_tiles import (G, LM, LR, LANES, TG, _ldmatrix_x4,
-                                          _mma)
 
 F32_TOL = dict(atol=1e-5, rtol=1e-5)
 BF16_REL = 0.02                  # of the leaf's largest magnitude
@@ -221,241 +220,257 @@ def test_a_graph_is_recorded_only_when_autograd_records():
 
 
 # ---------------------------------------------------------------------------
-# the bf16 route's kernels, transliterated
+# the bf16 route's kernels, transliterated tile by tile
 # ---------------------------------------------------------------------------
 
-WARPS = 4
-ROWS = 16 * WARPS                         # keys (dK/dV) or queries (dQ)
-STEP_Q = 32                               # queries a dK/dV step
-STEP_K = 64                               # keys a dQ step
-A_LANE = ((LM & 1) * 8 + LR, (LM >> 1) * 8)       # (row, column) a lane
-B_LANE = ((LM >> 1) * 8 + LR, (LM & 1) * 8)
-T_LANE = ((LM & 1) * 8 + LR, (LM >> 1) * 8)       # .trans B
+BLOCK = 128                # resident rows a block: keys (dK/dV), queries (dQ)
+WG = 64                    # rows a consumer warpgroup owns
+STEP = 64                  # streamed rows a stage: queries (dK/dV), keys (dQ)
+STAGES = 3                 # ring depth
+BWD_ROW = 0.02             # chip_smoke's bound on a bf16 row, of its norm
 
 
-def _addr(base, lane, P, row=0, col=0):
-    return base + (lane[0] + row) * P + lane[1] + col
+def _padded(d):
+    return 64 if d <= 64 else 128
 
 
-def _mma_abt(smem, a, b, P, d, nt):
-    """[nt, 32, 4] = A (16 rows at a) . B^T (nt * 8 rows at b)."""
-    c = np.zeros((nt, 32, 4), np.float32)
-    for kk in range(d // 16):
-        af = _ldmatrix_x4(smem, _addr(a, A_LANE, P, col=kk * 16), False)
-        for np_ in range(nt // 2):
-            bf = _ldmatrix_x4(smem, _addr(b, B_LANE, P, row=np_ * 16,
-                                          col=kk * 16), False)
-            _mma(c[2 * np_], af, bf[:, 0], bf[:, 1])
-            _mma(c[2 * np_ + 1], af, bf[:, 2], bf[:, 3])
-    return c
+def _tma_tile(x, r0, rows, dp):
+    """TMA's tile: rows [r0, r0 + rows) of x [n, d] as [rows, dp], zeros
+    past n and past d."""
+    out = np.zeros((rows, dp), np.float32)
+    n, d = x.shape
+    hi = min(n, r0 + rows)
+    if hi > r0:
+        out[:hi - r0, :d] = x[r0:hi]
+    return out
 
 
-def _mma_xb(smem, x, b, P, d, acc):
-    """acc [d / 8, 32, 4] += X (the accumulators x as A) . B ([k][d] rows
-    at b, .trans)."""
-    for kk in range(x.shape[0] // 2):
-        pa = np.stack([x[2 * kk][:, 0:2], x[2 * kk][:, 2:4],
-                       x[2 * kk + 1][:, 0:2], x[2 * kk + 1][:, 2:4]], axis=1)
-        for dp in range(d // 16):
-            bv = _ldmatrix_x4(smem, _addr(b, T_LANE, P, row=kk * 16,
-                                          col=dp * 16), True)
-            _mma(acc[2 * dp], pa, bv[:, 0], bv[:, 1])
-            _mma(acc[2 * dp + 1], pa, bv[:, 2], bv[:, 3])
+def _bf16(x):
+    return torch.from_numpy(np.ascontiguousarray(x)).to(torch.bfloat16) \
+        .float().numpy()
 
 
-def _copy_rows(smem, dst, src, r0, n, n_rows, P, d):
-    """cp.async of rows [r0, r0 + n_rows) of src [*, d], zeros past n."""
-    for r in range(n_rows):
-        smem[dst + r * P:dst + r * P + d] = src[r0 + r] if r0 + r < n else 0
+class Ring:
+    """The producer warp's ring: ``STAGES`` slots with full and empty
+    barriers, counted in completed phases. A wait on parity p passes only
+    when the barrier is exactly one phase past the waiter's round (two
+    would alias the parity), and a slot reads as poison until written."""
+
+    def __init__(self):
+        self.slots = [None] * STAGES
+        self.full = [0] * STAGES
+        self.empty = [0] * STAGES
+        self.produced = 0
+
+    def produce(self, make):
+        n = self.produced
+        s = n % STAGES
+        assert self.empty[s] == n // STAGES      # producer's flipped parity
+        self.slots[s] = (n, make(n))
+        self.full[s] += 1
+        self.produced += 1
+
+    def consume(self, n):
+        s = n % STAGES
+        assert self.full[s] == n // STAGES + 1
+        tag, data = self.slots[s]
+        assert tag == n
+        return data
+
+    def release(self, n):
+        s = n % STAGES
+        self.slots[s] = (None, None)            # poison
+        self.empty[s] += 1
 
 
-def _store_rows(out, acc, scale, row0, n):
-    for r in range(2):
-        row = row0 + G + 8 * r
-        for j in range(acc.shape[0]):
-            for e in range(2):
-                ok = row < n
-                out[row[ok], j * 8 + 2 * TG[ok] + e] = \
-                    acc[j][ok, 2 * r + e] * scale
+def dkdv_tiles(q, k, v, do, lse, dsum, qpos, kpos, causal, bf16=False):
+    """(dk, dv, visits) as dkdv_wgmma_kernel computes them; visits maps
+    (batch row, KV head, key tile) to its items (query head, first query)
+    in the order the block takes them."""
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    g, dp = hq // hkv, _padded(d)
+    scale = np.float32(1.0 / math.sqrt(d))
+    scale_log2 = np.float32(scale * LOG2E)
+    rnd = _bf16 if bf16 else (lambda x: x)
+    dk = np.full(k.shape, np.nan, np.float32)
+    dv = np.full(k.shape, np.nan, np.float32)
+    visits = {}
+    for bb in range(b):
+        for kt in range(-(-skv // BLOCK)):
+            for kh in range(hkv):              # heads fastest
+                k0 = kt * BLOCK
+                K = _tma_tile(k[bb, :, kh], k0, BLOCK, dp)
+                V = _tma_tile(v[bb, :, kh], k0, BLOCK, dp)
+                skpos = np.array([kpos[k0 + i] if k0 + i < skv else -1
+                                  for i in range(BLOCK)])
+                live = skpos[skpos >= 0]
+                n = sq if live.size else 0
+                ok = (qpos[:n] >= live.min()) if (causal and n) \
+                    else np.ones(n, bool)
+                idx = np.nonzero(ok)[0]
+                t_lo = idx[0] // STEP if idx.size else 0
+                nt = idx[-1] // STEP + 1 - t_lo if idx.size else 0
+                items = [(kh * g + i // nt, (t_lo + i % nt) * STEP)
+                         for i in range(g * nt)]
+                visits[bb, kh, kt] = items
+
+                def load(i):
+                    h, q0 = items[i]
+                    rows = q0 + np.arange(STEP)
+                    inn = rows < sq
+                    at = np.minimum(rows, sq - 1)
+                    return (_tma_tile(q[bb, :, h], q0, STEP, dp),
+                            _tma_tile(do[bb, :, h], q0, STEP, dp),
+                            np.where(inn, qpos[at], INT_MIN),
+                            np.where(inn, lse[bb, h, at] * np.float32(LOG2E),
+                                     0).astype(np.float32),
+                            np.where(inn, dsum[bb, h, at], 0)
+                            .astype(np.float32))
+
+                ring = Ring()
+                dka = np.zeros((2, WG, dp), np.float32)
+                dva = np.zeros((2, WG, dp), np.float32)
+                for i in range(len(items)):
+                    while ring.produced < min(i + STAGES, len(items)):
+                        ring.produce(load)
+                    Q, DO, qp, l2, dd = ring.consume(i)
+                    for w in range(2):
+                        rows = slice(w * WG, (w + 1) * WG)
+                        st = K[rows] @ Q.T                 # S^T: keys x queries
+                        dpt = V[rows] @ DO.T
+                        ok = _mask(skpos[rows, None], qp[None, :], causal)
+                        p = np.where(ok, np.exp2(np.where(
+                            ok, st * scale_log2 - l2[None, :], 0)), 0)
+                        ds = p * (dpt - dd[None, :])
+                        dva[w] += rnd(p) @ DO
+                        dka[w] += rnd(ds) @ Q
+                    ring.release(i)
+                for w in range(2):
+                    r0 = k0 + w * WG
+                    n_rows = max(0, min(WG, skv - r0))
+                    dk[bb, r0:r0 + n_rows, kh] = dka[w, :n_rows, :d] * scale
+                    dv[bb, r0:r0 + n_rows, kh] = dva[w, :n_rows, :d]
+    return dk, dv, visits
+
+
+def dq_tiles(q, k, v, do, lse, dsum, qpos, kpos, causal, bf16=False):
+    """(dq, visits) as dq_wgmma_kernel computes it; visits maps (batch row,
+    query head, first query) to the key tiles the block takes, in order."""
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    g, dp = hq // hkv, _padded(d)
+    scale = np.float32(1.0 / math.sqrt(d))
+    scale_log2 = np.float32(scale * LOG2E)
+    rnd = _bf16 if bf16 else (lambda x: x)
+    dq = np.full(q.shape, np.nan, np.float32)
+    nqt = -(-sq // BLOCK)
+    visits = {}
+    for bb in range(b):
+        for by in range(nqt):
+            for h in range(hq):                # heads fastest
+                q0 = (nqt - 1 - by) * BLOCK     # the heaviest tiles first
+                Q = _tma_tile(q[bb, :, h], q0, BLOCK, dp)
+                DO = _tma_tile(do[bb, :, h], q0, BLOCK, dp)
+                rows = q0 + np.arange(BLOCK)
+                inn = rows < sq
+                at = np.minimum(rows, sq - 1)
+                sqp = np.where(inn, qpos[at], INT_MIN)
+                l2 = np.where(inn, lse[bb, h, at] * np.float32(LOG2E), 0) \
+                    .astype(np.float32)
+                dd = np.where(inn, dsum[bb, h, at], 0).astype(np.float32)
+                qmax = sqp.max()
+                ok = (kpos >= 0) & ((kpos <= qmax) if causal else True)
+                idx = np.nonzero(ok)[0]
+                t_lo = idx[0] // STEP if idx.size else 0
+                t_hi = idx[-1] // STEP + 1 if idx.size else 0
+
+                def tiles():
+                    """The producer's walk: each live tile, then -1."""
+                    t = t_lo
+                    while True:
+                        while t < t_hi:
+                            keys = t * STEP + np.arange(STEP)
+                            kp = np.where(keys < skv,
+                                          kpos[np.minimum(keys, skv - 1)], -1)
+                            if ((kp >= 0) & ((kp <= qmax) if causal
+                                             else True)).any():
+                                break
+                            t += 1
+                        if t >= t_hi:
+                            yield -1, None
+                            return
+                        yield t, kp
+                        t += 1
+
+                walk = tiles()
+
+                def load(_):
+                    t, kp = next(walk)
+                    if t < 0:
+                        return t, None, None, None
+                    return (t, _tma_tile(k[bb, :, h // g], t * STEP, STEP, dp),
+                            _tma_tile(v[bb, :, h // g], t * STEP, STEP, dp),
+                            kp)
+
+                ring = Ring()
+                dqa = np.zeros((2, WG, dp), np.float32)
+                order = []
+                n = 0
+                while True:
+                    if ring.produced <= n:
+                        ring.produce(load)
+                    t, K, V, kp = ring.consume(n)
+                    if t < 0:
+                        break
+                    order.append(t)
+                    for w in range(2):
+                        r = slice(w * WG, (w + 1) * WG)
+                        s = Q[r] @ K.T                     # S: queries x keys
+                        dpm = DO[r] @ V.T
+                        ok = _mask(kp[None, :], sqp[r, None], causal)
+                        p = np.where(ok, np.exp2(np.where(
+                            ok, s * scale_log2 - l2[r, None], 0)), 0)
+                        dqa[w] += rnd(p * (dpm - dd[r, None])) @ K
+                    ring.release(n)
+                    n += 1
+                visits[bb, h, q0] = order
+                for w in range(2):
+                    r0 = q0 + w * WG
+                    n_rows = max(0, min(WG, sq - r0))
+                    dq[bb, r0:r0 + n_rows, h] = dqa[w, :n_rows, :d] * scale
+    return dq, visits
 
 
 def _mask(key, qp, causal):
     return (key >= 0) & (qp != INT_MIN) & ((key <= qp) if causal else True)
 
 
-def dkdv_transliteration(q, k, v, do, lse, dsum, qpos, kpos, causal):
-    """(dk, dv) as dkdv_tc_kernel<d> computes them."""
-    b, sq, hq, d = q.shape
-    skv, hkv = k.shape[1], k.shape[2]
-    g, P = hq // hkv, d + 8
-    scale = np.float32(1.0 / math.sqrt(d))
-    scale_log2 = np.float32(scale * LOG2E)
-    K_OFF, V_OFF, RING = 0, ROWS * P, 2 * ROWS * P
-    STAGE = 2 * STEP_Q * P
-    dk = np.full(k.shape, np.nan, np.float32)
-    dv = np.full(k.shape, np.nan, np.float32)
-    for bb in range(b):
-        for kh in range(hkv):
-            for bx in range(-(-skv // ROWS)):
-                k0 = bx * ROWS
-                smem = np.full(RING + 2 * STAGE, np.nan, np.float32)
-                _copy_rows(smem, K_OFF, k[bb, :, kh], k0, skv, ROWS, P, d)
-                _copy_rows(smem, V_OFF, v[bb, :, kh], k0, skv, ROWS, P, d)
-                skpos = np.array([kpos[k0 + i] if k0 + i < skv else -1
-                                  for i in range(ROWS)])
-                live = skpos[skpos >= 0]
-                n = sq if live.size else 0
-                ok = (qpos[:n] >= live.min()) if (causal and n) \
-                    else np.ones(n, bool)
-                idx = np.nonzero(ok)[0]
-                t_lo = idx[0] // STEP_Q if idx.size else 0
-                nt = idx[-1] // STEP_Q + 1 - t_lo if idx.size else 0
-                sqpos = np.full((2, STEP_Q), POISON, np.int64)
-                slse = np.full((2, STEP_Q), np.nan, np.float32)
-                sdd = np.full((2, STEP_Q), np.nan, np.float32)
-
-                def load_item(n_, slot):
-                    h = kh * g + n_ // nt
-                    q0 = (t_lo + n_ % nt) * STEP_Q
-                    qo = RING + slot * STAGE
-                    _copy_rows(smem, qo, q[bb, :, h], q0, sq, STEP_Q, P, d)
-                    _copy_rows(smem, qo + STEP_Q * P, do[bb, :, h], q0, sq,
-                               STEP_Q, P, d)
-                    for i in range(STEP_Q):
-                        inn = q0 + i < sq
-                        sqpos[slot, i] = qpos[q0 + i] if inn else INT_MIN
-                        slse[slot, i] = lse[bb, h, q0 + i] * np.float32(
-                            LOG2E) if inn else 0.0
-                        sdd[slot, i] = dsum[bb, h, q0 + i] if inn else 0.0
-
-                dka = np.zeros((WARPS, d // 8, 32, 4), np.float32)
-                dva = np.zeros((WARPS, d // 8, 32, 4), np.float32)
-                items = g * nt
-                if items:
-                    load_item(0, 0)
-                for n_ in range(items):
-                    slot = n_ & 1
-                    if n_ + 1 < items:
-                        load_item(n_ + 1, slot ^ 1)
-                    qo = RING + slot * STAGE
-                    assert (sqpos[slot] != POISON).all()
-                    for w in range(WARPS):
-                        kr0 = w * 16
-                        s = _mma_abt(smem, K_OFF + kr0 * P, qo, P, d, 4)
-                        dp = _mma_abt(smem, V_OFF + kr0 * P, qo + STEP_Q * P,
-                                      P, d, 4)
-                        for j in range(4):
-                            for e in range(4):
-                                c = j * 8 + 2 * TG + (e & 1)
-                                key = skpos[kr0 + G + 8 * (e >> 1)]
-                                ok_ = _mask(key, sqpos[slot, c], causal)
-                                p = np.where(ok_, np.exp2(np.where(
-                                    ok_, s[j, :, e] * scale_log2
-                                    - slse[slot, c], 0)), np.float32(0))
-                                s[j, :, e] = p
-                                dp[j, :, e] = p * (dp[j, :, e]
-                                                   - sdd[slot, c])
-                        _mma_xb(smem, s, qo + STEP_Q * P, P, d, dva[w])
-                        _mma_xb(smem, dp, qo, P, d, dka[w])
-                for w in range(WARPS):
-                    _store_rows(dk[bb, k0:, kh], dka[w], scale, w * 16,
-                                skv - k0)
-                    _store_rows(dv[bb, k0:, kh], dva[w], np.float32(1),
-                                w * 16, skv - k0)
-    return dk, dv
-
-
-def dq_transliteration(q, k, v, do, lse, dsum, qpos, kpos, causal):
-    """dq as dq_tc_kernel<d> computes it."""
-    b, sq, hq, d = q.shape
-    skv, hkv = k.shape[1], k.shape[2]
-    g, P = hq // hkv, d + 8
-    scale = np.float32(1.0 / math.sqrt(d))
-    scale_log2 = np.float32(scale * LOG2E)
-    Q_OFF, DO_OFF, RING = 0, ROWS * P, 2 * ROWS * P
-    STAGE = 2 * STEP_K * P
-    dq = np.full(q.shape, np.nan, np.float32)
-    nqt = -(-sq // ROWS)
-    for bb in range(b):
-        for h in range(hq):
-            for bx in range(nqt):
-                q0 = (nqt - 1 - bx) * ROWS
-                smem = np.full(RING + 2 * STAGE, np.nan, np.float32)
-                _copy_rows(smem, Q_OFF, q[bb, :, h], q0, sq, ROWS, P, d)
-                _copy_rows(smem, DO_OFF, do[bb, :, h], q0, sq, ROWS, P, d)
-                sqpos = np.array([qpos[q0 + i] if q0 + i < sq else INT_MIN
-                                  for i in range(ROWS)], np.int64)
-                qmax = sqpos.max()
-                ok = (kpos >= 0) & ((kpos <= qmax) if causal else True)
-                idx = np.nonzero(ok)[0]
-                t_lo = idx[0] // STEP_K if idx.size else 0
-                t_hi = idx[-1] // STEP_K + 1 if idx.size else 0
-                rows = q0 + np.arange(ROWS)
-                inn = rows < sq
-                lse2 = np.where(inn, lse[bb, h, np.minimum(rows, sq - 1)]
-                                * np.float32(LOG2E), 0).astype(np.float32)
-                dd = np.where(inn, dsum[bb, h, np.minimum(rows, sq - 1)],
-                              0).astype(np.float32)
-                skpos = np.full((2, STEP_K), POISON, np.int64)
-
-                def load_kp(t):
-                    keys = t * STEP_K + np.stack([LANES, LANES + 32])
-                    kp = np.full((2, 32), -1, np.int64)
-                    ok_ = (keys < skv) & (t < t_hi)
-                    kp[ok_] = kpos[keys[ok_]]
-                    return kp
-
-                def next_live(t, kp):
-                    while t < t_hi and not ((kp >= 0) & (
-                            (kp <= qmax) if causal else True)).any():
-                        t += 1
-                        kp = load_kp(t)
-                    return t, kp
-
-                def load_kv(t, slot, kp):
-                    ko = RING + slot * STAGE
-                    _copy_rows(smem, ko, k[bb, :, h // g], t * STEP_K, skv,
-                               STEP_K, P, d)
-                    _copy_rows(smem, ko + STEP_K * P, v[bb, :, h // g],
-                               t * STEP_K, skv, STEP_K, P, d)
-                    skpos[slot, LANES] = kp[0]
-                    skpos[slot, LANES + 32] = kp[1]
-
-                t, kp_cur = next_live(t_lo, load_kp(t_lo))
-                if t < t_hi:
-                    load_kv(t, 0, kp_cur)
-                kp_nxt = load_kp(t + 1)
-                dqa = np.zeros((WARPS, d // 8, 32, 4), np.float32)
-                n_ = 0
-                while t < t_hi:
-                    slot = n_ & 1
-                    t_next, kp_nxt = next_live(t + 1, kp_nxt)
-                    if t_next < t_hi:
-                        load_kv(t_next, slot ^ 1, kp_nxt)
-                    kp_nxt = load_kp(t_next + 1)
-                    ko = RING + slot * STAGE
-                    assert (skpos[slot] != POISON).all()
-                    for w in range(WARPS):
-                        r0 = w * 16
-                        s = _mma_abt(smem, Q_OFF + r0 * P, ko, P, d, 8)
-                        dp = _mma_abt(smem, DO_OFF + r0 * P,
-                                      ko + STEP_K * P, P, d, 8)
-                        for j in range(8):
-                            for e in range(4):
-                                r = r0 + G + 8 * (e >> 1)
-                                key = skpos[slot, j * 8 + 2 * TG + (e & 1)]
-                                ok_ = _mask(key, sqpos[r], causal)
-                                p = np.where(ok_, np.exp2(np.where(
-                                    ok_, s[j, :, e] * scale_log2 - lse2[r],
-                                    0)), np.float32(0))
-                                dp[j, :, e] = p * (dp[j, :, e] - dd[r])
-                        _mma_xb(smem, dp, ko, P, d, dqa[w])
-                    t = t_next
-                    n_ += 1
-                for w in range(WARPS):
-                    _store_rows(dq[bb, q0:, h], dqa[w], scale, w * 16,
-                                sq - q0)
-    return dq
+def _transliterate(case, bf16, rounding=None):
+    """(the tiles' dq, dk, dv, the plain backward's, visits): bf16 rounds
+    the inputs, ``rounding`` (default: bf16) P and dS."""
+    rounding = bf16 if rounding is None else rounding
+    b, sq, skv, hq, hkv, d, causal, q_off, kind = case
+    q, k, v, do, qpos, kpos = _case(sq * 7 + skv + d, b, sq, skv, hq, hkv,
+                                    d, causal, q_off, kind)
+    if bf16:
+        q, k, v, do = (_bf16(x) for x in (q, k, v, do))
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    args = (torch.from_numpy(qpos), torch.from_numpy(kpos))
+    tq, tk, tv, tdo = (torch.from_numpy(x).to(dtype) for x in (q, k, v, do))
+    o, lse = FA.flash_attention_lse(tq, tk, tv, *args, causal=causal,
+                                    block_q=64, block_kv=64)
+    want = FA.flash_attention_bwd_ref(tq, tk, tv, o, lse, tdo, *args,
+                                      causal=causal, block_q=64,
+                                      block_kv=64)
+    dsum = np.einsum("bshd,bshd->bhs", do, o.float().numpy())
+    lse = lse.numpy()
+    dk, dv, kv_visits = dkdv_tiles(q, k, v, do, lse, dsum, qpos, kpos,
+                                   causal, rounding)
+    dq, q_visits = dq_tiles(q, k, v, do, lse, dsum, qpos, kpos, causal,
+                            rounding)
+    return (dq, dk, dv), [w.float().numpy() for w in want], kv_visits, \
+        q_visits
 
 
 @pytest.mark.parametrize("case", [
@@ -465,22 +480,52 @@ def dq_transliteration(q, k, v, do, lse, dsum, qpos, kpos, causal):
     (1, 70, 150, 2, 1, 128, True, 40, "holes"),       # offset, a dead tile
     (1, 96, 180, 2, 1, 64, True, 30, "first64"),      # rows with no key
     (1, 100, 100, 2, 2, 32, True, 0, "reversed"),
+    (1, 200, 260, 4, 2, 128, True, 0, "plain"),       # sq 200: ragged at 64
+    (1, 90, 90, 2, 1, 80, False, 0, "plain"),         # d 80 padded to 128
 ], ids=str)
 def test_transliteration_matches_the_plain_backward(case):
-    b, sq, skv, hq, hkv, d, causal, q_off, kind = case
-    q, k, v, do, qpos, kpos = _case(sq * 7 + skv + d, b, sq, skv, hq, hkv,
-                                    d, causal, q_off, kind)
-    args = (torch.from_numpy(qpos), torch.from_numpy(kpos))
-    tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
-    o, lse = FA.flash_attention_lse(tq, tk, tv, *args, causal=causal,
-                                    block_q=64, block_kv=64)
-    want = FA.flash_attention_bwd_ref(tq, tk, tv, o, lse, tdo, *args,
-                                      causal=causal, block_q=64,
-                                      block_kv=64)
-    dsum = np.einsum("bshd,bshd->bhs", do, o.numpy())
-    lse = lse.numpy()
-    dk, dv = dkdv_transliteration(q, k, v, do, lse, dsum, qpos, kpos, causal)
-    dq = dq_transliteration(q, k, v, do, lse, dsum, qpos, kpos, causal)
-    for name, got, w in (("dq", dq, want[0]), ("dk", dk, want[1]),
-                         ("dv", dv, want[2])):
-        np.testing.assert_allclose(got, w.numpy(), **F32_TOL, err_msg=name)
+    got, want, _, _ = _transliterate(case, bf16=False)
+    for name, g_, w in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(g_, w, **F32_TOL, err_msg=name)
+
+
+@pytest.mark.parametrize("case", [
+    (1, 200, 260, 4, 2, 128, True, 0, "plain"),
+    (1, 96, 180, 2, 1, 64, True, 30, "first64"),
+], ids=str)
+def test_transliteration_rounds_p_and_ds_to_bf16(case):
+    """bf16 inputs, P and dS rounded before their products, against the
+    plain backward in bf16, row by row; rounding must move the result."""
+    got, want, _, _ = _transliterate(case, bf16=True)
+    exact, _, _, _ = _transliterate(case, bf16=True, rounding=False)
+    for name, g_, w, e in zip(("dq", "dk", "dv"), got, want, exact):
+        norm = np.linalg.norm(w, axis=-1)
+        floor = 1e-3 * max(float(np.sqrt(np.mean(norm ** 2))),
+                           w.shape[-1] ** 0.5)
+        err = np.linalg.norm(g_ - w, axis=-1) / np.maximum(norm, floor)
+        assert err.max() <= BWD_ROW, name
+        assert not np.array_equal(g_, e), name
+
+
+def test_schedule_of_the_blocks():
+    """The items a key tile visits and the key tiles a query tile visits,
+    in order, at a causal GQA case with a dead key tile."""
+    case = (1, 300, 300, 4, 2, 64, True, 0, "holes")
+    _, _, kv_visits, q_visits = _transliterate(case, bf16=False)
+    # keys 128-255 see queries from 128 on: query tiles 2-4 for each of
+    # the KV head's two query heads, head by head
+    assert kv_visits[0, 1, 1] == [(2, 128), (2, 192), (2, 256),
+                                  (3, 128), (3, 192), (3, 256)]
+    # keys 256-299 (the last 5 invalid): query tile 4 only
+    assert kv_visits[0, 0, 2] == [(0, 256), (1, 256)]
+    # queries 256-299 see every key tile (keys 100-169 are -1, but each of
+    # tiles 1 and 2 keeps valid keys); queries 0-127 see keys 0-99
+    assert q_visits[0, 3, 256] == [0, 1, 2, 3, 4]
+    assert q_visits[0, 0, 0] == [0, 1]
+    holed = (1, 300, 300, 2, 1, 64, True, 0, "plain")
+    q, k, v, do, qpos, kpos = _case(1, *holed)
+    kpos[64:128] = -1                          # key tile 1 dead
+    lse = np.zeros((1, 2, 300), np.float32)
+    _, visits = dq_tiles(q, k, v, do, lse, lse, qpos, kpos, True)
+    assert visits[0, 0, 256] == [0, 2, 3, 4]
+    assert visits[0, 1, 0] == [0]
