@@ -70,14 +70,20 @@ Phases:
              of all three variants (C 1-300, D 4-4100, F 4-4096), timed
              eager and by CUDA-graph replay beside ``torch.bmm`` both ways
              (and, for the adapter products, the host µs a call); the
-             int8-weight variant at ragged shapes (C 1-300, F 8-768, an
-             empty expert, strided x, a zero weight column) and at
-             mixtral's four expert shapes (gate/up and down, C 8 and
-             640), each output equal to the tensor-core variant's on
-             ``as_weight(w)`` bit for bit, int8 weights it does not take
-             raising, timed eager and by replay beside ``as_weight`` +
-             the bf16 kernel, ``as_weight`` + ``torch.bmm`` and
-             ``torch.bmm`` on bf16 weights;
+             int8-weight variant (``wgmma`` on TMA-fed int8 tiles): the
+             ptxas lines of its kernels (no spill, no C7512) and their
+             HGMMA instructions (``cuobjdump -sass``, none fails), the bit
+             probe (``wgmma`` against ``mma.sync`` over 4096 k16 steps),
+             then ragged shapes (C 1-300, F 16-768, an empty expert,
+             strided x, a zero weight column) and mixtral's four expert
+             shapes (gate/up and down, C 8 and 640), each output equal to
+             the tensor-core variant's on ``as_weight(w)`` bit for bit,
+             rows 0-7 of C 640 equal to a C 8 call and a CUDA-graph replay
+             equal to the eager call, int8 weights it does not take (F off
+             16, q's stride off 16) raising, timed eager and by replay
+             beside ``as_weight`` + the bf16 kernel, ``as_weight`` +
+             ``torch.bmm`` and ``torch.bmm`` on bf16 weights, with the
+             wrapper's host µs a call at C 8;
              rglru_scan and ssd_chunk at the recurrent paths' 2048-token
              prefill shapes with a carried state (and ssd_chunk at a
              ragged l), eager and by replay, the SSD route's two kernels'
@@ -968,23 +974,103 @@ def phase_moe_kernels(moe_cfg, d_adapter: int):
     return rows
 
 
+def log_i8_build() -> None:
+    """ptxas registers, spills and notes of the int8 variant's kernels
+    (``i8::kernel<...>``, one per block shape) and the HGMMA (wgmma)
+    instructions ``cuobjdump -sass`` finds in each: fails on a spill, a
+    C7512 line (wgmma serialized) or a kernel with no HGMMA."""
+    import re
+    from repro_torch.kernels import build
+    name = re.compile(r"2i86kernelI\w+?EEv")
+    entry, seen = "", set()
+    for line in build.build_log("moe_gemm").splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        m = name.search(entry)
+        if "C7512" in line or (m and "spill" in line
+                               and " 0 bytes spill stores" not in line):
+            fail(f"moe_gemm int8 variant: {line.strip()[:200]}")
+        if m and ("registers" in line or "spill" in line or "C75" in line):
+            seen.add(m.group(0))
+            log(f"[build] moe_gemm i8::kernel<{m.group(0)[11:-4]}>: "
+                f"{line.strip()[:150]}")
+    counts = hgmma_counts("moe_gemm", name)
+    log("[build] moe_gemm int8 HGMMA instructions (cuobjdump -sass): "
+        + ", ".join(f"<{k[11:-4]}> {v}" for k, v in sorted(counts.items()))
+        + " (ptxas reports the 168 registers a thread has at launch; "
+        "setmaxnreg then gives the consumers 232)")
+    if not counts or set(counts) != seen or not all(counts.values()):
+        fail(f"moe_gemm int8 variant: HGMMA instructions expected in every "
+             f"kernel {sorted(seen)}, found {counts}")
+
+
+def i8_probe_line(steps: int = 4096) -> None:
+    """The bit probe: one chain of ``steps`` k16 products in increasing k
+    as ``mma.sync.m16n8k16`` (the tensor-core variant's instruction) and as
+    ``wgmma`` (A in registers, A from shared memory, n8 and columns 0-7 of
+    n64), on bf16 operands whose rows span 2^-8 .. 2^8. Fails unless all
+    four are equal bit for bit: the int8 variant's output is held to the
+    tensor-core variant's on ``as_weight(w)`` bit for bit."""
+    import torch
+    from repro_torch.kernels.moe_gemm import moe_gemm as MG
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    a = (torch.randn((steps, 64, 16), generator=gen, device="cuda")
+         * torch.exp2(torch.randint(-8, 9, (steps, 64, 1), generator=gen,
+                                    device="cuda").float())).bfloat16()
+    b = torch.randn((steps, 64, 16), generator=gen, device="cuda").bfloat16()
+    out = MG.i8_probe(a, b)
+    torch.cuda.synchronize()
+    differ = [int((out[0] != out[i]).sum()) for i in (1, 2, 3)]
+    log(f"[kernels] moe_gemm int8 bit probe ({steps} k16 steps, 64 x 8 "
+        f"outputs): wgmma.m64n8k16 A in registers, A in shared memory, and "
+        f"columns 0-7 of wgmma.m64n64k16 differ from mma.sync.m16n8k16 in "
+        f"{differ[0]}, {differ[1]}, {differ[2]} of 512 outputs")
+    if any(differ):
+        fail("wgmma and mma.sync round differently: the int8 variant cannot "
+             "equal the tensor-core variant bit for bit")
+
+
+def graph_out(fn):
+    """The output of one ``fn()`` captured in a CUDA graph and replayed."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    del graph
+    return out
+
+
 def phase_int8_kernels(mx_cfg):
     """The int8-weight variant of the grouped GEMMs (``{q, s}`` weights as
-    ``models.quant`` makes them, bf16 x): ragged edges (C 1, 9, 40, 161,
-    300; F 8, 72, 136; an empty expert, strided x, a zero weight column),
-    then mixtral-8x7b's expert shapes (gate/up E 8 D 4096 F 14336, down
-    D 14336 F 4096; decode C 8 and a 2048-token prefill chunk's C 640).
-    Every output equals the tensor-core variant's on ``as_weight(w)`` bit
-    for bit and agrees with the plain version (f32 products of the
-    dequantised weights) within atol = rtol = 1e-2; an int8 weight the
-    variant does not take raises. Timed eager and by CUDA-graph replay
-    beside ``as_weight`` + the bf16 kernel, ``as_weight`` + ``torch.bmm``
-    (``library_ms``) and ``torch.bmm`` on weights already in bf16. One
-    weight set: each matrix (470 MB of int8) is far past the 50 MB L2, so
-    every launch streams it from device memory."""
+    ``models.quant`` makes them, bf16 x): its build lines and the bit
+    probe, then ragged edges (C 1, 9, 40, 161, 300; F 16, 80, 144; an
+    empty expert, strided x, a zero weight column), then mixtral-8x7b's
+    expert shapes (gate/up E 8 D 4096 F 14336, down D 14336 F 4096; decode
+    C 8 and a 2048-token prefill chunk's C 640). Every output equals the
+    tensor-core variant's on ``as_weight(w)`` bit for bit, a CUDA-graph
+    replay equals the eager call, and it agrees with the plain version
+    (f32 products of the dequantised weights) within atol = rtol = 1e-2;
+    at mixtral's shapes rows 0-7 of the C 640 call equal a C 8 call; an
+    int8 weight the variant does not take (F 8, 72, 136, q's row stride
+    off 16) raises. Timed eager and by CUDA-graph replay beside
+    ``as_weight`` + the bf16 kernel, ``as_weight`` + ``torch.bmm``
+    (``library_ms``) and ``torch.bmm`` on weights already in bf16, with
+    the wrapper's host µs a call at C 8. One weight set: each matrix
+    (470 MB of int8) is far past the 50 MB L2, so every launch streams it
+    from device memory."""
     import torch
     from repro_torch.kernels.moe_gemm import moe_gemm as MG
     from repro_torch.models.quant import as_weight, quantize_weight
+
+    log_i8_build()
+    i8_probe_line()
 
     E, D, Fd = mx_cfg.num_experts, mx_cfg.d_model, mx_cfg.moe_d_ff
     dev = torch.device("cuda")
@@ -1024,6 +1110,10 @@ def phase_int8_kernels(mx_cfg):
             fail(f"{name} {label}: int8 variant differs from the tensor-core "
                  f"variant on as_weight(w) in {int((got != bits).sum())} "
                  f"elements")
+        replayed = graph_out(lambda: launch(name, x, *ws))
+        if not torch.equal(replayed, got):
+            fail(f"{name} {label}: a CUDA-graph replay differs from the "
+                 f"eager call in {int((replayed != got).sum())} elements")
         ref = plain_f32(name, x, *ws)
         err = (got.float() - ref).abs()
         if bool((err > ATOL + RTOL * ref.abs()).any()) \
@@ -1032,9 +1122,9 @@ def phase_int8_kernels(mx_cfg):
                  f"{ATOL}")
         return float(err.max())
 
-    for Eo, Co, Do, Fo in ((3, 1, 48, 136), (5, 9, 64, 72), (4, 9, 16, 8),
-                           (3, 161, 48, 72), (2, 300, 16, 136),
-                           (5, 40, 2048, 768), (2, 70, 24, 8)):
+    for Eo, Co, Do, Fo in ((3, 1, 48, 144), (5, 9, 64, 80), (4, 9, 16, 16),
+                           (3, 161, 48, 80), (2, 300, 16, 144),
+                           (5, 40, 2048, 768), (2, 70, 24, 16)):
         xo = randn((Eo, Co + 3, Do))[:, 3:]       # row stride Do, base + 3
         xo[0] = 0                                  # an empty expert
         wg, wu = q8((Eo, Do, Fo)), q8((Eo, Do, Fo))
@@ -1043,19 +1133,36 @@ def phase_int8_kernels(mx_cfg):
         check("moe_gemm", label, xo, (wg,))
         if bool(launch("moe_gemm", xo, wg)[0].any()):
             fail(f"moe_gemm int8 {label}: the empty expert is not zero")
+
+    def strided_q(shape, pitch):
+        w = q8((shape[0], shape[1], pitch))
+        return {"q": w["q"][:, :, :shape[2]],
+                "s": w["s"][:, :, :shape[2]].contiguous()}
+
     for bad, why in ((lambda: MG.moe_gemm(randn((2, 8, 16)).float(),
-                                          q8((2, 16, 24))), "f32 x"),
+                                          q8((2, 16, 32))), "f32 x"),
                      (lambda: MG.moe_gemm(randn((2, 8, 16)),
-                                          q8((2, 16, 20))), "F off 8")):
+                                          q8((2, 16, 20))), "F off 8"),
+                     (lambda: MG.moe_gemm(randn((3, 1, 48)),
+                                          q8((3, 48, 136))), "F 136"),
+                     (lambda: MG.moe_ffn_fused(randn((5, 9, 64)),
+                                               q8((5, 64, 72)),
+                                               q8((5, 64, 72))), "F 72"),
+                     (lambda: MG.moe_gemm(randn((4, 9, 16)),
+                                          q8((4, 16, 8))), "F 8"),
+                     (lambda: MG.moe_gemm(randn((2, 8, 16)),
+                                          strided_q((2, 16, 32), 40)),
+                      "q's row stride 40")):
         try:
             bad()
         except ValueError:
             continue
         fail(f"an int8 weight with {why} did not raise on the card")
     log("[kernels] int8 variant == tensor-core variant on as_weight(w) bit "
-        "for bit and agrees with its plain version at ragged shapes (C "
-        "1-300, D 16-2048, F 8-768, strided x, empty expert, zero column); "
-        "int8 weights it does not take raise")
+        "for bit, a graph replay == the eager call, and it agrees with its "
+        "plain version at ragged shapes (C 1-300, D 16-2048, F 16-768, "
+        "strided x, empty expert, zero column); int8 weights it does not "
+        "take (F 8, 20, 72, 136, q's row stride 40) raise")
 
     wg, wu, wd = q8((E, D, Fd)), q8((E, D, Fd)), q8((E, Fd, D))
     deq = {k: as_weight(w) for k, w in (("g", wg), ("u", wu), ("d", wd))}
@@ -1071,6 +1178,12 @@ def phase_int8_kernels(mx_cfg):
         bf = (deq["g"], deq["u"]) if fused else (deq["d"],)
         label = f"E {E} C {C} D {Din} F {Fo}"
         err = check(name, label, x, ws)
+        if C > 8:                       # a row's bits depend on D alone
+            head = launch(name, x[:, :8], *ws)
+            if not torch.equal(launch(name, x, *ws)[:, :8], head):
+                fail(f"{name} {label}: rows 0-7 differ from a C 8 call")
+            log(f"[kernels] {name} int8 ({label}): rows 0-7 == a C 8 call "
+                f"bit for bit")
         if fused:
             lib = lambda: torch.bmm(x, as_weight(qcat))       # noqa: E731
             lib_bf16 = lambda: torch.bmm(x, wcat)             # noqa: E731
@@ -1083,6 +1196,7 @@ def phase_int8_kernels(mx_cfg):
         ref = MG.moe_ffn_fused_ref if fused else MG.moe_gemm_ref
         plain = lambda: ref(x, *(as_weight(w) for w in ws))   # noqa: E731
         t = {"ms": time_ms(kern), "device_ms": graph_ms(kern),
+             "host_us": host_us(kern) if C == 8 else None,
              "dequant_tc_ms": time_ms(deq_tc),
              "dequant_tc_device_ms": graph_ms(deq_tc),
              "plain_ms": time_ms(plain, iters=5, warmup=1),
@@ -1105,7 +1219,9 @@ def phase_int8_kernels(mx_cfg):
             f"{t['library_bf16_ms']:.4f} (replay "
             f"{t['library_bf16_device_ms']:.4f}) bound_ms {bound_ms:.4f} "
             f"({bound_by}; {nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP), "
-            f"{bound_ms / t['device_ms']:.1%} of bound by replay")
+            f"{bound_ms / t['device_ms']:.1%} of bound by replay"
+            + (f"; wrapper host {t['host_us']:.2f} us a call"
+               if t["host_us"] is not None else ""))
         key = f"{name} (int8)"
         if key not in rows:             # the JSON row: the decode shape
             rows[key] = {
@@ -1608,6 +1724,28 @@ def phase_flash_kernels(cfg, sm_cfg, vl_cfg):
     return rows
 
 
+def hgmma_counts(lib: str, name) -> dict:
+    """HGMMA (wgmma) instructions ``cuobjdump -sass`` finds in each kernel
+    of library ``lib`` whose mangled name matches the regex ``name``, by
+    the matched text."""
+    from repro_torch.kernels import build
+    tool = Path(build.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(build._target(lib))],
+                          capture_output=True, text=True, timeout=300)
+    if sass.returncode != 0:
+        fail(f"cuobjdump -sass failed: {sass.stderr.strip()[:500]}")
+    counts, fn = {}, None
+    for line in sass.stdout.splitlines():
+        if "Function :" in line:
+            m = name.search(line)
+            fn = m.group(0) if m else None
+            if fn:
+                counts[fn] = 0
+        elif fn and "HGMMA" in line:
+            counts[fn] += 1
+    return counts
+
+
 def log_bwd_build() -> None:
     """ptxas registers and spills of the backward's wgmma kernels at each
     padded head dim, and the HGMMA (wgmma) instructions ``cuobjdump -sass``
@@ -1624,21 +1762,10 @@ def log_bwd_build() -> None:
             if m:
                 log(f"[build] flash_attention_bwd {m.group(1)}<{m.group(2)}>"
                     f": {line.strip()[:160]}")
-    lib = build._target("flash_attention_bwd")
-    tool = Path(build.nvcc_path()).with_name("cuobjdump")
-    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
-                          text=True, timeout=300)
-    if sass.returncode != 0:
-        fail(f"cuobjdump -sass failed: {sass.stderr.strip()[:500]}")
-    counts, fn = {}, None
-    for line in sass.stdout.splitlines():
-        m = name.search(line)
-        if "Function :" in line:
-            fn = f"{m.group(1)}<{m.group(2)}>" if m else None
-            if fn:
-                counts[fn] = 0
-        elif fn and "HGMMA" in line:
-            counts[fn] += 1
+    counts = {}
+    for k, v in hgmma_counts("flash_attention_bwd", name).items():
+        m = name.search(k)
+        counts[f"{m.group(1)}<{m.group(2)}>"] = v
     log(f"[build] flash_attention_bwd HGMMA instructions (cuobjdump -sass): "
         + ", ".join(f"{k} {v}" for k, v in sorted(counts.items()))
         + " (ptxas reports the registers a thread has at launch; "
@@ -2056,7 +2183,8 @@ def log_profile(prof, name: str, wall_us: float, steps: int,
                          + ("::dot_kernel<",)),
                         ("decode attention", ("decode_attn",)),
                         ("ssd_chunk", ("ssd_",)), ("rglru_scan", ("rglru",)),
-                        ("expert kernels", ("tc::tc_kernel<",)),
+                        ("expert kernels", ("tc::tc_kernel<",
+                                            "i8::kernel<")),
                         ("copies, casts and f32 products", (
                             "direct_copy_kernel_cuda",
                             "bfloat16_copy_kernel_cuda", "MulFunctor<float>")),

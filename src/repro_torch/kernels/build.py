@@ -1,10 +1,12 @@
 """Build the port's CUDA kernels at first use and load them with ctypes.
 
 Each kernel library is one ``.cu`` file with a plain C interface, compiled
-by ``nvcc`` for ``sm_90a`` into a shared library. The library lands in
-``_build/`` beside this module (listed in ``.gitignore``), in a directory
-named by a hash of the source and the flags, so an edited source rebuilds
-and an unchanged one loads at once. Nothing is fetched or prebuilt: with no
+by ``nvcc`` for ``sm_90a`` into a shared library; a source may include
+headers of this directory (``#include "hopper.cuh"``: ``-I`` names it).
+The library lands in ``_build/`` beside this module (listed in
+``.gitignore``), in a directory named by a hash of the source, the headers
+it includes and the flags, so an edited source or header rebuilds and an
+unchanged one loads at once. Nothing is fetched or prebuilt: with no
 ``nvcc``, or a failing compile, loading raises.
 
 ``build_all()`` starts one ``nvcc`` per library, all at once, and waits for
@@ -16,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -56,20 +59,44 @@ def nvcc_path() -> str:
                        "from source at first use and need the CUDA toolkit")
 
 
-def _target(name: str) -> Path:
-    src = _HERE / SOURCES[name]
-    h = hashlib.sha256(src.read_bytes())
+_INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.M)
+
+
+def includes(text: str) -> List[Path]:
+    """The headers of this directory that a source's ``#include "..."``
+    lines name, in order."""
+    return [_HERE / n for n in _INCLUDE.findall(text) if (_HERE / n).is_file()]
+
+
+def source_key(text: str) -> str:
+    """A hash of a source, the headers of this directory it includes and
+    the flags: a build is reused only while all of them are unchanged."""
+    h = hashlib.sha256(text.encode())
+    for header in includes(text):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}" / f"lib{name}.so"
+    return h.hexdigest()[:16]
 
 
-def _start(name: str, nvcc: str):
+def nvcc_cmd(src, out, flags: List[str] = None) -> List[str]:
+    """nvcc compiling ``src`` into the shared library ``out``, with this
+    directory on the include path."""
+    return [nvcc_path(), *(NVCC_FLAGS if flags is None else flags),
+            "-I", str(_HERE), "-o", str(out), str(src)]
+
+
+def _target(name: str) -> Path:
+    key = source_key((_HERE / SOURCES[name]).read_text())
+    return BUILD_DIR / f"{name}-{key}" / f"lib{name}.so"
+
+
+def _start(name: str):
     """Start nvcc for ``name`` into a temporary file beside its target."""
     target = _target(name)
     target.parent.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=target.parent)
     os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(_HERE / SOURCES[name])]
+    cmd = nvcc_cmd(_HERE / SOURCES[name], tmp)
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, target
@@ -92,8 +119,8 @@ def build_all(names: List[str] = None) -> None:
     todo = [n for n in names if not _target(n).exists()]
     if not todo:
         return
-    nvcc = nvcc_path()
-    started = {n: _start(n, nvcc) for n in todo}
+    nvcc_path()                       # raises before anything starts
+    started = {n: _start(n) for n in todo}
     errors = []
     for n, s in started.items():
         try:

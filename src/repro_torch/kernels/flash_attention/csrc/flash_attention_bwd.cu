@@ -94,6 +94,8 @@
 
 #include <climits>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr float kLog2e = 1.4426950408889634f;
@@ -489,52 +491,11 @@ constexpr int kStages = 3;         // depth of the ring
 constexpr int kProducerRegs = 40;  // setmaxnreg: 128 x 40 + 256 x 232 =
 constexpr int kConsumerRegs = 232; // 64512 of the SM's 65536
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 // 2^x on the special-function unit (ftz)
 __device__ __forceinline__ float exp2_approx(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
-}
-
-// two f32 as one bf16x2 register, x in the low half (the lower column)
-__device__ __forceinline__ uint32_t pack_bf16(float x, float y) {
-  const __nv_bfloat162 p = __floats2bfloat162_rn(x, y);
-  return *reinterpret_cast<const uint32_t*>(&p);
-}
-
-// --- mbarriers -------------------------------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count));
-}
-// one arrival, and `bytes` more to come from TMA before the phase completes
-__device__ __forceinline__ void mbar_arrive_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :
-               : "r"(bar), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-// until the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
 }
 
 // --- TMA -------------------------------------------------------------------
@@ -569,13 +530,6 @@ __device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
 
 // --- wgmma -----------------------------------------------------------------
 
-// a shared-memory matrix descriptor, 128-byte swizzle
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
-                                         uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         static_cast<uint64_t>(lbo >> 4) << 16 |
-         static_cast<uint64_t>(sbo >> 4) << 32 | 1ull << 62;
-}
 // K-major operand: 64 rows from r0, the 16 columns of k step kk, of a
 // [DP / 64][R][64] tile (8-row groups 1024 bytes apart)
 template <int R>
@@ -589,22 +543,6 @@ __device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk) {
   return desc(tile + kk * 2048, kStep * 128, 1024);
 }
 
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// pins the registers in place: reads of them after a wg_wait stay after it
-template <int N>
-__device__ __forceinline__ void keep(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
 // Named barrier 1 + w is consumer warpgroup w's turn to issue products:
 // turn_wait(w) takes it, turn_pass(w) hands the turn to the other one.
 __device__ __forceinline__ void turn_wait(int w) {
@@ -612,14 +550,6 @@ __device__ __forceinline__ void turn_wait(int w) {
 }
 __device__ __forceinline__ void turn_pass(int w) {
   asm volatile("bar.arrive %0, 256;\n" ::"r"(2 - w) : "memory");
-}
-template <int N>
-__device__ __forceinline__ void regs_dec() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
-}
-template <int N>
-__device__ __forceinline__ void regs_inc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
 // d (m64n64, f32) = A . B^T, or += where `accumulate`: A (64 x 16) and B
@@ -1166,32 +1096,6 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int64_t at = ((static_cast<int64_t>(b) * sq + q0) * hq + h) * d;
     store_acc<DP>(dqa, scale, dq + at, qstride, row, sq - q0, d);
   }
-}
-
-// cuTensorMapEncodeTiled from the driver, through the runtime (no -lcuda)
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
 }
 
 // the map of a contiguous bf16 [b, rows, heads, d]: boxes of 64 columns x

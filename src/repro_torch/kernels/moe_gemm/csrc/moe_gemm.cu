@@ -114,37 +114,68 @@
 //
 // 4. The int8-weight variant (bf16 x, int8 weights with per-column f32
 //    scales: mixtral-8x7b's experts, E 8, D 4096 / 14336, F 14336 / 4096,
-//    served from a 47 GB int8 tree). Bound by bytes at decode, where it
-//    reads half the bf16 variant's (0.28 / 0.14 ms at C 8), by the
-//    products at C 640. The tensor-core variant's kernel with kInt8:
-//    * the int8 tiles arrive by cp.async into a ring of 32-row stages,
-//      unpadded: 16-byte copies where F and the strides are multiples of
-//      16 (every mixtral shape), else 8-byte ones (half the copies for
-//      the same bytes: 0.76 -> 0.63 ms at the fused decode shape); the
-//      scales of the block's columns sit in shared memory;
-//    * while the warps compute on stage kt from one set of bf16 tiles,
-//      they dequantise stage kt + 1 into the other: bf16(float(q) * s),
-//      as_weight's f32 product and rounding, float(q) exact by a byte
-//      permute into the mantissa of 2^23 and one subtraction (the
-//      int-to-float unit runs at a quarter of the FP32 rate). One barrier
-//      a stage, as in the bf16 variant;
-//    * the ldmatrix.trans / mma.sync code then runs unchanged on the bf16
-//      tiles, so each output is the same k16 chain as the bf16 variant's
-//      on as_weight(w), bit for bit (checked on the card at ragged and
-//      mixtral's shapes);
-//    * decode (C <= 64) takes 8 warps of 2 n8 tiles (16 rows; C 8 fills
-//      one), so the x tile is small and 7 (fused) or 10 (down) stages fit
-//      beside two bf16 buffers at two blocks an SM; prefill keeps the bf16
-//      variant's 16 warps with 5 stages.
+//    served from a 47 GB int8 tree; namespace i8). Bound by bytes at
+//    decode, where it reads half the bf16 variant's (0.28 / 0.14 ms at
+//    C 8), by the products at C 640 (1.22 / 0.61 ms). The earlier design
+//    (the tensor-core kernel with int8 tiles dequantised into shared
+//    memory by the same warps) paid ~1.4 us of cp.async waits and block
+//    barriers a 32-row stage at decode, and re-read and dequantised each
+//    weight tile for each of four 160-row C-chunks at C 640. This one:
+//    * warp-specialised blocks of 384 threads: a producer warpgroup
+//      (setmaxnreg 40) whose one thread issues TMA copies
+//      (cp.async.bulk.tensor, zero fill past C, D and F) into an mbarrier
+//      ring of full and empty barriers, and two consumer warpgroups
+//      (setmaxnreg 232); the k loop has no block barrier;
+//    * operands swapped, as in the bf16 variant: a weight tile of 64 F
+//      columns is wgmma's A (M 64), x's rows are B (N 8 at decode, so C 8
+//      wastes no product; up to 160), products bf16 in, f32 accumulate;
+//    * dequantisation is as_weight's arithmetic, bf16(float(q) * s), with
+//      float(q) exact by a byte permute into the mantissa of 2^23 and one
+//      subtraction (the int-to-float unit runs at a quarter of the FP32
+//      rate), straight into the registers of wgmma's A fragment: a
+//      thread's two rows are adjacent F columns, so it reads 2 bytes of
+//      each int8 row from a 64-byte-swizzled tile (conflict-free) and
+//      holds 2 scales a tile; a consumer builds stage kt + 1's fragments
+//      while stage kt's products run (a bf16 tile in shared memory that
+//      wgmma reads by descriptor instead was slower at all four mixtral
+//      shapes: tools/moe_i8_ab.py applies it as a patch and times it);
+//    * C <= 64: stages of 16 KB of int8 (64 rows of D for the fused
+//      kernel's four tiles, 128 for w's two), a ring of 6 (C <= 8), 80 KB
+//      in flight an SM; each consumer 64 columns of (gate and up | w), 128
+//      columns a block. w_down (F 4096): 32 F-tiles x 8 experts = 256
+//      blocks, one block an SM: 1.94 waves on 132 SMs, whose last is 124
+//      of 132 full (with 80 KB in flight an SM, 124 SMs still draw the
+//      card's byte rate);
+//    * C > 64: a ring of 4 stages of 64 rows (48 KB: the x tile's 320 rows
+//      and the int8 tiles); each consumer holds two sets of N 160 (320
+//      rows, 160 f32 accumulators a thread); the fused kernel's two
+//      consumers take gate and up of the same 64 columns (the SwiGLU
+//      meets through shared memory in the epilogue), w's two 64 columns
+//      each. So each weight tile is read and dequantised twice at C 640,
+//      once for each of two 320-row chunks;
+//    * invariant: no split-K and no atomics; each output is one f32
+//      accumulator updated by one wgmma k16 step after another in
+//      increasing k, whatever C or the block shape. wgmma rounds each k16
+//      step as mma.sync.m16n8k16 does (the bit probe, probe_kernel:
+//      chip_smoke.py runs it), so the output equals the bf16 variant's on
+//      as_weight(w) bit for bit, and a row's bits depend on D alone.
 //
 // C interface (loaded with ctypes): each launcher returns cudaGetLastError()
 // after the launch, or cudaErrorInvalidValue for arguments it does not take.
+// Every variant sits in the anonymous namespace. A function-local static
+// of a template with external linkage is one object across every library
+// loaded into a process (g++ binds it STB_GNU_UNIQUE, even under
+// RTLD_LOCAL). So a second copy of this library would find a launcher's
+// once-only flag already set, skip cudaFuncSetAttribute for its own
+// kernel, and its launch above 48 KB of shared memory would fail with
+// cudaErrorInvalidValue.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <type_traits>
+#include "hopper.cuh"
 
 namespace {
 
@@ -360,8 +391,6 @@ int dispatch(int dtype, const void* x, long long sxe, long long sxc,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-}  // namespace
-
 // ---------------------------------------------------------------------------
 // tensor-core variant (bf16)
 // ---------------------------------------------------------------------------
@@ -379,12 +408,6 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                                            bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
                "l"(src), "r"(valid ? 16 : 0));
-}
-// 8 bytes global -> shared (int8 weight rows), or 8 zero bytes when !valid
-__device__ __forceinline__ void cp_async8(uint32_t dst, const void* src,
-                                          bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 8 : 0));
 }
 __device__ __forceinline__ void cp_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
@@ -408,20 +431,6 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t (&r)[4]) {
       : "r"(addr));
 }
 
-// byte j of w (an int8) as an exact float: the byte with its sign bit
-// flipped (q + 128) placed in the mantissa of 2^23, minus 2^23 + 128
-template <int J>
-__device__ __forceinline__ float q_at(uint32_t w) {
-  const uint32_t u = __byte_perm(w ^ 0x80808080u, 0x4B000000u, 0x7540 | J);
-  return __uint_as_float(u) - 8388736.f;
-}
-
-// two floats rounded to bf16 (nearest even), packed low | high
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
 // d += a (16 x 16, row) . b (16 x 8, col), bf16 in, f32 accumulate
 __device__ __forceinline__ void mma16816(float (&d)[4],
                                          const uint32_t (&a)[4], uint32_t b0,
@@ -440,13 +449,7 @@ __device__ __forceinline__ void mma16816(float (&d)[4],
 // BN = WN*NT*8 rows of C; the ring holds S stages of BK rows of D. Every
 // bf16 tile row is padded by 16 bytes, so the 8 rows an ldmatrix phase
 // reads fall in 8 distinct 16-byte bank groups.
-//
-// kInt8: a stage holds the x tile and the int8 weight tiles [BK][BF]
-// (unpadded bytes). After the ring sit two sets of bf16 weight tiles, the
-// ones the fragments read (stage kt's, buffer kt & 1) and the ones stage
-// kt + 1 is dequantised into meanwhile, then the block's scales [kW][BF].
-template <bool kFused, int WM, int WN, int MT, int NT, int BK, int S,
-          bool kInt8 = false>
+template <bool kFused, int WM, int WN, int MT, int NT, int BK, int S>
 struct Tile {
   static constexpr int kThreads = WM * WN * 32;
   static constexpr int BF = WM * MT * 16;
@@ -455,50 +458,29 @@ struct Tile {
   static constexpr int kXPitch = BK + 8;            // x tile row, elements
   static constexpr int kWPitch = BF + 8;            // weight row, elements
   static constexpr int kXStage = BN * kXPitch;      // elements
-  static constexpr int kWStage = BK * kWPitch;      // elements (bf16)
-  static constexpr int kQStage = BK * BF;           // bytes (int8)
+  static constexpr int kWStage = BK * kWPitch;      // elements
   static constexpr size_t kStageBytes =
-      sizeof(bf16) * kXStage +
-      (kInt8 ? kW * kQStage : sizeof(bf16) * kW * kWStage);
-  static constexpr size_t kRingBytes = S * kStageBytes;
-  static constexpr size_t kBufBytes = sizeof(bf16) * kW * kWStage;
-  static constexpr size_t kSmemBytes =
-      kRingBytes + (kInt8 ? 2 * kBufBytes + sizeof(float) * kW * BF : 0);
+      sizeof(bf16) * (kXStage + kW * kWStage);
+  static constexpr size_t kSmemBytes = S * kStageBytes;
   static constexpr int kYPitch = BF + 8;            // staged output row
   static_assert(NT % 2 == 0, "x fragments load two n8 tiles at a time");
   static_assert(BK % 16 == 0 && S >= 2, "whole k16 steps; a stage ahead");
   static_assert(sizeof(bf16) * BN * kYPitch <= kSmemBytes,
                 "the output tile fits the shared memory");
   static_assert(kSmemBytes <= 232448, "a block's shared memory");
-  static_assert(!kInt8 || kThreads % (BF / 8) == 0,
-                "a thread dequantises the same 8 columns in every row");
-  static_assert(!kInt8 || S >= 3, "stage kt + 1 lands while kt computes");
-  static_assert(kStageBytes % 16 == 0 && kBufBytes % 16 == 0,
-                "16-byte aligned regions");
+  static_assert(kStageBytes % 16 == 0, "16-byte aligned stages");
 };
 
 // Grid: (F-tile + nF * C-chunk, expert). Chunk ch holds rows
 // [ch * Cc, min(C, (ch + 1) * Cc)) of its expert, Cc <= BN.
-//
-// kInt8 (the int8-weight variant): wg / wu are int8 [E, D, F] with f32
-// scales sg / su [E, 1, F] (expert stride sse, unit stride along F). Each
-// stage's int8 tiles arrive by cp.async, half the bytes of bf16.
-// While the warps compute on stage kt, they write stage kt + 1's weights
-// as bf16(float(q) * s[f]) -- as_weight's arithmetic and rounding -- into
-// the other set of bf16 tiles (float(q) by a byte permute and one add, off
-// the slow int-to-float path), one barrier a stage as in the bf16 variant;
-// the fragment and mma code below runs unchanged on the bf16 tiles. So the
-// output equals the bf16 variant's on as_weight(w), bit for bit.
 template <bool kFused, int WM, int WN, int MT, int NT, int BK, int S,
-          int kMinBlocks, bool kInt8 = false, int kQV = 16>
+          int kMinBlocks>
 __global__ void __launch_bounds__(WM * WN * 32, kMinBlocks)
 tc_kernel(const bf16* __restrict__ x, int64_t sxe, int64_t sxc,
-          const std::conditional_t<kInt8, int8_t, bf16>* __restrict__ wg,
-          const std::conditional_t<kInt8, int8_t, bf16>* __restrict__ wu,
-          int64_t swe, int64_t swd, const float* __restrict__ sg,
-          const float* __restrict__ su, int64_t sse, bf16* __restrict__ y,
-          int C, int D, int F, int nF, int Cc) {
-  using L = Tile<kFused, WM, WN, MT, NT, BK, S, kInt8>;
+          const bf16* __restrict__ wg, const bf16* __restrict__ wu,
+          int64_t swe, int64_t swd, bf16* __restrict__ y, int C, int D,
+          int F, int nF, int Cc) {
+  using L = Tile<kFused, WM, WN, MT, NT, BK, S>;
   constexpr int BF = L::BF;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* smem = reinterpret_cast<bf16*>(smem_raw);
@@ -511,8 +493,8 @@ tc_kernel(const bf16* __restrict__ x, int64_t sxe, int64_t sxc,
   const int rows = min(Cc, C - c0);
   const int rows8 = (rows + 7) & ~7;
   const bf16* xe = x + e * sxe + c0 * sxc;
-  const auto* wge = wg + e * swe;
-  const auto* wue = wu + e * swe;
+  const bf16* wge = wg + e * swe;
+  const bf16* wue = wu + e * swe;
   const int nk = (D + BK - 1) / BK;
 
   // shared memory is addressed as 32-bit byte offsets from one base
@@ -521,24 +503,6 @@ tc_kernel(const bf16* __restrict__ x, int64_t sxe, int64_t sxc,
   const auto stage_addr = [&](int kt) {
     return sbase + static_cast<uint32_t>((kt % S) * L::kStageBytes);
   };
-  // the bf16 weight tiles the fragments read at step kt: in the stage
-  // (bf16), or dequantised buffer kt & 1 after the ring (int8)
-  const auto wtile_addr = [&](uint32_t st, int kt) {
-    return kInt8 ? sbase + static_cast<uint32_t>(L::kRingBytes +
-                                                 (kt & 1) * L::kBufBytes)
-                 : st + L::kXStage * kEl;
-  };
-  // int8: the block's scales (0 past F) after the bf16 buffers; this
-  // thread dequantises columns qc .. qc + 7 of every row it takes
-  float* ssc = reinterpret_cast<float*>(smem_raw + L::kRingBytes +
-                                        2 * L::kBufBytes);
-  const int qc = (tid % (BF / 8)) * 8;
-  if constexpr (kInt8) {
-    for (int i = tid; i < L::kW * BF; i += L::kThreads) {
-      const int w = i / BF, f = f0 + i % BF;
-      ssc[i] = f < F ? (w ? su : sg)[e * sse + f] : 0.f;
-    }
-  }
 
   // one ring stage: x rows [0, rows8) (zeros past C and D; rows past
   // rows8 belong to skipped n8 tiles and are never read into a product)
@@ -552,56 +516,14 @@ tc_kernel(const bf16* __restrict__ x, int64_t sxe, int64_t sxc,
       cp_async16(st + (r * L::kXPitch + kc) * kEl,
                  ok ? xe + r * sxc + k0 + kc : xe, ok);
     }
-    // int8 rows in copies of kQV bytes: 16 (cp.async.cg, L2 only) where
-    // F, the strides and the bases allow, else 8 (cp.async.ca).
-    constexpr int kV = kInt8 ? kQV : 8;        // weights per copy
 #pragma unroll
-    for (int i = tid; i < BK * BF / kV; i += L::kThreads) {
-      const int r = i / (BF / kV), c = (i % (BF / kV)) * kV;
+    for (int i = tid; i < BK * BF / 8; i += L::kThreads) {
+      const int r = i / (BF / 8), c = (i % (BF / 8)) * 8;
       const bool ok = k0 + r < D && f0 + c < F;
       const int64_t off = ok ? (k0 + r) * swd + f0 + c : 0;
-      if constexpr (kInt8) {
-        const uint32_t dst = st + L::kXStage * kEl + r * BF + c;
-        if constexpr (kQV == 16) {
-          cp_async16(dst, wge + off, ok);
-          if constexpr (kFused) cp_async16(dst + L::kQStage, wue + off, ok);
-        } else {
-          cp_async8(dst, wge + off, ok);
-          if constexpr (kFused) cp_async8(dst + L::kQStage, wue + off, ok);
-        }
-      } else {
-        const uint32_t dst = st + (L::kXStage + r * L::kWPitch + c) * kEl;
-        cp_async16(dst, wge + off, ok);
-        if constexpr (kFused)
-          cp_async16(dst + L::kWStage * kEl, wue + off, ok);
-      }
-    }
-  };
-
-  // int8: stage kt's int8 tiles -> bf16 buffer kt & 1, 8 weights a
-  // thread a row: one 8-byte and two 16-byte (scales) shared loads, 8
-  // exact conversions and products in f32, one 16-byte store
-  auto dequant_stage = [&](int kt) {
-    const unsigned char* qs = smem_raw + (kt % S) * L::kStageBytes +
-                              L::kXStage * kEl;
-    bf16* ws = reinterpret_cast<bf16*>(smem_raw + L::kRingBytes +
-                                       (kt & 1) * L::kBufBytes);
-    for (int r = tid / (BF / 8); r < BK; r += L::kThreads / (BF / 8)) {
-#pragma unroll
-      for (int w = 0; w < L::kW; ++w) {
-        const uint2 q = *reinterpret_cast<const uint2*>(
-            qs + w * L::kQStage + r * BF + qc);
-        const float4 s0 = *reinterpret_cast<const float4*>(ssc + w * BF + qc);
-        const float4 s1 =
-            *reinterpret_cast<const float4*>(ssc + w * BF + qc + 4);
-        uint4 out;
-        out.x = pack_bf16(q_at<0>(q.x) * s0.x, q_at<1>(q.x) * s0.y);
-        out.y = pack_bf16(q_at<2>(q.x) * s0.z, q_at<3>(q.x) * s0.w);
-        out.z = pack_bf16(q_at<0>(q.y) * s1.x, q_at<1>(q.y) * s1.y);
-        out.w = pack_bf16(q_at<2>(q.y) * s1.z, q_at<3>(q.y) * s1.w);
-        *reinterpret_cast<uint4*>(ws + w * L::kWStage + r * L::kWPitch +
-                                  qc) = out;
-      }
+      const uint32_t dst = st + (L::kXStage + r * L::kWPitch + c) * kEl;
+      cp_async16(dst, wge + off, ok);
+      if constexpr (kFused) cp_async16(dst + L::kWStage * kEl, wue + off, ok);
     }
   };
 
@@ -645,27 +567,13 @@ tc_kernel(const bf16* __restrict__ x, int64_t sxe, int64_t sxc,
     if (s < nk) load_stage(s);
     cp_commit();
   }
-  if constexpr (kInt8) {
-    cp_wait<S - 2>();                // stage 0 and the scales are in shared
-    __syncthreads();                 // memory (everyone's)
-    dequant_stage(0);
-  }
   for (int kt = 0; kt < nk; ++kt) {
-    if constexpr (kInt8) {
-      cp_wait<S - 3>();              // stage kt + 1 has landed (this
-      __syncthreads();               // thread's, then everyone's); bf16
-      // buffer kt & 1 is full, the other one and ring slot kt - 1 are free
-      if (kt + S - 1 < nk) load_stage(kt + S - 1);
-      cp_commit();
-      if (kt + 1 < nk) dequant_stage(kt + 1);
-    } else {
-      cp_wait<S - 2>();              // stage kt has landed (this thread's)
-      __syncthreads();               // ... everyone's; slot kt-1 is free
-      if (kt + S - 1 < nk) load_stage(kt + S - 1);
-      cp_commit();
-    }
+    cp_wait<S - 2>();                // stage kt has landed (this thread's)
+    __syncthreads();                 // ... everyone's; slot kt-1 is free
+    if (kt + S - 1 < nk) load_stage(kt + S - 1);
+    cp_commit();
     const uint32_t st = stage_addr(kt);
-    const uint32_t wt = wtile_addr(st, kt);
+    const uint32_t wt = st + L::kXStage * kEl;
     // Fragments run one step ahead of the products: while the mma's of
     // step (k16 step ks, x pair p) issue, the ldmatrix of the next step is
     // in flight (the next pair of n8 tiles, or at the last pair the next
@@ -731,14 +639,12 @@ tc_kernel(const bf16* __restrict__ x, int64_t sxe, int64_t sxc,
 }
 
 template <bool kFused, int WM, int WN, int MT, int NT, int BK, int S,
-          int kMinBlocks, bool kInt8 = false, int kQV = 16, typename WT>
-int launch_tc(const bf16* x, int64_t sxe, int64_t sxc, const WT* wg,
-              const WT* wu, int64_t swe, int64_t swd, bf16* y, int E, int C,
-              int D, int F, cudaStream_t st, const float* sg = nullptr,
-              const float* su = nullptr, int64_t sse = 0) {
-  using L = Tile<kFused, WM, WN, MT, NT, BK, S, kInt8>;
-  auto kern =
-      tc_kernel<kFused, WM, WN, MT, NT, BK, S, kMinBlocks, kInt8, kQV>;
+          int kMinBlocks>
+int launch_tc(const bf16* x, int64_t sxe, int64_t sxc, const bf16* wg,
+              const bf16* wu, int64_t swe, int64_t swd, bf16* y, int E, int C,
+              int D, int F, cudaStream_t st) {
+  using L = Tile<kFused, WM, WN, MT, NT, BK, S>;
+  auto kern = tc_kernel<kFused, WM, WN, MT, NT, BK, S, kMinBlocks>;
   static bool configured = false;    // once per instantiation
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -751,8 +657,8 @@ int launch_tc(const bf16* x, int64_t sxe, int64_t sxc, const WT* wg,
   const int chunks = (C + L::BN - 1) / L::BN;
   const int Cc = ((C + chunks - 1) / chunks + 7) / 8 * 8;   // <= BN
   const dim3 grid(nF * chunks, E);
-  kern<<<grid, L::kThreads, L::kSmemBytes, st>>>(
-      x, sxe, sxc, wg, wu, swe, swd, sg, su, sse, y, C, D, F, nF, Cc);
+  kern<<<grid, L::kThreads, L::kSmemBytes, st>>>(x, sxe, sxc, wg, wu, swe,
+                                                 swd, y, C, D, F, nF, Cc);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -791,56 +697,537 @@ int dispatch(const void* x, long long sxe, long long sxc, const void* wg,
       xx, sxe, sxc, gg, uu, swe, swd, yy, E, C, D, F, st);
 }
 
-// The int8-weight variant: 32-row stages, deeper rings (an int8 stage is
-// half a bf16 one) and the double-buffered bf16 tiles. C <= 64: 8 warps
-// along F by 2 n8 tiles (a decode step's 8 rows fill the first; a larger
-// C is cut into chunks of 16 rows), 7 (fused) or 10 (down) stages, two
-// blocks an SM, 100-115 KB of weights in flight an SM; C > 64: the bf16
-// variant's 16 warps, 5 stages. Each output is still the one k16 chain in
-// increasing k, so the bits equal the bf16 variant's whatever the shape.
+}  // namespace tc
+
+// ---------------------------------------------------------------------------
+// int8-weight variant (bf16 x, int8 weights with per-column f32 scales)
+// ---------------------------------------------------------------------------
+
+namespace i8 {
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int kThreads = 384;      // a producer warpgroup, two consumer ones
+constexpr int kCols = 64;          // F columns of one weight tile (wgmma M)
+constexpr int kProducerRegs = 40;  // setmaxnreg: 128 x 40 + 256 x 232 =
+constexpr int kConsumerRegs = 232; // 64512 of the SM's 65536
+
+// The kept design; tools/moe_i8_ab.py times each choice undone. C <= 64
+// takes the decode shape, C > 64 the prefill one (below).
+constexpr int kDecodeStages = 6;      // ring depth at C <= 8
+constexpr int kPrefillStages = 4;     // ring depth at C > 64 (192 KB)
+constexpr int kFusedDecodeRows = 64;  // D rows a stage: 16 KB of int8
+constexpr int kDownDecodeRows = 128;  // (both kernels)
+
+// byte j of w (an int8) as an exact float: the byte with its sign bit
+// flipped (q + 128) placed in the mantissa of 2^23, minus 2^23 + 128
+template <int J>
+__device__ __forceinline__ float q_at(uint32_t w) {
+  const uint32_t u = __byte_perm(w ^ 0x80808080u, 0x4B000000u, 0x7540 | J);
+  return __uint_as_float(u) - 8388736.f;
+}
+
+// --- wgmma -----------------------------------------------------------------
+
+// B: rows r0 .. r0 + N - 1 of an x tile [BK / 64][R][64] (128-byte rows),
+// the 16 columns of k16 step ks
+template <int R>
+__device__ __forceinline__ uint64_t desc_x(uint32_t tile, int r0, int ks) {
+  return desc(tile + (ks >> 2) * R * 128 + r0 * 128 + (ks & 3) * 32, 16,
+              1024);
+}
+// A, MN-major: rows 16 ks .. 16 ks + 15 of a bf16 tile [BK][64] (128-byte
+// rows: one 64-column block, 8-row groups 1024 bytes apart)
+__device__ __forceinline__ uint64_t desc_a(uint32_t tile, int ks) {
+  return desc(tile + ks * 2048, 8192, 1024);
+}
+
+// d (m64n8, f32) += A . B: A (64 x 16) MN-major and B (16 x 8) K-major,
+// bf16 in shared memory, 128-byte swizzle
+__device__ __forceinline__ void wgmma_ss(float (&d)[4], uint64_t a,
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, "
+      "%4, %5, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// d (m64n64, f32) += A . B: A (64 x 16) MN-major and B (16 x 64) K-major,
+// bf16 in shared memory, 128-byte swizzle
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// d (m64n8, f32) += A . B: A (64 x 16) bf16 fragments in registers, B
+// (16 x 8) K-major bf16 in shared memory, 128-byte swizzle
+__device__ __forceinline__ void wgmma_rs(float (&d)[4],
+                                         const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (m64n64, f32) += A . B: A (64 x 16) bf16 fragments in registers, B
+// (16 x 64) K-major bf16 in shared memory, 128-byte swizzle
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (m64n160, f32) += A . B: A (64 x 16) bf16 fragments in registers, B
+// (16 x 160) K-major bf16 in shared memory, 128-byte swizzle
+__device__ __forceinline__ void wgmma_rs(float (&d)[80],
+                                         const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %85, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63,"
+      " %64, %65, %66, %67, %68, %69, %70, %71,"
+      " %72, %73, %74, %75, %76, %77, %78, %79}, "
+      "{%80, %81, %82, %83}, %84, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// --- the bit probe -----------------------------------------------------------
+
+// One warpgroup runs one chain of k16 products in increasing k four ways:
+// mma.sync.m16n8k16 (each warp its 16 rows, the tensor-core variant's
+// instruction), wgmma.m64n8k16 with A in registers (the same fragments),
+// wgmma.m64n8k16 with A from shared memory (MN-major, 128-byte swizzle, as
+// the kernel's bf16 tiles), and columns 0-7 of wgmma.m64n64k16 (A from
+// shared memory; B's rows 0-7 are the others' B). a [steps][64][16] (row m,
+// column k of each step), b [steps][64][16] (row n, column k), bf16;
+// out [4][64][8] f32, one [m][n] result each.
+__global__ void __launch_bounds__(128)
+probe_kernel(const bf16* __restrict__ a, const bf16* __restrict__ b,
+             float* __restrict__ out, int steps) {
+  __shared__ __align__(1024) unsigned char sa[16 * 128];
+  __shared__ __align__(1024) unsigned char sb[64 * 128];
+  const int t = threadIdx.x, wi = t >> 5, g = (t & 31) >> 2, tg = t & 3;
+  const uint32_t sa_addr = smem_addr(sa), sb_addr = smem_addr(sb);
+  float d_mma[4] = {}, d_rs[4] = {}, d_ss[4] = {}, d_64[32] = {};
+  for (int st = 0; st < steps; ++st) {
+    const bf16* as = a + static_cast<int64_t>(st) * 64 * 16;
+    const bf16* bs = b + static_cast<int64_t>(st) * 64 * 16;
+    for (int i = t; i < 64 * 16; i += 128) {
+      const int r = i >> 4, k = i & 15;    // A: (m r, k) at [k][m]
+      *reinterpret_cast<bf16*>(sa + k * 128 + (((r >> 3) ^ (k & 7)) << 4) +
+                               (r & 7) * 2) = as[i];
+      *reinterpret_cast<bf16*>(sb + r * 128 + (((k >> 3) ^ (r & 7)) << 4) +
+                               (k & 7) * 2) = bs[i];
+    }
+    fence_async();
+    __syncthreads();
+    const auto pair = [](const bf16* p) {
+      return *reinterpret_cast<const uint32_t*>(p);
+    };
+    const int m = 16 * wi + g;
+    const uint32_t af[4] = {pair(as + m * 16 + 2 * tg),
+                            pair(as + (m + 8) * 16 + 2 * tg),
+                            pair(as + m * 16 + 2 * tg + 8),
+                            pair(as + (m + 8) * 16 + 2 * tg + 8)};
+    tc::mma16816(d_mma, af, pair(bs + g * 16 + 2 * tg),
+                 pair(bs + g * 16 + 2 * tg + 8));
+    wg_fence();
+    wgmma_rs(d_rs, af, desc_x<64>(sb_addr, 0, 0));
+    wgmma_ss(d_ss, desc_a(sa_addr, 0), desc_x<64>(sb_addr, 0, 0));
+    wgmma_ss(d_64, desc_a(sa_addr, 0), desc_x<64>(sb_addr, 0, 0));
+    wg_commit();
+    wg_wait<0>();
+    keep(d_rs);
+    keep(d_ss);
+    keep(d_64);
+    __syncthreads();
+  }
+  for (int q = 0; q < 4; ++q) {
+    const int at = (16 * wi + g + 8 * (q >> 1)) * 8 + 2 * tg + (q & 1);
+    out[at] = d_mma[q];
+    out[512 + at] = d_rs[q];
+    out[1024 + at] = d_ss[q];
+    out[1536 + at] = d_64[q];
+  }
+}
+
+// --- the kernel --------------------------------------------------------------
+
+// Shared memory of one block (bytes from a 1024-aligned base): the ring of
+// S stages, each an x tile [BK / 64][R][64] bf16 (128-byte rows, 128-byte
+// swizzle) and the int8 weight tiles [BK][64] (64-byte rows, 64-byte
+// swizzle); the mbarriers (full[], empty[]).
+// After the k loop the ring holds the output tile [R][BF] (and, for the
+// split fused kernel, the up product [R][64] in f32 before it).
+template <bool kFused, int kWpw, int N, int NS, int BK, int S>
+struct Smem {
+  static constexpr int kTiles = 2 * kWpw;                 // int8 tiles a stage
+  static constexpr int BF = kCols * (kFused ? kWpw : 2);  // F columns
+  static constexpr int R = N * NS;                        // x rows a stage
+  static constexpr bool kSplit = kFused && kWpw == 1;     // gate | up
+  static constexpr uint32_t kXBytes = (BK / 64) * R * 128;
+  static constexpr uint32_t kQBytes = BK * kCols;
+  static constexpr uint32_t kStage = kXBytes + kTiles * kQBytes;
+  static constexpr uint32_t kBuf = S * kStage;
+  static constexpr uint32_t kBar = kBuf;
+  static constexpr uint32_t kBytes = kBar + 8 * 2 * S;
+  static constexpr size_t kAlloc = kBytes + 1024;         // room to align
+  static constexpr int kYPitch = BF + 8;                  // bf16 elements
+  static constexpr int kUPitch = kCols + 4;               // f32 elements
+  static constexpr uint32_t kY = kSplit ? R * kUPitch * 4 : 0;
+  static_assert(BK % 64 == 0 && N % 8 == 0 && N <= 256, "tile shape");
+  static_assert(kStage % 1024 == 0, "swizzled tiles 1024-byte aligned");
+  static_assert(kY + R * kYPitch * 2 <= kBuf, "the output tile fits");
+  static_assert(kAlloc <= 232448, "a block's shared memory");
+};
+
+// Grid: (F-tile + nF * C-chunk, expert), chunk ch holding rows
+// [ch * Cc, min(C, (ch + 1) * Cc)) of its expert, Cc <= R. Weight tile b
+// of a stage (b < 2 kWpw) is matrix b & 1 (gate, up) of the fused kernel
+// at the block's F columns 64 (b >> 1), or columns 64 b of w; consumer
+// warpgroup cw takes tiles cw kWpw .. cw kWpw + kWpw - 1, each for all
+// its NS sets of N rows.
+template <bool kFused, int kWpw, int N, int NS, int BK, int S>
+__global__ void __launch_bounds__(kThreads, 1)
+kernel(const __grid_constant__ CUtensorMap tm_x,
+       const __grid_constant__ CUtensorMap tm_g,
+       const __grid_constant__ CUtensorMap tm_u,
+       const float* __restrict__ sg, const float* __restrict__ su,
+       int64_t sse, bf16* __restrict__ y, int C, int D, int F, int nF,
+       int Cc) {
+  using L = Smem<kFused, kWpw, N, NS, BK, S>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  const auto full = [&](int s) { return base + L::kBar + 8 * s; };
+  const auto empty = [&](int s) { return base + L::kBar + 8 * (S + s); };
+  const auto matrix = [](int b) { return kFused ? b & 1 : 0; };
+  const auto column = [](int b) { return kCols * (kFused ? b >> 1 : b); };
+
+  const int tid = threadIdx.x;
+  const int f0 = (blockIdx.x % nF) * L::BF;
+  const int c0 = (blockIdx.x / nF) * Cc;
+  const int e = blockIdx.y;
+  const int rows = min(Cc, C - c0);
+  const int nk = (D + BK - 1) / BK;
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full(s), 1);                 // the producer's expect_tx
+      mbar_init(empty(s), 256);              // every consumer thread
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid < 128) {
+    // ---- producer: one thread issues every copy ---------------------------
+    regs_dec<kProducerRegs>();
+    if (tid == 0) {
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % S;
+        mbar_wait(empty(s), ((kt / S) & 1) ^ 1);
+        const uint32_t st = base + s * L::kStage;
+        mbar_arrive_tx(full(s), L::kStage);
+#pragma unroll
+        for (int c = 0; c < BK / 64; ++c)
+#pragma unroll
+          for (int j = 0; j < NS; ++j)
+            tma_3d(st + (c * L::R + j * N) * 128, &tm_x, kt * BK + 64 * c,
+                   c0 + j * N, e, full(s));
+#pragma unroll
+        for (int b = 0; b < L::kTiles; ++b)
+          tma_3d(st + L::kXBytes + b * L::kQBytes, matrix(b) ? &tm_u : &tm_g,
+                 f0 + column(b), kt * BK, e, full(s));
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: 64 F columns of kWpw weight tiles, N x NS rows ---------
+  regs_inc<kConsumerRegs>();
+  const int cw = tid / 128 - 1, t = tid & 127;
+  const int wi = t >> 5, g = (t & 31) >> 2, tg = t & 3;
+  // the F column (in the tile) of accumulator row m = 16 wi + g + 8 h:
+  // the thread's two rows are adjacent columns fa + h, so it reads 2 bytes
+  // of int8 a k row (below) and holds those two columns' scales (0 past F)
+  const int fa = 16 * wi + 2 * g;
+  float sc[kWpw][2];
+#pragma unroll
+  for (int w = 0; w < kWpw; ++w) {
+    const int b = cw * kWpw + w;
+    const float* s = matrix(b) ? su : sg;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int f = f0 + column(b) + fa + i;
+      sc[w][i] = f < F ? s[static_cast<int64_t>(e) * sse + f] : 0.f;
+    }
+  }
+
+  float acc[kWpw][NS][N / 2];
+#pragma unroll
+  for (int w = 0; w < kWpw; ++w)
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int i = 0; i < N / 2; ++i) acc[w][j][i] = 0.f;
+
+  // A fragments of each k16 step: rows k0, k0 + 1 (a[0], a[1]) and
+  // k0 + 8, k0 + 9 (a[2], a[3]), k0 = 16 ks + 2 tg, of columns fa (row
+  // m) and fa + 1 (row m + 8); in the 64-byte swizzle every such row's
+  // 16-byte piece wi sits at wi ^ tg
+  typedef uint32_t Frags[BK / 16][kWpw][4];
+  const auto frags = [&](int kt, Frags& a) {
+    const int s = kt % S;
+    mbar_wait(full(s), (kt / S) & 1);
+    const unsigned char* qt =
+        smem + s * L::kStage + L::kXBytes + cw * kWpw * L::kQBytes;
+#pragma unroll
+    for (int ks = 0; ks < BK / 16; ++ks)
+#pragma unroll
+      for (int w = 0; w < kWpw; ++w) {
+        const unsigned char* q = qt + w * L::kQBytes +
+                                 (16 * ks + 2 * tg) * 64 + ((wi ^ tg) << 4) +
+                                 2 * g;
+        const auto u16 = [&](int k) {
+          return static_cast<uint32_t>(
+              *reinterpret_cast<const uint16_t*>(q + k * 64));
+        };
+        const uint32_t w01 = u16(0) | u16(1) << 16;
+        const uint32_t w89 = u16(8) | u16(9) << 16;
+        const float s0 = sc[w][0], s1 = sc[w][1];
+        a[ks][w][0] = pack_bf16(q_at<0>(w01) * s0, q_at<2>(w01) * s0);
+        a[ks][w][1] = pack_bf16(q_at<1>(w01) * s1, q_at<3>(w01) * s1);
+        a[ks][w][2] = pack_bf16(q_at<0>(w89) * s0, q_at<2>(w89) * s0);
+        a[ks][w][3] = pack_bf16(q_at<1>(w89) * s1, q_at<3>(w89) * s1);
+        keep(a[ks][w]);
+      }
+  };
+  // stage kt's products from fragments a; stage kt + 1's fragments are
+  // built into `next` while they run, then the slot goes back
+  const auto step = [&](int kt, Frags& a, Frags& next) {
+    const uint32_t xt = base + (kt % S) * L::kStage;
+    wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < BK / 16; ++ks)
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        if (j * N >= rows) continue;
+#pragma unroll
+        for (int w = 0; w < kWpw; ++w)
+          wgmma_rs(acc[w][j], a[ks][w], desc_x<L::R>(xt, j * N, ks));
+      }
+    wg_commit();
+    if (kt + 1 < nk) frags(kt + 1, next);
+    wg_wait<0>();
+    mbar_arrive(empty(kt % S));
+  };
+  Frags a0, a1;
+  frags(0, a0);
+  for (int kt = 0; kt < nk; kt += 2) {
+    step(kt, a0, a1);
+    if (kt + 1 < nk) step(kt + 1, a1, a0);
+  }
+  wg_wait<0>();
+#pragma unroll
+  for (int w = 0; w < kWpw; ++w)
+#pragma unroll
+    for (int j = 0; j < NS; ++j) keep(acc[w][j]);
+
+  // epilogue: accumulator (column, row c) -> ys[c][column] in bf16 (the
+  // split fused kernel: up through us in f32 first), then 16-byte rows
+  bar_sync(3, 256);                        // both consumers are off the ring
+  bf16* ys = reinterpret_cast<bf16*>(smem + L::kY);
+  float* us = reinterpret_cast<float*>(smem);
+  // visit(fn): fn(set j, accumulator i, column in the tile, row c) for
+  // every live accumulator of this thread
+  const auto visit = [&](auto fn) {
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int i = 0; i < N / 2; ++i) {
+        const int c = j * N + 8 * (i >> 2) + 2 * tg + (i & 1);
+        if (c < rows) fn(j, i, fa + ((i >> 1) & 1), c);
+      }
+  };
+  if constexpr (L::kSplit) {
+    if (cw == 1)
+      visit([&](int j, int i, int f, int c) {
+        us[c * L::kUPitch + f] = acc[0][j][i];
+      });
+    bar_sync(3, 256);
+    if (cw == 0)
+      visit([&](int j, int i, int f, int c) {
+        const float v = acc[0][j][i];
+        ys[c * L::kYPitch + f] =
+            __float2bfloat16(v / (1.f + expf(-v)) * us[c * L::kUPitch + f]);
+      });
+  } else {
+    visit([&](int j, int i, int f, int c) {
+      float v = acc[0][j][i];
+      if constexpr (kFused) v = v / (1.f + expf(-v)) * acc[kWpw - 1][j][i];
+      ys[c * L::kYPitch + kCols * cw + f] = __float2bfloat16(v);
+    });
+  }
+  bar_sync(3, 256);
+  bf16* ye = y + (static_cast<int64_t>(e) * C + c0) * F;
+  for (int i = tid - 128; i < rows * (L::BF / 8); i += 256) {
+    const int r = i / (L::BF / 8), c = (i % (L::BF / 8)) * 8;
+    if (f0 + c < F)
+      *reinterpret_cast<uint4*>(ye + static_cast<int64_t>(r) * F + f0 + c) =
+          *reinterpret_cast<const uint4*>(ys + r * L::kYPitch + c);
+  }
+}
+
+// the map of a [n2][n1][n0] tensor with unit stride along n0 and byte
+// strides s1, s2: boxes of b0 x b1 x 1, zeros past the edges
+bool make_map(CUtensorMap* map, EncodeTiled encode, CUtensorMapDataType type,
+              const void* ptr, int64_t n0, int64_t n1, int64_t n2,
+              int64_t s1, int64_t s2, int b0, int b1,
+              CUtensorMapSwizzle swizzle) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(n0),
+                              static_cast<cuuint64_t>(n1),
+                              static_cast<cuuint64_t>(n2)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(s1),
+                                 static_cast<cuuint64_t>(s2)};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(b0),
+                             static_cast<cuuint32_t>(b1), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode(map, type, 3, const_cast<void*>(ptr), dims, strides, box,
+                unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+struct Args {
+  const void *x, *qg, *qu, *sg, *su;
+  long long sxe, sxc, swe, swd, sse;
+  void* y;
+  int E, C, D, F;
+  cudaStream_t st;
+};
+
+template <bool kFused, int kWpw, int N, int NS, int BK, int S>
+int launch(const Args& a) {
+  using L = Smem<kFused, kWpw, N, NS, BK, S>;
+  auto kern = kernel<kFused, kWpw, N, NS, BK, S>;
+  static bool configured = false;    // once per instantiation
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(L::kAlloc));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap mx, mg, mu;
+  if (!make_map(&mx, encode, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, a.x, a.D, a.C,
+                a.E, 2 * a.sxc, 2 * a.sxe, 64, N,
+                CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !make_map(&mg, encode, CU_TENSOR_MAP_DATA_TYPE_UINT8, a.qg, a.F, a.D,
+                a.E, a.swd, a.swe, kCols, BK, CU_TENSOR_MAP_SWIZZLE_64B) ||
+      !make_map(&mu, encode, CU_TENSOR_MAP_DATA_TYPE_UINT8, a.qu, a.F, a.D,
+                a.E, a.swd, a.swe, kCols, BK, CU_TENSOR_MAP_SWIZZLE_64B))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int nF = (a.F + L::BF - 1) / L::BF;
+  const int chunks = (a.C + L::R - 1) / L::R;
+  const int Cc = ((a.C + chunks - 1) / chunks + 7) / 8 * 8;   // <= R
+  kern<<<dim3(nF * chunks, a.E), kThreads, L::kAlloc, a.st>>>(
+      mx, mg, mu, static_cast<const float*>(a.sg),
+      static_cast<const float*>(a.su), a.sse, static_cast<bf16*>(a.y), a.C,
+      a.D, a.F, nF, Cc);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// C <= 8 (decode): N 8; 8 < C <= 64: N 64 (a shorter ring: a bigger x
+// tile); two consumers of 64 columns, the fused kernel's each gate and up
+// (128 columns a block). C > 64: two sets of N 160 a consumer, 320 rows a
+// block; the fused kernel's consumers gate and up of the same 64 columns,
+// w's two of 64.
 template <bool kFused>
-int dispatch_i8(const void* x, long long sxe, long long sxc, const void* qg,
-                const void* qu, long long swe, long long swd, const void* sg,
-                const void* su, long long sse, void* y, int E, int C, int D,
-                int F, void* stream) {
+int dispatch(const Args& a) {
   const auto aligned = [](const void* p, uintptr_t n) {
     return reinterpret_cast<uintptr_t>(p) % n == 0;
   };
-  if (E < 1 || E > 65535 || C < 1 || D < 8 || F < 8 || D % 8 || F % 8 ||
-      sxe % 8 || sxc % 8 || swe % 8 || swd % 8 || sse < F ||
-      !aligned(x, 16) || !aligned(qg, 16) || !aligned(qu, 16) ||
-      !aligned(sg, 4) || !aligned(su, 4) || !aligned(y, 16))
+  if (a.E < 1 || a.E > 65535 || a.C < 1 || a.D < 8 || a.F < 16 ||
+      a.D % 8 || a.F % 16 || a.sxe % 8 || a.sxc % 8 || a.swe % 16 ||
+      a.swd % 16 || a.sse < a.F || !aligned(a.x, 16) || !aligned(a.qg, 16) ||
+      !aligned(a.qu, 16) || !aligned(a.sg, 4) || !aligned(a.su, 4) ||
+      !aligned(a.y, 16))
     return static_cast<int>(cudaErrorInvalidValue);
-  const bf16* xx = static_cast<const bf16*>(x);
-  const int8_t* gg = static_cast<const int8_t*>(qg);
-  const int8_t* uu = static_cast<const int8_t*>(qu);
-  const float* sgg = static_cast<const float*>(sg);
-  const float* suu = static_cast<const float*>(su);
-  bf16* yy = static_cast<bf16*>(y);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // 16-byte int8 copies: whole 16-byte pieces of every row (F, strides
-  // and bases multiples of 16, as at every mixtral shape)
-  const bool q16 = F % 16 == 0 && swe % 16 == 0 && swd % 16 == 0;
-  const auto go = [&](auto kern_q16) {
-    constexpr bool kQ16 = decltype(kern_q16)::value;
-    constexpr int kQV = kQ16 ? 16 : 8;
-    if (C <= 64) {
-      if constexpr (kFused)
-        return launch_tc<true, 8, 1, 1, 2, 32, 7, 2, true, kQV>(
-            xx, sxe, sxc, gg, uu, swe, swd, yy, E, C, D, F, st, sgg, suu,
-            sse);
-      else
-        return launch_tc<false, 8, 1, 1, 2, 32, 10, 2, true, kQV>(
-            xx, sxe, sxc, gg, uu, swe, swd, yy, E, C, D, F, st, sgg, suu,
-            sse);
-    }
-    return launch_tc<kFused, 8, 2, kFused ? 1 : 2, 10, 32, 5, 1, true, kQV>(
-        xx, sxe, sxc, gg, uu, swe, swd, yy, E, C, D, F, st, sgg, suu, sse);
-  };
-  return q16 ? go(std::true_type{}) : go(std::false_type{});
+  constexpr int kW = kFused ? 2 : 1;
+  constexpr int kRows = kFused ? kFusedDecodeRows : kDownDecodeRows;
+  if (a.C <= 8) return launch<kFused, kW, 8, 1, kRows, kDecodeStages>(a);
+  if (a.C <= 64) return launch<kFused, kW, 64, 1, kRows, 4>(a);
+  return launch<kFused, 1, 160, 2, 64, kPrefillStages>(a);
 }
 
-}  // namespace tc
+}  // namespace i8
 
 // ---------------------------------------------------------------------------
 // narrow variant (f32 moe_gemm with D or F rank-sized)
@@ -1040,6 +1427,8 @@ int dispatch(const void* x, long long sxe, long long sxc, const void* w,
 
 }  // namespace narrow
 
+}  // namespace
+
 // dtype: 0 = bfloat16, 1 = float32. Strides are in elements; x has unit
 // stride along D and w along F; y is a contiguous [E, C, F] output.
 // vec_ok: weight rows may be read with 16-byte loads (base pointer 16-byte
@@ -1083,16 +1472,18 @@ extern "C" int moe_ffn_fused_tc_launch(const void* x, long long sxe,
 }
 
 // The int8-weight variant: bf16 x and y, int8 weights q [E, D, F] with f32
-// scales s [E, 1, F] (expert stride sse >= F, unit stride along F); the
-// tensor-core variant's rules on x, q and y otherwise. The output is the
-// tensor-core variant's on the bf16 weights bf16(float(q) * s), bit for bit.
+// scales s [E, 1, F] (expert stride sse >= F, unit stride along F); D a
+// multiple of 8, F and q's strides multiples of 16 (TMA's 16-byte global
+// strides), x's strides multiples of 8, x, q and y 16-byte aligned (y is a
+// contiguous [E, C, F] output). The output is the tensor-core variant's on
+// the bf16 weights bf16(float(q) * s).
 extern "C" int moe_gemm_i8_launch(const void* x, long long sxe,
                                   long long sxc, const void* q, long long swe,
                                   long long swd, const void* s,
                                   long long sse, void* y, int E, int C, int D,
                                   int F, void* stream) {
-  return tc::dispatch_i8<false>(x, sxe, sxc, q, q, swe, swd, s, s, sse, y, E,
-                                C, D, F, stream);
+  return i8::dispatch<false>({x, q, q, s, s, sxe, sxc, swe, swd, sse, y, E,
+                              C, D, F, static_cast<cudaStream_t>(stream)});
 }
 
 extern "C" int moe_ffn_fused_i8_launch(const void* x, long long sxe,
@@ -1102,8 +1493,19 @@ extern "C" int moe_ffn_fused_i8_launch(const void* x, long long sxe,
                                        const void* s_up, long long sse,
                                        void* y, int E, int C, int D, int F,
                                        void* stream) {
-  return tc::dispatch_i8<true>(x, sxe, sxc, q_gate, q_up, swe, swd, s_gate,
-                               s_up, sse, y, E, C, D, F, stream);
+  return i8::dispatch<true>({x, q_gate, q_up, s_gate, s_up, sxe, sxc, swe,
+                             swd, sse, y, E, C, D, F,
+                             static_cast<cudaStream_t>(stream)});
+}
+
+// The bit probe (i8::probe_kernel): a [steps][64][16] and b [steps][64][16]
+// bf16, out [4][64][8] f32; one warpgroup, one block.
+extern "C" int moe_gemm_i8_probe(const void* a, const void* b, void* out,
+                                 int steps, void* stream) {
+  i8::probe_kernel<<<1, 128, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(a),
+      static_cast<const __nv_bfloat16*>(b), static_cast<float*>(out), steps);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The narrow variant: f32 moe_gemm with D or F at most 16 (D <= 16 takes

@@ -9,9 +9,10 @@ the shapes ``uses_tensor_cores`` admits, a narrow one for the f32
 ``moe_gemm`` products whose D or F is rank-sized (``uses_narrow``: split-D
 warps and a combine, or one pass over a rank-deep panel), and a CUDA-core
 template for every other shape; and beside the tensor-core variant an
-int8-weight one (``uses_int8``) that reads int8 weights with their f32
-scales and dequantises each tile in shared memory. Its header says what
-bounds them on the card and how each design answers it.
+int8-weight one (``uses_int8``): ``wgmma`` on int8 tiles that a producer
+warp loads by TMA, dequantised by the consumers with their f32 scales.
+Its header says what bounds them on the card and how each design answers
+it.
 
 Layouts are the reference's: ``x [E, C, D]``, ``w / w_gate / w_up
 [E, D, F]`` -> ``[E, C, F]`` in x's dtype, products accumulated in f32. A
@@ -55,6 +56,7 @@ INT8_LAUNCHES = {"moe_gemm": 0, "moe_ffn_fused": 0}
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 _VEC = 8             # weight elements per 16-byte load segment
+_Q_UNIT = 16         # int8 elements per 16-byte TMA stride unit
 NARROW = 16          # the largest rank-sized D or F of the narrow variant
 
 _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
@@ -73,6 +75,7 @@ _ARGTYPES = {
                            _I, _I, _P],
     "moe_ffn_fused_i8_launch": [_P, _LL, _LL, _P, _P, _LL, _LL, _P, _P, _LL,
                                 _P, _I, _I, _I, _I, _P],
+    "moe_gemm_i8_probe": [_P, _P, _P, _I, _P],
 }
 _lib = None
 
@@ -183,8 +186,9 @@ def uses_int8(x, *ws) -> bool:
     """Whether a launch on ``x [E, C, D]`` and int8 weights ``ws`` (each
     ``{"q": [E, D, F], "s": [E, 1, F]}``) takes the int8-weight variant:
     bf16 x, int8 q, f32 s with unit stride along F; the tensor-core rules
-    on the layout of x and q (each int8 tile row is then whole 8-byte
-    copies, 16-byte ones where F and the strides are multiples of 16)."""
+    on the layout of x and q, and F and q's outer strides multiples of 16
+    (TMA copies the int8 tiles, and its global strides are whole 16-byte
+    units; past D and F it fills zeros)."""
     if x.dtype != torch.bfloat16 or not all(_is_int8(w) for w in ws):
         return False
     qs = [w["q"] for w in ws]
@@ -195,7 +199,10 @@ def uses_int8(x, *ws) -> bool:
                     and w["s"].stride(2) == 1 and w["s"].device == x.device
                     and w["s"].stride(0) == ws[0]["s"].stride(0) >= Fo
                     for w in ws)
-            and _tile_layout(x, qs))
+            and _tile_layout(x, qs)
+            and Fo % _Q_UNIT == 0
+            and all(q.stride(0) % _Q_UNIT == 0 and q.stride(1) % _Q_UNIT == 0
+                    for q in qs))
 
 
 def _tile_layout(x, ws) -> bool:
@@ -260,9 +267,10 @@ def _launch_int8(name, x, ws):
     if not uses_int8(x, *ws):
         raise ValueError(
             f"{name}: int8 weights on {x.device} need bf16 x, q int8 and s "
-            f"f32 [E, 1, F], and the tensor-core layout (D, F and the "
-            f"strides multiples of 8, 16-byte bases); got x {x.dtype} "
-            f"{tuple(x.shape)}, q {[tuple(q.shape) for q in qs]}")
+            f"f32 [E, 1, F], D and x's strides multiples of 8, F and q's "
+            f"strides multiples of 16, 16-byte bases; got x {x.dtype} "
+            f"{tuple(x.shape)}, q {[tuple(q.shape) for q in qs]} strides "
+            f"{[q.stride() for q in qs]}")
     y = torch.empty((E, C, Fo), dtype=x.dtype, device=x.device)
     ss = [w["s"] for w in ws]
     rc = call_on_stream(
@@ -274,6 +282,27 @@ def _launch_int8(name, x, ws):
     LAUNCHES[name] += 1
     INT8_LAUNCHES[name] += 1
     return y
+
+
+def i8_probe(a, b):
+    """The bit probe of the int8 variant's instruction: one chain of k16
+    products in increasing k over ``a [steps, 64, 16]`` (rows m, columns
+    k) and ``b [steps, 64, 16]`` (rows n), bf16 on the card, computed as
+    ``mma.sync.m16n8k16`` (the tensor-core variant's instruction), as
+    ``wgmma.m64n8k16`` with A in registers and with A from shared memory,
+    and as columns 0-7 of ``wgmma.m64n64k16``. Returns [4, 64, 8] f32 in
+    that order."""
+    if a.device.type != "cuda" or a.dtype != torch.bfloat16 \
+            or b.dtype != torch.bfloat16 or a.shape[1:] != (64, 16) \
+            or b.shape != a.shape:
+        raise ValueError("i8_probe takes bf16 a and b [steps, 64, 16] on "
+                         "the card")
+    a, b = a.contiguous(), b.contiguous()
+    out = torch.empty((4, 64, 8), dtype=torch.float32, device=a.device)
+    _raise_on(call_on_stream(_library().moe_gemm_i8_probe, a, a.data_ptr(),
+                             b.data_ptr(), out.data_ptr(), a.shape[0]),
+              "i8_probe")
+    return out
 
 
 def _launch(name, x, ws):

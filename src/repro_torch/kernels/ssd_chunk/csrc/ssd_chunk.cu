@@ -386,8 +386,6 @@ int launch(const void* x, long long sxb, long long sxl, const float* dt,
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
 // ---------------------------------------------------------------------------
 // bf16 route: chunk states, state passing, chunk outputs
 // ---------------------------------------------------------------------------
@@ -990,6 +988,8 @@ int launch(const void* x, long long sxb, long long sxl, const float* dt,
 }
 
 }  // namespace tc
+
+}  // namespace
 
 // Resident blocks an SM of the bf16 route's ssd_states (0) and
 // ssd_outputs (1), after a launch has configured them.

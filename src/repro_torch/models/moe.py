@@ -82,8 +82,9 @@ def _expert_ffn(p, h):
     """h: [E, C, d] capacity buffers -> per-expert SwiGLU, in h's dtype.
 
     bf16 buffers hand an int8 weight ``{q, s}`` to the kernels as it is: on
-    the card the int8 variant dequantises it in shared memory, on the CPU
-    the plain version runs ``as_weight`` first. Other dtypes dequantise
+    the card the int8 variant dequantises each int8 tile straight into the
+    registers of ``wgmma``'s A operand, on the CPU the plain version runs
+    ``as_weight`` first. Other dtypes dequantise
     here, to bf16 and then h's dtype, as the reference's einsums do."""
     wg, wu, wd = p["w_gate"], p["w_up"], p["w_down"]
     if h.dtype != torch.bfloat16:

@@ -14,11 +14,16 @@ written it and lets into a kept output shows. Values stay f32: this checks
 indexing, not bf16 rounding. Tolerance 1e-5 (f32 sums in another order
 than the einsum of the plain version).
 
-The int8-weight variant (``tc_kernel<..., kInt8>``) is transliterated by
-the same function: int8 tiles and their scales land in the ring, each stage
-is dequantised into the bf16 tiles after it lands, and the tile loop runs
-on those; its output equals ``as_weight`` followed by the bf16 variant's
-transliteration bit for bit.
+The int8-weight variant (namespace ``i8``: ``wgmma`` on int8 tiles a
+producer loads by TMA) has its own transliteration on a flat shared memory
+indexed by byte, NaN until written: the TMA boxes with their zero fill and
+swizzles, the ring in the order the barriers allow, the dequantisation
+into ``wgmma``'s A fragment (or into the swizzled bf16 tile the other
+placement reads by descriptor), the k16 steps in increasing k and the
+epilogue through the ring. On the card ``wgmma`` rounds each k16 step as
+``mma.sync`` does (the bit probe in ``chip_smoke.py``), so its output is
+held to ``as_weight`` followed by the bf16 variant's transliteration bit
+for bit.
 
 The narrow variant (f32 ``moe_gemm`` with D or F rank-sized) is
 transliterated in f32 with its fma chains, its butterfly over the lanes and
@@ -41,12 +46,6 @@ SHAPES = {(True, True): (8, 1, 1, 8, 32, 4),
           (True, False): (8, 1, 1, 8, 64, 4),
           (False, True): (8, 2, 1, 10, 64, 3),
           (False, False): (8, 2, 2, 10, 64, 3)}
-#: the int8-weight variant's (tc::dispatch_i8): 32-row stages, deeper
-#: rings, two n8 tiles a warp at decode
-SHAPES_I8 = {(True, True): (8, 1, 1, 2, 32, 7),
-             (True, False): (8, 1, 1, 2, 32, 10),
-             (False, True): (8, 2, 1, 10, 32, 5),
-             (False, False): (8, 2, 2, 10, 32, 5)}
 SMALL_MAX_C = 64
 
 LANES = np.arange(32)
@@ -88,29 +87,17 @@ def _round_bf16(a):
 
 
 def tc_transliteration(x, sxe, sxc, wg, wu, swe, swd, E, C, D, F,
-                       shape=None, scales=None):
+                       shape=None):
     """y [E, C, F] as tc_kernel computes it. x, wg, wu are flat f32 arrays
     read through element strides (x unit along D, w along F); wu None is
-    moe_gemm, else moe_ffn_fused. ``shape`` forces a block shape.
-
-    ``scales`` ((s_gate, s_up or None), sse): the int8-weight variant. wg
-    and wu then hold int8 values, s_* flat f32 scales [E, 1, F] with
-    expert stride sse. A stage holds the int8 tiles unpadded [BK][BF],
-    copied 16 weights at a time where F and the strides are multiples of
-    16, else 8.
-    After the ring sit two sets of bf16 tiles: while step kt computes on
-    set kt & 1, stage kt + 1 (landed) is dequantised into the other, every
-    weight bf16(f32(q) * s[f])."""
-    fused, int8 = wu is not None, scales is not None
-    WM, WN, MT, NT, BK, STAGES = shape or (SHAPES_I8 if int8 else SHAPES)[
-        (C <= SMALL_MAX_C, fused)]
+    moe_gemm, else moe_ffn_fused. ``shape`` forces a block shape."""
+    fused = wu is not None
+    WM, WN, MT, NT, BK, STAGES = shape or SHAPES[(C <= SMALL_MAX_C, fused)]
     BF, BN, nw = WM * MT * 16, WN * NT * 8, 2 if fused else 1
     XPITCH, WPITCH = BK + 8, BF + 8
-    XSTAGE, WSTAGE, QSTAGE = BN * XPITCH, BK * WPITCH, BK * BF
-    STAGE = XSTAGE + nw * (QSTAGE if int8 else WSTAGE)
-    RING = STAGES * STAGE
-    SMEM = RING + (2 * nw * WSTAGE if int8 else 0)
-    QV = 16 if int8 and F % 16 == swe % 16 == swd % 16 == 0 else 8
+    XSTAGE, WSTAGE = BN * XPITCH, BK * WPITCH
+    STAGE = XSTAGE + nw * WSTAGE
+    SMEM = STAGES * STAGE
     YPITCH = BF + 8
     nF = -(-F // BF)
     chunks = -(-C // BN)
@@ -129,11 +116,6 @@ def tc_transliteration(x, sxe, sxc, wg, wu, swe, swd, E, C, D, F,
             xe = e * sxe + c0 * sxc
             we = e * swe
             smem = np.full(SMEM, np.nan, np.float32)
-            if int8:      # this block's scales, 0 past F
-                cols = f0 + np.arange(BF)
-                sc = [np.where(cols < F, s[e * scales[1] + np.minimum(
-                    cols, F - 1)], 0).astype(np.float32)
-                    for s in scales[0][:nw]]
 
             def load_stage(kt):
                 st, k0 = (kt % STAGES) * STAGE, kt * BK
@@ -143,39 +125,23 @@ def tc_transliteration(x, sxe, sxc, wg, wu, swe, swd, E, C, D, F,
                     ok = r < rows and k < D
                     src = xe + r * sxc + k
                     smem[dst:dst + 8] = x[src:src + 8] if ok else 0.0
-                for i in range(BK * BF // QV):
-                    r, c = i // (BF // QV), (i % (BF // QV)) * QV
+                for i in range(BK * BF // 8):
+                    r, c = i // (BF // 8), (i % (BF // 8)) * 8
                     ok = k0 + r < D and f0 + c < F
                     off = we + (k0 + r) * swd + f0 + c
-                    dst = st + XSTAGE + (r * BF + c if int8 else
-                                         r * WPITCH + c)
+                    dst = st + XSTAGE + r * WPITCH + c
                     for w, buf in enumerate((wg, wu)[:nw]):
-                        d = dst + w * (QSTAGE if int8 else WSTAGE)
-                        smem[d:d + QV] = buf[off:off + QV] if ok else 0.0
-
-            def dequant_stage(kt):
-                qs = (kt % STAGES) * STAGE + XSTAGE
-                buf = RING + (kt & 1) * nw * WSTAGE
-                for w in range(nw):
-                    for r in range(BK):
-                        for c in range(0, BF, 8):
-                            src = qs + w * QSTAGE + r * BF + c
-                            dst = buf + w * WSTAGE + r * WPITCH + c
-                            smem[dst:dst + 8] = _round_bf16(
-                                smem[src:src + 8] * sc[w][c:c + 8])
+                        d = dst + w * WSTAGE
+                        smem[d:d + 8] = buf[off:off + 8] if ok else 0.0
 
             accs = {}
             for kt in range(min(STAGES - 1, nk)):
                 load_stage(kt)
-            if int8:
-                dequant_stage(0)
             for kt in range(nk):
                 if kt + STAGES - 1 < nk:
                     load_stage(kt + STAGES - 1)
-                if int8 and kt + 1 < nk:
-                    dequant_stage(kt + 1)
                 st = (kt % STAGES) * STAGE
-                wt = RING + (kt & 1) * nw * WSTAGE if int8 else st + XSTAGE
+                wt = st + XSTAGE
                 for warp in range(WM * WN):
                     wm, wn = warp % WM, warp // WM
 
@@ -542,42 +508,267 @@ class TestNarrowRule:
 # the int8-weight variant
 # ---------------------------------------------------------------------------
 
-def _int8_run(xb, qg, qu, C, row_pad, fused, shape=None):
+#: i8::dispatch's block shapes (weight tiles a consumer, N, sets of N rows,
+#: BK, ring stages) by C (up to 8, up to 64, more) and kernel (fused or not)
+def i8_shape(C, fused):
+    rows = 64 if fused else 128                 # kFused/DownDecodeRows
+    if C <= 8:
+        return (2 if fused else 1, 8, 1, rows, 6)
+    if C <= 64:
+        return (2 if fused else 1, 64, 1, rows, 4)
+    return (1, 160, 2, 64, 4)                   # kPrefillSets 2
+
+
+I8_COLS = 64
+T128 = np.arange(128)                        # a consumer warpgroup's threads
+WI, GQ, TQ = T128 >> 5, (T128 & 31) >> 2, T128 & 3
+
+
+def _sw128(row, chunk):
+    """Byte offset of 16-byte piece ``chunk`` of 128-byte row ``row`` in a
+    128-byte swizzle (1024-byte aligned tile)."""
+    return row * 128 + ((chunk ^ (row & 7)) << 4)
+
+
+def _sw64(row, chunk):
+    """The same in a 64-byte swizzle (64-byte rows, 512-byte aligned)."""
+    return row * 64 + ((chunk ^ ((row >> 1) & 3)) << 4)
+
+
+def _i8_col(m):
+    """The F column (in its 64-column tile) of accumulator row m = 16 wi +
+    g + 8 h: a thread's two rows are the adjacent columns 16 wi + 2 g + h,
+    so it reads 2 bytes of each int8 row."""
+    m = np.asarray(m)
+    return 16 * (m // 16) + 2 * (m % 8) + (m % 16) // 8
+
+
+def i8_transliteration(x, sxe, sxc, qs, ss, sse, swe, swd, E, C, D, F,
+                       shape=None):
+    """y [E, C, F] as i8::kernel computes it. ``x`` flat f32 read through
+    element strides (unit along D); ``qs`` the flat int8 weights (as f32,
+    gate and up, or w alone), ``ss`` their flat f32 scales [E, 1, F]
+    (expert stride sse).
+
+    Shared memory is one flat f32 array indexed by byte offset (a bf16 or
+    int8 element sits at its first byte), NaN until written. The producer
+    fills each stage's boxes as TMA does (zeros past C, D and F; the x
+    tile in the 128-byte swizzle, the int8 tiles in the 64-byte one) as
+    far ahead as the empty barriers let it; each consumer warpgroup builds
+    A's fragment registers from its threads' 2-byte reads and B by
+    descriptor, and adds one k16 step's products after another to its
+    accumulators; the epilogue goes through the ring as the kernel's. Only
+    the dequantised weights are rounded to bf16; sums stay f32, each k16
+    step's 16 x 8 block computed as the bf16 variant's transliteration
+    computes it (``_mma``: A's rows in F order), so its bits can be
+    compared with that one's."""
+    fused = len(qs) == 2
+    wpw, N, NS, BK, S = shape or i8_shape(C, fused)
+    tiles = 2 * wpw
+    BF = I8_COLS * (wpw if fused else 2)
+    R = N * NS
+    split = fused and wpw == 1
+    XB = (BK // 64) * R * 128
+    QB = BK * I8_COLS
+    STAGE = XB + tiles * QB
+    BUF = S * STAGE
+    SMEM = BUF
+    YP, UP = BF + 8, I8_COLS + 4
+    KY = R * UP * 4 if split else 0
+    assert KY + R * YP * 2 <= BUF
+    nF, chunks = -(-F // BF), -(-C // R)
+    Cc = -(-(-(-C // chunks)) // 8) * 8
+    nk = -(-D // BK)
+
+    def matrix(b):
+        return b & 1 if fused else 0
+
+    def column(b):
+        return I8_COLS * (b >> 1 if fused else b)
+
+    y = np.full(E * C * F, np.nan, np.float32)
+    for e in range(E):
+        for bx in range(nF * chunks):
+            f0, c0 = (bx % nF) * BF, (bx // nF) * Cc
+            rows = min(Cc, C - c0)
+            smem = np.full(SMEM, np.nan, np.float32)
+
+            def load_stage(kt):
+                st = (kt % S) * STAGE
+                r = np.arange(N)[:, None]
+                kk = np.arange(64)[None, :]
+                for c in range(BK // 64):
+                    for j in range(NS):
+                        row, k = c0 + j * N + r, kt * BK + 64 * c + kk
+                        ok = (row < C) & (k < D)
+                        src = np.where(ok, e * sxe + row * sxc + k, 0)
+                        rr = j * N + r
+                        dst = (st + c * R * 128 + _sw128(rr, kk >> 3)
+                               + (kk & 7) * 2)
+                        smem[dst] = np.where(ok, x[src], 0.0)
+                k = np.arange(BK)[:, None]
+                f = np.arange(I8_COLS)[None, :]
+                for b in range(tiles):
+                    kg, fg = kt * BK + k, f0 + column(b) + f
+                    ok = (kg < D) & (fg < F)
+                    src = np.where(ok, e * swe + kg * swd + fg, 0)
+                    dst = st + XB + b * QB + _sw64(k, f >> 4) + (f & 15)
+                    smem[dst] = np.where(ok, qs[matrix(b)][src], 0.0)
+
+            # the scales each thread holds: columns fa, fa + 1 of each of
+            # its tiles
+            sc0 = 16 * WI + 2 * GQ
+
+            def scales(b):
+                f = f0 + column(b) + sc0[:, None] + np.arange(2)
+                src = np.where(f < F, e * sse + f, 0)
+                return np.where(f < F, ss[matrix(b)][src], 0.0).astype(
+                    np.float32)
+
+            acc = {}
+            loaded = 0
+            for kt in range(nk):
+                # as far ahead as the empty barriers allow: a consumer
+                # arrives for a stage after its products
+                while loaded < min(nk, kt + S):
+                    load_stage(loaded)
+                    loaded += 1
+                st = (kt % S) * STAGE
+                for cw in range(2):
+                    qt = st + XB + cw * wpw * QB
+                    A = {}
+                    for w in range(wpw):
+                        b = cw * wpw + w
+                        sc = scales(b)
+                        frag = np.full((BK // 16, 64, 16), np.nan,
+                                       np.float32)
+                        for ks in range(BK // 16):
+                            # 2 bytes (columns fa, fa + 1) of rows
+                            # k0 + {0, 1, 8, 9}, k0 = 16 ks + 2 tg
+                            q = {}
+                            for dk in (0, 1, 8, 9):
+                                k = 16 * ks + 2 * TQ + dk
+                                at = (qt + w * QB + k * 64
+                                      + ((WI ^ TQ) << 4) + 2 * GQ)
+                                assert np.array_equal(
+                                    at, qt + w * QB + _sw64(k, WI)
+                                    + 2 * GQ)
+                                q[dk] = (smem[at], smem[at + 1])
+                            s0, s1 = sc[:, 0], sc[:, 1]
+                            regs = ((q[0][0] * s0, q[1][0] * s0),
+                                    (q[0][1] * s1, q[1][1] * s1),
+                                    (q[8][0] * s0, q[9][0] * s0),
+                                    (q[8][1] * s1, q[9][1] * s1))
+                            # wgmma's A fragment: register r holds
+                            # (row g + 8 (r & 1), k 2 tg + 8 (r >> 1)
+                            # + {0, 1}) of the warp's 16 rows
+                            for r, pair in enumerate(regs):
+                                for hh, v in enumerate(pair):
+                                    frag[ks, 16 * WI + GQ + 8 * (r & 1),
+                                         2 * TQ + 8 * (r >> 1) + hh] = \
+                                        _round_bf16(v)
+                        A[w] = frag
+                    for ks in range(BK // 16):
+                        for j in range(NS):
+                            if j * N >= rows:
+                                continue
+                            n = np.arange(N)[None, :]
+                            kk = np.arange(16)[:, None]
+                            rr = j * N + n
+                            at = (st + (ks >> 2) * R * 128
+                                  + _sw128(rr, (ks & 3) * 2 + (kk >> 3))
+                                  + (kk & 7) * 2)
+                            B = smem[at]                         # [16, N]
+                            for w in range(wpw):
+                                a = acc.setdefault(
+                                    (cw, w, j),
+                                    np.zeros((64, N), np.float32))
+                                for wi in range(4):
+                                    # the 16 rows of warp wi, in F order
+                                    mrow = 16 * wi + np.arange(16)
+                                    order = mrow[np.argsort(
+                                        _i8_col(mrow))]
+                                    a16 = A[w][ks][order]
+                                    for jn in range(N // 8):
+                                        a[order, 8 * jn:8 * jn + 8] += \
+                                            a16 @ B[:, 8 * jn:8 * jn + 8]
+
+            # epilogue through the ring: (split) up in f32 at us, then
+            # ys[c][column] of the block, then whole 16-byte rows
+            def rows_cols(cw):
+                """(set, row c, column in its tile, m, n) of each live
+                accumulator of consumer cw."""
+                out = []
+                for m in range(64):
+                    col = int(_i8_col(m))
+                    for j in range(NS):
+                        for n in range(N):
+                            if j * N + n < rows:
+                                out.append((j, j * N + n, col, m, n))
+                return out
+
+            if split:
+                for j, c, col, m, n in rows_cols(1):
+                    smem[(c * UP + col) * 4] = acc[(1, 0, j)][m, n]
+                for j, c, col, m, n in rows_cols(0):
+                    v = acc[(0, 0, j)][m, n]
+                    u = smem[(c * UP + col) * 4]
+                    smem[KY + (c * YP + col) * 2] = v / (1.0 + np.exp(-v)) * u
+            else:
+                for cw in range(2):
+                    for j, c, col, m, n in rows_cols(cw):
+                        v = acc[(cw, 0, j)][m, n]
+                        if fused:
+                            v = v / (1.0 + np.exp(-v)) * acc[(cw, 1, j)][m, n]
+                        smem[KY + (c * YP + I8_COLS * cw + col) * 2] = v
+            for i in range(rows * (BF // 8)):
+                r, c = i // (BF // 8), (i % (BF // 8)) * 8
+                if f0 + c < F:
+                    dst = (e * C + c0 + r) * F + f0 + c
+                    y[dst:dst + 8] = smem[KY + (r * YP + c) * 2
+                                          + 2 * np.arange(8)]
+    return y.reshape(E, C, F)
+
+
+def _int8_run(xb, qws, C, row_pad, shape=None):
     """The int8 variant's transliteration on x rows row_pad.. of xb and
-    {q, s} weights (torch)."""
+    {q, s} weights (torch; one for moe_gemm, gate and up fused)."""
     E, _, D = xb.shape
-    F = qg["q"].shape[2]
+    F = qws[0]["q"].shape[2]
     flat = np.concatenate([xb.reshape(-1), np.zeros(8, np.float32)])
-    sg = qg["s"].numpy().reshape(-1)
-    su = qu["s"].numpy().reshape(-1) if fused else None
-    return tc_transliteration(
+    return i8_transliteration(
         flat[row_pad * D:], (C + row_pad) * D, D,
-        qg["q"].numpy().reshape(-1).astype(np.float32),
-        qu["q"].numpy().reshape(-1).astype(np.float32) if fused else None,
-        D * F, F, E, C, D, F, shape, scales=((sg, su), F))
+        [w["q"].numpy().reshape(-1).astype(np.float32) for w in qws],
+        [w["s"].numpy().reshape(-1) for w in qws], F, D * F, F, E, C, D, F,
+        shape)
+
+
+def _int8_case(seed, E, C, D, F, row_pad=0):
+    """bf16-valued x (an empty last expert) and int8 gate and up weights,
+    a zero column (scale 1e-12) in the gate."""
+    xb, wg, wu = _case(seed, E, C, D, F, row_pad, empty=(E - 1,))
+    wg[:, :, 3] = 0.0
+    return _round_bf16(xb), [Q.quantize_weight(torch.from_numpy(w).bfloat16())
+                             for w in (wg, wu)]
 
 
 @pytest.mark.parametrize("fused", [False, True])
 @pytest.mark.parametrize("E,C,D,F,row_pad", [
-    (2, 8, 48, 136, 0),         # decode C 8, F past one 128 tile
-    (2, 9, 16, 72, 3),          # C 9 (a partial n8 tile), F 72, strided x
-    (1, 1, 32, 8, 0),           # C 1, F 8
-    (2, 40, 40, 16, 1),         # C 40: three 16-row chunks, D off a stage,
-                                # 16-weight copies
-    (2, 161, 24, 24, 0),        # C > 64: two chunks
+    (2, 8, 48, 144, 0),         # decode C 8, F past two 64-column tiles
+    (2, 9, 16, 80, 3),          # C 9 (N 64 from 9 rows), F 80, strided x
+    (1, 1, 32, 16, 0),          # C 1, F 16
+    (2, 40, 40, 16, 1),         # C 40, D off a 16-row step
+    (2, 161, 24, 32, 0),        # C > 64: 161 rows in two sets of 160
 ])
 def test_int8_transliteration_is_the_bf16_one_on_as_weight(fused, E, C, D,
                                                            F, row_pad):
-    """int8 tiles and scales, the bf16 tile in shared memory, then the
-    tile loop: bit for bit ``as_weight`` followed by the bf16 variant's
-    transliteration (in its own block shape), with an empty expert and a
-    zero weight column (scale 1e-12)."""
-    xb, wg, wu = _case(E * 100 + C + 7, E, C, D, F, row_pad, empty=(E - 1,))
-    xb = _round_bf16(xb)                 # x is bf16 on the card
-    wg[:, :, 3] = 0.0
-    qg, qu = (Q.quantize_weight(torch.from_numpy(w).bfloat16())
-              for w in (wg, wu))
-    got = _int8_run(xb, qg, qu, C, row_pad, fused)
+    """TMA boxes, the ring, the dequantisation into A's registers and the
+    k16 steps: bit for bit ``as_weight``
+    followed by the bf16 variant's transliteration (in its own block
+    shape), with an empty expert and a zero weight column."""
+    xb, (qg, qu) = _int8_case(E * 100 + C + 7, E, C, D, F, row_pad)
+    qws = [qg, qu] if fused else [qg]
+    got = _int8_run(xb, qws, C, row_pad)
     deq = [Q.as_weight(q).float().numpy() for q in (qg, qu)]
     want = _run(xb, deq[0], deq[1], C, row_pad, fused)
     assert np.array_equal(got, want)
@@ -590,14 +781,24 @@ def test_int8_transliteration_is_the_bf16_one_on_as_weight(fused, E, C, D,
 
 
 def test_int8_rows_depend_on_d_alone():
-    """The int8 variant at C 160 (prefill shape) and C 8 (decode shape,
-    other warps and ring): rows 0-7 equal bit for bit."""
-    xb, wg, wu = _case(13, 1, 160, 64, 32)
-    xb = _round_bf16(xb)
-    qg, qu = (Q.quantize_weight(torch.from_numpy(w)) for w in (wg, wu))
-    wide = _int8_run(xb, qg, qu, 160, 0, True)
-    narrow = _int8_run(xb[:, :8], qg, qu, 8, 0, True)
+    """The int8 variant at C 330 (prefill shape: two chunks of 168 and 162
+    rows), C 40 (N 64) and C 8 (decode shape, other tiles and ring): rows
+    0-7 equal bit for bit, over three stages of D."""
+    xb, qws = _int8_case(13, 1, 330, 136, 32)
+    wide = _int8_run(xb, qws, 330, 0)
+    mid = _int8_run(xb[:, :40], qws, 40, 0)
+    narrow = _int8_run(xb[:, :8], qws, 8, 0)
     assert np.array_equal(wide[:, :8], narrow)
+    assert np.array_equal(mid[:, :8], narrow)
+
+
+def test_the_bit_probe_runs_only_on_the_card():
+    """``i8_probe`` (wgmma against mma.sync, run by chip_smoke.py) takes
+    bf16 [steps, 64, 16] operands on the card and refuses anything else
+    before it loads the library."""
+    a = torch.zeros((4, 64, 16), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="on the card"):
+        MG.i8_probe(a, a)
 
 
 def _q8(E, D, F):
@@ -612,21 +813,22 @@ class TestInt8Rule:
     ])
     def test_main_path_shapes_take_the_int8_variant(self, C, D, F):
         # E 1 of the 8 experts, D and F cut to 1/64: the rule reads neither
-        # E nor the sizes beyond their multiples of 8
+        # E nor the sizes beyond their multiples of 16
         D, F = D // 64, F // 64
         x, w = _bf16(1, C, D), _q8(1, D, F)
         assert MG.uses_int8(x, w) and MG.uses_int8(x, w, _q8(1, D, F))
         assert not MG.uses_tensor_cores(x, w["q"])
 
     def test_a_layer_view_of_a_stacked_weight_takes_it(self):
-        q = torch.zeros((3, 2, 16, 24), dtype=torch.int8)
-        s = torch.ones((3, 2, 1, 24))
+        q = torch.zeros((3, 2, 16, 32), dtype=torch.int8)
+        s = torch.ones((3, 2, 1, 32))
         assert MG.uses_int8(_bf16(2, 8, 16), {"q": q[1], "s": s[1]})
 
     @pytest.mark.parametrize("what", ["f32 x", "f32 q", "f16 s", "F off 8",
-                                      "mixed", "s shape", "q stride"])
+                                      "F off 16", "mixed", "s shape",
+                                      "q stride", "q stride off 16"])
     def test_what_the_variant_does_not_take(self, what):
-        x, wg, wu = _bf16(2, 8, 16), _q8(2, 16, 24), _q8(2, 16, 24)
+        x, wg, wu = _bf16(2, 8, 16), _q8(2, 16, 32), _q8(2, 16, 32)
         if what == "f32 x":
             x = x.float()
         elif what == "f32 q":
@@ -635,10 +837,14 @@ class TestInt8Rule:
             wg["s"] = wg["s"].half()
         elif what == "F off 8":
             wg, wu = _q8(2, 16, 20), _q8(2, 16, 20)
+        elif what == "F off 16":
+            wg, wu = _q8(2, 16, 24), _q8(2, 16, 24)
         elif what == "mixed":
-            wu = _bf16(2, 16, 24)
+            wu = _bf16(2, 16, 32)
         elif what == "s shape":
-            wg["s"] = torch.ones((2, 16, 24))
-        else:
-            wg["q"] = torch.zeros((2, 16, 28), dtype=torch.int8)[:, :, :24]
+            wg["s"] = torch.ones((2, 16, 32))
+        elif what == "q stride":
+            wg["q"] = torch.zeros((2, 16, 36), dtype=torch.int8)[:, :, :32]
+        else:                                   # row stride 40: 8, not 16
+            wg["q"] = torch.zeros((2, 16, 40), dtype=torch.int8)[:, :, :32]
         assert not MG.uses_int8(x, wg, wu)

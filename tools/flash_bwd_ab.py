@@ -22,7 +22,6 @@ with the kernel.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import re
 import subprocess
 import sys
@@ -69,18 +68,16 @@ def variants() -> dict:
 def build(sources: dict) -> dict:
     """One shared library per variant, all nvcc runs at once; prints the
     ptxas spill lines of each variant's wgmma kernels."""
-    from repro_torch.kernels.build import BUILD_DIR, NVCC_FLAGS, nvcc_path
+    from repro_torch.kernels.build import BUILD_DIR, nvcc_cmd, source_key
     procs, libs = [], {}
     for name, text in sources.items():
-        key = hashlib.sha256(text.encode()).hexdigest()[:16]
-        d = BUILD_DIR / f"flash_bwd_ab-{key}"
+        d = BUILD_DIR / f"flash_bwd_ab-{source_key(text)}"
         d.mkdir(parents=True, exist_ok=True)
         (d / "flash_attention_bwd.cu").write_text(text)
         libs[name] = d / "libflash_bwd_ab.so"
         procs.append((name, subprocess.Popen(
-            [nvcc_path(), *NVCC_FLAGS, "-o", str(libs[name]),
-             str(d / "flash_attention_bwd.cu")], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True)))
+            nvcc_cmd(d / "flash_attention_bwd.cu", libs[name]),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     for name, proc in procs:
         log, _ = proc.communicate()
         if proc.returncode != 0:
