@@ -5,7 +5,7 @@
     python3 chip_smoke.py --quick    # build, kernel checks, small models
 
 Run from the repository root. It builds the port's CUDA kernels from the
-sources in the checkout and drives the port's nine main paths at full
+sources in the checkout and drives the port's ten main paths at full
 width (random weights from a seed):
 
 * minitron-8b (dense GQA: 32 layers, d_model 4096, 32 query heads over 8
@@ -41,7 +41,11 @@ width (random weights from a seed):
   train state at full depth, 158 GB, needs more than one card), sequence
   4096, batch 2 in 2 microbatches, full remat, bf16 compute on f32 master
   weights, AdamW, through ``make_train_step`` with the flash forward and
-  backward kernels.
+  backward kernels;
+* training qwen3-moe-30b-a3b the same way at full width and 4 of its 48
+  layers (3.12 B parameters), through the flash kernels, the expert
+  kernels and their backward kernels (K1 ``moe_ffn_fused_bwd``, K2
+  ``moe_gemm_dx``, K3 ``moe_gemm_dw``).
 
 Phases:
 
@@ -119,6 +123,20 @@ Phases:
              bit and a CUDA-graph replay equal to the eager call, timed
              eager and by replay beside SDPA's backward (eager, and its
              kernels' device time from the profiler, by name);
+             the expert kernels' backward (K1 ``moe_ffn_fused_bwd``, K2
+             ``moe_gemm_dx`` on one pair and two, K3 ``moe_gemm_dw`` on
+             one output and two) against their plain versions at ragged
+             shapes (C 1-200, D 8-2056, F 8-136, C off 8 for K3; bf16 on
+             the tensor and the CUDA cores, f32), qwen3-moe's smoke shapes
+             in f32 (1e-5) and the training path's (E 128, C 160, D 2048,
+             F 768; bf16 rows within 2e-2 of their norm, the tensor-core
+             route asserted), K1's forward from its recomputed gate and
+             up equal to ``moe_ffn_fused``'s bit for bit, each timed eager
+             and by replay beside ``torch.bmm`` on the same products and
+             the bound in bytes and in operations; then, under autograd
+             on the card, the expert kernels' int8 and narrow variants,
+             rglru_scan, ssd_chunk and both decode kernels must refuse
+             (no backward kernel);
 3. serve   — ``repro_torch.launch.serve.serve`` through the northbound
              gateway: 4 sessions, 8 requests, 8 slots, max_len 2048;
 4. engine  — dense and paged engines, 8 slots with 512-1536-token prompts
@@ -210,6 +228,14 @@ Phases:
              forward and backward on the card (loss 1e-3, each gradient
              leaf within 2e-2 of its norm in L2), and two planted faults
              in the backward kernel's outputs that must fail it;
+   train moe — qwen3-moe-30b-a3b likewise at 4 layers (3 if the predicted
+             peak passes 75 GB): every step launches the expert kernels
+             twice a layer, microbatch and 2048-token chunk (forward and
+             recompute), K1 once and K2 and K3 twice, all on the tensor
+             cores; the 1-layer check holds the expert kernels and K1-K3
+             against their plain versions, with two planted faults (dw of
+             one expert's w_down zeroed; dx without du @ w_up^T for one
+             expert's rows);
 5. reference — small models in f32 on the card against the same models on
              the CPU through the plain versions: edge-tiny (dense and
              paged), edge-tiny with adapters (grouped route on the card,
@@ -222,9 +248,10 @@ Phases:
              with vision embeddings and distinct [3, b, s] streams, stream
              0 first ``arange``, then tied over the image (Qwen2-VL's
              layout, which the causal mask of the flash kernel reads);
-             and edge-tiny's f32 train microbatch with full remat: loss and
-             every gradient leaf (the flash kernels' f32 routes, forward
-             and backward).
+             and edge-tiny's and the qwen3-moe smoke config's f32 train
+             microbatch with full remat: loss and every gradient leaf (the
+             f32 routes of the flash kernels and of the expert kernels
+             and K1-K3, forward and backward).
 
 Each main path is driven with every launch counter set to 0 just before it
 and read just after, and each kernel the path runs must have been launched
@@ -234,7 +261,9 @@ qwen2-vl-72b, 36 for seamless-m4t-medium, 0 for the recurrent families;
 the decode kernels 80 per qwen2-vl-72b step of their layout; on the split
 path 32 per minitron-8b prefill, rglru_scan 18 per recurrentgemma-2b
 prefill, the decode kernels 32 per dense or paged minitron-8b step; on
-the training path flash_attention 16 and flash_attention_bwd 8 a step);
+the training paths flash_attention 16 and flash_attention_bwd 8 a step,
+and on qwen3-moe's moe_gemm and moe_ffn_fused 32, moe_ffn_fused_bwd 16,
+moe_gemm_dx and moe_gemm_dw 32 a step);
 the
 checks of a path's result (each adapter session alone, the full-width
 prefill logits and a profiled prefill, the recurrent, encdec, mixtral and
@@ -293,6 +322,10 @@ GRAD_REL = 2e-2                 # 1-layer step, kernel vs plain attention:
 #                                 H100: the kernels 6.6e-3, the planted
 #                                 faults 4.7e-2 (dq) and 7.3e-2 (dk, dv)
 FAULT_TILE = slice(1024, 1088)  # the 64-key tile a planted fault drops
+MOE_TRAIN_LAYERS = 4            # qwen3-moe-30b-a3b's training path: full
+MOE_TRAIN_BYTES = 75e9          # width, 4 of its 48 layers, 3 if the
+#                                 predicted peak passes 75 GB; the same
+#                                 sequence, batch and microbatches
 ENCDEC_STEPS = 64               # greedy decode steps of the encdec path
 
 
@@ -972,6 +1005,276 @@ def phase_moe_kernels(moe_cfg, d_adapter: int):
     del sets
     torch.cuda.empty_cache()
     return rows
+
+
+def phase_moe_bwd_kernels(moe_cfg):
+    """The expert kernels' backward against its plain versions: K1
+    ``moe_ffn_fused_bwd`` (dg, du; its check output, the forward from the
+    recomputed gate and up, equal to ``moe_ffn_fused``'s bit for bit), K2
+    ``moe_gemm_dx`` (one pair and two) and K3 ``moe_gemm_dw`` (one output
+    and two). Ragged shapes first (C 1-200, D and F off every tile, C off 8
+    for K3; bf16 on the tensor cores and on the CUDA cores, f32), then
+    qwen3-moe's smoke shapes in f32, then the training path's (E 128, C
+    160, D 2048, F 768; the tensor-core route asserted), each timed eager
+    and by graph replay beside ``torch.bmm`` on the same products. bf16
+    is held row by row within BWD_ROW of each row's norm, f32 within
+    F32_TOL."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.moe_gemm import moe_gemm as MG
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2718)
+
+    def randn(shape, scale, dtype):
+        return (torch.randn(shape, generator=gen, device=dev)
+                * scale).to(dtype)
+
+    def held(what, got, want):
+        if got.shape != want.shape or got.dtype != want.dtype \
+                or not torch.isfinite(got).all():
+            fail(f"{what}: {tuple(got.shape)} {got.dtype} against "
+                 f"{tuple(want.shape)} {want.dtype}, or not finite")
+        if got.dtype == torch.bfloat16:
+            err = float(row_err(got, want).max())
+            if err > BWD_ROW:
+                fail(f"{what}: a row is {err:.3e} of its norm off the plain "
+                     f"version (> {BWD_ROW})")
+            return err
+        err = (got - want).abs()
+        if bool((err > F32_TOL + F32_TOL * want.abs()).any()):
+            fail(f"{what}: max abs err {float(err.max()):.3e} past "
+                 f"{F32_TOL}")
+        return float(err.max())
+
+    def inputs(E, C, D, Fo, dtype):
+        return {"x": randn((E, C, D), 1.0, dtype),
+                "wg": randn((E, D, Fo), D ** -0.5, dtype),
+                "wu": randn((E, D, Fo), D ** -0.5, dtype),
+                "wd": randn((E, Fo, D), Fo ** -0.5, dtype),
+                "dout": randn((E, C, Fo), 1.0, dtype),
+                "act": randn((E, C, Fo), 1.0, dtype),
+                "dy": randn((E, C, D), 1.0, dtype)}
+
+    def check(E, C, D, Fo, dtype, tc, w=None):
+        """Every kernel at one shape against its plain version; returns
+        the worst error and the inputs with the kernels' dg and du."""
+        w = w or inputs(E, C, D, Fo, dtype)
+        label = f"E {E} C {C} D {D} F {Fo} {str(dtype)[6:]}"
+        before = dict(MG.BWD_TENSOR_CORE_LAUNCHES)
+        y = torch.empty((E, C, Fo), dtype=dtype, device=dev)
+        dg, du = MG.moe_ffn_fused_bwd(w["x"], w["wg"], w["wu"], w["dout"],
+                                      y=y)
+        pg, pu = MG.moe_ffn_fused_bwd_ref(w["x"], w["wg"], w["wu"],
+                                          w["dout"])
+        with torch.no_grad():
+            fwd = MG.moe_ffn_fused(w["x"], w["wg"], w["wu"])
+        if not torch.equal(y, fwd):
+            fail(f"moe_ffn_fused_bwd ({label}): the forward from its "
+                 f"recomputed gate and up differs from moe_ffn_fused's in "
+                 f"{int((y != fwd).sum())} elements")
+        w["dg"], w["du"] = dg, du
+        errs = [held(f"moe_ffn_fused_bwd dg ({label})", dg, pg),
+                held(f"moe_ffn_fused_bwd du ({label})", du, pu)]
+        for what, got, want in (
+                ("moe_gemm_dx down", [MG.moe_gemm_dx((w["dy"],),
+                                                     (w["wd"],))],
+                 [MG.moe_gemm_dx_ref((w["dy"],), (w["wd"],))]),
+                ("moe_gemm_dx gate/up", [MG.moe_gemm_dx((dg, du),
+                                                        (w["wg"], w["wu"]))],
+                 [MG.moe_gemm_dx_ref((dg, du), (w["wg"], w["wu"]))]),
+                ("moe_gemm_dw down", MG.moe_gemm_dw(w["act"], (w["dy"],)),
+                 MG.moe_gemm_dw_ref(w["act"], (w["dy"],))),
+                ("moe_gemm_dw gate/up", MG.moe_gemm_dw(w["x"], (dg, du)),
+                 MG.moe_gemm_dw_ref(w["x"], (dg, du)))):
+            errs += [held(f"{what} ({label})", g, r)
+                     for g, r in zip(got, want)]
+        took = {k: MG.BWD_TENSOR_CORE_LAUNCHES[k] - before[k]
+                for k in before}
+        if took != ({"moe_ffn_fused_bwd": 1, "moe_gemm_dx": 2,
+                     "moe_gemm_dw": 2} if tc else dict.fromkeys(took, 0)):
+            fail(f"backward kernels at {label}: tensor-core launches "
+                 f"{took}, expected {'all' if tc else 'none'}")
+        return max(errs), w
+
+    worst = 0.0
+    for (E, C, D, Fo), dtype, tc in (
+            ((3, 1, 16, 8), torch.bfloat16, True),
+            ((2, 9, 48, 72), torch.bfloat16, True),
+            ((4, 37, 40, 136), torch.bfloat16, True),
+            ((2, 161, 64, 24), torch.bfloat16, True),
+            ((2, 200, 264, 40), torch.bfloat16, True),
+            ((3, 70, 2056, 16), torch.bfloat16, True),
+            ((2, 9, 36, 20), torch.bfloat16, False),
+            ((3, 70, 8, 130), torch.bfloat16, False),
+            ((3, 5, 37, 19), torch.float32, False),
+            ((2, 161, 72, 40), torch.float32, False)):
+        worst = max(worst, check(E, C, D, Fo, dtype, tc)[0])
+    log(f"[kernels] moe_*_bwd agree with their plain versions at ragged "
+        f"shapes (C 1-200, D 8-2056, F 8-136, C off 8 for K3; bf16 on the "
+        f"tensor and CUDA cores, f32): worst {worst:.3e}; K1's forward from "
+        f"its recompute == moe_ffn_fused bit for bit")
+    sm = dataclasses.replace(get_smoke_config(moe_cfg.name),
+                             dtype="float32")
+    E, D, Fo = sm.num_experts, sm.d_model, sm.moe_d_ff
+    for C in (8, 64):
+        err = check(E, C, D, Fo, torch.float32, False)[0]
+        log(f"[kernels] moe_*_bwd at {sm.name} (smoke) E {E} C {C} D {D} F "
+            f"{Fo} f32 (CUDA cores): max abs err {err:.3e}")
+
+    # the training path's shapes: a 2048-token chunk's capacity, C 160
+    E, D, Fo = moe_cfg.num_experts, moe_cfg.d_model, moe_cfg.moe_d_ff
+    C, dt = 160, torch.bfloat16
+    sets = []
+    for i in range(2):
+        err, w = check(E, C, D, Fo, dt, True)
+        log(f"[kernels] moe_*_bwd at the train shapes E {E} C {C} D {D} F "
+            f"{Fo} bf16, set {i}: worst row {err:.3e} of its norm (tensor "
+            f"cores; K1's forward == moe_ffn_fused bit for bit)")
+        w["wcat"] = torch.cat([w["wg"], w["wu"]], dim=-1)
+        w["dcat"] = torch.cat([w["dg"], w["du"]], dim=-1)
+        sets.append(w)
+    it = {"i": 0}
+
+    def nxt():
+        it["i"] = (it["i"] + 1) % len(sets)
+        return sets[it["i"]]
+
+    ecd, edf, ecf = E * C * D, E * D * Fo, E * C * Fo
+    cases = [
+        ("moe_ffn_fused_bwd", "K1 gate/up",
+         lambda w: MG.moe_ffn_fused_bwd(w["x"], w["wg"], w["wu"], w["dout"]),
+         lambda w: MG.moe_ffn_fused_bwd_ref(w["x"], w["wg"], w["wu"],
+                                            w["dout"]),
+         lambda w: torch.bmm(w["x"], w["wcat"]),
+         2 * (ecd + 2 * edf + 3 * ecf), 4 * E * C * D * Fo),
+        ("moe_gemm_dx", "K2 down (one pair)",
+         lambda w: MG.moe_gemm_dx((w["dy"],), (w["wd"],)),
+         lambda w: MG.moe_gemm_dx_ref((w["dy"],), (w["wd"],)),
+         lambda w: torch.bmm(w["dy"], w["wd"].transpose(1, 2)),
+         2 * (ecd + edf + ecf), 2 * E * C * D * Fo),
+        ("moe_gemm_dx", "K2 gate/up (two pairs)",
+         lambda w: MG.moe_gemm_dx((w["dg"], w["du"]), (w["wg"], w["wu"])),
+         lambda w: MG.moe_gemm_dx_ref((w["dg"], w["du"]),
+                                      (w["wg"], w["wu"])),
+         lambda w: torch.bmm(w["dcat"], w["wcat"].transpose(1, 2)),
+         2 * (2 * ecf + 2 * edf + ecd), 4 * E * C * D * Fo),
+        ("moe_gemm_dw", "K3 down (one output)",
+         lambda w: MG.moe_gemm_dw(w["act"], (w["dy"],)),
+         lambda w: MG.moe_gemm_dw_ref(w["act"], (w["dy"],)),
+         lambda w: torch.bmm(w["act"].transpose(1, 2), w["dy"]),
+         2 * (ecf + ecd + edf), 2 * E * C * D * Fo),
+        ("moe_gemm_dw", "K3 gate/up (two outputs)",
+         lambda w: MG.moe_gemm_dw(w["x"], (w["dg"], w["du"])),
+         lambda w: MG.moe_gemm_dw_ref(w["x"], (w["dg"], w["du"])),
+         lambda w: torch.bmm(w["x"].transpose(1, 2), w["dcat"]),
+         2 * (ecd + 2 * ecf + 2 * edf), 4 * E * C * D * Fo)]
+    rows = {}
+    for name, what, kern, plain, library, nbytes, flops in cases:
+        out = kern(sets[0])
+        out = out if isinstance(out, (list, tuple)) else [out]
+        ref = plain(sets[0])
+        ref = ref if isinstance(ref, (list, tuple)) else [ref]
+        err = max(float(row_err(o, r).max()) for o, r in zip(out, ref))
+        ms = time_ms(lambda: kern(nxt()), iters=20)
+        device_ms = graph_ms(lambda: kern(nxt()), iters=10, reps=3)
+        plain_ms = time_ms(lambda: plain(nxt()), iters=3, warmup=1)
+        library_ms = time_ms(lambda: library(nxt()), iters=20)
+        library_device_ms = graph_ms(lambda: library(nxt()), iters=10,
+                                     reps=3)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+        bound_ms = max(t_bytes, t_ops) * 1e3
+        bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        shape = f"{what} E {E} C {C} D {D} F {Fo} bf16"
+        log(f"[kernels] {name} ({shape}): worst row {err:.3e} of its norm; "
+            f"kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
+            f"{library_ms:.4f} bound_ms {bound_ms:.4f} (by {bound_by}: "
+            f"{nbytes / 1e6:.1f} MB in {t_bytes * 1e3:.4f} ms, "
+            f"{flops / 1e9:.2f} GFLOP in {t_ops * 1e3:.4f} ms) x library "
+            f"{ms / library_ms:.2f}; by graph replay: kernel "
+            f"{device_ms:.4f}, library {library_device_ms:.4f}, x library "
+            f"{device_ms / library_device_ms:.2f}, "
+            f"{bound_ms / device_ms:.1%} of bound; {card()}")
+        if name not in rows:            # the JSON row: the first case
+            rows[name] = {
+                "name": name, "route": "cuda",
+                "source": "src/repro_torch/kernels/moe_gemm/csrc/moe_gemm.cu",
+                "replaces": "src/repro/kernels/moe_gemm/moe_gemm.py:"
+                            + ("90" if name == "moe_ffn_fused_bwd"
+                               else "65") + " (its backward)",
+                "launches": 0, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": library_ms,
+                "device_ms": device_ms,
+                "library_device_ms": library_device_ms, "shapes": []}
+        rows[name]["shapes"].append({
+            "shape": shape, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "ratio": ms / library_ms,
+            "device_ms": device_ms, "library_device_ms": library_device_ms,
+            "device_ratio": device_ms / library_device_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "max_abs_err": err})
+    log("[kernels] moe_*_bwd: max_abs_err is the worst row's "
+        "||kernel - plain|| / ||plain||; library_ms: one torch.bmm on the "
+        "same products (K1: x @ [w_gate | w_up]; K2 gate/up: [dg | du] @ "
+        "[w_gate | w_up]^T; K3 gate/up: x^T @ [dg | du])")
+    del sets
+    torch.cuda.empty_cache()
+    return rows
+
+
+def check_refusals() -> None:
+    """Under autograd on the card, the kernels with no backward raise
+    (``build.refuse_autograd``) instead of returning an output with no
+    ``grad_fn``: the expert kernels' int8-weight variant and narrow
+    variant, ``rglru_scan``, ``ssd_chunk`` and both decode kernels."""
+    import torch
+    from repro_torch.kernels.decode_attention import decode_attention as DA
+    from repro_torch.kernels.moe_gemm import moe_gemm as MG
+    from repro_torch.kernels.rglru_scan import rglru_scan as RS
+    from repro_torch.kernels.ssd_chunk import ssd_chunk as SC
+
+    def t(*shape, dtype=torch.float32, grad=False):
+        return torch.ones(shape, dtype=dtype,
+                          device="cuda").requires_grad_(grad)
+
+    def q8(E, D, F):
+        return {"q": torch.ones((E, D, F), dtype=torch.int8, device="cuda"),
+                "s": t(E, 1, F)}
+
+    x8 = t(2, 8, 64, dtype=torch.bfloat16, grad=True)
+    calls = {
+        "moe_gemm (int8)": lambda: MG.moe_gemm(x8, q8(2, 64, 16)),
+        "moe_ffn_fused (int8)": lambda: MG.moe_ffn_fused(x8, q8(2, 64, 16),
+                                                         q8(2, 64, 16)),
+        "moe_gemm (narrow)": lambda: MG.moe_gemm(t(2, 8, 64, grad=True),
+                                                 t(2, 64, 8)),
+        "rglru_scan": lambda: RS.rglru_scan(t(1, 4, 8, grad=True),
+                                            t(1, 4, 8), t(1, 8)),
+        "ssd_chunk": lambda: SC.ssd_chunk(
+            t(1, 4, 2, 8, grad=True), t(1, 4, 2), t(2), t(1, 4, 1, 4),
+            t(1, 4, 1, 4), t(1, 2, 8, 4), 4),
+        "decode_attention": lambda: DA.decode_attention(
+            t(1, 4, 16, grad=True), t(1, 2, 8, 16), t(1, 2, 8, 16),
+            t(1, dtype=torch.int32)),
+        "paged_decode_attention": lambda: DA.paged_decode_attention(
+            t(1, 4, 16, grad=True), t(2, 8, 2, 16), t(2, 8, 2, 16),
+            t(1, dtype=torch.int32), t(1, 1, dtype=torch.int32))}
+    if not MG.uses_narrow(torch.ones(2, 8, 64, device="cuda"),
+                          torch.ones(2, 64, 8, device="cuda")):
+        fail("check_refusals: the narrow case does not take the narrow "
+             "variant")
+    for name, call in calls.items():
+        try:
+            call()
+        except RuntimeError as e:
+            if "has no backward kernel" in str(e):
+                continue
+            fail(f"{name} under autograd on the card: {e}")
+        fail(f"{name} ran under autograd on the card without a backward")
+    log(f"[kernels] under autograd on the card these refuse (no backward "
+        f"kernel): {', '.join(calls)}")
 
 
 def log_i8_build() -> None:
@@ -2185,6 +2488,8 @@ def log_profile(prof, name: str, wall_us: float, steps: int,
                         ("ssd_chunk", ("ssd_",)), ("rglru_scan", ("rglru",)),
                         ("expert kernels", ("tc::tc_kernel<",
                                             "i8::kernel<")),
+                        ("expert backward products (K2, K3)", (
+                            "grad::gemm_kernel<", "cc::gemm_kernel<")),
                         ("copies, casts and f32 products", (
                             "direct_copy_kernel_cuda",
                             "bfloat16_copy_kernel_cuda", "MulFunctor<float>")),
@@ -3122,16 +3427,19 @@ def phase_reference():
         fail(f"card and CPU logits differ by {worst:.3e} > {REF_ATOL}")
     adapters_card_vs_cpu(tiny)
     train_card_vs_cpu(dataclasses.replace(tiny, remat="full"))
+    train_card_vs_cpu(dataclasses.replace(moe, remat="full"))
 
 
 def train_card_vs_cpu(cfg) -> None:
-    """edge-tiny in f32 with full remat: a microbatch's loss and every
-    gradient leaf on the card (both flash kernels' f32 routes) against the
-    CPU (their plain versions), on the same weights; each leaf within
-    REF_ATOL of its largest magnitude."""
+    """A small config in f32 with full remat (edge-tiny; qwen3-moe's smoke
+    config): a microbatch's loss and every gradient leaf on the card (the
+    f32 routes of both flash kernels and, for MoE, of the expert kernels
+    and K1-K3, each launched as ``train_kernels`` counts a microbatch)
+    against the CPU (their plain versions), on the same weights; each leaf
+    within REF_ATOL of its largest magnitude."""
     import torch
     from repro_torch.bridge import leaves, tree_map
-    from repro_torch.kernels.flash_attention import flash_attention as FA
+    from repro_torch.kernels.moe_gemm import moe_gemm as MG
     from repro_torch.models.transformer import LM
     from repro_torch.training.train_step import (accumulate_grads,
                                                  init_train_state)
@@ -3142,24 +3450,35 @@ def train_card_vs_cpu(cfg) -> None:
     labels = torch.roll(toks, -1, 1)
     labels[:, -1] = -1
     cpu = init_train_state(lm, 0, device="cpu").params
+    mods = train_modules(cfg)
+    want = {k: n // TRAIN_MICRO for k, n in train_kernels(cfg).items()}
+    if cfg.family == "moe":             # this microbatch's groups
+        g = cfg.num_layers * moe_groups(cfg, *toks.shape)
+        want.update(moe_gemm=2 * g, moe_ffn_fused=2 * g,
+                    moe_ffn_fused_bwd=g, moe_gemm_dx=2 * g,
+                    moe_gemm_dw=2 * g)
     out = []
     for dev in ("cpu", "cuda"):
         params = tree_map(
             lambda p: p.detach().to(dev).requires_grad_(True), cpu)
-        before = FA.LAUNCHES["flash_attention_bwd"]
+        before = launch_counts(mods)
+        tc0 = sum(MG.BWD_TENSOR_CORE_LAUNCHES.values())
         loss, _ = accumulate_grads(lm, params, {
             "tokens": toks.to(dev), "labels": labels.to(dev)},
             torch.float32)
-        if dev == "cuda" and FA.LAUNCHES["flash_attention_bwd"] - before \
-                != cfg.num_layers:
-            fail("train card vs CPU: the backward kernel did not run")
+        got = {k: n - before[k] for k, n in launch_counts(mods).items()}
+        if dev == "cuda" and (got != want or
+                              sum(MG.BWD_TENSOR_CORE_LAUNCHES.values())
+                              != tc0):
+            fail(f"train card vs CPU ({cfg.name}): launches {got}, "
+                 f"expected {want}, every backward on the f32 route")
         out.append((loss.item(), [p.grad.cpu() for p in leaves(params)]))
     (lc, gc_), (lg, gg) = out
     rel = max(float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
               for a, b in zip(gg, gc_))
     log(f"[reference] {cfg.name} f32 train microbatch (remat full), card vs "
         f"CPU: loss {lg:.6f} vs {lc:.6f}, worst gradient leaf {rel:.3e} of "
-        f"its largest magnitude")
+        f"its largest magnitude; kernels {want}")
     if abs(lg - lc) > REF_ATOL or rel > REF_ATOL:
         fail(f"train card vs CPU: loss {lg} vs {lc}, worst leaf {rel:.3e}")
 
@@ -3396,12 +3715,46 @@ def check_split(orch, mgr, session, draft_cfg, target_cfg, dparams, launches,
 # training: minitron-8b at full width, 4 layers, on the card
 # ---------------------------------------------------------------------------
 
-def train_config(cfg):
-    """minitron-8b at full width and TRAIN_LAYERS of its layers, full
-    remat (its f32 train state at 32 layers, 16 B a parameter, is 158 GB:
-    full depth waits for the port's distribution)."""
+def train_config(cfg, layers: int = TRAIN_LAYERS):
+    """``cfg`` at full width and ``layers`` of its layers, full remat
+    (minitron-8b's f32 train state at 32 layers, 16 B a parameter, is 158
+    GB: full depth waits for the port's distribution)."""
     import dataclasses
-    return dataclasses.replace(cfg, num_layers=TRAIN_LAYERS, remat="full")
+    return dataclasses.replace(cfg, num_layers=layers, remat="full")
+
+
+def moe_train_config(cfg):
+    """qwen3-moe-30b-a3b's training config: MOE_TRAIN_LAYERS layers, or
+    one fewer where their predicted peak (``train_bytes`` on the
+    parameters' shapes) passes MOE_TRAIN_BYTES."""
+    from repro_torch.models.transformer import LM
+    tcfg = train_config(cfg, MOE_TRAIN_LAYERS)
+    predicted = train_bytes(tcfg, LM(tcfg).param_specs())
+    if predicted > MOE_TRAIN_BYTES:
+        log(f"[train] {cfg.name}: {MOE_TRAIN_LAYERS} layers predict "
+            f"{predicted / 1e9:.2f} GB > {MOE_TRAIN_BYTES / 1e9:.0f}: "
+            f"{MOE_TRAIN_LAYERS - 1} layers")
+        tcfg = train_config(cfg, MOE_TRAIN_LAYERS - 1)
+    return tcfg
+
+
+def moe_groups(cfg, b: int, s: int) -> int:
+    """The expert-FFN groups of one MoE layer's forward on [b, s] tokens,
+    by ``models.moe.moe_apply``'s rule: one for s < 64, else one per row
+    and chunk of ``cfg.moe_chunk`` (rounded down to a divisor of s)."""
+    if s < 64:
+        return 1
+    chunk = max(1, min(s, cfg.moe_chunk))
+    while s % chunk:
+        chunk -= 1
+    return b * (s // chunk)
+
+
+def expert_leaves(params):
+    """The stacked expert weights (w_gate, w_up, w_down) of a MoE tree."""
+    moe = params["layers"].get("moe", {}) \
+        if isinstance(params["layers"], dict) else {}
+    return [moe[k] for k in ("w_gate", "w_up", "w_down") if k in moe]
 
 
 def train_bytes(cfg, params) -> int:
@@ -3411,7 +3764,13 @@ def train_bytes(cfg, params) -> int:
     the end of a backward, and a microbatch's activations under full remat
     (one layer's MLP recompute and its gradients, f32 gate and up
     included; a 512-position CE chunk's f32 logits, their log-sum-exp and
-    gradient)."""
+    gradient). MoE adds: every stacked expert leaf's bf16 gradient, whose
+    layer slices wait until the stack's backward gathers them (full size,
+    2 B an element), and one group's expert activations twice (recompute
+    and backward): the [E, C, d] capacity buffers, out and their
+    gradients; ``disp`` (bf16), ``comb`` (f32, its bf16 copy and its f32
+    gradient) [T, E, C]; the f32 g and u [E, C, f] of the plain versions
+    and the bf16 act, dg and du."""
     from repro_torch.bridge import leaves
     n = sum(p.numel() for p in leaves(params))
     mats = sum(p.numel() for p in leaves(params) if p.dim() >= 2)
@@ -3419,16 +3778,29 @@ def train_bytes(cfg, params) -> int:
     mb = TRAIN_BATCH // TRAIN_MICRO
     act = 2 * 5 * mb * TRAIN_SEQ * cfg.d_ff * 4 \
         + 4 * mb * 512 * cfg.padded_vocab * 4
+    experts = sum(p.numel() for p in expert_leaves(params))
+    if experts:
+        E, d, f = cfg.num_experts, cfg.d_model, cfg.moe_d_ff
+        T = TRAIN_SEQ * mb // moe_groups(cfg, mb, TRAIN_SEQ)
+        C = max(8, -(-math.ceil(T * cfg.num_experts_per_tok
+                                * cfg.moe_capacity_factor / E) // 8) * 8)
+        group = 4 * E * C * d * 2 + T * E * C * (2 + 4 + 2 + 4) \
+            + E * C * f * (2 * 4 + 3 * 2)
+        act += 2 * experts + 2 * group
     return 16 * n + 2 * mats + 6 * largest + act
 
 
 def train_flops(cfg, params) -> float:
     """Model FLOPs of one train step (no remat recompute): 6 per token
     and parameter of every product (the layers and the LM head; the
-    embedding is a lookup), and the attention's 4 * hq * d per causal
-    (query, key) pair in the forward, 3 times for forward and backward."""
+    embedding is a lookup; of the experts only the active share, top-k of
+    E), and the attention's 4 * hq * d per causal (query, key) pair in the
+    forward, 3 times for forward and backward."""
     from repro_torch.bridge import leaves
     n = sum(p.numel() for p in leaves(params)) - params["embed"].numel()
+    experts = sum(p.numel() for p in expert_leaves(params))
+    if experts:
+        n -= experts - experts * cfg.num_experts_per_tok // cfg.num_experts
     tokens = TRAIN_BATCH * TRAIN_SEQ
     pairs = TRAIN_SEQ * (TRAIN_SEQ + 1) // 2
     attn = 3 * 4 * cfg.num_heads * cfg.head_dim * pairs * TRAIN_BATCH \
@@ -3448,6 +3820,34 @@ def train_batches(cfg, n: int, seed: int = 0):
              for k, v in stream.next_batch().items()} for _ in range(n)]
 
 
+def launch_counts(mods) -> dict:
+    """Every launch counter of the kernel modules ``mods``, by kernel."""
+    return {k: n for m in mods for k, n in m.LAUNCHES.items()}
+
+
+def train_kernels(cfg) -> dict:
+    """The kernels one train step launches and how often: flash_attention
+    twice a layer and microbatch (the forward and the full remat's
+    recompute) and flash_attention_bwd once; for MoE, each expert-FFN group
+    (``moe_groups``) launches the two forward kernels twice, K1 once and
+    K2 and K3 twice (the down product's and gate/up's)."""
+    L, m = cfg.num_layers, TRAIN_MICRO
+    want = {"flash_attention": 2 * L * m, "flash_attention_bwd": L * m}
+    if cfg.family == "moe":
+        g = L * m * moe_groups(cfg, TRAIN_BATCH // m, TRAIN_SEQ)
+        want.update(moe_gemm=2 * g, moe_ffn_fused=2 * g,
+                    moe_ffn_fused_bwd=g, moe_gemm_dx=2 * g,
+                    moe_gemm_dw=2 * g)
+    return want
+
+
+def train_modules(cfg):
+    """The kernel modules whose launches a train step of ``cfg`` counts."""
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+    from repro_torch.kernels.moe_gemm import moe_gemm as MG
+    return (FA, MG) if cfg.family == "moe" else (FA,)
+
+
 def drive_train(cfg) -> dict:
     """The training path: ``init_train_state`` on the card (f32 masters),
     ``make_train_step`` (bf16 compute, TRAIN_MICRO microbatches, AdamW)
@@ -3456,7 +3856,6 @@ def drive_train(cfg) -> dict:
     under the profiler. Each step is timed to a synchronize; the kernels'
     launch counts are read around each step."""
     import torch
-    from repro_torch.kernels.flash_attention import flash_attention as FA
     from repro_torch.models.transformer import LM
     from repro_torch.training.optimizer import AdamWHyper
     from repro_torch.training.train_step import (init_train_state,
@@ -3476,6 +3875,7 @@ def drive_train(cfg) -> dict:
     out = {"steps": [], "repeat": [], "launches": [], "predicted": predicted,
            "n": n, "flops": flops}
     where = card()
+    mods = train_modules(cfg)
     runs = (("stream", make_train_step(lm, hyper=AdamWHyper(total_steps=100),
                                        microbatches=TRAIN_MICRO),
              train_batches(cfg, TRAIN_STEPS)),
@@ -3485,15 +3885,15 @@ def drive_train(cfg) -> dict:
              train_batches(cfg, 1, seed=1) * REPEAT_STEPS))
     for kind, step, batches in runs:
         for batch in batches:
-            before = dict(FA.LAUNCHES)
+            before = launch_counts(mods)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             state, metrics = step(state, batch)
             loss = float(metrics["loss"])
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t0) * 1e3
-            out["launches"].append({k: FA.LAUNCHES[k] - before[k]
-                                    for k in before})
+            out["launches"].append({k: n - before[k] for k, n in
+                                    launch_counts(mods).items()})
             out["steps" if kind == "stream" else "repeat"].append(
                 (loss, float(metrics["grad_norm"]), ms))
             log(f"[train] {kind} step {int(metrics['step'])}: loss "
@@ -3507,7 +3907,7 @@ def drive_train(cfg) -> dict:
     from torch.profiler import ProfilerActivity, profile
     step, batch = runs[1][1], runs[1][2][0]
     torch.cuda.synchronize()
-    before = dict(FA.LAUNCHES)
+    before = launch_counts(mods)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -3515,7 +3915,8 @@ def drive_train(cfg) -> dict:
         float(metrics["loss"])
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    out["launches"].append({k: FA.LAUNCHES[k] - before[k] for k in before})
+    out["launches"].append({k: n - before[k]
+                            for k, n in launch_counts(mods).items()})
     log_profile(prof, f"{cfg.name} train step ({cfg.num_layers} layers)",
                 wall_us, 1, "step")
     out["finite"] = all(torch.isfinite(p).all() for p in leaves(state.params))
@@ -3524,20 +3925,22 @@ def drive_train(cfg) -> dict:
 
 
 def check_train(cfg, out) -> None:
-    """The step's launch counts (the forward kernel twice a layer and
-    microbatch: the forward and the remat recompute; the backward once),
-    finite losses and weights, a falling loss on the repeated batch, the
-    times and the peak memory."""
+    """The step's launch counts (``train_kernels``), finite losses and
+    weights, a falling loss on the repeated batch, the times and the peak
+    memory."""
     import torch
-    want = {"flash_attention": 2 * cfg.num_layers * TRAIN_MICRO,
-            "flash_attention_bwd": cfg.num_layers * TRAIN_MICRO}
+    want = train_kernels(cfg)
     for i, got in enumerate(out["launches"]):
-        if any(got[k] != n for k, n in want.items()):
+        if got != want:
             fail(f"train step {i}: launches {got}, expected {want} "
                  f"({cfg.num_layers} layers x {TRAIN_MICRO} microbatches)")
-    log(f"[train] every step launched flash_attention "
-        f"{want['flash_attention']} times (forward and remat recompute) and "
-        f"flash_attention_bwd {want['flash_attention_bwd']} times")
+    log(f"[train] every step launched "
+        + ", ".join(f"{k} {n}" for k, n in want.items())
+        + f" times ({cfg.num_layers} layers x {TRAIN_MICRO} microbatches"
+        + (f" x {want['moe_ffn_fused_bwd'] // cfg.num_layers // TRAIN_MICRO}"
+           f" expert groups; forward kernels twice: forward and remat "
+           f"recompute)" if "moe_ffn_fused_bwd" in want else
+           "; the forward kernel twice: forward and remat recompute)"))
     losses = [x[0] for x in out["steps"] + out["repeat"]]
     if not all(math.isfinite(x) for x in losses) or not out["finite"]:
         fail(f"train: a loss or a weight is not finite ({losses})")
@@ -3564,23 +3967,80 @@ def check_train(cfg, out) -> None:
         fail(f"train peak {peak / 1e9:.2f} GB >= {total / 1e9:.2f} GB")
 
 
-def train_grad_check(cfg) -> None:
-    """One layer at full width: a microbatch's loss and every gradient leaf
-    with the flash kernels (forward and backward) against the same step
-    with the attention's plain forward and backward on the card; each
-    leaf within GRAD_REL of its norm in L2 (bf16 compute, the two
-    attentions rounding at other places). Two planted faults in the
-    backward kernel's outputs must fail that bound: dk and dv of one key
-    tile zeroed, and dq without that tile's share for the later half of
-    the queries."""
+def grad_arms(cfg, arms, mods, want, what: str) -> None:
+    """One layer of ``cfg`` at full width, b 1, s TRAIN_SEQ: a
+    microbatch's loss and every gradient leaf in each arm, an arm being
+    module attributes set for its step (``(module, name, value)``, put
+    back after it). The arm "plain" (the plain versions on the card, no
+    kernel of ``mods`` launched) is the reference; "kernels" (launches
+    exactly ``want``) must hold each leaf within GRAD_REL of its norm in
+    L2 and the loss within 1e-3; every other arm is a planted fault in
+    the kernels' outputs and must fail that bound."""
     import dataclasses
     import torch
     from repro_torch.bridge import leaves
-    from repro_torch.kernels.flash_attention import flash_attention as FA
-    from repro_torch.models import attention as A
     from repro_torch.models.transformer import LM
     from repro_torch.training.train_step import (accumulate_grads,
                                                  init_train_state)
+    one = dataclasses.replace(cfg, num_layers=1)
+    lm = LM(one)
+    params = init_train_state(lm, 3, device="cuda").params
+    batch = {k: v[:1] for k, v in train_batches(one, 1, seed=2)[0].items()}
+    worst, losses, launched = {}, {}, {}
+    for arm, patches in arms.items():
+        for p in leaves(params):
+            p.requires_grad_(True)
+            p.grad = None
+        before = launch_counts(mods)
+        kept = [(m, n, getattr(m, n)) for m, n, _ in patches]
+        for m, n, v in patches:
+            setattr(m, n, v)
+        try:
+            loss, _ = accumulate_grads(lm, params, batch)
+        finally:
+            for m, n, v in kept:
+                setattr(m, n, v)
+        launched[arm] = {k: n - before[k]
+                         for k, n in launch_counts(mods).items()}
+        losses[arm] = loss.item()
+        if arm == "plain":
+            gp = [p.grad for p in leaves(params)]
+            continue
+        rel = [float((p.grad - b).norm() / b.norm().clamp(min=1e-30))
+               for p, b in zip(leaves(params), gp)]
+        worst[arm] = max(rel)
+        log(f"[train] grad check, {one.name} 1 layer at full width, b 1 s "
+            f"{TRAIN_SEQ}, {arm}: loss {losses[arm]:.6f} plain "
+            f"{losses['plain']:.6f}; each leaf's ||diff|| / ||plain||: "
+            + ", ".join(f"{r:.2e}" for r in rel))
+    nk, np_ = launched["kernels"], launched["plain"]
+    if nk != want or any(np_.values()):
+        fail(f"{what} grad check: launches kernels {nk} (expected {want}), "
+             f"plain {np_}")
+    lk, lp = losses["kernels"], losses["plain"]
+    if abs(lk - lp) > 1e-3 * abs(lp) or worst["kernels"] > GRAD_REL:
+        fail(f"{what} grad check: kernels and plain versions differ (loss "
+             f"{lk} vs {lp}, worst leaf {worst['kernels']:.3e} > "
+             f"{GRAD_REL})")
+    for arm, w in worst.items():
+        if arm != "kernels" and w <= GRAD_REL:
+            fail(f"{what} grad check: the planted fault '{arm}' passes "
+                 f"(worst leaf {w:.3e} <= {GRAD_REL})")
+    for p in leaves(params):
+        p.requires_grad_(False)
+        p.grad = None
+
+
+def train_grad_check(cfg) -> None:
+    """``grad_arms`` on the attention: the flash kernels (forward and
+    backward) against the attention's plain forward and backward on the
+    card (bf16 compute, the two rounding at other places). Planted faults
+    in the backward kernel's outputs: dk and dv of one key tile zeroed,
+    and dq without that tile's share for the later half of the
+    queries."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+    from repro_torch.models import attention as A
 
     class Plain(torch.autograd.Function):
         @staticmethod
@@ -3621,56 +4081,80 @@ def train_grad_check(cfg) -> None:
                                   **kw)[0][:, half:]
         return dq, dk, dv
 
-    one = dataclasses.replace(cfg, num_layers=1)
-    lm = LM(one)
-    params = init_train_state(lm, 3, device="cuda").params
-    batch = {k: v[:1] for k, v in train_batches(one, 1, seed=2)[0].items()}
     tile = f"keys {FAULT_TILE.start}-{FAULT_TILE.stop - 1}"
-    arms = {"plain": (plain, kernel_bwd),
-            "kernels": (FA.flash_attention, kernel_bwd),
-            f"dk, dv of {tile} dropped": (FA.flash_attention, drop_dkdv),
-            f"dq without {tile} for the later half": (FA.flash_attention,
-                                                      drop_dq)}
-    worst, losses, launched = {}, {}, {}
-    for arm, (attention, backward) in arms.items():
-        for p in leaves(params):
-            p.requires_grad_(True)
-            p.grad = None
-        before = dict(FA.LAUNCHES)
-        A.flash_attention, FA.flash_attention_bwd = attention, backward
-        try:
-            loss, _ = accumulate_grads(lm, params, batch)
-        finally:
-            A.flash_attention = FA.flash_attention
-            FA.flash_attention_bwd = kernel_bwd
-        launched[arm] = {k: FA.LAUNCHES[k] - before[k] for k in before}
-        losses[arm] = loss.item()
-        if arm == "plain":
-            gp = [p.grad for p in leaves(params)]
-            continue
-        rel = [float((p.grad - b).norm() / b.norm().clamp(min=1e-30))
-               for p, b in zip(leaves(params), gp)]
-        worst[arm] = max(rel)
-        log(f"[train] grad check, {one.name} 1 layer at full width, b 1 s "
-            f"{TRAIN_SEQ}, {arm}: loss {losses[arm]:.6f} plain "
-            f"{losses['plain']:.6f}; each leaf's ||diff|| / ||plain||: "
-            + ", ".join(f"{r:.2e}" for r in rel))
-    nk, np_ = launched["kernels"], launched["plain"]
-    if nk != {"flash_attention": 2, "flash_attention_bwd": 1} \
-            or any(np_.values()):
-        fail(f"train grad check: launches kernels {nk}, plain {np_}")
-    lk, lp = losses["kernels"], losses["plain"]
-    if abs(lk - lp) > 1e-3 * abs(lp) or worst["kernels"] > GRAD_REL:
-        fail(f"train grad check: kernels and plain attention differ (loss "
-             f"{lk} vs {lp}, worst leaf {worst['kernels']:.3e} > "
-             f"{GRAD_REL})")
-    for arm, w in worst.items():
-        if arm != "kernels" and w <= GRAD_REL:
-            fail(f"train grad check: the planted fault '{arm}' passes "
-                 f"(worst leaf {w:.3e} <= {GRAD_REL})")
-    for p in leaves(params):
-        p.requires_grad_(False)
-        p.grad = None
+    grad_arms(cfg, {
+        "plain": [(A, "flash_attention", plain)],
+        "kernels": [],
+        f"dk, dv of {tile} dropped": [(FA, "flash_attention_bwd",
+                                       drop_dkdv)],
+        f"dq without {tile} for the later half": [
+            (FA, "flash_attention_bwd", drop_dq)]},
+        (FA,), {"flash_attention": 2, "flash_attention_bwd": 1}, "train")
+
+
+def moe_grad_check(cfg) -> None:
+    """``grad_arms`` on the expert FFN: the expert kernels (forward and
+    K1-K3) against its plain forward and backward on the card. Planted
+    faults made from the kernels' own outputs: ``dw_down`` of one expert
+    zeroed, and dx without its ``du @ w_up^T`` term for the rows of the
+    expert where that term is largest."""
+    import torch
+    from repro_torch.kernels.moe_gemm import moe_gemm as MG
+    from repro_torch.models import moe as M
+
+    class PlainFFN(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, wg, wu):
+            ctx.save_for_backward(x, wg, wu)
+            return MG.moe_ffn_fused_ref(x, wg, wu)
+
+        @staticmethod
+        def backward(ctx, dout):
+            x, wg, wu = ctx.saved_tensors
+            dg, du = MG.moe_ffn_fused_bwd_ref(x, wg, wu, dout)
+            return (MG.moe_gemm_dx_ref((dg, du), (wg, wu)),
+                    *MG.moe_gemm_dw_ref(x, (dg, du)))
+
+    class PlainGemm(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, w):
+            ctx.save_for_backward(x, w)
+            return MG.moe_gemm_ref(x, w)
+
+        @staticmethod
+        def backward(ctx, dy):
+            x, w = ctx.saved_tensors
+            return (MG.moe_gemm_dx_ref((dy,), (w,)),
+                    MG.moe_gemm_dw_ref(x, (dy,))[0])
+
+    kernel_dx, kernel_dw = MG.moe_gemm_dx, MG.moe_gemm_dw
+
+    def zero_dwd(a, dys):               # the down product: one output
+        dws = kernel_dw(a, dys)
+        if len(dys) == 1:
+            dws[0][0] = 0
+        return dws
+
+    def drop_du(dys, ws):               # gate/up: two pairs
+        dx = kernel_dx(dys, ws)
+        if len(dys) == 2:
+            part = kernel_dx(dys[:1], ws[:1])
+            e = int((dx.float() - part.float()).flatten(1).norm(dim=1)
+                    .argmax())
+            dx[e] = part[e]
+        return dx
+
+    g = moe_groups(cfg, 1, TRAIN_SEQ)
+    grad_arms(cfg, {
+        "plain": [(M, "moe_ffn_fused", PlainFFN.apply),
+                  (M, "moe_gemm", PlainGemm.apply)],
+        "kernels": [],
+        "dw_down of expert 0 zeroed": [(MG, "moe_gemm_dw", zero_dwd)],
+        "dx without du @ w_up^T for one expert's rows": [
+            (MG, "moe_gemm_dx", drop_du)]},
+        (MG,), {"moe_gemm": 2 * g, "moe_ffn_fused": 2 * g,
+                "moe_ffn_fused_bwd": g, "moe_gemm_dx": 2 * g,
+                "moe_gemm_dw": 2 * g}, "moe")
 
 
 def card() -> str:
@@ -3744,6 +4228,8 @@ def main() -> None:
     rows.update(phase_flash_kernels(cfg, sm_cfg, vl_cfg))
     rows.update(phase_flash_bwd_kernels(cfg, sm_cfg))
     rows.update(phase_moe_kernels(moe_cfg, cfg.d_model))
+    rows.update(phase_moe_bwd_kernels(moe_cfg))
+    check_refusals()
     rows.update(phase_int8_kernels(mx_cfg))
     rows.update(phase_recurrent_kernels(rg_cfg, mb_cfg))
     if quick:
@@ -3919,6 +4405,31 @@ def main() -> None:
     del out
     release_memory()
     train_grad_check(tcfg)
+    release_memory()
+
+    left = torch.cuda.memory_allocated()
+    log(f"[train] device memory allocated before {moe_cfg.name}'s training "
+        f"path: {left / 1e9:.3f} GB")
+    if left > 0.1e9:
+        fail(f"{left / 1e9:.2f} GB still allocated before the MoE training "
+             f"path")
+    torch.cuda.reset_peak_memory_stats()
+    mcfg = moe_train_config(moe_cfg)
+    name = f"{mcfg.name} train ({mcfg.num_layers} layers)"
+    launches, out = drive_path(name, counters, tuple(train_kernels(mcfg)),
+                               drive_train, mcfg)
+    check_variant(name, launches, "tensor")
+    bwd = {k: launches[k] for k in MG.BWD_TENSOR_CORE_LAUNCHES}
+    if dict(MG.BWD_TENSOR_CORE_LAUNCHES) != bwd:
+        fail(f"{name}: backward launches {bwd}, of them on the tensor cores "
+             f"{dict(MG.BWD_TENSOR_CORE_LAUNCHES)}: expected all")
+    log(f"[main path] {name}: every backward kernel on the tensor-core "
+        f"route {bwd}")
+    paths.append(launches)
+    check_train(mcfg, out)
+    del out
+    release_memory()
+    moe_grad_check(mcfg)
     release_memory()
 
     for name, row in rows.items():

@@ -163,18 +163,19 @@ def call_on_stream(fn, t, *args) -> int:
         return fn(*args, torch._C._cuda_getCurrentRawStream(idx))
 
 
-def refuse_autograd(name: str, *tensors) -> None:
+def refuse_autograd(name: str, *tensors, why: str) -> None:
     """Raise where a kernel that has no backward would be launched while
     autograd records: its output would carry no ``grad_fn``, and the
     parameters upstream would silently get no gradient. ``tensors`` may
-    hold int8 ``{q, s}`` weight dicts. The CPU runs the plain version
-    instead, which autograd differentiates."""
+    hold int8 ``{q, s}`` weight dicts; ``why`` says what keeps the kernel
+    without one (the open ROADMAP.md item, or why none is planned). The
+    CPU runs the plain version instead, which autograd differentiates."""
     if not torch.is_grad_enabled():
         return
     flat = [t for x in tensors
             for t in (x.values() if isinstance(x, dict) else (x,))]
     if any(isinstance(t, torch.Tensor) and t.requires_grad for t in flat):
         raise RuntimeError(
-            f"{name} has no backward kernel yet (ROADMAP.md queue 1): on a "
-            f"CUDA tensor it cannot be differentiated; run it under "
-            f"torch.no_grad(), or train on the CPU")
+            f"{name} has no backward kernel: {why}. On a CUDA tensor it "
+            f"cannot be differentiated; run it under torch.no_grad(), or "
+            f"train on the CPU")

@@ -46,6 +46,9 @@ from repro_torch.kernels.build import (call_on_stream, load,
                                       refuse_autograd)
 
 NEG_INF = -1e30
+#: why decode attention has no backward (refuse_autograd)
+DECODE_NO_BACKWARD = ("decode steps are served, never trained (training's "
+                      "forward runs flash_attention)")
 
 #: kernel name -> launches since the last reset_launches()
 LAUNCHES = {"decode_attention": 0, "paged_decode_attention": 0}
@@ -184,7 +187,7 @@ def decode_attention(q, k, v, lengths):
     -> [B, Hq, D]. Rows at or past ``lengths[b]`` are not attended."""
     if q.device.type == "cpu":
         return decode_attention_ref(q, k, v, lengths)
-    refuse_autograd("decode_attention", q, k, v)
+    refuse_autograd("decode_attention", q, k, v, why=DECODE_NO_BACKWARD)
     B, Hkv, S = k.shape[0], k.shape[1], k.shape[2]
     g, D = _check_common(q, k, v, lengths, B, Hkv)
     out = torch.empty((B, q.shape[1], D), dtype=q.dtype, device=q.device)
@@ -208,7 +211,8 @@ def paged_decode_attention(q, k_pages, v_pages, lengths, block_tables):
     if q.device.type == "cpu":
         return paged_decode_attention_ref(q, k_pages, v_pages, lengths,
                                           block_tables)
-    refuse_autograd("paged_decode_attention", q, k_pages, v_pages)
+    refuse_autograd("paged_decode_attention", q, k_pages, v_pages,
+                    why=DECODE_NO_BACKWARD)
     B = q.shape[0]
     page, Hkv = k_pages.shape[1], k_pages.shape[2]
     g, D = _check_common(q, k_pages, v_pages, lengths, B, Hkv)

@@ -10,7 +10,7 @@
 // `(silu(gate) * up).astype(h.dtype)` does).
 //
 // The four variants below replace the Pallas TPU kernels of the
-// reference package:
+// reference package (and 5. adds their backward):
 //   src/repro/kernels/moe_gemm/moe_gemm.py
 //     moe_gemm       (pl.pallas_call at :65, kernel body _kernel_plain :40)
 //     moe_ffn_fused  (pl.pallas_call at :90, kernel body _kernel_fused :29)
@@ -160,6 +160,55 @@
 //      chip_smoke.py runs it), so the output equals the bf16 variant's on
 //      as_weight(w) bit for bit, and a row's bits depend on D alone.
 //
+// 5. The backward (no Pallas kernel of the reference has one: it takes
+//    the gradient by autodiff of _expert_ffn, src/repro/models/moe.py:
+//    60-69, which these kernels compute). Three kernels:
+//      K1 moe_ffn_fused_bwd: dg, du [E, C, F] from x, w_gate, w_up and
+//         dout, the gradient of silu(g) * u;
+//      K2 moe_gemm_dx: dx = sum_j dy_j . w_j^T for one pair (w_down) or
+//         two ((dg, w_gate), (du, w_up));
+//      K3 moe_gemm_dw: dw_j = a^T . dy_j, reduced over C, for one output
+//         (w_down: a = act) or two sharing a (w_gate, w_up: a = x).
+//    Where they round: where the reference's jax.vjp of _expert_ffn does
+//    (its jaxpr in bf16). A cotangent enters each transposed product in
+//    f32 against the bf16 operand, the product accumulates in f32 and is
+//    cast once to the operand's dtype (dx, each dw); dx of gate/up is two
+//    such products, each cast, then added (add_any of two bf16 values: in
+//    f32, cast again), so K2 keeps the pairs in two accumulator sets. One
+//    cast more than the reference: dg and du, f32 there, are stored in
+//    x's dtype, since the tensor cores take bf16 operands (K1 writes them
+//    so, K2 and K3 read them). The SwiGLU's backward runs in f32 in the
+//    jaxpr's order: s = logistic(g), w = dout * u; dg = w * s + (g * w) *
+//    (s * (1 - s)); du = (g * s) * dout.
+//    What bounds them: bytes at qwen3-moe's training shapes (E 128, C 160,
+//    D 2048, F 768), each a ~130 flops a byte: every one reads or writes
+//    one or two 402.7 MB expert weights (0.12 ms each at 3.35 TB/s), so
+//    K1 0.294 ms (x, both weights, dout, dg, du), K2 0.155 / 0.284 ms
+//    (one / two pairs), K3 0.155 / 0.284 ms (one / two outputs); their
+//    products 64.4 GFLOP each, 0.065 ms at 989 TFLOP/s. A first design,
+//    right and simple (mma.sync, a cp.async ring; wgmma and TMA are a
+//    later redesign):
+//    * K1 is tc_kernel / grouped_kernel with kBwd: the fused forward's
+//      tile loop and block shapes, picked by C as the forward picks them,
+//      so g and u are the forward's accumulators bit for bit (its check
+//      output y, the forward's epilogue of them, equals moe_ffn_fused's);
+//      the epilogue brings dout's tile rows into the ring, writes dg over
+//      them and du into a second tile, both out as 16-byte rows.
+//    * K2 and K3 (namespace grad): one template over the operands'
+//      layouts; each operand is read in place along its contiguous axis
+//      (16-byte cp.async rows, zero fill past every edge) and a tile
+//      stored by rows of the reduction axis is read with ldmatrix.trans.
+//      K2 swaps as the forward does: M = D from the weight rows (each
+//      weight tile read once a launch: 8 x 2 warps, BM 256 / 128, BN 160
+//      covers C 160), N = C, the output written transposed. K3: M = D,
+//      N = F (128 x 128 tiles, 8 warps), K = C: both operands by rows of
+//      C. Each output is one f32 accumulator updated by k16 steps in
+//      increasing k (no split-K, no atomics): K3 sums over C in
+//      increasing c.
+//    * f32, and bf16 shapes off that rule, run K1 on the CUDA-core
+//      template and K2 / K3 on a strided CUDA-core kernel (namespace cc:
+//      64 x 64 outputs a block, one fmaf per k in increasing k).
+//
 // C interface (loaded with ctypes): each launcher returns cudaGetLastError()
 // after the launch, or cudaErrorInvalidValue for arguments it does not take.
 // Every variant sits in the anonymous namespace. A function-local static
@@ -174,6 +223,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <initializer_list>
 
 #include "hopper.cuh"
 
@@ -192,6 +243,33 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
+}
+
+// The operands of K1's epilogue (moe_ffn_fused_bwd: the fused kernels'
+// tile loops with their epilogue replaced, kBwd): dout [E, C, F] in, dg
+// and du [E, C, F] out, contiguous, in x's dtype. The forward passes none.
+struct Bwd {
+  const void* dout = nullptr;
+  void* dg = nullptr;
+  void* du = nullptr;
+};
+
+// The SwiGLU's backward at one (c, f) from g = (x @ w_gate)[c, f],
+// u = (x @ w_up)[c, f] and d = dout[c, f], in f32 and in the order of the
+// reference's jaxpr (jax.vjp of _expert_ffn): s = logistic(g),
+// w = d * u; dg = w * s + (g * w) * (s * (1 - s)); du = (g * s) * d.
+__device__ __forceinline__ void swiglu_bwd(float g, float u, float d,
+                                           float& dg, float& du) {
+  const float s = 1.f / (1.f + expf(-g));
+  const float w = d * u;
+  dg = w * s + (g * w) * (s * (1.f - s));
+  du = (g * s) * d;
+}
+
+// A value rounded to T and read back as f32.
+__device__ __forceinline__ float round_to(float x, const float*) { return x; }
+__device__ __forceinline__ float round_to(float x, const __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16(x));
 }
 
 // Eight consecutive weight elements as f32: one or two 16-byte loads.
@@ -249,12 +327,16 @@ __device__ __forceinline__ void fetch(const T* __restrict__ xe, int64_t sxc,
 
 // BC rows per block; each thread owns TM rows x TN columns of the output
 // tile, i.e. TM * TN (x2 fused) f32 accumulators.
-template <typename T, int BC, int TM, int TN, bool kFused>
+// kBwd (K1): dg and du into bw from the same accumulators; y, when not
+// null, also gets the forward's output (a check of the recompute).
+template <typename T, int BC, int TM, int TN, bool kFused,
+          bool kBwd = false>
 __global__ void __launch_bounds__(kThreads)
 grouped_kernel(const T* __restrict__ x, int64_t sxe, int64_t sxc,
                const T* __restrict__ wg, const T* __restrict__ wu,
                int64_t swe, int64_t swd, T* __restrict__ y, int C, int D,
-               int F, bool vec_ok) {
+               int F, bool vec_ok, Bwd bw) {
+  static_assert(!kBwd || kFused, "K1 recomputes gate and up");
   constexpr int kCols = kBF / TN;            // threads along F
   static_assert(kCols * (BC / TM) == kThreads, "thread tile covers block");
   static_assert(TN == 1 || TN == 4, "weight reads are scalars or float4");
@@ -337,27 +419,35 @@ grouped_kernel(const T* __restrict__ x, int64_t sxe, int64_t sxc,
     __syncthreads();
   }
 
-  // epilogue: y is a contiguous [E, C, F] tensor
+  // epilogue: y (and dout, dg, du) are contiguous [E, C, F] tensors
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     const int c = c0 + tr * TM + i;
     if (c >= C) continue;
-    T* yrow = y + (e * C + c) * F;
+    const int64_t row = (e * C + c) * F;
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       const int f = f0 + tc * TN + j;
       if (f >= F) continue;
       float v = acc0[i][j];
+      if constexpr (kBwd) {
+        float dg, du;
+        swiglu_bwd(v, acc1[i][j],
+                   to_f32(static_cast<const T*>(bw.dout)[row + f]), dg, du);
+        store(static_cast<T*>(bw.dg) + row + f, dg);
+        store(static_cast<T*>(bw.du) + row + f, du);
+        if (y == nullptr) continue;
+      }
       if constexpr (kFused) v = v / (1.f + expf(-v)) * acc1[i][j];
-      store(yrow + f, v);
+      store(y + row + f, v);
     }
   }
 }
 
-template <typename T, bool kFused>
+template <typename T, bool kFused, bool kBwd = false>
 int launch(const void* x, int64_t sxe, int64_t sxc, const void* wg,
            const void* wu, int64_t swe, int64_t swd, void* y, int E, int C,
-           int D, int F, bool vec_ok, cudaStream_t st) {
+           int D, int F, bool vec_ok, cudaStream_t st, Bwd bw = {}) {
   const T* xx = static_cast<const T*>(x);
   const T* gg = static_cast<const T*>(wg);
   const T* uu = static_cast<const T*>(wu);
@@ -365,29 +455,31 @@ int launch(const void* x, int64_t sxe, int64_t sxc, const void* wg,
   const int nf = (F + kBF - 1) / kBF;
   if (C <= 8) {          // decode: one C-tile, weights read once
     const dim3 grid(1, nf, E);
-    grouped_kernel<T, 8, 2, 1, kFused><<<grid, kThreads, 0, st>>>(
-        xx, sxe, sxc, gg, uu, swe, swd, yy, C, D, F, vec_ok);
+    grouped_kernel<T, 8, 2, 1, kFused, kBwd><<<grid, kThreads, 0, st>>>(
+        xx, sxe, sxc, gg, uu, swe, swd, yy, C, D, F, vec_ok, bw);
   } else {
     const dim3 grid((C + 63) / 64, nf, E);
-    grouped_kernel<T, 64, 4, 4, kFused><<<grid, kThreads, 0, st>>>(
-        xx, sxe, sxc, gg, uu, swe, swd, yy, C, D, F, vec_ok);
+    grouped_kernel<T, 64, 4, 4, kFused, kBwd><<<grid, kThreads, 0, st>>>(
+        xx, sxe, sxc, gg, uu, swe, swd, yy, C, D, F, vec_ok, bw);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kFused>
+template <bool kFused, bool kBwd = false>
 int dispatch(int dtype, const void* x, long long sxe, long long sxc,
              const void* wg, const void* wu, long long swe, long long swd,
-             void* y, int E, int C, int D, int F, int vec_ok, void* stream) {
+             void* y, int E, int C, int D, int F, int vec_ok, void* stream,
+             Bwd bw = {}) {
   if (E < 1 || E > 65535 || C < 1 || D < 1 || F < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<__nv_bfloat16, kFused>(x, sxe, sxc, wg, wu, swe, swd, y, E,
-                                         C, D, F, vec_ok != 0, st);
+    return launch<__nv_bfloat16, kFused, kBwd>(x, sxe, sxc, wg, wu, swe, swd,
+                                               y, E, C, D, F, vec_ok != 0, st,
+                                               bw);
   if (dtype == 1)
-    return launch<float, kFused>(x, sxe, sxc, wg, wu, swe, swd, y, E, C, D,
-                                 F, vec_ok != 0, st);
+    return launch<float, kFused, kBwd>(x, sxe, sxc, wg, wu, swe, swd, y, E, C,
+                                       D, F, vec_ok != 0, st, bw);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -473,13 +565,15 @@ struct Tile {
 
 // Grid: (F-tile + nF * C-chunk, expert). Chunk ch holds rows
 // [ch * Cc, min(C, (ch + 1) * Cc)) of its expert, Cc <= BN.
+// kBwd (K1): the same tile loop, its epilogue replaced by the SwiGLU's
+// backward (below).
 template <bool kFused, int WM, int WN, int MT, int NT, int BK, int S,
-          int kMinBlocks>
+          int kMinBlocks, bool kBwd = false>
 __global__ void __launch_bounds__(WM * WN * 32, kMinBlocks)
 tc_kernel(const bf16* __restrict__ x, int64_t sxe, int64_t sxc,
           const bf16* __restrict__ wg, const bf16* __restrict__ wu,
           int64_t swe, int64_t swd, bf16* __restrict__ y, int C, int D,
-          int F, int nF, int Cc) {
+          int F, int nF, int Cc, Bwd bw) {
   using L = Tile<kFused, WM, WN, MT, NT, BK, S>;
   constexpr int BF = L::BF;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -610,6 +704,64 @@ tc_kernel(const bf16* __restrict__ x, int64_t sxe, int64_t sxc,
   cp_wait<0>();
   __syncthreads();                   // the ring is free for the output tile
 
+  if constexpr (kBwd) {
+    // K1's epilogue: this tile's rows of dout into the ring (16-byte
+    // loads); each thread's (g, u) at (f, c) gives dg, written over dout,
+    // and du into a second tile; both leave as 16-byte rows. y, when
+    // given, receives the forward's epilogue of the same accumulators.
+    static_assert(kFused, "K1 recomputes gate and up");
+    static_assert(2 * sizeof(bf16) * L::BN * L::kYPitch <= L::kSmemBytes,
+                  "two output tiles fit the ring");
+    bf16* gs = smem;
+    bf16* us = smem + L::BN * L::kYPitch;
+    const int64_t base = (e * C + c0) * F;
+    const bf16* de = static_cast<const bf16*>(bw.dout) + base;
+    for (int i = tid; i < rows * (BF / 8); i += L::kThreads) {
+      const int r = i / (BF / 8), c = (i % (BF / 8)) * 8;
+      if (f0 + c < F)
+        *reinterpret_cast<uint4*>(gs + r * L::kYPitch + c) =
+            *reinterpret_cast<const uint4*>(de + static_cast<int64_t>(r) * F +
+                                            f0 + c);
+    }
+    __syncthreads();
+    const int qg = lane >> 2, qt = lane & 3;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int t = j * WN + wn;
+      if (t * 8 >= rows) continue;
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int f = (wm * MT + mt) * 16 + qg + (q >> 1) * 8;
+          const int c = t * 8 + qt * 2 + (q & 1);
+          if (c >= rows || f0 + f >= F) continue;   // no dout there
+          const float gv = acc[0][mt][j][q], uv = acc[1][mt][j][q];
+          float dg, du;
+          swiglu_bwd(gv, uv, __bfloat162float(gs[c * L::kYPitch + f]), dg,
+                     du);
+          gs[c * L::kYPitch + f] = __float2bfloat16(dg);
+          us[c * L::kYPitch + f] = __float2bfloat16(du);
+          if (y != nullptr)
+            y[base + static_cast<int64_t>(c) * F + f0 + f] =
+                __float2bfloat16(gv / (1.f + expf(-gv)) * uv);
+        }
+    }
+    __syncthreads();
+    bf16* ge = static_cast<bf16*>(bw.dg) + base;
+    bf16* ue = static_cast<bf16*>(bw.du) + base;
+    for (int i = tid; i < rows * (BF / 8); i += L::kThreads) {
+      const int r = i / (BF / 8), c = (i % (BF / 8)) * 8;
+      if (f0 + c >= F) continue;
+      const int64_t o = static_cast<int64_t>(r) * F + f0 + c;
+      *reinterpret_cast<uint4*>(ge + o) =
+          *reinterpret_cast<const uint4*>(gs + r * L::kYPitch + c);
+      *reinterpret_cast<uint4*>(ue + o) =
+          *reinterpret_cast<const uint4*>(us + r * L::kYPitch + c);
+    }
+    return;
+  }
+
   // epilogue: accumulator (f, c) -> ys[c][f] in bf16, then 16-byte rows
   bf16* ys = smem;
   const int g = lane >> 2, tg = lane & 3;
@@ -639,12 +791,12 @@ tc_kernel(const bf16* __restrict__ x, int64_t sxe, int64_t sxc,
 }
 
 template <bool kFused, int WM, int WN, int MT, int NT, int BK, int S,
-          int kMinBlocks>
+          int kMinBlocks, bool kBwd = false>
 int launch_tc(const bf16* x, int64_t sxe, int64_t sxc, const bf16* wg,
               const bf16* wu, int64_t swe, int64_t swd, bf16* y, int E, int C,
-              int D, int F, cudaStream_t st) {
+              int D, int F, cudaStream_t st, Bwd bw = {}) {
   using L = Tile<kFused, WM, WN, MT, NT, BK, S>;
-  auto kern = tc_kernel<kFused, WM, WN, MT, NT, BK, S, kMinBlocks>;
+  auto kern = tc_kernel<kFused, WM, WN, MT, NT, BK, S, kMinBlocks, kBwd>;
   static bool configured = false;    // once per instantiation
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -658,20 +810,25 @@ int launch_tc(const bf16* x, int64_t sxe, int64_t sxc, const bf16* wg,
   const int Cc = ((C + chunks - 1) / chunks + 7) / 8 * 8;   // <= BN
   const dim3 grid(nF * chunks, E);
   kern<<<grid, L::kThreads, L::kSmemBytes, st>>>(x, sxe, sxc, wg, wu, swe,
-                                                 swd, y, C, D, F, nF, Cc);
+                                                 swd, y, C, D, F, nF, Cc, bw);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kFused>
+// kBwd: K1 on the fused forward's block shapes, picked by C as for the
+// forward, so its g and u are the forward's accumulators bit for bit (y,
+// its check output, may be null).
+template <bool kFused, bool kBwd = false>
 int dispatch(const void* x, long long sxe, long long sxc, const void* wg,
              const void* wu, long long swe, long long swd, void* y, int E,
-             int C, int D, int F, void* stream) {
+             int C, int D, int F, void* stream, Bwd bw = {}) {
+  static_assert(kFused || !kBwd, "K1 recomputes gate and up");
   const auto aligned = [](const void* p) {
     return reinterpret_cast<uintptr_t>(p) % 16 == 0;
   };
   if (E < 1 || E > 65535 || C < 1 || D < 8 || F < 8 || D % 8 || F % 8 ||
       sxe % 8 || sxc % 8 || swe % 8 || swd % 8 || !aligned(x) ||
-      !aligned(wg) || !aligned(wu) || !aligned(y))
+      !aligned(wg) || !aligned(wu) || !aligned(y) ||
+      (kBwd && (!aligned(bw.dout) || !aligned(bw.dg) || !aligned(bw.du))))
     return static_cast<int>(cudaErrorInvalidValue);
   const bf16* xx = static_cast<const bf16*>(x);
   const bf16* gg = static_cast<const bf16*>(wg);
@@ -683,8 +840,8 @@ int dispatch(const void* x, long long sxe, long long sxc, const void* wg,
   // 16 KB of weights a stage
   if (C <= 64) {
     if constexpr (kFused)
-      return launch_tc<true, 8, 1, 1, 8, 32, 4, 2>(
-          xx, sxe, sxc, gg, uu, swe, swd, yy, E, C, D, F, st);
+      return launch_tc<true, 8, 1, 1, 8, 32, 4, 2, kBwd>(
+          xx, sxe, sxc, gg, uu, swe, swd, yy, E, C, D, F, st, bw);
     else
       return launch_tc<false, 8, 1, 1, 8, 64, 4, 1>(
           xx, sxe, sxc, gg, uu, swe, swd, yy, E, C, D, F, st);
@@ -693,8 +850,8 @@ int dispatch(const void* x, long long sxe, long long sxc, const void* wg,
   // 2 (down) m16 tiles by 10 n8 tiles: BF 128 / 256, BN 160, so C 160 is
   // one chunk and each weight tile is streamed once; 3-stage rings of 64
   // rows of D
-  return launch_tc<kFused, 8, 2, kFused ? 1 : 2, 10, 64, 3, 1>(
-      xx, sxe, sxc, gg, uu, swe, swd, yy, E, C, D, F, st);
+  return launch_tc<kFused, 8, 2, kFused ? 1 : 2, 10, 64, 3, 1, kBwd>(
+      xx, sxe, sxc, gg, uu, swe, swd, yy, E, C, D, F, st, bw);
 }
 
 }  // namespace tc
@@ -1427,6 +1584,479 @@ int dispatch(const void* x, long long sxe, long long sxc, const void* w,
 
 }  // namespace narrow
 
+// ---------------------------------------------------------------------------
+// the backward's products, K2 (moe_gemm_dx) and K3 (moe_gemm_dw), on the
+// tensor cores (bf16)
+// ---------------------------------------------------------------------------
+
+namespace grad {
+
+using tc::bf16;
+
+// out[e] (M x N) = A[e] (M x K) . B[e] (K x N), mma.sync.m16n8k16 (bf16 in,
+// f32 accumulate) on tiles that a cp.async ring brings in. Each operand is
+// read in place along whichever axis is contiguous: A by rows of M (kAT
+// false: A[m][k] at a + m * sar + k) or of K (kAT true: at a + k * sar +
+// m); B by rows of N (kBT false: B[k][n] at b + n * sbr + k) or of K (kBT
+// true: at b + k * sbr + n). A tile stored by rows of K is read with the
+// .trans ldmatrix. NA / NB tiles of A / B a stage; NP = max(NA, NB)
+// accumulator sets, set j on A[min(j, NA - 1)] and B[min(j, NB - 1)].
+//   K2 (kSum, kOutT): dx [E, C, D] = sum_j dy_j [E, C, F] . w_j^T with
+//     w_j [E, D, F]: M = D (w_j by rows of M), N = C (dy_j by rows of N),
+//     K = F; written transposed ([n][m]); two pairs are two sets, each
+//     rounded to bf16, added in f32 and rounded again.
+//   K3: dw_j [E, D, F] = a^T . dy_j with a [E, C, D], dy_j [E, C, F]:
+//     M = D, N = F, K = C (both by rows of K); one or two outputs that
+//     share a (NA 1).
+struct Args {
+  const bf16* a[2];
+  const bf16* b[2];
+  bf16* out[2];
+  long long sae, sar, sbe, sbr;
+  int M, N, K;
+  int nM, Nc;      // M-tiles of a block row; live N of a chunk (launcher)
+};
+
+template <bool kAT, bool kBT, int NA, int NB, bool kSum, bool kOutT, int WM,
+          int WN, int MT, int NT, int BK, int S>
+struct Tile {
+  static constexpr int kThreads = WM * WN * 32;
+  static constexpr int BM = WM * MT * 16;
+  static constexpr int BN = WN * NT * 8;
+  static constexpr int NP = NA > NB ? NA : NB;
+  static constexpr int kAPitch = (kAT ? BM : BK) + 8;   // elements
+  static constexpr int kBPitch = (kBT ? BN : BK) + 8;
+  static constexpr int kAElems = (kAT ? BK : BM) * kAPitch;
+  static constexpr int kBElems = (kBT ? BK : BN) * kBPitch;
+  static constexpr size_t kStageBytes =
+      sizeof(bf16) * (NA * kAElems + NB * kBElems);
+  static constexpr size_t kSmemBytes = S * kStageBytes;
+  static constexpr int kOPitch = (kOutT ? BM : BN) + 8;  // staged output
+  static_assert(NT % 2 == 0 && BK % 16 == 0 && S >= 2, "tile shape");
+  static_assert(!kSum || (NA == 2 && NB == 2), "K2 sums two pairs");
+  static_assert(sizeof(bf16) * (kOutT ? BN : BM) * kOPitch <= kSmemBytes,
+                "the output tile fits the ring");
+  static_assert(kSmemBytes <= 232448 && kStageBytes % 16 == 0,
+                "a block's shared memory, 16-byte stages");
+};
+
+// Grid: (M-tile + nM * N-chunk, expert); chunk ch holds N [ch * Nc,
+// min(N, (ch + 1) * Nc)), Nc <= BN a multiple of 8. As in tc_kernel: the
+// n8 tiles of a warp are dealt round-robin and a tile with no live row is
+// skipped; each output is one f32 accumulator updated by k16 steps in
+// increasing k (no split-K, no atomics), so its bits depend on K alone.
+template <bool kAT, bool kBT, int NA, int NB, bool kSum, bool kOutT, int WM,
+          int WN, int MT, int NT, int BK, int S>
+__global__ void __launch_bounds__(WM * WN * 32, 1)
+gemm_kernel(const Args g) {
+  using L = Tile<kAT, kBT, NA, NB, kSum, kOutT, WM, WN, MT, NT, BK, S>;
+  constexpr int BM = L::BM, NP = L::NP;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp % WM, wn = warp / WM;
+  const int m0 = (blockIdx.x % g.nM) * BM;
+  const int n0 = (blockIdx.x / g.nM) * g.Nc;
+  const int64_t e = blockIdx.y;
+  const int rows = min(g.Nc, g.N - n0);        // live N of this block
+  const int rows8 = (rows + 7) & ~7;
+  const int nk = (g.K + BK - 1) / BK;
+
+  constexpr uint32_t kEl = sizeof(bf16);
+  const uint32_t sbase = tc::smem_addr(smem);
+  const auto stage_addr = [&](int kt) {
+    return sbase + static_cast<uint32_t>((kt % S) * L::kStageBytes);
+  };
+
+  // one ring stage: NA tiles of A, then NB tiles of B, zeros past M, N and
+  // K (columns of N past rows8 are never read into a product)
+  auto load_stage = [&](int kt) {
+    const uint32_t st = stage_addr(kt);
+    const int k0 = kt * BK;
+#pragma unroll
+    for (int j = 0; j < NA; ++j) {
+      const bf16* src = g.a[j] + e * g.sae;
+      const uint32_t dst = st + j * L::kAElems * kEl;
+      if constexpr (kAT) {
+        for (int i = tid; i < BK * (BM / 8); i += L::kThreads) {
+          const int r = i / (BM / 8), c = (i % (BM / 8)) * 8;
+          const bool ok = k0 + r < g.K && m0 + c < g.M;
+          tc::cp_async16(dst + (r * L::kAPitch + c) * kEl,
+                         ok ? src + (k0 + r) * g.sar + m0 + c : src, ok);
+        }
+      } else {
+        for (int i = tid; i < BM * (BK / 8); i += L::kThreads) {
+          const int r = i / (BK / 8), c = (i % (BK / 8)) * 8;
+          const bool ok = m0 + r < g.M && k0 + c < g.K;
+          tc::cp_async16(dst + (r * L::kAPitch + c) * kEl,
+                         ok ? src + (m0 + r) * g.sar + k0 + c : src, ok);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      const bf16* src = g.b[j] + e * g.sbe;
+      const uint32_t dst = st + (NA * L::kAElems + j * L::kBElems) * kEl;
+      if constexpr (kBT) {
+        for (int i = tid; i < BK * (L::BN / 8); i += L::kThreads) {
+          const int r = i / (L::BN / 8), c = (i % (L::BN / 8)) * 8;
+          if (c >= rows8) continue;
+          const bool ok = k0 + r < g.K && c < rows;
+          tc::cp_async16(dst + (r * L::kBPitch + c) * kEl,
+                         ok ? src + (k0 + r) * g.sbr + n0 + c : src, ok);
+        }
+      } else {
+        for (int i = tid; i < rows8 * (BK / 8); i += L::kThreads) {
+          const int r = i / (BK / 8), c = (i % (BK / 8)) * 8;
+          const bool ok = r < rows && k0 + c < g.K;
+          tc::cp_async16(dst + (r * L::kBPitch + c) * kEl,
+                         ok ? src + (n0 + r) * g.sbr + k0 + c : src, ok);
+        }
+      }
+    }
+  };
+
+  float acc[NP][MT][NT][4];
+#pragma unroll
+  for (int w = 0; w < NP; ++w)
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[w][mt][j][q] = 0.f;
+
+  // ldmatrix lane roles: lane supplies row (lane & 7) of matrix lane >> 3.
+  // A (16 x 16 of m by k): matrices (m 0-7 | 8-15) x (k 0-7 | 8-15) in the
+  // order of the m16n8k16 A fragment; B (two n8 tiles 2p, 2p + 1 of k16):
+  // (tile 2p | 2p + 1) x (k 0-7 | 8-15).
+  const int lr = lane & 7, lm = lane >> 3;
+  const uint32_t a_lane =
+      kAT ? ((lr + (lm >> 1) * 8) * L::kAPitch + wm * MT * 16 + (lm & 1) * 8)
+                * kEl
+          : ((wm * MT * 16 + lr + (lm & 1) * 8) * L::kAPitch + (lm >> 1) * 8)
+                * kEl;
+  const uint32_t b_lane =
+      kBT ? (((lm & 1) * 8 + lr) * L::kBPitch + ((lm >> 1) * WN + wn) * 8)
+                * kEl
+          : ((((lm >> 1) * WN + wn) * 8 + lr) * L::kBPitch + (lm & 1) * 8)
+                * kEl;
+
+#pragma unroll
+  for (int s = 0; s < S - 1; ++s) {
+    if (s < nk) load_stage(s);
+    tc::cp_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    tc::cp_wait<S - 2>();            // stage kt has landed (this thread's)
+    __syncthreads();                 // ... everyone's; slot kt-1 is free
+    if (kt + S - 1 < nk) load_stage(kt + S - 1);
+    tc::cp_commit();
+    const uint32_t st = stage_addr(kt);
+    const uint32_t bt = st + NA * L::kAElems * kEl;
+#pragma unroll
+    for (int ks = 0; ks < BK / 16; ++ks) {
+      uint32_t af[NA][MT][4];
+#pragma unroll
+      for (int j = 0; j < NA; ++j)
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          const uint32_t at = st + j * L::kAElems * kEl + a_lane;
+          if constexpr (kAT)
+            tc::ldsm_x4_t(at + (ks * 16 * L::kAPitch + mt * 16) * kEl,
+                          af[j][mt]);
+          else
+            tc::ldsm_x4(at + (mt * 16 * L::kAPitch + ks * 16) * kEl,
+                        af[j][mt]);
+        }
+#pragma unroll
+      for (int p = 0; p < NT / 2; ++p) {
+        if ((2 * p * WN + wn) * 8 >= rows) continue;
+        uint32_t bf[NB][4];
+#pragma unroll
+        for (int j = 0; j < NB; ++j) {
+          const uint32_t b0 = bt + j * L::kBElems * kEl + b_lane;
+          if constexpr (kBT)
+            tc::ldsm_x4_t(b0 + (ks * 16 * L::kBPitch + 2 * p * WN * 8) * kEl,
+                          bf[j]);
+          else
+            tc::ldsm_x4(b0 + (2 * p * WN * 8 * L::kBPitch + ks * 16) * kEl,
+                        bf[j]);
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int jn = 2 * p + h;
+          if ((jn * WN + wn) * 8 >= rows) continue;
+#pragma unroll
+          for (int w = 0; w < NP; ++w)
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt)
+              tc::mma16816(acc[w][mt][jn], af[w < NA ? w : 0][mt],
+                           bf[w < NB ? w : 0][2 * h],
+                           bf[w < NB ? w : 0][2 * h + 1]);
+        }
+      }
+    }
+  }
+  tc::cp_wait<0>();
+  __syncthreads();                   // the ring is free for the output tile
+
+  // epilogue: accumulator (m, n) -> the staged tile in bf16 ([n][m] for
+  // K2, [m][n] for K3), then 16-byte rows; one output at a time
+  bf16* os = smem;
+  const int qg = lane >> 2, qt = lane & 3;
+#pragma unroll
+  for (int w = 0; w < (kSum ? 1 : NP); ++w) {
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int t = j * WN + wn;
+      if (t * 8 >= rows) continue;
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int m = (wm * MT + mt) * 16 + qg + (q >> 1) * 8;
+          const int n = t * 8 + qt * 2 + (q & 1);
+          float v = acc[w][mt][j][q];
+          if constexpr (kSum)
+            v = round_to(acc[0][mt][j][q], os) +
+                round_to(acc[1][mt][j][q], os);
+          os[kOutT ? n * L::kOPitch + m : m * L::kOPitch + n] =
+              __float2bfloat16(v);
+        }
+    }
+    __syncthreads();
+    if constexpr (kOutT) {           // out [E][N][M]: rows of M
+      bf16* oe = g.out[w] + (e * g.N + n0) * g.M;
+      for (int i = tid; i < rows * (BM / 8); i += L::kThreads) {
+        const int r = i / (BM / 8), c = (i % (BM / 8)) * 8;
+        if (m0 + c < g.M)
+          *reinterpret_cast<uint4*>(oe + static_cast<int64_t>(r) * g.M + m0 +
+                                    c) =
+              *reinterpret_cast<const uint4*>(os + r * L::kOPitch + c);
+      }
+    } else {                         // out [E][M][N]: rows of N
+      const int mrows = min(BM, g.M - m0);
+      bf16* oe = g.out[w] + (e * g.M + m0) * g.N + n0;
+      for (int i = tid; i < mrows * (L::BN / 8); i += L::kThreads) {
+        const int r = i / (L::BN / 8), c = (i % (L::BN / 8)) * 8;
+        if (c < rows)
+          *reinterpret_cast<uint4*>(oe + static_cast<int64_t>(r) * g.N + c) =
+              *reinterpret_cast<const uint4*>(os + r * L::kOPitch + c);
+      }
+    }
+    __syncthreads();
+  }
+}
+
+template <bool kAT, bool kBT, int NA, int NB, bool kSum, bool kOutT, int WM,
+          int WN, int MT, int NT, int BK, int S>
+int launch(Args g, int E, cudaStream_t st) {
+  using L = Tile<kAT, kBT, NA, NB, kSum, kOutT, WM, WN, MT, NT, BK, S>;
+  auto kern = gemm_kernel<kAT, kBT, NA, NB, kSum, kOutT, WM, WN, MT, NT, BK,
+                          S>;
+  static bool configured = false;    // once per instantiation
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(L::kSmemBytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
+  g.nM = (g.M + L::BM - 1) / L::BM;
+  const int chunks = (g.N + L::BN - 1) / L::BN;
+  g.Nc = ((g.N + chunks - 1) / chunks + 7) / 8 * 8;       // <= BN
+  kern<<<dim3(g.nM * chunks, E), L::kThreads, L::kSmemBytes, st>>>(g);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The tensor-core rule of K2 and K3: D and F multiples of 8, every stride
+// a multiple of 8 elements, every base 16-byte aligned.
+bool takes(int E, int C, int D, int F,
+           std::initializer_list<long long> strides,
+           std::initializer_list<const void*> ptrs) {
+  if (E < 1 || E > 65535 || C < 1 || D < 8 || F < 8 || D % 8 || F % 8)
+    return false;
+  for (long long s : strides)
+    if (s % 8) return false;
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16) return false;
+  return true;
+}
+
+// K2: 16 warps, 8 along D by 2 along C, each 2 (one pair) or 1 (two pairs)
+// m16 tiles by 10 n8 tiles: BM 256 / 128, BN 160, so C 160 is one chunk and
+// each weight tile is read once a launch; rings of 3 x 64 / 4 x 32 rows of
+// F (180 / 184 KB).
+int dx_dispatch(int pairs, const void* dy0, const void* dy1, long long sdye,
+                long long sdyc, const void* w0, const void* w1,
+                long long swe, long long swd, void* dx, int E, int C, int D,
+                int F, cudaStream_t st) {
+  if ((pairs != 1 && pairs != 2) ||
+      !takes(E, C, D, F, {sdye, sdyc, swe, swd}, {dy0, dy1, w0, w1, dx}))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args g{};
+  g.a[0] = static_cast<const bf16*>(w0);
+  g.a[1] = static_cast<const bf16*>(w1);
+  g.b[0] = static_cast<const bf16*>(dy0);
+  g.b[1] = static_cast<const bf16*>(dy1);
+  g.out[0] = g.out[1] = static_cast<bf16*>(dx);
+  g.sae = swe, g.sar = swd, g.sbe = sdye, g.sbr = sdyc;
+  g.M = D, g.N = C, g.K = F;
+  if (pairs == 1)
+    return launch<false, false, 1, 1, false, true, 8, 2, 2, 10, 64, 3>(g, E,
+                                                                       st);
+  return launch<false, false, 2, 2, true, true, 8, 2, 1, 10, 32, 4>(g, E, st);
+}
+
+// K3: 8 warps, 4 along D by 2 along F, each 2 m16 tiles by 8 n8 tiles:
+// BM 128, BN 128, a ring of 3 x 32 rows of C (52 / 78 KB).
+int dw_dispatch(int outs, const void* a, long long sae, long long sac,
+                const void* dy0, const void* dy1, long long sdye,
+                long long sdyc, void* dw0, void* dw1, int E, int C, int D,
+                int F, cudaStream_t st) {
+  if ((outs != 1 && outs != 2) ||
+      !takes(E, C, D, F, {sae, sac, sdye, sdyc}, {a, dy0, dy1, dw0, dw1}))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args g{};
+  g.a[0] = g.a[1] = static_cast<const bf16*>(a);
+  g.b[0] = static_cast<const bf16*>(dy0);
+  g.b[1] = static_cast<const bf16*>(dy1);
+  g.out[0] = static_cast<bf16*>(dw0);
+  g.out[1] = static_cast<bf16*>(dw1);
+  g.sae = sae, g.sar = sac, g.sbe = sdye, g.sbr = sdyc;
+  g.M = D, g.N = F, g.K = C;
+  if (outs == 1)
+    return launch<true, true, 1, 1, false, false, 4, 2, 2, 8, 32, 3>(g, E,
+                                                                     st);
+  return launch<true, true, 1, 2, false, false, 4, 2, 2, 8, 32, 3>(g, E, st);
+}
+
+}  // namespace grad
+
+// ---------------------------------------------------------------------------
+// the backward's products on the CUDA cores (f32, and bf16 shapes outside
+// the tensor-core rule)
+// ---------------------------------------------------------------------------
+
+namespace cc {
+
+// out_j[e](m, n) = sum over k of A_j[e](m, k) . B_j[e](k, n) for j < NP,
+// every operand read through element strides (A_j at a + e*sae + m*sam +
+// k*sak, B_j at b + e*sbe + k*sbk + n*sbn, out_j at out + e*soe + m*som +
+// n*son), bounds-checked scalar loads. kSum: one output, the NP = 2 sets
+// each rounded to T, added in f32 and rounded again (K2's pairs).
+struct Args {
+  const void* a[2];
+  const void* b[2];
+  void* out[2];
+  long long sae, sam, sak, sbe, sbk, sbn, soe, som, son;
+  int M, N, K;
+};
+
+constexpr int kTile = 64;   // outputs of a block along M and along N
+constexpr int kDepth = 16;  // K of one shared tile
+
+// One block per (64 rows of M, 64 of N, expert), 256 threads of 4 x 4
+// outputs (rows ty + 16 i, columns tx + 16 c); each output is one thread's
+// f32 accumulator, updated with one fmaf per k in increasing k (no TF32),
+// so its summation order depends on K alone.
+template <typename T, int NP, bool kSum>
+__global__ void __launch_bounds__(256) gemm_kernel(const Args g) {
+  __shared__ float as[NP][kDepth][kTile + 1];
+  __shared__ float bs[NP][kDepth][kTile + 1];
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int m0 = blockIdx.x * kTile, n0 = blockIdx.y * kTile;
+  const int64_t e = blockIdx.z;
+  float acc[NP][4][4];
+#pragma unroll
+  for (int j = 0; j < NP; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[j][i][c] = 0.f;
+
+  for (int k0 = 0; k0 < g.K; k0 += kDepth) {
+#pragma unroll
+    for (int j = 0; j < NP; ++j) {
+      const T* a = static_cast<const T*>(g.a[j]) + e * g.sae;
+      const T* b = static_cast<const T*>(g.b[j]) + e * g.sbe;
+#pragma unroll
+      for (int i = 0; i < kTile * kDepth / 256; ++i) {
+        const int idx = tid + i * 256;
+        const int r = idx % kTile, k = idx / kTile;
+        as[j][k][r] = m0 + r < g.M && k0 + k < g.K
+                          ? to_f32(a[(m0 + r) * g.sam + (k0 + k) * g.sak])
+                          : 0.f;
+        bs[j][k][r] = n0 + r < g.N && k0 + k < g.K
+                          ? to_f32(b[(k0 + k) * g.sbk + (n0 + r) * g.sbn])
+                          : 0.f;
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < kDepth; ++k)
+#pragma unroll
+      for (int j = 0; j < NP; ++j) {
+        float av[4], bv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          av[i] = as[j][k][ty + 16 * i];
+          bv[i] = bs[j][k][tx + 16 * i];
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            acc[j][i][c] = fmaf(av[i], bv[c], acc[j][i][c]);
+      }
+    __syncthreads();
+  }
+
+  const T* kind = nullptr;           // picks round_to's overload
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int m = m0 + ty + 16 * i, n = n0 + tx + 16 * c;
+      if (m >= g.M || n >= g.N) continue;
+      const int64_t o = e * g.soe + m * g.som + n * g.son;
+      if constexpr (kSum) {
+        store(static_cast<T*>(g.out[0]) + o,
+              round_to(acc[0][i][c], kind) + round_to(acc[1][i][c], kind));
+      } else {
+#pragma unroll
+        for (int j = 0; j < NP; ++j)
+          store(static_cast<T*>(g.out[j]) + o, acc[j][i][c]);
+      }
+    }
+}
+
+template <typename T>
+int launch(const Args& g, int np, bool sum, int E, cudaStream_t st) {
+  const dim3 grid((g.M + kTile - 1) / kTile, (g.N + kTile - 1) / kTile, E);
+  if (np == 1)
+    gemm_kernel<T, 1, false><<<grid, 256, 0, st>>>(g);
+  else if (sum)
+    gemm_kernel<T, 2, true><<<grid, 256, 0, st>>>(g);
+  else
+    gemm_kernel<T, 2, false><<<grid, 256, 0, st>>>(g);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int dispatch(int dtype, const Args& g, int np, bool sum, int E,
+             cudaStream_t st) {
+  if ((np != 1 && np != 2) || E < 1 || E > 65535 || g.M < 1 || g.N < 1 ||
+      g.K < 1 || (g.N + kTile - 1) / kTile > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 0) return launch<__nv_bfloat16>(g, np, sum, E, st);
+  if (dtype == 1) return launch<float>(g, np, sum, E, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace cc
+
 }  // namespace
 
 // dtype: 0 = bfloat16, 1 = float32. Strides are in elements; x has unit
@@ -1527,4 +2157,76 @@ extern "C" long long moe_gemm_narrow_ws_floats(int E, int C, int D, int F) {
   if (D <= narrow::kNarrow) return 0;
   return static_cast<long long>((D + narrow::kSplit - 1) / narrow::kSplit) *
          E * C * F;
+}
+
+// K1 (moe_ffn_fused's backward): the fused forward's tile loop recomputes
+// g = x @ w_gate and u = x @ w_up (the same k-chain, so the forward's
+// accumulators bit for bit) and the epilogue writes dg and du [E, C, F] in
+// x's dtype from dout [E, C, F] (all three contiguous). y, when not null,
+// also receives the forward's output from those accumulators (a check of
+// the recompute, not the training path). tc 1: the tensor-core tile loop
+// (bf16, the forward's layout rule, dout, dg, du and y 16-byte aligned);
+// tc 0: the CUDA-core template (dtype 0 bf16, 1 f32).
+extern "C" int moe_ffn_fused_bwd_launch(int dtype, int tc, const void* x,
+                                        long long sxe, long long sxc,
+                                        const void* w_gate, const void* w_up,
+                                        long long swe, long long swd,
+                                        const void* dout, void* dg, void* du,
+                                        void* y, int E, int C, int D, int F,
+                                        int vec_ok, void* stream) {
+  Bwd bw;
+  bw.dout = dout, bw.dg = dg, bw.du = du;
+  if (tc)
+    return tc::dispatch<true, true>(x, sxe, sxc, w_gate, w_up, swe, swd, y, E,
+                                    C, D, F, stream, bw);
+  return dispatch<true, true>(dtype, x, sxe, sxc, w_gate, w_up, swe, swd, y,
+                              E, C, D, F, vec_ok, stream, bw);
+}
+
+// K2: dx [E, C, D] (contiguous) = sum over j < pairs of dy_j [E, C, F] .
+// w_j [E, D, F]^T, each pair's f32 product rounded to x's dtype, the two
+// added in f32 and rounded again. dy_0 and dy_1 share strides, w_0 and w_1
+// too; unit stride along F. tc 1: bf16 on the tensor cores (D, F and every
+// stride multiples of 8, 16-byte bases); tc 0: the CUDA-core kernel.
+extern "C" int moe_gemm_dx_launch(int dtype, int tc, int pairs,
+                                  const void* dy0, const void* dy1,
+                                  long long sdye, long long sdyc,
+                                  const void* w0, const void* w1,
+                                  long long swe, long long swd, void* dx,
+                                  int E, int C, int D, int F, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (tc)
+    return grad::dx_dispatch(pairs, dy0, dy1, sdye, sdyc, w0, w1, swe, swd, dx,
+                           E, C, D, F, st);
+  cc::Args g{};
+  g.a[0] = dy0, g.a[1] = dy1, g.b[0] = w0, g.b[1] = w1;
+  g.out[0] = g.out[1] = dx;
+  g.sae = sdye, g.sam = sdyc, g.sak = 1;
+  g.sbe = swe, g.sbk = 1, g.sbn = swd;
+  g.soe = static_cast<long long>(C) * D, g.som = D, g.son = 1;
+  g.M = C, g.N = D, g.K = F;
+  return cc::dispatch(dtype, g, pairs, pairs == 2, E, st);
+}
+
+// K3: dw_j [E, D, F] (contiguous, x's dtype) = a [E, C, D]^T . dy_j
+// [E, C, F] for j < outs, summed over C in increasing c. dy_0 and dy_1
+// share strides; unit stride along D and F. tc as for K2.
+extern "C" int moe_gemm_dw_launch(int dtype, int tc, int outs, const void* a,
+                                  long long sae, long long sac,
+                                  const void* dy0, const void* dy1,
+                                  long long sdye, long long sdyc, void* dw0,
+                                  void* dw1, int E, int C, int D, int F,
+                                  void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (tc)
+    return grad::dw_dispatch(outs, a, sae, sac, dy0, dy1, sdye, sdyc, dw0, dw1,
+                           E, C, D, F, st);
+  cc::Args g{};
+  g.a[0] = g.a[1] = a, g.b[0] = dy0, g.b[1] = dy1;
+  g.out[0] = dw0, g.out[1] = dw1;
+  g.sae = sae, g.sam = 1, g.sak = sac;
+  g.sbe = sdye, g.sbk = sdyc, g.sbn = 1;
+  g.soe = static_cast<long long>(D) * F, g.som = F, g.son = 1;
+  g.M = D, g.N = F, g.K = C;
+  return cc::dispatch(dtype, g, outs, false, E, st);
 }

@@ -31,6 +31,18 @@ for another route. ``LAUNCHES`` counts kernel launches (one per
 successful wrapper call, whatever the variant, nowhere else);
 ``TENSOR_CORE_LAUNCHES``, ``NARROW_LAUNCHES`` and ``INT8_LAUNCHES`` count
 those of them that took the tensor-core, the narrow or the int8 variant.
+
+The backward: while autograd records, ``moe_gemm`` and ``moe_ffn_fused``
+on tensor weights go through the ``torch.autograd.Function``s
+``MoEGemm`` and ``MoEFFNFused``, whose backward runs three kernels of the
+same source (on the CPU their plain versions): ``moe_ffn_fused_bwd`` (K1:
+the fused forward's tile loop recomputes gate and up, its epilogue writes
+dg and du), ``moe_gemm_dx`` (K2: ``sum_j dy_j @ w_j^T``) and
+``moe_gemm_dw`` (K3: ``a^T @ dy_j``, reduced over C), each with a bf16
+route on the tensor cores and a CUDA-core one for f32 and every other
+shape. Under ``no_grad`` (serving) nothing changes. Int8 weights (served,
+never trained) and the narrow variant (adapters are not trained) still
+refuse autograd on the card.
 """
 
 from __future__ import annotations
@@ -45,7 +57,11 @@ from repro_torch.kernels.build import (call_on_stream, load,
                                       refuse_autograd)
 
 #: kernel name -> launches since the last reset_launches()
-LAUNCHES = {"moe_gemm": 0, "moe_ffn_fused": 0}
+LAUNCHES = {"moe_gemm": 0, "moe_ffn_fused": 0, "moe_ffn_fused_bwd": 0,
+            "moe_gemm_dx": 0, "moe_gemm_dw": 0}
+#: the backward kernels' launches of the tensor-core route among LAUNCHES
+BWD_TENSOR_CORE_LAUNCHES = {"moe_ffn_fused_bwd": 0, "moe_gemm_dx": 0,
+                            "moe_gemm_dw": 0}
 #: kernel name -> launches of the tensor-core variant among LAUNCHES
 TENSOR_CORE_LAUNCHES = {"moe_gemm": 0, "moe_ffn_fused": 0}
 #: kernel name -> launches of the narrow variant among LAUNCHES (only
@@ -76,14 +92,21 @@ _ARGTYPES = {
     "moe_ffn_fused_i8_launch": [_P, _LL, _LL, _P, _P, _LL, _LL, _P, _P, _LL,
                                 _P, _I, _I, _I, _I, _P],
     "moe_gemm_i8_probe": [_P, _P, _P, _I, _P],
+    "moe_ffn_fused_bwd_launch": [_I, _I, _P, _LL, _LL, _P, _P, _LL, _LL, _P,
+                                 _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "moe_gemm_dx_launch": [_I, _I, _I, _P, _P, _LL, _LL, _P, _P, _LL, _LL,
+                           _P, _I, _I, _I, _I, _P],
+    "moe_gemm_dw_launch": [_I, _I, _I, _P, _LL, _LL, _P, _P, _LL, _LL, _P, _P,
+                           _I, _I, _I, _I, _P],
 }
 _lib = None
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = TENSOR_CORE_LAUNCHES[k] = NARROW_LAUNCHES[k] = \
-            INT8_LAUNCHES[k] = 0
+    for counts in (LAUNCHES, TENSOR_CORE_LAUNCHES, NARROW_LAUNCHES,
+                   INT8_LAUNCHES, BWD_TENSOR_CORE_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 def _library():
@@ -117,16 +140,68 @@ def _plain(w):
     return w
 
 
+def _acc(t):
+    """t in its accumulation dtype: f32 for bf16 and f32, f64 for f64 (the
+    gradchecks)."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
 def moe_gemm_ref(x, w):
     """x [E, C, D] @ w [E, D, F] -> [E, C, F] in x's dtype, f32 products."""
-    return torch.einsum("ecd,edf->ecf", x.float(), w.float()).to(x.dtype)
+    return torch.einsum("ecd,edf->ecf", _acc(x), _acc(w)).to(x.dtype)
 
 
 def moe_ffn_fused_ref(x, w_gate, w_up):
     """silu(x @ w_gate) * (x @ w_up) in f32, cast once to x's dtype."""
-    gate = torch.einsum("ecd,edf->ecf", x.float(), w_gate.float())
-    up = torch.einsum("ecd,edf->ecf", x.float(), w_up.float())
+    gate = torch.einsum("ecd,edf->ecf", _acc(x), _acc(w_gate))
+    up = torch.einsum("ecd,edf->ecf", _acc(x), _acc(w_up))
     return (F.silu(gate) * up).to(x.dtype)
+
+
+# The backward's plain versions. They round where the reference's
+# ``jax.vjp`` of ``_expert_ffn`` rounds (its jaxpr in bf16): a product's
+# cotangent enters each transposed einsum in f32 against the bf16 operand,
+# the einsum accumulates in f32 and casts once to the operand's dtype
+# (dx, dw); the two dx terms of gate and up are each cast, then added
+# (``add_any`` of two bf16 values: in f32, cast again). One cast more than
+# the reference: dg and du, f32 there, are cast to x's dtype, because the
+# kernels' tensor cores take bf16 operands (a no-op in f32).
+
+def swiglu_bwd(g, u, dout):
+    """(dg, du) in f32 from g = x @ w_gate, u = x @ w_up (f32) and the
+    output's gradient, in the order of the reference's jaxpr:
+    ``s = sigmoid(g)``, ``w = dout * u``; ``dg = w * s + (g * w) * (s * (1
+    - s))``; ``du = (g * s) * dout``."""
+    d = _acc(dout)
+    s = torch.sigmoid(g)
+    w = d * u
+    return w * s + (g * w) * (s * (1 - s)), (g * s) * d
+
+
+def moe_ffn_fused_bwd_ref(x, w_gate, w_up, dout):
+    """(dg, du) [E, C, F] in x's dtype: gate and up recomputed in f32 from
+    x, then ``swiglu_bwd``."""
+    g = torch.einsum("ecd,edf->ecf", _acc(x), _acc(w_gate))
+    u = torch.einsum("ecd,edf->ecf", _acc(x), _acc(w_up))
+    dg, du = swiglu_bwd(g, u, dout)
+    return dg.to(x.dtype), du.to(x.dtype)
+
+
+def moe_gemm_dx_ref(dys, ws):
+    """sum_j dy_j [E, C, F] @ w_j [E, D, F]^T -> [E, C, D] in dy's dtype:
+    each term in f32 cast once, the terms added in f32 and cast again."""
+    out = None
+    for dy, w in zip(dys, ws):
+        term = torch.einsum("ecf,edf->ecd", _acc(dy), _acc(w)).to(dy.dtype)
+        out = term if out is None else (_acc(out) + _acc(term)).to(dy.dtype)
+    return out
+
+
+def moe_gemm_dw_ref(a, dys):
+    """[a [E, C, D]^T @ dy_j [E, C, F] -> [E, D, F] in a's dtype, f32
+    products, for each dy_j]."""
+    return [torch.einsum("ecd,ecf->edf", _acc(a), _acc(dy)).to(a.dtype)
+            for dy in dys]
 
 
 # ---------------------------------------------------------------------------
@@ -305,9 +380,17 @@ def i8_probe(a, b):
     return out
 
 
+#: what keeps each route without a backward
+INT8_NO_BACKWARD = ("int8 weights are served, never trained (ROADMAP.md "
+                    "queue 1 item 4(a) gave the bf16 and f32 routes one)")
+NARROW_NO_BACKWARD = ("the narrow variant's adapter products are not "
+                      "trained (ROADMAP.md queue 1 item 4(a) gave the bf16 "
+                      "and f32 routes one)")
+
+
 def _launch(name, x, ws):
     """Check, allocate y, launch the variant the rules pick, count it."""
-    refuse_autograd(name, x, *ws)
+    refuse_autograd(name, x, *ws, why=INT8_NO_BACKWARD)
     if any(_is_int8(w) for w in ws):
         return _launch_int8(name, x, ws)
     E, C, D, Fo, vec_ok = _check(x, ws)
@@ -334,17 +417,214 @@ def _launch(name, x, ws):
     return y
 
 
-def moe_gemm(x, w):
-    """x [E, C, D] @ w [E, D, F] -> [E, C, F] in x's dtype; w a tensor or
-    int8 ``{q, s}``."""
+def _forward_gemm(x, w):
     if x.device.type == "cpu":
         return moe_gemm_ref(x, _plain(w))
     return _launch("moe_gemm", x, (w,))
 
 
-def moe_ffn_fused(x, w_gate, w_up):
-    """silu(x @ w_gate) * (x @ w_up): x [E, C, D]; w_* [E, D, F] (tensors
-    or int8 ``{q, s}``) -> [E, C, F] in x's dtype."""
+def _forward_ffn(x, w_gate, w_up):
     if x.device.type == "cpu":
         return moe_ffn_fused_ref(x, _plain(w_gate), _plain(w_up))
     return _launch("moe_ffn_fused", x, (w_gate, w_up))
+
+
+def _records(x, *ws) -> bool:
+    """Whether autograd records a call on tensor weights: it then goes
+    through the Functions (int8 weights take the forward, which refuses
+    on the card)."""
+    return (torch.is_grad_enabled() and not any(_is_int8(w) for w in ws)
+            and any(t.requires_grad for t in (x, *ws)))
+
+
+def moe_gemm(x, w):
+    """x [E, C, D] @ w [E, D, F] -> [E, C, F] in x's dtype; w a tensor or
+    int8 ``{q, s}``. Differentiable in x and a tensor w (``MoEGemm``)."""
+    if _records(x, w):
+        if x.device.type == "cuda" and uses_narrow(x, w):
+            refuse_autograd("moe_gemm", x, w, why=NARROW_NO_BACKWARD)
+        return MoEGemm.apply(x, w)
+    return _forward_gemm(x, w)
+
+
+def moe_ffn_fused(x, w_gate, w_up):
+    """silu(x @ w_gate) * (x @ w_up): x [E, C, D]; w_* [E, D, F] (tensors
+    or int8 ``{q, s}``) -> [E, C, F] in x's dtype. Differentiable in x and
+    tensor weights (``MoEFFNFused``)."""
+    if _records(x, w_gate, w_up):
+        return MoEFFNFused.apply(x, w_gate, w_up)
+    return _forward_ffn(x, w_gate, w_up)
+
+
+# ---------------------------------------------------------------------------
+# the backward: K1-K3 and the autograd Functions
+# ---------------------------------------------------------------------------
+
+def _dense(t):
+    """t contiguous with a 16-byte-aligned base (a copy where it is not)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _count(name: str, rc: int, tc: bool) -> None:
+    _raise_on(rc, name)
+    LAUNCHES[name] += 1
+    BWD_TENSOR_CORE_LAUNCHES[name] += tc
+
+
+def moe_ffn_fused_bwd(x, w_gate, w_up, dout, y=None):
+    """(dg, du) [E, C, F] in x's dtype from x [E, C, D], w_gate, w_up
+    [E, D, F] and dout [E, C, F], the gradient of ``moe_ffn_fused``'s
+    output: the plain version on the CPU, else K1 (the fused forward's tile
+    loop recomputes gate and up, bit for bit the forward's accumulators,
+    and its epilogue applies ``swiglu_bwd``). ``y`` (on the card, [E, C, F]
+    in x's dtype) also receives the forward's output from those
+    accumulators: a check of the recompute."""
+    if x.device.type == "cpu":
+        return moe_ffn_fused_bwd_ref(x, w_gate, w_up, dout)
+    E, C, D, Fo, vec_ok = _check(x, (w_gate, w_up))
+    dout = _dense(dout)
+    if dout.shape != (E, C, Fo) or dout.dtype != x.dtype \
+            or dout.device != x.device:
+        raise ValueError(f"dout {tuple(dout.shape)} {dout.dtype}: need "
+                         f"[{E}, {C}, {Fo}] {x.dtype} on {x.device}")
+    if y is not None and (y.shape != dout.shape or y.dtype != x.dtype
+                          or not y.is_contiguous()):
+        raise ValueError("y must be a contiguous [E, C, F] tensor in x's "
+                         "dtype")
+    dg, du = torch.empty_like(dout), torch.empty_like(dout)
+    tc = uses_tensor_cores(x, w_gate, w_up) and (
+        y is None or y.data_ptr() % 16 == 0)
+    rc = call_on_stream(
+        _library().moe_ffn_fused_bwd_launch, x, _DTYPE_CODE[x.dtype],
+        int(tc), x.data_ptr(), x.stride(0), x.stride(1), w_gate.data_ptr(),
+        w_up.data_ptr(), w_gate.stride(0), w_gate.stride(1),
+        dout.data_ptr(), dg.data_ptr(), du.data_ptr(),
+        0 if y is None else y.data_ptr(), E, C, D, Fo, vec_ok)
+    _count("moe_ffn_fused_bwd", rc, tc)
+    return dg, du
+
+
+def _bwd_tiles(D: int, Fo: int, *ts) -> bool:
+    """The backward's tensor-core rule: bf16; D and F multiples of 8; the
+    outer strides of every operand multiples of 8 elements and every base
+    16-byte aligned (the unit inner strides are the callers')."""
+    return (all(t.dtype == torch.bfloat16 for t in ts)
+            and D % _VEC == 0 and Fo % _VEC == 0
+            and all(s % _VEC == 0 for t in ts for s in t.stride()[:2])
+            and all(t.data_ptr() % 16 == 0 for t in ts))
+
+
+def _operands(name, dys, others, shapes):
+    """One or two dy_j made contiguous and aligned, checked with the other
+    operands against their shapes, one dtype (bf16 or f32) and one card."""
+    if len(dys) not in (1, 2):
+        raise ValueError(f"{name}: one or two dy, got {len(dys)}")
+    dys = [_dense(dy) for dy in dys]
+    dt, dev = dys[0].dtype, dys[0].device
+    for t, shape in zip(dys + others, shapes):
+        if tuple(t.shape) != shape or t.dtype != dt or t.device != dev:
+            raise ValueError(f"{name}: {tuple(t.shape)} {t.dtype} on "
+                             f"{t.device}, need {shape} {dt} on {dev}")
+    if dt not in _DTYPE_CODE or dev.type != "cuda":
+        raise ValueError(f"{name}: bf16 or f32 on the card, got {dt} on "
+                         f"{dev}")
+    return dys
+
+
+def moe_gemm_dx(dys, ws):
+    """K2: ``sum_j dy_j @ w_j^T`` -> dx [E, C, D] in dy's dtype, for one
+    or two pairs (dy_j [E, C, F], w_j [E, D, F] sharing strides, unit
+    stride along F); each term accumulated in f32 and cast, the two added
+    in f32 and cast again. The plain version on the CPU."""
+    dys, ws = list(dys), list(ws)
+    if dys[0].device.type == "cpu":
+        return moe_gemm_dx_ref(dys, ws)
+    if len(ws) != len(dys):
+        raise ValueError(f"moe_gemm_dx: {len(dys)} dy, {len(ws)} w")
+    E, C, Fo = dys[0].shape
+    D = ws[0].shape[1]
+    dys = _operands("moe_gemm_dx", dys, ws,
+                    [(E, C, Fo)] * len(dys) + [(E, D, Fo)] * len(ws))
+    w = ws[0]
+    if w.stride(2) != 1 or any(t.stride() != w.stride() for t in ws):
+        raise ValueError("moe_gemm_dx: w_j need one stride pair and unit "
+                         "stride along F")
+    dx = torch.empty((E, C, D), dtype=w.dtype, device=w.device)
+    tc = _bwd_tiles(D, Fo, *dys, *ws, dx)
+    two = len(dys) == 2
+    rc = call_on_stream(
+        _library().moe_gemm_dx_launch, w, _DTYPE_CODE[w.dtype], int(tc),
+        len(dys), dys[0].data_ptr(), dys[two].data_ptr(), dys[0].stride(0),
+        dys[0].stride(1), w.data_ptr(), ws[two].data_ptr(), w.stride(0),
+        w.stride(1), dx.data_ptr(), E, C, D, Fo)
+    _count("moe_gemm_dx", rc, tc)
+    return dx
+
+
+def moe_gemm_dw(a, dys):
+    """K3: ``[a^T @ dy_j]`` -> dw_j [E, D, F] in a's dtype for a [E, C, D]
+    and one or two dy_j [E, C, F], reduced over C in f32 in increasing c.
+    The plain version on the CPU."""
+    dys = list(dys)
+    if a.device.type == "cpu":
+        return moe_gemm_dw_ref(a, dys)
+    if a.stride(2) != 1:
+        a = a.contiguous()
+    E, C, D = a.shape
+    Fo = dys[0].shape[2]
+    dys = _operands("moe_gemm_dw", dys, [a],
+                    [(E, C, Fo)] * len(dys) + [(E, C, D)])
+    dws = [torch.empty((E, D, Fo), dtype=a.dtype, device=a.device)
+           for _ in dys]
+    tc = _bwd_tiles(D, Fo, a, *dys, *dws)
+    two = len(dys) == 2
+    rc = call_on_stream(
+        _library().moe_gemm_dw_launch, a, _DTYPE_CODE[a.dtype], int(tc),
+        len(dys), a.data_ptr(), a.stride(0), a.stride(1), dys[0].data_ptr(),
+        dys[two].data_ptr(), dys[0].stride(0), dys[0].stride(1),
+        dws[0].data_ptr(), dws[two].data_ptr(), E, C, D, Fo)
+    _count("moe_gemm_dw", rc, tc)
+    return dws
+
+
+class MoEGemm(torch.autograd.Function):
+    """``moe_gemm`` with a gradient: the forward is today's launch (the
+    plain version on the CPU) and saves x and w; the backward is K2 for dx
+    and K3 for dw, each only where it is needed."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _forward_gemm(x, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        need_x, need_w = ctx.needs_input_grad
+        dx = moe_gemm_dx((dy,), (w,)) if need_x else None
+        dw = moe_gemm_dw(x, (dy,))[0] if need_w else None
+        return dx, dw
+
+
+class MoEFFNFused(torch.autograd.Function):
+    """``moe_ffn_fused`` with a gradient: the forward is today's launch
+    and saves x and the weights (not gate and up: K1 recomputes them); the
+    backward is K1 (dg, du), K2 on both pairs (dx) and K3 on both outputs
+    (dw_gate, dw_up), each only where it is needed."""
+
+    @staticmethod
+    def forward(ctx, x, w_gate, w_up):
+        ctx.save_for_backward(x, w_gate, w_up)
+        return _forward_ffn(x, w_gate, w_up)
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, w_gate, w_up = ctx.saved_tensors
+        need_x, need_g, need_u = ctx.needs_input_grad
+        dg, du = moe_ffn_fused_bwd(x, w_gate, w_up, dout)
+        dx = moe_gemm_dx((dg, du), (w_gate, w_up)) if need_x else None
+        dys = [t for t, need in ((dg, need_g), (du, need_u)) if need]
+        dws = iter(moe_gemm_dw(x, dys) if dys else ())
+        return (dx, next(dws) if need_g else None,
+                next(dws) if need_u else None)

@@ -117,7 +117,8 @@ def rglru_scan(a, b, h0):
     h0: [B, W] f32 -> h [B, T, W] f32."""
     if a.device.type == "cpu":
         return rglru_scan_ref(a, b, h0)
-    refuse_autograd("rglru_scan", a, b, h0)
+    refuse_autograd("rglru_scan", a, b, h0,
+                    why="ROADMAP.md queue 1 item 4(b) is open")
     _check(a, b, h0)
     B, T, W = a.shape
     h = torch.empty_like(a)

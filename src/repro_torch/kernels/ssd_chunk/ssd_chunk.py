@@ -161,7 +161,8 @@ def ssd_chunk(x, dt, A, B, C, S0, chunk: int):
     S_final [b, nh, hp, n] f32). See ``ssd_chunk_ref`` for the layouts."""
     if x.device.type == "cpu":
         return ssd_chunk_ref(x, dt, A, B, C, S0, chunk)
-    refuse_autograd("ssd_chunk", x, dt, A, B, C, S0)
+    refuse_autograd("ssd_chunk", x, dt, A, B, C, S0,
+                    why="ROADMAP.md queue 1 item 4(c) is open")
     b, l, nh, hp, g, n, Q = _check(x, dt, A, B, C, S0, chunk)
     code = _DTYPE_CODE[x.dtype]
     y = torch.empty((b, l, nh, hp), dtype=torch.float32, device=x.device)

@@ -65,8 +65,10 @@ def _one_hot(idx, n: int, dtype):
 
 
 def _route(p, cfg: ModelConfig, x):
-    """Router: returns (weights [T, k], expert ids [T, k], aux loss)."""
-    logits = x.float() @ p["router"]
+    """Router: returns (weights [T, k], expert ids [T, k], aux loss). f32
+    on the router's values, whatever its dtype (the train step's compute
+    copy is bf16: the reference's einsum promotes it to f32)."""
+    logits = x.float() @ p["router"].float()
     probs = torch.softmax(logits, dim=-1)
     top_p, top_i = torch.topk(probs, cfg.num_experts_per_tok, dim=-1)
     top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)

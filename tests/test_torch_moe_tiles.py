@@ -87,11 +87,17 @@ def _round_bf16(a):
 
 
 def tc_transliteration(x, sxe, sxc, wg, wu, swe, swd, E, C, D, F,
-                       shape=None):
+                       shape=None, dout=None):
     """y [E, C, F] as tc_kernel computes it. x, wg, wu are flat f32 arrays
     read through element strides (x unit along D, w along F); wu None is
-    moe_gemm, else moe_ffn_fused. ``shape`` forces a block shape."""
+    moe_gemm, else moe_ffn_fused. ``shape`` forces a block shape. With
+    ``dout`` [E, C, F] (fused only) it is K1, ``moe_ffn_fused_bwd``: the
+    same tile loop, the epilogue replaced; returns (dg, du, y), y the
+    forward's epilogue of the recomputed accumulators (the kernel's check
+    output), dg and du rounded to bf16 as the kernel stores them."""
     fused = wu is not None
+    bwd = dout is not None
+    assert fused or not bwd
     WM, WN, MT, NT, BK, STAGES = shape or SHAPES[(C <= SMALL_MAX_C, fused)]
     BF, BN, nw = WM * MT * 16, WN * NT * 8, 2 if fused else 1
     XPITCH, WPITCH = BK + 8, BF + 8
@@ -103,8 +109,12 @@ def tc_transliteration(x, sxe, sxc, wg, wu, swe, swd, E, C, D, F,
     chunks = -(-C // BN)
     Cc = -(-C // chunks)                  # rows per chunk, then whole n8
     Cc = -(-Cc // 8) * 8
-    assert Cc <= BN and BN * YPITCH <= SMEM
+    assert Cc <= BN and BN * YPITCH * (2 if bwd else 1) <= SMEM
     y = np.full(E * C * F, np.nan, np.float32)
+    if bwd:
+        dg = np.full(E * C * F, np.nan, np.float32)
+        du = np.full(E * C * F, np.nan, np.float32)
+        dflat = dout.reshape(-1)
     nk = -(-D // BK)
     lr, lm = LANES % 8, LANES // 8
 
@@ -183,6 +193,45 @@ def tc_transliteration(x, sxe, sxc, wg, wu, swe, swd, E, C, D, F,
                                     _mma(acc, av, bb[:, 2 * h],
                                          bb[:, 2 * h + 1])
 
+            if bwd:        # K1's epilogue: dout's tile rows in, dg over
+                gs, us = 0, BN * YPITCH          # them, du in a second tile
+                smem[:2 * BN * YPITCH] = np.nan
+                base = (e * C + c0) * F
+                for i in range(rows * (BF // 8)):
+                    r, c = i // (BF // 8), (i % (BF // 8)) * 8
+                    if f0 + c < F:
+                        src = base + r * F + f0 + c
+                        smem[gs + r * YPITCH + c:
+                             gs + r * YPITCH + c + 8] = dflat[src:src + 8]
+                for warp in range(WM * WN):
+                    wm, wn = warp % WM, warp // WM
+                    for j in range(NT):
+                        t = j * WN + wn
+                        if t * 8 >= rows:
+                            continue
+                        for mt in range(MT):
+                            for q in range(4):
+                                f = (wm * MT + mt) * 16 + G + (q >> 1) * 8
+                                c = t * 8 + TG * 2 + (q & 1)
+                                live = (c < rows) & (f0 + f < F)
+                                gv = accs[(warp, 0, mt, j)][live, q]
+                                uv = accs[(warp, 1, mt, j)][live, q]
+                                at = c[live] * YPITCH + f[live]
+                                g_, u_ = swiglu_bwd_np(gv, uv,
+                                                       smem[gs + at])
+                                smem[gs + at] = _round_bf16(g_)
+                                smem[us + at] = _round_bf16(u_)
+                                y[base + c[live] * F + f0 + f[live]] = \
+                                    gv / (1.0 + np.exp(-gv)) * uv
+                for i in range(rows * (BF // 8)):
+                    r, c = i // (BF // 8), (i % (BF // 8)) * 8
+                    if f0 + c < F:
+                        dst = base + r * F + f0 + c
+                        for out, off in ((dg, gs), (du, us)):
+                            out[dst:dst + 8] = smem[off + r * YPITCH + c:
+                                                    off + r * YPITCH + c + 8]
+                continue
+
             # epilogue: (f, c) -> ys[c][f], then whole 8-element rows out
             ys = smem                                    # the ring, reused
             for warp in range(WM * WN):
@@ -205,7 +254,19 @@ def tc_transliteration(x, sxe, sxc, wg, wu, swe, swd, E, C, D, F,
                 if f0 + c < F:
                     dst = (e * C + c0 + r) * F + f0 + c
                     y[dst:dst + 8] = ys[r * YPITCH + c:r * YPITCH + c + 8]
+    if bwd:
+        return (dg.reshape(E, C, F), du.reshape(E, C, F),
+                y.reshape(E, C, F))
     return y.reshape(E, C, F)
+
+
+def swiglu_bwd_np(g, u, d):
+    """K1's epilogue in f32, in the kernel's (and the reference's jaxpr's)
+    order."""
+    g, u, d = (np.asarray(t, np.float32) for t in (g, u, d))
+    s = np.float32(1) / (np.float32(1) + np.exp(-g))
+    w = d * u
+    return w * s + (g * w) * (s * (np.float32(1) - s)), (g * s) * d
 
 
 def _case(seed, E, C, D, F, row_pad=0, empty=()):
@@ -848,3 +909,317 @@ class TestInt8Rule:
         else:                                   # row stride 40: 8, not 16
             wg["q"] = torch.zeros((2, 16, 40), dtype=torch.int8)[:, :, :32]
         assert not MG.uses_int8(x, wg, wu)
+
+
+# ---------------------------------------------------------------------------
+# the backward: K1 (moe_ffn_fused_bwd, tc_kernel's tile loop with its
+# epilogue replaced) and K2 / K3 (moe_gemm_dx / moe_gemm_dw, namespace grad)
+# ---------------------------------------------------------------------------
+
+#: grad::dx_dispatch / dw_dispatch's instantiations: (kAT, kBT, NA, NB,
+#: kSum, kOutT, WM, WN, MT, NT, BK, S)
+GRAD_SHAPES = {"dx1": (False, False, 1, 1, False, True, 8, 2, 2, 10, 64, 3),
+               "dx2": (False, False, 2, 2, True, True, 8, 2, 1, 10, 32, 4),
+               "dw1": (True, True, 1, 1, False, False, 4, 2, 2, 8, 32, 3),
+               "dw2": (True, True, 1, 2, False, False, 4, 2, 2, 8, 32, 3)}
+
+
+def grad_transliteration(As, Bs, sae, sar, sbe, sbr, E, M, N, K, shape,
+                         bf16=False, order=None):
+    """The outputs of grad::gemm_kernel: out_j = A_j . B_j ([E, M, N], or
+    [E, N, M] for kOutT) from flat f32 arrays, A_j (M x K) at a + e*sae +
+    m*sar + k (kAT: + k*sar + m), B_j (K x N) at b + e*sbe + n*sbr + k
+    (kBT: + k*sbr + n). ``bf16`` rounds where the kernel does (kSum: each
+    set, then their f32 sum; every stored output). ``order``, a dict,
+    collects the k of each k16 step in the order it reaches each
+    accumulator tile."""
+    kAT, kBT, NA, NB, kSum, kOutT, WM, WN, MT, NT, BK, S = shape
+    BM, BN, NP = WM * MT * 16, WN * NT * 8, max(NA, NB)
+    APITCH, BPITCH = (BM if kAT else BK) + 8, (BN if kBT else BK) + 8
+    AEL, BEL = (BK if kAT else BM) * APITCH, (BK if kBT else BN) * BPITCH
+    STAGE = NA * AEL + NB * BEL
+    SMEM = S * STAGE
+    OPITCH = (BM if kOutT else BN) + 8
+    assert (BN if kOutT else BM) * OPITCH <= SMEM
+    nM, chunks = -(-M // BM), -(-N // BN)
+    Nc = -(-(-(-N // chunks)) // 8) * 8
+    nk = -(-K // BK)
+    R = _round_bf16 if bf16 else (lambda v: v)
+    outs = [np.full(E * M * N, np.nan, np.float32)
+            for _ in range(1 if kSum else NP)]
+    lr, lm = LANES % 8, LANES // 8
+    for e in range(E):
+        for bx in range(nM * chunks):
+            m0, n0 = (bx % nM) * BM, (bx // nM) * Nc
+            rows = min(Nc, N - n0)
+            rows8 = (rows + 7) & ~7
+            smem = np.full(SMEM, np.nan, np.float32)
+
+            def load_stage(kt):
+                st, k0 = (kt % S) * STAGE, kt * BK
+                for j in range(NA):
+                    src, dst0 = As[j], st + j * AEL
+                    for i in range(BM * BK // 8):
+                        if kAT:
+                            r, c = i // (BM // 8), (i % (BM // 8)) * 8
+                            ok = k0 + r < K and m0 + c < M
+                            off = e * sae + (k0 + r) * sar + m0 + c
+                        else:
+                            r, c = i // (BK // 8), (i % (BK // 8)) * 8
+                            ok = m0 + r < M and k0 + c < K
+                            off = e * sae + (m0 + r) * sar + k0 + c
+                        d = dst0 + r * APITCH + c
+                        smem[d:d + 8] = src[off:off + 8] if ok else 0.0
+                for j in range(NB):
+                    src, dst0 = Bs[j], st + NA * AEL + j * BEL
+                    if kBT:
+                        for i in range(BK * (BN // 8)):
+                            r, c = i // (BN // 8), (i % (BN // 8)) * 8
+                            if c >= rows8:
+                                continue
+                            ok = k0 + r < K and c < rows
+                            off = e * sbe + (k0 + r) * sbr + n0 + c
+                            d = dst0 + r * BPITCH + c
+                            smem[d:d + 8] = src[off:off + 8] if ok else 0.0
+                    else:
+                        for i in range(rows8 * (BK // 8)):
+                            r, c = i // (BK // 8), (i % (BK // 8)) * 8
+                            ok = r < rows and k0 + c < K
+                            off = e * sbe + (n0 + r) * sbr + k0 + c
+                            d = dst0 + r * BPITCH + c
+                            smem[d:d + 8] = src[off:off + 8] if ok else 0.0
+
+            accs = {}
+            for kt in range(min(S - 1, nk)):
+                load_stage(kt)
+            for kt in range(nk):
+                if kt + S - 1 < nk:
+                    load_stage(kt + S - 1)
+                st = (kt % S) * STAGE
+                for warp in range(WM * WN):
+                    wm, wn = warp % WM, warp // WM
+                    if kAT:
+                        a_lane = (lr + (lm >> 1) * 8) * APITCH \
+                            + wm * MT * 16 + (lm & 1) * 8
+                    else:
+                        a_lane = (wm * MT * 16 + lr + (lm & 1) * 8) \
+                            * APITCH + (lm >> 1) * 8
+                    if kBT:
+                        b_lane = ((lm & 1) * 8 + lr) * BPITCH \
+                            + ((lm >> 1) * WN + wn) * 8
+                    else:
+                        b_lane = (((lm >> 1) * WN + wn) * 8 + lr) \
+                            * BPITCH + (lm & 1) * 8
+                    for ks in range(BK // 16):
+                        af = {}
+                        for j in range(NA):
+                            for mt in range(MT):
+                                off = (ks * 16 * APITCH + mt * 16 if kAT
+                                       else mt * 16 * APITCH + ks * 16)
+                                af[j, mt] = _ldmatrix_x4(
+                                    smem, st + j * AEL + a_lane + off, kAT)
+                        for p in range(NT // 2):
+                            if (2 * p * WN + wn) * 8 >= rows:
+                                continue
+                            off = (ks * 16 * BPITCH + 2 * p * WN * 8 if kBT
+                                   else 2 * p * WN * 8 * BPITCH + ks * 16)
+                            bf = [_ldmatrix_x4(smem, st + NA * AEL + j * BEL
+                                               + b_lane + off, kBT)
+                                  for j in range(NB)]
+                            for h in range(2):
+                                jn = 2 * p + h
+                                if (jn * WN + wn) * 8 >= rows:
+                                    continue
+                                for w in range(NP):
+                                    for mt in range(MT):
+                                        key = (warp, w, mt, jn)
+                                        acc = accs.setdefault(
+                                            key, np.zeros((32, 4),
+                                                          np.float32))
+                                        bb = bf[min(w, NB - 1)]
+                                        _mma(acc, af[min(w, NA - 1), mt],
+                                             bb[:, 2 * h], bb[:, 2 * h + 1])
+                                        if order is not None:
+                                            order.setdefault(
+                                                (e, bx) + key, []).append(
+                                                kt * BK + ks * 16)
+
+            # epilogue: (m, n) -> the staged tile ([n][m] for kOutT), then
+            # whole 8-element rows; one output at a time
+            for w in range(len(outs)):
+                smem[:] = np.nan
+                for warp in range(WM * WN):
+                    wm, wn = warp % WM, warp // WM
+                    for j in range(NT):
+                        t = j * WN + wn
+                        if t * 8 >= rows:
+                            continue
+                        for mt in range(MT):
+                            for q in range(4):
+                                m = (wm * MT + mt) * 16 + G + (q >> 1) * 8
+                                n = t * 8 + TG * 2 + (q & 1)
+                                if kSum:
+                                    v = R(accs[(warp, 0, mt, j)][:, q]) + \
+                                        R(accs[(warp, 1, mt, j)][:, q])
+                                else:
+                                    v = accs[(warp, w, mt, j)][:, q]
+                                at = n * OPITCH + m if kOutT \
+                                    else m * OPITCH + n
+                                smem[at] = R(v)
+                out = outs[w]
+                if kOutT:
+                    for i in range(rows * (BM // 8)):
+                        r, c = i // (BM // 8), (i % (BM // 8)) * 8
+                        if m0 + c < M:
+                            d = (e * N + n0 + r) * M + m0 + c
+                            out[d:d + 8] = smem[r * OPITCH + c:
+                                                r * OPITCH + c + 8]
+                else:
+                    for i in range(min(BM, M - m0) * (BN // 8)):
+                        r, c = i // (BN // 8), (i % (BN // 8)) * 8
+                        if c < rows:
+                            d = (e * M + m0 + r) * N + n0 + c
+                            out[d:d + 8] = smem[r * OPITCH + c:
+                                                r * OPITCH + c + 8]
+    return [o.reshape((E, N, M) if kOutT else (E, M, N)) for o in outs]
+
+
+def dx_transliteration(dys, ws, shape=None, **kw):
+    """K2 as grad::dx_dispatch launches it: M = D (w_j by rows), N = C
+    (dy_j by rows), K = F; dx [E, C, D]."""
+    E, C, F = dys[0].shape
+    D = ws[0].shape[1]
+    shape = shape or GRAD_SHAPES[f"dx{len(dys)}"]
+    return grad_transliteration(
+        [w.reshape(-1) for w in ws], [dy.reshape(-1) for dy in dys],
+        D * F, F, C * F, F, E, D, C, F, shape, **kw)[0]
+
+
+def dw_transliteration(a, dys, shape=None, **kw):
+    """K3 as grad::dw_dispatch launches it: M = D, N = F, K = C, both
+    operands by rows of C; [dw_j [E, D, F]]."""
+    E, C, D = a.shape
+    F = dys[0].shape[2]
+    shape = shape or GRAD_SHAPES[f"dw{len(dys)}"]
+    return grad_transliteration(
+        [a.reshape(-1)], [dy.reshape(-1) for dy in dys], C * D, D, C * F, F,
+        E, D, F, C, shape, **kw)
+
+
+def _grad_case(seed, E, C, D, F, exact=False):
+    """dy_j [E, C, F], w_j [E, D, F] and a [E, C, D] as f32 numpy. exact:
+    multiples of 1/8 in [-1/2, 1/2], so every f32 sum of their products is
+    exact in any order and only the bf16 roundings can differ."""
+    rng = np.random.default_rng(seed)
+
+    def draw(*shape):
+        if exact:
+            return (rng.integers(-4, 5, shape) / 8).astype(np.float32)
+        return rng.standard_normal(shape).astype(np.float32)
+
+    return ([draw(E, C, F) for _ in range(2)],
+            [(draw(E, D, F) / (1 if exact else np.sqrt(D))).astype(np.float32)
+             for _ in range(2)],
+            draw(E, C, D))
+
+
+SMALL_GRAD = {"dx1": (False, False, 1, 1, False, True, 2, 2, 1, 2, 16, 3),
+              "dx2": (False, False, 2, 2, True, True, 2, 2, 1, 2, 32, 2),
+              "dw1": (True, True, 1, 1, False, False, 2, 2, 1, 2, 16, 3),
+              "dw2": (True, True, 1, 2, False, False, 2, 2, 1, 2, 16, 3)}
+
+
+@pytest.mark.parametrize("pairs", [1, 2])
+@pytest.mark.parametrize("E,C,D,F,small", [
+    (2, 9, 16, 24, False),      # C 9: a partial n8 tile; the kernel's shape
+    (1, 1, 8, 72, False),       # C 1, F off a 32/64-row stage
+    (2, 37, 40, 48, True),      # past the small tiles: 2 M-tiles, 2 chunks
+    (1, 70, 24, 16, True),      # C past two 32-row chunks of the small shape
+])
+def test_dx_transliteration_matches_plain(pairs, E, C, D, F, small):
+    dys, ws, _ = _grad_case(E * 13 + C, E, C, D, F)
+    dys, ws = dys[:pairs], ws[:pairs]
+    shape = SMALL_GRAD[f"dx{pairs}"] if small else None
+    got = dx_transliteration(dys, ws, shape)
+    want = MG.moe_gemm_dx_ref([torch.from_numpy(t) for t in dys],
+                              [torch.from_numpy(t) for t in ws]).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+@pytest.mark.parametrize("outs", [1, 2])
+@pytest.mark.parametrize("E,C,D,F,small", [
+    (2, 9, 16, 24, False),      # C 9: K3's reduction off a k16 step
+    (1, 1, 136, 8, False),      # C 1, D past one 128-row tile
+    (2, 37, 40, 48, True),      # C off 8 and off a 16-row stage, 2 x 2 tiles
+    (1, 3, 24, 72, True),
+])
+def test_dw_transliteration_matches_plain(outs, E, C, D, F, small):
+    dys, _, a = _grad_case(E * 17 + C, E, C, D, F)
+    dys = dys[:outs]
+    shape = SMALL_GRAD[f"dw{outs}"] if small else None
+    got = dw_transliteration(a, dys, shape)
+    want = MG.moe_gemm_dw_ref(torch.from_numpy(a),
+                              [torch.from_numpy(t) for t in dys])
+    assert len(got) == outs
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w.numpy(), **TOL)
+
+
+@pytest.mark.parametrize("kind", sorted(GRAD_SHAPES))
+def test_grad_k_order_and_bf16_rounding(kind):
+    """Every accumulator tile of K2 and K3 takes its k16 steps in
+    increasing k, each exactly once, with no split (K2 over F, K3 over C,
+    past a ragged end); and the kernels round where the plain versions do
+    (K2: each pair's product, then their f32 sum; K3: each output): on
+    inputs whose f32 sums are exact in any order, the transliteration with
+    bf16 rounding equals the plain version in bf16 bit for bit."""
+    two = kind.endswith("2")
+    dys, ws, a = _grad_case(len(kind) + two, 2, 21, 24, 40, exact=True)
+    dys, ws = dys[:1 + two], ws[:1 + two]
+    shape = SMALL_GRAD[kind]
+    order = {}
+    if kind.startswith("dx"):
+        got = [dx_transliteration(dys, ws, shape, bf16=True, order=order)]
+        want = [MG.moe_gemm_dx_ref(
+            [torch.from_numpy(t).bfloat16() for t in dys],
+            [torch.from_numpy(t).bfloat16() for t in ws])]
+        K = 40
+    else:
+        got = dw_transliteration(a, dys, shape, bf16=True, order=order)
+        want = MG.moe_gemm_dw_ref(torch.from_numpy(a).bfloat16(),
+                                  [torch.from_numpy(t).bfloat16()
+                                   for t in dys])
+        K = 21
+    BK = shape[10]
+    steps = list(range(0, -(-K // BK) * BK, 16))
+    assert order and all(ks == steps for ks in order.values())
+    for g, w in zip(got, want):
+        assert np.array_equal(g, w.float().numpy())
+
+
+def test_k1_recomputes_the_forward_and_matches_plain():
+    """K1 (tc_kernel's tile loop, its epilogue replaced): the forward's
+    output from its recomputed gate and up (the kernel's check output y)
+    equals the fused forward's transliteration bit for bit, at both block
+    shapes; dg and du, rounded to bf16 as the kernel stores them, equal
+    the plain backward's rounding of the same f32 values (within one bf16
+    step, where exp's last bit differs between numpy and torch)."""
+    for C, row_pad in ((9, 3), (161, 0)):
+        xb, wg, wu = _case(C, 2, C, 24, 40, row_pad, empty=(1,))
+        dout = np.random.default_rng(C).standard_normal(
+            (2, C, 40)).astype(np.float32)
+        E, _, D = xb.shape
+        flat = np.concatenate([xb.reshape(-1), np.zeros(8, np.float32)])
+        args = (flat[row_pad * D:], (C + row_pad) * D, D, wg.reshape(-1),
+                wu.reshape(-1), D * 40, 40, E, C, D, 40)
+        dg, du, y = tc_transliteration(*args, dout=dout)
+        assert np.array_equal(y, tc_transliteration(*args))
+        x = torch.from_numpy(xb[:, row_pad:])
+        pg, pu = MG.moe_ffn_fused_bwd_ref(x, torch.from_numpy(wg),
+                                          torch.from_numpy(wu),
+                                          torch.from_numpy(dout))
+        for got, want in ((dg, pg), (du, pu)):
+            want = want.numpy()
+            np.testing.assert_allclose(got, _round_bf16(want), rtol=2 ** -7,
+                                       atol=1e-6)
+        assert not dg[1].any() and not du[1].any()   # the empty expert

@@ -31,7 +31,9 @@
   10 steps then 10 resumed from the checkpoint equal 20 straight (its
   smoke config).
 * ``param_specs`` gives the reference's shapes and dtypes; the kernels
-  without a backward refuse to run under autograd off the CPU.
+  without a backward (and the expert kernels' int8-weight variant) refuse
+  to run under autograd off the CPU, and the expert kernels' bf16 route
+  reaches its ``torch.autograd.Function`` there instead.
 """
 
 import dataclasses
@@ -446,16 +448,23 @@ def _meta(*shape, grad=False):
     return torch.empty(shape, device="meta").requires_grad_(grad)
 
 
+def _meta_int8(E, D, F):
+    return {"q": torch.empty((E, D, F), dtype=torch.int8, device="meta"),
+            "s": torch.empty((E, 1, F), device="meta")}
+
+
 KERNELS = {
     "rglru_scan": lambda g: RS.rglru_scan(_meta(1, 4, 8, grad=g),
                                           _meta(1, 4, 8), _meta(1, 8)),
     "ssd_chunk": lambda g: SC.ssd_chunk(
         _meta(1, 4, 2, 8, grad=g), _meta(1, 4, 2), _meta(2),
         _meta(1, 4, 1, 4), _meta(1, 4, 1, 4), _meta(1, 2, 8, 4), 4),
-    "moe_gemm": lambda g: MG.moe_gemm(_meta(2, 4, 8), _meta(2, 8, 16,
-                                                            grad=g)),
+    # the expert kernels' int8-weight variant (their bf16 and f32 routes
+    # have a backward: test_expert_kernels_under_autograd_reach_their_function)
+    "moe_gemm": lambda g: MG.moe_gemm(_meta(2, 4, 8, grad=g),
+                                      _meta_int8(2, 8, 16)),
     "moe_ffn_fused": lambda g: MG.moe_ffn_fused(
-        _meta(2, 4, 8, grad=g), _meta(2, 8, 16), _meta(2, 8, 16)),
+        _meta(2, 4, 8, grad=g), _meta_int8(2, 8, 16), _meta_int8(2, 8, 16)),
     "decode_attention": lambda g: DA.decode_attention(
         _meta(1, 4, 16, grad=g), _meta(1, 2, 8, 16), _meta(1, 2, 8, 16),
         torch.empty(1, dtype=torch.int32, device="meta")),
@@ -475,3 +484,37 @@ def test_kernels_without_a_backward_refuse_autograd_off_the_cpu(name):
             KERNELS[name](True)
     with pytest.raises(ValueError, match="cpu or cuda"):
         KERNELS[name](False)
+
+
+@pytest.mark.parametrize("name", ["moe_gemm", "moe_ffn_fused"])
+def test_expert_kernels_under_autograd_reach_their_function(name,
+                                                            monkeypatch):
+    """bf16 weights off the CPU (``meta``) under autograd go through
+    ``MoEGemm`` / ``MoEFFNFused`` instead of refusing: the Function's
+    forward is the kernel's launch (which refuses the meta device), and
+    its output carries the Function's ``grad_fn``."""
+    def bf16(*shape):
+        return torch.empty(shape, dtype=torch.bfloat16,
+                           device="meta").requires_grad_(True)
+
+    def call():
+        if name == "moe_gemm":
+            return MG.moe_gemm(bf16(2, 4, 8), bf16(2, 8, 16))
+        return MG.moe_ffn_fused(bf16(2, 4, 8), bf16(2, 8, 16),
+                                bf16(2, 8, 16))
+
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        call()
+    launched = []
+
+    def launch(kernel, x, ws):
+        launched.append(kernel)
+        return torch.empty(x.shape[:2] + ws[0].shape[2:], dtype=x.dtype,
+                           device=x.device)
+
+    monkeypatch.setattr(MG, "_launch", launch)
+    out = call()
+    assert launched == [name]
+    assert type(out.grad_fn).__name__ == {
+        "moe_gemm": "MoEGemmBackward",
+        "moe_ffn_fused": "MoEFFNFusedBackward"}[name]
