@@ -76,9 +76,8 @@ Phases:
              (and, for the adapter products, the host µs a call); the
              int8-weight variant (``wgmma`` on TMA-fed int8 tiles): the
              ptxas lines of its kernels (no spill, no C7512) and their
-             HGMMA instructions (``cuobjdump -sass``, none fails), the bit
-             probe (``wgmma`` against ``mma.sync`` over 4096 k16 steps),
-             then ragged shapes (C 1-300, F 16-768, an empty expert,
+             HGMMA instructions (``cuobjdump -sass``, none fails), then
+             ragged shapes (C 1-300, F 16-768, an empty expert,
              strided x, a zero weight column) and mixtral's four expert
              shapes (gate/up and down, C 8 and 640), each output equal to
              the tensor-core variant's on ``as_weight(w)`` bit for bit,
@@ -125,18 +124,25 @@ Phases:
              kernels' device time from the profiler, by name);
              the expert kernels' backward (K1 ``moe_ffn_fused_bwd``, K2
              ``moe_gemm_dx`` on one pair and two, K3 ``moe_gemm_dw`` on
-             one output and two) against their plain versions at ragged
-             shapes (C 1-200, D 8-2056, F 8-136, C off 8 for K3; bf16 on
-             the tensor and the CUDA cores, f32), qwen3-moe's smoke shapes
-             in f32 (1e-5) and the training path's (E 128, C 160, D 2048,
-             F 768; bf16 rows within 2e-2 of their norm, the tensor-core
-             route asserted), K1's forward from its recomputed gate and
-             up equal to ``moe_ffn_fused``'s bit for bit, each timed eager
-             and by replay beside ``torch.bmm`` on the same products and
-             the bound in bytes and in operations; then, under autograd
-             on the card, the expert kernels' int8 and narrow variants,
-             rglru_scan, ssd_chunk and both decode kernels must refuse
-             (no backward kernel);
+             one output and two): the ptxas lines of K2's and K3's wgmma
+             kernels (no spill, no note that wgmma is serialized) and
+             their HGMMA instructions (none fails), the bit probe (every
+             ``wgmma`` shape and operand layout of the int8 variant, K2
+             and K3 against ``mma.sync`` over 4096 k16 steps: any
+             differing output fails), then against their plain versions
+             at ragged shapes (C 1-200, D 8-2056, F 8-136, C off 8 for
+             K3; bf16 on the tensor and the CUDA cores, f32), qwen3-moe's
+             smoke shapes in f32 (1e-5) and the training path's (E 128, C
+             160, D 2048, F 768; bf16 rows within 2e-2 of their norm, the
+             tensor-core route asserted), K1's forward from its
+             recomputed gate and up equal to ``moe_ffn_fused``'s bit for
+             bit, K2 and K3 by replay equal to eager, K2's rows 0-7 at C
+             160 to a C 8 call and K3's expert 0 at E 128 to that expert
+             alone, each timed eager and by replay beside ``torch.bmm`` on
+             the same products and the bound in bytes and in operations;
+             then, under autograd on the card, the expert kernels' int8
+             and narrow variants, rglru_scan, ssd_chunk and both decode
+             kernels must refuse (no backward kernel);
 3. serve   — ``repro_torch.launch.serve.serve`` through the northbound
              gateway: 4 sessions, 8 requests, 8 slots, max_len 2048;
 4. engine  — dense and paged engines, 8 slots with 512-1536-token prompts
@@ -1018,11 +1024,18 @@ def phase_moe_bwd_kernels(moe_cfg):
     160, D 2048, F 768; the tensor-core route asserted), each timed eager
     and by graph replay beside ``torch.bmm`` on the same products. bf16
     is held row by row within BWD_ROW of each row's norm, f32 within
-    F32_TOL."""
+    F32_TOL. First K2's and K3's build lines and the bit probe (their
+    wgmma shapes and layouts against mma.sync); at the train shapes also
+    bit for bit: K2 and K3 by graph replay == eager, K2's rows 0-7 of the
+    C 160 call == a C 8 call, K3's expert 0 of the E 128 call == that
+    expert alone at E 1."""
     import dataclasses
     import torch
     from repro_torch.configs import get_smoke_config
     from repro_torch.kernels.moe_gemm import moe_gemm as MG
+
+    log_grad_build()
+    i8_probe_line()
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(2718)
@@ -1135,6 +1148,7 @@ def phase_moe_bwd_kernels(moe_cfg):
         w["wcat"] = torch.cat([w["wg"], w["wu"]], dim=-1)
         w["dcat"] = torch.cat([w["dg"], w["du"]], dim=-1)
         sets.append(w)
+    check_grad_bits(sets[0])
     it = {"i": 0}
 
     def nxt():
@@ -1224,6 +1238,41 @@ def phase_moe_bwd_kernels(moe_cfg):
     return rows
 
 
+def check_grad_bits(w) -> None:
+    """K2 and K3 at the train shapes (``w``: a set of
+    ``phase_moe_bwd_kernels``' inputs with the kernels' dg and du), bit for
+    bit: a CUDA-graph replay == the eager call; K2's rows 0-7 of the C 160
+    call == a C 8 call (a row's bits do not depend on C); K3's expert 0 of
+    the E 128 call == that expert alone at E 1."""
+    import torch
+    from repro_torch.kernels.moe_gemm import moe_gemm as MG
+    pairs = {"down": ((w["dy"],), (w["wd"],), w["act"]),
+             "gate/up": ((w["dg"], w["du"]), (w["wg"], w["wu"]), w["x"])}
+    for what, (dys, ws, a) in pairs.items():
+        calls = {"moe_gemm_dx": lambda: [MG.moe_gemm_dx(dys, ws)],
+                 "moe_gemm_dw": lambda: MG.moe_gemm_dw(a, dys)}
+        for name, fn in calls.items():
+            eager, replay = fn(), graph_out(fn)
+            if not all(torch.equal(x, y) for x, y in zip(eager, replay)):
+                fail(f"{name} {what}: graph replay differs from the eager "
+                     f"call")
+        full = MG.moe_gemm_dx(dys, ws)
+        rows8 = MG.moe_gemm_dx([d[:, :8] for d in dys], ws)
+        if not torch.equal(full[:, :8], rows8):
+            fail(f"moe_gemm_dx {what}: rows 0-7 of the C {full.shape[1]} "
+                 f"call differ from a C 8 call in "
+                 f"{int((full[:, :8] != rows8).sum())} elements")
+        full = MG.moe_gemm_dw(a, dys)
+        alone = MG.moe_gemm_dw(a[:1], [d[:1] for d in dys])
+        if not all(torch.equal(f[:1], o) for f, o in zip(full, alone)):
+            fail(f"moe_gemm_dw {what}: expert 0 of the E {a.shape[0]} call "
+                 f"differs from that expert alone at E 1")
+    log("[kernels] moe_gemm_dx / moe_gemm_dw at the train shapes, bit for "
+        "bit: graph replay == eager; K2's rows 0-7 at C 160 == a C 8 call; "
+        "K3's expert 0 at E 128 == that expert alone at E 1 (down and "
+        "gate/up)")
+
+
 def check_refusals() -> None:
     """Under autograd on the card, the kernels with no backward raise
     (``build.refuse_autograd``) instead of returning an output with no
@@ -1309,28 +1358,68 @@ def log_i8_build() -> None:
 
 def i8_probe_line(steps: int = 4096) -> None:
     """The bit probe: one chain of ``steps`` k16 products in increasing k
-    as ``mma.sync.m16n8k16`` (the tensor-core variant's instruction) and as
-    ``wgmma`` (A in registers, A from shared memory, n8 and columns 0-7 of
-    n64), on bf16 operands whose rows span 2^-8 .. 2^8. Fails unless all
-    four are equal bit for bit: the int8 variant's output is held to the
-    tensor-core variant's on ``as_weight(w)`` bit for bit."""
+    as ``mma.sync.m16n8k16`` (the mma.sync kernels' instruction) and as
+    each ``wgmma`` shape and operand layout the wgmma kernels use
+    (``MG.PROBE_WAYS``: the int8 variant's A in registers and MN-major,
+    K2's n160 with A and B K-major, K3's n128 and n256 with A and B
+    MN-major), on bf16 operands whose rows span 2^-8 .. 2^8. Fails unless
+    every way equals ``mma.sync`` bit for bit: the int8 variant is held to
+    the tensor-core variant's bits on ``as_weight(w)``, and K2 and K3 to
+    their mma.sync design's."""
     import torch
     from repro_torch.kernels.moe_gemm import moe_gemm as MG
     gen = torch.Generator(device="cuda").manual_seed(26)
     a = (torch.randn((steps, 64, 16), generator=gen, device="cuda")
          * torch.exp2(torch.randint(-8, 9, (steps, 64, 1), generator=gen,
                                     device="cuda").float())).bfloat16()
-    b = torch.randn((steps, 64, 16), generator=gen, device="cuda").bfloat16()
+    b = torch.randn((steps, 256, 16), generator=gen, device="cuda").bfloat16()
     out = MG.i8_probe(a, b)
     torch.cuda.synchronize()
-    differ = [int((out[0] != out[i]).sum()) for i in (1, 2, 3)]
-    log(f"[kernels] moe_gemm int8 bit probe ({steps} k16 steps, 64 x 8 "
-        f"outputs): wgmma.m64n8k16 A in registers, A in shared memory, and "
-        f"columns 0-7 of wgmma.m64n64k16 differ from mma.sync.m16n8k16 in "
-        f"{differ[0]}, {differ[1]}, {differ[2]} of 512 outputs")
-    if any(differ):
+    differ = MG.probe_differ(out)
+    log(f"[kernels] moe_gemm bit probe ({steps} k16 steps, 64 rows): "
+        + "; ".join(f"{what} differs from mma.sync.m16n8k16 in {d} of "
+                    f"{64 * n}" for (what, n), d in zip(MG.PROBE_WAYS,
+                                                        differ)))
+    if any(differ) or bool(out[0].isnan().any()):
         fail("wgmma and mma.sync round differently: the int8 variant cannot "
-             "equal the tensor-core variant bit for bit")
+             "equal the tensor-core variant, nor K2 and K3 their mma.sync "
+             "design, bit for bit")
+
+
+def log_grad_build() -> None:
+    """ptxas registers, spills and notes of K2's and K3's kernels
+    (``wgrad::dx_kernel<...>`` / ``dw_kernel<...>``, one per instantiation)
+    and the HGMMA (wgmma) instructions ``cuobjdump -sass`` finds in each:
+    fails on a spill, a C75xx note that wgmma is serialized (C7512, C7515)
+    or a kernel with no HGMMA."""
+    import re
+    from repro_torch.kernels import build
+    name = re.compile(r"5wgrad9(d[xw])_kernelI(\w+?)EEv")
+    entry, seen = "", set()
+    for line in build.build_log("moe_gemm").splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        # a C75xx note names its kernel in the line
+        m = name.search(line if "C75" in line else entry)
+        if not m:
+            continue
+        label = f"{m.group(1)}_kernel<{m.group(2)}>"
+        if "serialized" in line or ("spill" in line
+                                    and " 0 bytes spill stores" not in line):
+            fail(f"moe_gemm {label}: {line.strip()[:200]}")
+        if "registers" in line or "spill" in line or "C75" in line:
+            seen.add(label)
+            log(f"[build] moe_gemm wgrad::{label}: {line.strip()[:150]}")
+    counts = {f"{m.group(1)}_kernel<{m.group(2)}>": v
+              for k, v in hgmma_counts("moe_gemm", name).items()
+              for m in [name.search(k)]}
+    log("[build] moe_gemm K2 / K3 HGMMA instructions (cuobjdump -sass): "
+        + ", ".join(f"{k} {v}" for k, v in sorted(counts.items()))
+        + " (ptxas reports the 168 registers a thread has at launch; "
+        "setmaxnreg then gives the consumers 232)")
+    if len(seen) != 4 or set(counts) != seen or not all(counts.values()):
+        fail(f"moe_gemm K2 / K3: four wgmma kernels with HGMMA instructions "
+             f"expected, built {sorted(seen)}, found {counts}")
 
 
 def graph_out(fn):
@@ -1352,9 +1441,10 @@ def graph_out(fn):
 
 def phase_int8_kernels(mx_cfg):
     """The int8-weight variant of the grouped GEMMs (``{q, s}`` weights as
-    ``models.quant`` makes them, bf16 x): its build lines and the bit
-    probe, then ragged edges (C 1, 9, 40, 161, 300; F 16, 80, 144; an
-    empty expert, strided x, a zero weight column), then mixtral-8x7b's
+    ``models.quant`` makes them, bf16 x): its build lines (the bit probe
+    ran in ``phase_moe_bwd_kernels``), then ragged edges (C 1, 9, 40,
+    161, 300; F 16, 80, 144; an empty expert, strided x, a zero weight
+    column), then mixtral-8x7b's
     expert shapes (gate/up E 8 D 4096 F 14336, down D 14336 F 4096; decode
     C 8 and a 2048-token prefill chunk's C 640). Every output equals the
     tensor-core variant's on ``as_weight(w)`` bit for bit, a CUDA-graph
@@ -1373,7 +1463,6 @@ def phase_int8_kernels(mx_cfg):
     from repro_torch.models.quant import as_weight, quantize_weight
 
     log_i8_build()
-    i8_probe_line()
 
     E, D, Fd = mx_cfg.num_experts, mx_cfg.d_model, mx_cfg.moe_d_ff
     dev = torch.device("cuda")
@@ -2489,7 +2578,8 @@ def log_profile(prof, name: str, wall_us: float, steps: int,
                         ("expert kernels", ("tc::tc_kernel<",
                                             "i8::kernel<")),
                         ("expert backward products (K2, K3)", (
-                            "grad::gemm_kernel<", "cc::gemm_kernel<")),
+                            "wgrad::dx_kernel<", "wgrad::dw_kernel<",
+                            "cc::gemm_kernel<")),
                         ("copies, casts and f32 products", (
                             "direct_copy_kernel_cuda",
                             "bfloat16_copy_kernel_cuda", "MulFunctor<float>")),

@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks of the kernels that feed wgmma from TMA:
-// mbarriers, TMA box loads, named barriers, setmaxnreg, the wgmma fences
-// and shared-memory descriptors, and cuTensorMapEncodeTiled through the
-// runtime. Included by a kernel source (build.py compiles each with -I
-// this directory and hashes this file with it).
+// mbarriers, TMA box loads and stores, named barriers, setmaxnreg, the
+// wgmma fences and shared-memory descriptors, and cuTensorMapEncodeTiled
+// through the runtime. Included by a kernel source (build.py compiles each
+// with -I this directory and hashes this file with it).
 //
 // Everything here sits in the anonymous namespace: each kernel library is
 // one translation unit, and nothing of it may bind to a symbol of another
@@ -70,6 +70,32 @@ __device__ __forceinline__ void tma_3d(uint32_t dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
       "r"(bar)
       : "memory");
+}
+// the box at `src` in shared memory to a 3-d map at coordinates (c0, c1,
+// c2), in this thread's current bulk group; elements past the tensor's
+// edges are not written
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+// closes this thread's current bulk group of TMA stores
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// until at most N of this thread's bulk groups still read shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+// until at most N of this thread's bulk groups are still incomplete
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
 }
 // this thread's shared-memory writes, visible to wgmma (the async proxy)
 __device__ __forceinline__ void fence_async() {

@@ -156,7 +156,7 @@
 //    * invariant: no split-K and no atomics; each output is one f32
 //      accumulator updated by one wgmma k16 step after another in
 //      increasing k, whatever C or the block shape. wgmma rounds each k16
-//      step as mma.sync.m16n8k16 does (the bit probe, probe_kernel:
+//      step as mma.sync.m16n8k16 does (the bit probe, wgrad::probe:
 //      chip_smoke.py runs it), so the output equals the bf16 variant's on
 //      as_weight(w) bit for bit, and a row's bits depend on D alone.
 //
@@ -185,26 +185,55 @@
 //    one or two 402.7 MB expert weights (0.12 ms each at 3.35 TB/s), so
 //    K1 0.294 ms (x, both weights, dout, dg, du), K2 0.155 / 0.284 ms
 //    (one / two pairs), K3 0.155 / 0.284 ms (one / two outputs); their
-//    products 64.4 GFLOP each, 0.065 ms at 989 TFLOP/s. A first design,
-//    right and simple (mma.sync, a cp.async ring; wgmma and TMA are a
-//    later redesign):
+//    products 64.4 GFLOP each, 0.065 ms at 989 TFLOP/s.
 //    * K1 is tc_kernel / grouped_kernel with kBwd: the fused forward's
 //      tile loop and block shapes, picked by C as the forward picks them,
 //      so g and u are the forward's accumulators bit for bit (its check
 //      output y, the forward's epilogue of them, equals moe_ffn_fused's);
 //      the epilogue brings dout's tile rows into the ring, writes dg over
 //      them and du into a second tile, both out as 16-byte rows.
-//    * K2 and K3 (namespace grad): one template over the operands'
-//      layouts; each operand is read in place along its contiguous axis
-//      (16-byte cp.async rows, zero fill past every edge) and a tile
-//      stored by rows of the reduction axis is read with ldmatrix.trans.
-//      K2 swaps as the forward does: M = D from the weight rows (each
-//      weight tile read once a launch: 8 x 2 warps, BM 256 / 128, BN 160
-//      covers C 160), N = C, the output written transposed. K3: M = D,
-//      N = F (128 x 128 tiles, 8 warps), K = C: both operands by rows of
-//      C. Each output is one f32 accumulator updated by k16 steps in
-//      increasing k (no split-K, no atomics): K3 sums over C in
-//      increasing c.
+//    * K2 and K3 (namespace wgrad) in i8's shape: blocks of 384 threads, a
+//      producer thread issuing TMA loads (zero fill past every edge) into
+//      mbarrier rings, two consumer warpgroups on wgmma (setmaxnreg 40 /
+//      232), no block barrier in the k loop. No operand is transposed in
+//      memory: each is loaded in place, 128-byte rows in the 128-byte
+//      swizzle, and read K-major or MN-major (the transpose bits). One
+//      block a unit (the hardware hands the units to the SMs as they free
+//      up; a persistent grid of one block an SM walking units b, b + 132,
+//      ... measured as fast for K2 on two pairs and slower for the other
+//      three: tools/moe_grad_ab.py). Each consumer casts its 64 rows once to
+//      bf16 into its own output tile and one thread stores it by TMA
+//      (cp.async.bulk.tensor), which runs on while the next tile's loads
+//      and products go, so the output (805 MB of two-output dw) streams
+//      out under the short k loops; the tile is written again after that
+//      store has read it (cp.async.bulk.wait_group.read).
+//      K2: M = D from the weight rows (A K-major), N = C (dy's rows, B
+//      K-major, 160 a chunk: qwen3-moe's C 160 is one), K = F. A unit is
+//      (128 rows of D, chunk, expert), D-tiles fastest, so each weight
+//      tile is read once a launch and the blocks that re-read one
+//      expert's dy run together; it streams one pair's stages of 64 rows
+//      of F (36 KB) through a ring of 5, pair 0's and then pair 1's. Two
+//      pairs are two accumulator sets (160 f32 a thread), each rounded to
+//      bf16, added in f32 and rounded again; the output written
+//      transposed ([c][d]). At the train shapes it loads the weights once
+//      (402.7 / 805.3 MB, one / two pairs) and dy 6 / 16 times, mostly
+//      from L2 (503 / 1007 MB); 768 / 2048 units, 5.8 / 15.5 a block on
+//      132 SMs.
+//      K3: M = D (a's columns, A MN-major), N = F (dy_j's columns, B
+//      MN-major, 256 a unit: one output of 256 or two of 128, 128 f32 a
+//      thread), K = C in chunks of 32 rows. A unit is (columns, expert)
+//      and its items its D-tiles of 128 rows: the unit's dy chunks stay
+//      in 5 slots (C <= 160) while a's chunks stream through a ring of 5
+//      past them. At the train shapes: dy read once (63 / 84 MB, two / one
+//      outputs), a 6 / 8 times (503 / 252 MB) where the mma.sync design
+//      loaded ~1.5 / ~1.0 GB; 768 / 1024 units, 5.8 / 7.8 a block.
+//      Invariant of both: no split-K and no atomics; each output is one
+//      f32 accumulator updated by one wgmma k16 step after another in
+//      increasing k (K3: over C in increasing c), cast once. The probe
+//      (wgrad::probe) holds every wgmma shape and layout used here to
+//      mma.sync.m16n8k16's bits, so the outputs are the first design's
+//      (mma.sync, the same k order) bit for bit, and a row's (K2) or an
+//      expert's (K3) bits do not depend on C or E.
 //    * f32, and bf16 shapes off that rule, run K1 on the CUDA-core
 //      template and K2 / K3 on a strided CUDA-core kernel (namespace cc:
 //      64 x 64 outputs a block, one fmaf per k in increasing k).
@@ -1012,66 +1041,6 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[80],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
-// --- the bit probe -----------------------------------------------------------
-
-// One warpgroup runs one chain of k16 products in increasing k four ways:
-// mma.sync.m16n8k16 (each warp its 16 rows, the tensor-core variant's
-// instruction), wgmma.m64n8k16 with A in registers (the same fragments),
-// wgmma.m64n8k16 with A from shared memory (MN-major, 128-byte swizzle, as
-// the kernel's bf16 tiles), and columns 0-7 of wgmma.m64n64k16 (A from
-// shared memory; B's rows 0-7 are the others' B). a [steps][64][16] (row m,
-// column k of each step), b [steps][64][16] (row n, column k), bf16;
-// out [4][64][8] f32, one [m][n] result each.
-__global__ void __launch_bounds__(128)
-probe_kernel(const bf16* __restrict__ a, const bf16* __restrict__ b,
-             float* __restrict__ out, int steps) {
-  __shared__ __align__(1024) unsigned char sa[16 * 128];
-  __shared__ __align__(1024) unsigned char sb[64 * 128];
-  const int t = threadIdx.x, wi = t >> 5, g = (t & 31) >> 2, tg = t & 3;
-  const uint32_t sa_addr = smem_addr(sa), sb_addr = smem_addr(sb);
-  float d_mma[4] = {}, d_rs[4] = {}, d_ss[4] = {}, d_64[32] = {};
-  for (int st = 0; st < steps; ++st) {
-    const bf16* as = a + static_cast<int64_t>(st) * 64 * 16;
-    const bf16* bs = b + static_cast<int64_t>(st) * 64 * 16;
-    for (int i = t; i < 64 * 16; i += 128) {
-      const int r = i >> 4, k = i & 15;    // A: (m r, k) at [k][m]
-      *reinterpret_cast<bf16*>(sa + k * 128 + (((r >> 3) ^ (k & 7)) << 4) +
-                               (r & 7) * 2) = as[i];
-      *reinterpret_cast<bf16*>(sb + r * 128 + (((k >> 3) ^ (r & 7)) << 4) +
-                               (k & 7) * 2) = bs[i];
-    }
-    fence_async();
-    __syncthreads();
-    const auto pair = [](const bf16* p) {
-      return *reinterpret_cast<const uint32_t*>(p);
-    };
-    const int m = 16 * wi + g;
-    const uint32_t af[4] = {pair(as + m * 16 + 2 * tg),
-                            pair(as + (m + 8) * 16 + 2 * tg),
-                            pair(as + m * 16 + 2 * tg + 8),
-                            pair(as + (m + 8) * 16 + 2 * tg + 8)};
-    tc::mma16816(d_mma, af, pair(bs + g * 16 + 2 * tg),
-                 pair(bs + g * 16 + 2 * tg + 8));
-    wg_fence();
-    wgmma_rs(d_rs, af, desc_x<64>(sb_addr, 0, 0));
-    wgmma_ss(d_ss, desc_a(sa_addr, 0), desc_x<64>(sb_addr, 0, 0));
-    wgmma_ss(d_64, desc_a(sa_addr, 0), desc_x<64>(sb_addr, 0, 0));
-    wg_commit();
-    wg_wait<0>();
-    keep(d_rs);
-    keep(d_ss);
-    keep(d_64);
-    __syncthreads();
-  }
-  for (int q = 0; q < 4; ++q) {
-    const int at = (16 * wi + g + 8 * (q >> 1)) * 8 + 2 * tg + (q & 1);
-    out[at] = d_mma[q];
-    out[512 + at] = d_rs[q];
-    out[1024 + at] = d_ss[q];
-    out[1536 + at] = d_64[q];
-  }
-}
-
 // --- the kernel --------------------------------------------------------------
 
 // Shared memory of one block (bytes from a 1024-aligned base): the ring of
@@ -1586,293 +1555,169 @@ int dispatch(const void* x, long long sxe, long long sxc, const void* w,
 
 // ---------------------------------------------------------------------------
 // the backward's products, K2 (moe_gemm_dx) and K3 (moe_gemm_dw), on the
-// tensor cores (bf16)
+// tensor cores (bf16): wgmma fed by TMA, outputs stored by TMA
 // ---------------------------------------------------------------------------
 
-namespace grad {
+namespace wgrad {
 
-using tc::bf16;
+typedef __nv_bfloat16 bf16;
 
-// out[e] (M x N) = A[e] (M x K) . B[e] (K x N), mma.sync.m16n8k16 (bf16 in,
-// f32 accumulate) on tiles that a cp.async ring brings in. Each operand is
-// read in place along whichever axis is contiguous: A by rows of M (kAT
-// false: A[m][k] at a + m * sar + k) or of K (kAT true: at a + k * sar +
-// m); B by rows of N (kBT false: B[k][n] at b + n * sbr + k) or of K (kBT
-// true: at b + k * sbr + n). A tile stored by rows of K is read with the
-// .trans ldmatrix. NA / NB tiles of A / B a stage; NP = max(NA, NB)
-// accumulator sets, set j on A[min(j, NA - 1)] and B[min(j, NB - 1)].
-//   K2 (kSum, kOutT): dx [E, C, D] = sum_j dy_j [E, C, F] . w_j^T with
-//     w_j [E, D, F]: M = D (w_j by rows of M), N = C (dy_j by rows of N),
-//     K = F; written transposed ([n][m]); two pairs are two sets, each
-//     rounded to bf16, added in f32 and rounded again.
-//   K3: dw_j [E, D, F] = a^T . dy_j with a [E, C, D], dy_j [E, C, F]:
-//     M = D, N = F, K = C (both by rows of K); one or two outputs that
-//     share a (NA 1).
-struct Args {
-  const bf16* a[2];
-  const bf16* b[2];
-  bf16* out[2];
-  long long sae, sar, sbe, sbr;
-  int M, N, K;
-  int nM, Nc;      // M-tiles of a block row; live N of a chunk (launcher)
-};
+constexpr int kThreads = 384;      // a producer warpgroup, two consumer ones
+constexpr int kProducerRegs = 40;  // setmaxnreg: 128 x 40 + 256 x 232 =
+constexpr int kConsumerRegs = 232; // 64512 of the SM's 65536
+constexpr int kBM = 128;           // M rows of an item: 64 a consumer
 
-template <bool kAT, bool kBT, int NA, int NB, bool kSum, bool kOutT, int WM,
-          int WN, int MT, int NT, int BK, int S>
-struct Tile {
-  static constexpr int kThreads = WM * WN * 32;
-  static constexpr int BM = WM * MT * 16;
-  static constexpr int BN = WN * NT * 8;
-  static constexpr int NP = NA > NB ? NA : NB;
-  static constexpr int kAPitch = (kAT ? BM : BK) + 8;   // elements
-  static constexpr int kBPitch = (kBT ? BN : BK) + 8;
-  static constexpr int kAElems = (kAT ? BK : BM) * kAPitch;
-  static constexpr int kBElems = (kBT ? BK : BN) * kBPitch;
-  static constexpr size_t kStageBytes =
-      sizeof(bf16) * (NA * kAElems + NB * kBElems);
-  static constexpr size_t kSmemBytes = S * kStageBytes;
-  static constexpr int kOPitch = (kOutT ? BM : BN) + 8;  // staged output
-  static_assert(NT % 2 == 0 && BK % 16 == 0 && S >= 2, "tile shape");
-  static_assert(!kSum || (NA == 2 && NB == 2), "K2 sums two pairs");
-  static_assert(sizeof(bf16) * (kOutT ? BN : BM) * kOPitch <= kSmemBytes,
-                "the output tile fits the ring");
-  static_assert(kSmemBytes <= 232448 && kStageBytes % 16 == 0,
-                "a block's shared memory, 16-byte stages");
-};
+// The kept design; tools/moe_grad_ab.py times each choice undone.
+constexpr int kDwDepth = 32;        // K3: rows of C a chunk
+constexpr int kDwRing = 5;          // K3: chunks of a in the ring
+constexpr int kDwSlots = 5;         // K3: chunks of dy held (C <= 160 stays)
+constexpr int kDxDepth = 64;        // K2: rows of F a stage
+constexpr int kDxRing = 5;          // K2: stages in the ring
 
-// Grid: (M-tile + nM * N-chunk, expert); chunk ch holds N [ch * Nc,
-// min(N, (ch + 1) * Nc)), Nc <= BN a multiple of 8. As in tc_kernel: the
-// n8 tiles of a warp are dealt round-robin and a tile with no live row is
-// skipped; each output is one f32 accumulator updated by k16 steps in
-// increasing k (no split-K, no atomics), so its bits depend on K alone.
-template <bool kAT, bool kBT, int NA, int NB, bool kSum, bool kOutT, int WM,
-          int WN, int MT, int NT, int BK, int S>
-__global__ void __launch_bounds__(WM * WN * 32, 1)
-gemm_kernel(const Args g) {
-  using L = Tile<kAT, kBT, NA, NB, kSum, kOutT, WM, WN, MT, NT, BK, S>;
-  constexpr int BM = L::BM, NP = L::NP;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp % WM, wn = warp / WM;
-  const int m0 = (blockIdx.x % g.nM) * BM;
-  const int n0 = (blockIdx.x / g.nM) * g.Nc;
-  const int64_t e = blockIdx.y;
-  const int rows = min(g.Nc, g.N - n0);        // live N of this block
-  const int rows8 = (rows + 7) & ~7;
-  const int nk = (g.K + BK - 1) / BK;
-
-  constexpr uint32_t kEl = sizeof(bf16);
-  const uint32_t sbase = tc::smem_addr(smem);
-  const auto stage_addr = [&](int kt) {
-    return sbase + static_cast<uint32_t>((kt % S) * L::kStageBytes);
-  };
-
-  // one ring stage: NA tiles of A, then NB tiles of B, zeros past M, N and
-  // K (columns of N past rows8 are never read into a product)
-  auto load_stage = [&](int kt) {
-    const uint32_t st = stage_addr(kt);
-    const int k0 = kt * BK;
-#pragma unroll
-    for (int j = 0; j < NA; ++j) {
-      const bf16* src = g.a[j] + e * g.sae;
-      const uint32_t dst = st + j * L::kAElems * kEl;
-      if constexpr (kAT) {
-        for (int i = tid; i < BK * (BM / 8); i += L::kThreads) {
-          const int r = i / (BM / 8), c = (i % (BM / 8)) * 8;
-          const bool ok = k0 + r < g.K && m0 + c < g.M;
-          tc::cp_async16(dst + (r * L::kAPitch + c) * kEl,
-                         ok ? src + (k0 + r) * g.sar + m0 + c : src, ok);
-        }
-      } else {
-        for (int i = tid; i < BM * (BK / 8); i += L::kThreads) {
-          const int r = i / (BK / 8), c = (i % (BK / 8)) * 8;
-          const bool ok = m0 + r < g.M && k0 + c < g.K;
-          tc::cp_async16(dst + (r * L::kAPitch + c) * kEl,
-                         ok ? src + (m0 + r) * g.sar + k0 + c : src, ok);
-        }
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < NB; ++j) {
-      const bf16* src = g.b[j] + e * g.sbe;
-      const uint32_t dst = st + (NA * L::kAElems + j * L::kBElems) * kEl;
-      if constexpr (kBT) {
-        for (int i = tid; i < BK * (L::BN / 8); i += L::kThreads) {
-          const int r = i / (L::BN / 8), c = (i % (L::BN / 8)) * 8;
-          if (c >= rows8) continue;
-          const bool ok = k0 + r < g.K && c < rows;
-          tc::cp_async16(dst + (r * L::kBPitch + c) * kEl,
-                         ok ? src + (k0 + r) * g.sbr + n0 + c : src, ok);
-        }
-      } else {
-        for (int i = tid; i < rows8 * (BK / 8); i += L::kThreads) {
-          const int r = i / (BK / 8), c = (i % (BK / 8)) * 8;
-          const bool ok = r < rows && k0 + c < g.K;
-          tc::cp_async16(dst + (r * L::kBPitch + c) * kEl,
-                         ok ? src + (n0 + r) * g.sbr + k0 + c : src, ok);
-        }
-      }
-    }
-  };
-
-  float acc[NP][MT][NT][4];
-#pragma unroll
-  for (int w = 0; w < NP; ++w)
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[w][mt][j][q] = 0.f;
-
-  // ldmatrix lane roles: lane supplies row (lane & 7) of matrix lane >> 3.
-  // A (16 x 16 of m by k): matrices (m 0-7 | 8-15) x (k 0-7 | 8-15) in the
-  // order of the m16n8k16 A fragment; B (two n8 tiles 2p, 2p + 1 of k16):
-  // (tile 2p | 2p + 1) x (k 0-7 | 8-15).
-  const int lr = lane & 7, lm = lane >> 3;
-  const uint32_t a_lane =
-      kAT ? ((lr + (lm >> 1) * 8) * L::kAPitch + wm * MT * 16 + (lm & 1) * 8)
-                * kEl
-          : ((wm * MT * 16 + lr + (lm & 1) * 8) * L::kAPitch + (lm >> 1) * 8)
-                * kEl;
-  const uint32_t b_lane =
-      kBT ? (((lm & 1) * 8 + lr) * L::kBPitch + ((lm >> 1) * WN + wn) * 8)
-                * kEl
-          : ((((lm >> 1) * WN + wn) * 8 + lr) * L::kBPitch + (lm & 1) * 8)
-                * kEl;
-
-#pragma unroll
-  for (int s = 0; s < S - 1; ++s) {
-    if (s < nk) load_stage(s);
-    tc::cp_commit();
-  }
-  for (int kt = 0; kt < nk; ++kt) {
-    tc::cp_wait<S - 2>();            // stage kt has landed (this thread's)
-    __syncthreads();                 // ... everyone's; slot kt-1 is free
-    if (kt + S - 1 < nk) load_stage(kt + S - 1);
-    tc::cp_commit();
-    const uint32_t st = stage_addr(kt);
-    const uint32_t bt = st + NA * L::kAElems * kEl;
-#pragma unroll
-    for (int ks = 0; ks < BK / 16; ++ks) {
-      uint32_t af[NA][MT][4];
-#pragma unroll
-      for (int j = 0; j < NA; ++j)
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          const uint32_t at = st + j * L::kAElems * kEl + a_lane;
-          if constexpr (kAT)
-            tc::ldsm_x4_t(at + (ks * 16 * L::kAPitch + mt * 16) * kEl,
-                          af[j][mt]);
-          else
-            tc::ldsm_x4(at + (mt * 16 * L::kAPitch + ks * 16) * kEl,
-                        af[j][mt]);
-        }
-#pragma unroll
-      for (int p = 0; p < NT / 2; ++p) {
-        if ((2 * p * WN + wn) * 8 >= rows) continue;
-        uint32_t bf[NB][4];
-#pragma unroll
-        for (int j = 0; j < NB; ++j) {
-          const uint32_t b0 = bt + j * L::kBElems * kEl + b_lane;
-          if constexpr (kBT)
-            tc::ldsm_x4_t(b0 + (ks * 16 * L::kBPitch + 2 * p * WN * 8) * kEl,
-                          bf[j]);
-          else
-            tc::ldsm_x4(b0 + (2 * p * WN * 8 * L::kBPitch + ks * 16) * kEl,
-                        bf[j]);
-        }
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int jn = 2 * p + h;
-          if ((jn * WN + wn) * 8 >= rows) continue;
-#pragma unroll
-          for (int w = 0; w < NP; ++w)
-#pragma unroll
-            for (int mt = 0; mt < MT; ++mt)
-              tc::mma16816(acc[w][mt][jn], af[w < NA ? w : 0][mt],
-                           bf[w < NB ? w : 0][2 * h],
-                           bf[w < NB ? w : 0][2 * h + 1]);
-        }
-      }
-    }
-  }
-  tc::cp_wait<0>();
-  __syncthreads();                   // the ring is free for the output tile
-
-  // epilogue: accumulator (m, n) -> the staged tile in bf16 ([n][m] for
-  // K2, [m][n] for K3), then 16-byte rows; one output at a time
-  bf16* os = smem;
-  const int qg = lane >> 2, qt = lane & 3;
-#pragma unroll
-  for (int w = 0; w < (kSum ? 1 : NP); ++w) {
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int t = j * WN + wn;
-      if (t * 8 >= rows) continue;
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int m = (wm * MT + mt) * 16 + qg + (q >> 1) * 8;
-          const int n = t * 8 + qt * 2 + (q & 1);
-          float v = acc[w][mt][j][q];
-          if constexpr (kSum)
-            v = round_to(acc[0][mt][j][q], os) +
-                round_to(acc[1][mt][j][q], os);
-          os[kOutT ? n * L::kOPitch + m : m * L::kOPitch + n] =
-              __float2bfloat16(v);
-        }
-    }
-    __syncthreads();
-    if constexpr (kOutT) {           // out [E][N][M]: rows of M
-      bf16* oe = g.out[w] + (e * g.N + n0) * g.M;
-      for (int i = tid; i < rows * (BM / 8); i += L::kThreads) {
-        const int r = i / (BM / 8), c = (i % (BM / 8)) * 8;
-        if (m0 + c < g.M)
-          *reinterpret_cast<uint4*>(oe + static_cast<int64_t>(r) * g.M + m0 +
-                                    c) =
-              *reinterpret_cast<const uint4*>(os + r * L::kOPitch + c);
-      }
-    } else {                         // out [E][M][N]: rows of N
-      const int mrows = min(BM, g.M - m0);
-      bf16* oe = g.out[w] + (e * g.M + m0) * g.N + n0;
-      for (int i = tid; i < mrows * (L::BN / 8); i += L::kThreads) {
-        const int r = i / (L::BN / 8), c = (i % (L::BN / 8)) * 8;
-        if (c < rows)
-          *reinterpret_cast<uint4*>(oe + static_cast<int64_t>(r) * g.N + c) =
-              *reinterpret_cast<const uint4*>(os + r * L::kOPitch + c);
-      }
-    }
-    __syncthreads();
-  }
+// d (m64n160, f32) += A . B: A (64 x 16) and B (16 x 160) K-major bf16 in
+// shared memory, 128-byte swizzle (K2)
+__device__ __forceinline__ void wgmma_kk(float (&d)[80], uint64_t a,
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %82, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63,"
+      " %64, %65, %66, %67, %68, %69, %70, %71,"
+      " %72, %73, %74, %75, %76, %77, %78, %79}, "
+      "%80, %81, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
+      : "l"(a), "l"(b), "r"(1));
 }
 
-template <bool kAT, bool kBT, int NA, int NB, bool kSum, bool kOutT, int WM,
-          int WN, int MT, int NT, int BK, int S>
-int launch(Args g, int E, cudaStream_t st) {
-  using L = Tile<kAT, kBT, NA, NB, kSum, kOutT, WM, WN, MT, NT, BK, S>;
-  auto kern = gemm_kernel<kAT, kBT, NA, NB, kSum, kOutT, WM, WN, MT, NT, BK,
-                          S>;
-  static bool configured = false;    // once per instantiation
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(L::kSmemBytes));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    configured = true;
-  }
-  g.nM = (g.M + L::BM - 1) / L::BM;
-  const int chunks = (g.N + L::BN - 1) / L::BN;
-  g.Nc = ((g.N + chunks - 1) / chunks + 7) / 8 * 8;       // <= BN
-  kern<<<dim3(g.nM * chunks, E), L::kThreads, L::kSmemBytes, st>>>(g);
-  return static_cast<int>(cudaGetLastError());
+// d (m64n128, f32) += A . B: A (64 x 16) and B (16 x 128) MN-major bf16
+// in shared memory (both transpose bits), 128-byte swizzle (K3, two outputs)
+__device__ __forceinline__ void wgmma_tt(float (&d)[64], uint64_t a,
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// d (m64n256, f32) += A . B: A (64 x 16) and B (16 x 256) MN-major bf16
+// in shared memory (both transpose bits), 128-byte swizzle (K3, one output)
+__device__ __forceinline__ void wgmma_tt(float (&d)[128], uint64_t a,
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63,"
+      " %64, %65, %66, %67, %68, %69, %70, %71,"
+      " %72, %73, %74, %75, %76, %77, %78, %79,"
+      " %80, %81, %82, %83, %84, %85, %86, %87,"
+      " %88, %89, %90, %91, %92, %93, %94, %95,"
+      " %96, %97, %98, %99, %100, %101, %102, %103,"
+      " %104, %105, %106, %107, %108, %109, %110, %111,"
+      " %112, %113, %114, %115, %116, %117, %118, %119,"
+      " %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// byte offset of element (row r, column c) of a tile of 128-byte rows (64
+// bf16) in the 128-byte swizzle, from a 1024-aligned base
+__device__ __forceinline__ uint32_t sw128(int r, int c) {
+  return r * 128 + ((((c >> 3) ^ r) & 7) << 4) + (c & 7) * 2;
 }
 
 // The tensor-core rule of K2 and K3: D and F multiples of 8, every stride
-// a multiple of 8 elements, every base 16-byte aligned.
+// a multiple of 8 elements (TMA's 16-byte strides), every base 16-byte
+// aligned.
 bool takes(int E, int C, int D, int F,
            std::initializer_list<long long> strides,
            std::initializer_list<const void*> ptrs) {
@@ -1885,10 +1730,435 @@ bool takes(int E, int C, int D, int F,
   return true;
 }
 
-// K2: 16 warps, 8 along D by 2 along C, each 2 (one pair) or 1 (two pairs)
-// m16 tiles by 10 n8 tiles: BM 256 / 128, BN 160, so C 160 is one chunk and
-// each weight tile is read once a launch; rings of 3 x 64 / 4 x 32 rows of
-// F (180 / 184 KB).
+// the bf16 map of a [E][n1][n0] tensor (element strides s1, s2, unit along
+// n0): boxes of b0 x b1 x 1, 128-byte swizzle, zeros past the edges
+bool map_bf16(CUtensorMap* map, EncodeTiled encode, const void* p,
+              int64_t n0, int64_t n1, int E, int64_t s1, int64_t s2, int b0,
+              int b1) {
+  return i8::make_map(map, encode, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, p, n0,
+                      n1, E, 2 * s1, 2 * s2, b0, b1,
+                      CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// --- K3 --------------------------------------------------------------------
+
+// dw_j [E, M, N] = a [E, K, M]^T . dy_j [E, K, N] (M = D, N = F, K = C) for
+// NO outputs that share a. A unit is (BN columns of every output, expert);
+// its items are its M-tiles of 128 rows, in order.
+// Shared memory (from a 1024-aligned base): the A ring of SA chunks
+// [2][BK][64] (BK rows of K by the item's 128 columns of M: A MN-major);
+// the B slots, SB chunks [NT / 64][BK][64] (BK rows of K by the unit's BN
+// columns of each output: B MN-major); the two consumers' output tiles
+// [NT / 64][64][64] (64 rows of M by the unit's columns); the mbarriers.
+// Every tile has 128-byte rows in the 128-byte swizzle, as TMA writes and
+// reads them.
+template <int NO, int BN, int BK, int SA, int SB>
+struct DwSmem {
+  static constexpr int NT = NO * BN;                     // B columns
+  static constexpr uint32_t kA = 2 * BK * 128;           // an A chunk
+  static constexpr uint32_t kB = (NT / 64) * BK * 128;   // a B chunk
+  static constexpr uint32_t kOut = (NT / 64) * 8192;     // a consumer's
+  static constexpr uint32_t kBOff = SA * kA;
+  static constexpr uint32_t kOutOff = kBOff + SB * kB;
+  static constexpr uint32_t kBar = kOutOff + 2 * kOut;
+  static constexpr size_t kAlloc = kBar + 16 * (SA + SB) + 1024;
+  static_assert(BK % 16 == 0 && BN % 64 == 0 && NT <= 256, "tile shape");
+  static_assert(kAlloc <= 232448, "a block's shared memory");
+};
+
+// Block b walks units b, b + gridDim.x, ... (one, as launched; unit u:
+// columns (u % nN) BN, expert u / nN). The producer thread loads each
+// item's A chunks into the ring and, for the unit's first item, its B
+// chunks into the slots, which then stay for every item of the unit
+// (while the K chunks fit the SB slots; past that B streams through them
+// like A, item by item). Consumer
+// cw computes rows 64 cw .. 64 cw + 63 of the item by every column: one
+// m64nBNk16 wgmma an output a k16 step, in increasing k. A chunk's slots go
+// back once the next chunk's products are issued and its own have
+// completed; the unit's B slots after its last item's. The epilogue casts
+// the accumulators once to bf16 into the consumer's output tile and one
+// thread stores it by TMA, which runs on while the next item's products
+// go; the tile is written again only after that store has read it.
+template <int NO, int BN, int BK, int SA, int SB>
+__global__ void __launch_bounds__(kThreads, 1)
+dw_kernel(const __grid_constant__ CUtensorMap tm_a,
+          const __grid_constant__ CUtensorMap tm_b0,
+          const __grid_constant__ CUtensorMap tm_b1,
+          const __grid_constant__ CUtensorMap tm_o0,
+          const __grid_constant__ CUtensorMap tm_o1, int K, int M, int N,
+          int nM, int nN, int units) {
+  using L = DwSmem<NO, BN, BK, SA, SB>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t bars = base + L::kBar;
+  const auto full_a = [&](int s) { return bars + 8 * s; };
+  const auto empty_a = [&](int s) { return bars + 8 * (SA + s); };
+  const auto full_b = [&](int s) { return bars + 8 * (2 * SA + s); };
+  const auto empty_b = [&](int s) { return bars + 8 * (2 * SA + SB + s); };
+
+  const int tid = threadIdx.x;
+  const int nk = (K + BK - 1) / BK;
+  const bool resident = nk <= SB;
+  if (tid == 0) {
+    for (int s = 0; s < SA; ++s) {
+      mbar_init(full_a(s), 1);               // the producer's expect_tx
+      mbar_init(empty_a(s), 256);            // every consumer thread
+    }
+    for (int s = 0; s < SB; ++s) {
+      mbar_init(full_b(s), 1);
+      mbar_init(empty_b(s), 256);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid < 128) {
+    // ---- producer: one thread issues every copy ---------------------------
+    regs_dec<kProducerRegs>();
+    if (tid == 0) {
+      int ia = 0, ib = 0;                    // A and B chunks issued
+      for (int u = blockIdx.x; u < units; u += gridDim.x) {
+        const int n0 = (u % nN) * BN, e = u / nN;
+        for (int i = 0; i < nM; ++i)
+          for (int kt = 0; kt < nk; ++kt, ++ia) {
+            const int sa = ia % SA;
+            mbar_wait(empty_a(sa), ((ia / SA) & 1) ^ 1);
+            const uint32_t at = base + sa * L::kA;
+            mbar_arrive_tx(full_a(sa), L::kA);
+            tma_3d(at, &tm_a, i * kBM, kt * BK, e, full_a(sa));
+            tma_3d(at + BK * 128, &tm_a, i * kBM + 64, kt * BK, e,
+                   full_a(sa));
+            if (resident && i > 0) continue;
+            const int sb = ib % SB;
+            mbar_wait(empty_b(sb), ((ib / SB) & 1) ^ 1);
+            const uint32_t bt = base + L::kBOff + sb * L::kB;
+            mbar_arrive_tx(full_b(sb), L::kB);
+#pragma unroll
+            for (int c = 0; c < L::NT / 64; ++c)
+              tma_3d(bt + c * BK * 128, c < BN / 64 ? &tm_b0 : &tm_b1,
+                     n0 + 64 * (c % (BN / 64)), kt * BK, e, full_b(sb));
+            ++ib;
+          }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers -----------------------------------------------------------
+  regs_inc<kConsumerRegs>();
+  const int cw = tid / 128 - 1, t = tid & 127;
+  const int wi = t >> 5, g = (t & 31) >> 2, tg = t & 3;
+  const uint32_t ot = base + L::kOutOff + cw * L::kOut;
+  unsigned char* os = smem + L::kOutOff + cw * L::kOut;
+  const auto release = [&](int sa, int sb) {
+    mbar_arrive(empty_a(sa));
+    if (sb >= 0) mbar_arrive(empty_b(sb));
+  };
+  float acc[NO][BN / 2];
+  int ia = 0, ib = 0;                        // A and B chunks consumed
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    const int n0 = (u % nN) * BN, e = u / nN;
+    for (int i = 0; i < nM; ++i) {
+#pragma unroll
+      for (int j = 0; j < NO; ++j)
+#pragma unroll
+        for (int q = 0; q < BN / 2; ++q) acc[j][q] = 0.f;
+      int last_a = -1, last_b = -1;          // the previous chunk's slots
+      for (int kt = 0; kt < nk; ++kt, ++ia) {
+        const int jb = ib + (resident ? kt : i * nk + kt);
+        const int sa = ia % SA, sb = jb % SB;
+        mbar_wait(full_a(sa), (ia / SA) & 1);
+        mbar_wait(full_b(sb), (jb / SB) & 1);
+        const uint32_t at = base + sa * L::kA + cw * BK * 128;
+        const uint32_t bt = base + L::kBOff + sb * L::kB;
+        wg_fence();
+#pragma unroll
+        for (int ks = 0; ks < BK / 16; ++ks)
+#pragma unroll
+          for (int j = 0; j < NO; ++j)
+            wgmma_tt(acc[j], desc(at + ks * 2048, BK * 128, 1024),
+                     desc(bt + j * (BN / 64) * BK * 128 + ks * 2048,
+                          BK * 128, 1024));
+        wg_commit();
+        if (last_a >= 0) {
+          wg_wait<1>();
+          release(last_a, last_b);
+        }
+        last_a = sa;
+        last_b = !resident || i == nM - 1 ? sb : -1;
+      }
+      wg_wait<0>();
+#pragma unroll
+      for (int j = 0; j < NO; ++j) keep(acc[j]);
+      release(last_a, last_b);
+
+      // epilogue: accumulator (row 16 wi + g + 8 h, column c) -> bf16 at
+      // (r, c) of the output tile, then one TMA store a 64-column box
+      const int m0 = i * kBM + 64 * cw;
+      if (t == 0) bulk_wait_read<0>();       // the last store has read it
+      bar_sync(1 + cw, 128);
+#pragma unroll
+      for (int j = 0; j < NO; ++j)
+#pragma unroll
+        for (int q = 0; q < BN / 2; q += 2) {
+          const int r = 16 * wi + g + 8 * ((q >> 1) & 1);
+          const int c = j * BN + 8 * (q >> 2) + 2 * tg;
+          *reinterpret_cast<uint32_t*>(os + (c >> 6) * 8192 + sw128(r, c)) =
+              pack_bf16(acc[j][q], acc[j][q + 1]);
+        }
+      fence_async();
+      bar_sync(1 + cw, 128);
+      if (t == 0 && m0 < M) {
+#pragma unroll
+        for (int c = 0; c < L::NT / 64; ++c) {
+          const int n = n0 + 64 * (c % (BN / 64));
+          if (n < N)
+            tma_store_3d(c < BN / 64 ? &tm_o0 : &tm_o1, ot + c * 8192, n, m0,
+                         e);
+        }
+        bulk_commit();
+      }
+    }
+    ib += resident ? nk : nM * nk;
+  }
+  if (t == 0) bulk_wait<0>();
+}
+
+// --- K2 --------------------------------------------------------------------
+
+// dx [E, N, M] = sum_j dy_j [E, N, K] . w_j [E, M, K]^T (M = D, N = C,
+// K = F) for NP pairs, the output written transposed. A unit is (128 rows
+// of M, a chunk of Cc <= NR rows of N, expert), M-tiles fastest.
+// Shared memory: the ring of S stages, each one pair's weight tile
+// [BK / 64][128][64] (rows of M, 64 columns of K a block: A K-major) and
+// dy tile [BK / 64][NR][64] (B K-major); the two consumers' output tiles
+// [NR][64] (rows of N by the consumer's 64 columns of M); the mbarriers.
+template <int NR, int BK, int S>
+struct DxSmem {
+  static constexpr uint32_t kW = (BK / 64) * kBM * 128;  // a weight tile
+  static constexpr uint32_t kY = (BK / 64) * NR * 128;   // a dy tile
+  static constexpr uint32_t kStage = kW + kY;
+  static constexpr uint32_t kOut = NR * 128;             // a consumer's
+  static constexpr uint32_t kOutOff = S * kStage;
+  static constexpr uint32_t kBar = kOutOff + 2 * kOut;
+  static constexpr size_t kAlloc = kBar + 16 * S + 1024;
+  static_assert(BK % 64 == 0 && NR % 8 == 0 && NR <= 256, "tile shape");
+  static_assert(kAlloc <= 232448, "a block's shared memory");
+};
+
+// Block b walks units b, b + gridDim.x, ... (one, as launched; unit u:
+// rows (u % nM) 128 of M, chunk (u / nM) % chunks of N, expert
+// u / (nM chunks)). The producer
+// thread streams each unit's stages through the ring, pair 0's BK rows of
+// K at a time and then pair 1's, on into the next unit's while the
+// consumers finish. Consumer cw computes rows 64 cw .. 64 cw + 63 of M by
+// NR of N: one m64nNRk16 wgmma a k16 step, in increasing k, each pair in
+// its own accumulators. The
+// epilogue rounds each pair's sum to bf16, adds them in f32 and rounds
+// again, writes the tile transposed ([n][m]) and one thread stores it by
+// TMA (Cc rows).
+template <int NP, int NR, int BK, int S>
+__global__ void __launch_bounds__(kThreads, 1)
+dx_kernel(const __grid_constant__ CUtensorMap tm_w0,
+          const __grid_constant__ CUtensorMap tm_w1,
+          const __grid_constant__ CUtensorMap tm_y0,
+          const __grid_constant__ CUtensorMap tm_y1,
+          const __grid_constant__ CUtensorMap tm_o, int K, int M, int nM,
+          int chunks, int Cc, int units) {
+  using L = DxSmem<NR, BK, S>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  const auto full = [&](int s) { return base + L::kBar + 8 * s; };
+  const auto empty = [&](int s) { return base + L::kBar + 8 * (S + s); };
+  const auto unit = [&](int u, int& m0, int& c0, int& e) {
+    m0 = (u % nM) * kBM;
+    c0 = (u / nM % chunks) * Cc;
+    e = u / nM / chunks;
+  };
+
+  const int tid = threadIdx.x;
+  const int nk = (K + BK - 1) / BK;
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 256);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid < 128) {
+    // ---- producer ----------------------------------------------------------
+    regs_dec<kProducerRegs>();
+    if (tid == 0) {
+      int it = 0;                            // stages issued
+      for (int u = blockIdx.x; u < units; u += gridDim.x) {
+        int m0, c0, e;
+        unit(u, m0, c0, e);
+        for (int j = 0; j < NP; ++j)
+          for (int kt = 0; kt < nk; ++kt, ++it) {
+            const int s = it % S;
+            mbar_wait(empty(s), ((it / S) & 1) ^ 1);
+            const uint32_t st = base + s * L::kStage;
+            mbar_arrive_tx(full(s), L::kStage);
+#pragma unroll
+            for (int b = 0; b < BK / 64; ++b) {
+              const int k = kt * BK + 64 * b;
+              tma_3d(st + b * kBM * 128, j ? &tm_w1 : &tm_w0, k, m0, e,
+                     full(s));
+              tma_3d(st + L::kW + b * NR * 128, j ? &tm_y1 : &tm_y0, k, c0,
+                     e, full(s));
+            }
+          }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers -----------------------------------------------------------
+  regs_inc<kConsumerRegs>();
+  const int cw = tid / 128 - 1, t = tid & 127;
+  const int wi = t >> 5, g = (t & 31) >> 2, tg = t & 3;
+  const uint32_t ot = base + L::kOutOff + cw * L::kOut;
+  unsigned char* os = smem + L::kOutOff + cw * L::kOut;
+  const bf16* os_type = nullptr;             // picks round_to's overload
+  float acc[NP][NR / 2];
+  int it = 0;                                // stages consumed
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    int m0, c0, e;
+    unit(u, m0, c0, e);
+#pragma unroll
+    for (int j = 0; j < NP; ++j) {
+#pragma unroll
+      for (int q = 0; q < NR / 2; ++q) acc[j][q] = 0.f;
+      keep(acc[j]);   // zeroed here, not between pair 0's wgmma and its wait
+    }
+    int last = -1;                           // the previous stage
+#pragma unroll
+    for (int j = 0; j < NP; ++j)
+      for (int kt = 0; kt < nk; ++kt, ++it) {
+        const int s = it % S;
+        mbar_wait(full(s), (it / S) & 1);
+        const uint32_t st = base + s * L::kStage;
+        wg_fence();
+#pragma unroll
+        for (int ks = 0; ks < BK / 16; ++ks)
+          wgmma_kk(acc[j],
+                   desc(st + (ks >> 2) * kBM * 128 + cw * 64 * 128 +
+                            (ks & 3) * 32,
+                        16, 1024),
+                   desc(st + L::kW + (ks >> 2) * NR * 128 + (ks & 3) * 32,
+                        16, 1024));
+        wg_commit();
+        if (last >= 0) {
+          wg_wait<1>();
+          mbar_arrive(empty(last));
+        }
+        last = s;
+      }
+    wg_wait<0>();
+#pragma unroll
+    for (int j = 0; j < NP; ++j) keep(acc[j]);
+    mbar_arrive(empty(last));
+
+    // epilogue: accumulator (column 16 wi + g + 8 h of the consumer's M,
+    // row n of N) -> bf16 at (n, that column) of the output tile, then one
+    // TMA store of Cc rows
+    if (t == 0) bulk_wait_read<0>();         // the last store has read it
+    bar_sync(1 + cw, 128);
+#pragma unroll
+    for (int q = 0; q < NR / 2; ++q) {
+      const int m = 16 * wi + g + 8 * ((q >> 1) & 1);
+      const int n = 8 * (q >> 2) + 2 * tg + (q & 1);
+      float v = acc[0][q];
+      if constexpr (NP == 2)
+        v = round_to(acc[0][q], os_type) + round_to(acc[1][q], os_type);
+      *reinterpret_cast<bf16*>(os + sw128(n, m)) = __float2bfloat16(v);
+    }
+    fence_async();
+    bar_sync(1 + cw, 128);
+    if (t == 0 && m0 + 64 * cw < M) {
+      tma_store_3d(&tm_o, ot, m0 + 64 * cw, c0, e);
+      bulk_commit();
+    }
+  }
+  if (t == 0) bulk_wait<0>();
+}
+
+// --- launchers -------------------------------------------------------------
+
+template <typename Kernel>
+cudaError_t configure(Kernel kern, size_t bytes, bool& done) {
+  if (done) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  done = err == cudaSuccess;
+  return err;
+}
+
+template <int NO, int BN, int BK, int SA, int SB>
+int dw_launch(const void* a, long long sae, long long sac, const void* dy0,
+              const void* dy1, long long sdye, long long sdyc, void* dw0,
+              void* dw1, int E, int C, int D, int F, cudaStream_t st) {
+  using L = DwSmem<NO, BN, BK, SA, SB>;
+  auto kern = dw_kernel<NO, BN, BK, SA, SB>;
+  static bool configured = false;            // once per instantiation
+  cudaError_t err = configure(kern, L::kAlloc, configured);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const long long out = static_cast<long long>(D) * F;
+  CUtensorMap ma, mb0, mb1, mo0, mo1;
+  if (!map_bf16(&ma, encode, a, D, C, E, sac, sae, 64, BK) ||
+      !map_bf16(&mb0, encode, dy0, F, C, E, sdyc, sdye, 64, BK) ||
+      !map_bf16(&mb1, encode, dy1, F, C, E, sdyc, sdye, 64, BK) ||
+      !map_bf16(&mo0, encode, dw0, F, D, E, F, out, 64, 64) ||
+      !map_bf16(&mo1, encode, dw1, F, D, E, F, out, 64, 64))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int nM = (D + kBM - 1) / kBM, nN = (F + BN - 1) / BN;
+  const int units = E * nN;
+  kern<<<units, kThreads, L::kAlloc, st>>>(ma, mb0, mb1, mo0, mo1, C, D, F,
+                                          nM, nN, units);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int NP, int NR, int BK, int S>
+int dx_launch(const void* dy0, const void* dy1, long long sdye,
+              long long sdyc, const void* w0, const void* w1, long long swe,
+              long long swd, void* dx, int E, int C, int D, int F,
+              cudaStream_t st) {
+  using L = DxSmem<NR, BK, S>;
+  auto kern = dx_kernel<NP, NR, BK, S>;
+  static bool configured = false;            // once per instantiation
+  cudaError_t err = configure(kern, L::kAlloc, configured);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const int chunks = (C + NR - 1) / NR;
+  const int Cc = ((C + chunks - 1) / chunks + 7) / 8 * 8;   // <= NR
+  CUtensorMap mw0, mw1, my0, my1, mo;
+  if (!map_bf16(&mw0, encode, w0, F, D, E, swd, swe, 64, kBM) ||
+      !map_bf16(&mw1, encode, w1, F, D, E, swd, swe, 64, kBM) ||
+      !map_bf16(&my0, encode, dy0, F, C, E, sdyc, sdye, 64, NR) ||
+      !map_bf16(&my1, encode, dy1, F, C, E, sdyc, sdye, 64, NR) ||
+      !map_bf16(&mo, encode, dx, D, C, E, D, static_cast<long long>(C) * D,
+                64, Cc))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int nM = (D + kBM - 1) / kBM;
+  const int units = E * chunks * nM;
+  kern<<<units, kThreads, L::kAlloc, st>>>(mw0, mw1, my0, my1, mo, F, D, nM,
+                                          chunks, Cc, units);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K2: NR 160 rows of C (qwen3-moe's C 160 is one chunk), so each weight
+// tile is read once a launch; a ring of 5 stages of 64 rows of F (36 KB
+// each).
 int dx_dispatch(int pairs, const void* dy0, const void* dy1, long long sdye,
                 long long sdyc, const void* w0, const void* w1,
                 long long swe, long long swd, void* dx, int E, int C, int D,
@@ -1896,22 +2166,16 @@ int dx_dispatch(int pairs, const void* dy0, const void* dy1, long long sdye,
   if ((pairs != 1 && pairs != 2) ||
       !takes(E, C, D, F, {sdye, sdyc, swe, swd}, {dy0, dy1, w0, w1, dx}))
     return static_cast<int>(cudaErrorInvalidValue);
-  Args g{};
-  g.a[0] = static_cast<const bf16*>(w0);
-  g.a[1] = static_cast<const bf16*>(w1);
-  g.b[0] = static_cast<const bf16*>(dy0);
-  g.b[1] = static_cast<const bf16*>(dy1);
-  g.out[0] = g.out[1] = static_cast<bf16*>(dx);
-  g.sae = swe, g.sar = swd, g.sbe = sdye, g.sbr = sdyc;
-  g.M = D, g.N = C, g.K = F;
   if (pairs == 1)
-    return launch<false, false, 1, 1, false, true, 8, 2, 2, 10, 64, 3>(g, E,
-                                                                       st);
-  return launch<false, false, 2, 2, true, true, 8, 2, 1, 10, 32, 4>(g, E, st);
+    return dx_launch<1, 160, kDxDepth, kDxRing>(
+        dy0, dy1, sdye, sdyc, w0, w1, swe, swd, dx, E, C, D, F, st);
+  return dx_launch<2, 160, kDxDepth, kDxRing>(
+      dy0, dy1, sdye, sdyc, w0, w1, swe, swd, dx, E, C, D, F, st);
 }
 
-// K3: 8 warps, 4 along D by 2 along F, each 2 m16 tiles by 8 n8 tiles:
-// BM 128, BN 128, a ring of 3 x 32 rows of C (52 / 78 KB).
+// K3: 256 columns of B a unit (one output of 256, or two of 128: the
+// consumers hold 128 f32 accumulators a thread either way); chunks of 32
+// rows of C, a ring of 10 for a and 5 slots for dy (230 KB).
 int dw_dispatch(int outs, const void* a, long long sae, long long sac,
                 const void* dy0, const void* dy1, long long sdye,
                 long long sdyc, void* dw0, void* dw1, int E, int C, int D,
@@ -1919,21 +2183,130 @@ int dw_dispatch(int outs, const void* a, long long sae, long long sac,
   if ((outs != 1 && outs != 2) ||
       !takes(E, C, D, F, {sae, sac, sdye, sdyc}, {a, dy0, dy1, dw0, dw1}))
     return static_cast<int>(cudaErrorInvalidValue);
-  Args g{};
-  g.a[0] = g.a[1] = static_cast<const bf16*>(a);
-  g.b[0] = static_cast<const bf16*>(dy0);
-  g.b[1] = static_cast<const bf16*>(dy1);
-  g.out[0] = static_cast<bf16*>(dw0);
-  g.out[1] = static_cast<bf16*>(dw1);
-  g.sae = sae, g.sar = sac, g.sbe = sdye, g.sbr = sdyc;
-  g.M = D, g.N = F, g.K = C;
   if (outs == 1)
-    return launch<true, true, 1, 1, false, false, 4, 2, 2, 8, 32, 3>(g, E,
-                                                                     st);
-  return launch<true, true, 1, 2, false, false, 4, 2, 2, 8, 32, 3>(g, E, st);
+    return dw_launch<1, 256, kDwDepth, kDwRing, kDwSlots>(
+        a, sae, sac, dy0, dy1, sdye, sdyc, dw0, dw1, E, C, D, F, st);
+  return dw_launch<2, 128, kDwDepth, kDwRing, kDwSlots>(
+      a, sae, sac, dy0, dy1, sdye, sdyc, dw0, dw1, E, C, D, F, st);
 }
 
-}  // namespace grad
+// --- the bit probe ---------------------------------------------------------
+
+// One chain of `steps` k16 products in increasing k, a [steps][64][16] (row
+// m, column k of each step) by b [steps][256][16] (row n, column k), bf16,
+// one way per kernel into out [way][64][256] f32 ([m][n]; the way's N
+// columns written). Way 0, probe_mma: mma.sync.m16n8k16 over 32 n8 tiles,
+// the mma.sync kernels' instruction. Ways 1-6, probe_kernel<V>, one
+// warpgroup on wgmma, operands in shared memory in the 128-byte swizzle:
+//   1 m64n8k16, A in registers (the int8 variant's), B K-major;
+//   2 m64n8k16, A MN-major, B K-major;
+//   3 m64n64k16, A MN-major, B K-major;
+//   4 m64n160k16, A and B K-major (K2's);
+//   5 m64n128k16, A and B MN-major (K3's at two outputs);
+//   6 m64n256k16, A and B MN-major (K3's at one output).
+constexpr int kProbeWays = 7;
+
+__device__ __forceinline__ uint32_t pair_at(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__global__ void __launch_bounds__(128)
+probe_mma(const bf16* __restrict__ a, const bf16* __restrict__ b,
+          float* __restrict__ out, int steps) {
+  const int t = threadIdx.x, wi = t >> 5, g = (t & 31) >> 2, tg = t & 3;
+  float d[32][4] = {};
+  for (int st = 0; st < steps; ++st) {
+    const bf16* as = a + static_cast<int64_t>(st) * 64 * 16;
+    const bf16* bs = b + static_cast<int64_t>(st) * 256 * 16;
+    const int m = 16 * wi + g;
+    const uint32_t af[4] = {pair_at(as + m * 16 + 2 * tg),
+                            pair_at(as + (m + 8) * 16 + 2 * tg),
+                            pair_at(as + m * 16 + 2 * tg + 8),
+                            pair_at(as + (m + 8) * 16 + 2 * tg + 8)};
+#pragma unroll
+    for (int jn = 0; jn < 32; ++jn) {
+      const bf16* bn = bs + (8 * jn + g) * 16 + 2 * tg;
+      tc::mma16816(d[jn], af, pair_at(bn), pair_at(bn + 8));
+    }
+  }
+#pragma unroll
+  for (int jn = 0; jn < 32; ++jn)
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      out[(16 * wi + g + 8 * (q >> 1)) * 256 + 8 * jn + 2 * tg + (q & 1)] =
+          d[jn][q];
+}
+
+template <int V>
+__global__ void __launch_bounds__(128)
+probe_kernel(const bf16* __restrict__ a, const bf16* __restrict__ b,
+             float* __restrict__ out, int steps) {
+  constexpr int N = V <= 2 ? 8 : V == 3 ? 64 : V == 4 ? 160 : V == 5 ? 128
+                                                                     : 256;
+  constexpr bool kAK = V == 4, kBMN = V >= 5;   // A K-major, B MN-major
+  __shared__ __align__(1024) unsigned char sa[64 * 128];
+  __shared__ __align__(1024) unsigned char sb[256 * 128];
+  const int t = threadIdx.x, wi = t >> 5, g = (t & 31) >> 2, tg = t & 3;
+  const uint32_t sa_addr = smem_addr(sa), sb_addr = smem_addr(sb);
+  float d[N / 2];
+#pragma unroll
+  for (int q = 0; q < N / 2; ++q) d[q] = 0.f;
+  for (int st = 0; st < steps; ++st) {
+    const bf16* as = a + static_cast<int64_t>(st) * 64 * 16;
+    const bf16* bs = b + static_cast<int64_t>(st) * 256 * 16;
+    for (int i = t; i < 64 * 16; i += 128) {   // A (m r, k): [m][k] or [k][m]
+      const int r = i >> 4, k = i & 15;
+      *reinterpret_cast<bf16*>(sa + (kAK ? sw128(r, k) : sw128(k, r))) =
+          as[i];
+    }
+    for (int i = t; i < N * 16; i += 128) {    // B (n r, k)
+      const int r = i >> 4, k = i & 15;
+      *reinterpret_cast<bf16*>(
+          sb + (kBMN ? (r >> 6) * 2048 + sw128(k, r & 63) : sw128(r, k))) =
+          bs[i];
+    }
+    fence_async();
+    __syncthreads();
+    wg_fence();
+    if constexpr (V == 1) {
+      const int m = 16 * wi + g;
+      uint32_t af[4] = {pair_at(as + m * 16 + 2 * tg),
+                        pair_at(as + (m + 8) * 16 + 2 * tg),
+                        pair_at(as + m * 16 + 2 * tg + 8),
+                        pair_at(as + (m + 8) * 16 + 2 * tg + 8)};
+      i8::wgmma_rs(d, af, i8::desc_x<64>(sb_addr, 0, 0));
+    } else if constexpr (V <= 3) {
+      i8::wgmma_ss(d, i8::desc_a(sa_addr, 0), i8::desc_x<64>(sb_addr, 0, 0));
+    } else if constexpr (V == 4) {
+      wgmma_kk(d, desc(sa_addr, 16, 1024), desc(sb_addr, 16, 1024));
+    } else {
+      wgmma_tt(d, desc(sa_addr, 2048, 1024), desc(sb_addr, 2048, 1024));
+    }
+    wg_commit();
+    wg_wait<0>();
+    keep(d);
+    __syncthreads();
+  }
+#pragma unroll
+  for (int q = 0; q < N / 2; ++q)
+    out[(16 * wi + g + 8 * ((q >> 1) & 1)) * 256 + 8 * (q >> 2) + 2 * tg +
+        (q & 1)] = d[q];
+}
+
+int probe(const bf16* a, const bf16* b, float* out, int steps,
+          cudaStream_t st) {
+  constexpr int kWay = 64 * 256;
+  probe_mma<<<1, 128, 0, st>>>(a, b, out, steps);
+  probe_kernel<1><<<1, 128, 0, st>>>(a, b, out + kWay, steps);
+  probe_kernel<2><<<1, 128, 0, st>>>(a, b, out + 2 * kWay, steps);
+  probe_kernel<3><<<1, 128, 0, st>>>(a, b, out + 3 * kWay, steps);
+  probe_kernel<4><<<1, 128, 0, st>>>(a, b, out + 4 * kWay, steps);
+  probe_kernel<5><<<1, 128, 0, st>>>(a, b, out + 5 * kWay, steps);
+  probe_kernel<6><<<1, 128, 0, st>>>(a, b, out + 6 * kWay, steps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace wgrad
 
 // ---------------------------------------------------------------------------
 // the backward's products on the CUDA cores (f32, and bf16 shapes outside
@@ -2128,14 +2501,15 @@ extern "C" int moe_ffn_fused_i8_launch(const void* x, long long sxe,
                              static_cast<cudaStream_t>(stream)});
 }
 
-// The bit probe (i8::probe_kernel): a [steps][64][16] and b [steps][64][16]
-// bf16, out [4][64][8] f32; one warpgroup, one block.
+// The bit probe (wgrad::probe): a [steps][64][16] and b [steps][256][16]
+// bf16, out [7][64][256] f32, one way each (mma.sync, then six wgmma
+// shapes and operand layouts); one warpgroup, one block a way.
 extern "C" int moe_gemm_i8_probe(const void* a, const void* b, void* out,
                                  int steps, void* stream) {
-  i8::probe_kernel<<<1, 128, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(a),
-      static_cast<const __nv_bfloat16*>(b), static_cast<float*>(out), steps);
-  return static_cast<int>(cudaGetLastError());
+  return wgrad::probe(static_cast<const __nv_bfloat16*>(a),
+                      static_cast<const __nv_bfloat16*>(b),
+                      static_cast<float*>(out), steps,
+                      static_cast<cudaStream_t>(stream));
 }
 
 // The narrow variant: f32 moe_gemm with D or F at most 16 (D <= 16 takes
@@ -2196,8 +2570,8 @@ extern "C" int moe_gemm_dx_launch(int dtype, int tc, int pairs,
                                   int E, int C, int D, int F, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (tc)
-    return grad::dx_dispatch(pairs, dy0, dy1, sdye, sdyc, w0, w1, swe, swd, dx,
-                           E, C, D, F, st);
+    return wgrad::dx_dispatch(pairs, dy0, dy1, sdye, sdyc, w0, w1, swe, swd,
+                              dx, E, C, D, F, st);
   cc::Args g{};
   g.a[0] = dy0, g.a[1] = dy1, g.b[0] = w0, g.b[1] = w1;
   g.out[0] = g.out[1] = dx;
@@ -2219,8 +2593,8 @@ extern "C" int moe_gemm_dw_launch(int dtype, int tc, int outs, const void* a,
                                   void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (tc)
-    return grad::dw_dispatch(outs, a, sae, sac, dy0, dy1, sdye, sdyc, dw0, dw1,
-                           E, C, D, F, st);
+    return wgrad::dw_dispatch(outs, a, sae, sac, dy0, dy1, sdye, sdyc, dw0,
+                              dw1, E, C, D, F, st);
   cc::Args g{};
   g.a[0] = g.a[1] = a, g.b[0] = dy0, g.b[1] = dy1;
   g.out[0] = dw0, g.out[1] = dw1;

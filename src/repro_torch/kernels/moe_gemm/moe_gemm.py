@@ -39,10 +39,11 @@ same source (on the CPU their plain versions): ``moe_ffn_fused_bwd`` (K1:
 the fused forward's tile loop recomputes gate and up, its epilogue writes
 dg and du), ``moe_gemm_dx`` (K2: ``sum_j dy_j @ w_j^T``) and
 ``moe_gemm_dw`` (K3: ``a^T @ dy_j``, reduced over C), each with a bf16
-route on the tensor cores and a CUDA-core one for f32 and every other
-shape. Under ``no_grad`` (serving) nothing changes. Int8 weights (served,
-never trained) and the narrow variant (adapters are not trained) still
-refuse autograd on the card.
+route on the tensor cores (K2 and K3: ``wgmma`` fed by TMA, outputs
+stored by TMA) and a CUDA-core one for f32 and every other shape. Under
+``no_grad`` (serving) nothing changes. Int8 weights (served, never
+trained) and the narrow variant (adapters are not trained) still refuse
+autograd on the card.
 """
 
 from __future__ import annotations
@@ -359,25 +360,42 @@ def _launch_int8(name, x, ws):
     return y
 
 
+#: the ways of the bit probe after way 0 (mma.sync.m16n8k16, the mma.sync
+#: kernels' instruction, over 256 columns): (what, the columns it writes)
+PROBE_WAYS = (("wgmma m64n8k16, A in registers (the int8 variant)", 8),
+              ("wgmma m64n8k16, A MN-major in shared memory", 8),
+              ("wgmma m64n64k16, A MN-major", 64),
+              ("wgmma m64n160k16, A and B K-major (K2)", 160),
+              ("wgmma m64n128k16, A and B MN-major (K3, two outputs)", 128),
+              ("wgmma m64n256k16, A and B MN-major (K3, one output)", 256))
+
+
 def i8_probe(a, b):
-    """The bit probe of the int8 variant's instruction: one chain of k16
+    """The bit probe of the wgmma kernels' instructions: one chain of k16
     products in increasing k over ``a [steps, 64, 16]`` (rows m, columns
-    k) and ``b [steps, 64, 16]`` (rows n), bf16 on the card, computed as
-    ``mma.sync.m16n8k16`` (the tensor-core variant's instruction), as
-    ``wgmma.m64n8k16`` with A in registers and with A from shared memory,
-    and as columns 0-7 of ``wgmma.m64n64k16``. Returns [4, 64, 8] f32 in
-    that order."""
+    k) and ``b [steps, 256, 16]`` (rows n), bf16 on the card, computed as
+    ``mma.sync.m16n8k16`` (way 0, every column) and in each of
+    ``PROBE_WAYS`` (its first N columns). Returns [7, 64, 256] f32, NaN
+    where a way writes nothing."""
     if a.device.type != "cuda" or a.dtype != torch.bfloat16 \
             or b.dtype != torch.bfloat16 or a.shape[1:] != (64, 16) \
-            or b.shape != a.shape:
-        raise ValueError("i8_probe takes bf16 a and b [steps, 64, 16] on "
-                         "the card")
+            or b.shape != (a.shape[0], 256, 16):
+        raise ValueError("i8_probe takes bf16 a [steps, 64, 16] and b "
+                         "[steps, 256, 16] on the card")
     a, b = a.contiguous(), b.contiguous()
-    out = torch.empty((4, 64, 8), dtype=torch.float32, device=a.device)
+    out = torch.full((1 + len(PROBE_WAYS), 64, 256), float("nan"),
+                     device=a.device)
     _raise_on(call_on_stream(_library().moe_gemm_i8_probe, a, a.data_ptr(),
                              b.data_ptr(), out.data_ptr(), a.shape[0]),
               "i8_probe")
     return out
+
+
+def probe_differ(out) -> list:
+    """For each of ``PROBE_WAYS``, how many of its 64 x N outputs differ
+    from way 0's (``mma.sync``) bits in ``i8_probe``'s result."""
+    return [int((out[0, :, :n] != out[1 + i, :, :n]).sum())
+            for i, (_, n) in enumerate(PROBE_WAYS)]
 
 
 #: what keeps each route without a backward

@@ -1,6 +1,7 @@
 """How the port's CUDA sources are built, checked on the CPU: the build key
 follows the headers a source includes, every variant of the int8 expert
-kernels that ``tools/moe_i8_ab.py`` times still applies to the source, and
+kernels that ``tools/moe_i8_ab.py`` times, and of K2 / K3 that
+``tools/moe_grad_ab.py`` times, still applies to the source, and
 each library keeps its code in its own anonymous namespace (a second copy
 of a library loaded into one process must not share a launcher's
 once-only flag with the first)."""
@@ -81,15 +82,16 @@ def test_kernel_code_sits_in_the_anonymous_namespace(rel):
         assert any(ln.startswith('extern "C"') for ln in outside)
 
 
-def _moe_i8_ab():
+def _tool(name):
     spec = importlib.util.spec_from_file_location(
-        "moe_i8_ab", ROOT / "tools/moe_i8_ab.py")
+        name, ROOT / f"tools/{name}.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
 
 
-AB = _moe_i8_ab()
+AB = _tool("moe_i8_ab")
+GRAD_AB = _tool("moe_grad_ab")
 
 
 @pytest.mark.parametrize("name", sorted(AB.EDITS) + sorted(AB.PATCHES))
@@ -105,3 +107,18 @@ def test_each_int8_design_choice_still_applies(name):
     if name in AB.PATCHES:
         assert "wgmma_rs(acc" in whole and "wgmma_rs(acc" not in text
         assert "wgmma_ss(acc" not in whole and "wgmma_ss(acc" in text
+
+
+@pytest.mark.parametrize("name", sorted(GRAD_AB.EDITS)
+                         + sorted(GRAD_AB.PATCHES))
+def test_each_grad_design_choice_still_applies(name):
+    """Every edit and patch hunk of the K2 / K3 A/B tool matches the
+    source exactly once (``variants`` exits otherwise), and the variant
+    differs from the kept source; the st.global patch stores no tile by
+    TMA."""
+    out = GRAD_AB.variants()
+    tree, text = out["tree"], out[name]
+    assert tree == (KERNELS / build.SOURCES["moe_gemm"]).read_text()
+    assert text != tree
+    if name in GRAD_AB.PATCHES:
+        assert "tma_store_3d(" in tree and "tma_store_3d(" not in text

@@ -29,6 +29,17 @@ The narrow variant (f32 ``moe_gemm`` with D or F rank-sized) is
 transliterated in f32 with its fma chains, its butterfly over the lanes and
 its split order, so the bits of a row can be compared across C and row
 positions.
+
+The backward's K2 and K3 (namespace ``wgrad``: ``wgmma`` fed by TMA,
+outputs stored by TMA) are transliterated on a flat shared memory indexed
+by byte, NaN until written: the TMA boxes with zero fill past every edge
+and the 128-byte swizzle, the descriptors' K-major and MN-major
+addressing, the rings and dy's resident slots in the order the mbarriers
+allow (the producer as far ahead as they let it; a wait that cannot be
+met is a deadlock), the blocks' walk over units, the k16 steps and the
+staged, TMA-stored output, each element of which must be written exactly
+once. Held to the plain versions in f32, and, on inputs whose f32 sums are
+exact, in bf16 bit for bit.
 """
 
 import numpy as np
@@ -913,208 +924,329 @@ class TestInt8Rule:
 
 # ---------------------------------------------------------------------------
 # the backward: K1 (moe_ffn_fused_bwd, tc_kernel's tile loop with its
-# epilogue replaced) and K2 / K3 (moe_gemm_dx / moe_gemm_dw, namespace grad)
+# epilogue replaced) and K2 / K3 (moe_gemm_dx / moe_gemm_dw, namespace wgrad)
 # ---------------------------------------------------------------------------
 
-#: grad::dx_dispatch / dw_dispatch's instantiations: (kAT, kBT, NA, NB,
-#: kSum, kOutT, WM, WN, MT, NT, BK, S)
-GRAD_SHAPES = {"dx1": (False, False, 1, 1, False, True, 8, 2, 2, 10, 64, 3),
-               "dx2": (False, False, 2, 2, True, True, 8, 2, 1, 10, 32, 4),
-               "dw1": (True, True, 1, 1, False, False, 4, 2, 2, 8, 32, 3),
-               "dw2": (True, True, 1, 2, False, False, 4, 2, 2, 8, 32, 3)}
+#: wgrad::dx_dispatch / dw_dispatch's instantiations: K2 (pairs, NR rows of
+#: C a chunk, BK rows of F a stage, S stages), K3 (outputs, BN columns of
+#: each a unit, BK rows of C a chunk, SA chunks of a, SB slots of dy)
+GRAD_SHAPES = {"dx1": (1, 160, 64, 5), "dx2": (2, 160, 64, 5),
+               "dw1": (1, 256, 32, 5, 5), "dw2": (2, 128, 32, 5, 5)}
+#: smaller ones, so that small shapes cross chunks, slots and units
+SMALL_GRAD = {"dx1": (1, 16, 64, 2), "dx2": (2, 16, 64, 3),
+              "dw1": (1, 64, 16, 3, 2), "dw2": (2, 64, 16, 3, 2)}
+GRAD_BM = 128          # M rows of an item: 64 a consumer warpgroup
 
 
-def grad_transliteration(As, Bs, sae, sar, sbe, sbr, E, M, N, K, shape,
-                         bf16=False, order=None):
-    """The outputs of grad::gemm_kernel: out_j = A_j . B_j ([E, M, N], or
-    [E, N, M] for kOutT) from flat f32 arrays, A_j (M x K) at a + e*sae +
-    m*sar + k (kAT: + k*sar + m), B_j (K x N) at b + e*sbe + n*sbr + k
-    (kBT: + k*sbr + n). ``bf16`` rounds where the kernel does (kSum: each
-    set, then their f32 sum; every stored output). ``order``, a dict,
-    collects the k of each k16 step in the order it reaches each
-    accumulator tile."""
-    kAT, kBT, NA, NB, kSum, kOutT, WM, WN, MT, NT, BK, S = shape
-    BM, BN, NP = WM * MT * 16, WN * NT * 8, max(NA, NB)
-    APITCH, BPITCH = (BM if kAT else BK) + 8, (BN if kBT else BK) + 8
-    AEL, BEL = (BK if kAT else BM) * APITCH, (BK if kBT else BN) * BPITCH
-    STAGE = NA * AEL + NB * BEL
-    SMEM = S * STAGE
-    OPITCH = (BM if kOutT else BN) + 8
-    assert (BN if kOutT else BM) * OPITCH <= SMEM
-    nM, chunks = -(-M // BM), -(-N // BN)
-    Nc = -(-(-(-N // chunks)) // 8) * 8
-    nk = -(-K // BK)
-    R = _round_bf16 if bf16 else (lambda v: v)
-    outs = [np.full(E * M * N, np.nan, np.float32)
-            for _ in range(1 if kSum else NP)]
-    lr, lm = LANES % 8, LANES // 8
-    for e in range(E):
-        for bx in range(nM * chunks):
-            m0, n0 = (bx % nM) * BM, (bx // nM) * Nc
-            rows = min(Nc, N - n0)
-            rows8 = (rows + 7) & ~7
-            smem = np.full(SMEM, np.nan, np.float32)
-
-            def load_stage(kt):
-                st, k0 = (kt % S) * STAGE, kt * BK
-                for j in range(NA):
-                    src, dst0 = As[j], st + j * AEL
-                    for i in range(BM * BK // 8):
-                        if kAT:
-                            r, c = i // (BM // 8), (i % (BM // 8)) * 8
-                            ok = k0 + r < K and m0 + c < M
-                            off = e * sae + (k0 + r) * sar + m0 + c
-                        else:
-                            r, c = i // (BK // 8), (i % (BK // 8)) * 8
-                            ok = m0 + r < M and k0 + c < K
-                            off = e * sae + (m0 + r) * sar + k0 + c
-                        d = dst0 + r * APITCH + c
-                        smem[d:d + 8] = src[off:off + 8] if ok else 0.0
-                for j in range(NB):
-                    src, dst0 = Bs[j], st + NA * AEL + j * BEL
-                    if kBT:
-                        for i in range(BK * (BN // 8)):
-                            r, c = i // (BN // 8), (i % (BN // 8)) * 8
-                            if c >= rows8:
-                                continue
-                            ok = k0 + r < K and c < rows
-                            off = e * sbe + (k0 + r) * sbr + n0 + c
-                            d = dst0 + r * BPITCH + c
-                            smem[d:d + 8] = src[off:off + 8] if ok else 0.0
-                    else:
-                        for i in range(rows8 * (BK // 8)):
-                            r, c = i // (BK // 8), (i % (BK // 8)) * 8
-                            ok = r < rows and k0 + c < K
-                            off = e * sbe + (n0 + r) * sbr + k0 + c
-                            d = dst0 + r * BPITCH + c
-                            smem[d:d + 8] = src[off:off + 8] if ok else 0.0
-
-            accs = {}
-            for kt in range(min(S - 1, nk)):
-                load_stage(kt)
-            for kt in range(nk):
-                if kt + S - 1 < nk:
-                    load_stage(kt + S - 1)
-                st = (kt % S) * STAGE
-                for warp in range(WM * WN):
-                    wm, wn = warp % WM, warp // WM
-                    if kAT:
-                        a_lane = (lr + (lm >> 1) * 8) * APITCH \
-                            + wm * MT * 16 + (lm & 1) * 8
-                    else:
-                        a_lane = (wm * MT * 16 + lr + (lm & 1) * 8) \
-                            * APITCH + (lm >> 1) * 8
-                    if kBT:
-                        b_lane = ((lm & 1) * 8 + lr) * BPITCH \
-                            + ((lm >> 1) * WN + wn) * 8
-                    else:
-                        b_lane = (((lm >> 1) * WN + wn) * 8 + lr) \
-                            * BPITCH + (lm & 1) * 8
-                    for ks in range(BK // 16):
-                        af = {}
-                        for j in range(NA):
-                            for mt in range(MT):
-                                off = (ks * 16 * APITCH + mt * 16 if kAT
-                                       else mt * 16 * APITCH + ks * 16)
-                                af[j, mt] = _ldmatrix_x4(
-                                    smem, st + j * AEL + a_lane + off, kAT)
-                        for p in range(NT // 2):
-                            if (2 * p * WN + wn) * 8 >= rows:
-                                continue
-                            off = (ks * 16 * BPITCH + 2 * p * WN * 8 if kBT
-                                   else 2 * p * WN * 8 * BPITCH + ks * 16)
-                            bf = [_ldmatrix_x4(smem, st + NA * AEL + j * BEL
-                                               + b_lane + off, kBT)
-                                  for j in range(NB)]
-                            for h in range(2):
-                                jn = 2 * p + h
-                                if (jn * WN + wn) * 8 >= rows:
-                                    continue
-                                for w in range(NP):
-                                    for mt in range(MT):
-                                        key = (warp, w, mt, jn)
-                                        acc = accs.setdefault(
-                                            key, np.zeros((32, 4),
-                                                          np.float32))
-                                        bb = bf[min(w, NB - 1)]
-                                        _mma(acc, af[min(w, NA - 1), mt],
-                                             bb[:, 2 * h], bb[:, 2 * h + 1])
-                                        if order is not None:
-                                            order.setdefault(
-                                                (e, bx) + key, []).append(
-                                                kt * BK + ks * 16)
-
-            # epilogue: (m, n) -> the staged tile ([n][m] for kOutT), then
-            # whole 8-element rows; one output at a time
-            for w in range(len(outs)):
-                smem[:] = np.nan
-                for warp in range(WM * WN):
-                    wm, wn = warp % WM, warp // WM
-                    for j in range(NT):
-                        t = j * WN + wn
-                        if t * 8 >= rows:
-                            continue
-                        for mt in range(MT):
-                            for q in range(4):
-                                m = (wm * MT + mt) * 16 + G + (q >> 1) * 8
-                                n = t * 8 + TG * 2 + (q & 1)
-                                if kSum:
-                                    v = R(accs[(warp, 0, mt, j)][:, q]) + \
-                                        R(accs[(warp, 1, mt, j)][:, q])
-                                else:
-                                    v = accs[(warp, w, mt, j)][:, q]
-                                at = n * OPITCH + m if kOutT \
-                                    else m * OPITCH + n
-                                smem[at] = R(v)
-                out = outs[w]
-                if kOutT:
-                    for i in range(rows * (BM // 8)):
-                        r, c = i // (BM // 8), (i % (BM // 8)) * 8
-                        if m0 + c < M:
-                            d = (e * N + n0 + r) * M + m0 + c
-                            out[d:d + 8] = smem[r * OPITCH + c:
-                                                r * OPITCH + c + 8]
-                else:
-                    for i in range(min(BM, M - m0) * (BN // 8)):
-                        r, c = i // (BN // 8), (i % (BN // 8)) * 8
-                        if c < rows:
-                            d = (e * M + m0 + r) * N + n0 + c
-                            out[d:d + 8] = smem[r * OPITCH + c:
-                                                r * OPITCH + c + 8]
-    return [o.reshape((E, N, M) if kOutT else (E, M, N)) for o in outs]
+def _swizzle(addr):
+    """Physical byte address of logical ``addr`` in the 128-byte swizzle:
+    bits 4-6 XOR bits 7-9 (every tile 1024-byte aligned)."""
+    addr = np.asarray(addr)
+    return addr ^ (((addr >> 7) & 7) << 4)
 
 
-def dx_transliteration(dys, ws, shape=None, **kw):
-    """K2 as grad::dx_dispatch launches it: M = D (w_j by rows), N = C
-    (dy_j by rows), K = F; dx [E, C, D]."""
-    E, C, F = dys[0].shape
-    D = ws[0].shape[1]
-    shape = shape or GRAD_SHAPES[f"dx{len(dys)}"]
-    return grad_transliteration(
-        [w.reshape(-1) for w in ws], [dy.reshape(-1) for dy in dys],
-        D * F, F, C * F, F, E, D, C, F, shape, **kw)[0]
+class _Ring:
+    """Shared memory (flat f32 indexed by byte, NaN until written) and the
+    mbarrier slots of one block. The producer is a generator of loads, each
+    (kind, slot, write): it issues a load only once the slot's previous
+    occupant was released by the consumers, and runs as far ahead as the
+    slots let it (so a release that comes too early shows as a clobbered
+    operand). A consumer that waits for a load the producer cannot issue
+    is a deadlock."""
+
+    def __init__(self, nbytes, loads):
+        self.smem = np.full(nbytes, np.nan, np.float32)
+        self.uses, self.released, self.issued = {}, {}, {}
+        self.gen = self._run(loads)
+
+    def _run(self, loads):
+        for kind, slot, write in loads:
+            key = (kind, slot)
+            while self.released.get(key, 0) < self.uses.get(key, 0):
+                yield False
+            self.uses[key] = self.uses.get(key, 0) + 1
+            write(self.smem)
+            self.issued[kind] = self.issued.get(kind, 0) + 1
+            yield True
+
+    def advance(self):
+        while next(self.gen, False):
+            pass
+
+    def wait(self, kind, index):
+        self.advance()
+        assert self.issued.get(kind, 0) > index, f"deadlock on {kind}"
+
+    def release(self, kind, slot):
+        self.released[(kind, slot)] = self.released.get((kind, slot), 0) + 1
+        self.advance()
 
 
-def dw_transliteration(a, dys, shape=None, **kw):
-    """K3 as grad::dw_dispatch launches it: M = D, N = F, K = C, both
-    operands by rows of C; [dw_j [E, D, F]]."""
+def _tma_load(src, s2, s1, e, c1, c0, dims, rows):
+    """A TMA box load: ``rows`` rows from c1 by 64 columns from c0 of
+    expert e of a [*, dims[1], dims[0]] tensor (flat ``src``, element
+    strides s2, s1, unit along the columns), zeros past its edges, written
+    at 1024-aligned ``dst`` with 128-byte rows in the 128-byte swizzle."""
+    r = np.arange(rows)[:, None]
+    c = np.arange(64)[None, :]
+    ok = (c1 + r < dims[1]) & (c0 + c < dims[0])
+    val = np.where(ok, src[np.where(ok, e * s2 + (c1 + r) * s1 + c0 + c,
+                                    0)], 0.0)
+
+    def write(smem, dst):
+        smem[_swizzle(dst + r * 128 + c * 2)] = val
+    return write
+
+
+def _kmajor(smem, start, rows):
+    """A K-major wgmma operand by descriptor (start, SBO 1024): [rows, 16]
+    (row i, k j at start + (i / 8) 1024 + (i % 8) 128 + 2 j)."""
+    i = np.arange(rows)[:, None]
+    j = np.arange(16)[None, :]
+    return smem[_swizzle(start + (i >> 3) * 1024 + (i & 7) * 128 + j * 2)]
+
+
+def _mnmajor(smem, start, lbo, cols):
+    """An MN-major wgmma operand by descriptor (start, LBO, SBO 1024):
+    [16, cols] (k j, column i at start + (j / 8) 1024 + (j % 8) 128 +
+    (i / 64) LBO + 2 (i % 64))."""
+    j = np.arange(16)[:, None]
+    i = np.arange(cols)[None, :]
+    return smem[_swizzle(start + (j >> 3) * 1024 + (j & 7) * 128
+                       + (i >> 6) * lbo + (i & 63) * 2)]
+
+
+def _tma_store(smem, src, out, count, dims, e, c1, c0, rows):
+    """A TMA box store: ``rows`` rows of 64 columns at 1024-aligned ``src``
+    (128-byte swizzle) to (c1, c0) of expert e of out [E, dims[1],
+    dims[0]]; nothing past its edges."""
+    r = np.arange(rows)[:, None]
+    c = np.arange(64)[None, :]
+    ok = (c1 + r < dims[1]) & (c0 + c < dims[0])
+    val = smem[_swizzle(src + r * 128 + c * 2)]
+    rr, cc = np.broadcast_to(c1 + r, ok.shape)[ok], \
+        np.broadcast_to(c0 + c, ok.shape)[ok]
+    out[e, rr, cc] = val[ok]
+    count[e, rr, cc] += 1
+
+
+def dw_transliteration(a, dys, shape=None, bf16=False, order=None,
+                       grid=None):
+    """K3 as wgrad::dw_kernel computes it: [dw_j [E, D, F]] = a [E, C, D]^T
+    . dy_j [E, C, F] (M = D, N = F, K = C), from f32 numpy arrays. Blocks
+    walk units (BN columns of every output, expert), ``grid`` of them
+    (default one a unit, as launched); a unit's dy chunks stay in their
+    slots while they fit and stream with a's otherwise. ``bf16`` rounds
+    each output once, as the kernel stores it; ``order`` (a dict) collects
+    the k of each k16 step in the order it reaches each accumulator. Every
+    output element is written exactly once."""
     E, C, D = a.shape
     F = dys[0].shape[2]
-    shape = shape or GRAD_SHAPES[f"dw{len(dys)}"]
-    return grad_transliteration(
-        [a.reshape(-1)], [dy.reshape(-1) for dy in dys], C * D, D, C * F, F,
-        E, D, F, C, shape, **kw)
+    NO, BN, BK, SA, SB = shape or GRAD_SHAPES[f"dw{len(dys)}"]
+    assert NO == len(dys)
+    NT = NO * BN
+    KA, KB, KO = 2 * BK * 128, (NT // 64) * BK * 128, (NT // 64) * 8192
+    OB = SA * KA                                  # B slots
+    OO = OB + SB * KB                             # output tiles
+    nk, nM, nN = -(-C // BK), -(-D // GRAD_BM), -(-F // BN)
+    units = E * nN
+    G = min(grid or units, units)
+    resident = nk <= SB
+    R = _round_bf16 if bf16 else (lambda v: v)
+    af = a.reshape(-1)
+    bfs = [dy.reshape(-1) for dy in dys]
+    outs = [np.full((E, D, F), np.nan, np.float32) for _ in dys]
+    counts = [np.zeros((E, D, F), np.int32) for _ in dys]
+    for b in range(G):
+        mine = range(b, units, G)
+
+        def loads():
+            ia = ib = 0
+            for u in mine:
+                n0, e = (u % nN) * BN, u // nN
+                for i in range(nM):
+                    for kt in range(nk):
+                        at = (ia % SA) * KA
+                        boxes = [(_tma_load(af, C * D, D, e, kt * BK,
+                                            i * GRAD_BM + 64 * h, (D, C), BK),
+                                  at + h * BK * 128) for h in range(2)]
+                        yield ("A", ia % SA,
+                               lambda s, bx=boxes: [w(s, d) for w, d in bx])
+                        ia += 1
+                        if resident and i > 0:
+                            continue
+                        bt = OB + (ib % SB) * KB
+                        boxes = [(_tma_load(bfs[c // (BN // 64)], C * F, F,
+                                            e, kt * BK,
+                                            n0 + 64 * (c % (BN // 64)),
+                                            (F, C), BK),
+                                  bt + c * BK * 128)
+                                 for c in range(NT // 64)]
+                        yield ("B", ib % SB,
+                               lambda s, bx=boxes: [w(s, d) for w, d in bx])
+                        ib += 1
+
+        ring = _Ring(OO + 2 * KO, loads())
+        smem = ring.smem
+        ia = ib = 0
+        for u in mine:
+            n0, e = (u % nN) * BN, u // nN
+            for i in range(nM):
+                acc = np.zeros((2, NO, 64, BN), np.float32)
+                last = None
+                for kt in range(nk):
+                    jb = ib + (kt if resident else i * nk + kt)
+                    ring.wait("A", ia)
+                    ring.wait("B", jb)
+                    bt = OB + (jb % SB) * KB
+                    for cw in range(2):
+                        at = (ia % SA) * KA + cw * BK * 128
+                        for ks in range(BK // 16):
+                            A = _mnmajor(smem, at + ks * 2048, BK * 128,
+                                         64).T               # [64 m, 16 k]
+                            for j in range(NO):
+                                B = _mnmajor(smem, bt + j * (BN // 64) * BK
+                                             * 128 + ks * 2048, BK * 128, BN)
+                                acc[cw, j] += A @ B
+                                if order is not None:
+                                    order.setdefault(
+                                        (b, u, i, cw, j), []).append(
+                                        kt * BK + ks * 16)
+                    if last is not None:
+                        for kind, slot in last:
+                            ring.release(kind, slot)
+                    last = [("A", ia % SA)]
+                    if not resident or i == nM - 1:
+                        last.append(("B", jb % SB))
+                    ia += 1
+                for kind, slot in last:
+                    ring.release(kind, slot)
+                # epilogue: each consumer's 64 rows cast once into its tile
+                # [NT / 64][64][64], then one TMA store a 64-column box
+                for cw in range(2):
+                    ot = OO + cw * KO
+                    r = np.arange(64)[:, None]
+                    c = np.arange(NT)[None, :]
+                    smem[_swizzle(ot + (c >> 6) * 8192 + r * 128
+                                + (c & 63) * 2)] = R(np.concatenate(
+                                    list(acc[cw]), axis=1))
+                    m0 = i * GRAD_BM + 64 * cw
+                    for c in range(NT // 64):
+                        j, n = c // (BN // 64), n0 + 64 * (c % (BN // 64))
+                        if m0 < D and n < F:
+                            _tma_store(smem, ot + c * 8192, outs[j],
+                                       counts[j], (F, D), e, m0, n, 64)
+            ib += nk if resident else nM * nk
+    for cnt in counts:
+        assert (cnt == 1).all(), "an output written other than once"
+    return outs
+
+
+def dx_transliteration(dys, ws, shape=None, bf16=False, order=None,
+                       grid=None):
+    """K2 as wgrad::dx_kernel computes it: dx [E, C, D] = sum_j dy_j [E, C,
+    F] . w_j [E, D, F]^T (M = D, N = C, K = F), from f32 numpy arrays.
+    Blocks walk units (128 rows of D, a chunk of C, expert), D-tiles
+    fastest, ``grid`` of them (default one a unit, as launched); each
+    unit streams pair 0's stages, then pair 1's. ``bf16`` rounds where the
+    kernel does (each pair's sum, their f32 sum); ``order`` collects the k
+    of each k16 step by accumulator. Every output element is written
+    exactly once."""
+    E, C, F = dys[0].shape
+    D = ws[0].shape[1]
+    NP, NR, BK, S = shape or GRAD_SHAPES[f"dx{len(dys)}"]
+    assert NP == len(dys)
+    KW, KY = (BK // 64) * GRAD_BM * 128, (BK // 64) * NR * 128
+    KS, KO = KW + KY, NR * 128
+    OO = S * KS
+    nk, nM = -(-F // BK), -(-D // GRAD_BM)
+    chunks = -(-C // NR)
+    Cc = -(-(-(-C // chunks)) // 8) * 8
+    units = E * chunks * nM
+    G = min(grid or units, units)
+    R = _round_bf16 if bf16 else (lambda v: v)
+    wf = [w.reshape(-1) for w in ws]
+    yf = [dy.reshape(-1) for dy in dys]
+    out = np.full((E, C, D), np.nan, np.float32)
+    count = np.zeros((E, C, D), np.int32)
+
+    def unit(u):
+        return (u % nM) * GRAD_BM, (u // nM % chunks) * Cc, u // nM // chunks
+
+    for b in range(G):
+        mine = range(b, units, G)
+
+        def loads():
+            it = 0
+            for u in mine:
+                m0, c0, e = unit(u)
+                for j in range(NP):
+                    for kt in range(nk):
+                        st = (it % S) * KS
+                        boxes = []
+                        for bb in range(BK // 64):
+                            k = kt * BK + 64 * bb
+                            boxes += [
+                                (_tma_load(wf[j], D * F, F, e, m0, k, (F, D),
+                                           GRAD_BM), st + bb * GRAD_BM * 128),
+                                (_tma_load(yf[j], C * F, F, e, c0, k, (F, C),
+                                           NR), st + KW + bb * NR * 128)]
+                        yield ("S", it % S,
+                               lambda s, bx=boxes: [w(s, d) for w, d in bx])
+                        it += 1
+
+        ring = _Ring(OO + 2 * KO, loads())
+        smem = ring.smem
+        it = 0
+        for u in mine:
+            m0, c0, e = unit(u)
+            acc = np.zeros((2, NP, 64, NR), np.float32)
+            last = None
+            for j in range(NP):
+                for kt in range(nk):
+                    ring.wait("S", it)
+                    st = (it % S) * KS
+                    for cw in range(2):
+                        for ks in range(BK // 16):
+                            A = _kmajor(smem, st + (ks >> 2) * GRAD_BM * 128
+                                        + cw * 64 * 128 + (ks & 3) * 32, 64)
+                            B = _kmajor(smem, st + KW + (ks >> 2) * NR * 128
+                                        + (ks & 3) * 32, NR).T
+                            acc[cw, j] += A @ B
+                            if order is not None:
+                                order.setdefault((b, u, cw, j), []).append(
+                                    kt * BK + ks * 16)
+                    if last is not None:
+                        ring.release("S", last)
+                    last = it % S
+                    it += 1
+            ring.release("S", last)
+            # epilogue: the tile transposed ([n][m], the consumer's 64
+            # columns of M), then one TMA store of Cc rows
+            for cw in range(2):
+                ot = OO + cw * KO
+                v = R(R(acc[cw, 0]) + R(acc[cw, 1])) if NP == 2 \
+                    else R(acc[cw, 0])
+                n = np.arange(NR)[None, :]
+                m = np.arange(64)[:, None]
+                smem[_swizzle(ot + n * 128 + m * 2)] = v
+                if m0 + 64 * cw < D:
+                    _tma_store(smem, ot, out, count, (D, C), e, c0,
+                               m0 + 64 * cw, Cc)
+    assert (count == 1).all(), "an output written other than once"
+    return out
 
 
 def _grad_case(seed, E, C, D, F, exact=False):
     """dy_j [E, C, F], w_j [E, D, F] and a [E, C, D] as f32 numpy. exact:
-    multiples of 1/8 in [-1/2, 1/2], so every f32 sum of their products is
-    exact in any order and only the bf16 roundings can differ."""
+    multiples of 1/8 in [-4, 4], so every f32 sum of their products is
+    exact in any order (16 bits or fewer) and most need rounding to bf16:
+    only the bf16 roundings can differ."""
     rng = np.random.default_rng(seed)
 
     def draw(*shape):
         if exact:
-            return (rng.integers(-4, 5, shape) / 8).astype(np.float32)
+            return (rng.integers(-32, 33, shape) / 8).astype(np.float32)
         return rng.standard_normal(shape).astype(np.float32)
 
     return ([draw(E, C, F) for _ in range(2)],
@@ -1123,26 +1255,38 @@ def _grad_case(seed, E, C, D, F, exact=False):
             draw(E, C, D))
 
 
-SMALL_GRAD = {"dx1": (False, False, 1, 1, False, True, 2, 2, 1, 2, 16, 3),
-              "dx2": (False, False, 2, 2, True, True, 2, 2, 1, 2, 32, 2),
-              "dw1": (True, True, 1, 1, False, False, 2, 2, 1, 2, 16, 3),
-              "dw2": (True, True, 1, 2, False, False, 2, 2, 1, 2, 16, 3)}
+def _grad_run(kind, dys, ws, a, shape, **kw):
+    """K2 or K3 (``kind`` dx / dw and its count of pairs or outputs) on the
+    first of each operand list; a list of outputs."""
+    n = int(kind[2])
+    if kind.startswith("dx"):
+        return [dx_transliteration(dys[:n], ws[:n], shape, **kw)]
+    return dw_transliteration(a, dys[:n], shape, **kw)
+
+
+def _grad_plain(kind, dys, ws, a, cast=lambda t: t):
+    n = int(kind[2])
+    t = [cast(torch.from_numpy(x)) for x in dys[:n]]
+    if kind.startswith("dx"):
+        return [MG.moe_gemm_dx_ref(
+            t, [cast(torch.from_numpy(x)) for x in ws[:n]]).float().numpy()]
+    return [w.float().numpy() for w in MG.moe_gemm_dw_ref(
+        cast(torch.from_numpy(a)), t)]
 
 
 @pytest.mark.parametrize("pairs", [1, 2])
 @pytest.mark.parametrize("E,C,D,F,small", [
-    (2, 9, 16, 24, False),      # C 9: a partial n8 tile; the kernel's shape
-    (1, 1, 8, 72, False),       # C 1, F off a 32/64-row stage
-    (2, 37, 40, 48, True),      # past the small tiles: 2 M-tiles, 2 chunks
-    (1, 70, 24, 16, True),      # C past two 32-row chunks of the small shape
+    (2, 9, 16, 24, False),      # C 9: a ragged chunk; the kernel's shape
+    (1, 1, 8, 72, False),       # C 1, F off a 64-row stage
+    (2, 37, 40, 48, True),      # C in 3 chunks of 16 rows of the small shape
+    (1, 70, 24, 16, True),      # C in 5 chunks, D off the 128-row tile
 ])
 def test_dx_transliteration_matches_plain(pairs, E, C, D, F, small):
     dys, ws, _ = _grad_case(E * 13 + C, E, C, D, F)
     dys, ws = dys[:pairs], ws[:pairs]
     shape = SMALL_GRAD[f"dx{pairs}"] if small else None
     got = dx_transliteration(dys, ws, shape)
-    want = MG.moe_gemm_dx_ref([torch.from_numpy(t) for t in dys],
-                              [torch.from_numpy(t) for t in ws]).numpy()
+    want = _grad_plain(f"dx{pairs}", dys, ws, None)[0]
     np.testing.assert_allclose(got, want, **TOL)
 
 
@@ -1150,51 +1294,72 @@ def test_dx_transliteration_matches_plain(pairs, E, C, D, F, small):
 @pytest.mark.parametrize("E,C,D,F,small", [
     (2, 9, 16, 24, False),      # C 9: K3's reduction off a k16 step
     (1, 1, 136, 8, False),      # C 1, D past one 128-row tile
-    (2, 37, 40, 48, True),      # C off 8 and off a 16-row stage, 2 x 2 tiles
-    (1, 3, 24, 72, True),
+    (2, 37, 40, 48, True),      # C off 8 and past the small slots: dy streams
+    (1, 3, 24, 72, True),       # F past one 64-column unit
 ])
 def test_dw_transliteration_matches_plain(outs, E, C, D, F, small):
     dys, _, a = _grad_case(E * 17 + C, E, C, D, F)
     dys = dys[:outs]
     shape = SMALL_GRAD[f"dw{outs}"] if small else None
     got = dw_transliteration(a, dys, shape)
-    want = MG.moe_gemm_dw_ref(torch.from_numpy(a),
-                              [torch.from_numpy(t) for t in dys])
     assert len(got) == outs
-    for g, w in zip(got, want):
-        np.testing.assert_allclose(g, w.numpy(), **TOL)
+    for g, w in zip(got, _grad_plain(f"dw{outs}", dys, None, a)):
+        np.testing.assert_allclose(g, w, **TOL)
 
 
 @pytest.mark.parametrize("kind", sorted(GRAD_SHAPES))
 def test_grad_k_order_and_bf16_rounding(kind):
-    """Every accumulator tile of K2 and K3 takes its k16 steps in
-    increasing k, each exactly once, with no split (K2 over F, K3 over C,
-    past a ragged end); and the kernels round where the plain versions do
-    (K2: each pair's product, then their f32 sum; K3: each output): on
-    inputs whose f32 sums are exact in any order, the transliteration with
-    bf16 rounding equals the plain version in bf16 bit for bit."""
-    two = kind.endswith("2")
-    dys, ws, a = _grad_case(len(kind) + two, 2, 21, 24, 40, exact=True)
-    dys, ws = dys[:1 + two], ws[:1 + two]
+    """Every accumulator of K2 and K3 takes its k16 steps in increasing k,
+    each exactly once, with no split (K2 over F, K3 over C, past a ragged
+    end); and the kernels round where the plain versions do (K2: each
+    pair's product, then their f32 sum; K3: each output): on inputs whose
+    f32 sums are exact in any order, the transliteration with bf16
+    rounding equals the plain version in bf16 bit for bit."""
+    dys, ws, a = _grad_case(len(kind) + int(kind[2]), 2, 21, 24, 40,
+                            exact=True)
     shape = SMALL_GRAD[kind]
     order = {}
-    if kind.startswith("dx"):
-        got = [dx_transliteration(dys, ws, shape, bf16=True, order=order)]
-        want = [MG.moe_gemm_dx_ref(
-            [torch.from_numpy(t).bfloat16() for t in dys],
-            [torch.from_numpy(t).bfloat16() for t in ws])]
-        K = 40
-    else:
-        got = dw_transliteration(a, dys, shape, bf16=True, order=order)
-        want = MG.moe_gemm_dw_ref(torch.from_numpy(a).bfloat16(),
-                                  [torch.from_numpy(t).bfloat16()
-                                   for t in dys])
-        K = 21
-    BK = shape[10]
+    got = _grad_run(kind, dys, ws, a, shape, bf16=True, order=order)
+    want = _grad_plain(kind, dys, ws, a, cast=lambda t: t.bfloat16())
+    K, BK = (40, shape[2]) if kind.startswith("dx") else (21, shape[2])
     steps = list(range(0, -(-K // BK) * BK, 16))
     assert order and all(ks == steps for ks in order.values())
     for g, w in zip(got, want):
-        assert np.array_equal(g, w.float().numpy())
+        assert np.array_equal(g, w)
+
+
+@pytest.mark.parametrize("C", [21, 37])
+@pytest.mark.parametrize("kind", sorted(GRAD_SHAPES))
+def test_grad_blocks_walk_units_across_experts(kind, C):
+    """A grid smaller than the units (2 blocks), so each block walks
+    several units and crosses expert boundaries, with ragged C, D and F at
+    the small shapes (K3 at C 21: dy stays in its slots for both D-tiles of
+    a unit; at C 37: past the slots, dy streams; K2: C in two or three
+    chunks): equal to the one-unit-a-block grid bit for bit and to the
+    plain version."""
+    dys, ws, a = _grad_case(C + int(kind[2]), 3, C, 136, 72)
+    shape = SMALL_GRAD[kind]
+    walked = _grad_run(kind, dys, ws, a, shape, grid=2)
+    alone = _grad_run(kind, dys, ws, a, shape, grid=10 ** 6)
+    for w, o, p in zip(walked, alone, _grad_plain(kind, dys, ws, a)):
+        assert np.array_equal(w, o)
+        np.testing.assert_allclose(w, p, **TOL)
+
+
+@pytest.mark.parametrize("kind", sorted(GRAD_SHAPES))
+def test_grad_edges_at_the_kernel_shapes(kind):
+    """The kernels' own shapes at C off 8 and off a K3 chunk (C 37), D off
+    the 128-row tile (136) and F off a 64-wide box and K2's 64-row stage
+    (72), with an empty expert; then C 170, past K3's five resident dy
+    chunks (dy streams) and K2's 160-row chunk (two chunks of 88)."""
+    for C in (37, 170):
+        dys, ws, a = _grad_case(C + int(kind[2]), 2, C, 136, 72)
+        for t in dys + [a]:
+            t[1] = 0.0
+        got = _grad_run(kind, dys, ws, a, None)
+        for g, p in zip(got, _grad_plain(kind, dys, ws, a)):
+            np.testing.assert_allclose(g, p, **TOL)
+            assert not g[1].any()
 
 
 def test_k1_recomputes_the_forward_and_matches_plain():

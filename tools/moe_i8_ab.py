@@ -191,16 +191,15 @@ def run(lib_path: str, label: str, probe: bool) -> None:
               * torch.exp2(torch.randint(-8, 9, (steps, 64, 1),
                                          generator=gen, device=dev).float())
               ).bfloat16()
-        pb = torch.randn((steps, 64, 16), generator=gen, device=dev
+        pb = torch.randn((steps, 256, 16), generator=gen, device=dev
                          ).bfloat16()
         out = MG.i8_probe(pa, pb)
         torch.cuda.synchronize()
-        names = ("wgmma n8 A in registers", "wgmma n8 A in shared memory",
-                 "wgmma n64 columns 0-7")
         print("[moe_i8_ab] probe (%d k16 steps): " % steps + "; ".join(
-            f"{n} {'==' if torch.equal(out[0], out[i + 1]) else '!='} "
-            f"mma.sync ({int((out[0] != out[i + 1]).sum())} of 512 differ)"
-            for i, n in enumerate(names)), flush=True)
+            f"{what} {'!=' if d else '=='} mma.sync ({d} of {64 * n} "
+            f"differ)" for (what, n), d in zip(MG.PROBE_WAYS,
+                                               MG.probe_differ(out))),
+            flush=True)
 
     bad = []
     for Eo, Co, Do, Fo in RAGGED:
