@@ -124,21 +124,23 @@ Phases:
              kernels' device time from the profiler, by name);
              the expert kernels' backward (K1 ``moe_ffn_fused_bwd``, K2
              ``moe_gemm_dx`` on one pair and two, K3 ``moe_gemm_dw`` on
-             one output and two): the ptxas lines of K2's and K3's wgmma
-             kernels (no spill, no note that wgmma is serialized) and
-             their HGMMA instructions (none fails), the bit probe (every
-             ``wgmma`` shape and operand layout of the int8 variant, K2
-             and K3 against ``mma.sync`` over 4096 k16 steps: any
-             differing output fails), then against their plain versions
+             one output and two): the ptxas lines of K1's, K2's and K3's
+             wgmma kernels (no spill, no note that wgmma is serialized)
+             and their HGMMA instructions (none fails), the bit probe
+             (every ``wgmma`` shape and operand layout of the int8
+             variant, K1, K2 and K3 against ``mma.sync`` over 4096 k16
+             steps: any differing output fails), then against their plain
+             versions
              at ragged shapes (C 1-200, D 8-2056, F 8-136, C off 8 for
              K3; bf16 on the tensor and the CUDA cores, f32), qwen3-moe's
              smoke shapes in f32 (1e-5) and the training path's (E 128, C
              160, D 2048, F 768; bf16 rows within 2e-2 of their norm, the
              tensor-core route asserted), K1's forward from its
              recomputed gate and up equal to ``moe_ffn_fused``'s bit for
-             bit, K2 and K3 by replay equal to eager, K2's rows 0-7 at C
-             160 to a C 8 call and K3's expert 0 at E 128 to that expert
-             alone, each timed eager and by replay beside ``torch.bmm`` on
+             bit, K1, K2 and K3 by replay equal to eager, K1's and K2's
+             rows 0-7 at C 160 to a C 8 call and K1's and K3's expert 0 at
+             E 128 to that expert alone, each timed eager and by replay
+             beside ``torch.bmm`` on
              the same products and the bound in bytes and in operations;
              then, under autograd on the card, the expert kernels' int8
              and narrow variants, rglru_scan, ssd_chunk and both decode
@@ -1024,11 +1026,11 @@ def phase_moe_bwd_kernels(moe_cfg):
     160, D 2048, F 768; the tensor-core route asserted), each timed eager
     and by graph replay beside ``torch.bmm`` on the same products. bf16
     is held row by row within BWD_ROW of each row's norm, f32 within
-    F32_TOL. First K2's and K3's build lines and the bit probe (their
-    wgmma shapes and layouts against mma.sync); at the train shapes also
-    bit for bit: K2 and K3 by graph replay == eager, K2's rows 0-7 of the
-    C 160 call == a C 8 call, K3's expert 0 of the E 128 call == that
-    expert alone at E 1."""
+    F32_TOL. First K1's, K2's and K3's build lines and the bit probe
+    (their wgmma shapes and layouts against mma.sync); at the train shapes
+    also bit for bit: K1, K2 and K3 by graph replay == eager, K1's and
+    K2's rows 0-7 of the C 160 call == a C 8 call, K1's and K3's expert 0
+    of the E 128 call == that expert alone at E 1."""
     import dataclasses
     import torch
     from repro_torch.configs import get_smoke_config
@@ -1239,13 +1241,31 @@ def phase_moe_bwd_kernels(moe_cfg):
 
 
 def check_grad_bits(w) -> None:
-    """K2 and K3 at the train shapes (``w``: a set of
+    """K1, K2 and K3 at the train shapes (``w``: a set of
     ``phase_moe_bwd_kernels``' inputs with the kernels' dg and du), bit for
-    bit: a CUDA-graph replay == the eager call; K2's rows 0-7 of the C 160
-    call == a C 8 call (a row's bits do not depend on C); K3's expert 0 of
-    the E 128 call == that expert alone at E 1."""
+    bit: a CUDA-graph replay == the eager call; K1's and K2's rows 0-7 of
+    the C 160 call == a C 8 call (a row's bits do not depend on C); K1's
+    and K3's expert 0 of the E 128 call == that expert alone at E 1."""
     import torch
     from repro_torch.kernels.moe_gemm import moe_gemm as MG
+
+    def k1(x, wg, wu, dout):
+        return list(MG.moe_ffn_fused_bwd(x, wg, wu, dout))
+    args = (w["x"], w["wg"], w["wu"], w["dout"])
+    eager, replay = k1(*args), graph_out(lambda: k1(*args))
+    if not all(torch.equal(x, y) for x, y in zip(eager, replay)):
+        fail("moe_ffn_fused_bwd: graph replay differs from the eager call")
+    rows8 = k1(w["x"][:, :8], w["wg"], w["wu"], w["dout"][:, :8])
+    alone = k1(*(t[:1] for t in args))
+    for what, full, part, one in zip(("dg", "du"), eager, rows8, alone):
+        if not torch.equal(full[:, :8], part):
+            fail(f"moe_ffn_fused_bwd {what}: rows 0-7 of the C "
+                 f"{full.shape[1]} call differ from a C 8 call in "
+                 f"{int((full[:, :8] != part).sum())} elements")
+        if not torch.equal(full[:1], one):
+            fail(f"moe_ffn_fused_bwd {what}: expert 0 of the E "
+                 f"{full.shape[0]} call differs from that expert alone at "
+                 f"E 1")
     pairs = {"down": ((w["dy"],), (w["wd"],), w["act"]),
              "gate/up": ((w["dg"], w["du"]), (w["wg"], w["wu"]), w["x"])}
     for what, (dys, ws, a) in pairs.items():
@@ -1267,10 +1287,10 @@ def check_grad_bits(w) -> None:
         if not all(torch.equal(f[:1], o) for f, o in zip(full, alone)):
             fail(f"moe_gemm_dw {what}: expert 0 of the E {a.shape[0]} call "
                  f"differs from that expert alone at E 1")
-    log("[kernels] moe_gemm_dx / moe_gemm_dw at the train shapes, bit for "
-        "bit: graph replay == eager; K2's rows 0-7 at C 160 == a C 8 call; "
-        "K3's expert 0 at E 128 == that expert alone at E 1 (down and "
-        "gate/up)")
+    log("[kernels] moe_ffn_fused_bwd / moe_gemm_dx / moe_gemm_dw at the "
+        "train shapes, bit for bit: graph replay == eager; K1's and K2's "
+        "rows 0-7 at C 160 == a C 8 call; K1's and K3's expert 0 at E 128 "
+        "== that expert alone at E 1 (K2, K3: down and gate/up)")
 
 
 def check_refusals() -> None:
@@ -1362,10 +1382,11 @@ def i8_probe_line(steps: int = 4096) -> None:
     each ``wgmma`` shape and operand layout the wgmma kernels use
     (``MG.PROBE_WAYS``: the int8 variant's A in registers and MN-major,
     K2's n160 with A and B K-major, K3's n128 and n256 with A and B
-    MN-major), on bf16 operands whose rows span 2^-8 .. 2^8. Fails unless
-    every way equals ``mma.sync`` bit for bit: the int8 variant is held to
-    the tensor-core variant's bits on ``as_weight(w)``, and K2 and K3 to
-    their mma.sync design's."""
+    MN-major, K1's n160 with A MN-major and B K-major), on bf16 operands
+    whose rows span 2^-8 .. 2^8. Fails unless every way equals
+    ``mma.sync`` bit for bit: the int8 variant is held to the tensor-core
+    variant's bits on ``as_weight(w)``, K1 to the fused forward's
+    accumulators, and K2 and K3 to their mma.sync design's."""
     import torch
     from repro_torch.kernels.moe_gemm import moe_gemm as MG
     gen = torch.Generator(device="cuda").manual_seed(26)
@@ -1382,19 +1403,19 @@ def i8_probe_line(steps: int = 4096) -> None:
                                                         differ)))
     if any(differ) or bool(out[0].isnan().any()):
         fail("wgmma and mma.sync round differently: the int8 variant cannot "
-             "equal the tensor-core variant, nor K2 and K3 their mma.sync "
-             "design, bit for bit")
+             "equal the tensor-core variant, nor K1 the fused forward, nor "
+             "K2 and K3 their mma.sync design, bit for bit")
 
 
 def log_grad_build() -> None:
-    """ptxas registers, spills and notes of K2's and K3's kernels
-    (``wgrad::dx_kernel<...>`` / ``dw_kernel<...>``, one per instantiation)
-    and the HGMMA (wgmma) instructions ``cuobjdump -sass`` finds in each:
-    fails on a spill, a C75xx note that wgmma is serialized (C7512, C7515)
-    or a kernel with no HGMMA."""
+    """ptxas registers, spills and notes of K1's, K2's and K3's kernels
+    (``wgrad::dgu_kernel<...>`` / ``dx_kernel<...>`` / ``dw_kernel<...>``,
+    one per instantiation) and the HGMMA (wgmma) instructions ``cuobjdump
+    -sass`` finds in each: fails on a spill, a C75xx note that wgmma is
+    serialized (C7512, C7515) or a kernel with no HGMMA."""
     import re
     from repro_torch.kernels import build
-    name = re.compile(r"5wgrad9(d[xw])_kernelI(\w+?)EEv")
+    name = re.compile(r"5wgrad\d+(d[xw]|dgu)_kernelI(\w+?)EEv")
     entry, seen = "", set()
     for line in build.build_log("moe_gemm").splitlines():
         if "Compiling entry function" in line:
@@ -1413,13 +1434,13 @@ def log_grad_build() -> None:
     counts = {f"{m.group(1)}_kernel<{m.group(2)}>": v
               for k, v in hgmma_counts("moe_gemm", name).items()
               for m in [name.search(k)]}
-    log("[build] moe_gemm K2 / K3 HGMMA instructions (cuobjdump -sass): "
+    log("[build] moe_gemm K1 / K2 / K3 HGMMA instructions (cuobjdump -sass): "
         + ", ".join(f"{k} {v}" for k, v in sorted(counts.items()))
         + " (ptxas reports the 168 registers a thread has at launch; "
         "setmaxnreg then gives the consumers 232)")
-    if len(seen) != 4 or set(counts) != seen or not all(counts.values()):
-        fail(f"moe_gemm K2 / K3: four wgmma kernels with HGMMA instructions "
-             f"expected, built {sorted(seen)}, found {counts}")
+    if len(seen) != 5 or set(counts) != seen or not all(counts.values()):
+        fail(f"moe_gemm K1 / K2 / K3: five wgmma kernels with HGMMA "
+             f"instructions expected, built {sorted(seen)}, found {counts}")
 
 
 def graph_out(fn):
@@ -2577,6 +2598,7 @@ def log_profile(prof, name: str, wall_us: float, steps: int,
                         ("ssd_chunk", ("ssd_",)), ("rglru_scan", ("rglru",)),
                         ("expert kernels", ("tc::tc_kernel<",
                                             "i8::kernel<")),
+                        ("expert backward K1", ("wgrad::dgu_kernel<",)),
                         ("expert backward products (K2, K3)", (
                             "wgrad::dx_kernel<", "wgrad::dw_kernel<",
                             "cc::gemm_kernel<")),

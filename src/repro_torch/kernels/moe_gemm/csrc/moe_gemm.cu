@@ -186,27 +186,41 @@
 //    K1 0.294 ms (x, both weights, dout, dg, du), K2 0.155 / 0.284 ms
 //    (one / two pairs), K3 0.155 / 0.284 ms (one / two outputs); their
 //    products 64.4 GFLOP each, 0.065 ms at 989 TFLOP/s.
-//    * K1 is tc_kernel / grouped_kernel with kBwd: the fused forward's
-//      tile loop and block shapes, picked by C as the forward picks them,
-//      so g and u are the forward's accumulators bit for bit (its check
-//      output y, the forward's epilogue of them, equals moe_ffn_fused's);
-//      the epilogue brings dout's tile rows into the ring, writes dg over
-//      them and du into a second tile, both out as 16-byte rows.
-//    * K2 and K3 (namespace wgrad) in i8's shape: blocks of 384 threads, a
-//      producer thread issuing TMA loads (zero fill past every edge) into
-//      mbarrier rings, two consumer warpgroups on wgmma (setmaxnreg 40 /
-//      232), no block barrier in the k loop. No operand is transposed in
-//      memory: each is loaded in place, 128-byte rows in the 128-byte
-//      swizzle, and read K-major or MN-major (the transpose bits). One
-//      block a unit (the hardware hands the units to the SMs as they free
-//      up; a persistent grid of one block an SM walking units b, b + 132,
-//      ... measured as fast for K2 on two pairs and slower for the other
-//      three: tools/moe_grad_ab.py). Each consumer casts its 64 rows once to
+//    * K1, K2 and K3 (namespace wgrad) in i8's shape: blocks of 384
+//      threads, a producer thread issuing TMA loads (zero fill past every
+//      edge) into mbarrier rings, two consumer warpgroups on wgmma
+//      (setmaxnreg 40 / 232), no block barrier in the k loop. No operand is
+//      transposed in memory: each is loaded in place, 128-byte rows in the
+//      128-byte swizzle, and read K-major or MN-major (the transpose bits).
+//      K2 and K3: one block a unit (the hardware hands the units to the
+//      SMs as they free up; a persistent grid of one block an SM walking
+//      units b, b + 132, ... measured as fast or slower:
+//      tools/moe_grad_ab.py). Each consumer casts its 64 rows once to
 //      bf16 into its own output tile and one thread stores it by TMA
 //      (cp.async.bulk.tensor), which runs on while the next tile's loads
 //      and products go, so the output (805 MB of two-output dw) streams
 //      out under the short k loops; the tile is written again after that
 //      store has read it (cp.async.bulk.wait_group.read).
+//      K1: M = F from the weight tiles (A MN-major), N = C (x's rows, B
+//      K-major, 160 a chunk), K = D. A unit is (64 columns of F, chunk,
+//      expert), F-tiles fastest, so each weight tile is read once a
+//      launch; its consumer holds gate and up of the 64 columns (two
+//      m64n160 sets, 160 f32 a thread), so the SwiGLU's backward needs no
+//      exchange. K1's epilogue (swiglu_bwd on 160 f32 a thread, two
+//      stores) is long against its k loop, so a block runs two pipelines,
+//      each a producer thread, a ring of 2 stages of 64 rows of D (x 20
+//      KB, the two weight tiles 16 KB) and a consumer warpgroup, on
+//      neighbouring units, one block an SM walking pairs of units; the
+//      second pipeline starts half a unit late, so each consumer's
+//      epilogue runs under the other's loads (tools/moe_grad_ab.py times
+//      each choice undone). A stage's slot goes back as soon as its
+//      products are done. The producer loads the unit's dout tile (20 KB)
+//      by TMA once the ring's first stages are issued, so it lands under
+//      the k loop; the consumer writes dg over it and du into a tile of
+//      its own, and one thread stores both by TMA. At the train shape it
+//      loads the weights once (805 MB), x 12 times (mostly from L2, 1 GB)
+//      and dout once, and stores dg and du (63 MB); 1536 units, 11.6 a
+//      block on 132 SMs.
 //      K2: M = D from the weight rows (A K-major), N = C (dy's rows, B
 //      K-major, 160 a chunk: qwen3-moe's C 160 is one), K = F. A unit is
 //      (128 rows of D, chunk, expert), D-tiles fastest, so each weight
@@ -227,13 +241,15 @@
 //      past them. At the train shapes: dy read once (63 / 84 MB, two / one
 //      outputs), a 6 / 8 times (503 / 252 MB) where the mma.sync design
 //      loaded ~1.5 / ~1.0 GB; 768 / 1024 units, 5.8 / 7.8 a block.
-//      Invariant of both: no split-K and no atomics; each output is one
-//      f32 accumulator updated by one wgmma k16 step after another in
+//      Invariant of the three: no split-K and no atomics; each output is
+//      one f32 accumulator updated by one wgmma k16 step after another in
 //      increasing k (K3: over C in increasing c), cast once. The probe
 //      (wgrad::probe) holds every wgmma shape and layout used here to
 //      mma.sync.m16n8k16's bits, so the outputs are the first design's
-//      (mma.sync, the same k order) bit for bit, and a row's (K2) or an
-//      expert's (K3) bits do not depend on C or E.
+//      (mma.sync, the same k order) bit for bit, K1's g and u are the fused
+//      forward's accumulators (its check output y equals moe_ffn_fused's),
+//      and a row's (K1, K2) or an expert's (K3) bits do not depend on C or
+//      E.
 //    * f32, and bf16 shapes off that rule, run K1 on the CUDA-core
 //      template and K2 / K3 on a strided CUDA-core kernel (namespace cc:
 //      64 x 64 outputs a block, one fmaf per k in increasing k).
@@ -274,9 +290,10 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
 
-// The operands of K1's epilogue (moe_ffn_fused_bwd: the fused kernels'
-// tile loops with their epilogue replaced, kBwd): dout [E, C, F] in, dg
-// and du [E, C, F] out, contiguous, in x's dtype. The forward passes none.
+// The operands of K1's epilogue on the CUDA cores (moe_ffn_fused_bwd off
+// the tensor-core rule: the fused template's tile loop with its epilogue
+// replaced, kBwd): dout [E, C, F] in, dg and du [E, C, F] out, contiguous,
+// in x's dtype. The forward passes none.
 struct Bwd {
   const void* dout = nullptr;
   void* dg = nullptr;
@@ -594,15 +611,13 @@ struct Tile {
 
 // Grid: (F-tile + nF * C-chunk, expert). Chunk ch holds rows
 // [ch * Cc, min(C, (ch + 1) * Cc)) of its expert, Cc <= BN.
-// kBwd (K1): the same tile loop, its epilogue replaced by the SwiGLU's
-// backward (below).
 template <bool kFused, int WM, int WN, int MT, int NT, int BK, int S,
-          int kMinBlocks, bool kBwd = false>
+          int kMinBlocks>
 __global__ void __launch_bounds__(WM * WN * 32, kMinBlocks)
 tc_kernel(const bf16* __restrict__ x, int64_t sxe, int64_t sxc,
           const bf16* __restrict__ wg, const bf16* __restrict__ wu,
           int64_t swe, int64_t swd, bf16* __restrict__ y, int C, int D,
-          int F, int nF, int Cc, Bwd bw) {
+          int F, int nF, int Cc) {
   using L = Tile<kFused, WM, WN, MT, NT, BK, S>;
   constexpr int BF = L::BF;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -733,64 +748,6 @@ tc_kernel(const bf16* __restrict__ x, int64_t sxe, int64_t sxc,
   cp_wait<0>();
   __syncthreads();                   // the ring is free for the output tile
 
-  if constexpr (kBwd) {
-    // K1's epilogue: this tile's rows of dout into the ring (16-byte
-    // loads); each thread's (g, u) at (f, c) gives dg, written over dout,
-    // and du into a second tile; both leave as 16-byte rows. y, when
-    // given, receives the forward's epilogue of the same accumulators.
-    static_assert(kFused, "K1 recomputes gate and up");
-    static_assert(2 * sizeof(bf16) * L::BN * L::kYPitch <= L::kSmemBytes,
-                  "two output tiles fit the ring");
-    bf16* gs = smem;
-    bf16* us = smem + L::BN * L::kYPitch;
-    const int64_t base = (e * C + c0) * F;
-    const bf16* de = static_cast<const bf16*>(bw.dout) + base;
-    for (int i = tid; i < rows * (BF / 8); i += L::kThreads) {
-      const int r = i / (BF / 8), c = (i % (BF / 8)) * 8;
-      if (f0 + c < F)
-        *reinterpret_cast<uint4*>(gs + r * L::kYPitch + c) =
-            *reinterpret_cast<const uint4*>(de + static_cast<int64_t>(r) * F +
-                                            f0 + c);
-    }
-    __syncthreads();
-    const int qg = lane >> 2, qt = lane & 3;
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int t = j * WN + wn;
-      if (t * 8 >= rows) continue;
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int f = (wm * MT + mt) * 16 + qg + (q >> 1) * 8;
-          const int c = t * 8 + qt * 2 + (q & 1);
-          if (c >= rows || f0 + f >= F) continue;   // no dout there
-          const float gv = acc[0][mt][j][q], uv = acc[1][mt][j][q];
-          float dg, du;
-          swiglu_bwd(gv, uv, __bfloat162float(gs[c * L::kYPitch + f]), dg,
-                     du);
-          gs[c * L::kYPitch + f] = __float2bfloat16(dg);
-          us[c * L::kYPitch + f] = __float2bfloat16(du);
-          if (y != nullptr)
-            y[base + static_cast<int64_t>(c) * F + f0 + f] =
-                __float2bfloat16(gv / (1.f + expf(-gv)) * uv);
-        }
-    }
-    __syncthreads();
-    bf16* ge = static_cast<bf16*>(bw.dg) + base;
-    bf16* ue = static_cast<bf16*>(bw.du) + base;
-    for (int i = tid; i < rows * (BF / 8); i += L::kThreads) {
-      const int r = i / (BF / 8), c = (i % (BF / 8)) * 8;
-      if (f0 + c >= F) continue;
-      const int64_t o = static_cast<int64_t>(r) * F + f0 + c;
-      *reinterpret_cast<uint4*>(ge + o) =
-          *reinterpret_cast<const uint4*>(gs + r * L::kYPitch + c);
-      *reinterpret_cast<uint4*>(ue + o) =
-          *reinterpret_cast<const uint4*>(us + r * L::kYPitch + c);
-    }
-    return;
-  }
-
   // epilogue: accumulator (f, c) -> ys[c][f] in bf16, then 16-byte rows
   bf16* ys = smem;
   const int g = lane >> 2, tg = lane & 3;
@@ -820,12 +777,12 @@ tc_kernel(const bf16* __restrict__ x, int64_t sxe, int64_t sxc,
 }
 
 template <bool kFused, int WM, int WN, int MT, int NT, int BK, int S,
-          int kMinBlocks, bool kBwd = false>
+          int kMinBlocks>
 int launch_tc(const bf16* x, int64_t sxe, int64_t sxc, const bf16* wg,
               const bf16* wu, int64_t swe, int64_t swd, bf16* y, int E, int C,
-              int D, int F, cudaStream_t st, Bwd bw = {}) {
+              int D, int F, cudaStream_t st) {
   using L = Tile<kFused, WM, WN, MT, NT, BK, S>;
-  auto kern = tc_kernel<kFused, WM, WN, MT, NT, BK, S, kMinBlocks, kBwd>;
+  auto kern = tc_kernel<kFused, WM, WN, MT, NT, BK, S, kMinBlocks>;
   static bool configured = false;    // once per instantiation
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -839,25 +796,20 @@ int launch_tc(const bf16* x, int64_t sxe, int64_t sxc, const bf16* wg,
   const int Cc = ((C + chunks - 1) / chunks + 7) / 8 * 8;   // <= BN
   const dim3 grid(nF * chunks, E);
   kern<<<grid, L::kThreads, L::kSmemBytes, st>>>(x, sxe, sxc, wg, wu, swe,
-                                                 swd, y, C, D, F, nF, Cc, bw);
+                                                 swd, y, C, D, F, nF, Cc);
   return static_cast<int>(cudaGetLastError());
 }
 
-// kBwd: K1 on the fused forward's block shapes, picked by C as for the
-// forward, so its g and u are the forward's accumulators bit for bit (y,
-// its check output, may be null).
-template <bool kFused, bool kBwd = false>
+template <bool kFused>
 int dispatch(const void* x, long long sxe, long long sxc, const void* wg,
              const void* wu, long long swe, long long swd, void* y, int E,
-             int C, int D, int F, void* stream, Bwd bw = {}) {
-  static_assert(kFused || !kBwd, "K1 recomputes gate and up");
+             int C, int D, int F, void* stream) {
   const auto aligned = [](const void* p) {
     return reinterpret_cast<uintptr_t>(p) % 16 == 0;
   };
   if (E < 1 || E > 65535 || C < 1 || D < 8 || F < 8 || D % 8 || F % 8 ||
       sxe % 8 || sxc % 8 || swe % 8 || swd % 8 || !aligned(x) ||
-      !aligned(wg) || !aligned(wu) || !aligned(y) ||
-      (kBwd && (!aligned(bw.dout) || !aligned(bw.dg) || !aligned(bw.du))))
+      !aligned(wg) || !aligned(wu) || !aligned(y))
     return static_cast<int>(cudaErrorInvalidValue);
   const bf16* xx = static_cast<const bf16*>(x);
   const bf16* gg = static_cast<const bf16*>(wg);
@@ -869,8 +821,8 @@ int dispatch(const void* x, long long sxe, long long sxc, const void* wg,
   // 16 KB of weights a stage
   if (C <= 64) {
     if constexpr (kFused)
-      return launch_tc<true, 8, 1, 1, 8, 32, 4, 2, kBwd>(
-          xx, sxe, sxc, gg, uu, swe, swd, yy, E, C, D, F, st, bw);
+      return launch_tc<true, 8, 1, 1, 8, 32, 4, 2>(
+          xx, sxe, sxc, gg, uu, swe, swd, yy, E, C, D, F, st);
     else
       return launch_tc<false, 8, 1, 1, 8, 64, 4, 1>(
           xx, sxe, sxc, gg, uu, swe, swd, yy, E, C, D, F, st);
@@ -879,8 +831,8 @@ int dispatch(const void* x, long long sxe, long long sxc, const void* wg,
   // 2 (down) m16 tiles by 10 n8 tiles: BF 128 / 256, BN 160, so C 160 is
   // one chunk and each weight tile is streamed once; 3-stage rings of 64
   // rows of D
-  return launch_tc<kFused, 8, 2, kFused ? 1 : 2, 10, 64, 3, 1, kBwd>(
-      xx, sxe, sxc, gg, uu, swe, swd, yy, E, C, D, F, st, bw);
+  return launch_tc<kFused, 8, 2, kFused ? 1 : 2, 10, 64, 3, 1>(
+      xx, sxe, sxc, gg, uu, swe, swd, yy, E, C, D, F, st);
 }
 
 }  // namespace tc
@@ -1573,6 +1525,8 @@ constexpr int kDwRing = 5;          // K3: chunks of a in the ring
 constexpr int kDwSlots = 5;         // K3: chunks of dy held (C <= 160 stays)
 constexpr int kDxDepth = 64;        // K2: rows of F a stage
 constexpr int kDxRing = 5;          // K2: stages in the ring
+constexpr int kGuDepth = 64;        // K1: rows of D a stage
+constexpr int kGuRing = 2;          // K1: stages in each pipeline's ring
 
 // d (m64n160, f32) += A . B: A (64 x 16) and B (16 x 160) K-major bf16 in
 // shared memory, 128-byte swizzle (K2)
@@ -1592,6 +1546,47 @@ __device__ __forceinline__ void wgmma_kk(float (&d)[80], uint64_t a,
       " %64, %65, %66, %67, %68, %69, %70, %71,"
       " %72, %73, %74, %75, %76, %77, %78, %79}, "
       "%80, %81, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// d (m64n160, f32) += A . B: A (64 x 16) MN-major (the transpose bit) and
+// B (16 x 160) K-major, bf16 in shared memory, 128-byte swizzle (K1)
+__device__ __forceinline__ void wgmma_tk(float (&d)[80], uint64_t a,
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %82, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63,"
+      " %64, %65, %66, %67, %68, %69, %70, %71,"
+      " %72, %73, %74, %75, %76, %77, %78, %79}, "
+      "%80, %81, p, 1, 1, 1, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -2089,6 +2084,215 @@ dx_kernel(const __grid_constant__ CUtensorMap tm_w0,
   if (t == 0) bulk_wait<0>();
 }
 
+// --- K1 --------------------------------------------------------------------
+
+// dg, du [E, C, F] = swiglu_bwd(g, u, dout) of the recomputed products
+// g = x [E, C, D] . w_gate [E, D, F] and u = x . w_up (M = F, N = C,
+// K = D), and y = silu(g) u when asked (the forward's epilogue of the same
+// accumulators: a check of the recompute). A unit is (64 columns of F, a
+// chunk of Cc <= NR rows of C, expert), F-tiles fastest.
+// A block runs two pipelines p = 0, 1, each a producer thread, a ring and a
+// consumer warpgroup. Shared memory of pipeline p: its ring of S stages,
+// each x's chunk [BK / 64][NR][64] (rows of C, 64 columns of D a block:
+// B K-major) and the unit's gate and up tiles [BK][64] (rows of D by 64
+// columns of F: A MN-major); its two output tiles [NR][64] (rows of C by
+// the unit's columns): dout's, which then stages dg (and last y), and
+// du's; then the mbarriers of both (full, empty, dout's full and empty,
+// and pipeline 0's half-way mark).
+template <int NR, int BK, int S>
+struct GuSmem {
+  static constexpr uint32_t kX = NR * BK * 2;            // x's chunk
+  static constexpr uint32_t kW = BK * 128;               // a weight tile
+  static constexpr uint32_t kStage = kX + 2 * kW;
+  static constexpr uint32_t kOut = NR * 128;             // an output tile
+  static constexpr uint32_t kPipe = S * kStage + 2 * kOut;
+  static constexpr uint32_t kBar = 2 * kPipe;
+  static constexpr uint32_t kBars = 2 * S + 3;           // a pipeline's
+  static constexpr size_t kAlloc = kBar + 16 * kBars + 1024;
+  static_assert(BK % 64 == 0 && NR % 8 == 0 && NR <= 256, "tile shape");
+  static_assert(kStage % 1024 == 0, "swizzled tiles 1024-byte aligned");
+  static_assert(kAlloc <= 232448, "a block's shared memory");
+};
+
+// Pipeline p of block b walks units 2 v + p for v = b, b + gridDim.x, ...
+// (unit u: columns (u % nF) 64 of F, chunk (u / nF) % chunks of C, expert
+// u / (nF chunks)), so the two take neighbouring F-tiles of one x chunk.
+// Its producer thread (thread 32 p) streams each unit's stages through its
+// ring and, once the first S are issued, the unit's dout tile, which lands
+// under the k loop. Its consumer computes the unit's gate and up, one
+// m64nNRk16 wgmma each a k16 step, in increasing k; a stage's slot goes
+// back as soon as its products are done. The epilogue applies swiglu_bwd
+// to each (g, u) and dout's element, writes dg over dout and du into the
+// du tile, and one thread stores both by TMA (Cc rows); y, when asked,
+// goes into dout's tile once that store has read it. The tiles take the
+// next unit's once the last stores have read them (the consumer's first
+// warp says so at its next unit's first stage). Pipeline 1 starts once
+// pipeline 0's consumer is half through its first unit, so each
+// consumer's epilogue runs while the other's loads and products go on.
+template <int NR, int BK, int S>
+__global__ void __launch_bounds__(kThreads, 1)
+dgu_kernel(const __grid_constant__ CUtensorMap tm_x,
+           const __grid_constant__ CUtensorMap tm_g,
+           const __grid_constant__ CUtensorMap tm_u,
+           const __grid_constant__ CUtensorMap tm_d,
+           const __grid_constant__ CUtensorMap tm_dg,
+           const __grid_constant__ CUtensorMap tm_du,
+           const __grid_constant__ CUtensorMap tm_y, int C, int D, int F,
+           int nF, int chunks, int Cc, int units, int with_y) {
+  using L = GuSmem<NR, BK, S>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  const int tid = threadIdx.x;
+  // this thread's pipeline: its shared memory and mbarriers
+  const int p = tid < 128 ? (tid >> 5) & 1 : tid / 128 - 1;
+  const uint32_t pipe = base + p * L::kPipe;
+  const uint32_t bars = base + L::kBar + 8 * L::kBars * p;
+  const auto full = [&](int s) { return bars + 8 * s; };
+  const auto empty = [&](int s) { return bars + 8 * (S + s); };
+  const uint32_t dout_full = bars + 8 * 2 * S;
+  const uint32_t dout_empty = dout_full + 8;
+  const uint32_t half = base + L::kBar + 8 * (L::kBars - 1);  // p 0's
+  const auto unit = [&](int v, int& f0, int& c0, int& e) {
+    const int u = 2 * v + p;
+    f0 = (u % nF) * 64;
+    c0 = (u / nF % chunks) * Cc;
+    e = u / nF / chunks;
+  };
+  const int pairs = (units + 1) / 2;
+  const int nk = (D + BK - 1) / BK;
+  if (tid == 0) {
+    for (int q = 0; q < 2; ++q) {
+      const uint32_t b = base + L::kBar + 8 * L::kBars * q;
+      for (int s = 0; s < S; ++s) {
+        mbar_init(b + 8 * s, 1);             // the producer's expect_tx
+        mbar_init(b + 8 * (S + s), 128);     // every consumer thread
+      }
+      mbar_init(b + 8 * 2 * S, 1);
+      mbar_init(b + 8 * (2 * S + 1), 32);    // the consumer's first warp
+    }
+    mbar_init(half, 32);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid < 128) {
+    // ---- producers: threads 0 and 32 issue every copy of their pipeline --
+    regs_dec<kProducerRegs>();
+    if ((tid & 31) == 0 && tid < 64) {
+      if (p == 1) mbar_wait(half, 0);
+      int it = 0, nd = 0;                    // stages and units issued
+      for (int v = blockIdx.x; v < pairs; v += gridDim.x, ++nd) {
+        if (2 * v + p >= units) break;
+        int f0, c0, e;
+        unit(v, f0, c0, e);
+        for (int kt = 0; kt < nk; ++kt, ++it) {
+          const int s = it % S;
+          mbar_wait(empty(s), ((it / S) & 1) ^ 1);
+          const uint32_t st = pipe + s * L::kStage;
+          mbar_arrive_tx(full(s), L::kStage);
+#pragma unroll
+          for (int b = 0; b < BK / 64; ++b)
+            tma_3d(st + b * NR * 128, &tm_x, kt * BK + 64 * b, c0, e,
+                   full(s));
+          tma_3d(st + L::kX, &tm_g, f0, kt * BK, e, full(s));
+          tma_3d(st + L::kX + L::kW, &tm_u, f0, kt * BK, e, full(s));
+          if (kt == min(S, nk) - 1) {        // dout, under the k loop
+            mbar_wait(dout_empty, (nd & 1) ^ 1);
+            mbar_arrive_tx(dout_full, Cc * 128);
+            tma_3d(pipe + S * L::kStage, &tm_d, f0, c0, e, dout_full);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup 1 + p ----------------------------------------
+  regs_inc<kConsumerRegs>();
+  const int t = tid & 127;
+  const int wi = t >> 5, g = (t & 31) >> 2, tg = t & 3;
+  const uint32_t ot = pipe + S * L::kStage;  // dout's tile, then du's
+  unsigned char* os = smem + (ot - base);
+  unsigned char* us = os + L::kOut;
+  float ga[NR / 2], ua[NR / 2];
+  int it = 0, nd = 0;                        // stages and units consumed
+  for (int v = blockIdx.x; v < pairs; v += gridDim.x, ++nd) {
+    if (2 * v + p >= units) break;
+    int f0, c0, e;
+    unit(v, f0, c0, e);
+#pragma unroll
+    for (int q = 0; q < NR / 2; ++q) ga[q] = ua[q] = 0.f;
+    keep(ga);     // zeroed here, not between a wgmma and its wait
+    keep(ua);
+    for (int kt = 0; kt < nk; ++kt, ++it) {
+      const int s = it % S;
+      mbar_wait(full(s), (it / S) & 1);
+      const uint32_t st = pipe + s * L::kStage;
+      wg_fence();
+#pragma unroll
+      for (int ks = 0; ks < BK / 16; ++ks) {
+        const uint64_t b =
+            desc(st + (ks >> 2) * NR * 128 + (ks & 3) * 32, 16, 1024);
+        wgmma_tk(ga, desc(st + L::kX + ks * 2048, 8192, 1024), b);
+        wgmma_tk(ua, desc(st + L::kX + L::kW + ks * 2048, 8192, 1024), b);
+      }
+      wg_commit();
+      wg_wait<0>();                          // the slot goes back
+      mbar_arrive(empty(s));
+      if (kt == 0 && nd > 0 && wi == 0) {    // the last unit's stores have
+        bulk_wait_read<0>();                 // read the tiles: they may take
+        mbar_arrive(dout_empty);             // this unit's
+      }
+      if (p == 0 && nd == 0 && kt == nk / 2 && wi == 0) mbar_arrive(half);
+    }
+    keep(ga);
+    keep(ua);
+
+    // epilogue: accumulator (column 16 wi + g + 8 h of the unit, row n of
+    // C) with dout's element at (n, that column) of the tile
+    const int rows = min(Cc, C - c0);
+    const auto store = [&](const CUtensorMap* map, uint32_t tile) {
+      if (t == 0) tma_store_3d(map, tile, f0, c0, e);
+    };
+    mbar_wait(dout_full, nd & 1);
+#pragma unroll
+    for (int q = 0; q < NR / 2; ++q) {
+      const int m = 16 * wi + g + 8 * ((q >> 1) & 1);
+      const int n = 8 * (q >> 2) + 2 * tg + (q & 1);
+      if (n >= rows) continue;
+      bf16* d = reinterpret_cast<bf16*>(os + sw128(n, m));
+      float dg, du;
+      swiglu_bwd(ga[q], ua[q], __bfloat162float(*d), dg, du);
+      *d = __float2bfloat16(dg);
+      *reinterpret_cast<bf16*>(us + sw128(n, m)) = __float2bfloat16(du);
+      if (with_y) ga[q] = ga[q] / (1.f + expf(-ga[q])) * ua[q];
+    }
+    fence_async();
+    bar_sync(1 + p, 128);
+    store(&tm_dg, ot);
+    store(&tm_du, ot + L::kOut);
+    if (t == 0) bulk_commit();
+    if (with_y) {                            // y over dg once it is read
+      if (t == 0) bulk_wait_read<0>();
+      bar_sync(1 + p, 128);
+#pragma unroll
+      for (int q = 0; q < NR / 2; ++q) {
+        const int m = 16 * wi + g + 8 * ((q >> 1) & 1);
+        const int n = 8 * (q >> 2) + 2 * tg + (q & 1);
+        if (n < rows)
+          *reinterpret_cast<bf16*>(os + sw128(n, m)) = __float2bfloat16(ga[q]);
+      }
+      fence_async();
+      bar_sync(1 + p, 128);
+      store(&tm_y, ot);
+      if (t == 0) bulk_commit();
+    }
+  }
+  if (t == 0) bulk_wait_read<0>();           // the stores have read the tiles
+}
+
 // --- launchers -------------------------------------------------------------
 
 template <typename Kernel>
@@ -2156,6 +2360,57 @@ int dx_launch(const void* dy0, const void* dy1, long long sdye,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int NR, int BK, int S>
+int gu_launch(const void* x, long long sxe, long long sxc, const void* wg,
+              const void* wu, long long swe, long long swd, const void* dout,
+              void* dg, void* du, void* y, int E, int C, int D, int F,
+              cudaStream_t st) {
+  using L = GuSmem<NR, BK, S>;
+  auto kern = dgu_kernel<NR, BK, S>;
+  static bool configured = false;            // once per instantiation
+  cudaError_t err = configure(kern, L::kAlloc, configured);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const int chunks = (C + NR - 1) / NR;
+  const int Cc = ((C + chunks - 1) / chunks + 7) / 8 * 8;   // <= NR
+  const long long out = static_cast<long long>(C) * F;
+  CUtensorMap mx, mg, mu, md, mdg, mdu, my;
+  if (!map_bf16(&mx, encode, x, D, C, E, sxc, sxe, 64, NR) ||
+      !map_bf16(&mg, encode, wg, F, D, E, swd, swe, 64, BK) ||
+      !map_bf16(&mu, encode, wu, F, D, E, swd, swe, 64, BK) ||
+      !map_bf16(&md, encode, dout, F, C, E, F, out, 64, Cc) ||
+      !map_bf16(&mdg, encode, dg, F, C, E, F, out, 64, Cc) ||
+      !map_bf16(&mdu, encode, du, F, C, E, F, out, 64, Cc) ||
+      !map_bf16(&my, encode, y != nullptr ? y : du, F, C, E, F, out, 64, Cc))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0, sms = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int nF = (F + 63) / 64;
+  const int units = E * chunks * nF, pairs = (units + 1) / 2;
+  kern<<<pairs < sms ? pairs : sms, kThreads, L::kAlloc, st>>>(
+      mx, mg, mu, md, mdg, mdu, my, C, D, F, nF, chunks, Cc, units,
+      y != nullptr);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K1: NR 160 rows of C (qwen3-moe's C 160 is one chunk), so each weight
+// tile is read once a launch; two pipelines a block, each a ring of 2
+// stages of 64 rows of D (36 KB each) and two output tiles (40 KB).
+int gu_dispatch(const void* x, long long sxe, long long sxc, const void* wg,
+                const void* wu, long long swe, long long swd,
+                const void* dout, void* dg, void* du, void* y, int E, int C,
+                int D, int F, cudaStream_t st) {
+  if (!takes(E, C, D, F, {sxe, sxc, swe, swd},
+             {x, wg, wu, dout, dg, du, y != nullptr ? y : du}))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return gu_launch<160, kGuDepth, kGuRing>(x, sxe, sxc, wg, wu, swe, swd,
+                                           dout, dg, du, y, E, C, D, F, st);
+}
+
 // K2: NR 160 rows of C (qwen3-moe's C 160 is one chunk), so each weight
 // tile is read once a launch; a ring of 5 stages of 64 rows of F (36 KB
 // each).
@@ -2196,15 +2451,16 @@ int dw_dispatch(int outs, const void* a, long long sae, long long sac,
 // m, column k of each step) by b [steps][256][16] (row n, column k), bf16,
 // one way per kernel into out [way][64][256] f32 ([m][n]; the way's N
 // columns written). Way 0, probe_mma: mma.sync.m16n8k16 over 32 n8 tiles,
-// the mma.sync kernels' instruction. Ways 1-6, probe_kernel<V>, one
+// the mma.sync kernels' instruction. Ways 1-7, probe_kernel<V>, one
 // warpgroup on wgmma, operands in shared memory in the 128-byte swizzle:
 //   1 m64n8k16, A in registers (the int8 variant's), B K-major;
 //   2 m64n8k16, A MN-major, B K-major;
 //   3 m64n64k16, A MN-major, B K-major;
 //   4 m64n160k16, A and B K-major (K2's);
 //   5 m64n128k16, A and B MN-major (K3's at two outputs);
-//   6 m64n256k16, A and B MN-major (K3's at one output).
-constexpr int kProbeWays = 7;
+//   6 m64n256k16, A and B MN-major (K3's at one output);
+//   7 m64n160k16, A MN-major, B K-major (K1's).
+constexpr int kProbeWays = 8;
 
 __device__ __forceinline__ uint32_t pair_at(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
@@ -2241,9 +2497,12 @@ template <int V>
 __global__ void __launch_bounds__(128)
 probe_kernel(const bf16* __restrict__ a, const bf16* __restrict__ b,
              float* __restrict__ out, int steps) {
-  constexpr int N = V <= 2 ? 8 : V == 3 ? 64 : V == 4 ? 160 : V == 5 ? 128
-                                                                     : 256;
-  constexpr bool kAK = V == 4, kBMN = V >= 5;   // A K-major, B MN-major
+  constexpr int N = V <= 2   ? 8
+                  : V == 3 ? 64
+                  : V == 5 ? 128
+                  : V == 6 ? 256
+                           : 160;
+  constexpr bool kAK = V == 4, kBMN = V == 5 || V == 6;  // A K-, B MN-major
   __shared__ __align__(1024) unsigned char sa[64 * 128];
   __shared__ __align__(1024) unsigned char sb[256 * 128];
   const int t = threadIdx.x, wi = t >> 5, g = (t & 31) >> 2, tg = t & 3;
@@ -2279,6 +2538,8 @@ probe_kernel(const bf16* __restrict__ a, const bf16* __restrict__ b,
       i8::wgmma_ss(d, i8::desc_a(sa_addr, 0), i8::desc_x<64>(sb_addr, 0, 0));
     } else if constexpr (V == 4) {
       wgmma_kk(d, desc(sa_addr, 16, 1024), desc(sb_addr, 16, 1024));
+    } else if constexpr (V == 7) {
+      wgmma_tk(d, i8::desc_a(sa_addr, 0), desc(sb_addr, 16, 1024));
     } else {
       wgmma_tt(d, desc(sa_addr, 2048, 1024), desc(sb_addr, 2048, 1024));
     }
@@ -2303,6 +2564,7 @@ int probe(const bf16* a, const bf16* b, float* out, int steps,
   probe_kernel<4><<<1, 128, 0, st>>>(a, b, out + 4 * kWay, steps);
   probe_kernel<5><<<1, 128, 0, st>>>(a, b, out + 5 * kWay, steps);
   probe_kernel<6><<<1, 128, 0, st>>>(a, b, out + 6 * kWay, steps);
+  probe_kernel<7><<<1, 128, 0, st>>>(a, b, out + 7 * kWay, steps);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -2502,7 +2764,7 @@ extern "C" int moe_ffn_fused_i8_launch(const void* x, long long sxe,
 }
 
 // The bit probe (wgrad::probe): a [steps][64][16] and b [steps][256][16]
-// bf16, out [7][64][256] f32, one way each (mma.sync, then six wgmma
+// bf16, out [8][64][256] f32, one way each (mma.sync, then seven wgmma
 // shapes and operand layouts); one warpgroup, one block a way.
 extern "C" int moe_gemm_i8_probe(const void* a, const void* b, void* out,
                                  int steps, void* stream) {
@@ -2533,14 +2795,14 @@ extern "C" long long moe_gemm_narrow_ws_floats(int E, int C, int D, int F) {
          E * C * F;
 }
 
-// K1 (moe_ffn_fused's backward): the fused forward's tile loop recomputes
-// g = x @ w_gate and u = x @ w_up (the same k-chain, so the forward's
-// accumulators bit for bit) and the epilogue writes dg and du [E, C, F] in
-// x's dtype from dout [E, C, F] (all three contiguous). y, when not null,
-// also receives the forward's output from those accumulators (a check of
-// the recompute, not the training path). tc 1: the tensor-core tile loop
-// (bf16, the forward's layout rule, dout, dg, du and y 16-byte aligned);
-// tc 0: the CUDA-core template (dtype 0 bf16, 1 f32).
+// K1 (moe_ffn_fused's backward): g = x @ w_gate and u = x @ w_up
+// recomputed (the same k-chain as the forward, so its accumulators bit for
+// bit) and dg and du [E, C, F] written in x's dtype from dout [E, C, F]
+// (all three contiguous). y, when not null, also receives the forward's
+// output from those accumulators (a check of the recompute, not the
+// training path). tc 1: wgrad::dgu_kernel (bf16, the forward's layout
+// rule, dout, dg, du and y 16-byte aligned); tc 0: the CUDA-core template
+// (dtype 0 bf16, 1 f32).
 extern "C" int moe_ffn_fused_bwd_launch(int dtype, int tc, const void* x,
                                         long long sxe, long long sxc,
                                         const void* w_gate, const void* w_up,
@@ -2548,11 +2810,12 @@ extern "C" int moe_ffn_fused_bwd_launch(int dtype, int tc, const void* x,
                                         const void* dout, void* dg, void* du,
                                         void* y, int E, int C, int D, int F,
                                         int vec_ok, void* stream) {
+  if (tc)
+    return wgrad::gu_dispatch(x, sxe, sxc, w_gate, w_up, swe, swd, dout, dg,
+                              du, y, E, C, D, F,
+                              static_cast<cudaStream_t>(stream));
   Bwd bw;
   bw.dout = dout, bw.dg = dg, bw.du = du;
-  if (tc)
-    return tc::dispatch<true, true>(x, sxe, sxc, w_gate, w_up, swe, swd, y, E,
-                                    C, D, F, stream, bw);
   return dispatch<true, true>(dtype, x, sxe, sxc, w_gate, w_up, swe, swd, y,
                               E, C, D, F, vec_ok, stream, bw);
 }

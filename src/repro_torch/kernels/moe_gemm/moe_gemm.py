@@ -36,10 +36,10 @@ The backward: while autograd records, ``moe_gemm`` and ``moe_ffn_fused``
 on tensor weights go through the ``torch.autograd.Function``s
 ``MoEGemm`` and ``MoEFFNFused``, whose backward runs three kernels of the
 same source (on the CPU their plain versions): ``moe_ffn_fused_bwd`` (K1:
-the fused forward's tile loop recomputes gate and up, its epilogue writes
-dg and du), ``moe_gemm_dx`` (K2: ``sum_j dy_j @ w_j^T``) and
-``moe_gemm_dw`` (K3: ``a^T @ dy_j``, reduced over C), each with a bf16
-route on the tensor cores (K2 and K3: ``wgmma`` fed by TMA, outputs
+gate and up recomputed in the forward's k order, their SwiGLU backward
+against dout gives dg and du), ``moe_gemm_dx`` (K2: ``sum_j dy_j @
+w_j^T``) and ``moe_gemm_dw`` (K3: ``a^T @ dy_j``, reduced over C), each
+with a bf16 route on the tensor cores (``wgmma`` fed by TMA, outputs
 stored by TMA) and a CUDA-core one for f32 and every other shape. Under
 ``no_grad`` (serving) nothing changes. Int8 weights (served, never
 trained) and the narrow variant (adapters are not trained) still refuse
@@ -367,7 +367,8 @@ PROBE_WAYS = (("wgmma m64n8k16, A in registers (the int8 variant)", 8),
               ("wgmma m64n64k16, A MN-major", 64),
               ("wgmma m64n160k16, A and B K-major (K2)", 160),
               ("wgmma m64n128k16, A and B MN-major (K3, two outputs)", 128),
-              ("wgmma m64n256k16, A and B MN-major (K3, one output)", 256))
+              ("wgmma m64n256k16, A and B MN-major (K3, one output)", 256),
+              ("wgmma m64n160k16, A MN-major, B K-major (K1)", 160))
 
 
 def i8_probe(a, b):
@@ -375,7 +376,7 @@ def i8_probe(a, b):
     products in increasing k over ``a [steps, 64, 16]`` (rows m, columns
     k) and ``b [steps, 256, 16]`` (rows n), bf16 on the card, computed as
     ``mma.sync.m16n8k16`` (way 0, every column) and in each of
-    ``PROBE_WAYS`` (its first N columns). Returns [7, 64, 256] f32, NaN
+    ``PROBE_WAYS`` (its first N columns). Returns [8, 64, 256] f32, NaN
     where a way writes nothing."""
     if a.device.type != "cuda" or a.dtype != torch.bfloat16 \
             or b.dtype != torch.bfloat16 or a.shape[1:] != (64, 16) \
@@ -493,11 +494,12 @@ def _count(name: str, rc: int, tc: bool) -> None:
 def moe_ffn_fused_bwd(x, w_gate, w_up, dout, y=None):
     """(dg, du) [E, C, F] in x's dtype from x [E, C, D], w_gate, w_up
     [E, D, F] and dout [E, C, F], the gradient of ``moe_ffn_fused``'s
-    output: the plain version on the CPU, else K1 (the fused forward's tile
-    loop recomputes gate and up, bit for bit the forward's accumulators,
-    and its epilogue applies ``swiglu_bwd``). ``y`` (on the card, [E, C, F]
-    in x's dtype) also receives the forward's output from those
-    accumulators: a check of the recompute."""
+    output: the plain version on the CPU, else K1 (gate and up recomputed
+    in the forward's k order, bit for bit its accumulators, then
+    ``swiglu_bwd`` against dout; on the tensor-core route ``wgmma`` fed by
+    TMA with dout's tile prefetched under the products, dg and du stored
+    by TMA). ``y`` (on the card, [E, C, F] in x's dtype) also receives the
+    forward's output from those accumulators: a check of the recompute."""
     if x.device.type == "cpu":
         return moe_ffn_fused_bwd_ref(x, w_gate, w_up, dout)
     E, C, D, Fo, vec_ok = _check(x, (w_gate, w_up))

@@ -110,15 +110,26 @@ def test_each_int8_design_choice_still_applies(name):
 
 
 @pytest.mark.parametrize("name", sorted(GRAD_AB.EDITS)
+                         + sorted(GRAD_AB.DIAGNOSTICS)
                          + sorted(GRAD_AB.PATCHES))
 def test_each_grad_design_choice_still_applies(name):
-    """Every edit and patch hunk of the K2 / K3 A/B tool matches the
+    """Every edit and patch hunk of the K1 / K2 / K3 A/B tool matches the
     source exactly once (``variants`` exits otherwise), and the variant
     differs from the kept source; the st.global patch stores no tile by
-    TMA."""
+    TMA; K1's patches: one pipeline, or the split consumers, launch one
+    block a unit; the cluster one multicasts x; the 32-row one loads x in
+    the 64-byte swizzle."""
     out = GRAD_AB.variants()
     tree, text = out["tree"], out[name]
     assert tree == (KERNELS / build.SOURCES["moe_gemm"]).read_text()
     assert text != tree
-    if name in GRAD_AB.PATCHES:
+    patch = GRAD_AB.PATCHES.get(name, "")
+    if patch == "moe_grad_ab_st_global.diff":
         assert "tma_store_3d(" in tree and "tma_store_3d(" not in text
+    elif patch.endswith(("lockstep.diff", "split.diff")):
+        assert "pairs < sms" in tree and "pairs < sms" not in text
+    elif patch.endswith("cluster.diff"):
+        assert "multicast" in text and "multicast" not in tree
+    elif patch:
+        wgrad = [t[t.index("namespace wgrad {"):] for t in (tree, text)]
+        assert "SWIZZLE_64B" not in wgrad[0] and "SWIZZLE_64B" in wgrad[1]

@@ -30,16 +30,17 @@ transliterated in f32 with its fma chains, its butterfly over the lanes and
 its split order, so the bits of a row can be compared across C and row
 positions.
 
-The backward's K2 and K3 (namespace ``wgrad``: ``wgmma`` fed by TMA,
+The backward's K1, K2 and K3 (namespace ``wgrad``: ``wgmma`` fed by TMA,
 outputs stored by TMA) are transliterated on a flat shared memory indexed
 by byte, NaN until written: the TMA boxes with zero fill past every edge
 and the 128-byte swizzle, the descriptors' K-major and MN-major
-addressing, the rings and dy's resident slots in the order the mbarriers
-allow (the producer as far ahead as they let it; a wait that cannot be
-met is a deadlock), the blocks' walk over units, the k16 steps and the
-staged, TMA-stored output, each element of which must be written exactly
-once. Held to the plain versions in f32, and, on inputs whose f32 sums are
-exact, in bf16 bit for bit.
+addressing, the rings, dy's resident slots (K3) and dout's tiles (K1) in
+the order the mbarriers allow (the producer as far ahead as they let it;
+a wait that cannot be met is a deadlock), the blocks' walk over units,
+the k16 steps and the staged, TMA-stored outputs, each element of which
+must be written exactly once. Held to the plain versions in f32, and, on
+inputs whose f32 sums are exact, in bf16 bit for bit; K1's y to the fused
+forward's transliteration bit for bit.
 """
 
 import numpy as np
@@ -98,17 +99,11 @@ def _round_bf16(a):
 
 
 def tc_transliteration(x, sxe, sxc, wg, wu, swe, swd, E, C, D, F,
-                       shape=None, dout=None):
+                       shape=None):
     """y [E, C, F] as tc_kernel computes it. x, wg, wu are flat f32 arrays
     read through element strides (x unit along D, w along F); wu None is
-    moe_gemm, else moe_ffn_fused. ``shape`` forces a block shape. With
-    ``dout`` [E, C, F] (fused only) it is K1, ``moe_ffn_fused_bwd``: the
-    same tile loop, the epilogue replaced; returns (dg, du, y), y the
-    forward's epilogue of the recomputed accumulators (the kernel's check
-    output), dg and du rounded to bf16 as the kernel stores them."""
+    moe_gemm, else moe_ffn_fused. ``shape`` forces a block shape."""
     fused = wu is not None
-    bwd = dout is not None
-    assert fused or not bwd
     WM, WN, MT, NT, BK, STAGES = shape or SHAPES[(C <= SMALL_MAX_C, fused)]
     BF, BN, nw = WM * MT * 16, WN * NT * 8, 2 if fused else 1
     XPITCH, WPITCH = BK + 8, BF + 8
@@ -120,12 +115,8 @@ def tc_transliteration(x, sxe, sxc, wg, wu, swe, swd, E, C, D, F,
     chunks = -(-C // BN)
     Cc = -(-C // chunks)                  # rows per chunk, then whole n8
     Cc = -(-Cc // 8) * 8
-    assert Cc <= BN and BN * YPITCH * (2 if bwd else 1) <= SMEM
+    assert Cc <= BN and BN * YPITCH <= SMEM
     y = np.full(E * C * F, np.nan, np.float32)
-    if bwd:
-        dg = np.full(E * C * F, np.nan, np.float32)
-        du = np.full(E * C * F, np.nan, np.float32)
-        dflat = dout.reshape(-1)
     nk = -(-D // BK)
     lr, lm = LANES % 8, LANES // 8
 
@@ -204,45 +195,6 @@ def tc_transliteration(x, sxe, sxc, wg, wu, swe, swd, E, C, D, F,
                                     _mma(acc, av, bb[:, 2 * h],
                                          bb[:, 2 * h + 1])
 
-            if bwd:        # K1's epilogue: dout's tile rows in, dg over
-                gs, us = 0, BN * YPITCH          # them, du in a second tile
-                smem[:2 * BN * YPITCH] = np.nan
-                base = (e * C + c0) * F
-                for i in range(rows * (BF // 8)):
-                    r, c = i // (BF // 8), (i % (BF // 8)) * 8
-                    if f0 + c < F:
-                        src = base + r * F + f0 + c
-                        smem[gs + r * YPITCH + c:
-                             gs + r * YPITCH + c + 8] = dflat[src:src + 8]
-                for warp in range(WM * WN):
-                    wm, wn = warp % WM, warp // WM
-                    for j in range(NT):
-                        t = j * WN + wn
-                        if t * 8 >= rows:
-                            continue
-                        for mt in range(MT):
-                            for q in range(4):
-                                f = (wm * MT + mt) * 16 + G + (q >> 1) * 8
-                                c = t * 8 + TG * 2 + (q & 1)
-                                live = (c < rows) & (f0 + f < F)
-                                gv = accs[(warp, 0, mt, j)][live, q]
-                                uv = accs[(warp, 1, mt, j)][live, q]
-                                at = c[live] * YPITCH + f[live]
-                                g_, u_ = swiglu_bwd_np(gv, uv,
-                                                       smem[gs + at])
-                                smem[gs + at] = _round_bf16(g_)
-                                smem[us + at] = _round_bf16(u_)
-                                y[base + c[live] * F + f0 + f[live]] = \
-                                    gv / (1.0 + np.exp(-gv)) * uv
-                for i in range(rows * (BF // 8)):
-                    r, c = i // (BF // 8), (i % (BF // 8)) * 8
-                    if f0 + c < F:
-                        dst = base + r * F + f0 + c
-                        for out, off in ((dg, gs), (du, us)):
-                            out[dst:dst + 8] = smem[off + r * YPITCH + c:
-                                                    off + r * YPITCH + c + 8]
-                continue
-
             # epilogue: (f, c) -> ys[c][f], then whole 8-element rows out
             ys = smem                                    # the ring, reused
             for warp in range(WM * WN):
@@ -265,9 +217,6 @@ def tc_transliteration(x, sxe, sxc, wg, wu, swe, swd, E, C, D, F,
                 if f0 + c < F:
                     dst = (e * C + c0 + r) * F + f0 + c
                     y[dst:dst + 8] = ys[r * YPITCH + c:r * YPITCH + c + 8]
-    if bwd:
-        return (dg.reshape(E, C, F), du.reshape(E, C, F),
-                y.reshape(E, C, F))
     return y.reshape(E, C, F)
 
 
@@ -923,8 +872,8 @@ class TestInt8Rule:
 
 
 # ---------------------------------------------------------------------------
-# the backward: K1 (moe_ffn_fused_bwd, tc_kernel's tile loop with its
-# epilogue replaced) and K2 / K3 (moe_gemm_dx / moe_gemm_dw, namespace wgrad)
+# the backward: K1 / K2 / K3 (moe_ffn_fused_bwd / moe_gemm_dx / moe_gemm_dw,
+# namespace wgrad)
 # ---------------------------------------------------------------------------
 
 #: wgrad::dx_dispatch / dw_dispatch's instantiations: K2 (pairs, NR rows of
@@ -1237,6 +1186,131 @@ def dx_transliteration(dys, ws, shape=None, bf16=False, order=None,
     return out
 
 
+#: wgrad::gu_dispatch's instantiation of K1: (NR rows of C a chunk, BK rows
+#: of D a stage, S stages a pipeline's ring)
+K1_SHAPE = (160, 64, 2)
+#: a smaller one, so that small shapes cross chunks, ring slots and units
+SMALL_K1 = (16, 64, 2)
+K1_SMS = 132           # the card's SMs: K1's grid is at most one block each
+
+
+def k1_transliteration(x, wg, wu, dout, shape=None, with_y=True, bf16=False,
+                       order=None, grid=None):
+    """K1 as wgrad::dgu_kernel computes it: (dg, du, y) [E, C, F] from x
+    [E, C, D], w_gate and w_up [E, D, F] and dout [E, C, F] (M = F, N = C,
+    K = D), from f32 numpy arrays; x may also be (flat, sxe, sxc), read
+    through element strides. A unit is (64 columns of F, a chunk of C,
+    expert), F-tiles fastest; ``grid`` blocks (default one an SM, at most
+    one a pair of units) each run two pipelines, pipeline p walking units
+    2 v + p for v = b, b + grid, ... Each pipeline streams its units'
+    stages through its own ring, a slot going back as soon as its
+    products are done, and loads
+    a unit's dout tile once its first S stages are issued and the last
+    unit's stores have read the tiles; pipeline 1's producer starts once
+    pipeline 0's consumer is half through its first unit. The consumer
+    holds gate and up of the unit's 64 columns, writes dg over the dout
+    tile and du into the du tile and stores both, then y (``with_y``) over
+    dg. ``bf16`` rounds each output once, as the kernel stores it;
+    ``order`` collects the k of each k16 step by accumulator. Every output
+    element is written exactly once; y is None without ``with_y``."""
+    E, C, F = dout.shape
+    D = wg.shape[1]
+    if isinstance(x, tuple):
+        xf, sxe, sxc = x
+    else:
+        xf, sxe, sxc = x.reshape(-1), C * D, D
+    NR, BK, S = shape or K1_SHAPE
+    KX, KW = NR * BK * 2, BK * 128
+    KS, KO = KX + 2 * KW, NR * 128
+    OT = S * KS                          # the dout tile, then du's
+    nk, nF = -(-D // BK), -(-F // 64)
+    chunks = -(-C // NR)
+    Cc = -(-(-(-C // chunks)) // 8) * 8
+    units = E * chunks * nF
+    pairs = -(-units // 2)
+    G = min(grid or K1_SMS, pairs)
+    R = _round_bf16 if bf16 else (lambda v: v)
+    wf = [wg.reshape(-1), wu.reshape(-1)]
+    df = dout.reshape(-1)
+    outs = [np.full((E, C, F), np.nan, np.float32) for _ in range(3)]
+    counts = [np.zeros((E, C, F), np.int32) for _ in range(3)]
+
+    def unit(u):
+        return (u % nF) * 64, (u // nF % chunks) * Cc, u // nF // chunks
+
+    for b in range(G):
+        half = []                        # pipeline 0's consumer is half way
+        for p in range(2):
+            mine = [2 * v + p for v in range(b, pairs, G) if 2 * v + p < units]
+
+            def loads():
+                assert p == 0 or half, "pipeline 1 started before its gate"
+                it = 0
+                for u in mine:
+                    f0, c0, e = unit(u)
+                    for kt in range(nk):
+                        st = (it % S) * KS
+                        boxes = [(_tma_load(xf, sxe, sxc, e, c0,
+                                            kt * BK + 64 * i, (D, C), NR),
+                                  st + i * NR * 128) for i in range(BK // 64)]
+                        boxes += [(_tma_load(wf[j], D * F, F, e, kt * BK, f0,
+                                             (F, D), BK), st + KX + j * KW)
+                                  for j in range(2)]
+                        yield ("S", it % S,
+                               lambda s, bx=boxes: [w(s, d) for w, d in bx])
+                        it += 1
+                        if kt == min(S, nk) - 1:
+                            box = _tma_load(df, C * F, F, e, c0, f0, (F, C),
+                                            Cc)
+                            yield ("D", 0, lambda s, w=box: w(s, OT))
+
+            ring = _Ring(OT + 2 * KO, loads())
+            smem = ring.smem
+            it = 0
+            for nd, u in enumerate(mine):
+                f0, c0, e = unit(u)
+                acc = np.zeros((2, 64, NR), np.float32)      # gate | up
+                for kt in range(nk):
+                    ring.wait("S", it)
+                    st = (it % S) * KS
+                    for ks in range(BK // 16):
+                        B = _kmajor(smem, st + (ks >> 2) * NR * 128
+                                    + (ks & 3) * 32, NR).T   # [16 k, NR n]
+                        for j in range(2):
+                            A = _mnmajor(smem, st + KX + j * KW + ks * 2048,
+                                         8192, 64).T        # [64 m, 16 k]
+                            acc[j] += A @ B
+                            if order is not None:
+                                order.setdefault((b, u, j), []).append(
+                                    kt * BK + ks * 16)
+                    ring.release("S", it % S)   # its products are done
+                    it += 1
+                    if kt == 0 and nd > 0:      # the last unit's stores have
+                        ring.release("D", 0)    # read the tiles
+                    if p == 0 and nd == 0 and kt == nk // 2:
+                        half.append(True)
+                # epilogue: (column m, row n) with dout's element at (n, m)
+                # of its tile; dg over it and du at (n, m) of the du tile,
+                # both stored; then y over dg, stored (Cc rows)
+                ring.wait("D", nd)
+                rows = min(Cc, C - c0)
+                at = (np.arange(rows)[None, :] * 128
+                      + np.arange(64)[:, None] * 2)        # [64 m, rows n]
+                g, v = acc[0][:, :rows], acc[1][:, :rows]
+                dg, du = swiglu_bwd_np(g, v, smem[_swizzle(OT + at)])
+                smem[_swizzle(OT + at)] = R(dg)
+                smem[_swizzle(OT + KO + at)] = R(du)
+                for i in range(2 + with_y):
+                    if i == 2:                 # y over dg, once stored
+                        smem[_swizzle(OT + at)] = R(g / (1.0 + np.exp(-g))
+                                                    * v)
+                    _tma_store(smem, OT + KO * (i == 1), outs[i], counts[i],
+                               (F, C), e, c0, f0, Cc)
+    for cnt in counts[:2 + with_y]:
+        assert (cnt == 1).all(), "an output written other than once"
+    return outs[0], outs[1], outs[2] if with_y else None
+
+
 def _grad_case(seed, E, C, D, F, exact=False):
     """dy_j [E, C, F], w_j [E, D, F] and a [E, C, D] as f32 numpy. exact:
     multiples of 1/8 in [-4, 4], so every f32 sum of their products is
@@ -1362,29 +1436,133 @@ def test_grad_edges_at_the_kernel_shapes(kind):
             assert not g[1].any()
 
 
-def test_k1_recomputes_the_forward_and_matches_plain():
-    """K1 (tc_kernel's tile loop, its epilogue replaced): the forward's
-    output from its recomputed gate and up (the kernel's check output y)
-    equals the fused forward's transliteration bit for bit, at both block
-    shapes; dg and du, rounded to bf16 as the kernel stores them, equal
-    the plain backward's rounding of the same f32 values (within one bf16
-    step, where exp's last bit differs between numpy and torch)."""
-    for C, row_pad in ((9, 3), (161, 0)):
-        xb, wg, wu = _case(C, 2, C, 24, 40, row_pad, empty=(1,))
-        dout = np.random.default_rng(C).standard_normal(
-            (2, C, 40)).astype(np.float32)
-        E, _, D = xb.shape
-        flat = np.concatenate([xb.reshape(-1), np.zeros(8, np.float32)])
-        args = (flat[row_pad * D:], (C + row_pad) * D, D, wg.reshape(-1),
-                wu.reshape(-1), D * 40, 40, E, C, D, 40)
-        dg, du, y = tc_transliteration(*args, dout=dout)
-        assert np.array_equal(y, tc_transliteration(*args))
-        x = torch.from_numpy(xb[:, row_pad:])
-        pg, pu = MG.moe_ffn_fused_bwd_ref(x, torch.from_numpy(wg),
-                                          torch.from_numpy(wu),
-                                          torch.from_numpy(dout))
-        for got, want in ((dg, pg), (du, pu)):
-            want = want.numpy()
-            np.testing.assert_allclose(got, _round_bf16(want), rtol=2 ** -7,
-                                       atol=1e-6)
-        assert not dg[1].any() and not du[1].any()   # the empty expert
+def _k1_case(seed, E, C, D, F, row_pad=0, exact=False):
+    """x as a strided view (row_pad extra rows before row 0 of each
+    expert), w_gate, w_up and dout as f32 numpy, expert E - 1 empty (zero
+    rows of x) when E > 1. exact: multiples of 1/8 in [-4, 4] (weights
+    1/512 in [-1/16, 1/16]), so every f32 sum of their products is exact in
+    any order."""
+    rng = np.random.default_rng(seed)
+
+    def draw(*shape, scale=1.0):
+        if exact:
+            return (rng.integers(-32, 33, shape) / (8 / scale)).astype(
+                np.float32)
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    xb = draw(E, C + row_pad, D)
+    if E > 1:
+        xb[E - 1] = 0.0
+    w = 1 / 64 if exact else D ** -0.5
+    return xb, draw(E, D, F, scale=w), draw(E, D, F, scale=w), draw(E, C, F)
+
+
+def _k1_run(xb, wg, wu, dout, row_pad, shape=None, **kw):
+    E, _, D = xb.shape
+    C = dout.shape[1]
+    flat = np.concatenate([xb.reshape(-1), np.zeros(8, np.float32)])
+    return k1_transliteration((flat[row_pad * D:], (C + row_pad) * D, D), wg,
+                              wu, dout, shape, **kw)
+
+
+def _k1_exact(xb, wg, wu, dout, row_pad):
+    """g and u in f64 (exact on exact inputs), then swiglu_bwd_np and the
+    forward's epilogue in f32."""
+    x = xb[:, row_pad:].astype(np.float64)
+    g = np.einsum("ecd,edf->ecf", x, wg).astype(np.float32)
+    u = np.einsum("ecd,edf->ecf", x, wu).astype(np.float32)
+    dg, du = swiglu_bwd_np(g, u, dout)
+    return dg, du, g / (1.0 + np.exp(-g)) * u
+
+
+@pytest.mark.parametrize("E,C,D,F,row_pad,small", [
+    (2, 9, 16, 24, 3, False),     # C 9, a strided x, F off one 64-box
+    (1, 1, 8, 8, 0, False),       # C 1, D 8 and F 8
+    (2, 37, 72, 136, 0, True),    # 3 chunks of 16; D off a stage; 2 F-tiles
+    (1, 321, 24, 40, 0, False),   # 3 chunks of 112 rows
+    (2, 70, 136, 200, 1, True),   # 5 chunks, D past two stages, F 200
+    (1, 5, 2056, 16, 0, False),   # D 2056: 33 stages, the last of 8 rows
+])
+def test_k1_transliteration_matches_plain(E, C, D, F, row_pad, small):
+    """dg, du and y against the plain backward and forward (f32, 1e-5)
+    at ragged shapes; the empty expert gives zeros."""
+    xb, wg, wu, dout = _k1_case(E * 31 + C, E, C, D, F, row_pad)
+    dg, du, y = _k1_run(xb, wg, wu, dout, row_pad,
+                        SMALL_K1 if small else None)
+    t = [torch.from_numpy(a) for a in (xb[:, row_pad:], wg, wu, dout)]
+    pg, pu = MG.moe_ffn_fused_bwd_ref(*t)
+    for got, want in ((dg, pg), (du, pu),
+                      (y, MG.moe_ffn_fused_ref(*t[:3]))):
+        np.testing.assert_allclose(got, want.numpy(), **TOL)
+        if E > 1:
+            assert not got[E - 1].any()
+
+
+@pytest.mark.parametrize("E,C,D,F,row_pad", [
+    (2, 9, 24, 40, 3),            # C 9, a strided x, an empty expert
+    (2, 161, 24, 40, 0),          # two chunks of 88 and 73 rows
+    (1, 1, 16, 8, 0),             # C 1, F 8
+    (3, 37, 72, 136, 2),          # D off a stage, F past a 128-column tile
+    (1, 170, 136, 72, 0),         # C past a 160-row chunk, D past two stages
+])
+def test_k1_recomputes_the_forward_and_matches_plain(E, C, D, F, row_pad):
+    """K1 (wgrad::dgu_kernel) on inputs whose f32 sums are exact: its y
+    equals the fused forward's transliteration (tc_kernel's tile loop) bit
+    for bit, so its g and u are the forward's accumulators, and dg and du
+    equal ``swiglu_bwd_np`` of them bit for bit; rounded to bf16 as the
+    kernel stores them, they equal the rounding of the same values."""
+    xb, wg, wu, dout = _k1_case(C + D, E, C, D, F, row_pad, exact=True)
+    dg, du, y = _k1_run(xb, wg, wu, dout, row_pad)
+    fwd = _run(xb, wg, wu, C, row_pad, True)
+    assert np.array_equal(y, fwd)
+    want = _k1_exact(xb, wg, wu, dout, row_pad)
+    for got, w in zip((dg, du, y), want):
+        assert np.array_equal(got, w)
+    rounded = _k1_run(xb, wg, wu, dout, row_pad, bf16=True)
+    for got, w in zip(rounded, want):
+        assert np.array_equal(got, _round_bf16(w))
+
+
+def test_k1_k_order_and_no_y():
+    """Every accumulator of K1 takes its k16 steps in increasing k, each
+    exactly once, past a ragged end of D; without y nothing else
+    changes."""
+    xb, wg, wu, dout = _k1_case(3, 2, 21, 72, 40, exact=True)
+    order = {}
+    dg, du, y = _k1_run(xb, wg, wu, dout, 0, SMALL_K1, order=order)
+    BK = SMALL_K1[1]
+    assert order and all(ks == list(range(0, -(-72 // BK) * BK, 16))
+                         for ks in order.values())
+    assert len(order) == 2 * 2 * 1 * 2     # experts x F-tiles x gate|up
+    ng, nu, ny = _k1_run(xb, wg, wu, dout, 0, SMALL_K1, with_y=False)
+    assert ny is None and np.array_equal(ng, dg) and np.array_equal(nu, du)
+
+
+@pytest.mark.parametrize("C", [21, 37])
+def test_k1_blocks_walk_units_across_experts(C):
+    """A grid of 2 blocks walks the units across experts and chunks at
+    the small shape (dout's tiles reloaded for each unit after the last
+    unit's stores): equal to the one-unit-a-block grid bit for bit and to
+    the plain backward."""
+    xb, wg, wu, dout = _k1_case(C, 3, C, 136, 200)
+    walked = _k1_run(xb, wg, wu, dout, 0, SMALL_K1, grid=2)
+    alone = _k1_run(xb, wg, wu, dout, 0, SMALL_K1, grid=10 ** 6)
+    t = [torch.from_numpy(a) for a in (xb, wg, wu, dout)]
+    plain = list(MG.moe_ffn_fused_bwd_ref(*t)) + [MG.moe_ffn_fused_ref(
+        *t[:3])]
+    for w, o, p in zip(walked, alone, plain):
+        assert np.array_equal(w, o)
+        np.testing.assert_allclose(w, p.numpy(), **TOL)
+
+
+def test_k1_at_the_train_shape():
+    """qwen3-moe's train shape (C 160, D 2048, F 768: one chunk, 32
+    stages, 6 F-tiles an expert) at E 2, one block a unit and a grid of 5
+    blocks walking the 12 units across both experts, on exact inputs: dg,
+    du and y bit for bit those of the exact g and u."""
+    xb, wg, wu, dout = _k1_case(160, 2, 160, 2048, 768, exact=True)
+    want = _k1_exact(xb, wg, wu, dout, 0)
+    for grid in (None, 5):
+        got = _k1_run(xb, wg, wu, dout, 0, grid=grid)
+        for g, w in zip(got, want):
+            assert np.array_equal(g, w)
