@@ -5,7 +5,7 @@
     python3 chip_smoke.py --quick    # build, kernel checks, small models
 
 Run from the repository root. It builds the port's CUDA kernels from the
-sources in the checkout and drives the port's ten main paths at full
+sources in the checkout and drives the port's twelve main paths at full
 width (random weights from a seed):
 
 * minitron-8b (dense GQA: 32 layers, d_model 4096, 32 query heads over 8
@@ -45,7 +45,12 @@ width (random weights from a seed):
 * training qwen3-moe-30b-a3b the same way at full width and 4 of its 48
   layers (3.12 B parameters), through the flash kernels, the expert
   kernels and their backward kernels (K1 ``moe_ffn_fused_bwd``, K2
-  ``moe_gemm_dx``, K3 ``moe_gemm_dw``).
+  ``moe_gemm_dx``, K3 ``moe_gemm_dw``);
+* training recurrentgemma-2b (2.69 B parameters) and mamba2-1.3b (1.34 B)
+  the same way at full width and depth (fewer layers only if the
+  predicted peak passed 75 GB; the depth is printed), through
+  ``rglru_scan`` and its reverse scan ``rglru_scan_bwd``, and through
+  ``ssd_chunk`` and its three backward kernels ``ssd_chunk_bwd``.
 
 Phases:
 
@@ -143,8 +148,24 @@ Phases:
              beside ``torch.bmm`` on
              the same products and the bound in bytes and in operations;
              then, under autograd on the card, the expert kernels' int8
-             and narrow variants, rglru_scan, ssd_chunk and both decode
-             kernels must refuse (no backward kernel);
+             and narrow variants and both decode kernels must refuse (no
+             backward kernel);
+             the recurrent kernels' backward: rglru_scan_bwd (the scan run
+             in reverse) and ssd_chunk_bwd (three kernels: the states'
+             gradient carried from the last chunk, every chunk's dx, ddt,
+             dB and dC in parallel, the heads' shares summed) against
+             their plain backward at ragged shapes (T 1-4200, W 1-2560,
+             B 1-3; l 1-1000, hp 8-72, n 8-128, g 1-2, Q 16-128, f32 and
+             bf16, the bf16 route with the forward's states and without),
+             at the probe's decay span (dt 0.7, A -1 .. -64, chunks of
+             128: every gradient finite, held to the plain backward in
+             f64) and at the training microbatches (B 1 T 4096 W 2560;
+             b 1 l 4096 nh 64 hp 64 n 128 in bf16 and f32), always with a
+             nonzero h0 / S0 and the final state's cotangent; eager ==
+             eager again == graph replay bit for bit, a row's bits equal
+             alone and in B 3; timed eager and by replay beside the plain
+             backward (and torch.cumsum for the scan), with each kernel's
+             device time and the bound in bytes and operations;
 3. serve   — ``repro_torch.launch.serve.serve`` through the northbound
              gateway: 4 sessions, 8 requests, 8 slots, max_len 2048;
 4. engine  — dense and paged engines, 8 slots with 512-1536-token prompts
@@ -244,6 +265,20 @@ Phases:
              against their plain versions, with two planted faults (dw of
              one expert's w_down zeroed; dx without du @ w_up^T for one
              expert's rows);
+   train rec, train ssm — recurrentgemma-2b and mamba2-1.3b likewise at
+             full depth (``recurrent_train_config``): every step launches
+             rglru_scan twice and rglru_scan_bwd once a RG-LRU block and
+             microbatch (18 blocks: 72 and 36; the local attention is
+             banded, no flash kernel), ssd_chunk 136 times and
+             ssd_chunk_bwd 48 times a microbatch (48 layers: the forward,
+             each layer's recompute and each of the 8 √L groups' recompute
+             but for its last layer; ``remat_forwards``); the 1-layer
+             checks hold the kernels against the plain forward and
+             backward, with planted faults (the scan: the gradient carried
+             into one 64-step chunk dropped, that chunk's da zeroed; the
+             SSD: the state's gradient carried into one chunk dropped, ddt
+             without its A·rcumsum(dcum) term); each path prints its
+             seconds;
 5. reference — small models in f32 on the card against the same models on
              the CPU through the plain versions: edge-tiny (dense and
              paged), edge-tiny with adapters (grouped route on the card,
@@ -256,10 +291,11 @@ Phases:
              with vision embeddings and distinct [3, b, s] streams, stream
              0 first ``arange``, then tied over the image (Qwen2-VL's
              layout, which the causal mask of the flash kernel reads);
-             and edge-tiny's and the qwen3-moe smoke config's f32 train
-             microbatch with full remat: loss and every gradient leaf (the
-             f32 routes of the flash kernels and of the expert kernels
-             and K1-K3, forward and backward).
+             and edge-tiny's, the qwen3-moe, recurrentgemma-2b and
+             mamba2-1.3b smoke configs' f32 train microbatch with full
+             remat: loss and every gradient leaf (the f32 routes of the
+             flash kernels, of the expert kernels and K1-K3, of the
+             recurrent kernels and their backward, forward and backward).
 
 Each main path is driven with every launch counter set to 0 just before it
 and read just after, and each kernel the path runs must have been launched
@@ -271,7 +307,9 @@ path 32 per minitron-8b prefill, rglru_scan 18 per recurrentgemma-2b
 prefill, the decode kernels 32 per dense or paged minitron-8b step; on
 the training paths flash_attention 16 and flash_attention_bwd 8 a step,
 and on qwen3-moe's moe_gemm and moe_ffn_fused 32, moe_ffn_fused_bwd 16,
-moe_gemm_dx and moe_gemm_dw 32 a step);
+moe_gemm_dx and moe_gemm_dw 32 a step; on recurrentgemma-2b's rglru_scan
+72 and rglru_scan_bwd 36, on mamba2-1.3b's ssd_chunk 272 and
+ssd_chunk_bwd 96 a step);
 the
 checks of a path's result (each adapter session alone, the full-width
 prefill logits and a profiled prefill, the recurrent, encdec, mixtral and
@@ -330,6 +368,22 @@ GRAD_REL = 2e-2                 # 1-layer step, kernel vs plain attention:
 #                                 H100: the kernels 6.6e-3, the planted
 #                                 faults 4.7e-2 (dq) and 7.3e-2 (dk, dv)
 FAULT_TILE = slice(1024, 1088)  # the 64-key tile a planted fault drops
+RG_BWD_TOL = 1e-5               # rglru_scan_bwd vs its plain backward, of
+#                                 each gradient's largest magnitude (f32,
+#                                 another order; H100: <= 2.4e-7)
+SSD_BWD_TOL = 1e-4              # ssd_chunk_bwd's f32 gradients vs its plain
+#                                 backward, of each's largest magnitude
+#                                 (H100: <= 1.8e-5, ddt at the train shape)
+SSD_BWD_DA = 2e-4               # its dA: every step's share summed (H100:
+#                                 <= 4.8e-5, at the probe's span)
+SSD_BWD_BF16 = 1e-2             # its bf16 outputs dx, dB, dC: rounded once
+#                                 (H100: <= 3.3e-3)
+SPAN_DT, SPAN_A = 0.7, 64.0     # the probe's span: a chunk's decay past 88
+FAULT_SSD_STEP = 3072           # the chunk boundary whose carried state
+#                                 gradient a planted fault drops
+REC_TRAIN_BYTES = 75e9          # recurrentgemma-2b's and mamba2-1.3b's
+#                                 training paths: full width, every layer
+#                                 the predicted peak keeps within this
 MOE_TRAIN_LAYERS = 4            # qwen3-moe-30b-a3b's training path: full
 MOE_TRAIN_BYTES = 75e9          # width, 4 of its 48 layers, 3 if the
 #                                 predicted peak passes 75 GB; the same
@@ -1297,12 +1351,11 @@ def check_refusals() -> None:
     """Under autograd on the card, the kernels with no backward raise
     (``build.refuse_autograd``) instead of returning an output with no
     ``grad_fn``: the expert kernels' int8-weight variant and narrow
-    variant, ``rglru_scan``, ``ssd_chunk`` and both decode kernels."""
+    variant and both decode kernels (``rglru_scan`` and ``ssd_chunk`` have
+    a backward: ``phase_recurrent_bwd_kernels``)."""
     import torch
     from repro_torch.kernels.decode_attention import decode_attention as DA
     from repro_torch.kernels.moe_gemm import moe_gemm as MG
-    from repro_torch.kernels.rglru_scan import rglru_scan as RS
-    from repro_torch.kernels.ssd_chunk import ssd_chunk as SC
 
     def t(*shape, dtype=torch.float32, grad=False):
         return torch.ones(shape, dtype=dtype,
@@ -1319,11 +1372,6 @@ def check_refusals() -> None:
                                                          q8(2, 64, 16)),
         "moe_gemm (narrow)": lambda: MG.moe_gemm(t(2, 8, 64, grad=True),
                                                  t(2, 64, 8)),
-        "rglru_scan": lambda: RS.rglru_scan(t(1, 4, 8, grad=True),
-                                            t(1, 4, 8), t(1, 8)),
-        "ssd_chunk": lambda: SC.ssd_chunk(
-            t(1, 4, 2, 8, grad=True), t(1, 4, 2), t(2), t(1, 4, 1, 4),
-            t(1, 4, 1, 4), t(1, 2, 8, 4), 4),
         "decode_attention": lambda: DA.decode_attention(
             t(1, 4, 16, grad=True), t(1, 2, 8, 16), t(1, 2, 8, 16),
             t(1, dtype=torch.int32)),
@@ -1922,6 +1970,279 @@ def phase_recurrent_kernels(rg_cfg, mb_cfg):
     log("[kernels] library_ms: rglru_scan — torch.cumsum over T on the same "
         "[B, T, W] f32 tensor (same bytes, not the same function); "
         "ssd_chunk — none (no single PyTorch call computes it)")
+    return rows
+
+
+def ssd_bwd_flops(l: int, chunk: int, nh: int, hp: int, g: int, n: int,
+                  b: int = 1) -> int:
+    """Operations the SSD function's gradient needs from its inputs (2 per
+    multiply-add), each chunk's real rows q: the states entering the
+    chunks (q x hp x n a head, the forward's walk) and the states'
+    gradient (dy^T C, the same); C·B^T's causal half once per group; per
+    head the causal halves of dy·xdt^T, of the diagonal's dxdt (M^T dy)
+    and of dC's and dB's diagonal products (W B, W^T C), and the
+    carried-state terms of dxdt, dC and dB (q x hp x n each)."""
+    Q = min(chunk, l)
+    total = 0
+    for c0 in range(0, l, Q):
+        q = min(Q, l - c0)
+        tri = q * (q + 1)                  # 2 x the causal half's pairs
+        total += g * tri * n + nh * (tri * (2 * hp + 2 * n)
+                                     + 2 * q * hp * n * 5)
+    return b * total
+
+
+def ssd_bwd_bytes(l: int, nh: int, hp: int, g: int, n: int, elem: int,
+                  b: int = 1) -> int:
+    """Bytes the SSD gradient must move: x, B, C (``elem`` bytes each), dt,
+    dy, A, S0 and dS_final read once; dx, dB, dC (``elem``), ddt, dA and
+    dS0 written once."""
+    return b * (2 * l * nh * hp * elem + 4 * l * g * n * elem
+                + l * nh * hp * 4 + 2 * l * nh * 4 + 4 * nh * hp * n * 4) \
+        + 2 * nh * 4
+
+
+def grad_rel(got, want):
+    """Each gradient's max |got - want| over its largest magnitude."""
+    return [float((x.float() - w.float()).abs().max()
+                  / w.float().abs().max().clamp(min=1e-30))
+            for x, w in zip(got, want)]
+
+
+def check_grads(name: str, shape: str, got, want, tols) -> float:
+    """Every gradient finite and within its tolerance (of its largest
+    magnitude) of the plain backward's; returns the worst max abs error."""
+    import torch
+    rel = grad_rel(got, want)
+    bad = [i for i, (x, r, t) in enumerate(zip(got, rel, tols))
+           if not bool(torch.isfinite(x).all()) or r > t]
+    if bad:
+        fail(f"{name} ({shape}): gradients {bad} disagree with the plain "
+             f"backward (each's err / max {[f'{r:.2e}' for r in rel]}, "
+             f"tolerances {tols})")
+    return max(float((x.float() - w.float()).abs().max())
+               for x, w in zip(got, want))
+
+
+def check_bits(name: str, fn) -> None:
+    """The same call twice eagerly and replayed from a CUDA graph: every
+    output equal bit for bit."""
+    import torch
+    first, second = fn(), fn()
+    replayed = graph_out(fn)
+    torch.cuda.synchronize()
+    for a, b_, c in zip(first, second, replayed):
+        if not (torch.equal(a, b_) and torch.equal(a, c)):
+            fail(f"{name}: the same call gives other bits eagerly, again or "
+                 f"replayed from a CUDA graph")
+
+
+def phase_recurrent_bwd_kernels(rg_cfg, mb_cfg):
+    """The recurrent kernels' backward against their plain backward on the
+    card: ``rglru_scan_bwd`` (the scan run in reverse) at ragged shapes (T
+    1-4200, W off multiples of 4 and 128, B 1-3) and at recurrentgemma-2b's
+    training microbatch (B 1, T 4096, W 2560); ``ssd_chunk_bwd`` (three
+    kernels) at ragged shapes (l 1-1000 off the chunk, g 1-2, hp and n off
+    16, both dtypes, the bf16 route with the forward's workspace and
+    without), at the probe's decay span (dt 0.7, A -1 .. -64 over chunks
+    of 128: every gradient finite, held to the plain backward in f64) and
+    at mamba2-1.3b's training microbatch (b 1, l 4096, nh 64, hp 64, n
+    128, g 1, Q 128) in bf16 and f32; always a nonzero h0 / S0 and the
+    final state's cotangent. Eager and graph replay agree bit for bit, as
+    do two runs, and a row's bits do not depend on B."""
+    import torch
+    from repro_torch.kernels.rglru_scan import rglru_scan as RS
+    from repro_torch.kernels.ssd_chunk import ssd_chunk as SC
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1357)
+
+    def rand(shape, lo, hi):
+        return torch.rand(shape, generator=gen, device=dev) * (hi - lo) + lo
+
+    def randn(shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def rg_inputs(B, T, W):
+        a, b, h0 = rand((B, T, W), 0.9, 1.0), randn((B, T, W)) * 0.1, \
+            randn((B, W))
+        return {"a": a, "h": RS.rglru_scan(a, b, h0), "h0": h0,
+                "dh": randn((B, T, W))}
+
+    def rg_kern(s):
+        return RS.rglru_scan_bwd(s["a"], s["h"], s["h0"], s["dh"])
+
+    def rg_plain(s):
+        return RS.rglru_scan_bwd_ref(s["a"], s["h"], s["h0"], s["dh"])
+
+    for B, T, W in ((1, 1, 8), (2, 37, 3), (3, 300, 100), (1, 1000, 130),
+                    (2, 37, 1), (1, 5, 64), (3, 1000, 2560),
+                    (2, 4200, 100)):
+        s = rg_inputs(B, T, W)
+        check_grads("rglru_scan_bwd", f"B {B} T {T} W {W}", rg_kern(s),
+                    rg_plain(s), [RG_BWD_TOL] * 3)
+    T, W = TRAIN_SEQ, rg_cfg.lru_width
+    check_bits(f"rglru_scan_bwd (B 1 T {T} W {W})",
+               lambda s=rg_inputs(1, T, W): rg_kern(s))
+    s = rg_inputs(3, 1000, W)
+    three = rg_kern(s)
+    for r in range(3):
+        alone = rg_kern({k: v[r:r + 1].contiguous() for k, v in s.items()})
+        if not all(torch.equal(x[r:r + 1], y) for x, y in zip(three, alone)):
+            fail(f"rglru_scan_bwd: row {r} of a B 3 call differs from the "
+                 f"same row alone")
+    log(f"[kernels] rglru_scan_bwd agrees with its plain backward within "
+        f"{RG_BWD_TOL} of each gradient's largest magnitude (T 1-4200, W "
+        f"1-2560, B 1-3, nonzero h0); eager == eager again == graph replay "
+        f"(B 1 T {T} W {W}), each row of B 3 == that row alone (T 1000)")
+
+    def ssd_inputs(b, l, nh, hp, g, n, dtype, span=False):
+        s = {"x": randn((b, l, nh, hp), dtype),
+             "dt": (torch.full((b, l, nh), SPAN_DT, device=dev) if span
+                    else rand((b, l, nh), 1e-3, 0.1)),
+             "A": -(torch.arange(1, nh + 1, device=dev, dtype=torch.float32)
+                    * (SPAN_A / nh if span else 1.0)),
+             "B": randn((b, l, g, n), dtype), "C": randn((b, l, g, n), dtype),
+             "S0": randn((b, nh, hp, n)), "dy": randn((b, l, nh, hp)),
+             "dS": randn((b, nh, hp, n))}
+        return s
+
+    def fwd_args(s):
+        return s["x"], s["dt"], s["A"], s["B"], s["C"], s["S0"]
+
+    def ssd_kern(Q, with_ws=True):
+        def run(s):
+            ws = SC._forward(*fwd_args(s), Q)[2] if with_ws else None
+            return SC.ssd_chunk_bwd(*fwd_args(s), s["dy"], s["dS"], Q, ws=ws)
+        return run
+
+    def ssd_plain(Q, dtype=torch.float32):
+        def run(s):
+            return SC.ssd_chunk_bwd_ref(
+                *(t.to(dtype) for t in fwd_args(s)), s["dy"].to(dtype),
+                s["dS"].to(dtype), Q)
+        return run
+
+    def tols(dtype):
+        low = SSD_BWD_BF16 if dtype == torch.bfloat16 else SSD_BWD_TOL
+        return [low, SSD_BWD_TOL, SSD_BWD_DA, low, low, SSD_BWD_TOL]
+
+    for (b, l, nh, hp, g, n, Q), dt in (
+            ((2, 37, 8, 16, 1, 16, 16), torch.float32),    # mamba2 smoke
+            ((1, 150, 4, 40, 2, 24, 64), torch.float32),   # hp, n off 16
+            ((1, 1, 4, 16, 1, 16, 128), torch.float32),    # l 1
+            ((2, 1000, 4, 72, 2, 20, 128), torch.float32),  # hp 72, g 2
+            ((2, 37, 8, 16, 1, 16, 16), torch.bfloat16),
+            ((2, 10, 4, 8, 2, 8, 128), torch.bfloat16),    # l below a chunk
+            ((1, 1, 4, 16, 1, 16, 128), torch.bfloat16),   # l 1
+            ((1, 150, 4, 40, 2, 24, 64), torch.bfloat16),  # off 8: scalar
+            ((1, 1000, 4, 64, 1, 128, 128), torch.bfloat16)):
+        s = ssd_inputs(b, l, nh, hp, g, n, dt)
+        shape = (f"b {b} l {l} nh {nh} hp {hp} g {g} n {n} Q {Q} "
+                 f"{'bf16' if dt == torch.bfloat16 else 'f32'}")
+        want = ssd_plain(Q)(s)
+        check_grads("ssd_chunk_bwd", shape, ssd_kern(Q)(s), want, tols(dt))
+        if dt == torch.bfloat16:
+            check_grads("ssd_chunk_bwd", shape + ", states recomputed",
+                        ssd_kern(Q, False)(s), want, tols(dt))
+    nh, hp, g, n, Q = (mb_cfg.ssm_nheads, mb_cfg.ssm_headdim,
+                       mb_cfg.ssm_ngroups, mb_cfg.ssm_state, mb_cfg.ssm_chunk)
+    for dt in (torch.float32, torch.bfloat16):
+        s = ssd_inputs(1, 256, nh, hp, g, n, dt, span=True)
+        got = ssd_kern(Q)(s)
+        check_grads("ssd_chunk_bwd", f"the probe's span: dt {SPAN_DT}, A "
+                    f"-{SPAN_A / nh:g} .. -{SPAN_A:g}, b 1 l 256 nh {nh} "
+                    f"{dt}", got, ssd_plain(Q, torch.float64)(s), tols(dt))
+    s = ssd_inputs(3, 300, 4, 64, 2, 32, torch.bfloat16)
+    three = ssd_kern(Q)(s)
+    for r in range(3):
+        alone = ssd_kern(Q)({k: v[r:r + 1].contiguous() if k not in ("A",)
+                             else v for k, v in s.items()})
+        if not all(torch.equal(x[r:r + 1], y)
+                   for i, (x, y) in enumerate(zip(three, alone)) if i != 2):
+            fail(f"ssd_chunk_bwd: row {r} of a b 3 call differs from the "
+                 f"same row alone")
+    log(f"[kernels] ssd_chunk_bwd agrees with its plain backward (l 1-1000, "
+        f"hp 8-72, n 8-128, g 1-2, Q 16-128, f32 and bf16, the bf16 route "
+        f"with the forward's states and recomputing them, nonzero S0 and "
+        f"dS_final; f32 gradients within {SSD_BWD_TOL} of their largest "
+        f"magnitude, dA {SSD_BWD_DA}, bf16 ones {SSD_BWD_BF16}); at the "
+        f"probe's span every gradient finite and within those of the plain "
+        f"backward in f64; each row of b 3 == that row alone (dA aside)")
+
+    rows = {}
+    l = TRAIN_SEQ
+    cases = [
+        ("rglru_scan_bwd", f"B 1 T {l} W {W} f32",
+         [rg_inputs(1, l, W) for _ in range(2)], rg_kern, rg_plain,
+         lambda s: torch.cumsum(s["dh"], dim=1), [RG_BWD_TOL] * 3,
+         5 * l * W * 4 + 2 * W * 4, 3 * l * W, F32_FLOPS,
+         "rglru_scan/csrc/rglru_scan.cu",
+         "src/repro/kernels/rglru_scan/rglru_scan.py:57"),
+    ]
+    for dt, elem in ((torch.bfloat16, 2), (torch.float32, 4)):
+        cases.append((
+            "ssd_chunk_bwd", f"b 1 l {l} nh {nh} hp {hp} g {g} n {n} Q {Q} "
+            f"{'bf16, the forward states kept' if elem == 2 else 'f32, states recomputed'}",
+            [ssd_inputs(1, l, nh, hp, g, n, dt) for _ in range(2)],
+            None, ssd_plain(Q), None, tols(dt),
+            ssd_bwd_bytes(l, nh, hp, g, n, elem),
+            ssd_bwd_flops(l, Q, nh, hp, g, n), F32_FLOPS,
+            "ssd_chunk/csrc/ssd_chunk_bwd.cu",
+            "src/repro/kernels/ssd_chunk/ssd_chunk.py:81"))
+    for (name, shape, sets, kern, plain, library, tl, nbytes, flops, peak,
+         src, replaces) in cases:
+        if name == "ssd_chunk_bwd":
+            for st in sets:            # the forward's workspace, kept
+                st["ws"] = SC._forward(*fwd_args(st), Q)[2]
+
+            def kern(st):
+                return SC.ssd_chunk_bwd(*fwd_args(st), st["dy"], st["dS"],
+                                        Q, ws=st["ws"])
+        err = check_grads(name, shape, kern(sets[0]), plain(sets[0]), tl)
+        check_bits(f"{name} ({shape})", lambda: kern(sets[0]))
+        it = {"i": 0}
+
+        def nxt():
+            it["i"] = (it["i"] + 1) % len(sets)
+            return sets[it["i"]]
+
+        ms = time_ms(lambda: kern(nxt()), iters=10)
+        device_ms = graph_ms(lambda: kern(nxt()), iters=5, reps=3)
+        plain_ms = time_ms(lambda: plain(nxt()), iters=2, warmup=1)
+        library_ms = (time_ms(lambda: library(nxt()), iters=20)
+                      if library is not None else None)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+        bound_ms = max(t_bytes, t_ops) * 1e3
+        bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        log(f"[kernels] {name} ({shape}): max_abs_err {err:.3e} kernel_ms "
+            f"{ms:.4f} plain_ms {plain_ms:.4f} library_ms "
+            f"{'-' if library_ms is None else f'{library_ms:.4f}'} bound_ms "
+            f"{bound_ms:.4f} ({bound_by}; {nbytes / 1e6:.1f} MB, "
+            f"{flops / 1e9:.2f} GFLOP at the f32 rate; at the bf16 rate "
+            f"{flops / BF16_FLOPS * 1e3:.4f} ms); by graph replay: kernel "
+            f"{device_ms:.4f}, {bound_ms / device_ms:.1%} of bound; "
+            f"{card()}")
+        log_kernel_parts(f"{name} ({shape})", lambda: kern(nxt()),
+                         "rglru" if name == "rglru_scan_bwd" else "ssd_",
+                         calls=5)
+        if name not in rows:          # the JSON row: the training shape
+            rows[name] = {
+                "name": name, "route": "cuda",
+                "source": f"src/repro_torch/kernels/{src}",
+                "replaces": replaces, "launches": 0, "max_abs_err": err,
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": library_ms,
+                "device_ms": device_ms}
+        del sets
+        torch.cuda.empty_cache()
+    log("[kernels] library_ms: rglru_scan_bwd — torch.cumsum over T on dh "
+        "(same bytes in, not the same function); ssd_chunk_bwd — none (no "
+        "single PyTorch call computes it); rglru_scan_bwd replaces the "
+        "gradient of the function of src/repro/kernels/rglru_scan/"
+        "rglru_scan.py:57, ssd_chunk_bwd that of :81 of ssd_chunk.py (JAX "
+        "differentiates the reference by autodiff; neither Pallas kernel "
+        "has a backward)")
     return rows
 
 
@@ -2595,7 +2916,14 @@ def log_profile(prof, name: str, wall_us: float, steps: int,
                         ("flash_attention_bwd", BWD_KERNELS
                          + ("::dot_kernel<",)),
                         ("decode attention", ("decode_attn",)),
-                        ("ssd_chunk", ("ssd_",)), ("rglru_scan", ("rglru",)),
+                        ("ssd_chunk", ("tc::ssd_", "ssd_chunk_kernel(")),
+                        ("ssd_chunk_bwd", ("ssd_states_bwd<",
+                                           "ssd_chunk_bwd<",
+                                           "ssd_bc_reduce<")),
+                        ("rglru_scan", ("rglru_scan_kernel<true, false>",
+                                        "rglru_scan_kernel<false, false>")),
+                        ("rglru_scan_bwd", ("rglru_scan_kernel<true, true>",
+                                            "rglru_scan_kernel<false, true>")),
                         ("expert kernels", ("tc::tc_kernel<",
                                             "i8::kernel<")),
                         ("expert backward K1", ("wgrad::dgu_kernel<",)),
@@ -3540,15 +3868,20 @@ def phase_reference():
     adapters_card_vs_cpu(tiny)
     train_card_vs_cpu(dataclasses.replace(tiny, remat="full"))
     train_card_vs_cpu(dataclasses.replace(moe, remat="full"))
+    for arch in ("recurrentgemma-2b", "mamba2-1.3b"):
+        train_card_vs_cpu(dataclasses.replace(get_smoke_config(arch),
+                                              dtype="float32", remat="full"))
 
 
 def train_card_vs_cpu(cfg) -> None:
-    """A small config in f32 with full remat (edge-tiny; qwen3-moe's smoke
-    config): a microbatch's loss and every gradient leaf on the card (the
-    f32 routes of both flash kernels and, for MoE, of the expert kernels
-    and K1-K3, each launched as ``train_kernels`` counts a microbatch)
-    against the CPU (their plain versions), on the same weights; each leaf
-    within REF_ATOL of its largest magnitude."""
+    """A small config in f32 with full remat (edge-tiny; qwen3-moe's,
+    recurrentgemma-2b's and mamba2-1.3b's smoke configs): a microbatch's
+    loss and every gradient leaf on the card (the f32 routes of both flash
+    kernels, for MoE of the expert kernels and K1-K3, for the recurrent
+    families of rglru_scan or ssd_chunk and their backward kernels, each
+    launched as ``train_kernels`` counts a microbatch) against the CPU
+    (their plain versions), on the same weights; each leaf within
+    REF_ATOL of its largest magnitude."""
     import torch
     from repro_torch.bridge import leaves, tree_map
     from repro_torch.kernels.moe_gemm import moe_gemm as MG
@@ -3850,6 +4183,24 @@ def moe_train_config(cfg):
     return tcfg
 
 
+def recurrent_train_config(cfg):
+    """recurrentgemma-2b's or mamba2-1.3b's training config: full width,
+    full remat, all its layers, or as many as keep the predicted peak
+    (``train_bytes``) within REC_TRAIN_BYTES; the depth is printed."""
+    from repro_torch.models.transformer import LM
+    layers = cfg.num_layers
+    while True:
+        tcfg = train_config(cfg, layers)
+        predicted = train_bytes(tcfg, LM(tcfg).param_specs())
+        if predicted <= REC_TRAIN_BYTES or layers == 1:
+            break
+        layers -= 1
+    log(f"[train] {cfg.name}: {layers} of its {cfg.num_layers} layers "
+        f"(predicted peak {predicted / 1e9:.2f} GB, limit "
+        f"{REC_TRAIN_BYTES / 1e9:.0f})")
+    return tcfg
+
+
 def moe_groups(cfg, b: int, s: int) -> int:
     """The expert-FFN groups of one MoE layer's forward on [b, s] tokens,
     by ``models.moe.moe_apply``'s rule: one for s < 64, else one per row
@@ -3890,6 +4241,23 @@ def train_bytes(cfg, params) -> int:
     mb = TRAIN_BATCH // TRAIN_MICRO
     act = 2 * 5 * mb * TRAIN_SEQ * cfg.d_ff * 4 \
         + 4 * mb * 512 * cfg.padded_vocab * 4
+    S = TRAIN_SEQ * mb
+    if cfg.family == "hybrid":
+        # one RG-LRU block's recompute and backward: ~12 f32 [S, W]
+        # tensors (gates, a, b, h and their gradients); one local
+        # attention layer's banded scores and their gradient (f32)
+        act += 12 * S * cfg.lru_width * 4 + 3 * mb * cfg.num_heads \
+            * TRAIN_SEQ * (cfg.sliding_window + 128) * 4
+    if cfg.family == "ssm":
+        # one SSD layer's recompute and backward: ~8 f32 [S, d_inner]
+        # tensors (y, dy, x, the gate and their gradients) and the
+        # backward's workspaces (per-head dB and dC shares, the states
+        # entering and the gradients leaving each chunk)
+        nc = -(-TRAIN_SEQ // cfg.ssm_chunk)
+        act += 8 * S * cfg.d_inner * 4 \
+            + 2 * S * cfg.ssm_nheads * cfg.ssm_state * 4 \
+            + 2 * mb * nc * cfg.ssm_nheads * cfg.ssm_headdim \
+            * cfg.ssm_state * 4
     experts = sum(p.numel() for p in expert_leaves(params))
     if experts:
         E, d, f = cfg.num_experts, cfg.d_model, cfg.moe_d_ff
@@ -3906,17 +4274,29 @@ def train_flops(cfg, params) -> float:
     """Model FLOPs of one train step (no remat recompute): 6 per token
     and parameter of every product (the layers and the LM head; the
     embedding is a lookup; of the experts only the active share, top-k of
-    E), and the attention's 4 * hq * d per causal (query, key) pair in the
-    forward, 3 times for forward and backward."""
+    E), the attention's 4 * hq * d per causal (query, key) pair in the
+    forward (within the window, on the attention layers), 3 times for
+    forward and backward, and for the SSM the SSD scan's forward
+    (``ssd_flops``) and gradient (``ssd_bwd_flops``)."""
     from repro_torch.bridge import leaves
     n = sum(p.numel() for p in leaves(params)) - params["embed"].numel()
     experts = sum(p.numel() for p in expert_leaves(params))
     if experts:
         n -= experts - experts * cfg.num_experts_per_tok // cfg.num_experts
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    pairs = TRAIN_SEQ * (TRAIN_SEQ + 1) // 2
+    window = cfg.sliding_window or TRAIN_SEQ
+    pairs = sum(min(i + 1, window) for i in range(TRAIN_SEQ))
+    layers = (cfg._pattern().count("attn") if cfg.family == "hybrid"
+              else 0 if cfg.family == "ssm" else cfg.num_layers)
     attn = 3 * 4 * cfg.num_heads * cfg.head_dim * pairs * TRAIN_BATCH \
-        * cfg.num_layers
+        * layers
+    if cfg.family == "ssm":          # the SSD scan's own products
+        attn += (ssd_flops(TRAIN_SEQ, cfg.ssm_chunk, cfg.ssm_nheads,
+                           cfg.ssm_headdim, cfg.ssm_ngroups, cfg.ssm_state)
+                 + ssd_bwd_flops(TRAIN_SEQ, cfg.ssm_chunk, cfg.ssm_nheads,
+                                 cfg.ssm_headdim, cfg.ssm_ngroups,
+                                 cfg.ssm_state)) \
+            * TRAIN_BATCH * cfg.num_layers
     return 6.0 * n * tokens + attn
 
 
@@ -3937,13 +4317,41 @@ def launch_counts(mods) -> dict:
     return {k: n for m in mods for k, n in m.LAUNCHES.items()}
 
 
+def remat_forwards(cfg) -> int:
+    """Forward passes a layer's kernels make in one microbatch's step under
+    ``cfg.remat`` "full" (``models.transformer._maybe_remat``): the forward
+    and the recompute in the backward; a stack of 48 or more layers is
+    also checkpointed in √L groups (``_scan_groups``), whose recompute
+    runs the group's layers once more, but for its last: non-reentrant
+    checkpointing stops a recompute once the tensors the group saved are
+    back (early stop, PyTorch's default), and a group's last layer's
+    output is not one of them."""
+    import torch.utils.checkpoint as ckp
+    from repro_torch.models.transformer import _scan_groups
+    L, G = cfg.num_layers, _scan_groups(cfg)
+    if G == 1:
+        return 2 * L
+    early = ckp._enable_checkpoint_early_stop
+    return 3 * L - (G if early is None or early else 0)
+
+
 def train_kernels(cfg) -> dict:
     """The kernels one train step launches and how often: flash_attention
     twice a layer and microbatch (the forward and the full remat's
     recompute) and flash_attention_bwd once; for MoE, each expert-FFN group
     (``moe_groups``) launches the two forward kernels twice, K1 once and
-    K2 and K3 twice (the down product's and gate/up's)."""
+    K2 and K3 twice (the down product's and gate/up's); the hybrid's
+    RG-LRU blocks rglru_scan twice and rglru_scan_bwd once (its local
+    attention is banded: no flash kernel), the SSM's layers ssd_chunk
+    ``remat_forwards`` times and ssd_chunk_bwd once, each a
+    microbatch."""
     L, m = cfg.num_layers, TRAIN_MICRO
+    if cfg.family == "hybrid":
+        rec = cfg._pattern().count("rec")
+        return {"flash_attention": 0, "flash_attention_bwd": 0,
+                "rglru_scan": 2 * rec * m, "rglru_scan_bwd": rec * m}
+    if cfg.family == "ssm":
+        return {"ssd_chunk": remat_forwards(cfg) * m, "ssd_chunk_bwd": L * m}
     want = {"flash_attention": 2 * L * m, "flash_attention_bwd": L * m}
     if cfg.family == "moe":
         g = L * m * moe_groups(cfg, TRAIN_BATCH // m, TRAIN_SEQ)
@@ -3957,7 +4365,10 @@ def train_modules(cfg):
     """The kernel modules whose launches a train step of ``cfg`` counts."""
     from repro_torch.kernels.flash_attention import flash_attention as FA
     from repro_torch.kernels.moe_gemm import moe_gemm as MG
-    return (FA, MG) if cfg.family == "moe" else (FA,)
+    from repro_torch.kernels.rglru_scan import rglru_scan as RS
+    from repro_torch.kernels.ssd_chunk import ssd_chunk as SC
+    return {"moe": (FA, MG), "hybrid": (FA, RS),
+            "ssm": (SC,)}.get(cfg.family, (FA,))
 
 
 def drive_train(cfg) -> dict:
@@ -4046,13 +4457,20 @@ def check_train(cfg, out) -> None:
         if got != want:
             fail(f"train step {i}: launches {got}, expected {want} "
                  f"({cfg.num_layers} layers x {TRAIN_MICRO} microbatches)")
+    if "moe_ffn_fused_bwd" in want:
+        why = (f" x {want['moe_ffn_fused_bwd'] // cfg.num_layers // TRAIN_MICRO}"
+               f" expert groups; forward kernels twice: forward and remat "
+               f"recompute")
+    elif cfg.family == "ssm" and remat_forwards(cfg) != 2 * cfg.num_layers:
+        why = (f"; the forward kernel {remat_forwards(cfg)} times a "
+               f"microbatch: forward, each layer's recompute and each "
+               f"√L group's but for its last layer")
+    else:
+        why = "; the forward kernel twice: forward and remat recompute"
     log(f"[train] every step launched "
         + ", ".join(f"{k} {n}" for k, n in want.items())
         + f" times ({cfg.num_layers} layers x {TRAIN_MICRO} microbatches"
-        + (f" x {want['moe_ffn_fused_bwd'] // cfg.num_layers // TRAIN_MICRO}"
-           f" expert groups; forward kernels twice: forward and remat "
-           f"recompute)" if "moe_ffn_fused_bwd" in want else
-           "; the forward kernel twice: forward and remat recompute)"))
+        + why + ")")
     losses = [x[0] for x in out["steps"] + out["repeat"]]
     if not all(math.isfinite(x) for x in losses) or not out["finite"]:
         fail(f"train: a loss or a weight is not finite ({losses})")
@@ -4269,6 +4687,113 @@ def moe_grad_check(cfg) -> None:
                 "moe_gemm_dw": 2 * g}, "moe")
 
 
+def rec_grad_check(cfg) -> None:
+    """``grad_arms`` on the RG-LRU block: rglru_scan and its reverse scan
+    against the scan's plain forward and plain backward on the card.
+    Planted faults made from the kernel's own outputs: the gradient
+    carried into the 64-step chunk FAULT_TILE dropped (that chunk's da and
+    db from the kernel run on the chunk alone), and that chunk's da
+    zeroed."""
+    import torch
+    from repro_torch.kernels.rglru_scan import rglru_scan as RS
+    from repro_torch.models import rglru as RG
+
+    class Plain(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, a, b, h0):
+            h = RS.rglru_scan_ref(a, b, h0)
+            ctx.save_for_backward(a, h, h0)
+            return h
+
+        @staticmethod
+        def backward(ctx, dh):
+            return RS.rglru_scan_bwd_ref(*ctx.saved_tensors, dh)
+
+    kernel_bwd = RS.rglru_scan_bwd
+    c = FAULT_TILE
+
+    def drop_carry(a, h, h0, dh):
+        da, db, dh0 = kernel_bwd(a, h, h0, dh)
+        da[:, c], db[:, c], _ = kernel_bwd(
+            a[:, c].contiguous(), h[:, c].contiguous(),
+            h[:, c.start - 1].contiguous(), dh[:, c].contiguous())
+        return da, db, dh0
+
+    def zero_da(a, h, h0, dh):
+        da, db, dh0 = kernel_bwd(a, h, h0, dh)
+        da[:, c] = 0
+        return da, db, dh0
+
+    steps = f"steps {c.start}-{c.stop - 1}"
+    grad_arms(cfg, {
+        "plain": [(RG, "rglru_scan", Plain.apply)],
+        "kernels": [],
+        f"the gradient carried into {steps} dropped": [
+            (RS, "rglru_scan_bwd", drop_carry)],
+        f"da of {steps} zeroed": [(RS, "rglru_scan_bwd", zero_da)]},
+        (RS,), {"rglru_scan": 2, "rglru_scan_bwd": 1}, "rec")
+
+
+def ssd_grad_check(cfg) -> None:
+    """``grad_arms`` on the SSD layer: ssd_chunk and its backward kernels
+    against the scan's plain forward and plain backward on the card.
+    Planted faults made from the kernels' own outputs: the state's
+    gradient carried into the chunk that ends at step FAULT_SSD_STEP
+    dropped (the kernels run on the steps before it with dS_final 0 and
+    on the steps after it from that chunk's state), and ddt without its
+    A·rcumsum(dcum) term (x·dxdt alone, from dx / dt)."""
+    import torch
+    from repro_torch.kernels.ssd_chunk import ssd_chunk as SC
+    from repro_torch.models import ssd as SSD
+
+    class Plain(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, dt, A, B, C, S0, chunk):
+            y, S = SC.ssd_chunk_ref(x, dt, A, B, C, S0, chunk)
+            ctx.save_for_backward(x, dt, A, B, C, S0)
+            ctx.chunk = chunk
+            return y, S
+
+        @staticmethod
+        def backward(ctx, dy, dS):
+            return SC.ssd_chunk_bwd_ref(*ctx.saved_tensors, dy, dS,
+                                        ctx.chunk) + (None,)
+
+    kernel_bwd = SC.ssd_chunk_bwd
+    e = FAULT_SSD_STEP
+
+    def drop_carry(x, dt, A, B, C, S0, dy, dS, chunk, ws=None):
+        k = e // chunk
+        if ws is not None:              # [b, nc, nh, hp, n]
+            ws = ws.view(x.shape[0], -1, *S0.shape[1:])
+        pre = kernel_bwd(x[:, :e], dt[:, :e].contiguous(), A, B[:, :e],
+                         C[:, :e], S0, dy[:, :e], torch.zeros_like(dS),
+                         chunk, ws=None if ws is None else ws[:, :k])
+        S_e = (ws[:, k] if ws is not None else SC.ssd_chunk_ref(
+            x[:, :e], dt[:, :e], A, B[:, :e], C[:, :e], S0, chunk)[1])
+        suf = kernel_bwd(x[:, e:], dt[:, e:].contiguous(), A, B[:, e:],
+                         C[:, e:], S_e.contiguous(), dy[:, e:], dS, chunk,
+                         ws=None if ws is None else ws[:, k:])
+        return (torch.cat([pre[0], suf[0]], 1), torch.cat([pre[1], suf[1]],
+                                                          1),
+                pre[2] + suf[2], torch.cat([pre[3], suf[3]], 1),
+                torch.cat([pre[4], suf[4]], 1), pre[5])
+
+    def no_rcum(x, dt, A, B, C, S0, dy, dS, chunk, ws=None):
+        dx, ddt, dA, dB, dC, dS0 = kernel_bwd(x, dt, A, B, C, S0, dy, dS,
+                                              chunk, ws=ws)
+        direct = (x.float() * dx.float()).sum(-1) / dt
+        return dx, direct, dA, dB, dC, dS0
+
+    grad_arms(cfg, {
+        "plain": [(SSD, "ssd_chunk", lambda *a: Plain.apply(*a))],
+        "kernels": [],
+        f"the state's gradient carried into step {e - 1} dropped": [
+            (SC, "ssd_chunk_bwd", drop_carry)],
+        "ddt without A·rcumsum(dcum)": [(SC, "ssd_chunk_bwd", no_rcum)]},
+        (SC,), {"ssd_chunk": 2, "ssd_chunk_bwd": 1}, "ssd")
+
+
 def card() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     smi = subprocess.run(
@@ -4344,6 +4869,7 @@ def main() -> None:
     check_refusals()
     rows.update(phase_int8_kernels(mx_cfg))
     rows.update(phase_recurrent_kernels(rg_cfg, mb_cfg))
+    rows.update(phase_recurrent_bwd_kernels(rg_cfg, mb_cfg))
     if quick:
         phase_reference()
         log(f"[quick] kernels and small models checked in "
@@ -4543,6 +5069,30 @@ def main() -> None:
     release_memory()
     moe_grad_check(mcfg)
     release_memory()
+
+    for rcfg, check in ((rg_cfg, rec_grad_check), (mb_cfg, ssd_grad_check)):
+        left = torch.cuda.memory_allocated()
+        log(f"[train] device memory allocated before {rcfg.name}'s "
+            f"training path: {left / 1e9:.3f} GB")
+        if left > 0.1e9:
+            fail(f"{left / 1e9:.2f} GB still allocated before "
+                 f"{rcfg.name}'s training path")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tcfg = recurrent_train_config(rcfg)
+        want = train_kernels(tcfg)
+        name = f"{tcfg.name} train ({tcfg.num_layers} layers)"
+        launches, out = drive_path(name, counters,
+                                   tuple(k for k, n in want.items() if n),
+                                   drive_train, tcfg)
+        paths.append(launches)
+        check_train(tcfg, out)
+        del out
+        release_memory()
+        check(tcfg)
+        release_memory()
+        log(f"[train] {rcfg.name}'s training path and grad check: "
+            f"{time.perf_counter() - t0:.1f} s")
 
     for name, row in rows.items():
         # a grouped-GEMM row counts its variant's launches: the int8 rows

@@ -39,6 +39,7 @@ SOURCES: Dict[str, str] = {
     "moe_gemm": "moe_gemm/csrc/moe_gemm.cu",
     "rglru_scan": "rglru_scan/csrc/rglru_scan.cu",
     "ssd_chunk": "ssd_chunk/csrc/ssd_chunk.cu",
+    "ssd_chunk_bwd": "ssd_chunk/csrc/ssd_chunk_bwd.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -92,6 +92,27 @@
 // device). The memset is part of every call, so the call stays right under
 // CUDA-graph replay (it is a node of the graph).
 //
+// The backward (rglru_scan_bwd_launch) is the same kernel run in reverse
+// (template flag kRev): with g_t the gradient reaching h_t,
+//
+//   g_t = dh_t + a_{t+1} g_{t+1},  g_T = 0;  db_t = g_t,
+//   da_t = g_t h_{t-1} (h_{-1} = h0),  dh0 = a_0 g_0,
+//
+// the forward's recurrence on virtual step u = T - 1 - t with a shifted by
+// one step (a_{t+1}; 1 at the last step, where the carry is 0), dh in b's
+// place and a carry that starts from 0. Tiles, chunk aggregates, done bits
+// and tickets are the forward's on virtual steps, so the tickets are
+// issued from the last real chunk and a tile folds the chunks after it in
+// a fixed order: the bits depend on (kChunk, kSteps) alone, as the
+// forward's do. The epilogue loads h_{t-1} (h0 at t = 0) and writes db and
+// da; the tile holding t = 0 also reads a_0 and writes dh0. The carry
+// into a virtual chunk is computed as in the forward, which keeps the
+// same-bits property of identity steps (a 1, dh 0).
+// Its bound at a training microbatch of recurrentgemma-2b (B 1, T 4096, W
+// 2560): it reads a, h and dh and writes da and db, 5 x 41.9 MB = 210 MB,
+// at least 0.063 ms at 3.35 TB/s. Flipping the tensors by copy and calling
+// the forward would triple those bytes.
+//
 // C interface (loaded with ctypes): the launcher returns the CUDA error of
 // the memset or of the launch (cudaGetLastError()), or
 // cudaErrorInvalidValue for a bad shape or a workspace that is too small.
@@ -112,9 +133,12 @@ constexpr int kStage = 32;                // aggregates a fold stage holds
 
 struct Args {
   const float* a;
-  const float* b;
+  const float* b;      // the reverse scan: dh
   const float* h0;
-  float* h;
+  float* h;            // the reverse scan: db (= g)
+  const float* hf;     // the reverse scan: the forward's h
+  float* da;           // the reverse scan
+  float* dh0;          // the reverse scan
   float4* agg_p;       // [B, nc, ntw, 32] float4
   float4* agg_h;
   unsigned long long* done;   // [B, ntw, nm]: bit c % 64 of word c / 64
@@ -192,7 +216,10 @@ __device__ __forceinline__ void scan_warps_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"r"(kWarps * 32) : "memory");
 }
 
-template <bool kVec>
+// kRev: the reverse scan of the backward (see the header's last part).
+// Its chunk c, warp and step s name virtual step u = c * kChunk + warp *
+// kSteps + s, real step t = T - 1 - u; everything else is the forward's.
+template <bool kVec, bool kRev>
 __global__ void __launch_bounds__(kThreads, 2)
 rglru_scan_kernel(Args g) {
   __shared__ float4 s_p[kWarps][32], s_h[kWarps][32];   // warps' aggregates
@@ -215,8 +242,10 @@ rglru_scan_kernel(Args g) {
     // (3) the carry warp: h0 with chunks 0 .. c-1 folded in, in chunk order,
     // once their done bits are set, while the scan warps load and scan
     const int first = bb * g.nc * g.ntw + wt;       // chunk 0 of this tile
-    float4 carry = load4<kVec>(g.h0 + static_cast<long long>(bb) * g.W, w,
-                               g.W, 0.f, false);
+    float4 carry = make_float4(0.f, 0.f, 0.f, 0.f);   // g_T = 0
+    if (!kRev)
+      carry = load4<kVec>(g.h0 + static_cast<long long>(bb) * g.W, w, g.W,
+                          0.f, false);
     const unsigned long long* done =
         g.done + static_cast<long long>(bb * g.ntw + wt) * g.nm;
     for (int j = 0; j < c;) {
@@ -247,12 +276,19 @@ rglru_scan_kernel(Args g) {
     }
     s_carry[lane] = carry;
   } else {
-    // (1) every load of the warp's steps first: P <- a, H <- b
+    // (1) every load of the warp's steps first: P <- a, H <- b (the
+    // reverse scan: P <- a_{t+1}, 1 past the last step, H <- dh_t)
 #pragma unroll
     for (int s = 0; s < kSteps; ++s) {
       if (t0 + s < g.T) {
-        const long long off = row0 + static_cast<long long>(t0 + s) * g.W;
-        P[s] = load4<kVec>(g.a + off, w, g.W, 1.f, true);
+        const int t = kRev ? g.T - 1 - (t0 + s) : t0 + s;
+        const long long off = row0 + static_cast<long long>(t) * g.W;
+        if (!kRev)
+          P[s] = load4<kVec>(g.a + off, w, g.W, 1.f, true);
+        else if (t + 1 < g.T)
+          P[s] = load4<kVec>(g.a + off + g.W, w, g.W, 1.f, true);
+        else
+          P[s] = make_float4(1.f, 1.f, 1.f, 1.f);
         H[s] = load4<kVec>(g.b + off, w, g.W, 0.f, true);
       } else {
         P[s] = make_float4(1.f, 1.f, 1.f, 1.f);
@@ -295,13 +331,41 @@ rglru_scan_kernel(Args g) {
   }
   __syncthreads();
   // (4) every output once
-  if (warp < kWarps) {
+  if (warp < kWarps && !kRev) {
     const float4 carry = s_carry[lane];
 #pragma unroll
     for (int s = 0; s < kSteps; ++s) {
       if (t0 + s < g.T)
         store4<kVec>(g.h + row0 + static_cast<long long>(t0 + s) * g.W, w,
                      g.W, fma4(P[s], carry, H[s]));
+    }
+  } else if (warp < kWarps) {
+    // (5) the reverse scan's epilogue: g_t, then h_{t-1} (h0 at t = 0),
+    // all loads first: db_t = g_t, da_t = g_t h_{t-1}; dh0 = a_0 g_0
+    const float4 carry = s_carry[lane];
+    float4 hp[kSteps];
+#pragma unroll
+    for (int s = 0; s < kSteps; ++s) {
+      H[s] = fma4(P[s], carry, H[s]);
+      const int t = g.T - 1 - (t0 + s);
+      if (t0 + s < g.T)
+        hp[s] = t > 0 ? load4<kVec>(g.hf + row0 + static_cast<long long>(
+                                                   t - 1) * g.W,
+                                    w, g.W, 0.f, true)
+                      : load4<kVec>(g.h0 + static_cast<long long>(bb) * g.W,
+                                    w, g.W, 0.f, false);
+    }
+#pragma unroll
+    for (int s = 0; s < kSteps; ++s) {
+      const int t = g.T - 1 - (t0 + s);
+      if (t0 + s >= g.T) continue;
+      const long long off = row0 + static_cast<long long>(t) * g.W;
+      store4<kVec>(g.h + off, w, g.W, H[s]);
+      store4<kVec>(g.da + off, w, g.W, mul4(H[s], hp[s]));
+      if (t == 0)
+        store4<kVec>(g.dh0 + static_cast<long long>(bb) * g.W, w, g.W,
+                     mul4(load4<kVec>(g.a + row0, w, g.W, 0.f, false),
+                          H[s]));
     }
   }
 }
@@ -321,29 +385,21 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
-}  // namespace
-
-// Bytes of the workspace `rglru_scan_launch` needs for this shape.
-extern "C" long long rglru_scan_ws_bytes(int B, int T, int W) {
+long long ws_bytes_of(int B, int T, int W) {
   return tiles(B, T, W) * 2 * kTile * sizeof(float) +
          (done_words(B, T, W) + 1) * sizeof(unsigned long long);
 }
 
-// a, b, h: contiguous [B, T, W] f32; h0: contiguous [B, W] f32; ws: at
-// least rglru_scan_ws_bytes(B, T, W) bytes, 16-byte aligned.
-extern "C" int rglru_scan_launch(const void* a, const void* b, const void* h0,
-                                 void* h, void* ws, long long ws_bytes, int B,
-                                 int T, int W, void* stream) {
+// Both launchers: the shape and workspace checks, the workspace carved and
+// its done words and ticket zeroed, then the kernel (float4 path where
+// every row is whole 16-byte segments).
+template <bool kRev>
+int launch(Args g, void* ws, long long ws_bytes, int B, int T, int W,
+           const void* const* ptrs, int nptrs, cudaStream_t st) {
   if (B < 1 || T < 1 || W < 1 || tiles(B, T, W) > INT_MAX ||
-      ws_bytes < rglru_scan_ws_bytes(B, T, W) || !aligned16(ws))
+      ws_bytes < ws_bytes_of(B, T, W) || !aligned16(ws))
     return static_cast<int>(cudaErrorInvalidValue);
   const int n = static_cast<int>(tiles(B, T, W));
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  Args g;
-  g.a = static_cast<const float*>(a);
-  g.b = static_cast<const float*>(b);
-  g.h0 = static_cast<const float*>(h0);
-  g.h = static_cast<float*>(h);
   g.agg_p = static_cast<float4*>(ws);
   g.agg_h = g.agg_p + static_cast<long long>(n) * 32;
   g.done = reinterpret_cast<unsigned long long*>(
@@ -359,11 +415,55 @@ extern "C" int rglru_scan_launch(const void* a, const void* b, const void* h0,
   cudaError_t err = cudaMemsetAsync(
       g.done, 0, (words + 1) * sizeof(unsigned long long), st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const bool vec = W % 4 == 0 && aligned16(a) && aligned16(b) &&
-                   aligned16(h0) && aligned16(h);
+  bool vec = W % 4 == 0;
+  for (int i = 0; i < nptrs; ++i) vec = vec && aligned16(ptrs[i]);
   if (vec)
-    rglru_scan_kernel<true><<<n, kThreads, 0, st>>>(g);
+    rglru_scan_kernel<true, kRev><<<n, kThreads, 0, st>>>(g);
   else
-    rglru_scan_kernel<false><<<n, kThreads, 0, st>>>(g);
+    rglru_scan_kernel<false, kRev><<<n, kThreads, 0, st>>>(g);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Bytes of the workspace `rglru_scan_launch` and `rglru_scan_bwd_launch`
+// need for this shape.
+extern "C" long long rglru_scan_ws_bytes(int B, int T, int W) {
+  return ws_bytes_of(B, T, W);
+}
+
+// a, b, h: contiguous [B, T, W] f32; h0: contiguous [B, W] f32; ws: at
+// least rglru_scan_ws_bytes(B, T, W) bytes, 16-byte aligned.
+extern "C" int rglru_scan_launch(const void* a, const void* b, const void* h0,
+                                 void* h, void* ws, long long ws_bytes, int B,
+                                 int T, int W, void* stream) {
+  Args g = {};
+  g.a = static_cast<const float*>(a);
+  g.b = static_cast<const float*>(b);
+  g.h0 = static_cast<const float*>(h0);
+  g.h = static_cast<float*>(h);
+  const void* ptrs[] = {a, b, h0, h};
+  return launch<false>(g, ws, ws_bytes, B, T, W, ptrs, 4,
+                       static_cast<cudaStream_t>(stream));
+}
+
+// The backward's reverse scan: from a, the forward's h, h0 and dh (the
+// gradient of h; its last row carries the final state's) -> da, db [B, T,
+// W] and dh0 [B, W], all contiguous f32; ws as for rglru_scan_launch.
+extern "C" int rglru_scan_bwd_launch(const void* a, const void* h,
+                                     const void* h0, const void* dh, void* da,
+                                     void* db, void* dh0, void* ws,
+                                     long long ws_bytes, int B, int T, int W,
+                                     void* stream) {
+  Args g = {};
+  g.a = static_cast<const float*>(a);
+  g.b = static_cast<const float*>(dh);
+  g.h0 = static_cast<const float*>(h0);
+  g.h = static_cast<float*>(db);
+  g.hf = static_cast<const float*>(h);
+  g.da = static_cast<float*>(da);
+  g.dh0 = static_cast<float*>(dh0);
+  const void* ptrs[] = {a, h, h0, dh, da, db, dh0};
+  return launch<true>(g, ws, ws_bytes, B, T, W, ptrs, 7,
+                      static_cast<cudaStream_t>(stream));
 }

@@ -14,8 +14,19 @@ then every chunk's outputs in parallel; products on the tensor cores), f32
 inputs one (a block walks the chunks in order; products on the CUDA
 cores).
 
-The wrapper takes the plain version only for tensors on the CPU. For a CUDA
-tensor it launches the kernels or raises: there is no fallback.
+The backward, ``ssd_chunk_bwd``, is three kernels in ``csrc/ssd_chunk_bwd.cu``
+(the state's gradient carried across the chunks from the last; every
+chunk's dx, ddt and per-head dB, dC in parallel; the heads' shares summed
+in order), f32 on the CUDA cores for both dtypes; its header says what
+bounds it. ``SSDChunk`` wraps forward and backward in an autograd
+Function, which ``ssd_chunk`` goes through while autograd records. The
+plain forward masks the decay's exponent before ``exp`` (above the
+diagonal ``exp(cum_i - cum_j)`` overflows once a chunk's decay passes
+~88, and the masked product's gradient is then 0 x inf = NaN);
+``ssd_chunk_bwd_ref`` writes the gradient out.
+
+The wrappers take the plain versions only for tensors on the CPU. For a
+CUDA tensor they launch the kernels or raise: there is no fallback.
 ``LAUNCHES`` counts wrapper calls that launched (one per successful call,
 whatever the number of kernels, nowhere else).
 """
@@ -24,23 +35,27 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
-from repro_torch.kernels.build import (call_on_stream, load,
-                                      refuse_autograd)
+from repro_torch.kernels.build import call_on_stream, load
 
 #: kernel name -> launches since the last reset_launches()
-LAUNCHES = {"ssd_chunk": 0}
+LAUNCHES = {"ssd_chunk": 0, "ssd_chunk_bwd": 0}
 
 #: largest chunk length and state size one block's shared memory holds
 MAX_CHUNK = MAX_STATE = 128
+#: largest head width the backward's chunk kernel holds
+MAX_HEAD_BWD = 128
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _ARGTYPES = [_I, _P, _LL, _LL, _P, _P, _P, _LL, _LL, _P, _LL, _LL, _P, _P, _P,
              _P, _I, _I, _I, _I, _I, _I, _I, _P]
-_lib = None
+_BWD_ARGTYPES = ([_I, _P, _LL, _LL, _P, _P, _P, _LL, _LL, _P, _LL, _LL]
+                 + [_P] * 14 + [_I] * 8 + [_P])
+_lib = _bwd_lib = None
 
 
 def reset_launches() -> None:
@@ -62,6 +77,21 @@ def _library():
     return _lib
 
 
+def _bwd_library():
+    global _bwd_lib
+    if _bwd_lib is None:
+        lib = load("ssd_chunk_bwd")
+        lib.ssd_chunk_bwd_launch.argtypes = _BWD_ARGTYPES
+        lib.ssd_chunk_bwd_launch.restype = ctypes.c_int
+        _bwd_lib = lib
+    return _bwd_lib
+
+
+def _wide(t):
+    """t in f32, or in f64 where it is f64 (the gradient checks)."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
 @functools.lru_cache(maxsize=None)
 def _ws_floats(code: int, b: int, l: int, nh: int, hp: int, n: int,
                Q: int) -> int:
@@ -74,8 +104,8 @@ def ssd_chunk_ref(x, dt, A, B, C, S0, chunk: int):
     """Port of ``_ssd_chunked``. x: [b, l, nh, hp]; dt: [b, l, nh] f32
     (post-softplus); A: [nh] f32 (negative); B, C: [b, l, g, n]; S0:
     [b, nh, hp, n] f32. Chunks of Q = min(chunk, l) steps (the last one
-    zero-padded); the products run in f32. Returns (y [b, l, nh, hp] f32,
-    S_final [b, nh, hp, n] f32)."""
+    zero-padded); the products run in f32 (f64 for f64 inputs). Returns
+    (y [b, l, nh, hp] f32, S_final [b, nh, hp, n] f32)."""
     b, l, nh, hp = x.shape
     g = B.shape[2]
     Q = min(chunk, l)
@@ -88,17 +118,19 @@ def ssd_chunk_ref(x, dt, A, B, C, S0, chunk: int):
     hpg = nh // g
     causal = torch.tril(torch.ones((Q, Q), dtype=torch.bool,
                                    device=x.device))[None, :, :, None]
-    S = S0.float()
+    S = _wide(S0)
     ys = []
     for c in range(x.shape[1] // Q):
         sl = slice(c * Q, (c + 1) * Q)
-        dtq = dt[:, sl].float()                          # [b, Q, nh]
+        dtq = _wide(dt[:, sl])                           # [b, Q, nh]
         cum = torch.cumsum(dtq * A, dim=1)
-        Bh = B[:, sl].float().repeat_interleave(hpg, dim=2)   # [b, Q, nh, n]
-        Ch = C[:, sl].float().repeat_interleave(hpg, dim=2)
-        xdt = x[:, sl].float() * dtq[..., None]          # [b, Q, nh, hp]
+        Bh = _wide(B[:, sl]).repeat_interleave(hpg, dim=2)    # [b, Q, nh, n]
+        Ch = _wide(C[:, sl]).repeat_interleave(hpg, dim=2)
+        xdt = _wide(x[:, sl]) * dtq[..., None]           # [b, Q, nh, hp]
         seg = cum[:, :, None, :] - cum[:, None, :, :]    # [b, Q, Q, nh] (i, j)
-        ldec = torch.where(causal, torch.exp(seg), torch.zeros_like(seg))
+        # masked before the exponent: above the diagonal seg > 0, and its
+        # exp overflows once the chunk's decay passes ~88
+        ldec = torch.exp(torch.where(causal, seg, -torch.inf))
         scores = torch.einsum("bihn,bjhn->bijh", Ch, Bh)
         y_diag = torch.einsum("bijh,bjhp->bihp", scores * ldec, xdt)
         y_off = torch.einsum("bihn,bhpn->bihp",
@@ -156,13 +188,12 @@ def _check(x, dt, A, B, C, S0, chunk: int):
     return b, l, nh, hp, g, n, Q
 
 
-def ssd_chunk(x, dt, A, B, C, S0, chunk: int):
-    """The chunked SSD scan of ``_ssd_chunked``: (y [b, l, nh, hp] f32,
-    S_final [b, nh, hp, n] f32). See ``ssd_chunk_ref`` for the layouts."""
+def _forward(x, dt, A, B, C, S0, chunk: int):
+    """(y, S_final, ws): the kernels' launch; ws is the bf16 route's
+    workspace, the state entering each chunk (empty on the f32 route and
+    None on the CPU)."""
     if x.device.type == "cpu":
-        return ssd_chunk_ref(x, dt, A, B, C, S0, chunk)
-    refuse_autograd("ssd_chunk", x, dt, A, B, C, S0,
-                    why="ROADMAP.md queue 1 item 4(c) is open")
+        return ssd_chunk_ref(x, dt, A, B, C, S0, chunk) + (None,)
     b, l, nh, hp, g, n, Q = _check(x, dt, A, B, C, S0, chunk)
     code = _DTYPE_CODE[x.dtype]
     y = torch.empty((b, l, nh, hp), dtype=torch.float32, device=x.device)
@@ -179,4 +210,182 @@ def ssd_chunk(x, dt, A, B, C, S0, chunk: int):
         raise RuntimeError(f"ssd_chunk kernel launch failed with CUDA error "
                            f"{rc}")
     LAUNCHES["ssd_chunk"] += 1
-    return y, S_final
+    return y, S_final, ws
+
+
+def ssd_chunk_bwd_ref(x, dt, A, B, C, S0, dy, dS_final, chunk: int):
+    """The gradient of ``ssd_chunk``, written out chunk by chunk (not by
+    autograd): from its inputs, dy [b, l, nh, hp] (y's gradient) and
+    dS_final [b, nh, hp, n] -> (dx, ddt, dA, dB, dC, dS0), each in its
+    input's dtype. With xdt_j = dt_j x_j, L_ij = exp(cum_i - cum_j) for
+    j <= i (the exponent masked first), S_in the state entering a chunk and
+    dS_out the gradient of the one leaving it:
+
+    * ``dS_in = exp(cum_Q) dS_out + sum_i exp(cum_i) dy_i^T C_i``, carried
+      from dS_final across the chunks in reverse; chunk 0's is dS0;
+    * ``dxdt_j = sum_{i>=j} (C_i·B_j) L_ij dy_i + exp(cum_Q - cum_j)
+      dS_out B_j``: dx = dt dxdt and ddt's first term x·dxdt;
+    * dC and dB from the same products (``W = L ∘ dy xdt^T``), summed over
+      the heads of a group;
+    * dcum from every exp term (the diagonal's row and column sums, the
+      carried state's, the state update's), reverse-summed within the
+      chunk: ``ddt += A rcumsum(dcum)``, ``dA = sum dt rcumsum(dcum)``."""
+    b, l, nh, hp = x.shape
+    g, n = B.shape[2], B.shape[3]
+    Q = min(chunk, l)
+    pad = (-l) % Q
+    nc, hpg = (l + pad) // Q, nh // g
+
+    def chunks(t):                  # [b, l, ...] -> [b, nc, Q, ...], padded
+        t = _wide(t)
+        if pad:
+            t = torch.cat([t, t.new_zeros((b, pad) + tuple(t.shape[2:]))],
+                          dim=1)
+        return t.reshape((b, nc, Q) + tuple(t.shape[2:]))
+
+    xc, dtc, Bc, Cc, dyc = (chunks(t) for t in (x, dt, B, C, dy))
+    Af = _wide(A)
+    Bh = Bc.repeat_interleave(hpg, dim=3)                # [b, nc, Q, nh, n]
+    Ch = Cc.repeat_interleave(hpg, dim=3)
+    cum = torch.cumsum(dtc * Af, dim=2)                  # [b, nc, Q, nh]
+    last = cum[:, :, -1]                                 # [b, nc, nh]
+    ecum, edec = torch.exp(cum), torch.exp(last[:, :, None] - cum)
+    xdt = xc * dtc[..., None]                            # [b, nc, Q, nh, hp]
+    # the state entering each chunk, then the gradient leaving each
+    upd = torch.einsum("bcjhn,bcjhp->bchpn", Bh * edec[..., None], xdt)
+    S, S_in = _wide(S0), []
+    for c in range(nc):
+        S_in.append(S)
+        S = torch.exp(last[:, c])[..., None, None] * S + upd[:, c]
+    S_in = torch.stack(S_in, 1)                          # [b, nc, nh, hp, n]
+    back = torch.einsum("bcihp,bcihn->bchpn", dyc * ecum[..., None], Ch)
+    dS, dS_out = _wide(dS_final), [None] * nc
+    for c in reversed(range(nc)):
+        dS_out[c] = dS
+        dS = torch.exp(last[:, c])[..., None, None] * dS + back[:, c]
+    dS_out = torch.stack(dS_out, 1)
+    causal = torch.tril(torch.ones((Q, Q), dtype=torch.bool,
+                                   device=x.device))[:, :, None]
+    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # [b, nc, i, j, nh]
+    Lm = torch.exp(torch.where(causal, seg, -torch.inf))
+    M = torch.einsum("bcihn,bcjhn->bcijh", Ch, Bh) * Lm  # (C_i·B_j) L_ij
+    R = torch.einsum("bcihp,bcjhp->bcijh", dyc, xdt)     # dy_i·xdt_j
+    Wm = R * Lm
+    dxdt_state = edec[..., None] * torch.einsum("bcjhn,bchpn->bcjhp", Bh,
+                                                dS_out)
+    dxdt = torch.einsum("bcijh,bcihp->bcjhp", M, dyc) + dxdt_state
+    dCh = (torch.einsum("bcijh,bcjhn->bcihn", Wm, Bh) + ecum[..., None]
+           * torch.einsum("bcihp,bchpn->bcihn", dyc, S_in))
+    dBh = (torch.einsum("bcijh,bcihn->bcjhn", Wm, Ch) + edec[..., None]
+           * torch.einsum("bcjhp,bchpn->bcjhn", xdt, dS_out))
+    # dcum: the diagonal's T_ij = M_ij R_ij (+ at i, - at j), the carried
+    # state's U_i, the state update's V_j (- at j, + at the chunk's end)
+    # and exp(cum_Q) <dS_out, S_in> (at the end)
+    T = M * R
+    U = ecum * torch.einsum("bcihp,bchpn,bcihn->bcih", dyc, S_in, Ch)
+    V = (xdt * dxdt_state).sum(-1)
+    dcum = T.sum(3) - T.sum(2) + U - V
+    dcum[:, :, -1] += (torch.exp(last) * (dS_out * S_in).sum((-2, -1))
+                       + V.sum(2))
+    rc = dcum.flip(2).cumsum(2).flip(2)
+    ddt = (xc * dxdt).sum(-1) + Af * rc
+    dA = (dtc * rc).sum((0, 1, 2))
+
+    def unchunk(t, like):
+        return t.reshape((b, nc * Q) + tuple(t.shape[3:]))[:, :l].to(
+            like.dtype)
+
+    dB = dBh.reshape(b, nc, Q, g, hpg, n).sum(4)
+    dC = dCh.reshape(b, nc, Q, g, hpg, n).sum(4)
+    return (unchunk(dxdt * dtc[..., None], x), unchunk(ddt, dt),
+            dA.to(A.dtype), unchunk(dB, B), unchunk(dC, C),
+            dS.to(S0.dtype))
+
+
+def ssd_chunk_bwd(x, dt, A, B, C, S0, dy, dS_final, chunk: int, ws=None):
+    """(dx, ddt, dA, dB, dC, dS0) of ``ssd_chunk_bwd_ref``: the plain
+    version on the CPU, else the three backward kernels (one call). ``ws``
+    is the forward's workspace on the bf16 route (the state entering each
+    chunk); without it, and on the f32 route, the first kernel recomputes
+    those states."""
+    if x.device.type == "cpu":
+        return ssd_chunk_bwd_ref(x, dt, A, B, C, S0, dy, dS_final, chunk)
+    b, l, nh, hp, g, n, Q = _check(x, dt, A, B, C, S0, chunk)
+    if hp > MAX_HEAD_BWD:
+        raise ValueError(f"hp {hp}: the backward takes heads of at most "
+                         f"{MAX_HEAD_BWD}")
+    dy, dS_final = dy.float().contiguous(), dS_final.float().contiguous()
+    if dy.shape != (b, l, nh, hp) or dS_final.shape != S0.shape \
+            or dy.device != x.device or dS_final.device != x.device:
+        raise ValueError(f"dy {tuple(dy.shape)}, dS_final "
+                         f"{tuple(dS_final.shape)}: need {(b, l, nh, hp)} "
+                         f"and {tuple(S0.shape)} on {x.device}")
+    code = _DTYPE_CODE[x.dtype]
+    nc = -(-l // Q)
+    states = (b, nc, nh, hp, n)
+    recompute = ws is None or ws.numel() == 0
+    if recompute:
+        ws = torch.empty(states, dtype=torch.float32, device=x.device)
+    elif ws.numel() != math.prod(states) or not ws.is_contiguous():
+        raise ValueError(f"ws of {ws.numel()} floats: need the forward's "
+                         f"{math.prod(states)}")
+
+    def f32(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=x.device)
+
+    dS_out, dS0 = f32(*states), torch.empty_like(S0)
+    dx = torch.empty((b, l, nh, hp), dtype=x.dtype, device=x.device)
+    ddt, dA = f32(b, l, nh), f32(nh)
+    pdB, pdC, pdA = f32(b, l, nh, n), f32(b, l, nh, n), f32(b, nc, nh)
+    dB = torch.empty((b, l, g, n), dtype=B.dtype, device=x.device)
+    dC = torch.empty((b, l, g, n), dtype=C.dtype, device=x.device)
+    rc = call_on_stream(
+        _bwd_library().ssd_chunk_bwd_launch, x, code, x.data_ptr(),
+        x.stride(0), x.stride(1), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+        B.stride(0), B.stride(1), C.data_ptr(), C.stride(0), C.stride(1),
+        S0.data_ptr(), dy.data_ptr(), dS_final.data_ptr(), ws.data_ptr(),
+        dS_out.data_ptr(), dS0.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
+        pdB.data_ptr(), pdC.data_ptr(), pdA.data_ptr(), dB.data_ptr(),
+        dC.data_ptr(), dA.data_ptr(), b, l, nh, hp, g, n, Q, int(recompute))
+    if rc != 0:
+        raise RuntimeError(f"ssd_chunk_bwd kernel launch failed with CUDA "
+                           f"error {rc}")
+    LAUNCHES["ssd_chunk_bwd"] += 1
+    return dx, ddt, dA, dB, dC, dS0
+
+
+class SSDChunk(torch.autograd.Function):
+    """``ssd_chunk`` with a gradient: the forward is the scan (the plain
+    version on the CPU) and saves its inputs and, on the bf16 route, the
+    forward's workspace of chunk states (kept: 4 B an element of [b, nc,
+    nh, hp, n], 67 MB at mamba2-1.3b's training microbatch, against a
+    recompute as long as the forward's first kernel); the backward is the
+    three backward kernels, whose gradients come back where they are
+    needed."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, S0, chunk):
+        y, S_final, ws = _forward(x, dt, A, B, C, S0, chunk)
+        ctx.save_for_backward(x, dt, A, B, C, S0,
+                              ws if ws is not None and ws.numel() else None)
+        ctx.chunk = chunk
+        return y, S_final
+
+    @staticmethod
+    def backward(ctx, dy, dS_final):
+        x, dt, A, B, C, S0, ws = ctx.saved_tensors
+        grads = ssd_chunk_bwd(x, dt, A, B, C, S0, dy, dS_final, ctx.chunk,
+                              ws=ws)
+        return tuple(g if need else None for g, need in
+                     zip(grads, ctx.needs_input_grad)) + (None,)
+
+
+def ssd_chunk(x, dt, A, B, C, S0, chunk: int):
+    """The chunked SSD scan of ``_ssd_chunked``: (y [b, l, nh, hp] f32,
+    S_final [b, nh, hp, n] f32). See ``ssd_chunk_ref`` for the layouts.
+    Differentiable in every tensor input (``SSDChunk``) while autograd
+    records."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, dt, A, B, C, S0)):
+        return SSDChunk.apply(x, dt, A, B, C, S0, chunk)
+    return _forward(x, dt, A, B, C, S0, chunk)[:2]

@@ -10,10 +10,12 @@ RG-LRU:
     log a_t = -c · softplus(Λ) ⊙ r_t   (c = 8)
     h_t = a_t ⊙ h_{t-1} + sqrt(1 - a_t²) ⊙ (i_t ⊙ x_t)
 
-The sequence path (prefill) runs the recurrence through the hand-written
-``rglru_scan`` kernel (on a CPU tensor, its plain version: the reference's
-chunked scan). The single-token decode step stays plain PyTorch, as in the
-reference. Layouts and dtypes are the reference's (``repro.models.rglru``):
+The sequence paths (prefill, and the training forward) run the recurrence
+through the hand-written ``rglru_scan`` kernel (on a CPU tensor, its plain
+version: the reference's chunked scan); while autograd records, through
+``RGLRUScan``, whose backward is the same kernel run in reverse, so the
+block trains on the card. The single-token decode step stays plain
+PyTorch, as in the reference. Layouts and dtypes are the reference's (``repro.models.rglru``):
 the gates, Λ and the recurrent state ``h`` are f32; the conv state and the
 projections are in ``cfg.dtype``.
 """
@@ -58,10 +60,11 @@ def rglru_init(cfg: ModelConfig, normal, uniform):
 
 def _block_diag(w, x):
     """x: [..., width] -> block-diagonal linear in f32, blocks
-    [_NBLOCKS, bs, bs]."""
+    [_NBLOCKS, bs, bs]. The train step's bf16 copy of w is read in f32,
+    as the reference's einsum promotes it."""
     shape = x.shape
     xb = x.reshape(shape[:-1] + (_NBLOCKS, shape[-1] // _NBLOCKS)).float()
-    return torch.einsum("...nb,nbc->...nc", xb, w).reshape(shape)
+    return torch.einsum("...nb,nbc->...nc", xb, w.float()).reshape(shape)
 
 
 def _gates(p, x):

@@ -1,9 +1,11 @@
 """Mamba-2 SSD layer (state-space duality, arXiv:2405.21060).
 
-The sequence path (prefill) runs the chunked SSD scan through the
-hand-written ``ssd_chunk`` kernel (on a CPU tensor, its plain version: the
-reference's ``_ssd_chunked``), starting from a carried state and returning
-the final one. Decode is the exact single-step recurrence in plain PyTorch,
+The sequence path (prefill, and the training forward) runs the chunked SSD
+scan through the hand-written ``ssd_chunk`` kernels (on a CPU tensor, their
+plain version: the reference's ``_ssd_chunked``, its decay masked before
+the exponent), starting from a carried state and returning the final one;
+while autograd records, through ``SSDChunk``, whose backward is three
+hand-written kernels, so the layer trains on the card. Decode is the exact single-step recurrence in plain PyTorch,
 as in the reference: session state is O(1) in the sequence length. Layouts
 and dtypes are the reference's (``repro.models.ssd``): ``A_log``, ``D``,
 ``dt_bias``, the norm scale and the SSM state are f32; the conv state and
@@ -89,7 +91,9 @@ def ssd_apply(p, cfg: ModelConfig, x, conv_state=None, ssm_state=None,
     if length is not None and length < l:
         valid = (torch.arange(l, device=x.device) < length)[None, :, None]
         dt = torch.where(valid, dt, torch.zeros_like(dt))
-    A = -torch.exp(p["A_log"])
+    # the train step's bf16 copy of A_log: exp in bf16 as the reference's,
+    # then f32, as its product with dt promotes it (the kernel takes f32)
+    A = (-torch.exp(p["A_log"])).float()
     if ssm_state is None:
         ssm_state = torch.zeros((b, nh, hp, n), dtype=torch.float32,
                                 device=x.device)

@@ -74,8 +74,12 @@ class Launch:
     done bits zeroed by the launcher's memset, the rest NaN until
     written)."""
 
-    def __init__(self, a, b, h0, vec=None):
+    def __init__(self, a, b, h0, vec=None, hf=None):
+        """``hf`` (the forward's h) makes it the backward's reverse scan
+        (``rglru_scan_bwd_launch``): b is then dh, h receives db, and da
+        and dh0 are written too."""
         self.a, self.b, self.h0 = a, b, h0
+        self.rev, self.hf = hf is not None, hf
         self.B, self.T, self.W = a.shape
         self.vec = self.W % 4 == 0 if vec is None else vec
         assert not self.vec or self.W % 4 == 0
@@ -88,6 +92,13 @@ class Launch:
         self.done = np.zeros((self.B * self.ntw, self.nm), np.uint64)
         self.ticket = 0
         self.h = np.full(a.shape, np.nan, F32)
+        self.da = np.full(a.shape, np.nan, F32)
+        self.dh0 = np.full(h0.shape, np.nan, F32)
+
+    def step(self, u):
+        """Real step of virtual step u (the reverse scan runs from the
+        last step)."""
+        return self.T - 1 - u if self.rev else u
 
     def load(self, row, w, fill):
         """load4: each lane's channels w .. w+3 of ``row``, ``fill`` past
@@ -129,7 +140,8 @@ class Tile:
         self.w = self.wt * KTILE + 4 * LANES
         self.first = self.bb * L.nc * L.ntw + self.wt   # chunk 0's tile
         self.col = self.bb * L.ntw + self.wt
-        self.carry = L.load(L.h0[self.bb], self.w, 0.0)
+        self.carry = (np.zeros((32, 4), F32) if L.rev
+                      else L.load(L.h0[self.bb], self.w, 0.0))
         self.j = 0                                      # chunks folded
 
     def publish(self):
@@ -144,8 +156,14 @@ class Tile:
             t0 = c * KCHUNK + warp * KSTEPS
             for s in range(KSTEPS):
                 if t0 + s < L.T:
-                    P[warp, s] = L.load(L.a[bb, t0 + s], self.w, 1.0)
-                    H[warp, s] = L.load(L.b[bb, t0 + s], self.w, 0.0)
+                    t = L.step(t0 + s)
+                    if not L.rev:
+                        P[warp, s] = L.load(L.a[bb, t], self.w, 1.0)
+                    elif t + 1 < L.T:                 # a_{t+1}
+                        P[warp, s] = L.load(L.a[bb, t + 1], self.w, 1.0)
+                    else:
+                        P[warp, s] = 1.0
+                    H[warp, s] = L.load(L.b[bb, t], self.w, 0.0)
                 else:
                     P[warp, s], H[warp, s] = 1.0, 0.0
             for s in range(1, KSTEPS):
@@ -204,17 +222,41 @@ class Tile:
         for warp in range(KWARPS):
             t0 = self.c * KCHUNK + warp * KSTEPS
             for s in range(KSTEPS):
-                if t0 + s < L.T:
-                    L.store(L.h[bb, t0 + s], self.w,
-                            _fma(self.P[warp, s], s_carry, self.H[warp, s]))
+                if t0 + s >= L.T:
+                    continue
+                t = L.step(t0 + s)
+                g = _fma(self.P[warp, s], s_carry, self.H[warp, s])
+                L.store(L.h[bb, t], self.w, g)
+                if not L.rev:
+                    continue
+                # (5): db = g, da = g h_{t-1} (h0 at t = 0), dh0 = a_0 g_0
+                prev = L.load(L.hf[bb, t - 1] if t > 0 else L.h0[bb],
+                              self.w, 0.0)
+                L.store(L.da[bb, t], self.w, (g * prev).astype(F32))
+                if t == 0:
+                    L.store(L.dh0[bb], self.w,
+                            (L.load(L.a[bb, 0], self.w, 0.0) * g).astype(
+                                F32))
 
 
-def run(a, b, h0, vec=None, rng=None):
-    """h as the kernel computes it. With ``rng`` the blocks run in a random
-    interleaving the kernel allows; without, one after another in ticket
-    order."""
+def run(a, b, h0, vec=None, rng=None, hf=None):
+    """h as the kernel computes it (with ``hf``, the forward's h, and b the
+    gradient dh: (da, db, dh0) as the reverse scan computes them). With
+    ``rng`` the blocks run in a random interleaving the kernel allows;
+    without, one after another in ticket order."""
     a, b, h0 = (np.ascontiguousarray(x, F32) for x in (a, b, h0))
-    L = Launch(a, b, h0, vec)
+    L = Launch(a, b, h0, vec, hf=None if hf is None else
+               np.ascontiguousarray(hf, F32))
+    _run(L, rng)
+    return (L.da, L.h, L.dh0) if L.rev else L.h
+
+
+def run_bwd(a, h, h0, dh, vec=None, rng=None):
+    """(da, db, dh0) of ``rglru_scan_bwd_launch``."""
+    return run(a, dh, h0, vec=vec, rng=rng, hf=h)
+
+
+def _run(L, rng):
     if rng is None:
         for _ in range(L.n):
             t = Tile(L)
@@ -222,7 +264,7 @@ def run(a, b, h0, vec=None, rng=None):
             while t.j < t.c:
                 t.fold()
             t.store()
-        return L.h
+        return
     running, stored = [], 0
     while stored < L.n:
         moves = [("start", None)] if L.ticket < L.n else []
@@ -245,7 +287,6 @@ def run(a, b, h0, vec=None, rng=None):
         elif what == "store":
             running.remove(t)
             stored += 1
-    return L.h
 
 
 def _case(seed, B, T, W, h0=True):
@@ -342,3 +383,76 @@ class TestInvariants:
         for r in range(3):
             alone = run(a[r:r + 1], b[r:r + 1], h0[r:r + 1])
             np.testing.assert_array_equal(together[r:r + 1], alone)
+
+
+# ---------------------------------------------------------------------------
+# the backward: the same kernel in reverse (kRev)
+# ---------------------------------------------------------------------------
+
+def _bwd_case(seed, B, T, W):
+    a, b, h0 = _case(seed, B, T, W)
+    h = _plain(a, b, h0)
+    dh = np.random.default_rng(seed + 1).standard_normal((B, T, W)).astype(
+        F32)
+    return a, h, h0, dh
+
+
+def _plain_bwd(a, h, h0, dh):
+    return [t.numpy() for t in RS.rglru_scan_bwd_ref(
+        *(torch.from_numpy(x) for x in (a, h, h0, dh)))]
+
+
+class TestReverseScan:
+    @pytest.mark.parametrize("B,T,W", [
+        (1, 1, 64),        # one step: g = dh, dh0 = a_0 dh_0
+        (2, 37, 3),        # below one chunk, off float4
+        (1, 300, 100),     # off the chunk and the warp split
+        (3, 1000, 130),    # B 3, two channel tiles, the second ragged
+        (1, 64 * KCHUNK + 70, 5),   # past 64 chunks: two done words
+    ])
+    def test_matches_the_plain_backward(self, B, T, W):
+        a, h, h0, dh = _bwd_case(B + T + W, B, T, W)
+        got = run_bwd(a, h, h0, dh)
+        for g_, w_ in zip(got, _plain_bwd(a, h, h0, dh)):
+            assert np.isfinite(g_).all()
+            np.testing.assert_allclose(g_, w_, **TOL)
+
+    @pytest.mark.parametrize("T,W", [(300, 64), (70, 128)])
+    def test_the_scalar_edge_path_gives_the_float4_paths_bits(self, T, W):
+        a, h, h0, dh = _bwd_case(T * W, 2, T, W)
+        for x, y in zip(run_bwd(a, h, h0, dh, vec=False),
+                        run_bwd(a, h, h0, dh, vec=True)):
+            np.testing.assert_array_equal(x, y)
+
+    @settings(max_examples=5, deadline=None, database=None)
+    @given(T=st.integers(1, 4 * KCHUNK + 5), W=st.integers(1, 2 * KTILE + 3),
+           B=st.integers(1, 2), seed=st.integers(0, 10_000))
+    def test_any_order_the_tickets_allow_gives_the_same_bits(self, T, W, B,
+                                                            seed):
+        a, h, h0, dh = _bwd_case(seed, B, T, W)
+        want = run_bwd(a, h, h0, dh)
+        for k in range(2):
+            got = run_bwd(a, h, h0, dh, rng=np.random.default_rng(seed + k))
+            for x, y in zip(got, want):
+                np.testing.assert_array_equal(x, y)
+
+    @settings(max_examples=3, deadline=None, database=None)
+    @given(T=st.integers(1, 3 * KCHUNK + 7), W=st.integers(1, KTILE + 9),
+           seed=st.integers(0, 10_000))
+    def test_a_rows_bits_do_not_depend_on_B_or_its_position(self, T, W,
+                                                           seed):
+        a, h, h0, dh = _bwd_case(seed, 3, T, W)
+        together = run_bwd(a, h, h0, dh, rng=np.random.default_rng(seed))
+        for r in range(3):
+            alone = run_bwd(*(x[r:r + 1] for x in (a, h, h0, dh)))
+            for x, y in zip(together, alone):
+                np.testing.assert_array_equal(x[r:r + 1], y)
+
+    def test_tickets_start_from_the_last_chunk(self):
+        """The first ticket's tile holds the last real steps: its carry is
+        0 and it waits on no other tile."""
+        a, h, h0, dh = _bwd_case(3, 1, 3 * KCHUNK + 5, 8)
+        L = Launch(a, dh, h0, hf=h)
+        t = Tile(L)
+        assert t.c == 0 and L.step(0) == L.T - 1
+        assert not t.carry.any()

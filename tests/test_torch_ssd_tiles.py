@@ -26,6 +26,7 @@ same values in f32. Tolerance 1e-4 absolute and relative: the split leaves
 """
 
 import dataclasses
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -36,6 +37,7 @@ from hypothesis import given, settings, strategies as st
 from repro.kernels.ssd_chunk.ssd_chunk import ssd_chunk as pallas_ssd
 from repro.models.ssd import _ssd_chunked
 from repro_torch.configs import get_smoke_config
+from repro_torch.kernels.build import SOURCES, _HERE
 from repro_torch.kernels.ssd_chunk import ssd_chunk as SC
 from tests.test_torch_moe_tiles import G, LANES, TG, _ldmatrix_x4, _mma
 
@@ -379,3 +381,432 @@ def test_one_bf16_rounding_would_not_hold_the_tolerance():
     y, _ = tc_transliteration(*case, 32, split=hi_only)
     yp, _ = _plain(case, 32)
     assert not np.allclose(y, yp, **TOL)
+
+
+# ---------------------------------------------------------------------------
+# the backward: ssd_chunk_bwd.cu (ssd_states_bwd, ssd_chunk_bwd,
+# ssd_bc_reduce), transliterated thread by thread on NaN-filled shared
+# memory and held to the plain backward
+# ---------------------------------------------------------------------------
+
+_BSRC = (_HERE / SOURCES["ssd_chunk_bwd"]).read_text()
+
+
+def _bconst(name: str) -> int:
+    return int(re.search(rf"constexpr int {name} = (\d+);", _BSRC).group(1))
+
+
+BQ, BK, BR, BTHREADS = _bconst("kQ"), _bconst("kK"), _bconst("kR"), \
+    _bconst("kThreads")
+assert "constexpr int kAP = kK + 1;" in _BSRC
+assert "constexpr int kTP = kR + 4;" in _BSRC
+BAP, BTP = BK + 1, BR + 4
+TID = np.arange(BTHREADS)
+ROW, C0 = TID % 64, (TID // 64) * 4          # thread (r, g): row r, 4 g
+
+
+def _r16(v):
+    return (v + 15) & ~15
+
+
+def _exp0(v):
+    return np.exp(np.minimum(np.asarray(v, F32), F32(0))).astype(F32)
+
+
+def _mm(acc, a, lda, b, ldb, K, nq):
+    """mm<NQ>: acc[thread, q, e] += A[r][k] B[k][4 g + 16 q + e], k in
+    order, one fmaf each (A and B flat shared-memory arrays)."""
+    for k in range(K):
+        av = a[ROW * lda + k][:, None]
+        for q in range(nq):
+            bv = b[(k * ldb + C0 + 16 * q)[:, None] + np.arange(4)]
+            acc[:, q] = _fma(av, bv, acc[:, q])
+
+
+def _stage_rows(dst, pitch, src, nr, rows, K, kp, scale=None):
+    """stage_rows: rows [0, nr) of src (2-d) into dst at the pitch, scaled
+    by scale[i]; zeros past (rows, K) up to column kp."""
+    for i in range(nr):
+        v = np.zeros(kp, F32)
+        if i < rows:
+            v[:K] = src[i, :K]
+            if scale is not None:
+                v = (v * scale[i]).astype(F32)
+        dst[i * pitch:i * pitch + kp] = v
+
+
+def _stage_cols(dst, src, rows, K, kp, scale=None):
+    """stage_cols: rows [0, 64) transposed into dst[k][i], pitch kTP."""
+    for i in range(BR):
+        v = np.zeros(kp, F32)
+        if i < rows:
+            v[:K] = src[i, :K]
+            if scale is not None:
+                v = (v * scale[i]).astype(F32)
+        dst[np.arange(kp) * BTP + i] = v
+
+
+def _rowsum(part, r0, qlen):
+    """row_sum: each row's four column-group partials, added in order."""
+    red = part.reshape(4, 64)
+    out = np.zeros(64, F32)
+    for g in range(4):
+        out = (out + red[g]).astype(F32)
+    return {r0 + r: out[r] for r in range(64) if r0 + r < qlen}
+
+
+def bwd_transliteration(x, dt, A, B, C, S0, dy, dSf, chunk, ws=None):
+    """(dx, ddt, dA, dB, dC, dS0) as the three backward kernels compute
+    them; ``ws`` the forward's S_in workspace (the bf16 route), else the
+    first kernel recomputes it."""
+    b, L, nh, hp = x.shape
+    G, n = B.shape[2], B.shape[3]
+    Q = min(chunk, L)
+    nc, hpg = -(-L // Q), nh // G
+    S_in = np.full((b, nc, nh, hp, n), np.nan, F32) if ws is None else ws
+    dS_out = np.full((b, nc, nh, hp, n), np.nan, F32)
+    dS0 = np.full((b, nh, hp, n), np.nan, F32)
+    dx = np.full(x.shape, np.nan, F32)
+    ddt = np.full(dt.shape, np.nan, F32)
+    pdB = np.full((b, L, nh, n), np.nan, F32)
+    pdC = np.full((b, L, nh, n), np.nan, F32)
+    pdA = np.full((b, nc, nh), np.nan, F32)
+
+    # ---- (a) ssd_states_bwd ----------------------------------------------
+    for bb in range(b):
+        for h in range(nh):
+            grp = h // hpg
+            for p0 in range(0, hp, BR):
+                for k0 in range(0, n, BR):
+                    hpl, nsl = min(BR, hp - p0), min(BR, n - k0)
+                    kk = (C0[:, None, None] + 16 * np.arange(4)[None, :, None]
+                          + np.arange(4)[None, None, :])       # [thr, q, e]
+                    rr = np.broadcast_to(ROW[:, None, None], kk.shape)
+                    ok = (rr < hpl) & (kk < nsl)
+
+                    def load(state):
+                        out = np.zeros(kk.shape, F32)
+                        out[ok] = state[p0 + rr[ok], k0 + kk[ok]]
+                        return out
+
+                    def store(state, acc):
+                        state[p0 + rr[ok], k0 + kk[ok]] = acc[ok]
+
+                    def chunk_step(acc, c, fwd):
+                        c0 = c * Q
+                        qlen = min(Q, L - c0)
+                        dts, cum = _chunk_cum(dt, A, bb, h, c0, qlen)
+                        clast = cum[BQ - 1]
+                        scale = ((_exp0(clast - cum) * dts).astype(F32)
+                                 if fwd else _exp0(cum))
+                        sa = np.full(BR * BAP, np.nan, F32)
+                        sb = np.full(BQ * BR, np.nan, F32)
+                        src = x[bb, c0:c0 + qlen, h] if fwd else \
+                            dy[bb, c0:c0 + qlen, h]
+                        for j in range(BQ):
+                            v = np.zeros(BR, F32)
+                            if j < qlen:
+                                v[:hpl] = src[j, p0:p0 + hpl]
+                                v = (v * scale[j]).astype(F32)
+                            sa[np.arange(BR) * BAP + j] = v
+                        rows = B if fwd else C
+                        for j in range(BQ):
+                            v = np.zeros(BR, F32)
+                            if j < qlen:
+                                v[:nsl] = rows[bb, c0 + j, grp, k0:k0 + nsl]
+                            sb[j * BR:(j + 1) * BR] = v
+                        acc = (acc * _exp0(clast)).astype(F32)
+                        _mm(acc, sa, BAP, sb, BR, qlen, 4)
+                        return acc
+
+                    if ws is None:
+                        acc = load(S0[bb, h])
+                        for c in range(nc):
+                            store(S_in[bb, c, h], acc)
+                            acc = chunk_step(acc, c, True)
+                    acc = load(dSf[bb, h])
+                    for c in reversed(range(nc)):
+                        store(dS_out[bb, c, h], acc)
+                        acc = chunk_step(acc, c, False)
+                    store(dS0[bb, h], acc)
+
+    # ---- (b) ssd_chunk_bwd -------------------------------------------------
+    hp16, n16 = _r16(hp), _r16(n)
+    for bb in range(b):
+        for h in range(nh):
+            grp = h // hpg
+            for c in range(nc):
+                c0 = c * Q
+                qlen = min(Q, L - c0)
+                nb = -(-qlen // BR)
+                dts, cum = _chunk_cum(dt, A, bb, h, c0, qlen)
+                clast = cum[BQ - 1]
+                ecum, edec = _exp0(cum), _exp0(clast - cum)
+                rowdot, coldot, vv, ddtd = ({} for _ in range(4))
+                sin, dso = S_in[bb, c, h], dS_out[bb, c, h]
+                k2 = np.zeros(BTHREADS, F32)
+                flat_s, flat_d = sin.reshape(-1), dso.reshape(-1)
+                for t in range(BTHREADS):
+                    for e in range(t, hp * n, BTHREADS):
+                        k2[t] = _fma(flat_d[e], flat_s[e], k2[t])
+                xr = x[bb, c0:c0 + qlen, h]
+                dyr = dy[bb, c0:c0 + qlen, h]
+                Br, Cr = B[bb, c0:c0 + qlen, grp], C[bb, c0:c0 + qlen, grp]
+
+                dg = np.full(BR, np.nan, F32)
+
+                def sub_block(sacc, rb, cb, lower, split=True):
+                    """The masked, decayed sub-block; on the diagonal (in
+                    passes D and E) its diagonal goes to dg and is 0 in the
+                    block."""
+                    ss = np.full(BR * (BR + 1), np.nan, F32)
+                    for q in range(4):
+                        for e in range(4):
+                            col = C0 + 16 * q + e
+                            i = rb + ROW if lower else cb + col
+                            j = cb + col if lower else rb + ROW
+                            valid = (i < qlen) & (j <= i)
+                            ic, jc = np.minimum(i, BQ - 1), np.minimum(j,
+                                                                       BQ - 1)
+                            v = np.where(valid, (sacc[:, q, e] * _exp0(
+                                cum[ic] - cum[jc])).astype(F32), F32(0))
+                            on = (col == ROW) & (rb == cb) & split
+                            dg[ROW[on]] = v[on]
+                            ss[ROW * (BR + 1) + col] = np.where(on, F32(0),
+                                                                v)
+                    return ss
+
+                # pass D: dC rows
+                sb1 = np.full(BK * BK, np.nan, F32)
+                _stage_rows(sb1, n16, sin, hp, hp, n, n16)
+                for ib in range(nb):
+                    rb = ib * BR
+                    sa = np.full(BR * BAP, np.nan, F32)
+                    _stage_rows(sa, BAP, dyr[rb:], BR, qlen - rb, hp,
+                                hp)
+                    acc = np.zeros((BTHREADS, 8, 4), F32)
+                    _mm(acc, sa, BAP, sb1, n16, hp, n16 // 16)
+                    acc = (acc * ecum[np.minimum(rb + ROW, BQ - 1)][:, None,
+                                                                    None]
+                           ).astype(F32)
+                    for jb in range(ib + 1):
+                        cb = jb * BR
+                        sb2 = np.full(BK * BTP, np.nan, F32)
+                        sb3 = np.full(BR * BK, np.nan, F32)
+                        _stage_cols(sb2, xr[cb:], qlen - cb, hp, hp,
+                                    dts[cb:])
+                        _stage_rows(sb3, n16, Br[cb:], BR, qlen - cb,
+                                    n, n16)
+                        sacc = np.zeros((BTHREADS, 4, 4), F32)
+                        _mm(sacc, sa, BAP, sb2, BTP, hp, 4)
+                        ss = sub_block(sacc, rb, cb, True)
+                        _mm(acc, ss, BR + 1, sb3, n16, BR, n16 // 16)
+                    part = np.zeros(BTHREADS, F32)
+                    i = rb + ROW
+                    for q in range(8):
+                        for e in range(4):
+                            k = C0 + 16 * q + e
+                            m = (i < qlen) & (k < n)
+                            part[m] = _fma(Cr[i[m], k[m]], acc[m, q, e],
+                                           part[m])
+                            pdC[bb, c0 + i[m], h, k[m]] = _fma(
+                                dg[ROW[m]], Br[i[m], k[m]], acc[m, q, e])
+                    rowdot.update(_rowsum(part, rb, qlen))
+                # pass E: dB rows
+                _stage_rows(sb1, n16, dso, hp, hp, n, n16)
+                for jb in range(nb):
+                    rb = jb * BR
+                    sa = np.full(BR * BAP, np.nan, F32)
+                    _stage_rows(sa, BAP, xr[rb:], BR, qlen - rb, hp,
+                                hp, dts[rb:])
+                    acc = np.zeros((BTHREADS, 8, 4), F32)
+                    _mm(acc, sa, BAP, sb1, n16, hp, n16 // 16)
+                    j = rb + ROW
+                    part = np.zeros(BTHREADS, F32)
+                    for q in range(8):
+                        for e in range(4):
+                            k = C0 + 16 * q + e
+                            acc[:, q, e] = (acc[:, q, e] * edec[
+                                np.minimum(j, BQ - 1)]).astype(F32)
+                            m = (j < qlen) & (k < n)
+                            part[m] = _fma(Br[j[m], k[m]], acc[m, q, e],
+                                           part[m])
+                    vv.update(_rowsum(part, rb, qlen))
+                    for ib in range(jb, nb):
+                        cb = ib * BR
+                        sb2 = np.full(BK * BTP, np.nan, F32)
+                        sb3 = np.full(BR * BK, np.nan, F32)
+                        _stage_cols(sb2, dyr[cb:], qlen - cb, hp, hp)
+                        _stage_rows(sb3, n16, Cr[cb:], BR, qlen - cb,
+                                    n, n16)
+                        sacc = np.zeros((BTHREADS, 4, 4), F32)
+                        _mm(sacc, sa, BAP, sb2, BTP, hp, 4)
+                        ss = sub_block(sacc, rb, cb, False)
+                        _mm(acc, ss, BR + 1, sb3, n16, BR, n16 // 16)
+                    part = np.zeros(BTHREADS, F32)
+                    for q in range(8):
+                        for e in range(4):
+                            k = C0 + 16 * q + e
+                            m = (j < qlen) & (k < n)
+                            part[m] = _fma(Br[j[m], k[m]], acc[m, q, e],
+                                           part[m])
+                            pdB[bb, c0 + j[m], h, k[m]] = _fma(
+                                dg[ROW[m]], Cr[j[m], k[m]], acc[m, q, e])
+                    coldot.update(_rowsum(part, rb, qlen))
+                # pass X: dxdt rows
+                sb1 = np.full(BK * BK, np.nan, F32)
+                for p in range(hp16):
+                    for k in range(n16):
+                        sb1[k * hp16 + p] = dso[p, k] if (p < hp and k < n) \
+                            else 0.0
+                for jb in range(nb):
+                    rb = jb * BR
+                    sa = np.full(BR * BAP, np.nan, F32)
+                    _stage_rows(sa, BAP, Br[rb:], BR, qlen - rb, n, n)
+                    acc = np.zeros((BTHREADS, 8, 4), F32)
+                    _mm(acc, sa, BAP, sb1, hp16, n, hp16 // 16)
+                    j = rb + ROW
+                    acc = (acc * edec[np.minimum(j, BQ - 1)][:, None, None]
+                           ).astype(F32)
+                    for ib in range(jb, nb):
+                        cb = ib * BR
+                        sb2 = np.full(BK * BTP, np.nan, F32)
+                        sb3 = np.full(BR * BK, np.nan, F32)
+                        _stage_cols(sb2, Cr[cb:], qlen - cb, n, n)
+                        _stage_rows(sb3, hp16, dyr[cb:], BR,
+                                    qlen - cb, hp, hp16)
+                        sacc = np.zeros((BTHREADS, 4, 4), F32)
+                        _mm(sacc, sa, BAP, sb2, BTP, n, 4)
+                        ss = sub_block(sacc, rb, cb, False, split=False)
+                        _mm(acc, ss, BR + 1, sb3, hp16, BR, hp16 // 16)
+                    part = np.zeros(BTHREADS, F32)
+                    dj = dts[np.minimum(j, BQ - 1)]
+                    for q in range(8):
+                        for e in range(4):
+                            p = C0 + 16 * q + e
+                            m = (j < qlen) & (p < hp)
+                            dx[bb, c0 + j[m], h, p[m]] = \
+                                (dj[m] * acc[m, q, e]).astype(F32)
+                            part[m] = _fma(xr[j[m], p[m]], acc[m, q, e],
+                                           part[m])
+                    ddtd.update(_rowsum(part, rb, qlen))
+                # thread 0: K, dcum's reverse sum, ddt and the share of dA
+                kk = F32(0)
+                for t in range(BTHREADS):
+                    kk = F32(kk + k2[t])
+                kk = F32(kk * _exp0(clast))
+                for j in range(qlen):
+                    kk = F32(kk + vv[j])
+                run, da = F32(0), F32(0)
+                for i in reversed(range(BQ)):
+                    d = F32(rowdot[i] - coldot[i]) if i < qlen else F32(0)
+                    run = F32(run + F32(d + (kk if i == BQ - 1 else F32(0))))
+                    if i < qlen:
+                        ddt[bb, c0 + i, h] = _fma(F32(A[h]), run, ddtd[i])
+                    da = _fma(dts[i], run, da)
+                pdA[bb, c, h] = da
+
+    # ---- (c) ssd_bc_reduce -------------------------------------------------
+    dB = np.zeros((b, L, G, n), F32)
+    dC = np.zeros((b, L, G, n), F32)
+    for j in range(hpg):
+        dB = (dB + pdB.reshape(b, L, G, hpg, n)[:, :, :, j]).astype(F32)
+        dC = (dC + pdC.reshape(b, L, G, hpg, n)[:, :, :, j]).astype(F32)
+    dA = np.zeros(nh, F32)
+    for bb in range(b):
+        for c in range(nc):
+            dA = (dA + pdA[bb, c]).astype(F32)
+    return dx, ddt, dA, dB, dC, dS0
+
+
+def _bwd_case(seed, b, l, nh, hp, g, n, dtype=F32):
+    """The forward's inputs (``_case``: x, B and C bf16 values when
+    ``dtype`` is bf16's stand-in) with nonzero S0, and the cotangents of y
+    and S_final."""
+    rng = np.random.default_rng(seed + 1)
+    case = list(_case(seed, b, l, nh, hp, g, n))
+    if dtype is F32:
+        for i in (0, 3, 4):
+            case[i] = rng.standard_normal(case[i].shape).astype(F32)
+    dy = rng.standard_normal((b, l, nh, hp)).astype(F32)
+    dSf = rng.standard_normal((b, nh, hp, n)).astype(F32)
+    return case, dy, dSf
+
+
+def _plain_bwd(case, dy, dSf, chunk, dtype=torch.float32):
+    out = SC.ssd_chunk_bwd_ref(
+        *(torch.from_numpy(a).to(dtype) for a in list(case) + [dy, dSf]),
+        chunk)
+    return [t.numpy() for t in out]
+
+
+#: of each gradient's largest magnitude: f32 sums in another order; dA
+#: (5e-5) sums every step's share, with cancellation
+BWD_REL = (1e-5, 1e-5, 5e-5, 1e-5, 1e-5, 1e-5)
+
+
+def _assert_grads_close(got, want):
+    for g_, w_, rel in zip(got, want, BWD_REL):
+        assert np.isfinite(g_).all()
+        scale = max(float(np.abs(w_).max()), 1e-30)
+        assert float(np.abs(g_ - w_).max()) <= rel * scale
+
+
+@pytest.mark.parametrize("b,l,nh,hp,g,n,chunk", [
+    (2, 37, 4, 16, 1, 16, 16),      # smoke widths, a ragged last chunk
+    (1, 10, 2, 8, 2, 8, 16),        # l below the chunk, g 2
+    (1, 150, 2, 12, 1, 20, 128),    # two 64-row sub-blocks, 22 rows last
+    (1, 70, 2, 72, 1, 24, 64),      # hp 72: two state tiles' rows
+])
+def test_bwd_transliteration_matches_the_plain_backward(b, l, nh, hp, g, n,
+                                                        chunk):
+    """The three backward kernels' order (the states' reverse walk with
+    the f32 route's recompute, the chunk kernel's passes D, E, X over
+    64-row sub-blocks, the fixed-order sums) equal the plain backward."""
+    case, dy, dSf = _bwd_case(l * 7 + hp, b, l, nh, hp, g, n)
+    _assert_grads_close(bwd_transliteration(*case, dy, dSf, chunk),
+                        _plain_bwd(case, dy, dSf, chunk))
+
+
+def test_bwd_transliteration_reads_the_forward_workspace():
+    """The bf16 route: S_in from the forward's workspace (here the
+    recompute's), not recomputed, gives the same gradients."""
+    case, dy, dSf = _bwd_case(3, 1, 40, 2, 8, 1, 8)
+    x, dt, A, B, C, S0 = case
+    Q, nc = 16, 3
+    ws = np.empty((1, nc, 2, 8, 8), F32)
+    S = torch.from_numpy(S0)
+    for c in range(nc):
+        ws[:, c] = S.numpy()
+        sl = slice(c * Q, min((c + 1) * Q, 40))
+        _, S = SC.ssd_chunk_ref(*(torch.from_numpy(np.ascontiguousarray(
+            a[:, sl])) for a in (x, dt)), torch.from_numpy(A),
+            *(torch.from_numpy(np.ascontiguousarray(a[:, sl]))
+              for a in (B, C)), S, Q)
+    _assert_grads_close(bwd_transliteration(*case, dy, dSf, Q, ws=ws),
+                        _plain_bwd(case, dy, dSf, Q))
+
+
+def test_bwd_transliteration_is_finite_at_a_large_decay_span():
+    """A chunk's decay span past 88 (dt 0.7, A down to -64, Q 128): every
+    exponent the kernels form is clamped at 0, so every gradient is finite
+    and equals the plain backward evaluated in f64. (The f32 plain
+    version's dA is 6.5e-5 of its largest magnitude off that here: cum
+    reaches -90, where an f32 ulp is 8e-6; the kernels' dcum keeps the
+    diagonal term, which the row and column dots share, out of both.)"""
+    case, dy, dSf = _bwd_case(11, 1, 130, 2, 8, 1, 8)
+    case[1][:] = 0.7
+    case[2][:] = [-1.0, -64.0]
+    got = bwd_transliteration(*case, dy, dSf, 128)
+    _assert_grads_close(got, _plain_bwd(case, dy, dSf, 128, torch.float64))
+
+
+def test_bwd_transliteration_rows_do_not_depend_on_b():
+    """Row 1 of a b-2 call's gradients equal the same row alone, bit for
+    bit (dA aside: it sums the rows)."""
+    case, dy, dSf = _bwd_case(5, 2, 20, 2, 8, 1, 8)
+    both = bwd_transliteration(*case, dy, dSf, 16)
+    one = bwd_transliteration(*[a[1:] if a.ndim > 1 else a for a in case],
+                              dy[1:], dSf[1:], 16)
+    for i in (0, 1, 3, 4, 5):
+        np.testing.assert_array_equal(both[i][1:], one[i])

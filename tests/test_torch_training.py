@@ -454,13 +454,10 @@ def _meta_int8(E, D, F):
 
 
 KERNELS = {
-    "rglru_scan": lambda g: RS.rglru_scan(_meta(1, 4, 8, grad=g),
-                                          _meta(1, 4, 8), _meta(1, 8)),
-    "ssd_chunk": lambda g: SC.ssd_chunk(
-        _meta(1, 4, 2, 8, grad=g), _meta(1, 4, 2), _meta(2),
-        _meta(1, 4, 1, 4), _meta(1, 4, 1, 4), _meta(1, 2, 8, 4), 4),
     # the expert kernels' int8-weight variant (their bf16 and f32 routes
-    # have a backward: test_expert_kernels_under_autograd_reach_their_function)
+    # have a backward: test_expert_kernels_under_autograd_reach_their_function;
+    # so do rglru_scan and ssd_chunk:
+    # test_recurrent_kernels_under_autograd_reach_their_function)
     "moe_gemm": lambda g: MG.moe_gemm(_meta(2, 4, 8, grad=g),
                                       _meta_int8(2, 8, 16)),
     "moe_ffn_fused": lambda g: MG.moe_ffn_fused(
@@ -518,3 +515,40 @@ def test_expert_kernels_under_autograd_reach_their_function(name,
     assert type(out.grad_fn).__name__ == {
         "moe_gemm": "MoEGemmBackward",
         "moe_ffn_fused": "MoEFFNFusedBackward"}[name]
+
+
+RECURRENT = {
+    "rglru_scan": (RS, lambda g: RS.rglru_scan(
+        _meta(1, 4, 8, grad=g), _meta(1, 4, 8), _meta(1, 8)), "RGLRUScan"),
+    "ssd_chunk": (SC, lambda g: SC.ssd_chunk(
+        _meta(1, 4, 2, 8, grad=g), _meta(1, 4, 2), _meta(2),
+        _meta(1, 4, 1, 4), _meta(1, 4, 1, 4), _meta(1, 2, 8, 4), 4),
+        "SSDChunk"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(RECURRENT))
+def test_recurrent_kernels_under_autograd_reach_their_function(name,
+                                                               monkeypatch):
+    """Off the CPU (``meta``) under autograd, rglru_scan and ssd_chunk go
+    through ``RGLRUScan`` / ``SSDChunk`` instead of refusing: the
+    Function's forward is the kernel's launch (which refuses the meta
+    device, with autograd recording or not), and its output carries the
+    Function's ``grad_fn``."""
+    mod, call, fn = RECURRENT[name]
+    for grad in (True, False):
+        with pytest.raises(ValueError, match="cpu or cuda"):
+            call(grad)
+    launched = []
+
+    def forward(*args):
+        launched.append(name)
+        if name == "rglru_scan":
+            return torch.empty_like(args[0])
+        return torch.empty_like(args[0]), torch.empty_like(args[5]), None
+
+    monkeypatch.setattr(mod, "_forward", forward)
+    out = call(True)
+    out = out if name == "rglru_scan" else out[0]
+    assert launched == [name]
+    assert type(out.grad_fn).__name__ == f"{fn}Backward"
