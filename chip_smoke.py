@@ -589,9 +589,10 @@ def log_decode_build() -> None:
 
 
 def log_kernel_parts(label: str, fn, key: str, calls: int = 20) -> None:
-    """Device time per call of each kernel ``fn`` launches whose name holds
-    ``key`` (a split and its combine; the SSD route's two kernels), from
-    torch.profiler."""
+    """Device time a launch, and the launches, of each kernel ``fn``
+    launches whose name the regex ``key`` finds (a split and its combine;
+    the SSD route's kernels), named by the match and the rest of its word,
+    from torch.profiler over ``calls`` calls."""
     import re
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -604,11 +605,13 @@ def log_kernel_parts(label: str, fn, key: str, calls: int = 20) -> None:
     for e in prof.key_averages():
         t = getattr(e, "self_device_time_total",
                     getattr(e, "self_cuda_time_total", 0.0))
-        if key in e.key and t > 0:
-            kind = re.search(key + r"\w*", e.key).group(0)
-            parts.append(f"{kind} {t / calls / 1e3:.4f} ms "
-                         f"x{e.count // calls}")
-    log(f"[kernels] {label} device time per call: {', '.join(parts)}")
+        m = re.search(f"(?:{key})\\w*", e.key)
+        if m and t > 0:
+            kind = m.group(0)
+            parts.append(f"{kind} {t / max(e.count, 1) / 1e3:.4f} ms a "
+                         f"launch x{e.count}")
+    log(f"[kernels] {label} device time, {calls} calls profiled: "
+        f"{', '.join(parts)}")
 
 
 def decode_run(x, lengths, tbl):
@@ -1992,6 +1995,55 @@ def ssd_bwd_flops(l: int, chunk: int, nh: int, hp: int, g: int, n: int,
     return b * total
 
 
+def ssd_bwd_tc_flops(l: int, chunk: int, nh: int, hp: int, g: int, n: int,
+                     b: int = 1) -> int:
+    """``ssd_bwd_flops``' products as the tensor-core route must make them
+    in bf16: an f32 operand split hi + lo doubles a product against an
+    exact bf16 one (x, B, C) and triples one against another f32 operand
+    (hi hi + lo hi + hi lo): C·B^T once; dy·x^T, W B, W^T C, the states'
+    walks (x ∘ w, e ∘ dy) and dxdt's carried-state term twice; M^T dy and
+    the carried-state terms of dC ((e ∘ dy) S_in) and dB ((w ∘ x) dS_out)
+    three times."""
+    Q = min(chunk, l)
+    total = 0
+    for c0 in range(0, l, Q):
+        q = min(Q, l - c0)
+        tri = q * (q + 1)
+        total += g * tri * n + nh * (tri * (5 * hp + 4 * n)
+                                     + 2 * q * hp * n * 12)
+    return b * total
+
+
+def log_ssd_bwd_build() -> None:
+    """ptxas registers and spills of the backward's tensor-core route
+    (``tc::states_bwd``, ``tc::chunk_bwd``) and the HMMA (mma.sync)
+    instructions ``cuobjdump -sass`` finds in each: fails on a spill, a
+    C7512 line (wgmma serialized) or a kernel with no HMMA."""
+    import re
+    from repro_torch.kernels import build
+    name = re.compile(r"tc\d+(states_bwd|chunk_bwd)")
+    entry, bad = "", []
+    for line in build.build_log("ssd_chunk_bwd").splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif "registers" in line or "spill" in line or "C75" in line:
+            m = name.search(entry)
+            if m:
+                log(f"[build] ssd_chunk_bwd tc::{m.group(1)}: "
+                    f"{line.strip()[:160]}")
+                spills = re.findall(r"(\d+) bytes spill", line)
+                if "C7512" in line or any(int(v) for v in spills):
+                    bad.append(line.strip())
+    counts = {f"tc::{name.search(k).group(1)}": v for k, v in
+              hgmma_counts("ssd_chunk_bwd", name, op="HMMA").items()}
+    log(f"[build] ssd_chunk_bwd HMMA instructions (cuobjdump -sass): "
+        + ", ".join(f"{k} {v}" for k, v in sorted(counts.items())))
+    if bad or set(counts) != {"tc::states_bwd", "tc::chunk_bwd"} \
+            or not all(counts.values()):
+        fail(f"ssd_chunk_bwd tensor-core route: spills or serialized "
+             f"wgmma {bad}, or a kernel without HMMA instructions {counts}")
+
+
 def ssd_bwd_bytes(l: int, nh: int, hp: int, g: int, n: int, elem: int,
                   b: int = 1) -> int:
     """Bytes the SSD gradient must move: x, B, C (``elem`` bytes each), dt,
@@ -2042,10 +2094,12 @@ def phase_recurrent_bwd_kernels(rg_cfg, mb_cfg):
     card: ``rglru_scan_bwd`` (the scan run in reverse) at ragged shapes (T
     1-4200, W off multiples of 4 and 128, B 1-3) and at recurrentgemma-2b's
     training microbatch (B 1, T 4096, W 2560); ``ssd_chunk_bwd`` (three
-    kernels) at ragged shapes (l 1-1000 off the chunk, g 1-2, hp and n off
-    16, both dtypes, the bf16 route with the forward's workspace and
-    without), at the probe's decay span (dt 0.7, A -1 .. -64 over chunks
-    of 128: every gradient finite, held to the plain backward in f64) and
+    kernels; its tensor-core route's ptxas lines and HMMA counts first) at
+    ragged shapes (l 1-1000 off the chunk, g 1-2, hp and n off 16, both
+    dtypes and both bf16 routes, the bf16 route with the forward's
+    workspace and without), at the probe's decay span (dt 0.7, A -1 ..
+    -64 over chunks of 128: every gradient finite, held to the plain
+    backward in f64) and
     at mamba2-1.3b's training microbatch (b 1, l 4096, nh 64, hp 64, n
     128, g 1, Q 128) in bf16 and f32; always a nonzero h0 / S0 and the
     final state's cotangent. Eager and graph replay agree bit for bit, as
@@ -2096,6 +2150,8 @@ def phase_recurrent_bwd_kernels(rg_cfg, mb_cfg):
         f"1-2560, B 1-3, nonzero h0); eager == eager again == graph replay "
         f"(B 1 T {T} W {W}), each row of B 3 == that row alone (T 1000)")
 
+    log_ssd_bwd_build()
+
     def ssd_inputs(b, l, nh, hp, g, n, dtype, span=False):
         s = {"x": randn((b, l, nh, hp), dtype),
              "dt": (torch.full((b, l, nh), SPAN_DT, device=dev) if span
@@ -2136,6 +2192,8 @@ def phase_recurrent_bwd_kernels(rg_cfg, mb_cfg):
             ((2, 10, 4, 8, 2, 8, 128), torch.bfloat16),    # l below a chunk
             ((1, 1, 4, 16, 1, 16, 128), torch.bfloat16),   # l 1
             ((1, 150, 4, 40, 2, 24, 64), torch.bfloat16),  # off 8: scalar
+            ((1, 300, 4, 72, 2, 20, 128), torch.bfloat16),  # hp 72: the
+            #                                   CUDA-core route's bf16
             ((1, 1000, 4, 64, 1, 128, 128), torch.bfloat16)):
         s = ssd_inputs(b, l, nh, hp, g, n, dt)
         shape = (f"b {b} l {l} nh {nh} hp {hp} g {g} n {n} Q {Q} "
@@ -2224,8 +2282,19 @@ def phase_recurrent_bwd_kernels(rg_cfg, mb_cfg):
             f"{device_ms:.4f}, {bound_ms / device_ms:.1%} of bound; "
             f"{card()}")
         log_kernel_parts(f"{name} ({shape})", lambda: kern(nxt()),
-                         "rglru" if name == "rglru_scan_bwd" else "ssd_",
-                         calls=5)
+                         "rglru" if name == "rglru_scan_bwd"
+                         else r"tc::\w+_bwd|ssd_", calls=5)
+        if name == "ssd_chunk_bwd" and "bf16" in shape:
+            tc_flops = ssd_bwd_tc_flops(l, Q, nh, hp, g, n)
+            tc_bound = max(t_bytes, tc_flops / BF16_FLOPS) * 1e3
+            occ = SC._bwd_library().ssd_chunk_bwd_occupancy
+            log(f"[kernels] {name} ({shape}): the tensor-core route's "
+                f"bound, the split's products counted ({tc_flops / 1e9:.2f}"
+                f" GFLOP at the bf16 rate): {tc_bound:.4f} ms, "
+                f"{tc_bound / device_ms:.1%} of it by replay; at the f32 "
+                f"rate {bound_ms:.4f} ms; resident blocks an SM: "
+                f"states_bwd {occ(0)}, chunk_bwd {occ(1)} "
+                f"({SC._bwd_shares(0, nh, hp, g)} shares of dB, dC)")
         if name not in rows:          # the JSON row: the training shape
             rows[name] = {
                 "name": name, "route": "cuda",
@@ -2234,6 +2303,8 @@ def phase_recurrent_bwd_kernels(rg_cfg, mb_cfg):
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                 "bound_by": bound_by, "library_ms": library_ms,
                 "device_ms": device_ms}
+            if name == "ssd_chunk_bwd":
+                rows[name]["bound_tc_ms"] = tc_bound
         del sets
         torch.cuda.empty_cache()
     log("[kernels] library_ms: rglru_scan_bwd — torch.cumsum over T on dh "
@@ -2458,10 +2529,10 @@ def phase_flash_kernels(cfg, sm_cfg, vl_cfg):
     return rows
 
 
-def hgmma_counts(lib: str, name) -> dict:
-    """HGMMA (wgmma) instructions ``cuobjdump -sass`` finds in each kernel
-    of library ``lib`` whose mangled name matches the regex ``name``, by
-    the matched text."""
+def hgmma_counts(lib: str, name, op: str = "HGMMA") -> dict:
+    """HGMMA (wgmma) instructions, or those of opcode ``op`` (HMMA:
+    mma.sync), ``cuobjdump -sass`` finds in each kernel of library ``lib``
+    whose mangled name matches the regex ``name``, by the matched text."""
     from repro_torch.kernels import build
     tool = Path(build.nvcc_path()).with_name("cuobjdump")
     sass = subprocess.run([str(tool), "-sass", str(build._target(lib))],
@@ -2475,7 +2546,7 @@ def hgmma_counts(lib: str, name) -> dict:
             fn = m.group(0) if m else None
             if fn:
                 counts[fn] = 0
-        elif fn and "HGMMA" in line:
+        elif fn and op in line:
             counts[fn] += 1
     return counts
 
@@ -2919,6 +2990,8 @@ def log_profile(prof, name: str, wall_us: float, steps: int,
                         ("ssd_chunk", ("tc::ssd_", "ssd_chunk_kernel(")),
                         ("ssd_chunk_bwd", ("ssd_states_bwd<",
                                            "ssd_chunk_bwd<",
+                                           "tc::states_bwd(",
+                                           "tc::chunk_bwd(",
                                            "ssd_bc_reduce<")),
                         ("rglru_scan", ("rglru_scan_kernel<true, false>",
                                         "rglru_scan_kernel<false, false>")),

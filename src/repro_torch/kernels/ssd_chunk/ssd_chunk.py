@@ -16,9 +16,11 @@ cores).
 
 The backward, ``ssd_chunk_bwd``, is three kernels in ``csrc/ssd_chunk_bwd.cu``
 (the state's gradient carried across the chunks from the last; every
-chunk's dx, ddt and per-head dB, dC in parallel; the heads' shares summed
-in order), f32 on the CUDA cores for both dtypes; its header says what
-bounds it. ``SSDChunk`` wraps forward and backward in an autograd
+chunk's dx, ddt and dB, dC shares in parallel; the shares summed in
+order): bf16 inputs with heads of at most 64 on the tensor cores (a share
+sums a slice of one group's heads, C·B^T made once a slice), f32 inputs
+(and wider bf16 heads) on the CUDA cores (a share a head); its header says
+what bounds it. ``SSDChunk`` wraps forward and backward in an autograd
 Function, which ``ssd_chunk`` goes through while autograd records. The
 plain forward masks the decay's exponent before ``exp`` (above the
 diagonal ``exp(cum_i - cum_j)`` overflows once a chunk's decay passes
@@ -46,8 +48,10 @@ LAUNCHES = {"ssd_chunk": 0, "ssd_chunk_bwd": 0}
 
 #: largest chunk length and state size one block's shared memory holds
 MAX_CHUNK = MAX_STATE = 128
-#: largest head width the backward's chunk kernel holds
+#: largest head width the backward's chunk kernel holds; the tensor-core
+#: route's (bf16 inputs), at most TC_HEAD_BWD
 MAX_HEAD_BWD = 128
+TC_HEAD_BWD = 64
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
@@ -83,6 +87,10 @@ def _bwd_library():
         lib = load("ssd_chunk_bwd")
         lib.ssd_chunk_bwd_launch.argtypes = _BWD_ARGTYPES
         lib.ssd_chunk_bwd_launch.restype = ctypes.c_int
+        lib.ssd_chunk_bwd_shares.argtypes = [_I] * 4
+        lib.ssd_chunk_bwd_shares.restype = _I
+        lib.ssd_chunk_bwd_occupancy.argtypes = [_I]
+        lib.ssd_chunk_bwd_occupancy.restype = _I
         _bwd_lib = lib
     return _bwd_lib
 
@@ -302,12 +310,19 @@ def ssd_chunk_bwd_ref(x, dt, A, B, C, S0, dy, dS_final, chunk: int):
             dS.to(S0.dtype))
 
 
+@functools.lru_cache(maxsize=None)
+def _bwd_shares(code: int, nh: int, hp: int, g: int) -> int:
+    """Shares of the backward's dB, dC workspaces, the library's count."""
+    return _bwd_library().ssd_chunk_bwd_shares(code, nh, hp, g)
+
+
 def ssd_chunk_bwd(x, dt, A, B, C, S0, dy, dS_final, chunk: int, ws=None):
     """(dx, ddt, dA, dB, dC, dS0) of ``ssd_chunk_bwd_ref``: the plain
     version on the CPU, else the three backward kernels (one call). ``ws``
     is the forward's workspace on the bf16 route (the state entering each
-    chunk); without it, and on the f32 route, the first kernel recomputes
-    those states."""
+    chunk); without it the forward's kernels recompute those states first
+    on the tensor-core route (bf16, hp <= TC_HEAD_BWD), and the first
+    kernel does on the CUDA-core route."""
     if x.device.type == "cpu":
         return ssd_chunk_bwd_ref(x, dt, A, B, C, S0, dy, dS_final, chunk)
     b, l, nh, hp, g, n, Q = _check(x, dt, A, B, C, S0, chunk)
@@ -324,7 +339,9 @@ def ssd_chunk_bwd(x, dt, A, B, C, S0, dy, dS_final, chunk: int, ws=None):
     nc = -(-l // Q)
     states = (b, nc, nh, hp, n)
     recompute = ws is None or ws.numel() == 0
-    if recompute:
+    if recompute and code == 0 and hp <= TC_HEAD_BWD:
+        ws, recompute = _forward(x, dt, A, B, C, S0, chunk)[2], False
+    elif recompute:
         ws = torch.empty(states, dtype=torch.float32, device=x.device)
     elif ws.numel() != math.prod(states) or not ws.is_contiguous():
         raise ValueError(f"ws of {ws.numel()} floats: need the forward's "
@@ -336,7 +353,9 @@ def ssd_chunk_bwd(x, dt, A, B, C, S0, dy, dS_final, chunk: int, ws=None):
     dS_out, dS0 = f32(*states), torch.empty_like(S0)
     dx = torch.empty((b, l, nh, hp), dtype=x.dtype, device=x.device)
     ddt, dA = f32(b, l, nh), f32(nh)
-    pdB, pdC, pdA = f32(b, l, nh, n), f32(b, l, nh, n), f32(b, nc, nh)
+    shares = _bwd_shares(code, nh, hp, g)
+    pdB, pdC, pdA = (f32(b, l, shares, n), f32(b, l, shares, n),
+                     f32(b, nc, nh))
     dB = torch.empty((b, l, g, n), dtype=B.dtype, device=x.device)
     dC = torch.empty((b, l, g, n), dtype=C.dtype, device=x.device)
     rc = call_on_stream(

@@ -23,8 +23,12 @@ import numpy as np
 import pytest
 import torch
 
+import repro.core.clock as jax_clock
 import repro.core.session as jax_session
+import repro.launch.serve as jax_serve_mod
+import repro_torch.core.clock as port_clock
 import repro_torch.core.session as port_session
+import repro_torch.launch.serve as port_serve_mod
 from repro.launch.serve import serve as jax_serve
 from repro.serving import state_transfer as jax_transfer
 from repro.serving.engine import InferenceEngine as JaxEngine
@@ -211,9 +215,14 @@ def test_prefill_compiles_counts_the_reference_buckets(pair):
 
 def test_serve_matches_reference_launcher(monkeypatch):
     """Same sessions, same requests served, through both northbound stacks
-    (the session-id counters of both packages are pinned and restored)."""
+    (the session-id counters of both packages are pinned and restored, and
+    both launchers run on a virtual clock: on the wall clock a DISCOVER
+    slowed past its 50 ms timer by a loaded host fails, and the client's
+    retry draws another session id)."""
     monkeypatch.setattr(jax_session, "_ids", itertools.count(1))
     monkeypatch.setattr(port_session, "_ids", itertools.count(1))
+    monkeypatch.setattr(jax_serve_mod, "Clock", jax_clock.VirtualClock)
+    monkeypatch.setattr(port_serve_mod, "Clock", port_clock.VirtualClock)
     kw = dict(sessions=2, requests=4, slots=2, gen_tokens=4, quiet=True)
     j_served, j_reports = jax_serve("edge-tiny", **kw)
     t_served, t_reports = serve("edge-tiny", device="cpu", **kw)

@@ -61,7 +61,7 @@ def test_nvcc_is_given_the_kernels_directory(monkeypatch):
 
 
 @pytest.mark.parametrize("rel", sorted(build.SOURCES.values())
-                         + ["hopper.cuh"])
+                         + ["hopper.cuh", "mma_sync.cuh"])
 def test_kernel_code_sits_in_the_anonymous_namespace(rel):
     """Outside the one anonymous namespace (``namespace {`` ... ``}  //
     namespace``) a source holds only its C interface: no template, no
@@ -78,7 +78,7 @@ def test_kernel_code_sits_in_the_anonymous_namespace(rel):
            if re.match(r"\s*template\b|namespace \w|\s+static\s|.*__global__",
                        ln)]
     assert not bad
-    if rel != "hopper.cuh":
+    if not rel.endswith(".cuh"):
         assert any(ln.startswith('extern "C"') for ln in outside)
 
 
@@ -92,6 +92,7 @@ def _tool(name):
 
 AB = _tool("moe_i8_ab")
 GRAD_AB = _tool("moe_grad_ab")
+SSD_AB = _tool("ssd_bwd_ab")
 
 
 @pytest.mark.parametrize("name", sorted(AB.EDITS) + sorted(AB.PATCHES))
@@ -133,3 +134,18 @@ def test_each_grad_design_choice_still_applies(name):
     elif patch:
         wgrad = [t[t.index("namespace wgrad {"):] for t in (tree, text)]
         assert "SWIZZLE_64B" not in wgrad[0] and "SWIZZLE_64B" in wgrad[1]
+
+
+@pytest.mark.parametrize("name", sorted(SSD_AB.EDITS))
+def test_each_ssd_bwd_design_choice_still_applies(name):
+    """Every edit of the SSD backward's A/B tool matches the source
+    exactly once (``variants`` exits otherwise), and the variant differs
+    from the kept source: a slice width the shared memory holds, or the
+    states' copies waited for at once."""
+    out = SSD_AB.variants()
+    tree, text = out["tree"], out[name]
+    assert tree == (KERNELS / build.SOURCES["ssd_chunk_bwd"]).read_text()
+    assert text != tree
+    hs = re.search(r"constexpr int kSliceHeads = (\d+);", text).group(1)
+    assert 1 <= int(hs) <= int(re.search(r"constexpr int kMaxHs = (\d+);",
+                                         text).group(1))

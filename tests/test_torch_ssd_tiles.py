@@ -106,9 +106,11 @@ def _a_frag(m):
                      np.stack([m[1][:, 2], m[1][:, 3]], 1)], axis=1)
 
 
-def tc_transliteration(x, dt, A, B, C, S0, chunk, split=_split):
+def tc_transliteration(x, dt, A, B, C, S0, chunk, split=_split,
+                       return_ws=False):
     """(y, S_final) as the three kernels of the bf16 route compute them;
-    ``split`` is the hi + lo split of the f32 operands."""
+    ``split`` is the hi + lo split of the f32 operands. With ``return_ws``
+    also the workspace ssd_states leaves: the state entering each chunk."""
     b, L, nh, hp = x.shape
     Gn, n = B.shape[2], B.shape[3]
     Q = min(chunk, L)
@@ -287,7 +289,7 @@ def tc_transliteration(x, dt, A, B, C, S0, chunk, split=_split):
                 m = min(4, hpl - p)
                 y[bb, c0 + i, h, p0 + p:p0 + p + m] = \
                     ys[i * YPITCH + p:i * YPITCH + p + m]
-    return y, S_final
+    return (y, S_final, ws) if return_ws else (y, S_final)
 
 
 def _case(seed, b, l, nh, hp, g, n, S0=True):
@@ -808,5 +810,602 @@ def test_bwd_transliteration_rows_do_not_depend_on_b():
     both = bwd_transliteration(*case, dy, dSf, 16)
     one = bwd_transliteration(*[a[1:] if a.ndim > 1 else a for a in case],
                               dy[1:], dSf[1:], 16)
+    for i in (0, 1, 3, 4, 5):
+        np.testing.assert_array_equal(both[i][1:], one[i])
+
+
+# ---------------------------------------------------------------------------
+# the backward's tensor-core route (bf16 inputs, hp <= 64): namespace tc of
+# ssd_chunk_bwd.cu (states_bwd, chunk_bwd), then ssd_bc_reduce over the
+# slices' shares, transliterated warp by warp on NaN-filled shared memory
+# with the ldmatrix lane addresses and m16n8k16 fragment layouts
+# ---------------------------------------------------------------------------
+
+TP = _bconst("kP")
+assert SC.TC_HEAD_BWD == TP               # the wrapper's route choice
+TSLICE, TSW = _bconst("kSliceHeads"), _bconst("kSW")
+for _line in ("constexpr int kCP = kK + 8;", "constexpr int kXP = kP + 8;",
+              "constexpr int kSWP = kSW + 8;",
+              "constexpr int kDYP = kSW + 4;"):
+    assert _line in _BSRC
+TCP, TXP, TSWP, TDYP = BK + 8, TP + 8, TSW + 8, TSW + 4
+TRB = BQ // 16
+TILES = [(ib, jb) for ib in range(TRB) for jb in range(ib + 1)]   # tile t
+PKA = ((LM >> 1) | ((LM & 1) << 1)) * 64 + LR * 8   # A of a packed tile
+PKT = LM * 64 + LR * 8                              # A of its transpose
+
+
+def _tid(ib, jb):
+    return ib * (ib + 1) // 2 + jb
+
+
+def _arow(r, pitch):
+    """A fragment rows 16 r .. of a [rows][k] tile (plain ldmatrix)."""
+    return (16 * r + LR + (LM & 1) * 8) * pitch + (LM >> 1) * 8
+
+
+def _nt(pitch):
+    """B fragment of a [n][k] tile (plain ldmatrix)."""
+    return (LR + (LM >> 1) * 8) * pitch + (LM & 1) * 8
+
+
+def _tr(pitch):
+    """B fragment of a [k][n] tile (ldmatrix.trans)."""
+    return (LR + (LM & 1) * 8) * pitch + (LM >> 1) * 8
+
+
+def _quad_sum(v):
+    """quad_sum: + lane ^ 1, then + lane ^ 2."""
+    v = (v + v[LANES ^ 1]).astype(F32)
+    return (v + v[LANES ^ 2]).astype(F32)
+
+
+def _mma_pair(acc, t, a, bf):
+    """The two n8 tiles of a B fragment pair: acc[t] from regs 0, 1 and
+    acc[t + 1] from regs 2, 3."""
+    _mma(acc[t], a, bf[:, 0], bf[:, 1])
+    _mma(acc[t + 1], a, bf[:, 2], bf[:, 3])
+
+
+def _stage_split(hi, lo, pitch, src, rows, valid_rows, width, cols, split,
+                 scale=None):
+    """stage_split: rows of src (2-d) times scale[r], split hi + lo into the
+    two tiles at the pitch; zeros past (valid_rows, cols)."""
+    for r in range(rows):
+        v = np.zeros(width, F32)
+        if r < valid_rows:
+            v[:cols] = src[r, :cols]
+            if scale is not None:
+                v = (v * scale[r]).astype(F32)
+        h, lw = split(v)
+        hi[r * pitch:r * pitch + width] = h
+        lo[r * pitch:r * pitch + width] = lw
+
+
+def _slice_heads(nh, g):
+    """slice_heads: the largest power of two <= kSliceHeads dividing a
+    group's heads."""
+    hs = TSLICE
+    while (nh // g) % hs:
+        hs //= 2
+    return hs
+
+
+def tc_bwd_transliteration(x, dt, A, B, C, S0, dy, dSf, chunk, ws=None,
+                           hs=None, split=_split, split_dy=None,
+                           stats=None):
+    """(dx, ddt, dA, dB, dC, dS0) as the tensor-core route computes them,
+    dx, dB and dC before their bf16 rounding. ``ws`` is the forward's
+    workspace; without it the forward's kernels recompute it (the
+    wrapper's recompute). ``split`` splits the f32 operands, ``split_dy``
+    (default ``split``) those made from dy. ``stats`` counts the score
+    tiles of C·B^T made, and the blocks."""
+    split_dy = split_dy or split
+    b, L, nh, hp = x.shape
+    Gn, n = B.shape[2], B.shape[3]
+    assert hp <= TP
+    Q = min(chunk, L)
+    nc, hpg = -(-L // Q), nh // Gn
+    hs = hs or _slice_heads(nh, Gn)
+    nsh = nh // hs
+    if ws is None:
+        ws = tc_transliteration(x, dt, A, B, C, S0, chunk, return_ws=True)[2]
+    dS_out = np.full((b, nc, nh, hp, n), np.nan, F32)
+    dS0 = np.full((b, nh, hp, n), np.nan, F32)
+
+    # ---- states_bwd: dS carried from the last chunk in the accumulators --
+    for bb in range(b):
+        for h in range(nh):
+            grp = h // hpg
+            for k0 in range(0, n, TSW):
+                nsl = min(TSW, n - k0)
+
+                def cells(wm, wn, t, q):
+                    p = 16 * wm + G + (q >> 1) * 8
+                    k = 32 * wn + 8 * t + 2 * TG + (q & 1)
+                    return p, k, (p < hp) & (k < nsl)
+
+                def state_io(acc, wm, wn, get=None, put=None):
+                    for t in range(4):
+                        for q in range(4):
+                            p, k, ok = cells(wm, wn, t, q)
+                            if get is not None:
+                                acc[t][ok, q] = get[p[ok], k0 + k[ok]]
+                            else:
+                                put[p[ok], k0 + k[ok]] = acc[t][ok, q]
+
+                warps = [(w & 3, w >> 2) for w in range(8)]
+                acc = {}
+                for wm, wn in warps:
+                    acc[wm, wn] = np.zeros((4, 32, 4), F32)
+                    state_io(acc[wm, wn], wm, wn, get=dSf[bb, h])
+                for c in reversed(range(nc)):
+                    c0 = c * Q
+                    qlen = min(Q, L - c0)
+                    q16 = (qlen + 15) & ~15
+                    cs = np.full(BQ * TSWP, np.nan, F32)
+                    dys = np.full(BQ * TDYP, np.nan, F32)
+                    _stage(cs, 0, TSWP, C[bb, c0:c0 + qlen, grp, k0:k0 + nsl],
+                           q16, qlen, TSW, nsl)
+                    _stage(dys, 0, TDYP, dy[bb, c0:c0 + qlen, h], q16, qlen,
+                           TSW, hp)
+                    _, cum = _chunk_cum(dt, A, bb, h, c0, qlen)
+                    vh = np.full(BQ * TSWP, np.nan, F32)
+                    vl = np.full(BQ * TSWP, np.nan, F32)
+                    for j in range(q16):
+                        hi, lo = split_dy((dys[j * TDYP:j * TDYP + TSW]
+                                           * _exp0(cum[j])).astype(F32))
+                        vh[j * TSWP:j * TSWP + TSW] = hi
+                        vl[j * TSWP:j * TSWP + TSW] = lo
+                    for wm, wn in warps:           # dS_out[c]
+                        state_io(acc[wm, wn], wm, wn, put=dS_out[bb, c, h])
+                    for wm, wn in warps:
+                        acc[wm, wn] *= _exp0(cum[BQ - 1])
+                        if 16 * wm >= hp or 32 * wn >= nsl:
+                            continue
+                        a_lane = ((LR + (LM >> 1) * 8) * TSWP + 16 * wm
+                                  + (LM & 1) * 8)
+                        b_lane = ((LR + (LM & 1) * 8) * TSWP + 32 * wn
+                                  + (LM >> 1) * 8)
+                        for ks in range(q16 // 16):
+                            ah = _ldmatrix_x4(vh, a_lane + ks * 16 * TSWP,
+                                              True)
+                            al = _ldmatrix_x4(vl, a_lane + ks * 16 * TSWP,
+                                              True)
+                            for q in range(min(2, (nsl - 32 * wn + 15) // 16)):
+                                bf = _ldmatrix_x4(
+                                    cs, b_lane + ks * 16 * TSWP + 16 * q, True)
+                                for a_ in (ah, al):
+                                    _mma_pair(acc[wm, wn], 2 * q, a_, bf)
+                for wm, wn in warps:
+                    state_io(acc[wm, wn], wm, wn, put=dS0[bb, h])
+
+    # ---- chunk_bwd: one block per (chunk, slice, batch row) ---------------
+    dx = np.full(x.shape, np.nan, F32)
+    ddt = np.full(dt.shape, np.nan, F32)
+    pdB = np.full((b, L, nsh, n), np.nan, F32)
+    pdC = np.full((b, L, nsh, n), np.nan, F32)
+    pdA = np.full((b, nc, nh), np.nan, F32)
+    nt_c, nt_x, tr_c, tr_x = _nt(TCP), _nt(TXP), _tr(TCP), _tr(TXP)
+    ia_all = [16 * w + G for w in range(8)]
+    for bb in range(b):
+        for c in range(nc):
+            for slc in range(nsh):
+                h0 = slc * hs
+                grp = h0 // hpg
+                c0 = c * Q
+                qlen = min(Q, L - c0)
+                sC = np.full(BQ * TCP, np.nan, F32)
+                sB = np.full(BQ * TCP, np.nan, F32)
+                _stage(sC, 0, TCP, C[bb, c0:c0 + qlen, grp], BQ, qlen, BK, n)
+                _stage(sB, 0, TCP, B[bb, c0:c0 + qlen, grp], BQ, qlen, BK, n)
+                gt = []                            # C B^T, once a slice
+                for ib, jb in TILES:
+                    acc = np.zeros((2, 32, 4), F32)
+                    for ks in range(BK // 16):
+                        af = _ldmatrix_x4(sC, _arow(ib, TCP) + 16 * ks, False)
+                        bf = _ldmatrix_x4(sB, nt_c + 16 * jb * TCP + 16 * ks,
+                                          False)
+                        _mma_pair(acc, 0, af, bf)
+                    gt.append(acc)
+                if stats is not None:
+                    stats["G"] = stats.get("G", 0) + len(gt)
+                    stats["blocks"] = stats.get("blocks", 0) + 1
+                wsum = [np.zeros((2, 32, 4), F32) for _ in TILES]
+                heads = []                        # dts, cum, dcum, x·dxdt, K
+                for hh in range(hs):
+                    h = h0 + hh
+                    sX = np.full(BQ * TXP, np.nan, F32)
+                    _stage(sX, 0, TXP, x[bb, c0:c0 + qlen, h], BQ, qlen, TP,
+                           hp)
+                    sDh, sDl = (np.full(BQ * TXP, np.nan, F32)
+                                for _ in range(2))
+                    _stage_split(sDh, sDl, TXP, dy[bb, c0:c0 + qlen, h], BQ,
+                                 qlen, TP, hp, split_dy)
+                    sSh, sSl = (np.full(TP * TCP, np.nan, F32)
+                                for _ in range(2))
+                    _stage_split(sSh, sSl, TCP, ws[bb, c, h], TP, hp, BK, n,
+                                 split)
+                    dts, cum = _chunk_cum(dt, A, bb, h, c0, qlen)
+                    clast = cum[BQ - 1]
+                    U = np.full(BQ, np.nan, F32)
+                    V = np.full(BQ, np.nan, F32)
+
+                    def state_product(a_src, a_row, w):
+                        """[16 strip rows, kP] = A rows . S^T (S split)."""
+                        acc = np.zeros((TP // 8, 32, 4), F32)
+                        for ks in range(BK // 16):
+                            af = _ldmatrix_x4(a_src, _arow(a_row, TCP)
+                                              + 16 * ks, False)
+                            for q in range(TP // 16):
+                                off = 16 * q * TCP + 16 * ks
+                                for s_ in (sSh, sSl):
+                                    bf = _ldmatrix_x4(s_, nt_c + off, False)
+                                    _mma(acc[2 * q], af, bf[:, 0], bf[:, 1])
+                                for s_ in (sSh, sSl):
+                                    bf = _ldmatrix_x4(s_, nt_c + off, False)
+                                    _mma(acc[2 * q + 1], af, bf[:, 2],
+                                         bf[:, 3])
+                        return acc
+
+                    def strip_dot(acc, w, rows_of):
+                        """Each strip row's dot of the accumulators with a
+                        row of `rows_of(i, p)`, fmaf in order, quad sum."""
+                        ia = ia_all[w]
+                        out = []
+                        for rh in range(2):
+                            i = ia + 8 * rh
+                            v = np.zeros(32, F32)
+                            for t in range(TP // 8):
+                                p = 8 * t + 2 * TG
+                                v = _fma(acc[t][:, 2 * rh], rows_of(i, p), v)
+                                v = _fma(acc[t][:, 2 * rh + 1],
+                                         rows_of(i, p + 1), v)
+                            out.append(_quad_sum(v))
+                        return out
+
+                    def dy_at(i, p):
+                        return (sDh[i * TXP + p]
+                                + sDl[i * TXP + p]).astype(F32)
+
+                    def x_at(i, p):
+                        return sX[i * TXP + p]
+
+                    for w in range(8):                # U from C S_in^T
+                        z = state_product(sC, w, w)
+                        ua, ub = strip_dot(z, w, dy_at)
+                        ia = ia_all[w]
+                        U[ia] = (_exp0(cum[ia]) * ua).astype(F32)
+                        U[ia + 8] = (_exp0(cum[ia + 8]) * ub).astype(F32)
+                    # dS_out over S_in; each thread's <dS_out, S_in> share
+                    kpart = np.zeros(BTHREADS, F32)
+                    for it in range(TP * (BK // 4) // BTHREADS):
+                        e = TID + BTHREADS * it
+                        r, c4 = e // (BK // 4), (e % (BK // 4)) * 4
+                        for q in range(4):
+                            ok = (r < hp) & (c4 + q < n)
+                            rr, kk = np.minimum(r, hp - 1), np.minimum(c4 + q,
+                                                                       n - 1)
+                            kpart = np.where(ok, _fma(
+                                dS_out[bb, c, h][rr, kk], ws[bb, c, h][rr, kk],
+                                kpart), kpart)
+                    sSh[:], sSl[:] = np.nan, np.nan
+                    _stage_split(sSh, sSl, TCP, dS_out[bb, c, h], TP, hp, BK,
+                                 n, split)
+                    dxa = []
+                    for w in range(8):                # dxdt's state term
+                        acc = state_product(sB, w, w)
+                        ia = ia_all[w]
+                        acc[:, :, 0:2] *= _exp0(clast - cum[ia])[None, :, None]
+                        acc[:, :, 2:4] *= _exp0(clast - cum[ia + 8])[None, :,
+                                                                     None]
+                        va, vb = strip_dot(acc, w, x_at)
+                        V[ia] = (dts[ia] * va).astype(F32)
+                        V[ia + 8] = (dts[ia + 8] * vb).astype(F32)
+                        dxa.append(acc)
+                    # the score tiles
+                    rowp = np.full((len(TILES), 16), np.nan, F32)
+                    colp = np.full((len(TILES), 16), np.nan, F32)
+                    sMh = np.full(len(TILES) * 256, np.nan, F32)
+                    sMl = np.full(len(TILES) * 256, np.nan, F32)
+                    for t, (ib, jb) in enumerate(TILES):
+                        ra = np.zeros((2, 32, 4), F32)
+                        for ks in range(TP // 16):
+                            bf = _ldmatrix_x4(sX, nt_x + 16 * jb * TXP
+                                              + 16 * ks, False)
+                            ah = _ldmatrix_x4(sDh, _arow(ib, TXP) + 16 * ks,
+                                              False)
+                            al = _ldmatrix_x4(sDl, _arow(ib, TXP) + 16 * ks,
+                                              False)
+                            _mma(ra[0], ah, bf[:, 0], bf[:, 1])
+                            _mma(ra[0], al, bf[:, 0], bf[:, 1])
+                            _mma(ra[1], ah, bf[:, 2], bf[:, 3])
+                            _mma(ra[1], al, bf[:, 2], bf[:, 3])
+                        rp = np.zeros((2, 32), F32)
+                        cp = np.zeros((2, 2, 32), F32)
+                        for t2 in range(2):
+                            for rh in range(2):
+                                i = 16 * ib + G + 8 * rh
+                                mv = []
+                                for e in range(2):
+                                    q = 2 * rh + e
+                                    j = 16 * jb + 8 * t2 + 2 * TG + e
+                                    ok = (j <= i) & (i < qlen)
+                                    Lv = np.where(ok, _exp0(cum[i] - cum[j]),
+                                                  F32(0))
+                                    wv = ((ra[t2][:, q] * dts[j]).astype(F32)
+                                          * Lv).astype(F32)
+                                    tt = np.where(i == j, F32(0),
+                                                  gt[t][t2][:, q] * wv)
+                                    mv.append((gt[t][t2][:, q] * Lv).astype(
+                                        F32))
+                                    rp[rh] = (rp[rh] + tt).astype(F32)
+                                    cp[t2, e] = (cp[t2, e] + tt).astype(F32)
+                                    wsum[t][t2][:, q] += wv
+                                off = t * 256 + (2 * rh + t2) * 64 + G * 8 \
+                                    + 2 * TG
+                                for e in range(2):
+                                    sMh[off + e], sMl[off + e] = split(mv[e])
+                        first = TG == 0
+                        rowp[t, G[first]] = _quad_sum(rp[0])[first]
+                        rowp[t, G[first] + 8] = _quad_sum(rp[1])[first]
+                        for t2 in range(2):
+                            for e in range(2):
+                                v = cp[t2, e]
+                                for o in (4, 8, 16):
+                                    v = (v + v[LANES ^ o]).astype(F32)
+                                col = 8 * t2 + 2 * TG + e
+                                colp[t, col[G == 0]] = v[G == 0]
+                    dcum = np.zeros(BQ, F32)
+                    for i in range(BQ):               # threads 0-127
+                        rb, rr = i >> 4, i & 15
+                        rs = cs_ = F32(0)
+                        for jb in range(rb + 1):
+                            rs = F32(rs + rowp[_tid(rb, jb), rr])
+                        for i2 in range(rb, TRB):
+                            cs_ = F32(cs_ + colp[_tid(i2, rb), rr])
+                        dcum[i] = F32(F32(rs - cs_) + F32(U[i] - V[i]))
+                    kd = np.zeros(32, F32)            # warp 7: K
+                    vs = np.zeros(32, F32)
+                    for e in range(BTHREADS // 32):
+                        kd = (kd + kpart[LANES * 8 + e]).astype(F32)
+                    for e in range(BQ // 32):
+                        j = LANES * 4 + e
+                        vs = np.where(j < qlen, vs + V[j], vs).astype(F32)
+                    for o in (16, 8, 4, 2, 1):
+                        kd = (kd + kd[LANES ^ o]).astype(F32)
+                        vs = (vs + vs[LANES ^ o]).astype(F32)
+                    K = F32(F32(kd[0] * _exp0(clast)) + vs[0])
+                    ddtd = np.zeros(BQ, F32)
+                    for w in range(8):                # dxdt += M^T dy
+                        acc = dxa[w]
+                        for ib in range(w, TRB):
+                            t = _tid(ib, w)
+                            ah = _ldmatrix_x4(sMh, t * 256 + PKT, True)
+                            al = _ldmatrix_x4(sMl, t * 256 + PKT, True)
+                            for q in range(TP // 16):
+                                off = 16 * ib * TXP + 16 * q
+                                bh = _ldmatrix_x4(sDh, tr_x + off, True)
+                                bl = _ldmatrix_x4(sDl, tr_x + off, True)
+                                for t_, r0, r1 in ((2 * q, 0, 1),
+                                                   (2 * q + 1, 2, 3)):
+                                    _mma(acc[t_], ah, bh[:, r0], bh[:, r1])
+                                    _mma(acc[t_], al, bh[:, r0], bh[:, r1])
+                                    _mma(acc[t_], ah, bl[:, r0], bl[:, r1])
+                        pa, pb = strip_dot(acc, w, x_at)
+                        ia = ia_all[w]
+                        ddtd[ia], ddtd[ia + 8] = pa, pb
+                        for t in range(TP // 8):
+                            for rh in range(2):
+                                j = ia + 8 * rh
+                                for e in range(2):
+                                    p = 8 * t + 2 * TG + e
+                                    m = (j < qlen) & (p < hp)
+                                    dx[bb, c0 + j[m], h, p[m]] = (
+                                        dts[j[m]] * acc[t][m, 2 * rh + e]
+                                    ).astype(F32)
+                    heads.append((dts, cum, dcum, ddtd, K))
+                # the slice's W into the packed tiles
+                sMh = np.full(len(TILES) * 256, np.nan, F32)
+                sMl = np.full(len(TILES) * 256, np.nan, F32)
+                for t in range(len(TILES)):
+                    for t2 in range(2):
+                        for rh in range(2):
+                            off = t * 256 + (2 * rh + t2) * 64 + G * 8 + 2 * TG
+                            for e in range(2):
+                                sMh[off + e], sMl[off + e] = split(
+                                    wsum[t][t2][:, 2 * rh + e])
+                for dc in (True, False):             # dC, then dB
+                    accs = [np.zeros((BK // 8, 32, 4), F32) for _ in range(8)]
+                    for hh in range(hs):
+                        h = h0 + hh
+                        dts, cum = heads[hh][:2]
+                        sDh, sDl = (np.full(BQ * TXP, np.nan, F32)
+                                    for _ in range(2))
+                        if dc:
+                            _stage_split(sDh, sDl, TXP,
+                                         dy[bb, c0:c0 + qlen, h], BQ, qlen,
+                                         TP, hp, split_dy, _exp0(cum))
+                        else:
+                            _stage_split(sDh, sDl, TXP, x[bb, c0:c0 + qlen, h],
+                                         BQ, qlen, TP, hp, split,
+                                         (_exp0(cum[BQ - 1] - cum) * dts
+                                          ).astype(F32))
+                        sSh, sSl = (np.full(TP * TCP, np.nan, F32)
+                                    for _ in range(2))
+                        _stage_split(sSh, sSl, TCP,
+                                     (ws if dc else dS_out)[bb, c, h], TP, hp,
+                                     BK, n, split)
+                        for w in range(8):
+                            acc = accs[w]
+                            if hh == 0:               # W B or W^T C
+                                for kb in (range(w + 1) if dc
+                                           else range(w, TRB)):
+                                    t = _tid(w, kb) if dc else _tid(kb, w)
+                                    lane = PKA if dc else PKT
+                                    ah = _ldmatrix_x4(sMh, t * 256 + lane,
+                                                      not dc)
+                                    al = _ldmatrix_x4(sMl, t * 256 + lane,
+                                                      not dc)
+                                    for q in range(BK // 16):
+                                        bf = _ldmatrix_x4(
+                                            sB if dc else sC,
+                                            tr_c + 16 * kb * TCP + 16 * q,
+                                            True)
+                                        _mma_pair(acc, 2 * q, ah, bf)
+                                        _mma_pair(acc, 2 * q, al, bf)
+                            for ks in range(TP // 16):   # the state term
+                                ah = _ldmatrix_x4(sDh, _arow(w, TXP) + 16 * ks,
+                                                  False)
+                                al = _ldmatrix_x4(sDl, _arow(w, TXP) + 16 * ks,
+                                                  False)
+                                for q in range(BK // 16):
+                                    off = 16 * ks * TCP + 16 * q
+                                    bh = _ldmatrix_x4(sSh, tr_c + off, True)
+                                    bl = _ldmatrix_x4(sSl, tr_c + off, True)
+                                    for t_, r0, r1 in ((2 * q, 0, 1),
+                                                       (2 * q + 1, 2, 3)):
+                                        _mma(acc[t_], ah, bh[:, r0], bh[:, r1])
+                                        _mma(acc[t_], al, bh[:, r0], bh[:, r1])
+                                        _mma(acc[t_], ah, bl[:, r0], bl[:, r1])
+                    out = pdC if dc else pdB
+                    for w in range(8):
+                        for t in range(BK // 8):
+                            for rh in range(2):
+                                i = ia_all[w] + 8 * rh
+                                for e in range(2):
+                                    k = 8 * t + 2 * TG + e
+                                    m = (i < qlen) & (k < n)
+                                    out[bb, c0 + i[m], slc, k[m]] = \
+                                        accs[w][t][m, 2 * rh + e]
+                for hh in range(hs):                 # thread hh
+                    h = h0 + hh
+                    dts, cum, dcum, ddtd, K = heads[hh]
+                    run, da = F32(0), F32(0)
+                    for i in reversed(range(BQ)):
+                        d = dcum[i] if i < qlen else F32(0)
+                        d = F32(d + (K if i == BQ - 1 else F32(0)))
+                        run = F32(run + d)
+                        if i < qlen:
+                            ddt[bb, c0 + i, h] = F32(ddtd[i] + F32(A[h] * run))
+                        da = _fma(dts[i], run, da)
+                    pdA[bb, c, h] = da
+
+    # ---- ssd_bc_reduce: the group's shares in order -----------------------
+    spg = nsh // Gn
+    dB = np.zeros((b, L, Gn, n), F32)
+    dC = np.zeros((b, L, Gn, n), F32)
+    for j in range(spg):
+        dB = (dB + pdB.reshape(b, L, Gn, spg, n)[:, :, :, j]).astype(F32)
+        dC = (dC + pdC.reshape(b, L, Gn, spg, n)[:, :, :, j]).astype(F32)
+    dA = np.zeros(nh, F32)
+    for bb in range(b):
+        for c in range(nc):
+            dA = (dA + pdA[bb, c]).astype(F32)
+    return dx, ddt, dA, dB, dC, dS0
+
+
+#: the card's tolerances (chip_smoke.py: SSD_BWD_TOL, SSD_BWD_DA) on the
+#: route's f32 values, dx, dB and dC before their bf16 rounding
+TC_REL = (1e-4, 1e-4, 2e-4, 1e-4, 1e-4, 1e-4)
+
+
+def _assert_tc_close(got, want, rel=TC_REL):
+    for g_, w_, r in zip(got, want, rel):
+        assert np.isfinite(g_).all()
+        scale = max(float(np.abs(w_).max()), 1e-30)
+        assert float(np.abs(g_ - w_).max()) <= r * scale
+
+
+def _tc_case(seed, b, l, nh, hp, g, n):
+    """The bf16 route's inputs: x, B, C bf16 values, nonzero S0, dy and
+    dS_final."""
+    return _bwd_case(seed, b, l, nh, hp, g, n, dtype=None)
+
+
+@pytest.mark.parametrize("b,l,nh,hp,g,n,chunk", [
+    (2, 21, 4, 16, 1, 16, 16),      # smoke widths, a ragged last chunk
+    (1, 10, 4, 8, 2, 8, 16),        # l below the chunk, g 2: slices of 2
+    (1, 150, 4, 40, 1, 24, 128),    # hp, n off 16; 22 rows in chunk 2
+    (1, 130, 8, 64, 1, 128, 128),   # mamba2-1.3b's widths, two slices
+])
+def test_tc_bwd_transliteration_matches_the_plain_backward(b, l, nh, hp, g,
+                                                           n, chunk):
+    """The tensor-core route (the states' reverse walk in the mma
+    accumulators; per slice C·B^T once, each head's scores, U, V, dxdt,
+    the slice's W and its dC, dB sums in head order; the shares summed
+    in order) equals the plain backward, on the forward's workspace as
+    its transliteration leaves it."""
+    case, dy, dSf = _tc_case(l * 5 + hp, b, l, nh, hp, g, n)
+    ws = tc_transliteration(*case, chunk, return_ws=True)[2]
+    _assert_tc_close(tc_bwd_transliteration(*case, dy, dSf, chunk, ws=ws),
+                     _plain_bwd(case, dy, dSf, chunk))
+
+
+def test_tc_bwd_transliteration_recomputes_the_states_without_ws():
+    """ws=None: the forward's ssd_states recomputes the states entering
+    each chunk (the wrapper runs the forward's kernels), and the gradients
+    are those with the workspace kept."""
+    case, dy, dSf = _tc_case(21, 1, 20, 4, 8, 1, 8)
+    ws = tc_transliteration(*case, 16, return_ws=True)[2]
+    got = tc_bwd_transliteration(*case, dy, dSf, 16)
+    kept = tc_bwd_transliteration(*case, dy, dSf, 16, ws=ws)
+    for a_, k_ in zip(got, kept):
+        np.testing.assert_array_equal(a_, k_)
+    _assert_tc_close(got, _plain_bwd(case, dy, dSf, 16))
+
+
+@pytest.mark.parametrize("hs", [1, 2, 4])
+def test_tc_bwd_slices_make_cb_once_and_sum_heads_in_order(hs):
+    """A block takes hs heads of one group: C·B^T's 36 tiles are made once
+    a block (not once a head), the shares are nh / hs, and every slicing
+    gives the plain backward."""
+    case, dy, dSf = _tc_case(31, 1, 13, 4, 8, 1, 8)
+    stats = {}
+    got = tc_bwd_transliteration(*case, dy, dSf, 16, hs=hs, stats=stats)
+    assert stats["blocks"] == 4 // hs               # one chunk, 4 heads
+    assert stats["G"] == len(TILES) * stats["blocks"]
+    _assert_tc_close(got, _plain_bwd(case, dy, dSf, 16))
+    assert _slice_heads(64, 1) == TSLICE == 8       # mamba2: 256 blocks
+    assert _slice_heads(6, 1) == 2 and _slice_heads(4, 2) == 2
+
+
+def test_tc_bwd_one_bf16_rounding_of_dy_would_not_hold_the_tolerance():
+    """Why dy is split: with every operand made from dy rounded once to
+    bf16 (no lo half) the same case misses the tolerance the split
+    keeps."""
+    case, dy, dSf = _tc_case(41, 1, 64, 4, 16, 1, 16)
+
+    def hi_only(v):
+        hi = _bf16(v)
+        return hi, np.zeros_like(hi)
+
+    want = _plain_bwd(case, dy, dSf, 32)
+    _assert_tc_close(tc_bwd_transliteration(*case, dy, dSf, 32), want)
+    with pytest.raises(AssertionError):
+        _assert_tc_close(tc_bwd_transliteration(*case, dy, dSf, 32,
+                                                split_dy=hi_only), want)
+
+
+def test_tc_bwd_transliteration_is_finite_at_a_large_decay_span():
+    """A chunk's decay span past 88 (dt 0.7, A down to -64, Q 128): every
+    exponent clamped at 0, every gradient finite and within the card's
+    tolerances of the plain backward in f64."""
+    case, dy, dSf = _tc_case(51, 1, 130, 2, 16, 1, 16)
+    case[1][:] = 0.7
+    case[2][:] = [-1.0, -64.0]
+    with np.errstate(over="ignore"):    # the forward's masked-after exp
+        ws = tc_transliteration(*case, 128, return_ws=True)[2]
+    _assert_tc_close(tc_bwd_transliteration(*case, dy, dSf, 128, ws=ws),
+                     _plain_bwd(case, dy, dSf, 128, torch.float64))
+
+
+def test_tc_bwd_transliteration_rows_do_not_depend_on_b():
+    """Row 1 of a b-2 call's gradients equal the same row alone, bit for
+    bit (dA aside)."""
+    case, dy, dSf = _tc_case(61, 2, 20, 2, 8, 1, 8)
+    both = tc_bwd_transliteration(*case, dy, dSf, 16)
+    one = tc_bwd_transliteration(*[a[1:] if a.ndim > 1 else a for a in case],
+                                 dy[1:], dSf[1:], 16)
     for i in (0, 1, 3, 4, 5):
         np.testing.assert_array_equal(both[i][1:], one[i])
