@@ -5,7 +5,7 @@
     python3 chip_smoke.py --quick    # build, kernel checks, small models
 
 Run from the repository root. It builds the port's CUDA kernels from the
-sources in the checkout and drives the port's twelve main paths at full
+sources in the checkout and drives the port's fourteen main paths at full
 width (random weights from a seed):
 
 * minitron-8b (dense GQA: 32 layers, d_model 4096, 32 query heads over 8
@@ -50,7 +50,13 @@ width (random weights from a seed):
   the same way at full width and depth (fewer layers only if the
   predicted peak passed 75 GB; the depth is printed), through
   ``rglru_scan`` and its reverse scan ``rglru_scan_bwd``, and through
-  ``ssd_chunk`` and its three backward kernels ``ssd_chunk_bwd``.
+  ``ssd_chunk`` and its three backward kernels ``ssd_chunk_bwd``;
+* the distribution layer (``repro_torch.sharding``, DTensor on a torch
+  ``DeviceMesh``) on a 1x1 mesh of a one-rank NCCL group: minitron-8b's
+  4-layer train step with its state laid out by the sharding plan, and
+  minitron-8b's 32-layer prefill and decode with the params and the
+  cache laid out by the decode plan, each against the same step on plain
+  tensors.
 
 Phases:
 
@@ -279,6 +285,27 @@ Phases:
              SSD: the state's gradient carried into one chunk dropped, ddt
              without its A·rcumsum(dcum) term); each path prints its
              seconds;
+   distributed — the distribution layer (started right after the build:
+             two dry-run cells, minitron-8b train_4k and phi3-medium-14b
+             prefill_32k at full scale on the 16x16 production mesh, each
+             a subprocess of its own with a fake world of 256 ranks under
+             ``FakeTensorMode``, no card: each must be ``ok`` with a
+             per-device peak under the card's total_memory, and prints
+             its record, estimates from the H100 data sheet's constants);
+             a one-rank NCCL group and a 1x1 ``DeviceMesh``: minitron-8b's
+             4-layer train step (seq 4096, 2 microbatches, full remat)
+             with its state laid out by ``make_plan`` and
+             ``train_state_specs``, against the plain step from the same
+             seed (loss, grad norm and every updated leaf bit for bit, or
+             within 1e-3 of the leaf's norm where DTensor's ops differ;
+             the flash launches equal), then both steps 5 times in turns
+             on the same tensors (median ms, DTensor's host overhead);
+             minitron-8b at 32 layers through the decode plan: 2 prompts
+             of 512 tokens, a prefill and 8 greedy decode steps whose
+             tokens equal the plain path's (flash 32 a prefill, decode
+             attention 32 a step); decode_attention's lse output is
+             checked with the kernels (phase 2: minitron's and
+             qwen2-vl's decode shapes, lengths 0, one shard of S, S);
 5. reference — small models in f32 on the card against the same models on
              the CPU through the plain versions: edge-tiny (dense and
              paged), edge-tiny with adapters (grouped route on the card,
@@ -305,7 +332,9 @@ qwen2-vl-72b, 36 for seamless-m4t-medium, 0 for the recurrent families;
 the decode kernels 80 per qwen2-vl-72b step of their layout; on the split
 path 32 per minitron-8b prefill, rglru_scan 18 per recurrentgemma-2b
 prefill, the decode kernels 32 per dense or paged minitron-8b step; on
-the training paths flash_attention 16 and flash_attention_bwd 8 a step,
+the training paths flash_attention 16 and flash_attention_bwd 8 a step
+(on the 1x1 DTensor step too; its serving path flash_attention 32 and
+decode_attention 256),
 and on qwen3-moe's moe_gemm and moe_ffn_fused 32, moe_ffn_fused_bwd 16,
 moe_gemm_dx and moe_gemm_dw 32 a step; on recurrentgemma-2b's rglru_scan
 72 and rglru_scan_bwd 36, on mamba2-1.3b's ssd_chunk 272 and
@@ -326,6 +355,7 @@ limit, then the result JSON.
 
 from __future__ import annotations
 
+import atexit
 import gc
 import json
 import math
@@ -4867,6 +4897,433 @@ def ssd_grad_check(cfg) -> None:
         (SC,), {"ssd_chunk": 2, "ssd_chunk_bwd": 1}, "ssd")
 
 
+# ---------------------------------------------------------------------------
+# distributed: the distribution layer (DTensor over a DeviceMesh)
+# ---------------------------------------------------------------------------
+
+DIST_TURNS = 5                  # the 1x1 DTensor train step and the plain
+#                                 one, taken in turns: the median of each
+DIST_REL = 1e-3                 # a leaf DTensor computes with other ops
+#                                 than the plain step's: within this of its
+#                                 norm in L2 (bit for bit otherwise)
+DIST_SERVE_ROWS = 2             # the 1x1 DTensor serving path: 2 prompts
+DIST_PROMPT = 512               # of 512 tokens in a 1024-row cache,
+DIST_MAX_LEN = 1024             # prefill and 8 greedy decode steps
+DIST_STEPS = 8
+LSE_TOL = 1e-5                  # decode_attention's lse vs its plain
+#                                 version, of max(1, |lse|)
+DRYRUN_CELLS = (("minitron-8b", "train_4k"),
+                ("phi3-medium-14b", "prefill_32k"))
+DRYRUN_DIR = ROOT / "artifacts" / "dryrun-chip"
+
+
+def start_dryruns():
+    """The dry-run cells at full scale on the 16x16 production mesh, each
+    in a subprocess of its own (its fake world of 256 ranks is
+    process-wide and cannot share a process with the card's NCCL group),
+    all started together so they run beside the card's phases; they
+    use no card (CUDA_VISIBLE_DEVICES empty) and run at a lower CPU
+    priority than the host-bound phases beside them."""
+    import os
+    DRYRUN_DIR.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    procs = []
+    for arch, shape in DRYRUN_CELLS:
+        out = open(DRYRUN_DIR / f"{arch}__{shape}.log", "w")
+        procs.append((arch, shape, out, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--force", "--out", str(DRYRUN_DIR)],
+            cwd=ROOT, env=env, stdout=out, stderr=subprocess.STDOUT,
+            preexec_fn=lambda: os.nice(10))))
+    atexit.register(stop_dryruns, procs)     # a failed phase exits early
+    return procs
+
+
+def stop_dryruns(procs) -> None:
+    """Kill any dry-run subprocess still running."""
+    for _, _, out, proc in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        out.close()
+
+
+def finish_dryruns(procs) -> list:
+    """Wait for the dry-run cells; each must be ``ok`` with a per-device
+    peak under the card's total_memory. Prints each cell's record."""
+    import torch
+    total = torch.cuda.get_device_properties(0).total_memory
+    recs = []
+    for arch, shape, out, proc in procs:
+        try:
+            rc = proc.wait(timeout=600)
+        finally:
+            stop_dryruns([(arch, shape, out, proc)])
+        path = DRYRUN_DIR / f"{arch}__{shape}__pod16x16.json"
+        if rc != 0 or not path.exists():
+            tail = (DRYRUN_DIR / f"{arch}__{shape}.log").read_text()[-2000:]
+            fail(f"dry run {arch} {shape} exited {rc}: {tail}")
+        rec = json.loads(path.read_text())
+        if rec["status"] != "ok":
+            fail(f"dry run {arch} {shape}: {rec['status']} "
+                 f"{rec.get('error', rec.get('reason'))}")
+        mem, roof = rec["memory"], rec["roofline"]
+        peak = mem["peak_bytes_per_device"]
+        log(f"[dryrun] {arch} {shape} on pod16x16 (256 fake ranks, "
+            f"{rec['microbatches']} microbatches; fake-tensor estimate, "
+            f"H100 SXM5 data-sheet constants): peak {peak / 1e9:.2f} GB a "
+            f"device (arguments {mem['argument_bytes'] / 1e9:.2f}, "
+            f"temporaries {mem['temp_bytes'] / 1e9:.2f}) of this card's "
+            f"total_memory {total / 1e9:.2f} GB; compute "
+            f"{roof['compute_s'] * 1e3:.1f} ms, memory "
+            f"{roof['memory_s'] * 1e3:.1f} ms, collective "
+            f"{roof['collective_s'] * 1e3:.1f} ms -> {roof['dominant']}; "
+            f"useful_flops_ratio {rec['useful_flops_ratio']:.4f}; "
+            f"collectives " + ", ".join(
+                f"{k} {v['count']} ({v['wire_bytes'] / 1e9:.2f} GB on the "
+                f"wire)" for k, v in rec["collectives"].items())
+            + f"; traced in {rec['compile_s']:.1f} s")
+        log(f"[dryrun] {arch} {shape} record: " + json.dumps(
+            {k: rec[k] for k in ("memory", "roofline", "useful_flops_ratio",
+                                 "plan_notes")}))
+        if peak >= total:
+            fail(f"dry run {arch} {shape}: {peak / 1e9:.2f} GB a device >= "
+                 f"total_memory {total / 1e9:.2f} GB")
+        recs.append(rec)
+    return recs
+
+
+def phase_lse(cfg, vl_cfg) -> None:
+    """decode_attention's lse output (``return_lse=True``) against its
+    plain version at minitron-8b's and qwen2-vl-72b's decode shapes, bf16
+    and f32: lengths 0, exactly one shard of S on a 16-way model axis,
+    half past one, and S. The output must be the call without lse's bit
+    for bit; lse within LSE_TOL of max(1, |lse|), -inf at length 0."""
+    import torch
+    from repro_torch.kernels.decode_attention import decode_attention as DA
+    for c, B, S in ((cfg, 4, 2048), (vl_cfg, 4, 1040)):
+        Hq, Hkv, D = c.num_heads, c.num_kv_heads, c.head_dim
+        lengths = torch.tensor([0, S // 16, S // 2 + 1, S],
+                               dtype=torch.int32, device="cuda")
+        for dt in (torch.bfloat16, torch.float32):
+            g = torch.Generator(device="cuda").manual_seed(41)
+            q = torch.randn((B, Hq, D), generator=g, device="cuda").to(dt)
+            k, v = (torch.randn((B, S, Hkv, D), generator=g,
+                                device="cuda").to(dt).transpose(1, 2)
+                    for _ in range(2))
+            o = DA.decode_attention(q, k, v, lengths)
+            o2, lse = DA.decode_attention(q, k, v, lengths, return_lse=True)
+            torch.cuda.synchronize()
+            if not torch.equal(o, o2):
+                fail(f"decode_attention {c.name} {dt}: the output with lse "
+                     f"differs from the output without it")
+            _, want = DA.decode_attention_ref(q, k, v, lengths,
+                                              return_lse=True)
+            empty = lengths == 0
+            if not (bool(torch.isneginf(lse[empty]).all())
+                    and bool(torch.isfinite(lse[~empty]).all())):
+                fail(f"decode_attention {c.name} {dt}: lse at length 0 must "
+                     f"be -inf, elsewhere finite: {lse[:, 0].tolist()}")
+            err = float(((lse[~empty] - want[~empty]).abs()
+                         / want[~empty].abs().clamp(min=1.0)).max())
+            log(f"[distributed] decode_attention lse {c.name} (B {B} Hq "
+                f"{Hq} Hkv {Hkv} D {D} S {S}, lengths "
+                f"{lengths.tolist()}) {str(dt)[6:]}: output bit for bit "
+                f"the call without lse; lse vs plain {err:.2e} of max(1, "
+                f"|lse|) (tolerance {LSE_TOL:.0e}), -inf at length 0")
+            if err > LSE_TOL:
+                fail(f"decode_attention lse {c.name} {dt}: {err:.2e} > "
+                     f"{LSE_TOL:.0e}")
+
+
+def init_nccl() -> None:
+    """A process group of one rank on NCCL (address given explicitly: no
+    launcher tells this process of a cluster)."""
+    import socket
+    import torch.distributed as dist
+    if dist.is_initialized():
+        return
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+
+
+def dist_train_plain(cfg, batch):
+    """The plain step of ``cfg``'s train state from seed 0 on ``batch``:
+    (metrics on the host, the updated params, m and v copied to the host
+    leaf by leaf, flash launches)."""
+    import torch
+    from repro_torch.bridge import leaves
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+    from repro_torch.models.transformer import LM
+    from repro_torch.training.optimizer import AdamWHyper
+    from repro_torch.training.train_step import (init_train_state,
+                                                 make_train_step)
+    lm = LM(cfg)
+    state = init_train_state(lm, 0, device="cuda")
+    step = make_train_step(lm, hyper=AdamWHyper(warmup_steps=1, lr=1e-4),
+                           microbatches=TRAIN_MICRO)
+    before = launch_counts((FA,))
+    state, m = step(state, batch)
+    torch.cuda.synchronize()
+    launches = {k: n - before[k] for k, n in launch_counts((FA,)).items()}
+    host = [[t.cpu() for t in leaves(tree)] for tree in
+            (state.params, state.opt["m"], state.opt["v"])]
+    metrics = {k: float(v) for k, v in m.items()}
+    del state
+    return metrics, host, launches
+
+
+def dist_train_sharded(cfg, batch):
+    """The DTensor step: the state from seed 0 laid out on a 1x1 mesh of
+    an NCCL group by ``make_plan`` and ``train_state_specs`` (on one rank
+    each DTensor wraps the plain tensor itself), the batch by the plan's
+    batch specs, one ``make_train_step`` step inside ``use_mesh``.
+    Returns (mesh, plan, the DTensor state, the plain state it wraps,
+    metrics, the step, the DTensor batch)."""
+    import torch
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.transformer import LM
+    from repro_torch.sharding import make_plan
+    from repro_torch.sharding.ctx import use_mesh
+    from repro_torch.sharding.planner import distribute, distribute_tree
+    from repro_torch.training.optimizer import AdamWHyper
+    from repro_torch.training.train_step import (init_train_state,
+                                                 make_train_step,
+                                                 train_state_specs)
+    mesh = make_test_mesh((1, 1), device_type="cuda")
+    lm = LM(cfg)
+    state = init_train_state(lm, 0, device="cuda")
+    plan = make_plan(cfg, mesh, "train", batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                     param_tree=state.params)
+    dstate = distribute_tree(state, train_state_specs(plan, state), mesh)
+    dbatch = {k: distribute(v, plan.batch_specs[k], mesh)
+              for k, v in batch.items()}
+    step = make_train_step(lm, hyper=AdamWHyper(warmup_steps=1, lr=1e-4),
+                           microbatches=TRAIN_MICRO)
+    with use_mesh(mesh):
+        dstate, m = step(dstate, dbatch)
+    torch.cuda.synchronize()
+    metrics = {k: float(v.full_tensor()) for k, v in m.items()}
+    return mesh, dstate, state, metrics, step, dbatch
+
+
+def check_dist_train(cfg, plain, sharded) -> None:
+    """Loss, grad norm and every updated leaf (params, m, v) of the DTensor
+    step against the plain step's: bit for bit, or, where DTensor computes
+    a leaf with other ops, within DIST_REL of its norm (named here)."""
+    import torch
+    from repro_torch.bridge import leaves
+    (pm, host, plain_launches), (dstate, dm, launches) = plain, sharded
+    if plain_launches != launches:
+        fail(f"[distributed] flash launches: DTensor step {launches}, plain "
+             f"{plain_launches}")
+    log(f"[distributed] flash launches a step: DTensor {launches} == plain "
+        f"{plain_launches}")
+    for k in ("loss", "grad_norm"):
+        if dm[k] != pm[k]:
+            rel = abs(dm[k] - pm[k]) / max(abs(pm[k]), 1e-30)
+            log(f"[distributed] {k}: DTensor {dm[k]!r} plain {pm[k]!r} "
+                f"({rel:.2e})")
+            if rel > DIST_REL:
+                fail(f"[distributed] {k} {dm[k]} vs plain {pm[k]}")
+    exact, near = 0, []
+    for name, tree, want in zip(("params", "m", "v"), (
+            dstate.params, dstate.opt["m"], dstate.opt["v"]), host):
+        for i, (t, w) in enumerate(zip(leaves(tree), want)):
+            got = t.to_local().cpu()
+            if torch.equal(got, w):
+                exact += 1
+                continue
+            rel = float((got.double() - w.double()).norm()
+                        / w.double().norm().clamp(min=1e-30))
+            near.append((f"{name}[{i}] {tuple(w.shape)}", rel))
+    log(f"[distributed] 1x1 DTensor train step vs the plain step from the "
+        f"same seed: loss {dm['loss']!r} vs {pm['loss']!r}, grad_norm "
+        f"{dm['grad_norm']!r} vs {pm['grad_norm']!r}; {exact} of "
+        f"{exact + len(near)} updated leaves (params, m, v) bit for bit"
+        + ("" if not near else "; the others within " + ", ".join(
+            f"{n} {r:.2e}" for n, r in near) + " of their norms"))
+    bad = [(n, r) for n, r in near if r > DIST_REL]
+    if bad:
+        fail(f"[distributed] leaves past {DIST_REL:.0e} of their norm: "
+             f"{bad}")
+
+
+def time_dist_train(cfg, mesh, dstate, state, step, dbatch) -> None:
+    """The DTensor step and the plain step on the same tensors (on one
+    rank the DTensor state wraps the plain one), DIST_TURNS each in turns
+    in this process: the median ms of each and the DTensor host
+    overhead it shows."""
+    import torch
+    from repro_torch.sharding.ctx import use_mesh
+    batch = {k: v.to_local() for k, v in dbatch.items()}
+    ms = {"plain": [], "DTensor": []}
+    for _ in range(DIST_TURNS):
+        for kind in ("plain", "DTensor"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if kind == "plain":
+                state, m = step(state, batch)
+                float(m["loss"])
+            else:
+                with use_mesh(mesh):
+                    dstate, m = step(dstate, dbatch)
+                float(m["loss"].full_tensor())
+            torch.cuda.synchronize()
+            ms[kind].append((time.perf_counter() - t0) * 1e3)
+    med = {k: sorted(v)[len(v) // 2] for k, v in ms.items()}
+    log(f"[distributed] {cfg.name} train step ({cfg.num_layers} layers, "
+        f"seq {TRAIN_SEQ}, batch {TRAIN_BATCH} in {TRAIN_MICRO} "
+        f"microbatches, full remat), median of {DIST_TURNS} in turns: plain "
+        f"{med['plain']:.1f} ms ({', '.join(f'{x:.1f}' for x in ms['plain'])}"
+        f"), DTensor on a 1x1 mesh {med['DTensor']:.1f} ms ("
+        f"{', '.join(f'{x:.1f}' for x in ms['DTensor'])}): DTensor's host "
+        f"overhead {med['DTensor'] - med['plain']:.1f} ms a step "
+        f"({med['DTensor'] / med['plain'] - 1:.1%}); {card()}")
+
+
+def drive_dist_serve(cfg, params, tokens) -> dict:
+    """The 1x1 DTensor serving path: the params laid out by the decode
+    plan on a 1x1 NCCL mesh (wrapping the plain tensors), a prefill of
+    ``tokens`` into a DIST_MAX_LEN cache and DIST_STEPS greedy decode
+    steps through the DTensor model. Returns its tokens and times."""
+    import torch
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.transformer import LM
+    from repro_torch.sharding import make_plan
+    from repro_torch.sharding.ctx import use_mesh
+    from repro_torch.sharding.planner import distribute, distribute_tree
+    mesh = make_test_mesh((1, 1), device_type="cuda")
+    lm = LM(cfg)
+    b = tokens.shape[0]
+    plan = make_plan(cfg, mesh, "decode", batch=b, seq=DIST_MAX_LEN,
+                     param_tree=params, cache_tree=lm.init_cache(
+                         b, DIST_MAX_LEN, device="meta"))
+    dparams = distribute_tree(params, plan.param_specs, mesh)
+    spec = plan.batch_specs["tokens"]
+    out = {"tokens": [], "ms": []}
+    with torch.no_grad(), use_mesh(mesh):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = lm.prefill(dparams, {"tokens": distribute(tokens, spec,
+                                                              mesh)},
+                               DIST_MAX_LEN)
+        t = lg.full_tensor().argmax(-1)[:, None].to(torch.int32)
+        torch.cuda.synchronize()
+        out["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+        for _ in range(DIST_STEPS):
+            out["tokens"].append(t.cpu())
+            t0 = time.perf_counter()
+            lg, cache = lm.decode_step(dparams, cache,
+                                       distribute(t, spec, mesh))
+            t = lg.full_tensor()[:, 0].argmax(-1)[:, None].to(torch.int32)
+            torch.cuda.synchronize()
+            out["ms"].append((time.perf_counter() - t0) * 1e3)
+    out["layout"] = [str(p) for p in cache["layers"]["k"].placements]
+    return out
+
+
+def plain_serve(cfg, params, tokens) -> dict:
+    """``drive_dist_serve``'s prefill and greedy steps on the plain
+    tensors."""
+    import torch
+    from repro_torch.models.transformer import LM
+    lm = LM(cfg)
+    out = {"tokens": [], "ms": []}
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = lm.prefill(params, {"tokens": tokens}, DIST_MAX_LEN)
+        t = lg.argmax(-1)[:, None].to(torch.int32)
+        torch.cuda.synchronize()
+        out["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+        for _ in range(DIST_STEPS):
+            out["tokens"].append(t.cpu())
+            t0 = time.perf_counter()
+            lg, cache = lm.decode_step(params, cache, t)
+            t = lg[:, 0].argmax(-1)[:, None].to(torch.int32)
+            torch.cuda.synchronize()
+            out["ms"].append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def check_dist_serve(cfg, got, want, launches) -> None:
+    import torch
+    if not all(torch.equal(a, b) for a, b in zip(got["tokens"],
+                                                  want["tokens"])):
+        fail(f"[distributed] {cfg.name}: the DTensor path's tokens differ "
+             f"from the plain path's: "
+             f"{[t[:, 0].tolist() for t in got['tokens']]} vs "
+             f"{[t[:, 0].tolist() for t in want['tokens']]}")
+    want_n = {"flash_attention": cfg.num_layers,
+              "decode_attention": cfg.num_layers * DIST_STEPS}
+    if any(launches[k] != n for k, n in want_n.items()):
+        fail(f"[distributed] {cfg.name} serving launches {launches}, "
+             f"expected {want_n}")
+    med = {k: sorted(v["ms"])[len(v["ms"]) // 2]
+           for k, v in (("plain", want), ("DTensor", got))}
+    log(f"[distributed] {cfg.name} ({cfg.num_layers} layers) 1x1 DTensor "
+        f"serving: {DIST_SERVE_ROWS} prompts of {DIST_PROMPT} tokens, "
+        f"{DIST_STEPS} greedy steps: tokens equal the plain path's; "
+        f"launches {want_n}; cache layout {got['layout']}; prefill "
+        f"{got['prefill_ms']:.1f} ms (plain {want['prefill_ms']:.1f}), "
+        f"decode step median {med['DTensor']:.2f} ms (plain "
+        f"{med['plain']:.2f}); {card()}")
+
+
+def phase_distributed(cfg, counters, dryruns) -> list:
+    """The distribution layer on the card: a 1x1 DTensor train step of
+    minitron-8b at 4 layers against the plain step (bit for bit, or
+    DIST_REL where DTensor's ops differ, equal flash launches; both
+    timed in turns), the 1x1 DTensor serving path of minitron-8b at 32
+    layers against the plain path's tokens, and the dry-run cells.
+    Returns the main paths' launches."""
+    import torch
+    paths = []
+    init_nccl()
+    tcfg = train_config(cfg)
+    batch = train_batches(tcfg, 1, seed=1)[0]
+    torch.cuda.reset_peak_memory_stats()
+    plain = dist_train_plain(tcfg, batch)
+    release_memory()
+    name = f"{tcfg.name} DTensor train (1x1 mesh, {tcfg.num_layers} layers)"
+    launches, (mesh, dstate, state, dm, step, dbatch) = drive_path(
+        name, counters, ("flash_attention", "flash_attention_bwd"),
+        dist_train_sharded, tcfg, batch)
+    paths.append(launches)
+    check_dist_train(tcfg, plain, (dstate, dm, {
+        k: launches[k] for k in plain[2]}))
+    del plain
+    time_dist_train(tcfg, mesh, dstate, state, step, dbatch)
+    log(f"[distributed] train peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; {card()}")
+    del dstate, state, step, dbatch
+    release_memory()
+
+    params = init_model(cfg)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    tokens = torch.randint(0, cfg.vocab_size, (DIST_SERVE_ROWS, DIST_PROMPT),
+                           generator=g, device="cuda", dtype=torch.int32)
+    want = plain_serve(cfg, params, tokens)
+    name = f"{cfg.name} DTensor serving (1x1 mesh)"
+    launches, got = drive_path(name, counters, ("flash_attention",
+                                                "decode_attention"),
+                               drive_dist_serve, cfg, params, tokens)
+    paths.append(launches)
+    check_dist_serve(cfg, got, want, launches)
+    del params
+    release_memory()
+    if dryruns:
+        finish_dryruns(dryruns)
+    else:
+        log("[distributed] --quick: the dry-run subprocesses are skipped")
+    return paths
+
+
 def card() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     smi = subprocess.run(
@@ -4925,6 +5382,7 @@ def main() -> None:
         f"device {torch.cuda.get_device_name(0)}")
 
     phase_build()
+    dryruns = [] if quick else start_dryruns()
     cfg = get_config("minitron-8b")
     moe_cfg = get_config("qwen3-moe-30b-a3b")
     mx_cfg = dataclasses.replace(get_config("mixtral-8x7b"),
@@ -4943,7 +5401,10 @@ def main() -> None:
     rows.update(phase_int8_kernels(mx_cfg))
     rows.update(phase_recurrent_kernels(rg_cfg, mb_cfg))
     rows.update(phase_recurrent_bwd_kernels(rg_cfg, mb_cfg))
+    phase_lse(cfg, vl_cfg)
     if quick:
+        log("[distributed] --quick: the dry-run subprocesses and the 1x1 "
+            "DTensor paths are skipped")
         phase_reference()
         log(f"[quick] kernels and small models checked in "
             f"{time.perf_counter() - t_start:.1f} s")
@@ -5166,6 +5627,16 @@ def main() -> None:
         release_memory()
         log(f"[train] {rcfg.name}'s training path and grad check: "
             f"{time.perf_counter() - t0:.1f} s")
+
+    left = torch.cuda.memory_allocated()
+    log(f"[distributed] device memory allocated before the distribution "
+        f"layer's paths: {left / 1e9:.3f} GB")
+    if left > 0.1e9:
+        fail(f"{left / 1e9:.2f} GB still allocated before the distributed "
+             f"paths")
+    t0 = time.perf_counter()
+    paths += phase_distributed(cfg, counters, dryruns)
+    log(f"[distributed] {time.perf_counter() - t0:.1f} s")
 
     for name, row in rows.items():
         # a grouped-GEMM row counts its variant's launches: the int8 rows

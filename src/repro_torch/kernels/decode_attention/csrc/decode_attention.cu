@@ -73,6 +73,11 @@
 // flight, so a split is about two load round trips under full load, plus
 // the block's start (the length) and end (the merge), and the combine
 // kernel after it (PERF.md).
+//   * On request (a non-null lse, the dense launcher only) the combine also
+//     writes each row's log-sum-exp of its scaled scores, m + log(l) from
+//     the max and the sum it forms anyway, -inf at length 0: what a caller
+//     needs to merge partial results over a sequence-sharded cache. The
+//     output's bits do not depend on it.
 //
 // C interface (loaded with ctypes): decode_attention_ws_floats sizes the
 // workspace; each launcher returns the first error of its two launches
@@ -140,6 +145,7 @@ struct Params {
   float scale;
   float* ws;                  // [B, Hkv, nsplit, slot_floats(g, D)]
   void* out;                  // [B, Hkv * g, D]
+  float* lse;                 // [B, Hkv * g] or null: m + log(l) a row
 };
 
 __device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
@@ -633,6 +639,11 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int e = 0; e < 4; ++e)
       store(out + hh * D + d + e, n ? o[e] / lc : 0.f);
+    // the row's log-sum-exp of its scaled scores, when asked: the max and
+    // the sum this combine already formed (a row of length 0 has none)
+    if (p.lse != nullptr && d == 0)
+      p.lse[(static_cast<int64_t>(b) * p.Hkv + h) * g + hh] =
+          n ? mx + logf(lsum) : __int_as_float(0xff800000);  // -inf
   }
 }
 
@@ -698,15 +709,17 @@ extern "C" long long decode_attention_ws_floats(int B, int Hkv, int g, int D,
 
 // dtype: 0 = bfloat16, 1 = float32. Strides are in elements. ws: an f32
 // workspace of at least decode_attention_ws_floats(B, Hkv, g, head_dim, S)
-// floats.
+// floats. lse: null, or f32 [B, Hkv * g] for each row's log-sum-exp
+// (-inf at length 0).
 extern "C" int decode_attention_launch(
     int dtype, int head_dim, const void* q, long long sqb, long long sqh,
     const void* k, const void* v, long long skb, long long sks,
-    long long skh, const void* lengths, void* out, int B, int Hkv, int g,
-    int S, float scale, void* ws, long long ws_floats, void* stream) {
+    long long skh, const void* lengths, void* out, void* lse, int B,
+    int Hkv, int g, int S, float scale, void* ws, long long ws_floats,
+    void* stream) {
   Params p{q, sqb, sqh, k, v, skb, sks, skh,
            static_cast<const int*>(lengths), nullptr, 0, 1, S, Hkv, g, 0,
-           scale, static_cast<float*>(ws), out};
+           scale, static_cast<float*>(ws), out, static_cast<float*>(lse)};
   return dispatch<false>(dtype, head_dim, p, B, ws_floats, stream);
 }
 
@@ -720,6 +733,6 @@ extern "C" int paged_decode_attention_launch(
   Params p{q, sqb, sqh, k_pages, v_pages, skp, sks, skh,
            static_cast<const int*>(lengths),
            static_cast<const int*>(tables), pps, page, pps * page, Hkv, g, 0,
-           scale, static_cast<float*>(ws), out};
+           scale, static_cast<float*>(ws), out, nullptr};
   return dispatch<true>(dtype, head_dim, p, B, ws_floats, stream);
 }

@@ -27,6 +27,13 @@ Public layouts are the reference package's, so tests compare like with like:
 A row whose length is 0 comes out as zeros from the kernels, as from the
 Pallas kernels; the plain versions (ports of the reference's ref.py
 oracles) give the mean of V there. The engines never ask for length 0.
+``decode_attention(..., return_lse=True)`` also returns each row's f32
+log-sum-exp (-inf at length 0), which the split-KV combine forms anyway:
+what merging the partial results of a sequence-sharded cache needs.
+
+DTensor inputs run the kernel on each rank's shards through ``local_map``
+(``kernels.sharded`` picks the layout, redistributing what the kernel
+cannot take); the paged kernel takes no DTensors.
 
 Each wrapper takes its plain version only for tensors on the CPU. For a CUDA
 tensor it launches the kernels or raises: there is no fallback. ``LAUNCHES``
@@ -42,6 +49,7 @@ import math
 
 import torch
 
+from repro_torch.kernels import sharded as SH
 from repro_torch.kernels.build import (call_on_stream, load,
                                       refuse_autograd)
 
@@ -61,8 +69,8 @@ _P, _LL, _I, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, \
     ctypes.c_float
 _SIGNATURES = {        # C function -> (return type, argument types)
     "decode_attention_launch": (_I, [_I, _I, _P, _LL, _LL, _P, _P, _LL, _LL,
-                                     _LL, _P, _P, _I, _I, _I, _I, _F, _P,
-                                     _LL, _P]),
+                                     _LL, _P, _P, _P, _I, _I, _I, _I, _F,
+                                     _P, _LL, _P]),
     "paged_decode_attention_launch": (_I, [_I, _I, _P, _LL, _LL, _P, _P, _LL,
                                            _LL, _LL, _P, _P, _I, _I, _P, _I,
                                            _I, _I, _F, _P, _LL, _P]),
@@ -91,20 +99,28 @@ def _library():
 # plain PyTorch versions (ports of the reference's ref.py oracles)
 # ---------------------------------------------------------------------------
 
-def decode_attention_ref(q, k, v, lengths):
+def decode_attention_ref(q, k, v, lengths, return_lse: bool = False):
     """q: [B, Hq, D]; k/v: [B, Hkv, S, D]; lengths: [B] -> [B, Hq, D].
-    Masked softmax over every row, in f32."""
+    Masked softmax over every row, in f32. With ``return_lse`` also each
+    row's f32 log-sum-exp of its scaled scores [B, Hq] (-inf at length
+    0), as the kernel writes it."""
     B, Hq, D = q.shape
     Hkv, S = k.shape[1], k.shape[2]
     g = Hq // Hkv
     qg = q.float().reshape(B, Hkv, g, D)
     s = torch.einsum("bhgd,bhkd->bhgk", qg, k.float()) / (D ** 0.5)
+    lengths = lengths.to(q.device)
     mask = (torch.arange(S, device=q.device)[None, :]
-            < lengths.to(q.device)[:, None])[:, None, None, :]
+            < lengths[:, None])[:, None, None, :]
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     w = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgk,bhkd->bhgd", w, v.float())
-    return o.reshape(B, Hq, D).to(q.dtype)
+    o = o.reshape(B, Hq, D).to(q.dtype)
+    if not return_lse:
+        return o
+    lse = torch.logsumexp(s, dim=-1).reshape(B, Hq)
+    empty = (lengths <= 0)[:, None]
+    return o, torch.where(empty, torch.full_like(lse, -math.inf), lse)
 
 
 def paged_decode_attention_ref(q, k_pages, v_pages, lengths, block_tables):
@@ -182,25 +198,70 @@ def _raise_on(rc: int, name: str) -> None:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error {rc}")
 
 
-def decode_attention(q, k, v, lengths):
+def _sharded(q, k, v, lengths, return_lse):
+    """``decode_attention`` on DTensors: the kernel on every rank's shards
+    (``kernels.sharded``): batch rows split with their K/V and lengths,
+    query heads split with theirs (or with the KV heads of its own query
+    heads, K/V replicated). A cache split on S is gathered here; the model
+    merges such shards itself (``attention.seq_sharded_decode``)."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = q.device_mesh
+    lay = SH.attention_layout(q, k, batch=0, q_heads=1, q_rows=None,
+                              kv_heads_dim=1, hq=q.shape[1], kh=k.shape[1])
+    q = SH.redistribute(q, mesh, lay.q)
+    k = SH.redistribute(k, mesh, lay.kv)
+    v = SH.redistribute(v, mesh, lay.kv)
+    len_pl = tuple(Shard(0) if p.is_shard(0) else Replicate() for p in lay.q)
+    lengths = SH.redistribute(lengths, mesh, len_pl)
+
+    def local(ql, kl, vl, ll):
+        return decode_attention(ql, SH.select_kv_heads(kl, lay, 1),
+                                SH.select_kv_heads(vl, lay, 1), ll,
+                                return_lse=return_lse)
+
+    # lse [B, Hq] follows q's batch and head splits; local_map reads a
+    # list as one tensor's placements
+    qp, kvp = list(lay.q), list(lay.kv)
+    return local_map(local, out_placements=(qp, qp) if return_lse else qp,
+                     in_placements=(qp, kvp, kvp, list(len_pl)),
+                     device_mesh=mesh)(q, k, v, lengths)
+
+
+def decode_attention(q, k, v, lengths, return_lse: bool = False):
     """q: [B, Hq, D]; k/v: [B, Hkv, S, D] (strided); lengths: [B] int32
-    -> [B, Hq, D]. Rows at or past ``lengths[b]`` are not attended."""
+    -> [B, Hq, D]. Rows at or past ``lengths[b]`` are not attended. With
+    ``return_lse`` also each row's f32 log-sum-exp of its scaled scores
+    [B, Hq], -inf at length 0 (the combine's max and sum, so the output's
+    bits are the same either way). DTensors run the kernel on their
+    shards (``_sharded``)."""
+    if SH.is_dtensor(q):
+        return _sharded(q, k, v, lengths, return_lse)
+    if SH.is_fake(q):        # the dry run: lengths unread, every row counted
+        B, Hq, D = q.shape
+        SH.report_work("decode_attention", 4 * B * Hq * D * k.shape[2],
+                       2 * q.nbytes + 2 * k.numel() * k.element_size())
+        out = torch.empty_like(q)
+        return (out, q.new_empty((B, Hq), dtype=torch.float32)) \
+            if return_lse else out
     if q.device.type == "cpu":
-        return decode_attention_ref(q, k, v, lengths)
+        return decode_attention_ref(q, k, v, lengths, return_lse)
     refuse_autograd("decode_attention", q, k, v, why=DECODE_NO_BACKWARD)
     B, Hkv, S = k.shape[0], k.shape[1], k.shape[2]
     g, D = _check_common(q, k, v, lengths, B, Hkv)
     out = torch.empty((B, q.shape[1], D), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, q.shape[1]), dtype=torch.float32,
+                      device=q.device) if return_lse else None
     ws = _workspace(q, B, Hkv, g, D, S)
     rc = call_on_stream(
         _library().decode_attention_launch, q, _DTYPE_CODE[q.dtype], D,
         q.data_ptr(), q.stride(0), q.stride(1), k.data_ptr(), v.data_ptr(),
         k.stride(0), k.stride(2), k.stride(1), lengths.data_ptr(),
-        out.data_ptr(), B, Hkv, g, S, 1.0 / math.sqrt(D), ws.data_ptr(),
-        ws.numel())
+        out.data_ptr(), None if lse is None else lse.data_ptr(), B, Hkv, g,
+        S, 1.0 / math.sqrt(D), ws.data_ptr(), ws.numel())
     _raise_on(rc, "decode_attention")
     LAUNCHES["decode_attention"] += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 def paged_decode_attention(q, k_pages, v_pages, lengths, block_tables):
@@ -208,6 +269,10 @@ def paged_decode_attention(q, k_pages, v_pages, lengths, block_tables):
     block_tables: [B, PPS] int32 page ids -> [B, Hq, D]. Only pages whose
     start is below the row's length are read; table entries must be valid
     page ids (the engine keeps unused ones at 0, the scratch page)."""
+    if SH.is_dtensor(q):
+        raise NotImplementedError(
+            "paged decode attention takes no DTensors: the paged cache is "
+            "not sharded (ROADMAP.md queue 1)")
     if q.device.type == "cpu":
         return paged_decode_attention_ref(q, k_pages, v_pages, lengths,
                                           block_tables)

@@ -38,6 +38,10 @@ k, v, o, lse and dO, no atomics) on the card, counted in
 ``flash_attention_bwd_ref`` on the CPU. The reference differentiates its
 ``blocked_attention`` by autodiff; its Pallas kernel has no backward.
 
+DTensor inputs (the port's distribution layer) run the kernel on each
+rank's shards through ``local_map``; ``kernels.sharded`` picks the layout
+and redistributes, explicitly, what the kernel cannot take.
+
 A query row with no valid key is garbage in the plain version (uniform
 weights over masked keys) and zeros from the kernel; the model never reads
 such a row, and comparisons skip it.
@@ -50,6 +54,7 @@ import math
 
 import torch
 
+from repro_torch.kernels import sharded as SH
 from repro_torch.kernels.build import call_on_stream, load
 
 NEG_INF = -1e30
@@ -226,12 +231,67 @@ def _check(q, k, v, q_positions, k_positions) -> None:
                              f"{t.dtype} {tuple(t.shape)}")
 
 
+def _sharded(q, k, v, q_positions, k_positions, causal: bool, block_q: int,
+             block_kv: int, with_lse: bool):
+    """The wrappers on DTensors: the kernel (or, for CPU shards, its plain
+    version) on every rank's shards through ``local_map``, in the layout
+    ``kernels.sharded.attention_layout`` picks: batch rows split with
+    their K/V; query heads split with theirs, or with the KV heads of its
+    own query heads when K/V are replicated; query rows split (the
+    sequence-parallel ``qwhole`` layout) against the whole K/V, each rank's
+    rows at their own positions. Differentiable unless ``with_lse``: the
+    local call is ``flash_attention``, which goes through
+    ``FlashAttention`` while autograd records."""
+    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = q.device_mesh
+    lay = SH.attention_layout(q, k, batch=0, q_heads=2, q_rows=1,
+                              kv_heads_dim=2, hq=q.shape[2], kh=k.shape[2])
+    q = SH.redistribute(q, mesh, lay.q)
+    k = SH.redistribute(k, mesh, lay.kv)
+    v = SH.redistribute(v, mesh, lay.kv)
+    qpos = SH.replicated_value(q_positions)
+    qpos = qpos[lay.row0:lay.row0 + lay.rows]
+    kpos = SH.replicated_value(k_positions)
+
+    def local(ql, kl, vl):
+        kl = SH.select_kv_heads(kl, lay, 2)
+        vl = SH.select_kv_heads(vl, lay, 2)
+        if with_lse:
+            return _forward(ql, kl, vl, qpos, kpos, causal, block_q,
+                            block_kv, True)
+        return flash_attention(ql, kl, vl, qpos, kpos, causal=causal,
+                               block_q=block_q, block_kv=block_kv)
+
+    # lse [b, hq, sq] follows q's batch, head and row splits
+    lse_pl = tuple(Shard((0, 2, 1, 3)[p.dim]) if p.is_shard() else p
+                   for p in lay.q)
+    # (local_map reads a list as one tensor's placements, a tuple as one
+    # entry a tensor)
+    qp, kvp, kvg = list(lay.q), list(lay.kv), list(lay.kv_grad)
+    return local_map(local, out_placements=(qp, list(lse_pl)) if with_lse
+                     else qp, in_placements=(qp, kvp, kvp),
+                     in_grad_placements=(qp, kvg, kvg),
+                     device_mesh=mesh)(q, k, v)
+
+
 def _forward(q, k, v, q_positions, k_positions, causal: bool, block_q: int,
              block_kv: int, with_lse: bool):
     """(out, lse or None): the plain version on the CPU, else the kernel,
     which writes lse [b, hq, sq] f32 only when asked (a null pointer
     otherwise, so a launch without it is the serving launch, bit for
-    bit)."""
+    bit). DTensors go through ``_sharded``."""
+    if SH.is_dtensor(q):
+        out = _sharded(q, k, v, q_positions, k_positions, causal, block_q,
+                       block_kv, with_lse)
+        return out if with_lse else (out, None)
+    if SH.is_fake(q):        # the dry run: the kernel's outputs and work
+        b, sq, hq, d = q.shape
+        lse = q.new_empty((b, hq, sq), dtype=torch.float32) \
+            if with_lse else None
+        SH.report_work("flash_attention", 4 * b * hq * d * SH.causal_pairs(
+            sq, k.shape[1], causal), 2 * (q.nbytes + k.nbytes + v.nbytes))
+        return torch.empty_like(q), lse
     if q.device.type == "cpu":
         out = blocked_attention(q, k, v, q_positions, k_positions,
                                 causal=causal, window=0, block_q=block_q,
@@ -273,7 +333,11 @@ def flash_attention(q, k, v, q_positions, k_positions, *, causal: bool,
     ``block_kv`` are the plain version's blocks (its summation order, which
     the model's config fixes); the kernel tiles by 64. When autograd
     records (grad mode on and q, k or v requiring grad) the call goes
-    through ``FlashAttention``, whose backward is the backward kernel."""
+    through ``FlashAttention``, whose backward is the backward kernel.
+    DTensors run it on every rank's shards (``_sharded``)."""
+    if SH.is_dtensor(q):
+        return _sharded(q, k, v, q_positions, k_positions, causal, block_q,
+                        block_kv, False)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return FlashAttention.apply(q, k, v, q_positions, k_positions,
                                     causal, block_q, block_kv)
@@ -368,7 +432,20 @@ def flash_attention_bwd(q, k, v, o, lse, do, q_positions, k_positions, *,
     gradient of the output: the plain version on the CPU, else the backward
     kernels (``csrc/flash_attention_bwd.cu``) or raise. One count of
     ``LAUNCHES["flash_attention_bwd"]`` a call (its three kernels:
-    ``D = rowsum(dO * O)``, dK/dV, dQ)."""
+    ``D = rowsum(dO * O)``, dK/dV, dQ). DTensors take the backward through
+    ``FlashAttention`` (or ``flash_attention``), which runs it on each
+    rank's shards."""
+    if SH.is_dtensor(q):
+        raise TypeError("flash_attention_bwd takes each rank's local "
+                        "tensors; differentiate FlashAttention or "
+                        "flash_attention on DTensors instead")
+    if SH.is_fake(q):        # the dry run: five products to the forward's two
+        b, sq, hq, d = q.shape
+        SH.report_work("flash_attention_bwd",
+                       10 * b * hq * d * SH.causal_pairs(sq, k.shape[1],
+                                                         causal),
+                       3 * (q.nbytes + k.nbytes + v.nbytes) + lse.nbytes)
+        return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, o, lse, do, q_positions,
                                        k_positions, causal=causal,
@@ -398,7 +475,17 @@ class FlashAttention(torch.autograd.Function):
     """``flash_attention`` with a gradient: the forward saves q, k, v, its
     output and its lse; the backward is ``flash_attention_bwd`` (the kernel
     on the card, the plain version on the CPU). Positions, ``causal`` and
-    the blocks get no gradient."""
+    the blocks get no gradient. On DTensors ``apply`` runs the Function
+    on every rank's shards (``_sharded``)."""
+
+    @classmethod
+    def apply(cls, q, k, v, q_positions, k_positions, causal, block_q,
+              block_kv):
+        if SH.is_dtensor(q):
+            return _sharded(q, k, v, q_positions, k_positions, causal,
+                            block_q, block_kv, False)
+        return super().apply(q, k, v, q_positions, k_positions, causal,
+                             block_q, block_kv)
 
     @staticmethod
     def forward(ctx, q, k, v, q_positions, k_positions, causal, block_q,

@@ -1,0 +1,233 @@
+"""DTensor layouts for the attention kernels' wrappers.
+
+A kernel only ever sees local tensors: each wrapper's DTensor branch picks
+the placements the kernel can take, redistributes its inputs to them
+explicitly, and runs the kernel on every rank's shards through
+``torch.distributed.tensor.experimental.local_map``. ``attention_layout``
+makes that choice for a query tensor and its K/V, mesh dim by mesh dim:
+
+* batch-sharded q -> K/V sharded on their batch dim the same way;
+* head-sharded q (tensor parallelism) -> K/V head-sharded too when their
+  heads split evenly, else K/V replicated, and each rank then hands the
+  kernel the KV heads of its own query heads (``kv_heads``): under GQA a
+  rank boundary may fall inside a KV group (minitron-8b's 32 query heads
+  on 16 ranks against 8 KV heads: two query heads a rank, four a group);
+* row-sharded q (sequence-parallel ``qwhole`` attention) -> K/V
+  replicated, the rank's rows at their own positions (``row0``);
+* anything else (a partial sum, a split head_dim, uneven shards) is
+  redistributed: q to replicated, K/V to what q's layout needs.
+
+Where K/V are replicated over a mesh dim on which q is split, each rank's
+K/V gradient is a part of the whole: ``kv_grad`` says so (``Partial``), so
+autograd sums the parts.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+
+#: callbacks ``(kernel name, flops, bytes)`` a wrapper's fake route
+#: reports its kernel's work to (``launch.step_analysis.StepCounter``)
+KERNEL_WORK_HOOKS: list = []
+
+
+_CLASSES: dict = {}
+
+
+def _cls(name: str):
+    """DTensor or FakeTensor, imported at first use and kept: the checks
+    below run on every layer of every step, and an import statement
+    costs microseconds a call."""
+    c = _CLASSES.get(name)
+    if c is None:
+        if name == "DTensor":
+            from torch.distributed.tensor import DTensor as c
+        else:
+            from torch._subclasses.fake_tensor import FakeTensor as c
+        _CLASSES[name] = c
+    return c
+
+
+def is_fake(x) -> bool:
+    """Whether ``x`` is a fake tensor (``FakeTensorMode``: shapes, no
+    data). A kernel cannot run on one; its wrapper's fake route allocates
+    the outputs and reports the work (``report_work``) instead: the dry
+    run's stand-in for the kernel."""
+    return isinstance(x, _cls("FakeTensor"))
+
+
+def report_work(name: str, flops: float, nbytes: float) -> None:
+    for hook in KERNEL_WORK_HOOKS:
+        hook(name, flops, nbytes)
+
+
+def causal_pairs(sq: int, skv: int, causal: bool) -> float:
+    """(query, key) pairs an attention kernel computes for sq query rows
+    over skv keys. Positions are not readable on fake tensors, so causal
+    rows are taken as spread evenly over the keys (exact for sq == skv
+    with aligned positions; the mean over the ranks for split rows)."""
+    return sq * (skv + 1) / 2 if causal else float(sq * skv)
+
+
+def is_dtensor(x) -> bool:
+    return isinstance(x, _cls("DTensor"))
+
+
+def as_dtensor(x, mesh):
+    """``x`` as a DTensor on ``mesh``: itself if it is one, else the same
+    values on every rank (replicated)."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if isinstance(x, DTensor):
+        return x
+    return DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def replicated_value(x):
+    """A plain tensor of ``x``'s whole value (gathered if sharded)."""
+    return x.full_tensor() if is_dtensor(x) else x
+
+
+def contiguous_stride(shape) -> tuple:
+    """The strides of a contiguous tensor of ``shape`` (a DTensor made
+    from its shards states its global layout)."""
+    stride, acc = [], 1
+    for n in reversed(tuple(shape)):
+        stride.insert(0, acc)
+        acc *= n
+    return tuple(stride)
+
+
+class AttentionLayout(NamedTuple):
+    q: tuple                 # placements of q and of the output
+    kv: tuple                # placements of k and v
+    kv_grad: tuple           # placements of k's and v's gradients
+    head0: int               # this rank's first query head
+    heads: int               # query heads on this rank
+    row0: int                # this rank's first query row
+    rows: int                # query rows on this rank
+    kv_heads: Optional[slice | torch.Tensor]   # KV heads to hand the kernel
+
+
+def shard_span(mesh, pls, dim: int, n: int):
+    """(first index, count) of tensor dim ``dim`` (size ``n``) on this rank
+    under placements ``pls``, the mesh dims that split it taken major
+    first, as DTensor nests them (even shards only)."""
+    coord = mesh.get_coordinate()
+    idx, parts = 0, 1
+    for i, pl in enumerate(pls):
+        if pl.is_shard(dim):
+            idx = idx * mesh.size(i) + coord[i]
+            parts *= mesh.size(i)
+    return idx * (n // parts), n // parts
+
+
+def attention_layout(q, k, *, batch: int, q_heads: int, q_rows,
+                     kv_heads_dim: int, hq: int, kh: int) -> AttentionLayout:
+    """Placements for a kernel that takes q with its batch, head and row
+    dims at ``batch``, ``q_heads``, ``q_rows`` (None: one query a row, no
+    rows to split) and K/V with their heads at ``kv_heads_dim`` (batch at
+    ``batch``); ``hq``/``kh`` are the global head counts."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = q.device_mesh
+    qp, kp, kg = [], [], []
+    for i, pl in enumerate(q.placements):
+        size = mesh.size(i)
+        kpl = k.placements[i] if is_dtensor(k) else Replicate()
+        if size == 1:                    # nothing to split: free to move
+            qp.append(Replicate())
+            kp.append(Replicate())
+            kg.append(Replicate())
+            continue
+        if pl.is_shard(batch) and q.shape[batch] % size == 0:
+            qp.append(Shard(batch))
+            kp.append(Shard(batch))
+            kg.append(Shard(batch))
+        elif pl.is_shard(q_heads) and hq % size == 0:
+            qp.append(Shard(q_heads))
+            if kpl.is_shard(kv_heads_dim) and kh % size == 0:
+                kp.append(Shard(kv_heads_dim))
+                kg.append(Shard(kv_heads_dim))
+            else:
+                kp.append(Replicate())
+                kg.append(Partial())
+        elif q_rows is not None and pl.is_shard(q_rows) and \
+                q.shape[q_rows] % size == 0:
+            qp.append(Shard(q_rows))
+            kp.append(Replicate())
+            kg.append(Partial())
+        else:
+            qp.append(Replicate())
+            kp.append(Replicate())
+            kg.append(Replicate())
+    qp, kp, kg = tuple(qp), tuple(kp), tuple(kg)
+    head0, heads = shard_span(mesh, qp, q_heads, hq)
+    row0, rows = (0, 0) if q_rows is None else \
+        shard_span(mesh, qp, q_rows, q.shape[q_rows])
+    kv_heads = None
+    if not any(p.is_shard(kv_heads_dim) for p in kp) and heads != hq:
+        g = hq // kh
+        want = [(head0 + j) // g for j in range(heads)]
+        n = want[-1] - want[0] + 1
+        if heads % n == 0 and all(w - want[0] == j // (heads // n)
+                                  for j, w in enumerate(want)):
+            # the KV heads in order, each serving heads // n local heads
+            kv_heads = slice(want[0], want[-1] + 1)
+        else:          # groups cut unevenly: one KV head per query head
+            kv_heads = torch.tensor(want)
+    return AttentionLayout(qp, kp, kg, head0, heads, row0, rows, kv_heads)
+
+
+def select_kv_heads(t, layout: AttentionLayout, dim: int):
+    """The KV heads of this rank's query heads, along ``dim``."""
+    sel = layout.kv_heads
+    if sel is None:
+        return t
+    if isinstance(sel, slice):
+        return t.narrow(dim, sel.start, sel.stop - sel.start)
+    return t.index_select(dim, sel.to(t.device))
+
+
+class _SumOver(torch.autograd.Function):
+    """The sum of every rank's ``x`` over ``groups``, which each rank then
+    holds whole; each part's gradient is the sum's (a replicated result
+    takes the same gradient on every rank)."""
+
+    @staticmethod
+    def forward(ctx, x, groups):
+        from torch.distributed import _functional_collectives as funcol
+        for grp in groups:
+            x = funcol.all_reduce(x, "sum", grp)
+        return x.wait() if hasattr(x, "wait") else x
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def sum_over(x, groups):
+    """``_SumOver``: all-reduce (sum) over ``groups`` with an identity
+    backward; ``x`` itself when there are none."""
+    return _SumOver.apply(x, tuple(groups)) if groups else x
+
+
+def redistribute(x, mesh, pls):
+    """``x`` (a DTensor or a tensor replicated on every rank) laid out as
+    ``pls``, redistributed explicitly when it is not. Where the layouts
+    differ only on mesh dims of one rank, where every placement holds the
+    whole dim, the local tensor is kept as it is (DTensor would move it
+    through a one-rank collective, a copy)."""
+    from torch.distributed.tensor import DTensor
+    x = as_dtensor(x, mesh)
+    pls = tuple(pls)
+    have = tuple(x.placements)
+    if have == pls:
+        return x
+    if all(mesh.size(i) == 1 for i, (a, b) in enumerate(zip(have, pls))
+           if a != b):
+        return DTensor.from_local(x.to_local(), mesh, pls, run_check=False,
+                                  shape=x.shape, stride=x.stride())
+    return x.redistribute(mesh, pls)

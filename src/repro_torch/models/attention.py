@@ -22,12 +22,14 @@ import math
 
 import torch
 
+from repro_torch.kernels import sharded as SH
 from repro_torch.kernels.decode_attention.decode_attention import (
     decode_attention, paged_decode_attention)
 from repro_torch.kernels.flash_attention.flash_attention import (
     blocked_attention, flash_attention, pad_to)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.sharding.ctx import constrain, current_mesh
 
 NEG_INF = -1e30
 
@@ -35,6 +37,7 @@ NEG_INF = -1e30
 def _project_q(p, cfg: ModelConfig, x, positions):
     b, s, _ = x.shape
     q = L.matmul(x, p["w_q"]).reshape(b, s, cfg.num_heads, cfg.head_dim)
+    q = constrain(q, "dp", None, "model", None)
     if cfg.use_qk_norm:
         q = L.rmsnorm_apply(p["q_norm"], q, cfg.norm_eps)
     if positions is not None:
@@ -46,6 +49,8 @@ def _project_kv(p, cfg: ModelConfig, x, positions):
     b, s, _ = x.shape
     k = L.matmul(x, p["w_k"]).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
     v = L.matmul(x, p["w_v"]).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+    k = constrain(k, "dp", None, "model", None)
+    v = constrain(v, "dp", None, "model", None)
     if cfg.use_qk_norm:
         k = L.rmsnorm_apply(p["k_norm"], k, cfg.norm_eps)
     if positions is not None:
@@ -109,16 +114,63 @@ def banded_attention(q, k, v, q_positions, k_positions, *, window: int,
     return torch.cat(outs, dim=1)[:, :sq]
 
 
+def qwhole_attention(q, k, v, q_positions, k_positions, *, causal: bool,
+                     window: int, block_kv: int, softcap: float = 0.0):
+    """Sequence-parallel attention, the port of the reference's
+    ``qwhole_attention`` (its attention.py:247): q kept whole, its seq dim
+    carrying the model axis's split, one online softmax over KV blocks of
+    ``block_kv``. Used when the head counts don't divide the model axis
+    (phi3-medium-14b's 40 heads on a 16-way axis): head-split tiles would
+    be replicated, so each rank takes its rows of q against the whole
+    K/V instead.
+
+    This is the ``flash_attention`` kernel with one query block: on a
+    DTensor q split on its rows, every rank's kernel takes its own rows at
+    their own positions (``kernels.sharded``); on the CPU its plain
+    version is the reference's scan. A window or a softcap (which the
+    kernel does not take) runs the plain blocked loop with the same one
+    query block."""
+    if window or softcap:
+        return blocked_attention(q, k, v, q_positions, k_positions,
+                                 causal=causal, window=window,
+                                 block_q=q.shape[1], block_kv=block_kv,
+                                 softcap=softcap)
+    return flash_attention(q, k, v, q_positions, k_positions, causal=causal,
+                           block_q=q.shape[1], block_kv=block_kv)
+
+
+def _heads_shardable(cfg: ModelConfig) -> bool:
+    """Whether the query heads split evenly over the ambient mesh's model
+    axis (always, outside a mesh)."""
+    from repro_torch.sharding.planner import axis_sizes
+    mesh = current_mesh()
+    if mesh is None or "model" not in axis_sizes(mesh):
+        return True
+    return cfg.num_heads % axis_sizes(mesh)["model"] == 0
+
+
 def full_attention(q, k, v, qpos, kpos, cfg: ModelConfig, *, causal=True):
-    """Dispatch: the banded path for a causal sliding window, the plain
-    blocked loop for any other window or a logit softcap, and otherwise the
-    ``flash_attention`` kernel (the rule the reference applies to its Pallas
-    decode, attention.py:385)."""
+    """Dispatch, as the reference's (its attention.py:276-297): the banded
+    path for a causal sliding window; ``qwhole_attention`` inside a mesh
+    whose model axis the query heads do not divide; the plain blocked loop
+    for any other window or a logit softcap; and otherwise the
+    ``flash_attention`` kernel (the rule the reference applies to its
+    Pallas decode, attention.py:385)."""
     if cfg.sliding_window and causal:
         return banded_attention(q, k, v, qpos, kpos,
                                 window=cfg.sliding_window,
                                 block_q=cfg.attn_block_q,
                                 softcap=cfg.attn_logits_softcap)
+    if not _heads_shardable(cfg):
+        q = constrain(q, "dp", "model", None, None)
+        o = qwhole_attention(q, k, v, qpos, kpos, causal=causal,
+                             window=cfg.sliding_window,
+                             block_kv=cfg.attn_block_kv,
+                             softcap=cfg.attn_logits_softcap)
+        # the rows back together before the output projection: a product
+        # over [b, s] flattened with s split and b split too is a layout
+        # DTensor can plan only by reading data
+        return constrain(o, "dp", None, None, None)
     if cfg.sliding_window or cfg.attn_logits_softcap:
         return blocked_attention(q, k, v, qpos, kpos, causal=causal,
                                  window=cfg.sliding_window,
@@ -153,13 +205,6 @@ def cross_attention(p, cfg: ModelConfig, x, memory, mem_positions):
 # decode: one new token per row against the cache
 # ---------------------------------------------------------------------------
 
-def _check_decode(cfg: ModelConfig) -> None:
-    if cfg.attn_logits_softcap:
-        raise NotImplementedError(
-            "softcapped attention logits are not in the decode kernels yet "
-            "(ROADMAP.md queue 1)")
-
-
 def _write_row(cache_k, cache_v, k_new, v_new, slot, active):
     """Write each row's new K/V at its ``slot``, IN PLACE. The reference
     writes with a masked select over all S rows (one fused op in XLA); here
@@ -183,13 +228,32 @@ def _ring_attention(cfg: ModelConfig, q, cache_k, cache_v, position,
     latest position ≡ i (mod S) at or before ``position``; keys older than
     the window are masked. Plain PyTorch, as in the reference. q:
     [b, 1, hq, hd] -> [b, 1, hq, hd] in q's dtype."""
-    b, S = cache_k.shape[0], cache_k.shape[1]
-    kh, hd = cfg.num_kv_heads, cfg.head_dim
-    g = cfg.num_heads // kh
+    S = cache_k.shape[1]
     idx = torch.arange(S, dtype=torch.int32, device=q.device)
     pos = position[:, None]
     kpos = pos - torch.remainder(pos - idx[None, :], S)
     valid = (kpos >= 0) & (kpos > pos - window)                 # [b, S]
+    return _masked_decode(cfg, q, cache_k, cache_v, valid)
+
+
+def _linear_attention(cfg: ModelConfig, q, cache_k, cache_v, position):
+    """One query per row against a linear buffer, slot i holding position
+    i, keys after ``position`` masked: the reference's plain decode, which
+    it keeps for softcapped logits (its attention.py:385, :483-500)."""
+    S = cache_k.shape[1]
+    idx = torch.arange(S, dtype=torch.int32, device=q.device)
+    return _masked_decode(cfg, q, cache_k, cache_v,
+                          idx[None, :] <= position[:, None])
+
+
+def _masked_decode(cfg: ModelConfig, q, cache_k, cache_v, valid):
+    """The reference's plain masked-softmax decode of q [b, 1, hq, hd]
+    over cache_k/v [b, S, kh, hd] where ``valid`` [b, S]: f32 scores, the
+    logit softcap, softmax, weights rounded to v's dtype before the PV
+    product. -> [b, 1, hq, hd] in q's dtype."""
+    b = cache_k.shape[0]
+    kh, hd = cfg.num_kv_heads, cfg.head_dim
+    g = cfg.num_heads // kh
     qh = q.reshape(b, 1, kh, g, hd).float()
     s = torch.einsum("bqhgd,bkhd->bhgqk", qh, cache_k.float()) \
         / math.sqrt(hd)
@@ -214,27 +278,98 @@ def decode_self_attention(p, cfg: ModelConfig, x, cache_k, cache_v, position,
     of each row's new token. ``active`` ([b] bool, optional) suppresses the
     cache write of inactive rows. Returns (out, cache_k, cache_v).
     """
-    if not window:
-        _check_decode(cfg)
     b = x.shape[0]
     S = cache_k.shape[1]
     position = position.to(torch.int32).expand(b)
     q = _project_q(p, cfg, x, position[:, None])
     k_new, v_new = _project_kv(p, cfg, x, position[:, None])
+    write = _write_row_sharded if SH.is_dtensor(cache_k) else _write_row
     if window:
-        _write_row(cache_k, cache_v, k_new, v_new,
-                   torch.remainder(position, S).long(), active)
+        write(cache_k, cache_v, k_new, v_new,
+              torch.remainder(position, S).long(), active)
         o = _ring_attention(cfg, q, cache_k, cache_v, position, window)
         return _out_proj(p, cfg, o, x), cache_k, cache_v
 
-    _write_row(cache_k, cache_v, k_new, v_new,
-               torch.clamp(position, max=S - 1).long(), active)
+    write(cache_k, cache_v, k_new, v_new,
+          torch.clamp(position, max=S - 1).long(), active)
+    if cfg.attn_logits_softcap:      # the kernels take no softcap
+        o = _linear_attention(cfg, q, cache_k, cache_v, position)
+        return _out_proj(p, cfg, o, x), cache_k, cache_v
     # clamp at the buffer: past position S-1 the linear cache holds exactly
     # S valid rows
     lengths = torch.clamp(position + 1, max=S).to(torch.int32)
-    o = decode_attention(q[:, 0], cache_k.transpose(1, 2),
-                         cache_v.transpose(1, 2), lengths)
+    if SH.is_dtensor(cache_k) and any(pl.is_shard(1)
+                                      for pl in cache_k.placements):
+        o = seq_sharded_decode(q[:, 0], cache_k, cache_v, lengths)
+    else:
+        o = decode_attention(q[:, 0], cache_k.transpose(1, 2),
+                             cache_v.transpose(1, 2), lengths)
     return _out_proj(p, cfg, o[:, None], x), cache_k, cache_v
+
+
+def _write_row_sharded(cache_k, cache_v, k_new, v_new, slot, active):
+    """``_write_row`` on a DTensor cache [b, S, kh, hd], rank by rank on
+    the local shards: each rank writes the new rows of its own batch rows
+    (and KV heads) whose slot falls in its own rows of S; the others keep
+    their bits. The new K/V take the cache's layout first (S whole)."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = cache_k.device_mesh
+    pls = tuple(cache_k.placements)
+    row_pl = tuple(Replicate() if p.is_shard(1) else p for p in pls)
+    b_pl = tuple(Shard(0) if p.is_shard(0) else Replicate() for p in pls)
+    kn = SH.redistribute(k_new, mesh, row_pl).to_local()
+    vn = SH.redistribute(v_new, mesh, row_pl).to_local()
+    sl = SH.redistribute(slot, mesh, b_pl).to_local()
+    act = None if active is None else \
+        SH.redistribute(active, mesh, b_pl).to_local()
+    ck, cv = cache_k.to_local(), cache_v.to_local()
+    s0, S_l = SH.shard_span(mesh, pls, 1, cache_k.shape[1])
+    own = (sl >= s0) & (sl < s0 + S_l)
+    _write_row(ck, cv, kn, vn, torch.clamp(sl - s0, 0, S_l - 1),
+               own if act is None else own & act)
+
+
+def seq_sharded_decode(q, cache_k, cache_v, lengths):
+    """Decode attention over a cache split on S (the planner's layout when
+    the KV heads do not divide the model axis): each rank runs the decode
+    kernel over its own rows of S, with ``return_lse``, and the ranks
+    merge their partial (o, lse) with a max and a sum all-reduce over the
+    mesh dims that split S (the distributed softmax GSPMD forms in the
+    reference). A rank holding no valid row of a batch row gives lse -inf
+    and weight 0, never NaN. q [b, hq, hd]; cache_k/v [b, S, kh, hd]
+    DTensors; lengths [b] int32 -> [b, hq, hd] in q's dtype."""
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = cache_k.device_mesh
+    pls = list(cache_k.placements)
+    q_pl = [Shard(0) if p.is_shard(0) else Replicate() for p in pls]
+    q = SH.redistribute(q, mesh, q_pl)
+    lengths = SH.redistribute(lengths, mesh, q_pl)
+    s0, S_l = SH.shard_span(mesh, pls, 1, cache_k.shape[1])
+    groups = [mesh.get_group(i) for i, p in enumerate(pls) if p.is_shard(1)]
+
+    def local(ql, ck, cv, ll):
+        ll = torch.clamp(ll - s0, 0, S_l).to(torch.int32)
+        o, lse = decode_attention(ql, ck.transpose(1, 2), cv.transpose(1, 2),
+                                  ll, return_lse=True)
+        m = lse
+        for grp in groups:
+            m = funcol.all_reduce(m, "max", grp)
+        live = lse > -math.inf
+        w = torch.where(live, torch.exp(lse - torch.where(live, m, 0.0)),
+                        torch.zeros_like(lse))
+        num = torch.where(live[..., None], o.float() * w[..., None],
+                          torch.zeros_like(o, dtype=torch.float32))
+        for grp in groups:
+            num = funcol.all_reduce(num, "sum", grp)
+            w = funcol.all_reduce(w, "sum", grp)
+        den = torch.where(w > 0, w, torch.ones_like(w))
+        return (num / den[..., None]).to(ql.dtype)
+
+    return local_map(local, out_placements=q_pl,
+                     in_placements=(q_pl, pls, pls, q_pl),
+                     device_mesh=mesh)(q, cache_k, cache_v, lengths)
 
 
 def paged_decode_self_attention(p, cfg: ModelConfig, x, k_pages, v_pages,
@@ -250,7 +385,6 @@ def paged_decode_self_attention(p, cfg: ModelConfig, x, k_pages, v_pages,
     arithmetic in the same row order, so dense and paged engines stay
     token-identical.
     """
-    _check_decode(cfg)
     b = x.shape[0]
     page = k_pages.shape[1]
     S = block.shape[1] * page
@@ -266,6 +400,13 @@ def paged_decode_self_attention(p, cfg: ModelConfig, x, k_pages, v_pages,
     k_pages[pid, off] = k_new[:, 0].to(k_pages.dtype)
     v_pages[pid, off] = v_new[:, 0].to(v_pages.dtype)
 
+    if cfg.attn_logits_softcap:      # the kernels take no softcap
+        kh, hd = cfg.num_kv_heads, cfg.head_dim
+        tbl = block.long()
+        k = k_pages[tbl].reshape(b, S, kh, hd)
+        v = v_pages[tbl].reshape(b, S, kh, hd)
+        o = _linear_attention(cfg, q, k, v, position)
+        return _out_proj(p, cfg, o, x), k_pages, v_pages
     lengths = torch.clamp(position + 1, max=S).to(torch.int32)
     o = paged_decode_attention(q[:, 0], k_pages, v_pages, lengths, block)
     return _out_proj(p, cfg, o[:, None], x), k_pages, v_pages

@@ -92,6 +92,34 @@ def stacked_init(shape, dtype, device, draw, int8: bool):
     return w
 
 
+def abstract_quantize_tree(params):
+    """``quantize_tree``'s result on the ``meta`` device, shapes and
+    dtypes only, by the reference's ``abstract_quantize_tree`` rule (bf16
+    or f32 matrices of at least 4096 elements outside ``EXCLUDE``): each
+    becomes {"q": int8 of its shape, "s": f32 with the contracting (-2)
+    dim 1}."""
+
+    def walk(tree, name):
+        if isinstance(tree, dict):
+            return {k: walk(v, k) for k, v in tree.items()}
+        if isinstance(tree, (tuple, list)):
+            return type(tree)(walk(t, str(i)) for i, t in enumerate(tree))
+        n = 1
+        for d in tree.shape:
+            n *= int(d)
+        if (name not in EXCLUDE and tree.dim() >= 2 and n >= (1 << 12)
+                and tree.dtype in (torch.bfloat16, torch.float32)):
+            sshape = tuple(1 if i == tree.dim() - 2 else d
+                           for i, d in enumerate(tree.shape))
+            return {"q": torch.empty(tree.shape, dtype=torch.int8,
+                                     device="meta"),
+                    "s": torch.empty(sshape, dtype=torch.float32,
+                                     device="meta")}
+        return tree.to("meta")
+
+    return walk(params, "")
+
+
 def is_quantized(p) -> bool:
     return isinstance(p, dict) and set(p.keys()) == {"q", "s"}
 

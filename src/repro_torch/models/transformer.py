@@ -68,6 +68,8 @@ from repro_torch.models import moe as MOE
 from repro_torch.models import quant as Q
 from repro_torch.models import rglru as RG
 from repro_torch.models import ssd as SSD
+from repro_torch.kernels import sharded as SH
+from repro_torch.sharding.ctx import constrain
 
 
 def layer_params(tree, i: int):
@@ -112,6 +114,38 @@ def _ring_buffer(x, S: int, length: Optional[int]):
     return buf[:, :S]           # takes any of the others
 
 
+def _kv_buffer(cfg: ModelConfig, shape, x):
+    """A zeroed stacked K or V buffer [L, b, S, kh, hd] in x's dtype: on
+    x's device or, for a DTensor x, a DTensor on x's mesh laid out by the
+    planner's cache rule (batch over the data axes, KV heads or else S
+    over the model axis), as the reference's prefill hands its cache out
+    (its dry run's out_shardings)."""
+    if not SH.is_dtensor(x):
+        return torch.zeros(shape, dtype=x.dtype, device=x.device)
+    from repro_torch.sharding.planner import cache_plan, zeros
+    mesh = x.device_mesh
+    spec = cache_plan(cfg, {"layers": {"k": torch.empty(shape,
+                                                        device="meta")}},
+                      mesh, shape[1], [])["layers"]["k"]
+    return zeros(shape, x.dtype, spec, mesh)
+
+
+def _fill_layer(buf, i: int, k, n: int) -> None:
+    """``buf[i, :, :n] = k[:, :n]`` on a DTensor buffer [L, b, S, kh, hd],
+    shard by shard: k's first n rows, padded with zeros to S, take the
+    layer's layout and every rank copies its own part."""
+    S = buf.shape[2]
+    rows = k[:, :n]
+    if n < S:
+        rows = torch.cat([rows, rows.new_zeros((rows.shape[0], S - n)
+                                               + tuple(rows.shape[2:]))],
+                         dim=1)
+    layer = [type(p)(p.dim - 1) if p.is_shard() else p
+             for p in buf.placements]
+    rows = SH.redistribute(rows, buf.device_mesh, layer)
+    buf.to_local()[i].copy_(rows.to_local())
+
+
 def _mask_positions(positions):
     """The [s] int32 positions the attention mask reads: stream 0 of row 0
     of RoPE positions [s], [b, s] or M-RoPE's [3, b, s], as the
@@ -133,7 +167,10 @@ def _attn_half(p, cfg: ModelConfig, x, positions, memory=None,
     q = A._project_q(p["attn"], cfg, h, positions)
     mpos = _mask_positions(positions)
     o = A.full_attention(q, k, v, mpos, mpos, cfg, causal=causal)
-    x = x + A._out_proj(p["attn"], cfg, o, x)
+    # on DTensors the projection is a partial sum over the model axis;
+    # pin the residual's layout, or DTensor settles the sum by splitting
+    # the sequence over that axis for the rest of the block
+    x = constrain(x + A._out_proj(p["attn"], cfg, o, x), "dp", None, None)
     if memory is not None:
         hx = L.rmsnorm_apply(p["norm_x"], x, cfg.norm_eps)
         x = x + A.cross_attention(p["xattn"], cfg, hx, memory, mem_positions)
@@ -149,6 +186,7 @@ def _attn_prefill(p, cfg: ModelConfig, x, positions, memory=None,
     query (causality); decode masks a linear buffer's tail by position and
     a ring is built from the real positions only, so the cache equals the
     exact-length cache where it is ever read."""
+    x = constrain(x, "dp", None, None)
     x, k, v = _attn_half(p, cfg, x, positions, memory, mem_positions)
     return x + _ffn(p, cfg, x), k, v
 
@@ -159,16 +197,19 @@ def _block_seq(p, cfg: ModelConfig, kind: str, x, positions, memory=None,
     (x, aux), aux the MoE layer's load-balancing loss (zero for the other
     kinds)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    x = constrain(x, "dp", None, None)
     if kind in ("ssm", "rec"):
         h = L.rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
         if kind == "ssm":
-            return x + SSD.ssd_apply(p["ssd"], cfg, h)[0], aux
+            return constrain(x + SSD.ssd_apply(p["ssd"], cfg, h)[0], "dp",
+                             None, None), aux
         x = x + RG.rglru_block_apply(p["rec"], cfg, h)
     else:
         x, _, _ = _attn_half(p, cfg, x, positions, memory, mem_positions,
                              causal)
     y, moe_aux = _ffn_aux(p, cfg, x)
-    return x + y, aux if moe_aux is None else moe_aux
+    return constrain(x + y, "dp", None, None), \
+        aux if moe_aux is None else moe_aux
 
 
 def _dots(ctx, op, *args, **kwargs):
@@ -230,6 +271,7 @@ def _attn_decode(p, cfg: ModelConfig, x, k_layer, v_layer, position,
     paged pool; ``cross`` (encdec) is the layer's cached encoder K/V
     ``(cross_k, cross_v)`` [b, src, kh, hd], attended after the self
     attention and never written."""
+    x = constrain(x, "dp", None, None)
     h = L.rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
     if block is not None:
         y, _, _ = A.paged_decode_self_attention(
@@ -425,10 +467,21 @@ class LM:
         return self.init(0, device="meta")
 
     # -- heads ----------------------------------------------------------
-    def _logits(self, params, h):
+    def _head(self, params, h):
+        """The LM head [d, V'] in h's dtype, ready for h (``L.gathered``)."""
+        head = params["embed"].T if self.cfg.tie_embeddings \
+            else params["lm_head"]
+        return L.gathered(head.to(h.dtype), h)
+
+    def _logits(self, params, h, head=None):
+        """Logits [..., V'] f32 of the final hidden states ``h``; ``head``
+        the LM head from ``_head`` (made here if None)."""
         cfg = self.cfg
-        head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-        logits = torch.matmul(h, head.to(h.dtype)).float()
+        if head is None:
+            head = self._head(params, h)
+        logits = torch.matmul(h, head).float()
+        logits = constrain(logits, *(["dp"] + [None] * (logits.dim() - 2)
+                                     + ["model"]))
         if cfg.padded_vocab != cfg.vocab_size:   # mask the padding tail
             pad = torch.arange(cfg.padded_vocab, device=h.device) \
                 >= cfg.vocab_size
@@ -441,11 +494,14 @@ class LM:
         ``batch["vision_embeds"]`` [b, nv, d] (in the working dtype)
         through ``vision_adapter`` with f32 accumulation, cast back, over
         the first nv token slots."""
-        x = params["embed"][batch["tokens"].long()]
+        x = L.embedding(params["embed"], batch["tokens"].long())
+        x = constrain(x, "dp", None, None)
         if self.cfg.frontend == "vision" and "vision_embeds" in batch:
             ve = batch["vision_embeds"].to(x.dtype).float()
-            w = Q.as_weight(params["vision_adapter"]).float()
-            x[:, :ve.shape[1]] = torch.matmul(ve, w).to(x.dtype)
+            w = L.gathered(Q.as_weight(params["vision_adapter"]).float(), ve)
+            # out of place: x may be a view a sharding constraint made
+            x = torch.cat([torch.matmul(ve, w).to(x.dtype),
+                           x[:, ve.shape[1]:]], dim=1)
         return x
 
     def _positions(self, batch, s: int, device):
@@ -543,12 +599,13 @@ class LM:
         if s % cs:
             cs = next(c for c in range(cs, 0, -1) if s % c == 0)
 
-        def chunk_ce(hc, lc):
-            logits = self._logits(params, hc)          # [b, cs, V'] f32
+        head = self._head(params, h)     # gathered once for every chunk
+
+        def chunk_ce(hc, lc, head):
+            logits = self._logits(params, hc, head)    # [b, cs, V'] f32
             mask = (lc >= 0).float()
-            gold = torch.gather(logits, -1, torch.clamp(lc, min=0).long()
-                                [..., None])[..., 0]
-            nll = (torch.logsumexp(logits, dim=-1) - gold) * mask
+            lse, gold = L.logsumexp_gold(logits, torch.clamp(lc, min=0))
+            nll = (lse - gold) * mask
             return nll.sum(), mask.sum()
 
         if cfg.remat != "none" and s > cs and torch.is_grad_enabled():
@@ -558,7 +615,7 @@ class LM:
             ce_fn = chunk_ce
         tot = ntok = torch.zeros((), dtype=torch.float32, device=h.device)
         for j in range(0, s, cs):
-            tt, nn = ce_fn(h[:, j:j + cs], labels[:, j:j + cs])
+            tt, nn = ce_fn(h[:, j:j + cs], labels[:, j:j + cs], head)
             tot, ntok = tot + tt, ntok + nn
         ntok = torch.clamp(ntok, min=1.0)
         ce = tot / ntok
@@ -616,8 +673,7 @@ class LM:
                 cache_layers["ssm"][i] = ssm
         else:
             shape = (cfg.num_layers, b, S, cfg.num_kv_heads, cfg.head_dim)
-            ck = torch.zeros(shape, dtype=x.dtype, device=x.device)
-            cv = torch.zeros(shape, dtype=x.dtype, device=x.device)
+            ck, cv = _kv_buffer(cfg, shape, x), _kv_buffer(cfg, shape, x)
             n = min(s, S)
             ring = functools.partial(_ring_buffer, S=S, length=length)
             memory = mem_pos = None
@@ -634,6 +690,9 @@ class LM:
                 x, k, v = _attn_prefill(lp, cfg, x, pos, memory, mem_pos)
                 if cfg.sliding_window:
                     ck[i], cv[i] = ring(k), ring(v)
+                elif SH.is_dtensor(ck):
+                    _fill_layer(ck, i, k, n)
+                    _fill_layer(cv, i, v, n)
                 else:
                     ck[i, :, :n] = k[:, :n]
                     cv[i, :, :n] = v[:, :n]
@@ -670,7 +729,7 @@ class LM:
         cfg = self.cfg
         position = cache["pos"]
         block = cache.get("block")
-        x = params["embed"][tokens.long()]
+        x = L.embedding(params["embed"], tokens.long())
         if cfg.family == "hybrid":
             for lp, cl, kind in zip(params["layers"], cache["layers"],
                                     cfg._pattern()):

@@ -12,8 +12,12 @@ compression with error feedback runs before AdamW
 The step updates the state's tensors in place (params, m, v, and ef when
 compressing) and returns a state holding them: one copy of the f32 state
 on the card, where the reference's jitted step donates its input state.
-``abstract_train_state`` and ``train_state_specs`` (the sharding plan) wait
-for the port's distribution (ROADMAP.md queue 1 item 5).
+``abstract_train_state`` gives the state on the ``meta`` device (shapes
+and dtypes for the planner and the dry run) and ``train_state_specs`` its
+per-leaf specs from a sharding plan. On a state of DTensors laid out by
+those specs the step runs unchanged: the model's DTensor ops, AdamW's
+in-place updates on each rank's shards, and the gradients' reduction to
+their masters' layout (``_grad_like_param``).
 """
 
 from __future__ import annotations
@@ -24,6 +28,8 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.bridge import leaves, tree_map
+from repro_torch.kernels.sharded import (contiguous_stride, is_dtensor,
+                                         redistribute)
 from repro_torch.models.transformer import LM
 from repro_torch.training import compression as comp
 from repro_torch.training.optimizer import (AdamWHyper, adamw_init,
@@ -55,6 +61,51 @@ def init_train_state(lm: LM, seed: int = 0, *, compress: bool = False,
     return TrainState(params=params, opt=adamw_init(params), ef=ef)
 
 
+def _grad_like_param(p):
+    """``p.grad`` (zeros if none) in ``p``'s own layout: on a DTensor
+    master this is the data-parallel reduction (a replicated leaf's
+    gradient arrives as partial sums over the ranks that used it)."""
+    g = p.grad if p.grad is not None else torch.zeros_like(p)
+    if is_dtensor(g):
+        g = redistribute(g, p.device_mesh, p.placements)
+    return g
+
+
+def _microbatch(v, i: int, n: int):
+    """Microbatch ``i`` of ``n`` of a [b, ...] batch tensor: rows
+    ``[i b/n, (i+1) b/n)``; of a DTensor split over its batch, those rows
+    of every rank's own rows, so no rank takes another's (every row still
+    falls in exactly one microbatch; on one rank the two agree)."""
+    if is_dtensor(v) and any(p.is_shard(0) for p in v.placements):
+        from torch.distributed.tensor import DTensor
+        local = v.to_local()
+        m = local.shape[0] // n
+        shape = (v.shape[0] // n,) + tuple(v.shape[1:])
+        return DTensor.from_local(local[i * m:(i + 1) * m], v.device_mesh,
+                                  v.placements, run_check=False, shape=shape,
+                                  stride=contiguous_stride(shape))
+    m = v.shape[0] // n
+    return v[i * m:(i + 1) * m]
+
+
+def abstract_train_state(lm: LM, *, compress: bool = False) -> TrainState:
+    """The train state on the ``meta`` device: its shapes and dtypes,
+    no storage (the reference's ``jax.eval_shape`` of the init)."""
+    return init_train_state(lm, 0, compress=compress, device="meta")
+
+
+def train_state_specs(plan, state: TrainState) -> TrainState:
+    """Specs for the whole train state from the plan's param specs: the
+    moments and the error-feedback residual are laid out as their params,
+    the step is replicated."""
+    from repro_torch.sharding.planner import Spec
+    pspec = plan.param_specs
+    return TrainState(
+        params=pspec,
+        opt={"m": pspec, "v": pspec, "step": Spec()},
+        ef=pspec if state.ef is not None else None)
+
+
 def accumulate_grads(lm: LM, params, batch, compute_dtype=torch.bfloat16):
     """One (micro)batch's loss and backward with the matrices cast to
     ``compute_dtype``: the f32 gradients add into the masters' ``.grad``
@@ -77,17 +128,15 @@ def make_train_step(lm: LM, *, hyper: AdamWHyper = AdamWHyper(),
         for p in masters:
             p.requires_grad_(True)
             p.grad = None
-        b = batch["tokens"].shape[0]
-        mb = b // microbatches
         loss = torch.zeros((), dtype=torch.float32,
                            device=masters[0].device)
         for i in range(microbatches):
-            part = {k: v[i * mb:(i + 1) * mb] if v.dim() and k != "positions"
-                    else v for k, v in batch.items()}
+            part = {k: _microbatch(v, i, microbatches)
+                    if v.dim() and k != "positions" else v
+                    for k, v in batch.items()}
             loss = loss + accumulate_grads(lm, params, part,
                                            compute_dtype)[0]
-        grads = tree_map(lambda p: p.grad if p.grad is not None
-                         else torch.zeros_like(p), params)
+        grads = tree_map(_grad_like_param, params)
         for p in masters:
             p.requires_grad_(False)
             p.grad = None

@@ -57,7 +57,10 @@ PORTED = ("adapters/runtime.py", "models/moe.py", "models/transformer.py",
           "models/frontends.py", "models/quant.py",
           "training/optimizer.py", "training/compression.py",
           "training/checkpoint.py", "training/train_step.py",
-          "launch/train.py")
+          "launch/train.py", "sharding/__init__.py", "sharding/ctx.py",
+          "sharding/specs.py", "sharding/planner.py", "sharding/pipeline.py",
+          "launch/mesh.py", "launch/dryrun.py", "launch/step_analysis.py",
+          "kernels/sharded.py")
 
 
 def _sources():

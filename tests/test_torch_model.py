@@ -217,17 +217,31 @@ class TestAttention:
                                    atol=1e-5, rtol=1e-5)
 
     def test_window_and_cross_attention_are_not_ported_yet(self):
-        """Softcapped logits on the linear-buffer decode kernels still
-        raise, naming the ROADMAP. Sliding-window decode and cross attention
-        are ported since: held against the reference in
+        """Softcapped logits, which the decode kernels do not take, decode
+        on the plain path as the reference's dispatch routes them (its
+        attention.py:385): equal to the reference's decode within 1e-5
+        (held in full in test_torch_sharding.py). Sliding-window decode and
+        cross attention are ported too: held against the reference in
         test_torch_recurrent.py and test_torch_encdec.py; here cross
         attention only runs."""
-        _, tcfg = configs()
+        jcfg, tcfg = configs()
+        jcap = dataclasses.replace(jcfg, attn_logits_softcap=5.0)
+        capped = dataclasses.replace(tcfg, attn_logits_softcap=5.0)
+        jp, tp = weights(jcfg, tcfg)
+        x = _rand((2, 1, tcfg.d_model), 3)
+        ck, cv = (_rand((2, 12, tcfg.num_kv_heads, tcfg.head_dim), s)
+                  for s in (4, 5))
+        pos = np.array([3, 9], np.int32)
+        ref, _, _ = JA.decode_self_attention(
+            jax.tree.map(lambda a: a[0], jp["layers"])["attn"], jcap,
+            jnp.asarray(x), jnp.asarray(ck), jnp.asarray(cv),
+            jnp.asarray(pos))
+        out, _, _ = A.decode_self_attention(
+            layer_params(tp["layers"], 0)["attn"], capped, _t(x), _t(ck),
+            _t(cv), _t(pos))
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5,
+                                   rtol=1e-5)
         x = torch.zeros((1, 1, tcfg.d_model))
-        capped = dataclasses.replace(tcfg, attn_logits_softcap=30.0)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            A.decode_self_attention({}, capped, x, None, None,
-                                    torch.zeros(1, dtype=torch.int32))
         _, params = weights(*configs())
         p = layer_params(params["layers"], 0)["attn"]
         mem = torch.ones((1, 5, tcfg.d_model))
