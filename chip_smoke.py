@@ -5,8 +5,9 @@
     python3 chip_smoke.py --quick    # build, kernel checks, small models
 
 Run from the repository root. It builds the port's CUDA kernels from the
-sources in the checkout and drives the port's fourteen main paths at full
-width (random weights from a seed):
+sources in the checkout and drives the port's eighteen main paths at full
+width (random weights from a seed), printing each phase's seconds on a
+``[time]`` line:
 
 * minitron-8b (dense GQA: 32 layers, d_model 4096, 32 query heads over 8
   KV heads, head_dim 128, vocab 256000; bf16);
@@ -16,8 +17,9 @@ width (random weights from a seed):
   params) at full width and depth;
 * mixtral-8x7b (MoE with a sliding window: 32 layers, d_model 4096, 32
   query heads over 8 KV heads of 128, window 4096, 8 experts top-2, expert
-  d_ff 14336, vocab 32000; 46.7 B params) at full width and depth with
-  int8 weights (47.0 GB), drawn on the card by ``LM.init`` at
+  d_ff 14336, vocab 32000; 46.7 B params) at full width and 16 of its 32
+  layers (``MIXTRAL_LAYERS``: the script's time limit) with int8 weights
+  (47.0 GB at full depth), drawn on the card by ``LM.init`` at
   ``serve_weight_dtype="int8"``;
 * qwen2-vl-72b (dense GQA with M-RoPE and the vision frontend stub: 80
   layers, d_model 8192, 64 query heads over 8 KV heads of 128, d_ff
@@ -53,10 +55,11 @@ width (random weights from a seed):
   ``ssd_chunk`` and its three backward kernels ``ssd_chunk_bwd``;
 * the distribution layer (``repro_torch.sharding``, DTensor on a torch
   ``DeviceMesh``) on a 1x1 mesh of a one-rank NCCL group: minitron-8b's
-  4-layer train step with its state laid out by the sharding plan, and
-  minitron-8b's 32-layer prefill and decode with the params and the
-  cache laid out by the decode plan, each against the same step on plain
-  tensors.
+  and qwen3-moe-30b-a3b's 4-layer train steps with their states laid out
+  by the sharding plan, minitron-8b's 32-layer, qwen3-moe-30b-a3b's
+  4-layer and int8 mixtral-8x7b's 4-layer prefill and decode with the
+  params and the cache laid out by the decode plan, each against the same
+  path on plain tensors.
 
 Phases:
 
@@ -286,26 +289,37 @@ Phases:
              without its A·rcumsum(dcum) term); each path prints its
              seconds;
    distributed — the distribution layer (started right after the build:
-             two dry-run cells, minitron-8b train_4k and phi3-medium-14b
-             prefill_32k at full scale on the 16x16 production mesh, each
+             four dry-run cells, minitron-8b train_4k, phi3-medium-14b
+             prefill_32k, qwen3-moe-30b-a3b train_4k and mixtral-8x7b
+             decode_32k at full scale on the 16x16 production mesh, each
              a subprocess of its own with a fake world of 256 ranks under
              ``FakeTensorMode``, no card: each must be ``ok`` with a
              per-device peak under the card's total_memory, and prints
              its record, estimates from the H100 data sheet's constants);
              a one-rank NCCL group and a 1x1 ``DeviceMesh``: minitron-8b's
-             4-layer train step (seq 4096, 2 microbatches, full remat)
-             with its state laid out by ``make_plan`` and
-             ``train_state_specs``, against the plain step from the same
-             seed (loss, grad norm and every updated leaf bit for bit, or
-             within 1e-3 of the leaf's norm where DTensor's ops differ;
-             the flash launches equal), then both steps 5 times in turns
-             on the same tensors (median ms, DTensor's host overhead);
-             minitron-8b at 32 layers through the decode plan: 2 prompts
-             of 512 tokens, a prefill and 8 greedy decode steps whose
-             tokens equal the plain path's (flash 32 a prefill, decode
-             attention 32 a step); decode_attention's lse output is
-             checked with the kernels (phase 2: minitron's and
-             qwen2-vl's decode shapes, lengths 0, one shard of S, S);
+             and qwen3-moe-30b-a3b's 4-layer train steps (seq 4096, 2
+             microbatches, full remat) with their states laid out by
+             ``make_plan`` and ``train_state_specs``, each against the
+             plain step from the same seed (loss, grad norm and every
+             updated leaf bit for bit, or within 1e-3 of the leaf's norm
+             where DTensor's ops differ; the launches of every kernel
+             equal, the expert kernels and K1-K3 too), then both steps 5
+             times in turns on the same tensors (median ms, DTensor's
+             host overhead); through the decode plan, 2 prompts, a
+             prefill and 8 greedy decode steps whose tokens equal the
+             plain path's: minitron-8b at 32 layers (prompts of 512;
+             flash 32 a prefill, decode attention 32 a step),
+             qwen3-moe-30b-a3b at 4 layers (prompts of 512; its MoE
+             layers through one ``local_map`` region each) and
+             mixtral-8x7b on int8 weights at 4 layers (prompts of 4500
+             past its 4096-token window: banded prefill, the ring filled
+             and read rank by rank, no attention kernel);
+             decode_attention's lse output is checked with the kernels
+             (phase 2: minitron's and qwen2-vl's decode shapes, lengths
+             0, one shard of S, S), and so are the expert kernels at the
+             local shapes of a 16-way model axis (phase 2: qwen3-moe's 8
+             experts a rank and mixtral's 896 f columns, against the
+             whole launch);
 5. reference — small models in f32 on the card against the same models on
              the CPU through the plain versions: edge-tiny (dense and
              paged), edge-tiny with adapters (grouped route on the card,
@@ -333,8 +347,8 @@ the decode kernels 80 per qwen2-vl-72b step of their layout; on the split
 path 32 per minitron-8b prefill, rglru_scan 18 per recurrentgemma-2b
 prefill, the decode kernels 32 per dense or paged minitron-8b step; on
 the training paths flash_attention 16 and flash_attention_bwd 8 a step
-(on the 1x1 DTensor step too; its serving path flash_attention 32 and
-decode_attention 256),
+(on the 1x1 DTensor steps too; minitron-8b's DTensor serving path
+flash_attention 32 and decode_attention 256),
 and on qwen3-moe's moe_gemm and moe_ffn_fused 32, moe_ffn_fused_bwd 16,
 moe_gemm_dx and moe_gemm_dw 32 a step; on recurrentgemma-2b's rglru_scan
 72 and rglru_scan_bwd 36, on mamba2-1.3b's ssd_chunk 272 and
@@ -1734,6 +1748,165 @@ def phase_int8_kernels(mx_cfg):
     del wg, wu, wd, deq, wcat, qcat
     torch.cuda.empty_cache()
     return rows
+
+
+MODEL_AXIS = 16                 # the production mesh's model axis
+
+
+def phase_split_kernels(moe_cfg, mx_cfg):
+    """The expert kernels at the local shapes a 16-way model axis gives
+    the MoE layer under a mesh (``models.moe``, ``kernels.sharded.
+    expert_layout``), against the whole launch:
+
+    * qwen3-moe's expert parallelism: 8 of its 128 experts a rank (D 2048,
+      F 768, bf16, C 16 and 160): ``moe_ffn_fused`` and ``moe_gemm`` on
+      the rank's 8 experts, and K1, K2 and K3 on them, equal bit for bit
+      to those experts' rows of the whole launch;
+    * mixtral's expert-TP fallback (8 experts on 16 ranks): the rank's
+      F / 16 = 896 columns of w_gate and w_up (D 4096, C 8 and 640, bf16
+      and int8): the fused gate/up columns equal bit for bit to the whole
+      launch's; w_down's 896 rows' partial product held to its plain
+      version (ATOL); the sum of the 16 partials to the whole product
+      within ATOL of its largest magnitude; K1 at F 896 (bf16: its NR
+      tile is 160, 896 = 5 x 160 + 96) against the whole K1's columns
+      (bits printed) and its plain version (BWD_ROW of each row's
+      norm)."""
+    import torch
+    from repro_torch.kernels.moe_gemm import moe_gemm as MG
+    from repro_torch.models.quant import quantize_weight
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1618)
+    bf16 = torch.bfloat16
+
+    def randn(shape, scale=1.0, dtype=bf16):
+        return (torch.randn(shape, generator=gen, device=dev)
+                * scale).to(dtype)
+
+    def same(what, got, want):
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            n = int((got != want).sum())
+            fail(f"[kernels] split shapes, {what}: {n} of {want.numel()} "
+                 f"elements differ from the whole launch's")
+
+    # qwen3-moe: experts [e0, e0 + 8) of 128 on model rank 5
+    E, D, Fd = moe_cfg.num_experts, moe_cfg.d_model, moe_cfg.moe_d_ff
+    El = E // MODEL_AXIS
+    e0 = 5 * El
+    ex = slice(e0, e0 + El)
+    wg, wu = randn((E, D, Fd), D ** -0.5), randn((E, D, Fd), D ** -0.5)
+    wd = randn((E, Fd, D), Fd ** -0.5)
+    lw = [t[ex].clone() for t in (wg, wu, wd)]
+    for C in (16, 160):
+        x, a = randn((E, C, D)), randn((E, C, Fd))
+        dout, dy = randn((E, C, Fd)), randn((E, C, D))
+        xl, al, dl, dyl = (t[ex].clone() for t in (x, a, dout, dy))
+        same(f"qwen3-moe EP moe_ffn_fused C {C}",
+             MG.moe_ffn_fused(xl, lw[0], lw[1]),
+             MG.moe_ffn_fused(x, wg, wu)[ex])
+        same(f"qwen3-moe EP moe_gemm C {C}", MG.moe_gemm(al, lw[2]),
+             MG.moe_gemm(a, wd)[ex])
+        dg, du = MG.moe_ffn_fused_bwd(x, wg, wu, dout)
+        dgl, dul = MG.moe_ffn_fused_bwd(xl, lw[0], lw[1], dl)
+        same(f"qwen3-moe EP K1 dg C {C}", dgl, dg[ex])
+        same(f"qwen3-moe EP K1 du C {C}", dul, du[ex])
+        same(f"qwen3-moe EP K2 C {C}",
+             MG.moe_gemm_dx((dgl, dul), (lw[0], lw[1])),
+             MG.moe_gemm_dx((dg, du), (wg, wu))[ex])
+        same(f"qwen3-moe EP K2 w_down C {C}",
+             MG.moe_gemm_dx((dyl,), (lw[2],)),
+             MG.moe_gemm_dx((dy,), (wd,))[ex])
+        for got, want in zip(MG.moe_gemm_dw(xl, (dgl, dul)),
+                             MG.moe_gemm_dw(x, (dg, du))):
+            same(f"qwen3-moe EP K3 C {C}", got, want[ex])
+    log(f"[kernels] split shapes, qwen3-moe expert parallel (experts "
+        f"{e0}-{e0 + El - 1} of {E} on model rank 5 of {MODEL_AXIS}; D {D} "
+        f"F {Fd} bf16, C 16 and 160): moe_ffn_fused, moe_gemm, K1 "
+        f"moe_ffn_fused_bwd, K2 moe_gemm_dx (both pairs; w_down's pair), "
+        f"K3 moe_gemm_dw on the rank's experts bit for bit those experts' "
+        f"rows of the whole launch")
+    del wg, wu, wd, lw
+
+    # mixtral: f columns [f0, f0 + 896) of 14336 on model rank 3
+    E, D, Fd = mx_cfg.num_experts, mx_cfg.d_model, mx_cfg.moe_d_ff
+    Fl = Fd // MODEL_AXIS
+    f0 = 3 * Fl
+    fs = slice(f0, f0 + Fl)
+    wg, wu = randn((E, D, Fd), D ** -0.5), randn((E, D, Fd), D ** -0.5)
+    wd = randn((E, Fd, D), Fd ** -0.5)
+    q8 = {k: quantize_weight(w) for k, w in (("g", wg), ("u", wu),
+                                             ("d", wd))}
+
+    def cols(w):                 # a [E, d, f] weight's rank columns
+        if isinstance(w, dict):
+            return {"q": w["q"][:, :, fs].contiguous(),
+                    "s": w["s"][:, :, fs].contiguous()}
+        return w[:, :, fs].contiguous()
+
+    def rows(w):                 # w_down [E, f, d]: the rank's f rows
+        if isinstance(w, dict):
+            return {"q": w["q"][:, fs].contiguous(), "s": w["s"]}
+        return w[:, fs].contiguous()
+
+    parts = {}
+    for C in (8, 640):
+        x = randn((E, C, D))
+        for kind, g, u, d in (("bf16", wg, wu, wd),
+                              ("int8", q8["g"], q8["u"], q8["d"])):
+            whole = MG.moe_ffn_fused(x, g, u)
+            local = MG.moe_ffn_fused(x, cols(g), cols(u))
+            same(f"mixtral expert-TP moe_ffn_fused {kind} C {C}", local,
+                 whole[:, :, fs])
+            part = MG.moe_gemm(local, rows(d))
+            ref = MG.moe_gemm_ref(local.float(),
+                                  MG._plain(rows(d)).float())
+            err = float((part.float() - ref).abs().max())
+            if err > ATOL + ATOL * float(ref.abs().max()):
+                fail(f"[kernels] mixtral w_down partial {kind} C {C}: "
+                     f"{err:.3e} from its plain version")
+            total = torch.zeros((E, C, D), device=dev)
+            for r in range(MODEL_AXIS):
+                sl = slice(r * Fl, (r + 1) * Fl)
+                rd = {"q": d["q"][:, sl].contiguous(), "s": d["s"]} \
+                    if kind == "int8" else d[:, sl].contiguous()
+                total += MG.moe_gemm(whole[:, :, sl].contiguous(),
+                                     rd).float()
+            full = MG.moe_gemm(whole, d).float()
+            rel = float((total - full).abs().max()
+                        / full.abs().max().clamp(min=1e-30))
+            if rel > ATOL:
+                fail(f"[kernels] mixtral sum of {MODEL_AXIS} w_down "
+                     f"partials {kind} C {C}: {rel:.3e} of the whole "
+                     f"product's largest")
+            parts[(kind, C)] = (err, rel)
+    x = randn((E, 640, D))
+    dout = randn((E, 640, Fd))
+    dg, du = MG.moe_ffn_fused_bwd(x, wg, wu, dout)
+    dgl, dul = MG.moe_ffn_fused_bwd(x, cols(wg), cols(wu),
+                                    dout[:, :, fs].contiguous())
+    torch.cuda.synchronize()
+    k1_bits = bool(torch.equal(dgl, dg[:, :, fs])
+                   and torch.equal(dul, du[:, :, fs]))
+    wdg, wdu = MG.moe_ffn_fused_bwd_ref(x.float(), cols(wg).float(),
+                                        cols(wu).float(),
+                                        dout[:, :, fs].float())
+    k1_err = max(float(row_err(got, want).max())
+                 for got, want in ((dgl, wdg), (dul, wdu)))
+    if k1_err > BWD_ROW:
+        fail(f"[kernels] mixtral K1 at F {Fl}: {k1_err:.3e} of a row's norm "
+             f"from its plain version")
+    log(f"[kernels] split shapes, mixtral expert-TP (f columns {f0}-"
+        f"{f0 + Fl - 1} of {Fd} on model rank 3 of {MODEL_AXIS}; E {E} D "
+        f"{D}): the fused gate/up columns bit for bit the whole launch's "
+        f"at C 8 and 640, bf16 and int8; w_down's {Fl}-row partial vs its "
+        f"plain version / the sum of {MODEL_AXIS} partials vs the whole "
+        f"product (of its largest): " + ", ".join(
+            f"{k} C {c} {e:.2e} / {r:.2e}" for (k, c), (e, r)
+            in parts.items()) + f" (tolerance {ATOL}); K1 at F {Fl} (NR 160 "
+        f"tiles: 5 whole, one of 96) {'bit for bit' if k1_bits else 'NOT bit for bit'} "
+        f"the whole K1's columns, {k1_err:.2e} of a row's norm from its "
+        f"plain version (tolerance {BWD_ROW})")
 
 
 def ssd_flops(l: int, chunk: int, nh: int, hp: int, g: int, n: int,
@@ -3477,6 +3650,10 @@ def phase_adapters(cfg, params, catalog, sessions) -> dict:
 MIXTRAL_LENS = (1000, 4090, 6000, 2500, 5200, 1800, 3300, 1400)
 MIXTRAL_GEN = 64
 MIXTRAL_MAX_LEN = 8192
+MIXTRAL_LAYERS = 16             # the main path: 16 of its 32 layers (its
+#                                 host-bound decode scales with depth; the
+#                                 script's time limit; all 32 fit one card:
+#                                 56.7 GB peak, PERF.md §5)
 
 
 def mixtral_prompts(cfg):
@@ -4912,8 +5089,14 @@ DIST_MAX_LEN = 1024             # prefill and 8 greedy decode steps
 DIST_STEPS = 8
 LSE_TOL = 1e-5                  # decode_attention's lse vs its plain
 #                                 version, of max(1, |lse|)
+DIST_MOE_LAYERS = 4             # qwen3-moe's and mixtral's DTensor
+#                                 serving paths: 4 of their layers
+MX_DIST_PROMPT = 4500           # mixtral: 2 prompts past its 4096 window,
+MX_DIST_MAX_LEN = 8192          # a ring of 4096 slots a layer
 DRYRUN_CELLS = (("minitron-8b", "train_4k"),
-                ("phi3-medium-14b", "prefill_32k"))
+                ("phi3-medium-14b", "prefill_32k"),
+                ("qwen3-moe-30b-a3b", "train_4k"),
+                ("mixtral-8x7b", "decode_32k"))
 DRYRUN_DIR = ROOT / "artifacts" / "dryrun-chip"
 
 
@@ -5051,13 +5234,12 @@ def init_nccl() -> None:
                             rank=0, world_size=1)
 
 
-def dist_train_plain(cfg, batch):
+def dist_train_plain(cfg, batch, mods):
     """The plain step of ``cfg``'s train state from seed 0 on ``batch``:
     (metrics on the host, the updated params, m and v copied to the host
-    leaf by leaf, flash launches)."""
+    leaf by leaf, the launches of the kernel modules ``mods``)."""
     import torch
     from repro_torch.bridge import leaves
-    from repro_torch.kernels.flash_attention import flash_attention as FA
     from repro_torch.models.transformer import LM
     from repro_torch.training.optimizer import AdamWHyper
     from repro_torch.training.train_step import (init_train_state,
@@ -5066,10 +5248,10 @@ def dist_train_plain(cfg, batch):
     state = init_train_state(lm, 0, device="cuda")
     step = make_train_step(lm, hyper=AdamWHyper(warmup_steps=1, lr=1e-4),
                            microbatches=TRAIN_MICRO)
-    before = launch_counts((FA,))
+    before = launch_counts(mods)
     state, m = step(state, batch)
     torch.cuda.synchronize()
-    launches = {k: n - before[k] for k, n in launch_counts((FA,)).items()}
+    launches = {k: n - before[k] for k, n in launch_counts(mods).items()}
     host = [[t.cpu() for t in leaves(tree)] for tree in
             (state.params, state.opt["m"], state.opt["v"])]
     metrics = {k: float(v) for k, v in m.items()}
@@ -5089,9 +5271,10 @@ def dist_train_sharded(cfg, batch):
     from repro_torch.models.transformer import LM
     from repro_torch.sharding import make_plan
     from repro_torch.sharding.ctx import use_mesh
-    from repro_torch.sharding.planner import distribute, distribute_tree
+    from repro_torch.sharding.planner import distribute_tree
     from repro_torch.training.optimizer import AdamWHyper
-    from repro_torch.training.train_step import (init_train_state,
+    from repro_torch.training.train_step import (distribute_batch,
+                                                 init_train_state,
                                                  make_train_step,
                                                  train_state_specs)
     mesh = make_test_mesh((1, 1), device_type="cuda")
@@ -5100,8 +5283,7 @@ def dist_train_sharded(cfg, batch):
     plan = make_plan(cfg, mesh, "train", batch=TRAIN_BATCH, seq=TRAIN_SEQ,
                      param_tree=state.params)
     dstate = distribute_tree(state, train_state_specs(plan, state), mesh)
-    dbatch = {k: distribute(v, plan.batch_specs[k], mesh)
-              for k, v in batch.items()}
+    dbatch = distribute_batch(batch, plan, mesh, TRAIN_MICRO)
     step = make_train_step(lm, hyper=AdamWHyper(warmup_steps=1, lr=1e-4),
                            microbatches=TRAIN_MICRO)
     with use_mesh(mesh):
@@ -5119,10 +5301,10 @@ def check_dist_train(cfg, plain, sharded) -> None:
     from repro_torch.bridge import leaves
     (pm, host, plain_launches), (dstate, dm, launches) = plain, sharded
     if plain_launches != launches:
-        fail(f"[distributed] flash launches: DTensor step {launches}, plain "
-             f"{plain_launches}")
-    log(f"[distributed] flash launches a step: DTensor {launches} == plain "
-        f"{plain_launches}")
+        fail(f"[distributed] {cfg.name} launches: DTensor step {launches}, "
+             f"plain {plain_launches}")
+    log(f"[distributed] {cfg.name} launches a step: DTensor {launches} == "
+        f"plain {plain_launches}")
     for k in ("loss", "grad_norm"):
         if dm[k] != pm[k]:
             rel = abs(dm[k] - pm[k]) / max(abs(pm[k]), 1e-30)
@@ -5134,15 +5316,17 @@ def check_dist_train(cfg, plain, sharded) -> None:
     for name, tree, want in zip(("params", "m", "v"), (
             dstate.params, dstate.opt["m"], dstate.opt["v"]), host):
         for i, (t, w) in enumerate(zip(leaves(tree), want)):
-            got = t.to_local().cpu()
+            got = t.to_local()        # compared on the card, leaf by leaf
+            w = w.to(got.device)
             if torch.equal(got, w):
                 exact += 1
                 continue
             rel = float((got.double() - w.double()).norm()
                         / w.double().norm().clamp(min=1e-30))
             near.append((f"{name}[{i}] {tuple(w.shape)}", rel))
-    log(f"[distributed] 1x1 DTensor train step vs the plain step from the "
-        f"same seed: loss {dm['loss']!r} vs {pm['loss']!r}, grad_norm "
+            del w
+    log(f"[distributed] {cfg.name} ({cfg.num_layers} layers) 1x1 DTensor "
+        f"train step vs the plain step from the same seed: loss {dm['loss']!r} vs {pm['loss']!r}, grad_norm "
         f"{dm['grad_norm']!r} vs {pm['grad_norm']!r}; {exact} of "
         f"{exact + len(near)} updated leaves (params, m, v) bit for bit"
         + ("" if not near else "; the others within " + ", ".join(
@@ -5186,10 +5370,10 @@ def time_dist_train(cfg, mesh, dstate, state, step, dbatch) -> None:
         f"({med['DTensor'] / med['plain'] - 1:.1%}); {card()}")
 
 
-def drive_dist_serve(cfg, params, tokens) -> dict:
+def drive_dist_serve(cfg, params, tokens, max_len=DIST_MAX_LEN) -> dict:
     """The 1x1 DTensor serving path: the params laid out by the decode
     plan on a 1x1 NCCL mesh (wrapping the plain tensors), a prefill of
-    ``tokens`` into a DIST_MAX_LEN cache and DIST_STEPS greedy decode
+    ``tokens`` into a ``max_len`` cache and DIST_STEPS greedy decode
     steps through the DTensor model. Returns its tokens and times."""
     import torch
     from repro_torch.launch.mesh import make_test_mesh
@@ -5200,9 +5384,9 @@ def drive_dist_serve(cfg, params, tokens) -> dict:
     mesh = make_test_mesh((1, 1), device_type="cuda")
     lm = LM(cfg)
     b = tokens.shape[0]
-    plan = make_plan(cfg, mesh, "decode", batch=b, seq=DIST_MAX_LEN,
+    plan = make_plan(cfg, mesh, "decode", batch=b, seq=max_len,
                      param_tree=params, cache_tree=lm.init_cache(
-                         b, DIST_MAX_LEN, device="meta"))
+                         b, max_len, device="meta"))
     dparams = distribute_tree(params, plan.param_specs, mesh)
     spec = plan.batch_specs["tokens"]
     out = {"tokens": [], "ms": []}
@@ -5211,7 +5395,7 @@ def drive_dist_serve(cfg, params, tokens) -> dict:
         t0 = time.perf_counter()
         lg, cache = lm.prefill(dparams, {"tokens": distribute(tokens, spec,
                                                               mesh)},
-                               DIST_MAX_LEN)
+                               max_len)
         t = lg.full_tensor().argmax(-1)[:, None].to(torch.int32)
         torch.cuda.synchronize()
         out["prefill_ms"] = (time.perf_counter() - t0) * 1e3
@@ -5227,7 +5411,7 @@ def drive_dist_serve(cfg, params, tokens) -> dict:
     return out
 
 
-def plain_serve(cfg, params, tokens) -> dict:
+def plain_serve(cfg, params, tokens, max_len=DIST_MAX_LEN) -> dict:
     """``drive_dist_serve``'s prefill and greedy steps on the plain
     tensors."""
     import torch
@@ -5237,7 +5421,7 @@ def plain_serve(cfg, params, tokens) -> dict:
     with torch.no_grad():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        lg, cache = lm.prefill(params, {"tokens": tokens}, DIST_MAX_LEN)
+        lg, cache = lm.prefill(params, {"tokens": tokens}, max_len)
         t = lg.argmax(-1)[:, None].to(torch.int32)
         torch.cuda.synchronize()
         out["prefill_ms"] = (time.perf_counter() - t0) * 1e3
@@ -5251,7 +5435,11 @@ def plain_serve(cfg, params, tokens) -> dict:
     return out
 
 
-def check_dist_serve(cfg, got, want, launches) -> None:
+def check_dist_serve(cfg, got, want, launches, want_n=None,
+                     prompt=DIST_PROMPT) -> None:
+    """The DTensor path's tokens equal to the plain path's, and its
+    launches ``want_n`` (by default a dense model's: flash once a layer,
+    decode attention once a layer a step)."""
     import torch
     if not all(torch.equal(a, b) for a, b in zip(got["tokens"],
                                                   want["tokens"])):
@@ -5259,64 +5447,156 @@ def check_dist_serve(cfg, got, want, launches) -> None:
              f"from the plain path's: "
              f"{[t[:, 0].tolist() for t in got['tokens']]} vs "
              f"{[t[:, 0].tolist() for t in want['tokens']]}")
-    want_n = {"flash_attention": cfg.num_layers,
-              "decode_attention": cfg.num_layers * DIST_STEPS}
+    if want_n is None:
+        want_n = {"flash_attention": cfg.num_layers,
+                  "decode_attention": cfg.num_layers * DIST_STEPS}
     if any(launches[k] != n for k, n in want_n.items()):
         fail(f"[distributed] {cfg.name} serving launches {launches}, "
              f"expected {want_n}")
     med = {k: sorted(v["ms"])[len(v["ms"]) // 2]
            for k, v in (("plain", want), ("DTensor", got))}
     log(f"[distributed] {cfg.name} ({cfg.num_layers} layers) 1x1 DTensor "
-        f"serving: {DIST_SERVE_ROWS} prompts of {DIST_PROMPT} tokens, "
-        f"{DIST_STEPS} greedy steps: tokens equal the plain path's; "
+        f"serving: {DIST_SERVE_ROWS} prompts of {prompt} tokens, "
+        f"{DIST_STEPS} greedy steps: tokens equal the plain path's "
+        f"({[t[:, 0].tolist() for t in got['tokens']]}); "
         f"launches {want_n}; cache layout {got['layout']}; prefill "
         f"{got['prefill_ms']:.1f} ms (plain {want['prefill_ms']:.1f}), "
         f"decode step median {med['DTensor']:.2f} ms (plain "
         f"{med['plain']:.2f}); {card()}")
 
 
-def phase_distributed(cfg, counters, dryruns) -> list:
-    """The distribution layer on the card: a 1x1 DTensor train step of
-    minitron-8b at 4 layers against the plain step (bit for bit, or
-    DIST_REL where DTensor's ops differ, equal flash launches; both
-    timed in turns), the 1x1 DTensor serving path of minitron-8b at 32
-    layers against the plain path's tokens, and the dry-run cells.
-    Returns the main paths' launches."""
+def dist_train_path(tcfg, counters, mods, required, variant=None) -> dict:
+    """A 1x1 DTensor train step of ``tcfg`` against the plain step from
+    the same seed (bit for bit, or DIST_REL where DTensor's ops differ;
+    equal launches of the kernel modules ``mods``; the grouped GEMMs on
+    ``variant``, if given), then both timed in turns. Returns the DTensor
+    step's launches."""
     import torch
-    paths = []
-    init_nccl()
-    tcfg = train_config(cfg)
     batch = train_batches(tcfg, 1, seed=1)[0]
     torch.cuda.reset_peak_memory_stats()
-    plain = dist_train_plain(tcfg, batch)
+    plain = dist_train_plain(tcfg, batch, mods)
     release_memory()
     name = f"{tcfg.name} DTensor train (1x1 mesh, {tcfg.num_layers} layers)"
     launches, (mesh, dstate, state, dm, step, dbatch) = drive_path(
-        name, counters, ("flash_attention", "flash_attention_bwd"),
-        dist_train_sharded, tcfg, batch)
-    paths.append(launches)
+        name, counters, required, dist_train_sharded, tcfg, batch)
+    if variant:
+        check_variant(name, launches, variant)
     check_dist_train(tcfg, plain, (dstate, dm, {
         k: launches[k] for k in plain[2]}))
     del plain
     time_dist_train(tcfg, mesh, dstate, state, step, dbatch)
-    log(f"[distributed] train peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; {card()}")
+    log(f"[distributed] {tcfg.name} train peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB of total_memory "
+        f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.2f} GB; "
+        f"{card()}")
     del dstate, state, step, dbatch
     release_memory()
+    return launches
 
+
+def dist_serve_path(cfg, counters, required, want_n, prompt: int,
+                    max_len: int, variant=None) -> dict:
+    """``cfg``'s 1x1 DTensor serving path (``drive_dist_serve``: a prefill
+    of DIST_SERVE_ROWS prompts of ``prompt`` tokens into a ``max_len``
+    cache, DIST_STEPS greedy steps) against the plain path's tokens, with
+    the launches ``want_n`` and the grouped GEMMs on ``variant``, if
+    given. Returns the DTensor path's launches (an int8 path's also under
+    "<kernel> (int8)")."""
+    from repro_torch.kernels.moe_gemm import moe_gemm as MG
+    import torch
+    torch.cuda.reset_peak_memory_stats()
     params = init_model(cfg)
     g = torch.Generator(device="cuda").manual_seed(7)
-    tokens = torch.randint(0, cfg.vocab_size, (DIST_SERVE_ROWS, DIST_PROMPT),
+    tokens = torch.randint(0, cfg.vocab_size, (DIST_SERVE_ROWS, prompt),
                            generator=g, device="cuda", dtype=torch.int32)
-    want = plain_serve(cfg, params, tokens)
-    name = f"{cfg.name} DTensor serving (1x1 mesh)"
-    launches, got = drive_path(name, counters, ("flash_attention",
-                                                "decode_attention"),
-                               drive_dist_serve, cfg, params, tokens)
-    paths.append(launches)
-    check_dist_serve(cfg, got, want, launches)
+    want = plain_serve(cfg, params, tokens, max_len)
+    name = f"{cfg.name} DTensor serving (1x1 mesh, {cfg.num_layers} layers)"
+    launches, got = drive_path(name, counters, required, drive_dist_serve,
+                               cfg, params, tokens, max_len)
+    if variant:
+        check_variant(name, launches, variant)
+    if variant == "int8":
+        launches.update({f"{k} (int8)": v
+                         for k, v in MG.INT8_LAUNCHES.items()})
+    check_dist_serve(cfg, got, want, launches, want_n, prompt)
+    log(f"[distributed] {cfg.name} serving peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; {card()}")
     del params
     release_memory()
+    return launches
+
+
+def phase_distributed(cfg, counters, dryruns, moe_cfg, mx_cfg) -> list:
+    """The distribution layer on the card, each path on a 1x1 mesh of a
+    one-rank NCCL group against the same path on plain tensors: the train
+    steps of minitron-8b and qwen3-moe-30b-a3b at 4 layers (bit for bit,
+    or DIST_REL where DTensor's ops differ; equal launches of every
+    kernel, the expert kernels and K1-K3 too; both steps timed in turns),
+    minitron-8b's serving at 32 layers, qwen3-moe's at DIST_MOE_LAYERS
+    (expert parallelism's region: dispatch, the expert kernels and combine
+    in one ``local_map``) and mixtral-8x7b's on int8 weights at
+    DIST_MOE_LAYERS (prompts past its window: the banded prefill, the
+    ring filled and read rank by rank), tokens equal to the plain path's;
+    then the dry-run cells. Returns the main paths' launches."""
+    import dataclasses
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+    from repro_torch.kernels.moe_gemm import moe_gemm as MG
+    paths = []
+    init_nccl()
+    t0 = time.perf_counter()
+    paths.append(dist_train_path(
+        train_config(cfg), counters, (FA,),
+        ("flash_attention", "flash_attention_bwd")))
+    log(f"[distributed] {cfg.name} train path: "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    paths.append(dist_serve_path(
+        cfg, counters, ("flash_attention", "decode_attention"), None,
+        DIST_PROMPT, DIST_MAX_LEN))
+    log(f"[distributed] {cfg.name} serving path: "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    mcfg = moe_train_config(moe_cfg)
+    experts = tuple(MG.LAUNCHES)
+    launches = dist_train_path(mcfg, counters, (FA, MG),
+                               ("flash_attention", "flash_attention_bwd")
+                               + experts, "tensor")
+    paths.append(launches)
+    log(f"[distributed] {mcfg.name} train path: "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    scfg = dataclasses.replace(moe_cfg, num_layers=DIST_MOE_LAYERS)
+    n = scfg.num_layers
+    launches = dist_serve_path(
+        scfg, counters, ("flash_attention", "decode_attention",
+                         "moe_ffn_fused", "moe_gemm"),
+        {"flash_attention": n, "decode_attention": n * DIST_STEPS,
+         "moe_ffn_fused": n * (moe_groups(scfg, DIST_SERVE_ROWS,
+                                          DIST_PROMPT) + DIST_STEPS),
+         "moe_gemm": n * (moe_groups(scfg, DIST_SERVE_ROWS, DIST_PROMPT)
+                          + DIST_STEPS)}, DIST_PROMPT, DIST_MAX_LEN,
+        "tensor")
+    paths.append(launches)
+    log(f"[distributed] {scfg.name} serving path: "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    xcfg = dataclasses.replace(mx_cfg, num_layers=DIST_MOE_LAYERS)
+    n = xcfg.num_layers
+    per = moe_groups(xcfg, DIST_SERVE_ROWS, MX_DIST_PROMPT) + DIST_STEPS
+    launches = dist_serve_path(
+        xcfg, counters, ("moe_ffn_fused", "moe_gemm"),
+        {"flash_attention": 0, "decode_attention": 0,
+         "paged_decode_attention": 0, "moe_ffn_fused": n * per,
+         "moe_gemm": n * per}, MX_DIST_PROMPT, MX_DIST_MAX_LEN, "int8")
+    paths.append(launches)
+    log(f"[distributed] {xcfg.name} int8 serving path (prompts of "
+        f"{MX_DIST_PROMPT} past the {xcfg.sliding_window}-token window, "
+        f"ring of {min(xcfg.sliding_window, MX_DIST_MAX_LEN)} slots, "
+        f"{DIST_STEPS} steps): {time.perf_counter() - t0:.1f} s")
     if dryruns:
         finish_dryruns(dryruns)
     else:
@@ -5333,6 +5613,17 @@ def card() -> str:
     if smi.returncode != 0:
         fail(f"nvidia-smi failed: {smi.stderr.strip()}")
     return smi.stdout.strip().splitlines()[0]
+
+
+_LAP = {"t": time.perf_counter()}
+
+
+def lap(name: str) -> None:
+    """Print the seconds since the previous lap (or the start) as the
+    seconds of phase ``name``."""
+    now = time.perf_counter()
+    log(f"[time] {name}: {now - _LAP['t']:.1f} s")
+    _LAP["t"] = now
 
 
 def drive_path(name: str, counters, required, fn, *args):
@@ -5382,6 +5673,7 @@ def main() -> None:
         f"device {torch.cuda.get_device_name(0)}")
 
     phase_build()
+    lap("build")
     dryruns = [] if quick else start_dryruns()
     cfg = get_config("minitron-8b")
     moe_cfg = get_config("qwen3-moe-30b-a3b")
@@ -5393,15 +5685,26 @@ def main() -> None:
     vl_cfg = dataclasses.replace(get_config("qwen2-vl-72b"),
                                  serve_weight_dtype="int8")
     rows = phase_kernels(cfg, moe_cfg, sm_cfg, vl_cfg)
+    lap("kernels: decode attention")
     rows.update(phase_flash_kernels(cfg, sm_cfg, vl_cfg))
+    lap("kernels: flash_attention")
     rows.update(phase_flash_bwd_kernels(cfg, sm_cfg))
+    lap("kernels: flash_attention_bwd")
     rows.update(phase_moe_kernels(moe_cfg, cfg.d_model))
+    lap("kernels: grouped GEMMs")
     rows.update(phase_moe_bwd_kernels(moe_cfg))
     check_refusals()
+    lap("kernels: expert backward")
     rows.update(phase_int8_kernels(mx_cfg))
+    lap("kernels: int8 experts")
+    phase_split_kernels(moe_cfg, mx_cfg)
+    lap("kernels: split shapes")
     rows.update(phase_recurrent_kernels(rg_cfg, mb_cfg))
+    lap("kernels: recurrent")
     rows.update(phase_recurrent_bwd_kernels(rg_cfg, mb_cfg))
+    lap("kernels: recurrent backward")
     phase_lse(cfg, vl_cfg)
+    lap("kernels: decode lse")
     if quick:
         log("[distributed] --quick: the dry-run subprocesses and the 1x1 "
             "DTensor paths are skipped")
@@ -5434,6 +5737,7 @@ def main() -> None:
     profile_prefill(cfg, params)
     del params
     release_memory()
+    lap(f"path: {cfg.name}, adapters")
 
     params = init_model(moe_cfg)
     with PrefillCount() as pc:
@@ -5449,12 +5753,14 @@ def main() -> None:
         f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
     del params
     release_memory()
+    lap(f"path: {moe_cfg.name}")
 
     torch.cuda.reset_peak_memory_stats()
-    params = init_model(mx_cfg)
-    name = f"{mx_cfg.name} int8"
+    mpath = dataclasses.replace(mx_cfg, num_layers=MIXTRAL_LAYERS)
+    params = init_model(mpath)
+    name = f"{mpath.name} int8 ({mpath.num_layers} layers)"
     launches, out = drive_path(name, counters, ("moe_gemm", "moe_ffn_fused"),
-                               drive_mixtral, mx_cfg, params)
+                               drive_mixtral, mpath, params)
     launches.update({f"{k} (int8)": n for k, n in MG.INT8_LAUNCHES.items()})
     check_variant(name, launches, "int8")
     if any(launches[k] for k in attn):
@@ -5464,14 +5770,15 @@ def main() -> None:
     log(f"[main path] {name}: no attention kernel launched (banded prefill, "
         f"ring decode)")
     paths.append(launches)
-    check_mixtral(mx_cfg, params, out)
-    profile_prefill(mx_cfg, params, n=6000, width=MIXTRAL_MAX_LEN)
+    check_mixtral(mpath, params, out)
+    profile_prefill(mpath, params, n=6000, width=MIXTRAL_MAX_LEN)
     peak = torch.cuda.max_memory_allocated()
     log(f"[mixtral] peak device memory {peak / 1e9:.1f} GB; {card()}")
     if peak >= 80e9:
         fail(f"mixtral peak device memory {peak / 1e9:.1f} GB >= 80 GB")
     del params, out
     release_memory()
+    lap(f"path: {mx_cfg.name} int8")
 
     left = torch.cuda.memory_allocated()
     log(f"[qwen2-vl] device memory allocated after the mixtral path: "
@@ -5501,6 +5808,7 @@ def main() -> None:
              f"total_memory {total / 1e9:.2f} GB")
     del params, out
     release_memory()
+    lap(f"path: {vl_cfg.name} int8")
 
     for rcfg, kernel, per_prefill in (
             (rg_cfg, "rglru_scan", rg_cfg._pattern().count("rec")),
@@ -5514,6 +5822,7 @@ def main() -> None:
             f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
         del params
         release_memory()
+        lap(f"path: {rcfg.name}")
 
     torch.cuda.reset_peak_memory_stats()
     params = init_model(sm_cfg)
@@ -5535,6 +5844,7 @@ def main() -> None:
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     del params, out
     release_memory()
+    lap(f"path: {sm_cfg.name}")
 
     draft_id, target_id = "recurrentgemma-2b", "minitron-8b"
     if target_id not in DRAFT_PAIRINGS[draft_id]:
@@ -5560,6 +5870,7 @@ def main() -> None:
                 launches, pc.by_model, out)
     del dparams, tparams, out, orch, mgr, session
     release_memory()
+    lap("path: split")
 
     left = torch.cuda.memory_allocated()
     log(f"[train] device memory allocated after the split path: "
@@ -5578,6 +5889,7 @@ def main() -> None:
     release_memory()
     train_grad_check(tcfg)
     release_memory()
+    lap(f"train: {tcfg.name}")
 
     left = torch.cuda.memory_allocated()
     log(f"[train] device memory allocated before {moe_cfg.name}'s training "
@@ -5603,6 +5915,7 @@ def main() -> None:
     release_memory()
     moe_grad_check(mcfg)
     release_memory()
+    lap(f"train: {mcfg.name}")
 
     for rcfg, check in ((rg_cfg, rec_grad_check), (mb_cfg, ssd_grad_check)):
         left = torch.cuda.memory_allocated()
@@ -5627,6 +5940,7 @@ def main() -> None:
         release_memory()
         log(f"[train] {rcfg.name}'s training path and grad check: "
             f"{time.perf_counter() - t0:.1f} s")
+        lap(f"train: {rcfg.name}")
 
     left = torch.cuda.memory_allocated()
     log(f"[distributed] device memory allocated before the distribution "
@@ -5635,8 +5949,9 @@ def main() -> None:
         fail(f"{left / 1e9:.2f} GB still allocated before the distributed "
              f"paths")
     t0 = time.perf_counter()
-    paths += phase_distributed(cfg, counters, dryruns)
+    paths += phase_distributed(cfg, counters, dryruns, moe_cfg, mx_cfg)
     log(f"[distributed] {time.perf_counter() - t0:.1f} s")
+    lap("distributed")
 
     for name, row in rows.items():
         # a grouped-GEMM row counts its variant's launches: the int8 rows
@@ -5644,6 +5959,7 @@ def main() -> None:
         row["launches"] = sum(p.get(name, 0) - p.get(f"{name} (int8)", 0)
                               for p in paths)
     phase_reference()
+    lap("reference")
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
 
     log(json.dumps({"kernels": list(rows.values())}))

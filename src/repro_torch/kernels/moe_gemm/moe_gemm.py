@@ -24,7 +24,10 @@ buffers) and the adapter runtime's grouped route
 (``repro_torch.adapters.runtime``, f32 LoRA tables).
 
 Each wrapper takes its plain version only for tensors on the CPU (for an
-int8 weight: ``as_weight``, then the plain version). For a CUDA tensor it
+int8 weight: ``as_weight``, then the plain version). On fake tensors (the
+dry run's ``FakeTensorMode``: shapes, no data) it allocates its outputs and
+reports the kernel's work (``kernels.sharded.report_work``), as the
+attention wrappers do. For a CUDA tensor it
 launches the kernel or raises: there is no fallback, and an int8 weight
 that the int8 variant does not take raises rather than being dequantised
 for another route. ``LAUNCHES`` counts kernel launches (one per
@@ -54,6 +57,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import sharded as SH
 from repro_torch.kernels.build import (call_on_stream, load,
                                       refuse_autograd)
 
@@ -129,6 +133,11 @@ def _library():
 
 def _is_int8(w) -> bool:
     return isinstance(w, dict) and set(w) == {"q", "s"}
+
+
+def _plain_shape(w):
+    """The shape of a weight, a tensor or int8 ``{q, s}``."""
+    return tuple((w["q"] if _is_int8(w) else w).shape)
 
 
 def _plain(w):
@@ -436,13 +445,39 @@ def _launch(name, x, ws):
     return y
 
 
+def _nbytes(*ts) -> int:
+    """Bytes of tensors and int8 ``{q, s}`` weights."""
+    return sum(_nbytes(*t.values()) if _is_int8(t) else t.nbytes
+               for t in ts)
+
+
+def _fake(name, x, ws, F_out: int, flops: float, extra=()):
+    """The dry run's stand-in for a launch on fake tensors (shapes, no
+    data): an empty [E, C, F_out] output in x's dtype, and the kernel's
+    work reported (``kernels.sharded.report_work``): ``flops``, and the
+    bytes of x, the weights, ``extra`` and the output, each moved once."""
+    E, C, _ = x.shape
+    y = x.new_empty((E, C, F_out))
+    SH.report_work(name, flops, _nbytes(x, *ws, *extra, y))
+    return y
+
+
 def _forward_gemm(x, w):
+    if SH.is_fake(x):
+        E, C, D = x.shape
+        Fo = _plain_shape(w)[2]
+        return _fake("moe_gemm", x, (w,), Fo, 2.0 * E * C * D * Fo)
     if x.device.type == "cpu":
         return moe_gemm_ref(x, _plain(w))
     return _launch("moe_gemm", x, (w,))
 
 
 def _forward_ffn(x, w_gate, w_up):
+    if SH.is_fake(x):
+        E, C, D = x.shape
+        Fo = _plain_shape(w_gate)[2]
+        return _fake("moe_ffn_fused", x, (w_gate, w_up), Fo,
+                     4.0 * E * C * D * Fo)
     if x.device.type == "cpu":
         return moe_ffn_fused_ref(x, _plain(w_gate), _plain(w_up))
     return _launch("moe_ffn_fused", x, (w_gate, w_up))
@@ -500,6 +535,13 @@ def moe_ffn_fused_bwd(x, w_gate, w_up, dout, y=None):
     TMA with dout's tile prefetched under the products, dg and du stored
     by TMA). ``y`` (on the card, [E, C, F] in x's dtype) also receives the
     forward's output from those accumulators: a check of the recompute."""
+    if SH.is_fake(x):
+        E, C, D = x.shape
+        Fo = w_gate.shape[2]
+        du = x.new_empty((E, C, Fo))
+        dg = _fake("moe_ffn_fused_bwd", x, (w_gate, w_up), Fo,
+                   4.0 * E * C * D * Fo, (dout, du))
+        return dg, du
     if x.device.type == "cpu":
         return moe_ffn_fused_bwd_ref(x, w_gate, w_up, dout)
     E, C, D, Fo, vec_ok = _check(x, (w_gate, w_up))
@@ -558,6 +600,11 @@ def moe_gemm_dx(dys, ws):
     stride along F); each term accumulated in f32 and cast, the two added
     in f32 and cast again. The plain version on the CPU."""
     dys, ws = list(dys), list(ws)
+    if SH.is_fake(dys[0]):
+        E, C, Fo = dys[0].shape
+        D = ws[0].shape[1]
+        return _fake("moe_gemm_dx", dys[0], ws, D,
+                     2.0 * E * C * D * Fo * len(dys), dys[1:])
     if dys[0].device.type == "cpu":
         return moe_gemm_dx_ref(dys, ws)
     if len(ws) != len(dys):
@@ -587,6 +634,13 @@ def moe_gemm_dw(a, dys):
     and one or two dy_j [E, C, F], reduced over C in f32 in increasing c.
     The plain version on the CPU."""
     dys = list(dys)
+    if SH.is_fake(a):
+        E, C, D = a.shape
+        Fo = dys[0].shape[2]
+        dws = [a.new_empty((E, D, Fo)) for _ in dys]
+        SH.report_work("moe_gemm_dw", 2.0 * E * C * D * Fo * len(dys),
+                       _nbytes(a, *dys, *dws))
+        return dws
     if a.device.type == "cpu":
         return moe_gemm_dw_ref(a, dys)
     if a.stride(2) != 1:

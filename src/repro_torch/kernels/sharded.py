@@ -1,4 +1,4 @@
-"""DTensor layouts for the attention kernels' wrappers.
+"""DTensor layouts for the attention and expert kernels' wrappers.
 
 A kernel only ever sees local tensors: each wrapper's DTensor branch picks
 the placements the kernel can take, redistributes its inputs to them
@@ -20,6 +20,13 @@ makes that choice for a query tensor and its K/V, mesh dim by mesh dim:
 Where K/V are replicated over a mesh dim on which q is split, each rank's
 K/V gradient is a part of the whole: ``kv_grad`` says so (``Partial``), so
 autograd sums the parts.
+
+``expert_layout`` makes the same choice for the MoE layer, whose one
+region holds dispatch, the expert kernels and combine
+(``models.moe``): the tokens stay on their data shard, the experts split
+over the model axis (expert parallelism) or their f columns do
+(expert-TP), and the output and the gradients of the tokens and the
+router are partial sums over that axis.
 """
 
 from __future__ import annotations
@@ -181,6 +188,102 @@ def attention_layout(q, k, *, batch: int, q_heads: int, q_rows,
     return AttentionLayout(qp, kp, kg, head0, heads, row0, rows, kv_heads)
 
 
+class ExpertLayout(NamedTuple):
+    x: tuple            # placements of the tokens [b, s, d]
+    out: tuple          # of the combined output [b, s, d] and of x's grad
+    router_grad: tuple  # of the router's gradient (the router: replicated)
+    w_in: tuple         # of w_gate and w_up [E, d, f] (an int8 one's q, s)
+    w_in_grad: tuple
+    w_out: tuple        # of w_down [E, f, d] (an int8 one's q)
+    w_out_grad: tuple
+    s_out: tuple        # of an int8 w_down's scales [E, 1, d]
+    e0: int             # this rank's first expert
+    experts: int        # the experts it runs
+    token_groups: tuple  # groups of the mesh dims that split the tokens
+    token_rank: int     # this rank's index among their ranks (major first)
+    token_parts: int    # how many parts they split the tokens into
+    aux_grad: bool      # whether this rank's aux-loss gradient counts
+
+
+def expert_layout(x, w_gate, w_down, num_experts: int) -> ExpertLayout:
+    """Placements for the MoE layer's dispatch, expert FFN and combine on
+    every rank's shards (``models.moe``), mesh dim by mesh dim, for the
+    DTensor tokens ``x [b, s, d]`` and the expert weights' layout (the
+    planner's): ``w_gate [E, d, f]`` and ``w_down [E, f, d]`` (tensors or
+    the q of int8 ones; a plain tensor counts as replicated):
+
+    * split on E (expert parallelism): every rank takes the tokens of its
+      data shard whole, runs its own experts on them, and its combine is a
+      partial sum of the output (``Partial``); so are its gradients of the
+      tokens and of the router;
+    * w_gate split on f and w_down on its f rows (expert-TP, where E does
+      not divide the axis): every expert runs on the rank's f columns, and
+      the output and gradients are partial sums again;
+    * split on d or f by ZeRO-3, or not split: the weights are gathered
+      (their gradients reduce-scattered back, ``Partial``), and the tokens
+      split on their batch where they are, or can be (a sequence-split
+      input is redistributed), else taken whole;
+    * a dim of one rank holds everything whole.
+
+    No all-to-all: tokens stay on their data shard, as in the reference.
+    A weight layout of another kind (split on other dims, partial sums,
+    w_gate and w_down split unlike each other) raises."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = x.device_mesh
+    whole = (Replicate(),) * mesh.ndim
+    g_pl, d_pl = (w.placements if is_dtensor(w) else whole
+                  for w in (w_gate, w_down))
+    xp = x.placements
+    coord = mesh.get_coordinate()
+    R, P = Replicate(), Partial()
+    cols = {k: [] for k in ExpertLayout._fields[:8]}
+    groups, t_rank, t_parts, aux_grad = [], 0, 1, True
+    for i in range(mesh.ndim):
+        size = mesh.size(i)
+        g, dn = g_pl[i], d_pl[i]
+        if size == 1:
+            role = "none"
+        elif g.is_shard(0) and dn.is_shard(0):
+            role = "experts"
+        elif g.is_shard(2) and dn.is_shard(1):
+            role = "ffn"
+        elif (g.is_replicate() or g.is_shard(1)) and (
+                dn.is_replicate() or dn.is_shard(1) or dn.is_shard(2)):
+            split = xp[i].is_shard(0) or (
+                not xp[i].is_replicate() and x.shape[0] % size == 0)
+            role = "tokens" if split else "none"
+        else:
+            raise ValueError(
+                f"expert_layout: w_gate {g} and w_down {dn} on mesh dim "
+                f"{i}: the expert "
+                f"weights split on E (expert parallel), on f (expert-TP) "
+                f"or by ZeRO-3 on the other dims, not so")
+        if role == "experts":
+            row = dict(x=R, out=P, router_grad=P, w_in=Shard(0),
+                       w_in_grad=Shard(0), w_out=Shard(0),
+                       w_out_grad=Shard(0), s_out=Shard(0))
+        elif role == "ffn":
+            row = dict(x=R, out=P, router_grad=P, w_in=Shard(2),
+                       w_in_grad=Shard(2), w_out=Shard(1),
+                       w_out_grad=Shard(1), s_out=R)
+        elif role == "tokens":
+            row = dict(x=Shard(0), out=Shard(0), router_grad=P, w_in=R,
+                       w_in_grad=P, w_out=R, w_out_grad=P, s_out=R)
+            groups.append(mesh.get_group(i))
+            t_rank, t_parts = t_rank * size + coord[i], t_parts * size
+        else:
+            row = dict.fromkeys(cols, R)
+        if role in ("experts", "ffn"):
+            aux_grad = aux_grad and coord[i] == 0
+        for k, pl in row.items():
+            cols[k].append(pl)
+    cols = {k: tuple(v) for k, v in cols.items()}
+    e0, experts = shard_span(mesh, cols["w_in"], 0, num_experts)
+    return ExpertLayout(**cols, e0=e0, experts=experts,
+                        token_groups=tuple(groups), token_rank=t_rank,
+                        token_parts=t_parts, aux_grad=aux_grad)
+
+
 def select_kv_heads(t, layout: AttentionLayout, dim: int):
     """The KV heads of this rank's query heads, along ``dim``."""
     sel = layout.kv_heads
@@ -212,6 +315,38 @@ def sum_over(x, groups):
     """``_SumOver``: all-reduce (sum) over ``groups`` with an identity
     backward; ``x`` itself when there are none."""
     return _SumOver.apply(x, tuple(groups)) if groups else x
+
+
+def gather_over(x, groups):
+    """Every rank's ``x`` [n, ...] stacked over ``groups`` (no gradient):
+    [n · Π sizes, ...], ranks in the order of their index over the groups,
+    the first group the major one."""
+    from torch.distributed import _functional_collectives as funcol
+    for grp in reversed(groups):
+        x = funcol.all_gather_tensor(x, 0, grp)
+        x = x.wait() if hasattr(x, "wait") else x
+    return x
+
+
+class _GradIf(torch.autograd.Function):
+    """Identity forward; the gradient passed on, or zeros where ``keep``
+    is false."""
+
+    @staticmethod
+    def forward(ctx, x, keep):
+        ctx.keep = keep
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (grad if ctx.keep else torch.zeros_like(grad)), None
+
+
+def grad_if(x, keep: bool):
+    """``x`` whose gradient counts on this rank only where ``keep``: a
+    term every rank of a mesh dim computes alike, inside a region whose
+    other gradients are that dim's partial sums, enters their sum once."""
+    return _GradIf.apply(x, keep)
 
 
 def redistribute(x, mesh, pls):

@@ -33,7 +33,8 @@ from repro_torch.training import checkpoint as ckpt
 from repro_torch.training.data import DataConfig, SyntheticLMStream
 from repro_torch.training.fault_tolerance import StragglerPolicy
 from repro_torch.training.optimizer import AdamWHyper
-from repro_torch.training.train_step import (init_train_state,
+from repro_torch.training.train_step import (distribute_batch,
+                                             init_train_state,
                                              make_train_step,
                                              train_state_specs)
 
@@ -88,11 +89,9 @@ def train(arch: str = "edge-tiny", *, steps: int = 100, batch: int = 8,
             state, metrics = step_fn(state, batch_dev)
         else:
             from repro_torch.sharding.ctx import use_mesh
-            from repro_torch.sharding.planner import distribute
             with use_mesh(mesh):
-                state, metrics = step_fn(state, {
-                    k: distribute(v, plan.batch_specs[k], mesh)
-                    for k, v in batch_dev.items()})
+                state, metrics = step_fn(state, distribute_batch(
+                    batch_dev, plan, mesh, microbatches))
             metrics = {k: v.full_tensor() for k, v in metrics.items()}
         loss = float(metrics["loss"])        # waits for the step
         dt = time.perf_counter() - t0

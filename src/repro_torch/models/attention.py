@@ -14,6 +14,13 @@ Decode over a linear buffer always goes through the hand-written kernels of
 launch, on a CPU tensor their plain versions run. Decode over a ring buffer
 (sliding window) and decode cross attention stay plain PyTorch, as the
 reference keeps them on its jnp path (attention.py:385, :503-518).
+
+On DTensors (inside ``use_mesh``) the kernels take every rank's shards
+through their wrappers' ``local_map``; the banded prefill does the same
+(``banded_sharded``), and ring decode reads each rank's own slots of the
+ring and merges the ranks' (o, lse) where the ring splits on S
+(``_ring_attention_sharded``), as ``seq_sharded_decode`` does for a linear
+cache.
 """
 
 from __future__ import annotations
@@ -114,6 +121,37 @@ def banded_attention(q, k, v, q_positions, k_positions, *, window: int,
     return torch.cat(outs, dim=1)[:, :sq]
 
 
+def banded_sharded(q, k, v, q_positions, k_positions, *, window: int,
+                   block_q: int, softcap: float = 0.0):
+    """``banded_attention`` on DTensors: every rank runs it on its batch
+    rows and query heads through ``local_map``, in the layout
+    ``kernels.sharded.attention_layout`` picks for the flash kernel (K/V
+    split with the query heads where the KV heads divide the model axis,
+    else replicated, each rank handed the KV heads of its own query heads;
+    their gradient then a partial sum). The positions are taken whole."""
+    from torch.distributed.tensor.experimental import local_map
+    mesh = q.device_mesh
+    k, v = SH.as_dtensor(k, mesh), SH.as_dtensor(v, mesh)
+    lay = SH.attention_layout(q, k, batch=0, q_heads=2, q_rows=None,
+                              kv_heads_dim=2, hq=q.shape[2], kh=k.shape[2])
+    q = SH.redistribute(q, mesh, lay.q)
+    k = SH.redistribute(k, mesh, lay.kv)
+    v = SH.redistribute(v, mesh, lay.kv)
+    qpos = SH.replicated_value(q_positions)
+    kpos = SH.replicated_value(k_positions)
+
+    def local(ql, kl, vl):
+        return banded_attention(ql, SH.select_kv_heads(kl, lay, 2),
+                                SH.select_kv_heads(vl, lay, 2), qpos, kpos,
+                                window=window, block_q=block_q,
+                                softcap=softcap)
+
+    qp, kvp, kvg = list(lay.q), list(lay.kv), list(lay.kv_grad)
+    return local_map(local, out_placements=qp, in_placements=(qp, kvp, kvp),
+                     in_grad_placements=(qp, kvg, kvg),
+                     device_mesh=mesh)(q, k, v)
+
+
 def qwhole_attention(q, k, v, q_positions, k_positions, *, causal: bool,
                      window: int, block_kv: int, softcap: float = 0.0):
     """Sequence-parallel attention, the port of the reference's
@@ -157,10 +195,10 @@ def full_attention(q, k, v, qpos, kpos, cfg: ModelConfig, *, causal=True):
     ``flash_attention`` kernel (the rule the reference applies to its
     Pallas decode, attention.py:385)."""
     if cfg.sliding_window and causal:
-        return banded_attention(q, k, v, qpos, kpos,
-                                window=cfg.sliding_window,
-                                block_q=cfg.attn_block_q,
-                                softcap=cfg.attn_logits_softcap)
+        band = banded_sharded if SH.is_dtensor(q) else banded_attention
+        return band(q, k, v, qpos, kpos, window=cfg.sliding_window,
+                    block_q=cfg.attn_block_q,
+                    softcap=cfg.attn_logits_softcap)
     if not _heads_shardable(cfg):
         q = constrain(q, "dp", "model", None, None)
         o = qwhole_attention(q, k, v, qpos, kpos, causal=causal,
@@ -228,12 +266,57 @@ def _ring_attention(cfg: ModelConfig, q, cache_k, cache_v, position,
     latest position ≡ i (mod S) at or before ``position``; keys older than
     the window are masked. Plain PyTorch, as in the reference. q:
     [b, 1, hq, hd] -> [b, 1, hq, hd] in q's dtype."""
-    S = cache_k.shape[1]
-    idx = torch.arange(S, dtype=torch.int32, device=q.device)
+    if SH.is_dtensor(cache_k):
+        return _ring_attention_sharded(cfg, q, cache_k, cache_v, position,
+                                       window)
+    return _masked_decode(cfg, q, cache_k, cache_v,
+                          _ring_valid(position, 0, cache_k.shape[1],
+                                      cache_k.shape[1], window))
+
+
+def _ring_valid(position, s0: int, n: int, S: int, window: int):
+    """[b, n] which of the ring's slots ``[s0, s0 + n)`` of S hold a key
+    inside the window of each row's ``position``: slot i holds the latest
+    position ≡ i (mod S) at or before it."""
+    idx = torch.arange(s0, s0 + n, dtype=torch.int32, device=position.device)
     pos = position[:, None]
     kpos = pos - torch.remainder(pos - idx[None, :], S)
-    valid = (kpos >= 0) & (kpos > pos - window)                 # [b, S]
-    return _masked_decode(cfg, q, cache_k, cache_v, valid)
+    return (kpos >= 0) & (kpos > pos - window)
+
+
+def _ring_attention_sharded(cfg: ModelConfig, q, cache_k, cache_v, position,
+                            window: int):
+    """``_ring_attention`` over a DTensor ring [b, S, kh, hd] on every
+    rank's shards (``local_map``): each rank takes its batch rows and its
+    KV heads with their query heads, where the cache splits them, and its
+    own slots of S. Where S is split, each rank's masked softmax over its
+    slots gives (o, lse), and the ranks merge them with a max and a sum
+    all-reduce over the mesh dims that split S (the cache is never
+    gathered); a rank holding no valid slot of a row gives lse -inf and
+    weight 0. -> [b, 1, hq, hd] in q's dtype."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = cache_k.device_mesh
+    pls = list(cache_k.placements)
+    q_pl = [Shard(0) if p.is_shard(0) else Shard(2) if p.is_shard(2)
+            else Replicate() for p in pls]
+    p_pl = [Shard(0) if p.is_shard(0) else Replicate() for p in pls]
+    q = SH.redistribute(q, mesh, q_pl)
+    position = SH.redistribute(position, mesh, p_pl)
+    S = cache_k.shape[1]
+    s0, n = SH.shard_span(mesh, pls, 1, S)
+    groups = [mesh.get_group(i) for i, p in enumerate(pls) if p.is_shard(1)]
+
+    def local(ql, ck, cv, pl):
+        valid = _ring_valid(pl, s0, n, S, window)
+        if not groups:
+            return _masked_decode(cfg, ql, ck, cv, valid)
+        o, lse = _masked_decode(cfg, ql, ck, cv, valid, return_lse=True)
+        return _merge_partials(o, lse, groups)
+
+    return local_map(local, out_placements=q_pl,
+                     in_placements=(q_pl, pls, pls, p_pl),
+                     device_mesh=mesh)(q, cache_k, cache_v, position)
 
 
 def _linear_attention(cfg: ModelConfig, q, cache_k, cache_v, position):
@@ -246,14 +329,17 @@ def _linear_attention(cfg: ModelConfig, q, cache_k, cache_v, position):
                           idx[None, :] <= position[:, None])
 
 
-def _masked_decode(cfg: ModelConfig, q, cache_k, cache_v, valid):
+def _masked_decode(cfg: ModelConfig, q, cache_k, cache_v, valid,
+                   return_lse: bool = False):
     """The reference's plain masked-softmax decode of q [b, 1, hq, hd]
     over cache_k/v [b, S, kh, hd] where ``valid`` [b, S]: f32 scores, the
     logit softcap, softmax, weights rounded to v's dtype before the PV
-    product. -> [b, 1, hq, hd] in q's dtype."""
-    b = cache_k.shape[0]
-    kh, hd = cfg.num_kv_heads, cfg.head_dim
-    g = cfg.num_heads // kh
+    product. -> [b, 1, hq, hd] in q's dtype (the head counts are the
+    tensors'); with ``return_lse`` also each head's log-sum-exp of its
+    valid scores [b, 1, hq] f32, -inf where none is valid."""
+    b, hq = q.shape[0], q.shape[2]
+    kh, hd = cache_k.shape[2], cfg.head_dim
+    g = hq // kh
     qh = q.reshape(b, 1, kh, g, hd).float()
     s = torch.einsum("bqhgd,bkhd->bhgqk", qh, cache_k.float()) \
         / math.sqrt(hd)
@@ -264,8 +350,13 @@ def _masked_decode(cfg: ModelConfig, q, cache_k, cache_v, valid):
     w = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgqk,bkhd->bhgqd", w.to(cache_v.dtype).float(),
                      cache_v.float())
-    return o.permute(0, 3, 1, 2, 4).reshape(b, 1, cfg.num_heads, hd) \
-        .to(q.dtype)
+    o = o.permute(0, 3, 1, 2, 4).reshape(b, 1, hq, hd).to(q.dtype)
+    if not return_lse:
+        return o
+    lse = torch.logsumexp(s, dim=-1)                        # [b, kh, g, 1]
+    lse = torch.where(valid.any(-1)[:, None, None, None], lse,
+                      torch.full_like(lse, -math.inf))
+    return o, lse.permute(0, 3, 1, 2).reshape(b, 1, hq)
 
 
 def decode_self_attention(p, cfg: ModelConfig, x, cache_k, cache_v, position,
@@ -329,6 +420,28 @@ def _write_row_sharded(cache_k, cache_v, k_new, v_new, slot, active):
                own if act is None else own & act)
 
 
+def _merge_partials(o, lse, groups):
+    """The softmax over every rank's keys from each rank's own (o [..., hd],
+    its lse [...] f32, -inf where the rank holds no valid key): a max and
+    a sum all-reduce over ``groups``, the ranks that split the keys; a
+    rank with lse -inf weighs 0 and its o is never read. -> in o's
+    dtype."""
+    from torch.distributed import _functional_collectives as funcol
+    m = lse
+    for grp in groups:
+        m = funcol.all_reduce(m, "max", grp)
+    live = lse > -math.inf
+    w = torch.where(live, torch.exp(lse - torch.where(live, m, 0.0)),
+                    torch.zeros_like(lse))
+    num = torch.where(live[..., None], o.float() * w[..., None],
+                      torch.zeros_like(o, dtype=torch.float32))
+    for grp in groups:
+        num = funcol.all_reduce(num, "sum", grp)
+        w = funcol.all_reduce(w, "sum", grp)
+    den = torch.where(w > 0, w, torch.ones_like(w))
+    return (num / den[..., None]).to(o.dtype)
+
+
 def seq_sharded_decode(q, cache_k, cache_v, lengths):
     """Decode attention over a cache split on S (the planner's layout when
     the KV heads do not divide the model axis): each rank runs the decode
@@ -338,7 +451,6 @@ def seq_sharded_decode(q, cache_k, cache_v, lengths):
     reference). A rank holding no valid row of a batch row gives lse -inf
     and weight 0, never NaN. q [b, hq, hd]; cache_k/v [b, S, kh, hd]
     DTensors; lengths [b] int32 -> [b, hq, hd] in q's dtype."""
-    from torch.distributed import _functional_collectives as funcol
     from torch.distributed.tensor import Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
     mesh = cache_k.device_mesh
@@ -353,19 +465,7 @@ def seq_sharded_decode(q, cache_k, cache_v, lengths):
         ll = torch.clamp(ll - s0, 0, S_l).to(torch.int32)
         o, lse = decode_attention(ql, ck.transpose(1, 2), cv.transpose(1, 2),
                                   ll, return_lse=True)
-        m = lse
-        for grp in groups:
-            m = funcol.all_reduce(m, "max", grp)
-        live = lse > -math.inf
-        w = torch.where(live, torch.exp(lse - torch.where(live, m, 0.0)),
-                        torch.zeros_like(lse))
-        num = torch.where(live[..., None], o.float() * w[..., None],
-                          torch.zeros_like(o, dtype=torch.float32))
-        for grp in groups:
-            num = funcol.all_reduce(num, "sum", grp)
-            w = funcol.all_reduce(w, "sum", grp)
-        den = torch.where(w > 0, w, torch.ones_like(w))
-        return (num / den[..., None]).to(ql.dtype)
+        return _merge_partials(o, lse, groups)
 
     return local_map(local, out_placements=q_pl,
                      in_placements=(q_pl, pls, pls, q_pl),

@@ -98,20 +98,24 @@ def _keep_active(old, new, active) -> None:
     old.copy_(new)
 
 
+def _ring_rows(x, s0: int, n: int, S: int, length: Optional[int]):
+    """Slots ``[s0, s0 + n)`` of a sliding-window ring of S slots built
+    from prefill K or V [b, s, kh, hd]: the token at position p lives in
+    slot p % S, and only positions in ``[m - S, m)`` (m = ``length``, the
+    true prompt length of a right-padded bucket, or s) may land there, so
+    slot j holds the latest such p ≡ j (mod S), and a slot none reaches
+    (a prompt shorter than the ring) stays zero. -> [b, n, kh, hd]."""
+    m = x.shape[1] if length is None else int(length)
+    j = torch.arange(s0, s0 + n, device=x.device)
+    pos = (m - 1) - torch.remainder(m - 1 - j, S)
+    rows = x.index_select(1, torch.clamp(pos, min=0))
+    live = (pos >= 0).reshape((1, n) + (1,) * (x.dim() - 2))
+    return torch.where(live, rows, torch.zeros_like(rows))
+
+
 def _ring_buffer(x, S: int, length: Optional[int]):
-    """Place prefill K or V [b, s, kh, hd] in a sliding-window ring of S
-    slots: the token at position p lives in slot p % S. Only positions in
-    ``[n - S, n)`` (n = ``length``, the true prompt length of a right-padded
-    bucket, or s) may land in the ring; padded and evicted positions are
-    routed to a discard row so they cannot clobber live slots."""
-    s = x.shape[1]
-    n = s if length is None else int(length)
-    pos = torch.arange(s, device=x.device)
-    live = (pos < n) & (pos >= n - S)
-    slots = torch.where(live, torch.remainder(pos, S), torch.full_like(pos, S))
-    buf = x.new_zeros((x.shape[0], S + 1) + tuple(x.shape[2:]))
-    buf[:, slots] = x           # live slots are distinct; the discard row
-    return buf[:, :S]           # takes any of the others
+    """The whole ring of S slots (``_ring_rows``) [b, S, kh, hd]."""
+    return _ring_rows(x, 0, S, S, length)
 
 
 def _kv_buffer(cfg: ModelConfig, shape, x):
@@ -144,6 +148,22 @@ def _fill_layer(buf, i: int, k, n: int) -> None:
              for p in buf.placements]
     rows = SH.redistribute(rows, buf.device_mesh, layer)
     buf.to_local()[i].copy_(rows.to_local())
+
+
+def _fill_ring(buf, i: int, k, length: Optional[int]) -> None:
+    """``buf[i] = _ring_buffer(k, S, length)`` on a DTensor ring [L, b, S,
+    kh, hd], shard by shard: each rank fills its own slots of S (its batch
+    rows and KV heads where the ring splits them) from k [b, s, kh, hd]
+    taken whole along its sequence."""
+    from torch.distributed.tensor import Replicate
+    mesh = buf.device_mesh
+    layer = [type(p)(p.dim - 1) if p.is_shard() else p
+             for p in buf.placements]
+    src = [Replicate() if p.is_shard(1) else p for p in layer]
+    kl = SH.redistribute(k, mesh, src).to_local()
+    S = buf.shape[2]
+    s0, S_l = SH.shard_span(mesh, layer, 1, S)
+    buf.to_local()[i].copy_(_ring_rows(kl, s0, S_l, S, length))
 
 
 def _mask_positions(positions):
@@ -688,7 +708,10 @@ class LM:
             for i in range(cfg.num_layers):
                 lp = layer_params(params["layers"], i)
                 x, k, v = _attn_prefill(lp, cfg, x, pos, memory, mem_pos)
-                if cfg.sliding_window:
+                if cfg.sliding_window and SH.is_dtensor(ck):
+                    _fill_ring(ck, i, k, length)
+                    _fill_ring(cv, i, v, length)
+                elif cfg.sliding_window:
                     ck[i], cv[i] = ring(k), ring(v)
                 elif SH.is_dtensor(ck):
                     _fill_layer(ck, i, k, n)

@@ -22,6 +22,7 @@ their masters' layout (``_grad_like_param``).
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, NamedTuple, Optional
 
 import torch
@@ -73,9 +74,11 @@ def _grad_like_param(p):
 
 def _microbatch(v, i: int, n: int):
     """Microbatch ``i`` of ``n`` of a [b, ...] batch tensor: rows
-    ``[i b/n, (i+1) b/n)``; of a DTensor split over its batch, those rows
-    of every rank's own rows, so no rank takes another's (every row still
-    falls in exactly one microbatch; on one rank the two agree)."""
+    ``[i b/n, (i+1) b/n)``; of a DTensor split over its batch, slice ``i``
+    of every rank's own rows, so no rank takes another's. Where the rows
+    must group as they do unsharded, ``distribute_batch`` puts the rows of
+    microbatch ``i`` there, each rank its share in order (on one rank the
+    two agree)."""
     if is_dtensor(v) and any(p.is_shard(0) for p in v.placements):
         from torch.distributed.tensor import DTensor
         local = v.to_local()
@@ -86,6 +89,41 @@ def _microbatch(v, i: int, n: int):
                                   stride=contiguous_stride(shape))
     m = v.shape[0] // n
     return v[i * m:(i + 1) * m]
+
+
+def distribute_batch(batch, plan, mesh, microbatches: int = 1):
+    """The [b, ...] batch tensors as DTensors laid out by the plan's
+    ``batch_specs``, for a step of ``microbatches``. Where the model routes
+    the tokens of several rows together (the flattened MoE group,
+    ``moe.flattens``), a microbatch must hold the rows it holds unsharded,
+    so rows split over ``parts`` data ranks are put in the order in which
+    every rank's ``i``-th of ``microbatches`` local slices is its share of
+    microbatch ``i`` (global rows ``[i b/n, (i+1) b/n)``). Elsewhere each
+    row's loss is its own, any partition of the rows gives the step's
+    value, and the rows stay as ``distribute`` splits them. No
+    communication: every rank holds the whole batch, as ``distribute``
+    takes it."""
+    from repro_torch.models.moe import flattens
+    from repro_torch.sharding.planner import distribute, placements
+    specs = plan.batch_specs
+    regroup = (microbatches > 1
+               and flattens(plan.cfg, batch["tokens"].shape[1]))
+    out = {}
+    for k, v in batch.items():
+        parts = math.prod(mesh.size(d) for d, p in
+                          enumerate(placements(specs[k], mesh))
+                          if p.is_shard(0))
+        if regroup and parts > 1:
+            b = v.shape[0]
+            if b % (microbatches * parts):
+                raise ValueError(f"batch {b} does not split into "
+                                 f"{microbatches} microbatches of "
+                                 f"{parts} data ranks")
+            order = torch.arange(b, device=v.device).reshape(
+                microbatches, parts, -1).transpose(0, 1).reshape(-1)
+            v = v[order]
+        out[k] = distribute(v, specs[k], mesh)
+    return out
 
 
 def abstract_train_state(lm: LM, *, compress: bool = False) -> TrainState:
@@ -120,7 +158,7 @@ def make_train_step(lm: LM, *, hyper: AdamWHyper = AdamWHyper(),
                     compute_dtype=torch.bfloat16):
     """Returns ``train_step(state, batch) -> (state, metrics)``; ``batch``
     holds [b, ...] tensors (b a multiple of ``microbatches``) on the
-    params' device."""
+    params' device, DTensors by ``distribute_batch`` on a sharded state."""
 
     def train_step(state: TrainState, batch):
         params = state.params

@@ -39,23 +39,22 @@ def _numpy_tree(tree):
 def train(inp, mesh):
     """One ``make_train_step`` step of the 2x2-sharded state: the plan
     from the state, ``train_state_specs``, the batch split on the data
-    axis, two microbatches; counts of the qwhole path."""
+    axis (``distribute_batch``), two microbatches; counts of the qwhole
+    path and the sharded MoE layer."""
     import repro_torch.models.attention as A
+    import repro_torch.models.moe as M
     from repro_torch.models.transformer import LM
     from repro_torch.sharding import make_plan
     from repro_torch.sharding.ctx import use_mesh
-    from repro_torch.sharding.planner import distribute, distribute_tree
+    from repro_torch.sharding.planner import distribute_tree
     from repro_torch.training.optimizer import AdamWHyper
-    from repro_torch.training.train_step import (make_train_step,
+    from repro_torch.training.train_step import (distribute_batch,
+                                                 make_train_step,
                                                  train_state_specs)
     cfg, state, batch = inp["cfg"], inp["state"], inp["batch"]
-    calls = {"qwhole": 0}
-    real = A.qwhole_attention
-
-    def counted(*a, **k):
-        calls["qwhole"] += 1
-        return real(*a, **k)
-    A.qwhole_attention = counted
+    calls = {}
+    _count(A, "qwhole_attention", calls, "qwhole")
+    _count(M, "_sharded", calls, "moe")
     b, s = batch["tokens"].shape
     plan = make_plan(cfg, mesh, "train", batch=b, seq=s,
                      param_tree=state.params)
@@ -63,34 +62,52 @@ def train(inp, mesh):
     step = make_train_step(LM(cfg), hyper=AdamWHyper(warmup_steps=1),
                            microbatches=2, compute_dtype=torch.float32)
     with use_mesh(mesh):
-        new, metrics = step(dstate, {k: distribute(v, plan.batch_specs[k],
-                                                   mesh)
-                                     for k, v in batch.items()})
+        new, metrics = step(dstate, distribute_batch(batch, plan, mesh,
+                                                     2))
     return {"params": _numpy_tree(new.params),
             "m": _numpy_tree(new.opt["m"]), "v": _numpy_tree(new.opt["v"]),
             "loss": float(_full(metrics["loss"])),
             "grad_norm": float(_full(metrics["grad_norm"])),
-            "notes": plan.notes, "qwhole": calls["qwhole"]}
+            "notes": plan.notes, "qwhole": calls["qwhole"],
+            "moe": calls["moe"],
+            "placements": {k: _dims(v) for k, v in
+                           dstate.params["layers"].get("moe", {}).items()}}
+
+
+def _dims(t):
+    """The tensor dim each mesh dim splits of a DTensor (None: not
+    split)."""
+    return [p.dim if p.is_shard() else None for p in t.placements]
+
+
+def _count(module, name, calls, key):
+    """Count the calls of ``module.name`` in ``calls[key]``."""
+    real = getattr(module, name)
+    calls[key] = 0
+
+    def counted(*a, **k):
+        calls[key] += 1
+        return real(*a, **k)
+    setattr(module, name, counted)
 
 
 def serve(inp, mesh):
     """A prefill and greedy decode steps of the 2x2-sharded model (the
     plan's param and cache layouts); counts of the sequence-sharded
-    decode."""
+    decode, the sharded MoE layer, banded prefill and ring decode."""
     import repro_torch.models.attention as A
+    import repro_torch.models.moe as M
     from repro_torch.models.transformer import LM
     from repro_torch.sharding import make_plan
     from repro_torch.sharding.ctx import use_mesh
     from repro_torch.sharding.planner import distribute, distribute_tree
     cfg, params, tokens = inp["cfg"], inp["params"], inp["tokens"]
     steps, max_len = inp["steps"], inp["max_len"]
-    calls = {"seq": 0}
-    real = A.seq_sharded_decode
-
-    def counted(*a, **k):
-        calls["seq"] += 1
-        return real(*a, **k)
-    A.seq_sharded_decode = counted
+    calls = {}
+    _count(A, "seq_sharded_decode", calls, "seq")
+    _count(A, "banded_sharded", calls, "banded")
+    _count(A, "_ring_attention_sharded", calls, "ring")
+    _count(M, "_sharded", calls, "moe")
     lm = LM(cfg)
     b = tokens.shape[0]
     plan = make_plan(cfg, mesh, "decode", batch=b, seq=max_len,
@@ -115,7 +132,7 @@ def serve(inp, mesh):
             logits.append(lg.numpy())
             t = lg.argmax(-1)[:, None].to(torch.int32)
     return {"logits": logits, "tokens": toks, "seq_sharded": calls["seq"],
-            "cache_layout": layout, "notes": plan.notes}
+            "calls": calls, "cache_layout": layout, "notes": plan.notes}
 
 
 def pipeline(inp, mesh):
@@ -135,7 +152,31 @@ def pipeline(inp, mesh):
     return {"out": f(stage_params_from_stack(w, n), x).numpy()}
 
 
+def production(inp, mesh):
+    """``launch.train.train(..., production_mesh=True)`` with this 2x2
+    mesh standing in for the 16x16 production mesh: the launcher plans
+    and distributes the state itself. Returns its losses and the layout
+    of the state it ran."""
+    import repro_torch.launch.mesh as LMESH
+    import repro_torch.launch.train as T
+    seen = {}
+    real = T._production
+
+    def production_(*a, **k):
+        out = real(*a, **k)
+        seen["placements"] = {
+            k: _dims(v) for k, v in out[2].params["layers"]["moe"].items()}
+        return out
+    T._production = production_
+    LMESH.make_production_mesh = lambda **k: mesh
+    _, losses = T.train(inp["arch"], smoke=True, steps=inp["steps"],
+                        batch=inp["batch"], seq=inp["seq"],
+                        production_mesh=True, device="cpu", log_every=1000)
+    return {"losses": losses, "placements": seen["placements"]}
+
+
 CASES = {"train": (train, (2, 2), ("data", "model")),
+         "production": (production, (2, 2), ("data", "model")),
          "serve": (serve, (2, 2), ("data", "model")),
          "pipeline": (pipeline, (4,), ("pipe",))}
 
@@ -162,14 +203,20 @@ def _spawn(case, folder, world=4):
     return torch.load(os.path.join(folder, "out.pt"), weights_only=False)
 
 
-def check(step_tol: float = 5e-5, tol: float = 1e-5) -> None:
+def check(step_tol: float = 5e-5, tol: float = 1e-5,
+          loss_tol: float = 2e-2) -> None:
     """The train and serve cases against the unsharded port alone (no
     JAX: seeded port weights), for a machine without the reference whose
     torch differs: ``python tests/_torch_dist_cases.py check``. A step's params within
     ``step_tol`` of each leaf's largest (the port's train-step tolerance,
     PERF.md §2: with other weights than the test's, AdamW's division can
     turn a gradient's last-bit difference into more), logits within
-    ``tol``, tokens equal. Exits 1 on a mismatch."""
+    ``tol``, tokens equal. The dense cases (minitron-8b's smoke config),
+    then the MoE ones (qwen3-moe's: expert parallel, expert-TP, flattened
+    decode with capacity drops, int8 experts; mixtral's with its ring
+    split on S) and the production launcher's bf16 steps, whose losses
+    must be the unsharded launcher's within ``loss_tol``. Exits 1 on a
+    mismatch."""
     import dataclasses
     import tempfile
     from repro_torch.bridge import leaves
@@ -179,14 +226,30 @@ def check(step_tol: float = 5e-5, tol: float = 1e-5) -> None:
     from repro_torch.training.train_step import (init_train_state,
                                                  make_train_step)
     bad = []
-    for name, over in (("heads", {}),
-                       ("qwhole", {"num_heads": 3, "num_kv_heads": 1}),
-                       ("kv_group_split", {"num_kv_heads": 1})):
-        cfg = dataclasses.replace(get_smoke_config("minitron-8b"),
+    for name, arch, over, seq, rows, prompt, steps, q8 in (
+            ("heads", "minitron-8b", {}, 32, 4, 8, 6, False),
+            ("qwhole", "minitron-8b", {"num_heads": 3, "num_kv_heads": 1},
+             32, 4, 8, 6, False),
+            ("kv_group_split", "minitron-8b", {"num_kv_heads": 1}, 32, 4, 8,
+             6, False),
+            ("moe_ep", "qwen3-moe-30b-a3b", {}, 32, 4, 8, 6, False),
+            ("moe_expert_tp", "qwen3-moe-30b-a3b", {"num_experts": 3}, 32,
+             4, 8, 6, False),
+            ("moe_ep_rows", "qwen3-moe-30b-a3b", {}, 64, 4, 8, 6, False),
+            ("moe_drops", "qwen3-moe-30b-a3b", {"moe_capacity_factor": 0.5},
+             0, 16, 8, 6, False),
+            ("moe_int8", "qwen3-moe-30b-a3b", {}, 0, 4, 8, 6, True),
+            ("mixtral_seq_ring", "mixtral-8x7b", {"num_kv_heads": 1}, 0, 4,
+             40, 24, False)):
+        cfg = dataclasses.replace(get_smoke_config(arch),
                                   dtype="float32", **over)
         g = torch.Generator().manual_seed(3)
-        tokens = torch.randint(0, cfg.vocab_size, (4, 32), generator=g,
-                               dtype=torch.int32)
+        tokens = torch.randint(0, cfg.vocab_size, (rows, max(seq, prompt)),
+                               generator=g, dtype=torch.int32)
+        if not seq:
+            tokens = tokens[:, :prompt].contiguous()
+            bad += _check_serve(name, cfg, tokens, steps, q8, tol)
+            continue
         batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
         with tempfile.TemporaryDirectory() as d:
             torch.save({"cfg": cfg, "batch": batch,
@@ -205,36 +268,60 @@ def check(step_tol: float = 5e-5, tol: float = 1e-5) -> None:
               f"leaf's largest; qwhole calls {out['qwhole']}", flush=True)
         if err > step_tol:
             bad.append(f"train {name}")
-        lm = LM(cfg)
-        params = lm.init(0, device="cpu")
-        prompt = tokens[:, :8].contiguous()
-        with tempfile.TemporaryDirectory() as d:
-            torch.save({"cfg": cfg, "params": params, "tokens": prompt,
-                        "steps": 6, "max_len": 32},
-                       os.path.join(d, "in.pt"))
-            out = _spawn("serve", d)
-        with torch.no_grad():
-            lg, cache = lm.prefill(params, {"tokens": prompt}, 32)
-            errs, same = [abs(torch.tensor(out["logits"][0]) - lg).max()], \
-                True
-            t = lg.argmax(-1)[:, None].to(torch.int32)
-            for i in range(6):
-                same &= bool((torch.tensor(out["tokens"][i]) == t).all())
-                lg, cache = lm.decode_step(params, cache, t)
-                errs.append(abs(torch.tensor(out["logits"][i + 1])
-                                - lg[:, 0]).max())
-                t = lg[:, 0].argmax(-1)[:, None].to(torch.int32)
-        err = float(max(errs))
-        print(f"[check] serve {name}: tokens equal {same}, logits within "
-              f"{err:.2e}; sequence-sharded decode calls "
-              f"{out['seq_sharded']}", flush=True)
-        if not same or err > tol:
-            bad.append(f"serve {name}")
+        bad += _check_serve(name, cfg, tokens[:, :prompt].contiguous(),
+                            steps, q8, tol)
+    from repro_torch.launch.train import train as launch
+    inp = {"arch": "qwen3-moe-30b-a3b", "steps": 2, "batch": 4, "seq": 64}
+    with tempfile.TemporaryDirectory() as d:
+        torch.save(inp, os.path.join(d, "in.pt"))
+        out = _spawn("production", d)
+    _, want = launch(inp["arch"], smoke=True, steps=inp["steps"],
+                     batch=inp["batch"], seq=inp["seq"], device="cpu",
+                     log_every=1000)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(out["losses"], want))
+    print(f"[check] production qwen3-moe smoke: losses {out['losses']} vs "
+          f"unsharded {want} ({rel:.2e}); w_gate split on dims "
+          f"{out['placements']['w_gate']}", flush=True)
+    if rel > loss_tol:
+        bad.append("production")
     print(f"[check] torch {torch.__version__}: "
           + ("every case matches" if not bad else f"FAILED {bad}"),
           flush=True)
     if bad:
         sys.exit(1)
+
+
+def _check_serve(name, cfg, prompt, steps, q8, tol) -> list:
+    """The serve case of ``cfg`` (int8 weights if ``q8``) against the
+    unsharded port: [] if tokens equal and logits within ``tol``."""
+    import tempfile
+    from repro_torch.models.quant import quantize_tree
+    from repro_torch.models.transformer import LM
+    lm = LM(cfg)
+    params = lm.init(0, device="cpu")
+    if q8:
+        params = quantize_tree(params)
+    max_len = 32 if prompt.shape[1] < 32 else 64
+    with tempfile.TemporaryDirectory() as d:
+        torch.save({"cfg": cfg, "params": params, "tokens": prompt,
+                    "steps": steps, "max_len": max_len},
+                   os.path.join(d, "in.pt"))
+        out = _spawn("serve", d)
+    with torch.no_grad():
+        lg, cache = lm.prefill(params, {"tokens": prompt}, max_len)
+        errs, same = [abs(torch.tensor(out["logits"][0]) - lg).max()], True
+        t = lg.argmax(-1)[:, None].to(torch.int32)
+        for i in range(steps):
+            same &= bool((torch.tensor(out["tokens"][i]) == t).all())
+            lg, cache = lm.decode_step(params, cache, t)
+            errs.append(abs(torch.tensor(out["logits"][i + 1])
+                            - lg[:, 0]).max())
+            t = lg[:, 0].argmax(-1)[:, None].to(torch.int32)
+    err = float(max(errs))
+    print(f"[check] serve {name}: tokens equal {same}, logits within "
+          f"{err:.2e}; sharded calls {out['calls']}; cache layout "
+          f"{out['cache_layout']}", flush=True)
+    return [] if same and err <= tol else [f"serve {name}"]
 
 
 def main():
