@@ -1751,9 +1751,13 @@ def phase_int8_kernels(mx_cfg):
 
 
 MODEL_AXIS = 16                 # the production mesh's model axis
+SPLIT_BC_TOL = 1e-2             # the SSD backward's dB and dC: the sum of
+#                                 the 16 rank launches (bf16 outputs, each
+#                                 rounded once) vs the whole launch's, of
+#                                 its largest magnitude
 
 
-def phase_split_kernels(moe_cfg, mx_cfg):
+def phase_split_kernels(moe_cfg, mx_cfg, rg_cfg, mb_cfg):
     """The expert kernels at the local shapes a 16-way model axis gives
     the MoE layer under a mesh (``models.moe``, ``kernels.sharded.
     expert_layout``), against the whole launch:
@@ -1770,7 +1774,8 @@ def phase_split_kernels(moe_cfg, mx_cfg):
       within ATOL of its largest magnitude; K1 at F 896 (bf16: its NR
       tile is 160, 896 = 5 x 160 + 96) against the whole K1's columns
       (bits printed) and its plain version (BWD_ROW of each row's
-      norm)."""
+      norm);
+    * the scans (``split_scans``)."""
     import torch
     from repro_torch.kernels.moe_gemm import moe_gemm as MG
     from repro_torch.models.quant import quantize_weight
@@ -1907,6 +1912,121 @@ def phase_split_kernels(moe_cfg, mx_cfg):
         f"tiles: 5 whole, one of 96) {'bit for bit' if k1_bits else 'NOT bit for bit'} "
         f"the whole K1's columns, {k1_err:.2e} of a row's norm from its "
         f"plain version (tolerance {BWD_ROW})")
+    del wg, wu, wd, q8
+    split_scans(rg_cfg, mb_cfg)
+
+
+def split_scans(rg_cfg, mb_cfg):
+    """The scan kernels at the local shapes a 16-way model axis gives them
+    under a mesh (``kernels.sharded.scan_layout``), against the whole
+    launch, at the recurrent paths' prefill (2048 tokens) and training
+    microbatch (TRAIN_SEQ) shapes, batch 1:
+
+    * recurrentgemma-2b: ``rglru_scan`` and ``rglru_scan_bwd`` on the 160
+      of 2560 columns of w of model rank 7, f32: bit for bit the whole
+      launch's columns;
+    * mamba2-1.3b (nh 64, hp 64, n 128, g 1, Q 128, bf16 x, B, C): the
+      4 heads of each model rank with their one group: on rank 5,
+      ``ssd_chunk``'s y and S_final, and ``ssd_chunk_bwd``'s (the
+      forward's workspace kept, as in training) dx, ddt, dA and dS0 bit
+      for bit the whole launch's heads; dB and dC, partial sums over the
+      axis, summed over the 16 ranks' launches in rank order in f32
+      against the whole launch's, within SPLIT_BC_TOL of its largest
+      magnitude."""
+    import torch
+    from repro_torch.kernels.rglru_scan import rglru_scan as RS
+    from repro_torch.kernels.ssd_chunk import ssd_chunk as SC
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1729)
+
+    def rand(shape, lo, hi):
+        return torch.rand(shape, generator=gen, device=dev) * (hi - lo) + lo
+
+    def randn(shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def same(what, got, want):
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            n = int((got != want).sum())
+            fail(f"[kernels] split shapes, {what}: {n} of {want.numel()} "
+                 f"elements differ from the whole launch's")
+
+    W = rg_cfg.lru_width
+    Wl = W // MODEL_AXIS
+    cs = slice(7 * Wl, 8 * Wl)
+    for T in (2048, TRAIN_SEQ):
+        a, b, h0 = rand((1, T, W), 0.9, 1.0), randn((1, T, W)) * 0.1, \
+            randn((1, W))
+        dh = randn((1, T, W))
+        h = RS.rglru_scan(a, b, h0)
+        loc = [t[..., cs].contiguous() for t in (a, b, h0, dh)]
+        hl = RS.rglru_scan(*loc[:3])
+        same(f"rglru_scan T {T}", hl, h[..., cs])
+        for name, got, want in zip(
+                ("da", "db", "dh0"),
+                RS.rglru_scan_bwd(loc[0], hl, loc[2], loc[3]),
+                RS.rglru_scan_bwd(a, h, h0, dh)):
+            same(f"rglru_scan_bwd {name} T {T}", got, want[..., cs])
+    log(f"[kernels] split shapes, recurrentgemma-2b (w columns "
+        f"{cs.start}-{cs.stop - 1} of {W} on model rank 7 of {MODEL_AXIS}, "
+        f"B 1, T 2048 and {TRAIN_SEQ}, f32): rglru_scan's h and "
+        f"rglru_scan_bwd's da, db, dh0 on the rank's columns bit for bit "
+        f"the whole launch's columns")
+
+    nh, hp, n, g, Q = (mb_cfg.ssm_nheads, mb_cfg.ssm_headdim,
+                       mb_cfg.ssm_state, mb_cfg.ssm_ngroups, mb_cfg.ssm_chunk)
+    Hl = nh // MODEL_AXIS
+    bf16 = torch.bfloat16
+    errs = {}
+    for l in (2048, TRAIN_SEQ):
+        x = randn((1, l, nh, hp), bf16)
+        B, C = randn((1, l, g, n), bf16), randn((1, l, g, n), bf16)
+        dt = rand((1, l, nh), 1e-3, 0.1)
+        A = -torch.arange(1, nh + 1, device=dev, dtype=torch.float32)
+        S0, dS = randn((1, nh, hp, n)), randn((1, nh, hp, n))
+        dy = randn((1, l, nh, hp))
+
+        def run(hs):            # the forward and backward on heads hs
+            xl, dtl, Al, S0l, dSl, dyl = (
+                t.contiguous() for t in (x[:, :, hs], dt[:, :, hs], A[hs],
+                                         S0[:, hs], dS[:, hs], dy[:, :, hs]))
+            y, Sf, ws = SC._forward(xl, dtl, Al, B, C, S0l, Q)
+            return (y, Sf) + SC.ssd_chunk_bwd(xl, dtl, Al, B, C, S0l, dyl,
+                                               dSl, Q, ws=ws)
+
+        whole = run(slice(0, nh))
+        total = [torch.zeros(t.shape, device=dev) for t in whole[5:7]]
+        for r in range(MODEL_AXIS):
+            hs = slice(r * Hl, (r + 1) * Hl)
+            got = run(hs)
+            if r == 5:
+                for name, i, dim in (("y", 0, 2), ("S_final", 1, 1),
+                                     ("dx", 2, 2), ("ddt", 3, 2),
+                                     ("dA", 4, 0), ("dS0", 7, 1)):
+                    same(f"ssd_chunk {name} l {l}", got[i],
+                         whole[i].narrow(dim, hs.start, Hl))
+            total[0] += got[5].float()
+            total[1] += got[6].float()
+        for name, t, w in (("dB", total[0], whole[5]),
+                           ("dC", total[1], whole[6])):
+            w = w.float()
+            errs[(name, l)] = float((t - w).abs().max()
+                                    / w.abs().max().clamp(min=1e-30))
+    bad = {k: v for k, v in errs.items() if v > SPLIT_BC_TOL}
+    log(f"[kernels] split shapes, mamba2-1.3b (heads {5 * Hl}-{6 * Hl - 1} "
+        f"of {nh} on model rank 5 of {MODEL_AXIS}, g {g}: each rank takes "
+        f"group 0; b 1, l 2048 and {TRAIN_SEQ}, hp {hp} n {n} Q {Q}, bf16 "
+        f"x, B, C, the forward's workspace kept): ssd_chunk's y, S_final "
+        f"and ssd_chunk_bwd's dx, ddt, dA, dS0 bit for bit the whole "
+        f"launch's heads; dB, dC summed over the {MODEL_AXIS} rank launches "
+        f"(rank order, f32) vs the whole launch: " + ", ".join(
+            f"{k} l {ll} {v:.2e}" for (k, ll), v in errs.items())
+        + f" of its largest magnitude (tolerance {SPLIT_BC_TOL})")
+    if bad:
+        fail(f"[kernels] split shapes, mamba2 dB/dC sums past "
+             f"{SPLIT_BC_TOL}: {bad}")
 
 
 def ssd_flops(l: int, chunk: int, nh: int, hp: int, g: int, n: int,
@@ -3737,7 +3857,9 @@ def check_mixtral(cfg, params, out) -> None:
 #: the qwen2-vl-72b path: prompt lengths, greedy tokens a session,
 #: context; the vision prompt's tokens and its greedy decode steps
 QWEN2VL_LENS = (500, 1900, 1210, 760, 1530, 980, 1750, 640)
-QWEN2VL_GEN = 32
+QWEN2VL_GEN = 16                # greedy tokens a session (the script's
+#                                 time limit: a decode step is
+#                                 device-bound, ~0.65 s at 80 layers)
 QWEN2VL_MAX_LEN = 2048
 QWEN2VL_VISION_TOKENS = 1024
 QWEN2VL_VISION_STEPS = 16
@@ -4223,7 +4345,8 @@ def recurrent_card_vs_cpu() -> float:
 # ---------------------------------------------------------------------------
 # the split path: speculative decode over two anchors of one session
 
-SPLIT_TOKENS = 32               # committed tokens of each arm
+SPLIT_TOKENS = 16               # committed tokens of each arm (the
+#                                 script's time limit)
 SPLIT_GAMMA = 4                 # draft window
 SPLIT_PROMPT = 1000             # prompt tokens
 
@@ -5093,10 +5216,18 @@ DIST_MOE_LAYERS = 4             # qwen3-moe's and mixtral's DTensor
 #                                 serving paths: 4 of their layers
 MX_DIST_PROMPT = 4500           # mixtral: 2 prompts past its 4096 window,
 MX_DIST_MAX_LEN = 8192          # a ring of 4096 slots a layer
+RG_DIST_LAYERS = 3              # recurrentgemma-2b's DTensor train step:
+#                                 rec, rec, attn
+MB_DIST_LAYERS = 4              # mamba2-1.3b's
+RG_DIST_PROMPT = 2500           # recurrentgemma-2b's DTensor serving: 2
+RG_DIST_MAX_LEN = 4096          # prompts past its 2048 window (the ring
+#                                 of 2048 slots wraps)
 DRYRUN_CELLS = (("minitron-8b", "train_4k"),
                 ("phi3-medium-14b", "prefill_32k"),
                 ("qwen3-moe-30b-a3b", "train_4k"),
-                ("mixtral-8x7b", "decode_32k"))
+                ("mixtral-8x7b", "decode_32k"),
+                ("mamba2-1.3b", "train_4k"),
+                ("recurrentgemma-2b", "long_500k"))
 DRYRUN_DIR = ROOT / "artifacts" / "dryrun-chip"
 
 
@@ -5109,8 +5240,10 @@ def start_dryruns():
     priority than the host-bound phases beside them."""
     import os
     DRYRUN_DIR.mkdir(parents=True, exist_ok=True)
+    # one thread each: fake tensors compute nothing, and the host-bound
+    # phases beside them share the machine's cores
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
-               CUDA_VISIBLE_DEVICES="")
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
     procs = []
     for arch, shape in DRYRUN_CELLS:
         out = open(DRYRUN_DIR / f"{arch}__{shape}.log", "w")
@@ -5407,8 +5540,18 @@ def drive_dist_serve(cfg, params, tokens, max_len=DIST_MAX_LEN) -> dict:
             t = lg.full_tensor()[:, 0].argmax(-1)[:, None].to(torch.int32)
             torch.cuda.synchronize()
             out["ms"].append((time.perf_counter() - t0) * 1e3)
-    out["layout"] = [str(p) for p in cache["layers"]["k"].placements]
+    out["layout"] = cache_layout(cache["layers"])
     return out
+
+
+def cache_layout(layers) -> dict:
+    """Each cache leaf's placements (of the first layer that holds it,
+    for the hybrid's tuple of layers)."""
+    seen = {}
+    for layer in layers if isinstance(layers, tuple) else (layers,):
+        for k, v in layer.items():
+            seen.setdefault(k, [str(p) for p in v.placements])
+    return seen
 
 
 def plain_serve(cfg, params, tokens, max_len=DIST_MAX_LEN) -> dict:
@@ -5526,7 +5669,46 @@ def dist_serve_path(cfg, counters, required, want_n, prompt: int,
     return launches
 
 
-def phase_distributed(cfg, counters, dryruns, moe_cfg, mx_cfg) -> list:
+def dist_recurrent_paths(rg_cfg, mb_cfg, counters) -> list:
+    """The recurrent families on a 1x1 mesh: recurrentgemma-2b's train
+    step at RG_DIST_LAYERS layers and mamba2-1.3b's at MB_DIST_LAYERS
+    (full width; the scans and their backward through their DTensor
+    routes) against the plain steps, launches equal; then their serving
+    at full depth (recurrentgemma's prompts past its window), tokens equal
+    to the plain path's, every RG-LRU block and SSD layer's prefill scan
+    launched once, decode on the plain single-step recurrence (no kernel).
+    Returns the paths' launches."""
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+    from repro_torch.kernels.rglru_scan import rglru_scan as RS
+    from repro_torch.kernels.ssd_chunk import ssd_chunk as SC
+    paths = []
+    for rcfg, layers, mod in ((rg_cfg, RG_DIST_LAYERS, RS),
+                              (mb_cfg, MB_DIST_LAYERS, SC)):
+        t0 = time.perf_counter()
+        tcfg = train_config(rcfg, layers)
+        paths.append(dist_train_path(tcfg, counters, (mod, FA),
+                                     tuple(mod.LAUNCHES)))
+        log(f"[distributed] {tcfg.name} train path: "
+            f"{time.perf_counter() - t0:.1f} s")
+    none = {"flash_attention": 0, "decode_attention": 0,
+            "paged_decode_attention": 0}
+    for rcfg, kernel, n, prompt, max_len in (
+            (rg_cfg, "rglru_scan", rg_cfg._pattern().count("rec"),
+             RG_DIST_PROMPT, RG_DIST_MAX_LEN),
+            (mb_cfg, "ssd_chunk", mb_cfg.num_layers, DIST_PROMPT,
+             DIST_MAX_LEN)):
+        t0 = time.perf_counter()
+        paths.append(dist_serve_path(rcfg, counters, (kernel,),
+                                     dict(none, **{kernel: n}), prompt,
+                                     max_len))
+        log(f"[distributed] {rcfg.name} serving path ({rcfg.num_layers} "
+            f"layers, prompts of {prompt}): {time.perf_counter() - t0:.1f} "
+            f"s")
+    return paths
+
+
+def phase_distributed(cfg, counters, dryruns, moe_cfg, mx_cfg, rg_cfg,
+                      mb_cfg) -> list:
     """The distribution layer on the card, each path on a 1x1 mesh of a
     one-rank NCCL group against the same path on plain tensors: the train
     steps of minitron-8b and qwen3-moe-30b-a3b at 4 layers (bit for bit,
@@ -5537,7 +5719,9 @@ def phase_distributed(cfg, counters, dryruns, moe_cfg, mx_cfg) -> list:
     in one ``local_map``) and mixtral-8x7b's on int8 weights at
     DIST_MOE_LAYERS (prompts past its window: the banded prefill, the
     ring filled and read rank by rank), tokens equal to the plain path's;
-    then the dry-run cells. Returns the main paths' launches."""
+    the recurrent families' train steps and serving
+    (``dist_recurrent_paths``); then the dry-run cells. Returns the main
+    paths' launches."""
     import dataclasses
     from repro_torch.kernels.flash_attention import flash_attention as FA
     from repro_torch.kernels.moe_gemm import moe_gemm as MG
@@ -5597,6 +5781,7 @@ def phase_distributed(cfg, counters, dryruns, moe_cfg, mx_cfg) -> list:
         f"{MX_DIST_PROMPT} past the {xcfg.sliding_window}-token window, "
         f"ring of {min(xcfg.sliding_window, MX_DIST_MAX_LEN)} slots, "
         f"{DIST_STEPS} steps): {time.perf_counter() - t0:.1f} s")
+    paths += dist_recurrent_paths(rg_cfg, mb_cfg, counters)
     if dryruns:
         finish_dryruns(dryruns)
     else:
@@ -5697,7 +5882,7 @@ def main() -> None:
     lap("kernels: expert backward")
     rows.update(phase_int8_kernels(mx_cfg))
     lap("kernels: int8 experts")
-    phase_split_kernels(moe_cfg, mx_cfg)
+    phase_split_kernels(moe_cfg, mx_cfg, rg_cfg, mb_cfg)
     lap("kernels: split shapes")
     rows.update(phase_recurrent_kernels(rg_cfg, mb_cfg))
     lap("kernels: recurrent")
@@ -5949,7 +6134,8 @@ def main() -> None:
         fail(f"{left / 1e9:.2f} GB still allocated before the distributed "
              f"paths")
     t0 = time.perf_counter()
-    paths += phase_distributed(cfg, counters, dryruns, moe_cfg, mx_cfg)
+    paths += phase_distributed(cfg, counters, dryruns, moe_cfg, mx_cfg,
+                               rg_cfg, mb_cfg)
     log(f"[distributed] {time.perf_counter() - t0:.1f} s")
     lap("distributed")
 

@@ -19,6 +19,16 @@ The wrappers take the plain versions only for tensors on the CPU. For a
 CUDA tensor they launch the kernel or raise: there is no fallback.
 ``LAUNCHES`` counts kernel launches (one per successful launch, nowhere
 else).
+
+DTensor inputs (the port's distribution layer) run the kernel on every
+rank's shards through ``local_map``, in the layout
+``kernels.sharded.scan_layout`` picks: the recurrence is elementwise over
+W, so a rank's batch rows and W columns are an independent launch and no
+collective runs in either direction; a split T, or a partial sum, is
+redistributed to whole T explicitly first. On a ``FakeTensor`` (the dry
+run) the wrappers allocate their outputs and report the work
+(``kernels.sharded.report_work``): a multiply and an add an element
+forward, the reverse scan's and ``da``'s three backward.
 """
 
 from __future__ import annotations
@@ -28,6 +38,7 @@ import functools
 
 import torch
 
+from repro_torch.kernels import sharded as SH
 from repro_torch.kernels.build import call_on_stream, load
 
 #: kernel name -> launches since the last reset_launches()
@@ -123,7 +134,42 @@ def _ws_bytes(B: int, T: int, W: int) -> int:
     return _library().rglru_scan_ws_bytes(B, T, W)
 
 
+def _sharded(a, b, h0):
+    """``rglru_scan`` on DTensors a, b [B, T, W] and h0 [B, W] (a tensor:
+    replicated): the kernel (its plain version on CPU shards) on every
+    rank's rows and columns through ``local_map``, differentiable as the
+    local call is (``RGLRUScan``); every gradient takes its input's
+    layout, none is a partial sum."""
+    from torch.distributed.tensor.experimental import local_map
+    mesh = a.device_mesh
+    lay = SH.scan_layout(a, a.shape[2])
+    a, b = (SH.redistribute(t, mesh, lay.seq) for t in (a, b))
+    h0 = SH.redistribute(h0, mesh, lay.state)
+    s, st = list(lay.seq), list(lay.state)
+    return local_map(rglru_scan, out_placements=s, in_placements=(s, s, st),
+                     in_grad_placements=(s, s, st),
+                     device_mesh=mesh)(a, b, h0)
+
+
+def _sharded_bwd(a, h, h0, dh):
+    """``rglru_scan_bwd`` on DTensors: every rank's rows and columns, in
+    ``rglru_scan``'s layout; (da, db, dh0) laid out as a, b and h0."""
+    from torch.distributed.tensor.experimental import local_map
+    mesh = a.device_mesh
+    lay = SH.scan_layout(a, a.shape[2])
+    a, h, dh = (SH.redistribute(t, mesh, lay.seq) for t in (a, h, dh))
+    h0 = SH.redistribute(h0, mesh, lay.state)
+    s, st = list(lay.seq), list(lay.state)
+    return local_map(rglru_scan_bwd, out_placements=(s, s, st),
+                     in_placements=(s, s, st, s),
+                     device_mesh=mesh)(a, h, h0, dh)
+
+
 def _forward(a, b, h0):
+    if SH.is_fake(a):        # the dry run: the kernel's output and work
+        SH.report_work("rglru_scan", 2 * a.numel(),
+                       4 * (3 * a.numel() + h0.numel()))
+        return torch.empty_like(a)
     if a.device.type == "cpu":
         return rglru_scan_ref(a, b, h0)
     _check(a, b, h0)
@@ -160,7 +206,15 @@ def rglru_scan_bwd_ref(a, h, h0, dh):
 
 def rglru_scan_bwd(a, h, h0, dh):
     """(da, db, dh0) of ``rglru_scan_bwd_ref``: the plain version on the
-    CPU, else the kernel's reverse scan (one launch)."""
+    CPU, else the kernel's reverse scan (one launch); DTensors on every
+    rank's shards (``_sharded_bwd``)."""
+    if SH.is_dtensor(a):
+        return _sharded_bwd(a, h, h0, dh)
+    if SH.is_fake(a):        # the dry run: the outputs and the work
+        SH.report_work("rglru_scan_bwd", 3 * a.numel(),
+                       4 * (5 * a.numel() + 2 * h0.numel()))
+        return torch.empty_like(a), torch.empty_like(a), \
+            torch.empty_like(h0)
     if a.device.type == "cpu":
         return rglru_scan_bwd_ref(a, h, h0, dh)
     dh = dh.contiguous()
@@ -187,7 +241,14 @@ def rglru_scan_bwd(a, h, h0, dh):
 class RGLRUScan(torch.autograd.Function):
     """``rglru_scan`` with a gradient: the forward is the scan (the plain
     version on the CPU) and saves a, h and h0; the backward is the reverse
-    scan, whose gradients come back where they are needed."""
+    scan, whose gradients come back where they are needed. On DTensors
+    ``apply`` runs the Function on every rank's shards (``_sharded``)."""
+
+    @classmethod
+    def apply(cls, a, b, h0):
+        if SH.is_dtensor(a):
+            return _sharded(a, b, h0)
+        return super().apply(a, b, h0)
 
     @staticmethod
     def forward(ctx, a, b, h0):
@@ -206,7 +267,10 @@ class RGLRUScan(torch.autograd.Function):
 def rglru_scan(a, b, h0):
     """h_t = a_t * h_{t-1} + b_t over axis 1 from h0. a, b: [B, T, W] f32;
     h0: [B, W] f32 -> h [B, T, W] f32. Differentiable in a, b and h0
-    (``RGLRUScan``) while autograd records."""
+    (``RGLRUScan``) while autograd records. DTensors run it on every
+    rank's shards (``_sharded``)."""
+    if SH.is_dtensor(a):
+        return _sharded(a, b, h0)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (a, b, h0)):
         return RGLRUScan.apply(a, b, h0)
     return _forward(a, b, h0)

@@ -1,4 +1,4 @@
-"""DTensor layouts for the attention and expert kernels' wrappers.
+"""DTensor layouts for the attention, expert and scan kernels' wrappers.
 
 A kernel only ever sees local tensors: each wrapper's DTensor branch picks
 the placements the kernel can take, redistributes its inputs to them
@@ -20,6 +20,17 @@ makes that choice for a query tensor and its K/V, mesh dim by mesh dim:
 Where K/V are replicated over a mesh dim on which q is split, each rank's
 K/V gradient is a part of the whole: ``kv_grad`` says so (``Partial``), so
 autograd sums the parts.
+
+``scan_layout`` makes the choice for the sequence scans (``rglru_scan``,
+``ssd_chunk``), whose steps run in order along the sequence and
+independently across the batch and the heads (the RG-LRU's channels):
+batch and head splits stay, and each rank scans its own rows and heads
+with no collective; the sequence is taken whole (a sequence split, or a
+partial sum, is redistributed to whole first). The SSD's B and C are
+shared by the heads of a group: split with the heads where the groups
+divide the axis, else replicated, each rank handed the groups of its own
+heads (``group_sel``, as GQA's KV heads above) and their gradient a
+partial sum.
 
 ``expert_layout`` makes the same choice for the MoE layer, whose one
 region holds dispatch, the expert kernels and combine
@@ -175,17 +186,94 @@ def attention_layout(q, k, *, batch: int, q_heads: int, q_rows,
     row0, rows = (0, 0) if q_rows is None else \
         shard_span(mesh, qp, q_rows, q.shape[q_rows])
     kv_heads = None
-    if not any(p.is_shard(kv_heads_dim) for p in kp) and heads != hq:
-        g = hq // kh
-        want = [(head0 + j) // g for j in range(heads)]
-        n = want[-1] - want[0] + 1
-        if heads % n == 0 and all(w - want[0] == j // (heads // n)
-                                  for j, w in enumerate(want)):
-            # the KV heads in order, each serving heads // n local heads
-            kv_heads = slice(want[0], want[-1] + 1)
-        else:          # groups cut unevenly: one KV head per query head
-            kv_heads = torch.tensor(want)
+    if not any(p.is_shard(kv_heads_dim) for p in kp):
+        kv_heads = group_select(head0, heads, hq, kh)
     return AttentionLayout(qp, kp, kg, head0, heads, row0, rows, kv_heads)
+
+
+def group_select(head0: int, heads: int, total: int, groups: int):
+    """The groups of heads ``[head0, head0 + heads)`` of ``total`` heads
+    in ``groups`` even groups (GQA's KV heads, the SSD's B/C groups), to
+    hand a kernel that maps its local heads evenly onto its local groups:
+    None where the rank holds every head; a slice where its heads fill a
+    run of groups evenly; else one group a head (a tensor of indices,
+    where a rank boundary falls inside a group unevenly)."""
+    if heads == total:
+        return None
+    g = total // groups
+    want = [(head0 + j) // g for j in range(heads)]
+    n = want[-1] - want[0] + 1
+    if heads % n == 0 and all(w - want[0] == j // (heads // n)
+                              for j, w in enumerate(want)):
+        return slice(want[0], want[-1] + 1)
+    return torch.tensor(want)
+
+
+class ScanLayout(NamedTuple):
+    seq: tuple          # placements of a scanned tensor [b, l, H, ...] and
+    #                     of its output (also dt [b, l, H])
+    state: tuple        # of a state [b, H, ...] (h0, S0, the final state)
+    heads: tuple        # of a per-head vector [H] (the SSD's A)
+    heads_grad: tuple   # of its gradient
+    groups: tuple       # of a grouped input [b, l, g, n] (the SSD's B, C)
+    groups_grad: tuple  # of their gradients
+    group_sel: Optional[slice | torch.Tensor]   # the groups of its heads
+    #                     to hand the kernel (None: the groups it holds)
+
+
+def scan_layout(x, nheads: int, ngroups: int = 0) -> ScanLayout:
+    """Placements for a scan kernel on every rank's shards, mesh dim by
+    mesh dim, for the DTensor ``x`` [b, l, H, ...] (batch, sequence,
+    heads; ``nheads`` = H) and, for the SSD, ``ngroups`` groups of heads
+    sharing B and C:
+
+    * x split on its batch: every input and output split the same way,
+      and the per-head vector's gradient a partial sum (each rank's rows
+      contribute);
+    * x split on its heads: the states on their heads, the per-head
+      vector on its entries; B and C on their groups where the groups
+      divide the axis, else replicated with a partial-sum gradient;
+    * anything else (a split sequence or head width, a partial sum): taken
+      whole (the caller redistributes explicitly).
+
+    An uneven batch or head split (DTensor's uneven shards) raises: each
+    rank's kernel takes whole rows and whole heads of even shards."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = x.device_mesh
+    R, P = Replicate(), Partial()
+    cols = {k: [] for k in ScanLayout._fields[:6]}
+    groups_split = set()
+    for i, pl in enumerate(x.placements):
+        size = mesh.size(i)
+        if size > 1 and pl.is_shard(0):
+            if x.shape[0] % size:
+                raise ValueError(f"scan_layout: batch {x.shape[0]} split "
+                                 f"unevenly over {size} ranks")
+            row = dict(seq=Shard(0), state=Shard(0), heads=R,
+                       heads_grad=P, groups=Shard(0), groups_grad=Shard(0))
+        elif size > 1 and pl.is_shard(2):
+            if nheads % size:
+                raise ValueError(f"scan_layout: {nheads} heads split "
+                                 f"unevenly over {size} ranks")
+            split = bool(ngroups) and ngroups % size == 0
+            groups_split.add(split)
+            g = Shard(2) if split else R
+            row = dict(seq=Shard(2), state=Shard(1), heads=Shard(0),
+                       heads_grad=Shard(0), groups=g,
+                       groups_grad=g if split else P)
+        else:
+            row = dict.fromkeys(cols, R)
+        for k, v in row.items():
+            cols[k].append(v)
+    if len(groups_split) > 1:
+        raise ValueError("scan_layout: the heads split over mesh dims that "
+                         "split the groups and over others that do not")
+    cols = {k: tuple(v) for k, v in cols.items()}
+    sel = None
+    if ngroups and groups_split == {False}:
+        sel = group_select(*shard_span(mesh, cols["seq"], 2, nheads),
+                           nheads, ngroups)
+    return ScanLayout(**cols, group_sel=sel)
 
 
 class ExpertLayout(NamedTuple):
@@ -286,12 +374,30 @@ def expert_layout(x, w_gate, w_down, num_experts: int) -> ExpertLayout:
 
 def select_kv_heads(t, layout: AttentionLayout, dim: int):
     """The KV heads of this rank's query heads, along ``dim``."""
-    sel = layout.kv_heads
+    return select_groups(t, layout.kv_heads, dim)
+
+
+def select_groups(t, sel, dim: int):
+    """``t``'s groups ``sel`` (``group_select``) along ``dim``."""
     if sel is None:
         return t
     if isinstance(sel, slice):
         return t.narrow(dim, sel.start, sel.stop - sel.start)
     return t.index_select(dim, sel.to(t.device))
+
+
+def scatter_groups(t, sel, dim: int, n: int):
+    """The transpose of ``select_groups``: ``t``'s groups summed into
+    their places among ``n`` along ``dim``, zeros elsewhere."""
+    if sel is None:
+        return t
+    shape = list(t.shape)
+    shape[dim] = n
+    out = t.new_zeros(shape)
+    if isinstance(sel, slice):
+        out.narrow(dim, sel.start, sel.stop - sel.start).copy_(t)
+        return out
+    return out.index_add_(dim, sel.to(t.device), t)
 
 
 class _SumOver(torch.autograd.Function):

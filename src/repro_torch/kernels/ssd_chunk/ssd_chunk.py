@@ -31,6 +31,21 @@ The wrappers take the plain versions only for tensors on the CPU. For a
 CUDA tensor they launch the kernels or raise: there is no fallback.
 ``LAUNCHES`` counts wrapper calls that launched (one per successful call,
 whatever the number of kernels, nowhere else).
+
+DTensor inputs (the port's distribution layer) run the kernels on every
+rank's shards through ``local_map``, in the layout
+``kernels.sharded.scan_layout`` picks: batch and head splits stay (each
+rank scans its rows and heads, no collective); B and C split with the
+heads where the groups divide the axis, else replicated and each rank
+handed the groups of its own heads, so their gradients are partial sums
+over the axis (``Partial``, stated, not inferred); a split sequence or a
+partial sum is redistributed whole explicitly first. On a ``FakeTensor``
+(the dry run) the wrappers allocate their outputs and report the work:
+the mathematical products of the reference's ``_ssd_chunked``
+(``ssd_products``, B and C repeated to the heads as it repeats them) and,
+for the backward, the two products autodiff makes of each; not the bf16
+route's hi + lo split of the f32 operands, which is how the card computes
+them, not what the function needs.
 """
 
 from __future__ import annotations
@@ -41,6 +56,7 @@ import math
 
 import torch
 
+from repro_torch.kernels import sharded as SH
 from repro_torch.kernels.build import call_on_stream, load
 
 #: kernel name -> launches since the last reset_launches()
@@ -196,10 +212,94 @@ def _check(x, dt, A, B, C, S0, chunk: int):
     return b, l, nh, hp, g, n, Q
 
 
+def ssd_products(b: int, l: int, nh: int, hp: int, n: int,
+                 chunk: int) -> int:
+    """FLOPs (2 a multiply-add) of the reference's ``_ssd_chunked``
+    forward: per chunk of Q steps (the last one padded) and head, C·B^T on
+    B and C repeated to the heads (Q² n), the diagonal product (Q² hp), the
+    carried state's product and the state update (Q n hp each)."""
+    Q = min(chunk, l)
+    nc = -(-l // Q)
+    return 2 * b * nc * nh * (Q * Q * (n + hp) + 2 * Q * n * hp)
+
+
+def _in_bytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def _layout(x, B):
+    return SH.scan_layout(x, x.shape[2], B.shape[2])
+
+
+def _sharded(x, dt, A, B, C, S0, chunk: int):
+    """``ssd_chunk`` on DTensors (tensors count as replicated): the
+    kernels (their plain version on CPU shards) on every rank's shards
+    through ``local_map``, in ``scan_layout``'s layout, B and C cut to the
+    groups of the rank's heads; differentiable as the local call is
+    (``SSDChunk``), the gradients of A, B and C partial sums where the
+    layout says so."""
+    from torch.distributed.tensor.experimental import local_map
+    mesh = x.device_mesh
+    lay = _layout(x, B)
+    x, dt = (SH.redistribute(t, mesh, lay.seq) for t in (x, dt))
+    A = SH.redistribute(A, mesh, lay.heads)
+    B, C = (SH.redistribute(t, mesh, lay.groups) for t in (B, C))
+    S0 = SH.redistribute(S0, mesh, lay.state)
+
+    def local(xl, dtl, Al, Bl, Cl, Sl):
+        return ssd_chunk(xl, dtl.contiguous(), Al.contiguous(),
+                         SH.select_groups(Bl, lay.group_sel, 2),
+                         SH.select_groups(Cl, lay.group_sel, 2),
+                         Sl.contiguous(), chunk)
+
+    s, st, hd, hg, gr, gg = (list(p) for p in lay[:6])
+    return local_map(local, out_placements=(s, st),
+                     in_placements=(s, s, hd, gr, gr, st),
+                     in_grad_placements=(s, s, hg, gg, gg, st),
+                     device_mesh=mesh)(x, dt, A, B, C, S0)
+
+
+def _sharded_bwd(x, dt, A, B, C, S0, dy, dS_final, chunk: int):
+    """``ssd_chunk_bwd`` on DTensors, in ``ssd_chunk``'s layout: (dx, ddt,
+    dA, dB, dC, dS0) laid out as their inputs' gradients are there (dA,
+    dB and dC partial sums where the layout says so; a rank's dB and dC
+    placed at its heads' groups, zeros elsewhere)."""
+    from torch.distributed.tensor.experimental import local_map
+    mesh = x.device_mesh
+    lay = _layout(x, B)
+    x, dt, dy = (SH.redistribute(t, mesh, lay.seq) for t in (x, dt, dy))
+    A = SH.redistribute(A, mesh, lay.heads)
+    B, C = (SH.redistribute(t, mesh, lay.groups) for t in (B, C))
+    S0, dS_final = (SH.redistribute(t, mesh, lay.state)
+                    for t in (S0, dS_final))
+
+    def local(xl, dtl, Al, Bl, Cl, Sl, dyl, dSl):
+        sel = lay.group_sel
+        dx, ddt, dA, dB, dC, dS0 = ssd_chunk_bwd(
+            xl, dtl.contiguous(), Al.contiguous(),
+            SH.select_groups(Bl, sel, 2), SH.select_groups(Cl, sel, 2),
+            Sl.contiguous(), dyl, dSl, chunk)
+        n = Bl.shape[2]
+        return (dx, ddt, dA, SH.scatter_groups(dB, sel, 2, n),
+                SH.scatter_groups(dC, sel, 2, n), dS0)
+
+    s, st, hd, hg, gr, gg = (list(p) for p in lay[:6])
+    return local_map(local, out_placements=(s, s, hg, gg, gg, st),
+                     in_placements=(s, s, hd, gr, gr, st, s, st),
+                     device_mesh=mesh)(x, dt, A, B, C, S0, dy, dS_final)
+
+
 def _forward(x, dt, A, B, C, S0, chunk: int):
     """(y, S_final, ws): the kernels' launch; ws is the bf16 route's
     workspace, the state entering each chunk (empty on the f32 route and
-    None on the CPU)."""
+    None on the CPU and on fake tensors)."""
+    if SH.is_fake(x):        # the dry run: the kernels' outputs and work
+        b, l, nh, hp = x.shape
+        y = x.new_empty((b, l, nh, hp), dtype=torch.float32)
+        SH.report_work("ssd_chunk",
+                       ssd_products(b, l, nh, hp, B.shape[3], chunk),
+                       _in_bytes(x, dt, A, B, C, S0, S0, y))
+        return y, torch.empty_like(S0), None
     if x.device.type == "cpu":
         return ssd_chunk_ref(x, dt, A, B, C, S0, chunk) + (None,)
     b, l, nh, hp, g, n, Q = _check(x, dt, A, B, C, S0, chunk)
@@ -322,7 +422,19 @@ def ssd_chunk_bwd(x, dt, A, B, C, S0, dy, dS_final, chunk: int, ws=None):
     is the forward's workspace on the bf16 route (the state entering each
     chunk); without it the forward's kernels recompute those states first
     on the tensor-core route (bf16, hp <= TC_HEAD_BWD), and the first
-    kernel does on the CUDA-core route."""
+    kernel does on the CUDA-core route. DTensors run on every rank's
+    shards (``_sharded_bwd``)."""
+    if SH.is_dtensor(x):
+        return _sharded_bwd(x, dt, A, B, C, S0, dy, dS_final, chunk)
+    if SH.is_fake(x):        # the dry run: the gradients and the work
+        b, l, nh, hp = x.shape
+        SH.report_work("ssd_chunk_bwd",
+                       2 * ssd_products(b, l, nh, hp, B.shape[3], chunk),
+                       2 * _in_bytes(x, dt, A, B, C, S0)
+                       + _in_bytes(dy, dS_final))
+        return (torch.empty_like(x), torch.empty_like(dt),
+                torch.empty_like(A), torch.empty_like(B),
+                torch.empty_like(C), torch.empty_like(S0))
     if x.device.type == "cpu":
         return ssd_chunk_bwd_ref(x, dt, A, B, C, S0, dy, dS_final, chunk)
     b, l, nh, hp, g, n, Q = _check(x, dt, A, B, C, S0, chunk)
@@ -380,7 +492,14 @@ class SSDChunk(torch.autograd.Function):
     nh, hp, n], 67 MB at mamba2-1.3b's training microbatch, against a
     recompute as long as the forward's first kernel); the backward is the
     three backward kernels, whose gradients come back where they are
-    needed."""
+    needed. On DTensors ``apply`` runs the Function on every rank's
+    shards (``_sharded``)."""
+
+    @classmethod
+    def apply(cls, x, dt, A, B, C, S0, chunk):
+        if SH.is_dtensor(x):
+            return _sharded(x, dt, A, B, C, S0, chunk)
+        return super().apply(x, dt, A, B, C, S0, chunk)
 
     @staticmethod
     def forward(ctx, x, dt, A, B, C, S0, chunk):
@@ -403,7 +522,9 @@ def ssd_chunk(x, dt, A, B, C, S0, chunk: int):
     """The chunked SSD scan of ``_ssd_chunked``: (y [b, l, nh, hp] f32,
     S_final [b, nh, hp, n] f32). See ``ssd_chunk_ref`` for the layouts.
     Differentiable in every tensor input (``SSDChunk``) while autograd
-    records."""
+    records. DTensors run it on every rank's shards (``_sharded``)."""
+    if SH.is_dtensor(x):
+        return _sharded(x, dt, A, B, C, S0, chunk)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, dt, A, B, C, S0)):
         return SSDChunk.apply(x, dt, A, B, C, S0, chunk)

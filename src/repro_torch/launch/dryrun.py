@@ -13,9 +13,9 @@ lands in ``artifacts/dryrun/<arch>__<shape>__<mesh>.json`` with the
 reference's keys. The figures are estimates from a fake-tensor run and the
 H100 data sheet's constants, not measurements.
 
-The dense GQA and MoE families are distributed here; a cell of another
-family is written with ``"status": "skipped"`` and the ROADMAP item it
-waits for.
+The dense GQA, MoE, hybrid and SSM families are distributed here; an
+encoder-decoder cell is written with ``"status": "skipped"`` and the
+ROADMAP item it waits for.
 
 ``init_process_group`` is process-wide, so the dry run takes a process of
 its own (it refuses to start beside another group).
@@ -51,13 +51,10 @@ from repro_torch.training.train_step import (abstract_train_state,
 ASSIGNED = tuple(a for a in ARCH_IDS if a != "edge-tiny")
 
 #: families whose sharded execution the port has (ROADMAP.md queue 1)
-DISTRIBUTED = ("dense", "moe")
+DISTRIBUTED = ("dense", "moe", "hybrid", "ssm")
 _WAITS = {
-    "hybrid": "the hybrid family's sharded execution (ROADMAP.md queue 1 "
-              "item 5b)",
-    "ssm": "the SSM family's sharded execution (ROADMAP.md queue 1 item 5b)",
     "encdec": "the encoder-decoder family's sharded execution (ROADMAP.md "
-              "queue 1 item 5b)",
+              "queue 1 item 5b: its encoder and cross K/V caches)",
 }
 
 

@@ -88,6 +88,8 @@ _COLLECTIVE = {
 _PROPAGATION = os.path.join("distributed", "tensor", "_sharding_prop.py")
 
 #: ops that move no bytes: views, metadata, allocation without writes
+#: (``device``: ``prim::device``, a tensor's device query, which indexing
+#: issues under a dispatch mode over fake tensors)
 _NO_TRAFFIC = {
     "view", "_unsafe_view", "reshape", "t", "transpose", "permute",
     "expand", "slice", "select", "as_strided", "alias", "detach",
@@ -95,7 +97,7 @@ _NO_TRAFFIC = {
     "narrow", "diagonal", "empty", "empty_like", "empty_strided",
     "new_empty", "new_empty_strided", "_to_copy_noop", "lift_fresh",
     "wait_tensor", "_local_scalar_dense", "sym_size", "sym_stride",
-    "is_same_size", "unfold", "view_as_real", "view_as_complex",
+    "is_same_size", "unfold", "view_as_real", "view_as_complex", "device",
 }
 
 

@@ -14,7 +14,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import sharded as SH
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.quant import as_weight
-from repro_torch.sharding.ctx import constrain
+from repro_torch.sharding.ctx import constrain, pin
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -26,17 +26,23 @@ def dtype_of(cfg: ModelConfig) -> torch.dtype:
 
 def gathered(w, x):
     """``w`` ready for a product with ``x``: on DTensors, ``w``'s shards
-    over the mesh dims that split ``x``'s batch (the data axes: training's
-    ZeRO-3 layout, weight-gathered serving) are gathered first, as GSPMD
-    gathers them in the reference; autograd turns the gather into the
-    gradient's reduce-scatter. Left to itself, DTensor would rather split
-    the activations' sequence over those dims. Plain tensors pass."""
+    over the mesh dims that split ``x``'s batch, and over the data axes
+    where a batch too small to split leaves ``x`` whole (the data axes:
+    training's ZeRO-3 layout, weight-gathered serving), are gathered
+    first, as GSPMD gathers them in the reference; autograd turns the
+    gather into the gradient's reduce-scatter. Left to itself, DTensor
+    would rather split the activations' sequence over those dims. Plain
+    tensors pass."""
     if not (SH.is_dtensor(w) and SH.is_dtensor(x)):
         return w
     from torch.distributed.tensor import Replicate
-    pls = [Replicate() if pw.is_shard() and px.is_shard(0) else pw
-           for pw, px in zip(w.placements, x.placements)]
-    return SH.redistribute(w, w.device_mesh, pls)
+    mesh = w.device_mesh
+    names = mesh.mesh_dim_names or ()
+    data = {i for i, a in enumerate(names) if a in ("pod", "data")}
+    pls = [Replicate() if pw.is_shard() and (
+        px.is_shard(0) or (i in data and px.is_replicate())) else pw
+        for i, (pw, px) in enumerate(zip(w.placements, x.placements))]
+    return SH.redistribute(w, mesh, pls)
 
 
 def matmul(x: torch.Tensor, w) -> torch.Tensor:
@@ -157,8 +163,16 @@ def logsumexp_gold(logits, labels):
 # ---------------------------------------------------------------------------
 
 def rmsnorm_apply(p, x: torch.Tensor, eps: float) -> torch.Tensor:
+    """RMSNorm over the last dim, in f32. On a DTensor split over that dim
+    (the SSD's head-split output) the mean square is a partial mean, and
+    it is all-reduced here, explicitly and in both directions, a [..., 1]
+    tensor: DTensor would rather settle it by splitting the sequence."""
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    if SH.is_dtensor(var) and any(p_.is_partial() for p_ in var.placements):
+        from torch.distributed.tensor import Replicate
+        var = pin(var, [Replicate() if p_.is_partial() else p_
+                        for p_ in var.placements])
     y = xf * torch.rsqrt(var + eps) * p["scale"]
     return y.to(x.dtype)
 

@@ -18,6 +18,16 @@ block trains on the card. The single-token decode step stays plain
 PyTorch, as in the reference. Layouts and dtypes are the reference's (``repro.models.rglru``):
 the gates, Λ and the recurrent state ``h`` are f32; the conv state and the
 projections are in ``cfg.dtype``.
+
+Under a mesh (DTensors inside ``use_mesh``) the block runs on every rank's
+columns of w, with the planner's layout: ``w_x`` and ``w_gate`` split on
+their w columns, the conv, Λ and the states on w, ``w_out`` on its w rows.
+Everything between the two products is elementwise over w but the gates'
+block-diagonal products, which stay local where a rank's columns are whole
+blocks (``_block_diag_sharded``: one block of 160 a rank at 16-way); the
+scan runs on the rank's columns (``rglru_scan``'s DTensor route, no
+collective); ``w_out``'s product is a partial sum over the model axis,
+reduced at the block's residual (``models.transformer``).
 """
 
 from __future__ import annotations
@@ -27,6 +37,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import sharded as SH
 from repro_torch.kernels.rglru_scan.rglru_scan import rglru_scan
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
@@ -59,12 +70,45 @@ def rglru_init(cfg: ModelConfig, normal, uniform):
 
 
 def _block_diag(w, x):
-    """x: [..., width] -> block-diagonal linear in f32, blocks
-    [_NBLOCKS, bs, bs]. The train step's bf16 copy of w is read in f32,
-    as the reference's einsum promotes it."""
+    """x: [..., width] -> block-diagonal linear in f32, blocks w
+    [nb, bs, bs] (nb bs = width: _NBLOCKS of them, or a rank's own). The
+    train step's bf16 copy of w is read in f32, as the reference's einsum
+    promotes it."""
+    if SH.is_dtensor(x):
+        return _block_diag_sharded(w, x)
     shape = x.shape
-    xb = x.reshape(shape[:-1] + (_NBLOCKS, shape[-1] // _NBLOCKS)).float()
+    xb = x.reshape(shape[:-1] + (w.shape[0], shape[-1] // w.shape[0])).float()
     return torch.einsum("...nb,nbc->...nc", xb, w.float()).reshape(shape)
+
+
+def _block_diag_sharded(w, x):
+    """``_block_diag`` of a DTensor x on every rank's shards
+    (``local_map``), mesh dim by mesh dim: where x's width splits into
+    whole blocks (the axis divides _NBLOCKS) each rank multiplies its
+    columns by its own blocks of w (w split on its blocks); a split of the
+    leading dims keeps w whole, its gradient then a partial sum; any other
+    layout of x (a width split into parts of blocks, a partial sum) is
+    taken whole first, explicitly."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = x.device_mesh
+    last = x.dim() - 1
+    R = Replicate()
+    xp, wp, wg = [], [], []
+    for i, pl in enumerate(x.placements):
+        size = mesh.size(i)
+        if size > 1 and pl.is_shard(last) and _NBLOCKS % size == 0:
+            row = (Shard(last), Shard(0), Shard(0))
+        elif size > 1 and pl.is_shard() and pl.dim < last:
+            row = (pl, R, Partial())
+        else:
+            row = (R, R, R)
+        for col, v in zip((xp, wp, wg), row):
+            col.append(v)
+    x = SH.redistribute(x, mesh, xp)
+    w = SH.redistribute(w, mesh, wp)
+    return local_map(_block_diag, out_placements=xp, in_placements=(wp, xp),
+                     in_grad_placements=(wg, xp), device_mesh=mesh)(w, x)
 
 
 def _gates(p, x):

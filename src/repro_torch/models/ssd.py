@@ -10,6 +10,27 @@ as in the reference: session state is O(1) in the sequence length. Layouts
 and dtypes are the reference's (``repro.models.ssd``): ``A_log``, ``D``,
 ``dt_bias``, the norm scale and the SSM state are f32; the conv state and
 the projections are in ``cfg.dtype``.
+
+Under a mesh (DTensors inside ``use_mesh``) the layer follows the
+planner's layout (``in_proj`` split on its columns over the model axis,
+``out_proj`` on its rows, the conv on its channels; ``A_log``, ``D``,
+``dt_bias`` and the norm replicated; the caches' SSM state on its heads and
+conv state on its channels). ``in_proj``'s columns are the concatenation
+z | x | B | C | dt, whose cuts fall inside the shards (at 16-way 8512 / 16
+= 532 columns a rank against cuts at 4096, 8192, 8320, 8448), so the layer
+gathers the projection once, explicitly (``_project``: an all-gather of
+[b, l, 2di + 2gn + nh] over the model axis; the backward's reduce-scatter
+or slice), rather than the weight per segment (d x 8512 a layer whatever
+the batch, which a decode step would pay every step). The causal conv and
+its carried state run on the whole projection (the conv weight and a
+decode's conv state gathered too: 4 x 4352 and [b, 3, 4352] at mamba2);
+then z, x and dt take the rank's heads and B and C their groups
+(``constrain``: a local slice), the scan runs on the rank's heads
+(``ssd_chunk``'s DTensor route), the gated RMSNorm's mean square over di
+is one all-reduce of [b, l, 1] (``layers.rmsnorm_apply``), and
+``out_proj``'s product is a partial sum over the model axis, reduced at
+the block's residual (``models.transformer``). Decode keeps the
+single-step update on the rank's heads and their groups.
 """
 
 from __future__ import annotations
@@ -19,10 +40,12 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import sharded as SH
 from repro_torch.kernels.ssd_chunk.ssd_chunk import ssd_chunk
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.rglru import causal_conv
+from repro_torch.sharding.ctx import constrain
 
 
 def ssd_init(cfg: ModelConfig, normal, uniform):
@@ -57,10 +80,38 @@ def _split_proj(cfg: ModelConfig, zxbcdt):
             zxbcdt[..., 2 * di + 2 * g * n:])
 
 
+def _whole(t):
+    """A DTensor ``t`` whole on every rank but its batch split: gathered
+    explicitly, its gradient taken back to t's own layout (a slice or a
+    reduce-scatter: the weight gradients of a column-split product stay
+    the rank's own columns); a plain tensor or None passes."""
+    if not SH.is_dtensor(t):
+        return t
+    from torch.distributed.tensor import Replicate
+    return SH.redistribute(t, t.device_mesh,
+                           [p if p.is_shard(0) else Replicate()
+                            for p in t.placements])
+
+
+def _project(p, cfg: ModelConfig, x):
+    """(z, x, B, C, dt) of ``in_proj``'s product, from the whole
+    projection (``_whole``: an all-gather over the model axis under a
+    mesh)."""
+    return _split_proj(cfg, _whole(L.matmul(x, p["in_proj"])))
+
+
+def _heads(t):
+    """``t`` [b, l, nh or di, ...] on the rank's heads under a mesh."""
+    return constrain(t, "dp", None, "model", *([None] * (t.dim() - 3)))
+
+
 def _conv(p, xbc, state=None, length=None):
     """Causal depthwise conv over [b, l, conv_dim], then SiLU in f32, back
-    in xbc's dtype; the carried state is taken at ``length``."""
-    y, new_state = causal_conv(p["conv"], xbc, state, length)
+    in xbc's dtype; the carried state is taken at ``length``. The weight
+    and state are taken whole over the channels under a mesh (``_whole``:
+    4 x 4352 and [b, 3, 4352] at mamba2)."""
+    y, new_state = causal_conv(_whole(p["conv"]), xbc, _whole(state),
+                               length)
     return F.silu(y.float()).to(xbc.dtype), new_state
 
 
@@ -81,13 +132,13 @@ def ssd_apply(p, cfg: ModelConfig, x, conv_state=None, ssm_state=None,
     b, l, _ = x.shape
     di, nh, hp = cfg.d_inner, cfg.ssm_nheads, cfg.ssm_headdim
     g, n = cfg.ssm_ngroups, cfg.ssm_state
-    z, xs, B, C, dt = _split_proj(cfg, L.matmul(x, p["in_proj"]))
+    z, xs, B, C, dt = _project(p, cfg, x)
     xbc, conv_state = _conv(p, torch.cat([xs, B, C], dim=-1), conv_state,
                             length)
-    xs = xbc[..., :di].reshape(b, l, nh, hp)
-    B = xbc[..., di: di + g * n].reshape(b, l, g, n)
-    C = xbc[..., di + g * n:].reshape(b, l, g, n)
-    dt = F.softplus(dt.float() + p["dt_bias"])
+    xs = _heads(xbc[..., :di].reshape(b, l, nh, hp))
+    B = _heads(xbc[..., di: di + g * n].reshape(b, l, g, n))
+    C = _heads(xbc[..., di + g * n:].reshape(b, l, g, n))
+    dt = _heads(F.softplus(dt.float() + p["dt_bias"]))
     if length is not None and length < l:
         valid = (torch.arange(l, device=x.device) < length)[None, :, None]
         dt = torch.where(valid, dt, torch.zeros_like(dt))
@@ -100,7 +151,7 @@ def ssd_apply(p, cfg: ModelConfig, x, conv_state=None, ssm_state=None,
     y, S = ssd_chunk(xs, dt.contiguous(), A, B, C, ssm_state, cfg.ssm_chunk)
     y = y + xs.float() * p["D"][None, None, :, None]
     y = y.reshape(b, l, di).to(x.dtype)
-    return _gated_out(p, cfg, y, z, x.dtype), (conv_state, S)
+    return _gated_out(p, cfg, y, _heads(z), x.dtype), (conv_state, S)
 
 
 def ssd_decode(p, cfg: ModelConfig, x, conv_state, ssm_state):
@@ -109,22 +160,48 @@ def ssd_decode(p, cfg: ModelConfig, x, conv_state, ssm_state):
     b = x.shape[0]
     di, nh, hp = cfg.d_inner, cfg.ssm_nheads, cfg.ssm_headdim
     g, n = cfg.ssm_ngroups, cfg.ssm_state
-    z, xs, B, C, dt = _split_proj(cfg, L.matmul(x, p["in_proj"]))
+    z, xs, B, C, dt = _project(p, cfg, x)
     xbc, conv_state = _conv(p, torch.cat([xs, B, C], dim=-1), conv_state)
-    xs = xbc[:, 0, :di].reshape(b, nh, hp)
+    xbc = xbc[:, 0]                                       # [b, conv_dim]
     hpg = nh // g
-    Bh = xbc[:, 0, di: di + g * n].reshape(b, g, n).repeat_interleave(
-        hpg, dim=1).float()                               # [b, nh, n]
-    Ch = xbc[:, 0, di + g * n:].reshape(b, g, n).repeat_interleave(
-        hpg, dim=1).float()
-    dt = F.softplus(dt[:, 0].float() + p["dt_bias"])      # [b, nh]
-    dA = torch.exp(dt * -torch.exp(p["A_log"]))
-    upd = torch.einsum("bh,bhp,bhn->bhpn", dt, xs.float(), Bh)
-    S = ssm_state * dA[..., None, None] + upd
-    y = torch.einsum("bhpn,bhn->bhp", S, Ch)
-    y = y + xs.float() * p["D"][None, :, None]
+
+    def heads(t):                # [b, nh, ...] on the rank's heads
+        return constrain(t, "dp", "model", *([None] * (t.dim() - 2)))
+
+    xs = heads(xbc[:, :di].reshape(b, nh, hp))
+    Bh = heads(xbc[:, di: di + g * n].reshape(b, g, n).repeat_interleave(
+        hpg, dim=1).float())                              # [b, nh, n]
+    Ch = heads(xbc[:, di + g * n:].reshape(b, g, n).repeat_interleave(
+        hpg, dim=1).float())
+    dt = heads(F.softplus(dt[:, 0].float() + p["dt_bias"]))   # [b, nh]
+    y, S = _step(ssm_state, dt, xs, Bh, Ch, p["A_log"], p["D"])
     y = y.reshape(b, 1, di).to(x.dtype)
-    return _gated_out(p, cfg, y, z, x.dtype), (conv_state, S)
+    return _gated_out(p, cfg, y, _heads(z), x.dtype), (conv_state, S)
+
+
+def _step(S, dt, xs, Bh, Ch, A_log, D):
+    """One step of the recurrence on heads from the state S [b, nh, hp,
+    n]: (y [b, nh, hp] f32 with the skip term, the new state). On
+    DTensors every rank steps its own rows and heads (``local_map``, in
+    S's layout; A_log and D cut to the rank's heads): the products' batch
+    and head dims, merged into one, would be split twice, a layout
+    DTensor plans only by reading data."""
+    if SH.is_dtensor(S):
+        from torch.distributed.tensor import Replicate, Shard
+        from torch.distributed.tensor.experimental import local_map
+        mesh = S.device_mesh
+        st = list(S.placements)
+        vec = [Shard(0) if p.is_shard(1) else Replicate() for p in st]
+        args = [SH.redistribute(t, mesh, st) for t in (S, dt, xs, Bh, Ch)]
+        args += [SH.redistribute(t, mesh, vec) for t in (A_log, D)]
+        return local_map(_step, out_placements=(st, st),
+                         in_placements=(st,) * 5 + (vec, vec),
+                         device_mesh=mesh)(*args)
+    dA = torch.exp(dt * -torch.exp(A_log))
+    upd = torch.einsum("bh,bhp,bhn->bhpn", dt, xs.float(), Bh)
+    S = S * dA[..., None, None] + upd
+    y = torch.einsum("bhpn,bhn->bhp", S, Ch)
+    return y + xs.float() * D[None, :, None], S
 
 
 def ssd_state_shapes(cfg: ModelConfig, batch: int):

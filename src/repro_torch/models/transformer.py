@@ -70,6 +70,7 @@ from repro_torch.models import rglru as RG
 from repro_torch.models import ssd as SSD
 from repro_torch.kernels import sharded as SH
 from repro_torch.sharding.ctx import constrain
+from repro_torch.sharding.planner import placements, zeros
 
 
 def layer_params(tree, i: int):
@@ -90,7 +91,19 @@ def _keep_active(old, new, active) -> None:
     """Write a recurrent state leaf IN PLACE, frozen for inactive rows:
     parked sessions share the fused decode batch but their state must not
     advance — recurrent updates, unlike position-indexed KV writes, touch
-    every row."""
+    every row. On a DTensor state the new value takes the state's layout
+    first (and ``active`` its batch rows), and every rank writes its own
+    shard."""
+    if SH.is_dtensor(old):
+        from torch.distributed.tensor import Replicate, Shard
+        mesh = old.device_mesh
+        new = SH.redistribute(new.to(old.dtype), mesh,
+                              old.placements).to_local()
+        if active is not None:
+            active = SH.redistribute(active, mesh, [
+                Shard(0) if p.is_shard(0) else Replicate()
+                for p in old.placements]).to_local()
+        old = old.to_local()
     new = new.to(old.dtype)
     if active is not None:
         a = active.reshape(active.shape + (1,) * (new.dim() - 1))
@@ -134,6 +147,27 @@ def _kv_buffer(cfg: ModelConfig, shape, x):
     return zeros(shape, x.dtype, spec, mesh)
 
 
+def _layer_placements(buf, i: Optional[int]):
+    """The placements of layer ``i`` of a stacked DTensor buffer [L, ...]
+    (of the buffer itself where ``i`` is None)."""
+    if i is None:
+        return list(buf.placements)
+    return [type(p)(p.dim - 1) if p.is_shard() else p
+            for p in buf.placements]
+
+
+def _put_layer(buf, i: int, t) -> None:
+    """``buf[i] = t`` on a stacked state or cache buffer [L, ...]: on a
+    DTensor buffer t takes the layer's layout and every rank copies its
+    own shard."""
+    if not SH.is_dtensor(buf):
+        buf[i] = t
+        return
+    t = SH.redistribute(t.to(buf.dtype), buf.device_mesh,
+                        _layer_placements(buf, i))
+    buf.to_local()[i].copy_(t.to_local())
+
+
 def _fill_layer(buf, i: int, k, n: int) -> None:
     """``buf[i, :, :n] = k[:, :n]`` on a DTensor buffer [L, b, S, kh, hd],
     shard by shard: k's first n rows, padded with zeros to S, take the
@@ -144,26 +178,33 @@ def _fill_layer(buf, i: int, k, n: int) -> None:
         rows = torch.cat([rows, rows.new_zeros((rows.shape[0], S - n)
                                                + tuple(rows.shape[2:]))],
                          dim=1)
-    layer = [type(p)(p.dim - 1) if p.is_shard() else p
-             for p in buf.placements]
-    rows = SH.redistribute(rows, buf.device_mesh, layer)
-    buf.to_local()[i].copy_(rows.to_local())
+    _put_layer(buf, i, rows)
 
 
-def _fill_ring(buf, i: int, k, length: Optional[int]) -> None:
+def _fill_ring(buf, i: Optional[int], k, length: Optional[int]) -> None:
     """``buf[i] = _ring_buffer(k, S, length)`` on a DTensor ring [L, b, S,
-    kh, hd], shard by shard: each rank fills its own slots of S (its batch
-    rows and KV heads where the ring splits them) from k [b, s, kh, hd]
-    taken whole along its sequence."""
+    kh, hd] (``buf = ...`` on a layer's own ring [b, S, kh, hd] where
+    ``i`` is None: the hybrid's), shard by shard: each rank fills its own
+    slots of S (its batch rows and KV heads where the ring splits them)
+    from k [b, s, kh, hd] taken whole along its sequence."""
     from torch.distributed.tensor import Replicate
     mesh = buf.device_mesh
-    layer = [type(p)(p.dim - 1) if p.is_shard() else p
-             for p in buf.placements]
+    layer = _layer_placements(buf, i)
     src = [Replicate() if p.is_shard(1) else p for p in layer]
     kl = SH.redistribute(k, mesh, src).to_local()
-    S = buf.shape[2]
+    S = buf.shape[-3]
     s0, S_l = SH.shard_span(mesh, layer, 1, S)
-    buf.to_local()[i].copy_(_ring_rows(kl, s0, S_l, S, length))
+    dst = buf.to_local() if i is None else buf.to_local()[i]
+    dst.copy_(_ring_rows(kl, s0, S_l, S, length))
+
+
+def _cache_specs(cfg: ModelConfig, b: int, max_len: int, mesh):
+    """(the decode cache's layers for b rows of max_len on ``meta``, their
+    specs by the planner's cache rule, ``planner.cache_plan``), as the
+    reference's prefill hands its cache out."""
+    from repro_torch.sharding.planner import cache_plan
+    meta = KV.init_cache(cfg, b, max_len, device="meta")
+    return meta["layers"], cache_plan(cfg, meta, mesh, b, [])["layers"]
 
 
 def _mask_positions(positions):
@@ -223,7 +264,10 @@ def _block_seq(p, cfg: ModelConfig, kind: str, x, positions, memory=None,
         if kind == "ssm":
             return constrain(x + SSD.ssd_apply(p["ssd"], cfg, h)[0], "dp",
                              None, None), aux
-        x = x + RG.rglru_block_apply(p["rec"], cfg, h)
+        # w_out's product is a partial sum over the model axis on
+        # DTensors: reduced here, as the attention half's
+        x = constrain(x + RG.rglru_block_apply(p["rec"], cfg, h), "dp",
+                      None, None)
     else:
         x, _, _ = _attn_half(p, cfg, x, positions, memory, mem_positions,
                              causal)
@@ -312,19 +356,21 @@ def _attn_decode(p, cfg: ModelConfig, x, k_layer, v_layer, position,
 
 def _rec_prefill(p, cfg: ModelConfig, x, length):
     """Sequence pass of one RG-LRU block; returns (x, its cache layer)."""
+    x = constrain(x, "dp", None, None)
     h = L.rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
     y, conv, hs = RG.rglru_block_prefill(p["rec"], cfg, h, length)
-    x = x + y
+    x = constrain(x + y, "dp", None, None)
     return x + _ffn(p, cfg, x), {"conv": conv, "h": hs}
 
 
 def _rec_decode(p, cfg: ModelConfig, x, cache_layer, active=None):
+    x = constrain(x, "dp", None, None)
     h = L.rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
     y, conv, hs = RG.rglru_block_decode(p["rec"], cfg, h, cache_layer["conv"],
                                         cache_layer["h"])
     _keep_active(cache_layer["conv"], conv, active)
     _keep_active(cache_layer["h"], hs, active)
-    x = x + y
+    x = constrain(x + y, "dp", None, None)
     return x + _ffn(p, cfg, x)
 
 
@@ -669,28 +715,54 @@ class LM:
         length: Optional[int] = batch.get("length")
         last = s if length is None else int(length)
         cross = {}                # encdec: the cross K/V, top-level leaves
+        # under a mesh the recurrent families' caches take the planner's
+        # cache layout, filled shard by shard
+        meta, specs = _cache_specs(cfg, b, max_len, x.device_mesh) \
+            if SH.is_dtensor(x) and cfg.family in ("hybrid", "ssm") \
+            else (None, None)
         if cfg.family == "hybrid":
             layers = []
-            for lp, kind in zip(params["layers"], cfg._pattern()):
+            for lp, kind, sp, meta_l in zip(
+                    params["layers"], cfg._pattern(),
+                    specs or [None] * cfg.num_layers,
+                    meta or [None] * cfg.num_layers):
                 if kind == "rec":
                     x, cl = _rec_prefill(lp, cfg, x, length)
+                    if sp is not None:
+                        cl = {k: SH.redistribute(t, x.device_mesh,
+                                                 placements(sp[k],
+                                                            x.device_mesh))
+                              for k, t in cl.items()}
                 else:
                     x, k, v = _attn_prefill(lp, cfg, x, pos)
-                    cl = {"k": _ring_buffer(k, S, length),
-                          "v": _ring_buffer(v, S, length)}
+                    if sp is None:
+                        cl = {"k": _ring_buffer(k, S, length),
+                              "v": _ring_buffer(v, S, length)}
+                    else:
+                        cl = {}
+                        for key, t in (("k", k), ("v", v)):
+                            cl[key] = zeros(meta_l[key].shape, t.dtype,
+                                            sp[key], x.device_mesh)
+                            _fill_ring(cl[key], None, t, length)
                 layers.append(cl)
             cache_layers = tuple(layers)
         elif cfg.family == "ssm":
-            cache_layers = KV.init_cache(cfg, b, max_len,
-                                         device=x.device)["layers"]
+            if specs is None:
+                cache_layers = KV.init_cache(cfg, b, max_len,
+                                             device=x.device)["layers"]
+            else:
+                cache_layers = {
+                    k: zeros(t.shape, t.dtype, specs[k], x.device_mesh)
+                    for k, t in meta.items()}
             for i in range(cfg.num_layers):
                 lp = layer_params(params["layers"], i)
+                x = constrain(x, "dp", None, None)
                 h = L.rmsnorm_apply(lp["norm1"], x, cfg.norm_eps)
                 y, (conv, ssm) = SSD.ssd_apply(lp["ssd"], cfg, h,
                                                length=length)
-                x = x + y
-                cache_layers["conv"][i] = conv
-                cache_layers["ssm"][i] = ssm
+                x = constrain(x + y, "dp", None, None)
+                _put_layer(cache_layers["conv"], i, conv)
+                _put_layer(cache_layers["ssm"], i, ssm)
         else:
             shape = (cfg.num_layers, b, S, cfg.num_kv_heads, cfg.head_dim)
             ck, cv = _kv_buffer(cfg, shape, x), _kv_buffer(cfg, shape, x)
@@ -770,7 +842,7 @@ class LM:
                                                 C["conv"][i], C["ssm"][i])
                 _keep_active(C["conv"][i], conv, active)
                 _keep_active(C["ssm"][i], ssm, active)
-                x = x + y
+                x = constrain(x + y, "dp", None, None)
         else:
             K, V = cache["layers"]["k"], cache["layers"]["v"]
             CK, CV = cache.get("cross_k"), cache.get("cross_v")

@@ -98,6 +98,15 @@ class _Pin(torch.autograd.Function):
         return redistribute(grad, grad.device_mesh, ctx.pls), None
 
 
+def pin(x, pls):
+    """DTensor ``x`` redistributed to the placements ``pls``, and its
+    gradient too (``_Pin``) while autograd records."""
+    pls = tuple(pls)
+    if not x.requires_grad:
+        return redistribute(x, x.device_mesh, pls)
+    return _Pin.apply(x, pls)
+
+
 def constrain(x, *dims):
     """``x`` redistributed to the layout ``dims`` name, and its gradient
     to the same layout, when ``x`` is a DTensor inside ``use_mesh``; else
@@ -106,7 +115,4 @@ def constrain(x, *dims):
     if mesh is None or not is_dtensor(x):
         return x
     spec = constrain_spec(tuple(x.shape), mesh, *dims)
-    want = placements(spec, mesh)
-    if not x.requires_grad:
-        return redistribute(x, x.device_mesh, want)
-    return _Pin.apply(x, want)
+    return pin(x, placements(spec, mesh))
