@@ -5,8 +5,8 @@
     python3 chip_smoke.py --quick    # build, kernel checks, small models
 
 Run from the repository root. It builds the port's CUDA kernels from the
-sources in the checkout and drives the port's eighteen main paths at full
-width (random weights from a seed), printing each phase's seconds on a
+sources in the checkout and drives the port's main paths at full width
+(random weights from a seed), printing each phase's seconds on a
 ``[time]`` line:
 
 * minitron-8b (dense GQA: 32 layers, d_model 4096, 32 query heads over 8
@@ -53,13 +53,19 @@ width (random weights from a seed), printing each phase's seconds on a
   predicted peak passed 75 GB; the depth is printed), through
   ``rglru_scan`` and its reverse scan ``rglru_scan_bwd``, and through
   ``ssd_chunk`` and its three backward kernels ``ssd_chunk_bwd``;
+* training seamless-m4t-medium (0.98 B parameters) the same way at full
+  width and depth, 12 encoder and 12 decoder layers, each row with 1536
+  frames from the audio frontend stub, through the flash kernels in the
+  encoder's self attention and the decoder's self and cross attention;
 * the distribution layer (``repro_torch.sharding``, DTensor on a torch
   ``DeviceMesh``) on a 1x1 mesh of a one-rank NCCL group: minitron-8b's
   and qwen3-moe-30b-a3b's 4-layer train steps with their states laid out
   by the sharding plan, minitron-8b's 32-layer, qwen3-moe-30b-a3b's
   4-layer and int8 mixtral-8x7b's 4-layer prefill and decode with the
-  params and the cache laid out by the decode plan, each against the same
-  path on plain tensors.
+  params and the cache laid out by the decode plan, the recurrent
+  families' train steps and serving, and seamless-m4t-medium's train step
+  and serving at full depth (its cross K/V caches in the plan's layout),
+  each against the same path on plain tensors.
 
 Phases:
 
@@ -113,7 +119,9 @@ Phases:
              equal at B 1 and 3, identity steps keep the state exactly);
              flash_attention at minitron-8b's and qwen2-vl-72b's
              2048-token causal prefills and seamless-m4t-medium's encoder
-             (1536 frames) and cross attention (1024 x 1536), after ragged
+             (1536 frames), cross attention (1024 x 1536) and training
+             microbatch (the decoder's 4096-token causal self attention,
+             the cross attention of 4096 over 1536), after ragged
              shapes (head dims 16-128 in f32 and bf16, -1 key positions,
              a first kv-tile with no valid key, reversed key positions,
              every engine bucket at minitron's and qwen2-vl's widths,
@@ -131,7 +139,8 @@ Phases:
              training path's 4096-token microbatch (where three planted
              faults, a key tile or a query tile dropped, must fail that
              bound), minitron-8b's 2048 prefill and
-             seamless-m4t-medium's encoder and cross shapes, each with
+             seamless-m4t-medium's encoder and cross shapes and its
+             training microbatch's two, each with
              the forward with lse equal to the forward without it bit for
              bit and a CUDA-graph replay equal to the eager call, timed
              eager and by replay beside SDPA's backward (eager, and its
@@ -288,10 +297,17 @@ Phases:
              SSD: the state's gradient carried into one chunk dropped, ddt
              without its A·rcumsum(dcum) term); each path prints its
              seconds;
+   train encdec — seamless-m4t-medium likewise at full depth, 1536
+             frames a row (``train_batches``): every step launches
+             flash_attention 144 and flash_attention_bwd 72 times (36
+             attention layers a microbatch: 12 encoder, 12 decoder self,
+             12 cross; the forward twice under full remat);
    distributed — the distribution layer (started right after the build:
-             four dry-run cells, minitron-8b train_4k, phi3-medium-14b
-             prefill_32k, qwen3-moe-30b-a3b train_4k and mixtral-8x7b
-             decode_32k at full scale on the 16x16 production mesh, each
+             eight dry-run cells, minitron-8b train_4k, phi3-medium-14b
+             prefill_32k, qwen3-moe-30b-a3b train_4k, mixtral-8x7b
+             decode_32k, mamba2-1.3b train_4k, recurrentgemma-2b
+             long_500k, seamless-m4t-medium train_4k and prefill_32k
+             at full scale on the 16x16 production mesh, each
              a subprocess of its own with a fake world of 256 ranks under
              ``FakeTensorMode``, no card: each must be ``ok`` with a
              per-device peak under the card's total_memory, and prints
@@ -313,13 +329,22 @@ Phases:
              layers through one ``local_map`` region each) and
              mixtral-8x7b on int8 weights at 4 layers (prompts of 4500
              past its 4096-token window: banded prefill, the ring filled
-             and read rank by rank, no attention kernel);
+             and read rank by rank, no attention kernel); the recurrent
+             families' train steps and serving; seamless-m4t-medium's
+             train step at full depth (frames, flash 144 and its backward
+             72 a step, as the plain step's) and its serving at full
+             depth (2 prompts of 512 with 1536 frames each; flash 36 a
+             prefill, decode attention 12 a step; the cross K/V caches
+             DTensors in the plan's layout);
              decode_attention's lse output is checked with the kernels
              (phase 2: minitron's and qwen2-vl's decode shapes, lengths
              0, one shard of S, S), and so are the expert kernels at the
              local shapes of a 16-way model axis (phase 2: qwen3-moe's 8
              experts a rank and mixtral's 896 f columns, against the
-             whole launch);
+             whole launch), and so are the flash kernels (phase 2: one of
+             seamless-m4t-medium's 16 heads, its encoder's 1536 x 1536
+             and the cross attention's 4096 x 1536, forward and backward
+             against the whole launch's head);
 5. reference — small models in f32 on the card against the same models on
              the CPU through the plain versions: edge-tiny (dense and
              paged), edge-tiny with adapters (grouped route on the card,
@@ -332,9 +357,10 @@ Phases:
              with vision embeddings and distinct [3, b, s] streams, stream
              0 first ``arange``, then tied over the image (Qwen2-VL's
              layout, which the causal mask of the flash kernel reads);
-             and edge-tiny's, the qwen3-moe, recurrentgemma-2b and
-             mamba2-1.3b smoke configs' f32 train microbatch with full
-             remat: loss and every gradient leaf (the f32 routes of the
+             and edge-tiny's, the qwen3-moe, seamless-m4t-medium (with
+             frames), recurrentgemma-2b and mamba2-1.3b smoke configs' f32
+             train microbatch with full remat: loss and every gradient
+             leaf (the f32 routes of the
              flash kernels, of the expert kernels and K1-K3, of the
              recurrent kernels and their backward, forward and backward).
 
@@ -348,7 +374,10 @@ path 32 per minitron-8b prefill, rglru_scan 18 per recurrentgemma-2b
 prefill, the decode kernels 32 per dense or paged minitron-8b step; on
 the training paths flash_attention 16 and flash_attention_bwd 8 a step
 (on the 1x1 DTensor steps too; minitron-8b's DTensor serving path
-flash_attention 32 and decode_attention 256),
+flash_attention 32 and decode_attention 256); on seamless-m4t-medium's
+training path and its 1x1 DTensor step flash_attention 144 and
+flash_attention_bwd 72 a step, on its DTensor serving path
+flash_attention 36 a prefill and decode_attention 12 a step,
 and on qwen3-moe's moe_gemm and moe_ffn_fused 32, moe_ffn_fused_bwd 16,
 moe_gemm_dx and moe_gemm_dw 32 a step; on recurrentgemma-2b's rglru_scan
 72 and rglru_scan_bwd 36, on mamba2-1.3b's ssd_chunk 272 and
@@ -1757,7 +1786,7 @@ SPLIT_BC_TOL = 1e-2             # the SSD backward's dB and dC: the sum of
 #                                 its largest magnitude
 
 
-def phase_split_kernels(moe_cfg, mx_cfg, rg_cfg, mb_cfg):
+def phase_split_kernels(moe_cfg, mx_cfg, rg_cfg, mb_cfg, sm_cfg):
     """The expert kernels at the local shapes a 16-way model axis gives
     the MoE layer under a mesh (``models.moe``, ``kernels.sharded.
     expert_layout``), against the whole launch:
@@ -1775,7 +1804,8 @@ def phase_split_kernels(moe_cfg, mx_cfg, rg_cfg, mb_cfg):
       tile is 160, 896 = 5 x 160 + 96) against the whole K1's columns
       (bits printed) and its plain version (BWD_ROW of each row's
       norm);
-    * the scans (``split_scans``)."""
+    * the scans (``split_scans``);
+    * the flash kernels at seamless-m4t-medium's (``split_flash``)."""
     import torch
     from repro_torch.kernels.moe_gemm import moe_gemm as MG
     from repro_torch.models.quant import quantize_weight
@@ -1914,6 +1944,64 @@ def phase_split_kernels(moe_cfg, mx_cfg, rg_cfg, mb_cfg):
         f"plain version (tolerance {BWD_ROW})")
     del wg, wu, wd, q8
     split_scans(rg_cfg, mb_cfg)
+    split_flash(sm_cfg)
+
+
+def split_flash(sm_cfg):
+    """flash_attention and its backward at the local shapes a 16-way model
+    axis gives seamless-m4t-medium's attention under a mesh (its 16 query
+    and 16 KV heads split over the axis: one of each a rank; d 64, b 1,
+    bf16, no causal mask), against the whole launch: the encoder's self
+    attention over its 1536 frames and the cross attention of a
+    TRAIN_SEQ-token training microbatch over them. Model rank 5's launch
+    (head 5 of q, k, v and dO) must give o, lse, dq, dk and dv bit for bit
+    that head of the whole launch's."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2718)
+    H, Hkv, d, src = (sm_cfg.num_heads, sm_cfg.num_kv_heads,
+                      sm_cfg.head_dim, sm_cfg.source_len)
+    hs = slice(5 * H // MODEL_AXIS, 6 * H // MODEL_AXIS)
+    ks = slice(5 * Hkv // MODEL_AXIS, 6 * Hkv // MODEL_AXIS)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen,
+                           device=dev).to(torch.bfloat16)
+
+    shapes = []
+    for label, sq in (("encoder", src), ("cross", TRAIN_SEQ)):
+        q, do = randn(1, sq, H, d), randn(1, sq, H, d)
+        k, v = randn(1, src, Hkv, d), randn(1, src, Hkv, d)
+        qpos = torch.arange(sq, dtype=torch.int32, device=dev)
+        kpos = torch.arange(src, dtype=torch.int32, device=dev)
+
+        def run(q, k, v, do):
+            o, lse = FA.flash_attention_lse(q, k, v, qpos, kpos,
+                                            causal=False)
+            return (o, lse) + FA.flash_attention_bwd(
+                q, k, v, o, lse, do, qpos, kpos, causal=False)
+
+        whole = run(q, k, v, do)
+        local = run(*(t[:, :, sl].contiguous() for t, sl in (
+            (q, hs), (k, ks), (v, ks), (do, hs))))
+        torch.cuda.synchronize()
+        for name, got, want in zip(
+                ("o", "lse", "dq", "dk", "dv"), local,
+                (whole[0][:, :, hs], whole[1][:, hs], whole[2][:, :, hs],
+                 whole[3][:, :, ks], whole[4][:, :, ks])):
+            if not torch.equal(got, want):
+                n = int((got != want).sum())
+                fail(f"[kernels] split shapes, seamless {label} "
+                     f"flash_attention {name}: {n} of {want.numel()} "
+                     f"elements differ from the whole launch's head")
+        shapes.append(f"{label} sq {sq} skv {src}")
+    log(f"[kernels] split shapes, seamless-m4t-medium attention (head "
+        f"{hs.start} of {H}, KV head {ks.start} of {Hkv} on model rank 5 of "
+        f"{MODEL_AXIS}; d {d}, b 1, bf16, no causal mask; "
+        + "; ".join(shapes) + "): flash_attention's o and lse and "
+        f"flash_attention_bwd's dq, dk, dv bit for bit that head of the "
+        f"whole launch's")
 
 
 def split_scans(rg_cfg, mb_cfg):
@@ -2659,10 +2747,12 @@ def phase_flash_kernels(cfg, sm_cfg, vl_cfg):
     encoder and cross shapes, every engine bucket at minitron-8b's and
     qwen2-vl-72b's widths, qwen2-vl-72b's vision prompt with its image's
     tokens all at stream-0 position 0),
-    then the four full-width shapes with times:
+    then the six full-width shapes with times:
     minitron-8b's 2048-token causal prefill (32 q / 8 KV heads of 128),
-    seamless-m4t-medium's encoder (1536 frames, 16 heads of 64) and its
-    cross attention (1024 x 1536), and qwen2-vl-72b's 2048-token causal
+    seamless-m4t-medium's encoder (1536 frames, 16 heads of 64), its
+    cross attention (1024 x 1536) and its training microbatch's decoder
+    self attention (TRAIN_SEQ, causal) and cross attention (TRAIN_SEQ x
+    1536), and qwen2-vl-72b's 2048-token causal
     prefill (64 q / 8 KV heads of 128), bf16. Inputs rotate over 4 sets.
     Library: SDPA on the [b, h, s, d] transposed views. The JSON row is
     minitron's, with every shape in its ``shapes``."""
@@ -2790,6 +2880,12 @@ def phase_flash_kernels(cfg, sm_cfg, vl_cfg):
          (1, src, src, hs, hs, ds), False, sm_blocks),
         (f"{sm_cfg.name} cross b 1 sq 1024 skv {src} h {hs} d {ds}",
          (1, 1024, src, hs, hs, ds), False, sm_blocks),
+        (f"{sm_cfg.name} decoder train microbatch b 1 s {TRAIN_SEQ} h {hs} "
+         f"d {ds} causal", (1, TRAIN_SEQ, TRAIN_SEQ, hs, hs, ds), True,
+         sm_blocks),
+        (f"{sm_cfg.name} cross train microbatch b 1 sq {TRAIN_SEQ} skv "
+         f"{src} h {hs} d {ds}", (1, TRAIN_SEQ, src, hs, hs, ds), False,
+         sm_blocks),
         (f"{vl_cfg.name} prefill b 1 s 2048 hq {vl_cfg.num_heads} hkv "
          f"{vl_cfg.num_kv_heads} d {vl_cfg.head_dim} causal",
          (1, 2048, 2048, vl_cfg.num_heads, vl_cfg.num_kv_heads,
@@ -2913,9 +3009,11 @@ def phase_flash_bwd_kernels(cfg, sm_cfg):
     is compared. Ragged shapes in f32 (within atol = rtol = 1e-5) and bf16
     (each row of dq, dk, dv within BWD_ROW of its norm: bf16 inputs and
     outputs, P and dS rounded to bf16 before their products),
-    then four full-width bf16 shapes with times: the training path's
+    then six full-width bf16 shapes with times: the training path's
     4096-token causal microbatch of minitron-8b, minitron-8b's 2048-token
-    prefill, seamless-m4t-medium's encoder and cross attention. At the
+    prefill, seamless-m4t-medium's encoder and cross attention, and the
+    two that its training step adds (the decoder's causal self attention
+    and the cross attention of a TRAIN_SEQ-token microbatch). At the
     first, three planted faults made from the kernel's own outputs must
     fail that check: dq without one key tile's share for the later half
     of the queries, dk and dv without one query tile's share, dv of the
@@ -3086,6 +3184,10 @@ def phase_flash_bwd_kernels(cfg, sm_cfg):
          (1, src, src, hs, hs, ds), False),
         (f"{sm_cfg.name} cross b 1 sq 1024 skv {src} h {hs} d {ds}",
          (1, 1024, src, hs, hs, ds), False),
+        (f"{sm_cfg.name} decoder train microbatch b 1 s {TRAIN_SEQ} h {hs} "
+         f"d {ds} causal", (1, TRAIN_SEQ, TRAIN_SEQ, hs, hs, ds), True),
+        (f"{sm_cfg.name} cross train microbatch b 1 sq {TRAIN_SEQ} skv "
+         f"{src} h {hs} d {ds}", (1, TRAIN_SEQ, src, hs, hs, ds), False),
     ]
     rows = {}
     for label, (b, sq, skv, hq, hkv, d), causal in shapes:
@@ -4270,6 +4372,7 @@ def phase_reference():
     adapters_card_vs_cpu(tiny)
     train_card_vs_cpu(dataclasses.replace(tiny, remat="full"))
     train_card_vs_cpu(dataclasses.replace(moe, remat="full"))
+    train_card_vs_cpu(dataclasses.replace(encdec, remat="full"))
     for arch in ("recurrentgemma-2b", "mamba2-1.3b"):
         train_card_vs_cpu(dataclasses.replace(get_smoke_config(arch),
                                               dtype="float32", remat="full"))
@@ -4277,16 +4380,18 @@ def phase_reference():
 
 def train_card_vs_cpu(cfg) -> None:
     """A small config in f32 with full remat (edge-tiny; qwen3-moe's,
-    recurrentgemma-2b's and mamba2-1.3b's smoke configs): a microbatch's
-    loss and every gradient leaf on the card (the f32 routes of both flash
-    kernels, for MoE of the expert kernels and K1-K3, for the recurrent
-    families of rglru_scan or ssd_chunk and their backward kernels, each
-    launched as ``train_kernels`` counts a microbatch) against the CPU
-    (their plain versions), on the same weights; each leaf within
-    REF_ATOL of its largest magnitude."""
+    seamless-m4t-medium's (head_dim 32, 24 frames a row), recurrentgemma-
+    2b's and mamba2-1.3b's smoke configs): a microbatch's loss and every
+    gradient leaf on the card (the f32 routes of both flash kernels, for
+    MoE of the expert kernels and K1-K3, for the recurrent families of
+    rglru_scan or ssd_chunk and their backward kernels, each launched as
+    ``train_kernels`` counts a microbatch) against the CPU (their plain
+    versions), on the same weights; each leaf within REF_ATOL of its
+    largest magnitude."""
     import torch
     from repro_torch.bridge import leaves, tree_map
     from repro_torch.kernels.moe_gemm import moe_gemm as MG
+    from repro_torch.models.frontends import fake_audio_frames
     from repro_torch.models.transformer import LM
     from repro_torch.training.train_step import (accumulate_grads,
                                                  init_train_state)
@@ -4296,6 +4401,9 @@ def train_card_vs_cpu(cfg) -> None:
                          dtype=torch.int32)
     labels = torch.roll(toks, -1, 1)
     labels[:, -1] = -1
+    batch = {"tokens": toks, "labels": labels}
+    if cfg.family == "encdec":
+        batch["frames"] = fake_audio_frames(cfg, rng, 2)
     cpu = init_train_state(lm, 0, device="cpu").params
     mods = train_modules(cfg)
     want = {k: n // TRAIN_MICRO for k, n in train_kernels(cfg).items()}
@@ -4310,8 +4418,8 @@ def train_card_vs_cpu(cfg) -> None:
             lambda p: p.detach().to(dev).requires_grad_(True), cpu)
         before = launch_counts(mods)
         tc0 = sum(MG.BWD_TENSOR_CORE_LAUNCHES.values())
-        loss, _ = accumulate_grads(lm, params, {
-            "tokens": toks.to(dev), "labels": labels.to(dev)},
+        loss, _ = accumulate_grads(
+            lm, params, {k: v.to(dev) for k, v in batch.items()},
             torch.float32)
         got = {k: n - before[k] for k, n in launch_counts(mods).items()}
         if dev == "cuda" and (got != want or
@@ -4678,9 +4786,11 @@ def train_flops(cfg, params) -> float:
     and parameter of every product (the layers and the LM head; the
     embedding is a lookup; of the experts only the active share, top-k of
     E), the attention's 4 * hq * d per causal (query, key) pair in the
-    forward (within the window, on the attention layers), 3 times for
-    forward and backward, and for the SSM the SSD scan's forward
-    (``ssd_flops``) and gradient (``ssd_bwd_flops``)."""
+    forward (within the window, on the attention layers; the
+    encoder-decoder's encoder and cross attention: every pair, their
+    leaves at the frames' count), 3 times for forward and backward, and
+    for the SSM the SSD scan's forward (``ssd_flops``) and gradient
+    (``ssd_bwd_flops``)."""
     from repro_torch.bridge import leaves
     n = sum(p.numel() for p in leaves(params)) - params["embed"].numel()
     experts = sum(p.numel() for p in expert_leaves(params))
@@ -4688,11 +4798,24 @@ def train_flops(cfg, params) -> float:
         n -= experts - experts * cfg.num_experts_per_tok // cfg.num_experts
     tokens = TRAIN_BATCH * TRAIN_SEQ
     window = cfg.sliding_window or TRAIN_SEQ
-    pairs = sum(min(i + 1, window) for i in range(TRAIN_SEQ))
     layers = (cfg._pattern().count("attn") if cfg.family == "hybrid"
               else 0 if cfg.family == "ssm" else cfg.num_layers)
-    attn = 3 * 4 * cfg.num_heads * cfg.head_dim * pairs * TRAIN_BATCH \
-        * layers
+    pairs = sum(min(i + 1, window) for i in range(TRAIN_SEQ)) * layers
+    src_flops = 0.0
+    if cfg.family == "encdec":
+        # the encoder's leaves and the cross attention's K/V projections
+        # take the frames, not the tokens; the encoder's self attention
+        # sees every pair of frames, the cross attention every (token,
+        # frame) pair
+        xa = params["layers"]["xattn"]
+        n_src = sum(p.numel() for p in leaves(params["enc_layers"])) \
+            + params["adapter"].numel() + xa["w_k"].numel() \
+            + xa["w_v"].numel()
+        n -= n_src
+        src_flops = 6.0 * n_src * TRAIN_BATCH * cfg.source_len
+        pairs += cfg.source_len * (TRAIN_SEQ * cfg.num_layers
+                                   + cfg.source_len * cfg.encoder_layers)
+    attn = 3 * 4 * cfg.num_heads * cfg.head_dim * pairs * TRAIN_BATCH
     if cfg.family == "ssm":          # the SSD scan's own products
         attn += (ssd_flops(TRAIN_SEQ, cfg.ssm_chunk, cfg.ssm_nheads,
                            cfg.ssm_headdim, cfg.ssm_ngroups, cfg.ssm_state)
@@ -4700,19 +4823,29 @@ def train_flops(cfg, params) -> float:
                                  cfg.ssm_headdim, cfg.ssm_ngroups,
                                  cfg.ssm_state)) \
             * TRAIN_BATCH * cfg.num_layers
-    return 6.0 * n * tokens + attn
+    return 6.0 * n * tokens + src_flops + attn
 
 
 def train_batches(cfg, n: int, seed: int = 0):
     """n batches [TRAIN_BATCH, TRAIN_SEQ] of the synthetic LM stream on
-    the card."""
+    the card; for the encoder-decoder family each with ``frames``
+    [TRAIN_BATCH, source_len, d_model] from the audio frontend stub
+    (``models.frontends.fake_audio_frames``, drawn from ``seed``)."""
     import torch
+    from repro_torch.models.frontends import fake_audio_frames
     from repro_torch.training.data import DataConfig, SyntheticLMStream
     stream = SyntheticLMStream(DataConfig(
         vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
         global_batch=TRAIN_BATCH, seed=seed))
-    return [{k: torch.from_numpy(v).to("cuda")
-             for k, v in stream.next_batch().items()} for _ in range(n)]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    out = []
+    for _ in range(n):
+        batch = {k: torch.from_numpy(v).to("cuda")
+                 for k, v in stream.next_batch().items()}
+        if cfg.family == "encdec":
+            batch["frames"] = fake_audio_frames(cfg, gen, TRAIN_BATCH)
+        out.append(batch)
+    return out
 
 
 def launch_counts(mods) -> dict:
@@ -4740,8 +4873,10 @@ def remat_forwards(cfg) -> int:
 
 def train_kernels(cfg) -> dict:
     """The kernels one train step launches and how often: flash_attention
-    twice a layer and microbatch (the forward and the full remat's
-    recompute) and flash_attention_bwd once; for MoE, each expert-FFN group
+    twice an attention layer and microbatch (the forward and the full
+    remat's recompute) and flash_attention_bwd once (the encoder-decoder:
+    each encoder layer, and each decoder layer's self and cross attention,
+    12 + 2 x 12 = 36 attention layers for seamless-m4t-medium); for MoE, each expert-FFN group
     (``moe_groups``) launches the two forward kernels twice, K1 once and
     K2 and K3 twice (the down product's and gate/up's); the hybrid's
     RG-LRU blocks rglru_scan twice and rglru_scan_bwd once (its local
@@ -4749,6 +4884,8 @@ def train_kernels(cfg) -> dict:
     ``remat_forwards`` times and ssd_chunk_bwd once, each a
     microbatch."""
     L, m = cfg.num_layers, TRAIN_MICRO
+    if cfg.family == "encdec":          # the encoder's, self and cross
+        L += cfg.encoder_layers + cfg.num_layers
     if cfg.family == "hybrid":
         rec = cfg._pattern().count("rec")
         return {"flash_attention": 0, "flash_attention_bwd": 0,
@@ -4870,10 +5007,13 @@ def check_train(cfg, out) -> None:
                f"√L group's but for its last layer")
     else:
         why = "; the forward kernel twice: forward and remat recompute"
+    layers = f"{cfg.num_layers} layers"
+    if cfg.family == "encdec":
+        layers = (f"{cfg.encoder_layers} encoder layers + {cfg.num_layers} "
+                  f"decoder layers' self and cross attention")
     log(f"[train] every step launched "
         + ", ".join(f"{k} {n}" for k, n in want.items())
-        + f" times ({cfg.num_layers} layers x {TRAIN_MICRO} microbatches"
-        + why + ")")
+        + f" times ({layers} x {TRAIN_MICRO} microbatches" + why + ")")
     losses = [x[0] for x in out["steps"] + out["repeat"]]
     if not all(math.isfinite(x) for x in losses) or not out["finite"]:
         fail(f"train: a loss or a weight is not finite ({losses})")
@@ -5227,7 +5367,9 @@ DRYRUN_CELLS = (("minitron-8b", "train_4k"),
                 ("qwen3-moe-30b-a3b", "train_4k"),
                 ("mixtral-8x7b", "decode_32k"),
                 ("mamba2-1.3b", "train_4k"),
-                ("recurrentgemma-2b", "long_500k"))
+                ("recurrentgemma-2b", "long_500k"),
+                ("seamless-m4t-medium", "train_4k"),
+                ("seamless-m4t-medium", "prefill_32k"))
 DRYRUN_DIR = ROOT / "artifacts" / "dryrun-chip"
 
 
@@ -5503,20 +5645,24 @@ def time_dist_train(cfg, mesh, dstate, state, step, dbatch) -> None:
         f"({med['DTensor'] / med['plain'] - 1:.1%}); {card()}")
 
 
-def drive_dist_serve(cfg, params, tokens, max_len=DIST_MAX_LEN) -> dict:
+def drive_dist_serve(cfg, params, batch, max_len=DIST_MAX_LEN) -> dict:
     """The 1x1 DTensor serving path: the params laid out by the decode
     plan on a 1x1 NCCL mesh (wrapping the plain tensors), a prefill of
-    ``tokens`` into a ``max_len`` cache and DIST_STEPS greedy decode
-    steps through the DTensor model. Returns its tokens and times."""
+    ``batch`` (tokens; encdec's frames) into a ``max_len`` cache and
+    DIST_STEPS greedy decode steps through the DTensor model; encdec's
+    cross K/V caches must be DTensors in the plan's cache layout. Returns
+    its tokens and times."""
     import torch
+    from repro_torch.kernels.sharded import is_dtensor
     from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.models.transformer import LM
     from repro_torch.sharding import make_plan
     from repro_torch.sharding.ctx import use_mesh
-    from repro_torch.sharding.planner import distribute, distribute_tree
+    from repro_torch.sharding.planner import (distribute, distribute_tree,
+                                              placements)
     mesh = make_test_mesh((1, 1), device_type="cuda")
     lm = LM(cfg)
-    b = tokens.shape[0]
+    b = batch["tokens"].shape[0]
     plan = make_plan(cfg, mesh, "decode", batch=b, seq=max_len,
                      param_tree=params, cache_tree=lm.init_cache(
                          b, max_len, device="meta"))
@@ -5526,9 +5672,9 @@ def drive_dist_serve(cfg, params, tokens, max_len=DIST_MAX_LEN) -> dict:
     with torch.no_grad(), use_mesh(mesh):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        lg, cache = lm.prefill(dparams, {"tokens": distribute(tokens, spec,
-                                                              mesh)},
-                               max_len)
+        lg, cache = lm.prefill(dparams, {
+            k: distribute(v, plan.batch_specs[k], mesh)
+            for k, v in batch.items()}, max_len)
         t = lg.full_tensor().argmax(-1)[:, None].to(torch.int32)
         torch.cuda.synchronize()
         out["prefill_ms"] = (time.perf_counter() - t0) * 1e3
@@ -5541,6 +5687,16 @@ def drive_dist_serve(cfg, params, tokens, max_len=DIST_MAX_LEN) -> dict:
             torch.cuda.synchronize()
             out["ms"].append((time.perf_counter() - t0) * 1e3)
     out["layout"] = cache_layout(cache["layers"])
+    for k in ("cross_k", "cross_v"):
+        if k not in cache:
+            continue
+        want = placements(plan.cache_specs[k], mesh)
+        if not is_dtensor(cache[k]) or tuple(cache[k].placements) != want:
+            fail(f"[distributed] {cfg.name}: the prefill's {k} is "
+                 f"{type(cache[k]).__name__} "
+                 f"{getattr(cache[k], 'placements', None)}, not a DTensor "
+                 f"laid out as the plan's {want}")
+        out["layout"][k] = [str(p) for p in cache[k].placements]
     return out
 
 
@@ -5554,7 +5710,7 @@ def cache_layout(layers) -> dict:
     return seen
 
 
-def plain_serve(cfg, params, tokens, max_len=DIST_MAX_LEN) -> dict:
+def plain_serve(cfg, params, batch, max_len=DIST_MAX_LEN) -> dict:
     """``drive_dist_serve``'s prefill and greedy steps on the plain
     tensors."""
     import torch
@@ -5564,7 +5720,7 @@ def plain_serve(cfg, params, tokens, max_len=DIST_MAX_LEN) -> dict:
     with torch.no_grad():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        lg, cache = lm.prefill(params, {"tokens": tokens}, max_len)
+        lg, cache = lm.prefill(params, batch, max_len)
         t = lg.argmax(-1)[:, None].to(torch.int32)
         torch.cuda.synchronize()
         out["prefill_ms"] = (time.perf_counter() - t0) * 1e3
@@ -5640,8 +5796,9 @@ def dist_train_path(tcfg, counters, mods, required, variant=None) -> dict:
 def dist_serve_path(cfg, counters, required, want_n, prompt: int,
                     max_len: int, variant=None) -> dict:
     """``cfg``'s 1x1 DTensor serving path (``drive_dist_serve``: a prefill
-    of DIST_SERVE_ROWS prompts of ``prompt`` tokens into a ``max_len``
-    cache, DIST_STEPS greedy steps) against the plain path's tokens, with
+    of DIST_SERVE_ROWS prompts of ``prompt`` tokens, for encdec each with
+    ``source_len`` frames, into a ``max_len`` cache, DIST_STEPS greedy
+    steps) against the plain path's tokens, with
     the launches ``want_n`` and the grouped GEMMs on ``variant``, if
     given. Returns the DTensor path's launches (an int8 path's also under
     "<kernel> (int8)")."""
@@ -5650,12 +5807,16 @@ def dist_serve_path(cfg, counters, required, want_n, prompt: int,
     torch.cuda.reset_peak_memory_stats()
     params = init_model(cfg)
     g = torch.Generator(device="cuda").manual_seed(7)
-    tokens = torch.randint(0, cfg.vocab_size, (DIST_SERVE_ROWS, prompt),
-                           generator=g, device="cuda", dtype=torch.int32)
-    want = plain_serve(cfg, params, tokens, max_len)
+    batch = {"tokens": torch.randint(
+        0, cfg.vocab_size, (DIST_SERVE_ROWS, prompt), generator=g,
+        device="cuda", dtype=torch.int32)}
+    if cfg.family == "encdec":
+        from repro_torch.models.frontends import fake_audio_frames
+        batch["frames"] = fake_audio_frames(cfg, g, DIST_SERVE_ROWS)
+    want = plain_serve(cfg, params, batch, max_len)
     name = f"{cfg.name} DTensor serving (1x1 mesh, {cfg.num_layers} layers)"
     launches, got = drive_path(name, counters, required, drive_dist_serve,
-                               cfg, params, tokens, max_len)
+                               cfg, params, batch, max_len)
     if variant:
         check_variant(name, launches, variant)
     if variant == "int8":
@@ -5707,8 +5868,39 @@ def dist_recurrent_paths(rg_cfg, mb_cfg, counters) -> list:
     return paths
 
 
+def dist_encdec_paths(sm_cfg, counters) -> list:
+    """The encoder-decoder family on a 1x1 mesh at full width and depth
+    (12 encoder and 12 decoder layers): seamless-m4t-medium's train step
+    (frames from the audio frontend stub; the encoder, the cross
+    attention and the memory's gradient through DTensor ops) against the
+    plain step, launches equal; then its serving, 2 prompts with
+    ``source_len`` frames each, tokens equal to the plain path's,
+    flash_attention once an encoder layer and twice a decoder layer (self
+    and cross) a prefill, decode_attention once a decoder layer a step
+    (the cross attention's decode is plain PyTorch, as in the
+    reference). Returns the paths' launches."""
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+    t0 = time.perf_counter()
+    tcfg = train_config(sm_cfg, sm_cfg.num_layers)
+    paths = [dist_train_path(tcfg, counters, (FA,),
+                             ("flash_attention", "flash_attention_bwd"))]
+    log(f"[distributed] {tcfg.name} train path: "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    L = sm_cfg.num_layers
+    paths.append(dist_serve_path(
+        sm_cfg, counters, ("flash_attention", "decode_attention"),
+        {"flash_attention": sm_cfg.encoder_layers + 2 * L,
+         "decode_attention": L * DIST_STEPS, "paged_decode_attention": 0},
+        DIST_PROMPT, DIST_MAX_LEN))
+    log(f"[distributed] {sm_cfg.name} serving path ({sm_cfg.encoder_layers} "
+        f"+ {L} layers, prompts of {DIST_PROMPT} with {sm_cfg.source_len} "
+        f"frames): {time.perf_counter() - t0:.1f} s")
+    return paths
+
+
 def phase_distributed(cfg, counters, dryruns, moe_cfg, mx_cfg, rg_cfg,
-                      mb_cfg) -> list:
+                      mb_cfg, sm_cfg) -> list:
     """The distribution layer on the card, each path on a 1x1 mesh of a
     one-rank NCCL group against the same path on plain tensors: the train
     steps of minitron-8b and qwen3-moe-30b-a3b at 4 layers (bit for bit,
@@ -5720,8 +5912,9 @@ def phase_distributed(cfg, counters, dryruns, moe_cfg, mx_cfg, rg_cfg,
     DIST_MOE_LAYERS (prompts past its window: the banded prefill, the
     ring filled and read rank by rank), tokens equal to the plain path's;
     the recurrent families' train steps and serving
-    (``dist_recurrent_paths``); then the dry-run cells. Returns the main
-    paths' launches."""
+    (``dist_recurrent_paths``); seamless-m4t-medium's train step and
+    serving at full depth (``dist_encdec_paths``); then the dry-run
+    cells. Returns the main paths' launches."""
     import dataclasses
     from repro_torch.kernels.flash_attention import flash_attention as FA
     from repro_torch.kernels.moe_gemm import moe_gemm as MG
@@ -5782,6 +5975,7 @@ def phase_distributed(cfg, counters, dryruns, moe_cfg, mx_cfg, rg_cfg,
         f"ring of {min(xcfg.sliding_window, MX_DIST_MAX_LEN)} slots, "
         f"{DIST_STEPS} steps): {time.perf_counter() - t0:.1f} s")
     paths += dist_recurrent_paths(rg_cfg, mb_cfg, counters)
+    paths += dist_encdec_paths(sm_cfg, counters)
     if dryruns:
         finish_dryruns(dryruns)
     else:
@@ -5882,7 +6076,7 @@ def main() -> None:
     lap("kernels: expert backward")
     rows.update(phase_int8_kernels(mx_cfg))
     lap("kernels: int8 experts")
-    phase_split_kernels(moe_cfg, mx_cfg, rg_cfg, mb_cfg)
+    phase_split_kernels(moe_cfg, mx_cfg, rg_cfg, mb_cfg, sm_cfg)
     lap("kernels: split shapes")
     rows.update(phase_recurrent_kernels(rg_cfg, mb_cfg))
     lap("kernels: recurrent")
@@ -6128,6 +6322,25 @@ def main() -> None:
         lap(f"train: {rcfg.name}")
 
     left = torch.cuda.memory_allocated()
+    log(f"[train] device memory allocated before {sm_cfg.name}'s training "
+        f"path: {left / 1e9:.3f} GB")
+    if left > 0.1e9:
+        fail(f"{left / 1e9:.2f} GB still allocated before {sm_cfg.name}'s "
+             f"training path")
+    torch.cuda.reset_peak_memory_stats()
+    tcfg = train_config(sm_cfg, sm_cfg.num_layers)
+    name = (f"{tcfg.name} train ({tcfg.encoder_layers} + {tcfg.num_layers} "
+            f"layers)")
+    launches, out = drive_path(name, counters, ("flash_attention",
+                                                "flash_attention_bwd"),
+                               drive_train, tcfg)
+    paths.append(launches)
+    check_train(tcfg, out)
+    del out
+    release_memory()
+    lap(f"train: {sm_cfg.name}")
+
+    left = torch.cuda.memory_allocated()
     log(f"[distributed] device memory allocated before the distribution "
         f"layer's paths: {left / 1e9:.3f} GB")
     if left > 0.1e9:
@@ -6135,7 +6348,7 @@ def main() -> None:
              f"paths")
     t0 = time.perf_counter()
     paths += phase_distributed(cfg, counters, dryruns, moe_cfg, mx_cfg,
-                               rg_cfg, mb_cfg)
+                               rg_cfg, mb_cfg, sm_cfg)
     log(f"[distributed] {time.perf_counter() - t0:.1f} s")
     lap("distributed")
 

@@ -13,9 +13,10 @@ lands in ``artifacts/dryrun/<arch>__<shape>__<mesh>.json`` with the
 reference's keys. The figures are estimates from a fake-tensor run and the
 H100 data sheet's constants, not measurements.
 
-The dense GQA, MoE, hybrid and SSM families are distributed here; an
-encoder-decoder cell is written with ``"status": "skipped"`` and the
-ROADMAP item it waits for.
+Every family is distributed here: the dense GQA, MoE, hybrid, SSM and
+encoder-decoder ones. A cell is written with ``"status": "skipped"`` only
+by the sub-quadratic rule (``sharding.specs.cell_runnable``): long_500k of
+a full-attention model.
 
 ``init_process_group`` is process-wide, so the dry run takes a process of
 its own (it refuses to start beside another group).
@@ -50,13 +51,6 @@ from repro_torch.training.train_step import (abstract_train_state,
 
 ASSIGNED = tuple(a for a in ARCH_IDS if a != "edge-tiny")
 
-#: families whose sharded execution the port has (ROADMAP.md queue 1)
-DISTRIBUTED = ("dense", "moe", "hybrid", "ssm")
-_WAITS = {
-    "encdec": "the encoder-decoder family's sharded execution (ROADMAP.md "
-              "queue 1 item 5b: its encoder and cross K/V caches)",
-}
-
 
 def _batch(mesh, plan, specs):
     """The cell's inputs as DTensors by the plan's batch specs."""
@@ -76,10 +70,6 @@ def lower_cell(arch: str, shape_name: str, mesh, *, scale: float = 1.0,
     ok, reason = cell_runnable(cfg, shape_name)
     if not ok:
         return {"status": "skipped", "reason": reason}, None
-    if cfg.family not in DISTRIBUTED:
-        return {"status": "skipped",
-                "reason": f"{cfg.family} family: waits for "
-                          f"{_WAITS[cfg.family]}"}, None
 
     n_dev = mesh.size()
     lm = LM(cfg)

@@ -19,8 +19,9 @@ On DTensors (inside ``use_mesh``) the kernels take every rank's shards
 through their wrappers' ``local_map``; the banded prefill does the same
 (``banded_sharded``), and ring decode reads each rank's own slots of the
 ring and merges the ranks' (o, lse) where the ring splits on S
-(``_ring_attention_sharded``), as ``seq_sharded_decode`` does for a linear
-cache.
+(``_masked_decode_sharded``), as ``seq_sharded_decode`` does for a linear
+cache; decode cross attention reads each rank's rows and heads of the
+cross cache, or its own source slots, through the same route.
 """
 
 from __future__ import annotations
@@ -286,37 +287,66 @@ def _ring_valid(position, s0: int, n: int, S: int, window: int):
 
 def _ring_attention_sharded(cfg: ModelConfig, q, cache_k, cache_v, position,
                             window: int):
-    """``_ring_attention`` over a DTensor ring [b, S, kh, hd] on every
+    """``_ring_attention`` over a DTensor ring [b, S, kh, hd]: each rank
+    masks its own slots of S by its rows' ``position``
+    (``_masked_decode_sharded``). -> [b, 1, hq, hd] in q's dtype."""
+    S = cache_k.shape[1]
+    return _masked_decode_sharded(
+        cfg, q, cache_k, cache_v,
+        lambda pos, s0, n: _ring_valid(pos, s0, n, S, window), position)
+
+
+def _masked_decode_sharded(cfg: ModelConfig, q, cache_k, cache_v, valid,
+                           position=None):
+    """``_masked_decode`` over a DTensor cache [b, S, kh, hd] on every
     rank's shards (``local_map``): each rank takes its batch rows and its
     KV heads with their query heads, where the cache splits them, and its
-    own slots of S. Where S is split, each rank's masked softmax over its
+    own slots ``[s0, s0 + n)`` of S, masked by ``valid(pos, s0, n)``
+    ([rows or 1, n] bool; ``pos`` is the rank's rows of ``position`` [b],
+    None without it). Where S is split, each rank's masked softmax over its
     slots gives (o, lse), and the ranks merge them with a max and a sum
     all-reduce over the mesh dims that split S (the cache is never
     gathered); a rank holding no valid slot of a row gives lse -inf and
-    weight 0. -> [b, 1, hq, hd] in q's dtype."""
+    weight 0. Any other layout (a split head_dim, a partial sum, an uneven
+    split) raises. -> [b, 1, hq, hd] in q's dtype."""
     from torch.distributed.tensor import Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
     mesh = cache_k.device_mesh
     pls = list(cache_k.placements)
-    q_pl = [Shard(0) if p.is_shard(0) else Shard(2) if p.is_shard(2)
-            else Replicate() for p in pls]
+    b, S, kh = cache_k.shape[:3]
+    hq = q.shape[2]
+    q_pl = []
+    for i, pl in enumerate(pls):
+        n = mesh.size(i)
+        if pl.is_shard(0) and b % n == 0:
+            q_pl.append(Shard(0))
+        elif pl.is_shard(2) and kh % n == 0 and hq % n == 0:
+            q_pl.append(Shard(2))
+        elif pl.is_replicate() or (pl.is_shard(1) and S % n == 0):
+            q_pl.append(Replicate())
+        else:
+            raise ValueError(
+                f"masked decode: the cache's placement {pl} on mesh dim {i} "
+                f"({n} ranks) splits none of its batch, KV heads or slots "
+                f"evenly")
     p_pl = [Shard(0) if p.is_shard(0) else Replicate() for p in pls]
-    q = SH.redistribute(q, mesh, q_pl)
-    position = SH.redistribute(position, mesh, p_pl)
-    S = cache_k.shape[1]
+    args, in_pl = [SH.redistribute(q, mesh, q_pl), cache_k, cache_v], \
+        [q_pl, pls, pls]
+    if position is not None:
+        args.append(SH.redistribute(position, mesh, p_pl))
+        in_pl.append(p_pl)
     s0, n = SH.shard_span(mesh, pls, 1, S)
     groups = [mesh.get_group(i) for i, p in enumerate(pls) if p.is_shard(1)]
 
-    def local(ql, ck, cv, pl):
-        valid = _ring_valid(pl, s0, n, S, window)
+    def local(ql, ck, cv, pos=None):
+        mask = valid(pos, s0, n)
         if not groups:
-            return _masked_decode(cfg, ql, ck, cv, valid)
-        o, lse = _masked_decode(cfg, ql, ck, cv, valid, return_lse=True)
+            return _masked_decode(cfg, ql, ck, cv, mask)
+        o, lse = _masked_decode(cfg, ql, ck, cv, mask, return_lse=True)
         return _merge_partials(o, lse, groups)
 
-    return local_map(local, out_placements=q_pl,
-                     in_placements=(q_pl, pls, pls, p_pl),
-                     device_mesh=mesh)(q, cache_k, cache_v, position)
+    return local_map(local, out_placements=q_pl, in_placements=tuple(in_pl),
+                     device_mesh=mesh)(*args)
 
 
 def _linear_attention(cfg: ModelConfig, q, cache_k, cache_v, position):
@@ -516,17 +546,15 @@ def decode_cross_attention(p, cfg: ModelConfig, x, mem_k, mem_v,
                            mem_positions):
     """One query per row against the cached encoder K/V ``mem_k``/``mem_v``
     [b, src, kh, hd] (keys at ``mem_positions`` < 0 masked). Plain
-    PyTorch, as in the reference: f32 scores and softmax, the weights
-    rounded to v's dtype before the PV product. x: [b, 1, d] -> [b, 1, d]."""
-    b = x.shape[0]
-    kh, hd = cfg.num_kv_heads, cfg.head_dim
-    g = cfg.num_heads // kh
+    PyTorch, as in the reference: ``_masked_decode`` (encdec has no
+    softcap), on every rank's shards of a DTensor cache
+    (``_masked_decode_sharded``). x: [b, 1, d] -> [b, 1, d]."""
     q = _project_q(p, cfg, x, None)
-    qh = q.reshape(b, 1, kh, g, hd).float()
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qh, mem_k.float()) / math.sqrt(hd)
-    s = torch.where(mem_positions >= 0, s, torch.full_like(s, NEG_INF))
-    w = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhgqk,bkhd->bhgqd", w.to(mem_v.dtype).float(),
-                     mem_v.float())
-    o = o.permute(0, 3, 1, 2, 4).reshape(b, 1, cfg.num_heads, hd)
-    return _out_proj(p, cfg, o.to(x.dtype), x)
+    if SH.is_dtensor(mem_k):
+        mpos = SH.replicated_value(mem_positions)
+        o = _masked_decode_sharded(
+            cfg, q, mem_k, mem_v,
+            lambda _, s0, n: (mpos[s0:s0 + n] >= 0)[None])
+    else:
+        o = _masked_decode(cfg, q, mem_k, mem_v, (mem_positions >= 0)[None])
+    return _out_proj(p, cfg, o, x)

@@ -131,19 +131,22 @@ def _ring_buffer(x, S: int, length: Optional[int]):
     return _ring_rows(x, 0, S, S, length)
 
 
-def _kv_buffer(cfg: ModelConfig, shape, x):
-    """A zeroed stacked K or V buffer [L, b, S, kh, hd] in x's dtype: on
-    x's device or, for a DTensor x, a DTensor on x's mesh laid out by the
+def _kv_buffer(cfg: ModelConfig, shape, x, cross: bool = False):
+    """A zeroed stacked K or V buffer [L, b, S, kh, hd] in x's dtype (with
+    ``cross``, the encdec's cross K or V [L, b, src, kh, hd]): on x's
+    device or, for a DTensor x, a DTensor on x's mesh laid out by the
     planner's cache rule (batch over the data axes, KV heads or else S
-    over the model axis), as the reference's prefill hands its cache out
-    (its dry run's out_shardings)."""
+    over the model axis; ``cross_k``'s rule for the cross buffers), as
+    the reference's prefill hands its cache out (its dry run's
+    out_shardings)."""
     if not SH.is_dtensor(x):
         return torch.zeros(shape, dtype=x.dtype, device=x.device)
     from repro_torch.sharding.planner import cache_plan, zeros
     mesh = x.device_mesh
-    spec = cache_plan(cfg, {"layers": {"k": torch.empty(shape,
-                                                        device="meta")}},
-                      mesh, shape[1], [])["layers"]["k"]
+    meta = torch.empty(shape, device="meta")
+    tree = {"cross_k": meta} if cross else {"layers": {"k": meta}}
+    spec = cache_plan(cfg, tree, mesh, shape[1], [])
+    spec = spec["cross_k"] if cross else spec["layers"]["k"]
     return zeros(shape, x.dtype, spec, mesh)
 
 
@@ -234,7 +237,9 @@ def _attn_half(p, cfg: ModelConfig, x, positions, memory=None,
     x = constrain(x + A._out_proj(p["attn"], cfg, o, x), "dp", None, None)
     if memory is not None:
         hx = L.rmsnorm_apply(p["norm_x"], x, cfg.norm_eps)
-        x = x + A.cross_attention(p["xattn"], cfg, hx, memory, mem_positions)
+        # the cross attention's projection is a partial sum too
+        x = constrain(x + A.cross_attention(p["xattn"], cfg, hx, memory,
+                                            mem_positions), "dp", None, None)
     return x, k, v
 
 
@@ -585,7 +590,10 @@ class LM:
         """frames [b, src, d_model] -> the encoder's output [b, src,
         d_model]: the frames in the working dtype through ``adapter``, then
         the encoder's blocks with bidirectional attention, then
-        ``enc_norm``."""
+        ``enc_norm``. On DTensors the output is pinned to the batch split,
+        whole over the model axis, before the decoder's layers read it:
+        its gradient, a sum of every layer's cross K/V projections' partial
+        sums over the model axis, is reduced there once."""
         cfg = self.cfg
         x = L.matmul(frames.to(L.dtype_of(cfg)), params["adapter"])
         pos = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
@@ -593,7 +601,8 @@ class LM:
             lp, cfg, "attn", h, pos, causal=False), cfg)
         for lp in _unstack(params["enc_layers"], cfg.encoder_layers):
             x, _ = block(lp, x)
-        return L.rmsnorm_apply(params["enc_norm"], x, cfg.norm_eps)
+        return constrain(L.rmsnorm_apply(params["enc_norm"], x,
+                                         cfg.norm_eps), "dp", None, None)
 
     # -- full-sequence forward (training) ---------------------------------
     def forward(self, params, batch):
@@ -774,8 +783,8 @@ class LM:
                 src = memory.shape[1]
                 mem_pos = torch.arange(src, dtype=torch.int32,
                                        device=x.device)
-                cross = {key: torch.empty((cfg.num_layers, b, src) + shape[3:],
-                                          dtype=x.dtype, device=x.device)
+                cshape = (cfg.num_layers, b, src) + shape[3:]
+                cross = {key: _kv_buffer(cfg, cshape, x, cross=True)
                          for key in ("cross_k", "cross_v")}
             for i in range(cfg.num_layers):
                 lp = layer_params(params["layers"], i)
@@ -792,8 +801,10 @@ class LM:
                     ck[i, :, :n] = k[:, :n]
                     cv[i, :, :n] = v[:, :n]
                 if memory is not None:
-                    cross["cross_k"][i], cross["cross_v"][i] = \
-                        A.project_cross_kv(lp["xattn"], cfg, memory)
+                    # projected again for the cache, as the reference does
+                    xk, xv = A.project_cross_kv(lp["xattn"], cfg, memory)
+                    _put_layer(cross["cross_k"], i, xk)
+                    _put_layer(cross["cross_v"], i, xv)
             cache_layers = {"k": ck, "v": cv}
         cache = {"layers": cache_layers,
                  "pos": torch.full((b,), last, dtype=torch.int32,

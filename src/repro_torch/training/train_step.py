@@ -157,8 +157,10 @@ def make_train_step(lm: LM, *, hyper: AdamWHyper = AdamWHyper(),
                     microbatches: int = 1, compress: bool = False,
                     compute_dtype=torch.bfloat16):
     """Returns ``train_step(state, batch) -> (state, metrics)``; ``batch``
-    holds [b, ...] tensors (b a multiple of ``microbatches``) on the
-    params' device, DTensors by ``distribute_batch`` on a sharded state."""
+    holds [b, ...] tensors (b a multiple of ``microbatches``: tokens,
+    labels, and the frontends' inputs, the encoder-decoder's frames [b,
+    src, d]) on the params' device, DTensors by ``distribute_batch`` on a
+    sharded state; microbatch i takes the same rows of every one."""
 
     def train_step(state: TrainState, batch):
         params = state.params

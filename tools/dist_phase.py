@@ -4,16 +4,17 @@
     python3 tools/dist_phase.py [--turns 5] [--no-dryrun]
 
 Builds the kernels, checks decode_attention's lse output (``phase_lse``)
-and the expert and scan kernels at the local shapes of a 16-way model axis
-(``phase_split_kernels``), and runs ``phase_distributed``: on a 1x1
-DTensor mesh of a one-rank NCCL group, minitron-8b's and
-qwen3-moe-30b-a3b's 4-layer, recurrentgemma-2b's 3-layer and
-mamba2-1.3b's 4-layer train steps against the plain steps from the same
-seed (bit for bit, then ``--turns`` steps of each in turns),
-minitron-8b's 32-layer, qwen3-moe's 4-layer, int8 mixtral-8x7b's 4-layer,
-recurrentgemma-2b's 26-layer and mamba2-1.3b's 48-layer DTensor prefill
-and decode against the plain path's tokens, and (unless ``--no-dryrun``)
-the dry-run cells in subprocesses. The same
+and the expert, scan and flash kernels at the local shapes of a 16-way
+model axis (``phase_split_kernels``), and runs ``phase_distributed``: on
+a 1x1 DTensor mesh of a one-rank NCCL group, minitron-8b's and
+qwen3-moe-30b-a3b's 4-layer, recurrentgemma-2b's 3-layer, mamba2-1.3b's
+4-layer and seamless-m4t-medium's full-depth (12 + 12 layers) train
+steps against the plain steps from the same seed (bit for bit, then
+``--turns`` steps of each in turns), minitron-8b's 32-layer, qwen3-moe's
+4-layer, int8 mixtral-8x7b's 4-layer, recurrentgemma-2b's 26-layer,
+mamba2-1.3b's 48-layer and seamless-m4t-medium's 12 + 12-layer DTensor
+prefill and decode against the plain path's tokens, and (unless
+``--no-dryrun``) the dry-run cells in subprocesses. The same
 checks fail it as fail ``chip_smoke.py``. Run from this repository's root;
 it prints the card's name and power limit last.
 """
@@ -56,10 +57,11 @@ def main() -> None:
                                  serve_weight_dtype="int8")
     rg_cfg = get_config("recurrentgemma-2b")
     mb_cfg = get_config("mamba2-1.3b")
+    sm_cfg = get_config("seamless-m4t-medium")
     C.phase_lse(cfg, get_config("qwen2-vl-72b"))
-    C.phase_split_kernels(moe_cfg, mx_cfg, rg_cfg, mb_cfg)
+    C.phase_split_kernels(moe_cfg, mx_cfg, rg_cfg, mb_cfg, sm_cfg)
     C.phase_distributed(cfg, (DA, FA, MG, RS, SC), procs, moe_cfg, mx_cfg,
-                        rg_cfg, mb_cfg)
+                        rg_cfg, mb_cfg, sm_cfg)
     C.log(f"[dist_phase] {time.perf_counter() - t0:.1f} s")
     C.log(C.card())
 
