@@ -65,7 +65,10 @@ sources in the checkout and drives the port's main paths at full width
   params and the cache laid out by the decode plan, the recurrent
   families' train steps and serving, and seamless-m4t-medium's train step
   and serving at full depth (its cross K/V caches in the plan's layout),
-  each against the same path on plain tensors.
+  each against the same path on plain tensors; mamba2-1.3b's DTensor
+  train state saved as a checkpoint, restored from a ``meta`` tree into
+  the plan's layout, and a step from it against the step from the state
+  in memory.
 
 Phases:
 
@@ -5764,12 +5767,15 @@ def check_dist_serve(cfg, got, want, launches, want_n=None,
         f"{med['plain']:.2f}); {card()}")
 
 
-def dist_train_path(tcfg, counters, mods, required, variant=None) -> dict:
+def dist_train_path(tcfg, counters, mods, required, variant=None,
+                    then=None) -> dict:
     """A 1x1 DTensor train step of ``tcfg`` against the plain step from
     the same seed (bit for bit, or DIST_REL where DTensor's ops differ;
     equal launches of the kernel modules ``mods``; the grouped GEMMs on
     ``variant``, if given), then both timed in turns. Returns the DTensor
-    step's launches."""
+    step's launches; ``then(tcfg, mesh, dstate, step, dbatch)``, if
+    given, runs on the stepped DTensor state before the timing and its
+    launches are returned beside them (a list of two)."""
     import torch
     batch = train_batches(tcfg, 1, seed=1)[0]
     torch.cuda.reset_peak_memory_stats()
@@ -5783,6 +5789,9 @@ def dist_train_path(tcfg, counters, mods, required, variant=None) -> dict:
     check_dist_train(tcfg, plain, (dstate, dm, {
         k: launches[k] for k in plain[2]}))
     del plain
+    if then is not None:
+        launches = [launches, then(tcfg, mesh, dstate, step, dbatch)]
+        release_memory()
     time_dist_train(tcfg, mesh, dstate, state, step, dbatch)
     log(f"[distributed] {tcfg.name} train peak device memory "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB of total_memory "
@@ -5830,11 +5839,127 @@ def dist_serve_path(cfg, counters, required, want_n, prompt: int,
     return launches
 
 
+def state_pairs(a, b) -> list:
+    """(name, leaf of ``a``, leaf of ``b``) over two train states' params,
+    m, v and step."""
+    from repro_torch.bridge import leaves
+    pairs = [(f"{n}[{i}] {tuple(x.shape)}", x, y)
+             for n, ta, tb in (("params", a.params, b.params),
+                               ("m", a.opt["m"], b.opt["m"]),
+                               ("v", a.opt["v"], b.opt["v"]))
+             for i, (x, y) in enumerate(zip(leaves(ta), leaves(tb)))]
+    return pairs + [("step", a.opt["step"], b.opt["step"])]
+
+
+def dist_ckpt_path(counters):
+    """``then`` of mamba2-1.3b's 1x1 DTensor train path: its stepped
+    DTensor state saved (``checkpoint.save``: gathered leaf by leaf, one
+    file) to a directory under artifacts/ that is removed after, restored
+    from a ``meta`` tree straight into the plan's layout
+    (``restore(shardings=)``), every restored leaf bit for bit the saved
+    one in its layout; then a step from the restored state (the main
+    path: ssd_chunk and ssd_chunk_bwd launched) against a step from the
+    state in memory on the same batch: every leaf (params, m, v, the
+    step) bit for bit or within DIST_REL of its norm (named), loss and
+    grad norm likewise, launches of the SSD kernels equal. Prints the GB
+    written and the save and restore seconds beside the card. Returns the
+    resumed step's launches."""
+
+    def then(tcfg, mesh, dstate, step, dbatch) -> dict:
+        import os
+        import shutil
+        import tempfile
+        import torch
+        from repro_torch.kernels.ssd_chunk import ssd_chunk as SC
+        from repro_torch.models.transformer import LM
+        from repro_torch.sharding import make_plan
+        from repro_torch.sharding.ctx import use_mesh
+        from repro_torch.training import checkpoint as ckpt
+        from repro_torch.training.train_step import (init_train_state,
+                                                     train_state_specs)
+        DRYRUN_DIR.parent.mkdir(parents=True, exist_ok=True)
+        d = tempfile.mkdtemp(prefix="ckpt-", dir=DRYRUN_DIR.parent)
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            path = ckpt.save(d, 1, dstate, extra={"data_step": 1})
+            save_s = time.perf_counter() - t0
+            gb = os.path.getsize(os.path.join(path, "shard_0.npz")) / 1e9
+            like = init_train_state(LM(tcfg), 0, device="meta")
+            plan = make_plan(tcfg, mesh, "train", batch=TRAIN_BATCH,
+                             seq=TRAIN_SEQ, param_tree=like.params)
+            t0 = time.perf_counter()
+            rstate, extra = ckpt.restore(
+                d, 1, like, shardings=(mesh, train_state_specs(plan, like)))
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+        pairs = state_pairs(rstate, dstate)
+        moved = [n for n, a, b in pairs
+                 if type(a) is not type(b) or a.placements != b.placements
+                 or not torch.equal(a.to_local(), b.to_local())]
+        if moved or extra != {"data_step": 1}:
+            fail(f"[checkpoint] {tcfg.name}: restored leaves differ from "
+                 f"the saved state or its layout: {moved[:8]}; extra "
+                 f"{extra}")
+        log(f"[checkpoint] {tcfg.name} ({tcfg.num_layers} layers) DTensor "
+            f"state: {gb:.3f} GB written in {save_s:.2f} s, restored from "
+            f"a meta tree into the plan's layout in {restore_s:.2f} s, "
+            f"{len(pairs)} of {len(pairs)} leaves bit for bit; {card()}")
+
+        def resumed():
+            with use_mesh(mesh):
+                new, m = step(rstate, dbatch)
+            torch.cuda.synchronize()
+            return new, {k: float(v.full_tensor()) for k, v in m.items()}
+        launches, (rnew, rm) = drive_path(
+            f"{tcfg.name} DTensor train step resumed from a checkpoint",
+            counters, tuple(SC.LAUNCHES), resumed)
+        before = launch_counts((SC,))
+        with use_mesh(mesh):
+            dnew, dm = step(dstate, dbatch)
+        torch.cuda.synchronize()
+        dm = {k: float(v.full_tensor()) for k, v in dm.items()}
+        mem = {k: n - before[k] for k, n in launch_counts((SC,)).items()}
+        got = {k: launches[k] for k in mem}
+        if got != mem:
+            fail(f"[checkpoint] {tcfg.name} SSD launches: resumed step "
+                 f"{got}, step in memory {mem}")
+        exact, near = 0, []
+        for k in ("loss", "grad_norm"):
+            if rm[k] != dm[k]:
+                near.append((k, abs(rm[k] - dm[k]) / max(abs(dm[k]),
+                                                          1e-30)))
+        for n, a, b in state_pairs(rnew, dnew):
+            a, b = a.to_local(), b.to_local()
+            if torch.equal(a, b):
+                exact += 1
+                continue
+            near.append((n, float((a.double() - b.double()).norm()
+                                  / b.double().norm().clamp(min=1e-30))))
+        log(f"[checkpoint] {tcfg.name} step resumed from the checkpoint vs "
+            f"the step from the state in memory: loss {rm['loss']!r} vs "
+            f"{dm['loss']!r}; {exact} of {len(pairs)} leaves (params, m, "
+            f"v, step) bit for bit"
+            + ("" if not near else "; the others within " + ", ".join(
+                f"{n} {r:.2e}" for n, r in near) + " of their norms")
+            + f"; SSD launches {got} == {mem}")
+        bad = [(n, r) for n, r in near if r > DIST_REL]
+        if bad:
+            fail(f"[checkpoint] {tcfg.name} resumed step past "
+                 f"{DIST_REL:.0e}: {bad}")
+        del rstate, rnew, dnew
+        return launches
+    return then
+
+
 def dist_recurrent_paths(rg_cfg, mb_cfg, counters) -> list:
     """The recurrent families on a 1x1 mesh: recurrentgemma-2b's train
     step at RG_DIST_LAYERS layers and mamba2-1.3b's at MB_DIST_LAYERS
     (full width; the scans and their backward through their DTensor
-    routes) against the plain steps, launches equal; then their serving
+    routes) against the plain steps, launches equal, mamba2's state then
+    saved and resumed (``dist_ckpt_path``); then their serving
     at full depth (recurrentgemma's prompts past its window), tokens equal
     to the plain path's, every RG-LRU block and SSD layer's prefill scan
     launched once, decode on the plain single-step recurrence (no kernel).
@@ -5843,14 +5968,17 @@ def dist_recurrent_paths(rg_cfg, mb_cfg, counters) -> list:
     from repro_torch.kernels.rglru_scan import rglru_scan as RS
     from repro_torch.kernels.ssd_chunk import ssd_chunk as SC
     paths = []
-    for rcfg, layers, mod in ((rg_cfg, RG_DIST_LAYERS, RS),
-                              (mb_cfg, MB_DIST_LAYERS, SC)):
+    for rcfg, layers, mod, then in (
+            (rg_cfg, RG_DIST_LAYERS, RS, None),
+            (mb_cfg, MB_DIST_LAYERS, SC, dist_ckpt_path(counters))):
         t0 = time.perf_counter()
         tcfg = train_config(rcfg, layers)
-        paths.append(dist_train_path(tcfg, counters, (mod, FA),
-                                     tuple(mod.LAUNCHES)))
-        log(f"[distributed] {tcfg.name} train path: "
-            f"{time.perf_counter() - t0:.1f} s")
+        launches = dist_train_path(tcfg, counters, (mod, FA),
+                                   tuple(mod.LAUNCHES), then=then)
+        paths += launches if then else [launches]
+        log(f"[distributed] {tcfg.name} train path"
+            + (" and checkpoint" if then else "")
+            + f": {time.perf_counter() - t0:.1f} s")
     none = {"flash_attention": 0, "decode_attention": 0,
             "paged_decode_attention": 0}
     for rcfg, kernel, n, prompt, max_len in (

@@ -42,10 +42,18 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
+def _whole(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor's whole tensor (``full_tensor``: a collective every rank
+    of its mesh joins); any other tensor as it is."""
+    from repro_torch.kernels.sharded import is_dtensor
+    return x.full_tensor() if is_dtensor(x) else x
+
+
 def to_numpy(x) -> np.ndarray:
-    """One leaf to host numpy (torch bf16 widens to float32)."""
+    """One leaf to host numpy (torch bf16 widens to float32; a DTensor
+    gives its whole tensor, gathered by every rank of its mesh)."""
     if isinstance(x, torch.Tensor):
-        x = x.detach().cpu()
+        x = _whole(x.detach()).cpu()
         if x.dtype == torch.bfloat16:
             x = x.float()
         return x.numpy()
@@ -54,8 +62,11 @@ def to_numpy(x) -> np.ndarray:
 
 def to_torch(x, device=None, dtype=None) -> torch.Tensor:
     """One leaf (torch tensor, numpy array or anything ``np.asarray`` takes)
-    to a torch tensor on ``device``; ``dtype`` applies to float leaves."""
-    if not isinstance(x, torch.Tensor):
+    to a torch tensor on ``device``; ``dtype`` applies to float leaves. A
+    DTensor gives its whole tensor (every rank of its mesh joins)."""
+    if isinstance(x, torch.Tensor):
+        x = _whole(x)
+    else:
         a = np.asarray(x)
         if a.dtype.kind not in "biuf":       # e.g. a bfloat16 extension type
             a = a.astype(np.float32)
@@ -119,10 +130,11 @@ def payload_to_numpy(payload: dict) -> dict:
 
 
 def payload_to_torch(payload: dict, cfg: ModelConfig, device=None) -> dict:
-    """A slot payload (any array leaves) with its cache as port tensors in
-    the reference's dtypes: the recurrent states under ``CACHE_F32_KEYS``
-    float32, other float leaves ``cfg.dtype``, integer leaves as they
-    are."""
+    """A slot payload (any array leaves; a DTensor, as a transfer with
+    ``dst_shardings`` lays one out, gives its whole tensor) with its cache
+    as port tensors in the reference's dtypes: the recurrent states under
+    ``CACHE_F32_KEYS`` float32, other float leaves ``cfg.dtype``, integer
+    leaves as they are."""
     out = dict(payload)
     out["cache"] = _by_key(payload["cache"], CACHE_F32_KEYS, device,
                            dtype_of(cfg))

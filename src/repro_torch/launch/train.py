@@ -16,7 +16,10 @@ reference's does: launched under ``torchrun`` (one rank a GPU, NCCL), it
 builds the 16×16 data×model mesh over the ranks (raising with fewer than
 256), makes the sharding plan from the state, lays the state out as
 ``train_state_specs`` says and splits each batch over the data axis.
-Sharded checkpoints are not written yet (ROADMAP.md queue 1).
+With ``--ckpt-dir`` every rank joins each save (rank 0 writes the
+reference's one-file format); ``--resume`` plans from a ``meta`` state and
+restores the latest checkpoint straight into the plan's layout, each rank
+reading only its own shards onto its card.
 """
 
 from __future__ import annotations
@@ -48,10 +51,6 @@ def train(arch: str = "edge-tiny", *, steps: int = 100, batch: int = 8,
     ``production_mesh``: run on the production mesh (``_production``)."""
     dev = resolve_device(None if device in (None, "cuda") else device)
     if production_mesh:
-        if ckpt_dir:
-            raise NotImplementedError("--production writes no checkpoints: "
-                                      "sharded checkpoints wait (ROADMAP.md "
-                                      "queue 1)")
         _join_world(dev)
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
     lm = LM(cfg)
@@ -62,23 +61,27 @@ def train(arch: str = "edge-tiny", *, steps: int = 100, batch: int = 8,
     data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
                           global_batch=batch, seed=seed)
     start_step = 0
-    state = None
+    state = mesh = plan = None
     if resume and ckpt_dir:
         last = ckpt.latest_step(ckpt_dir)
         if last is not None:
             like = init_train_state(lm, seed, compress=compress,
                                     device="meta")
-            state, extra = ckpt.restore(ckpt_dir, last, like, device=dev)
+            shardings = None
+            if production_mesh:
+                mesh, plan = _production_plan(cfg, like, batch, seq, dev)
+                shardings = (mesh, train_state_specs(plan, like))
+            state, extra = ckpt.restore(ckpt_dir, last, like,
+                                        shardings=shardings, device=dev)
             start_step = extra.get("data_step", last)
             print(f"resumed from step {last} (data cursor {start_step})")
     if state is None:
         state = init_train_state(lm, seed, compress=compress, device=dev)
+        if production_mesh:
+            mesh, plan, state = _production(cfg, state, batch, seq, dev)
 
     stream = SyntheticLMStream(data_cfg, start_step=start_step)
     straggler = StragglerPolicy()
-    mesh = plan = None
-    if production_mesh:
-        mesh, plan, state = _production(cfg, state, batch, seq, dev)
     losses = []
     for i in range(start_step, start_step + steps):
         batch_np = stream.next_batch()
@@ -125,16 +128,22 @@ def _join_world(dev) -> None:
     dist.init_process_group("nccl" if dev.type == "cuda" else "gloo")
 
 
-def _production(cfg, state, batch: int, seq: int, dev):
-    """(mesh, plan, state laid out by the plan) on the production mesh
-    over the launched ranks (the reference's ``--production``); raises
-    with fewer ranks than the mesh needs."""
+def _production_plan(cfg, state, batch: int, seq: int, dev):
+    """(mesh, plan) of ``state`` (its shapes alone: ``meta`` will do) on
+    the production mesh over the launched ranks (the reference's
+    ``--production``); raises with fewer ranks than the mesh needs."""
     from repro_torch.launch.mesh import make_production_mesh
     from repro_torch.sharding import make_plan
-    from repro_torch.sharding.planner import distribute_tree
     mesh = make_production_mesh(device_type=dev.type)
-    plan = make_plan(cfg, mesh, "train", batch=batch, seq=seq,
-                     param_tree=state.params)
+    return mesh, make_plan(cfg, mesh, "train", batch=batch, seq=seq,
+                           param_tree=state.params)
+
+
+def _production(cfg, state, batch: int, seq: int, dev):
+    """(mesh, plan, ``state`` laid out by the plan) on the production
+    mesh (``_production_plan``)."""
+    from repro_torch.sharding.planner import distribute_tree
+    mesh, plan = _production_plan(cfg, state, batch, seq, dev)
     state = distribute_tree(state, train_state_specs(plan, state), mesh)
     return mesh, plan, state
 

@@ -90,12 +90,17 @@ def fingerprint(payload) -> str:
 
 
 def transfer(src_engine, dst_engine, session_id: str, *,
-             link_bw: float = 5e9, verify: bool = True, fail_injector=None,
+             dst_shardings=None, link_bw: float = 5e9, verify: bool = True,
+             fail_injector=None,
              inject: Optional[TransferInjections] = None,
              scrub: Optional[Callable[[dict], dict]] = None,
              clock=None) -> dict:
     """Move one session between engines/backends. Returns transfer metadata.
 
+    ``dst_shardings``: None, or a pair ``(mesh, specs)`` (a ``DeviceMesh``
+    and a ``Spec`` tree of the payload's cache, e.g. the decode plan's
+    ``cache_plan``): the wire payload's cache is laid out as DTensors on
+    that mesh before the import, as the reference ``device_put``s it.
     ``fail_injector``: test hook — callable that may raise after the export
     to exercise the abort path (source must stay intact).
     ``inject``: staged :class:`TransferInjections`.
@@ -118,6 +123,12 @@ def transfer(src_engine, dst_engine, session_id: str, *,
         fail_injector(payload)
 
     wire_payload = payload
+    if dst_shardings is not None:
+        from repro_torch.sharding.planner import distribute_tree
+        mesh, specs = dst_shardings
+        wire_payload = dict(payload)
+        wire_payload["cache"] = distribute_tree(payload["cache"], specs,
+                                                mesh)
     if inject is not None and inject.corrupt is not None:
         wire_payload = inject.corrupt(dict(wire_payload))
     if inject is not None and inject.deny_admission:

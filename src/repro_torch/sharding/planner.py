@@ -166,14 +166,17 @@ def _map_with_path(fn, tree, prefix=()):
     return fn("/".join(prefix), tree)
 
 
-def distribute(t, spec: Spec, mesh):
+def distribute(t, spec: Spec, mesh, *, device=None, dtype=None):
     """``t`` as a DTensor on ``mesh`` laid out by ``spec``, with no
     communication: every rank holds the same whole ``t`` (drawn from one
     seed) and keeps a copy of its own shard (on a mesh of one rank, ``t``
     itself). A tensor on the ``meta`` device, or a
     fake one, becomes a DTensor whose shard is an empty tensor of the
     shard's shape on the mesh's device (the dry run's shapes-only state).
-    Dims split unevenly are not taken: ``_fit_spec`` keeps specs even."""
+    Dims split unevenly are not taken: ``_fit_spec`` keeps specs even.
+    ``device``, ``dtype``: where given, the shard is cut on ``t``'s device
+    and only the shard moved and cast (a checkpoint's leaf read on the
+    host goes to the card one rank's share at a time)."""
     from torch.distributed.tensor import DTensor
     from repro_torch.kernels.sharded import (contiguous_stride, is_fake,
                                              shard_span)
@@ -191,6 +194,8 @@ def distribute(t, spec: Spec, mesh):
                 local = local.narrow(d, start, n)
         if local is not t:          # a shard of its own, not a view of t
             local = local.contiguous()
+        if device is not None or dtype is not None:
+            local = local.to(device=device, dtype=dtype)
     return DTensor.from_local(local, mesh, pls, run_check=False,
                               shape=shape, stride=contiguous_stride(shape))
 

@@ -32,8 +32,11 @@ def _full(x):
 
 
 def _numpy_tree(tree):
+    """A tree gathered to numpy copies (a later in-place step leaves
+    them)."""
     from repro_torch.bridge import tree_map
-    return tree_map(lambda t: _full(t).detach().float().numpy(), tree)
+    return tree_map(lambda t: _full(t).detach().float().numpy().copy(),
+                    tree)
 
 
 def train(inp, mesh):
@@ -359,12 +362,187 @@ def production(inp, mesh):
     return {"losses": losses, "placements": seen["placements"]}
 
 
+def _state_tree(state):
+    """A train state's params, m, v and step, gathered, as numpy."""
+    return {"params": _numpy_tree(state.params),
+            "m": _numpy_tree(state.opt["m"]), "v": _numpy_tree(state.opt["v"]),
+            "step": _full(state.opt["step"]).numpy().copy()}
+
+
+def ckpt_resume(inp, mesh):
+    """The production launcher on this 2x2 mesh (standing in for the
+    16x16 one): ``inp["steps"]`` steps saved to ``<folder>/resumed``, as
+    many again with ``resume=True`` from there, then twice as many
+    uninterrupted. Returns both runs' losses and final states (gathered),
+    how the resumed run was set up (``_production`` calls, the restore's
+    ``tree_like`` device and sharding mesh) and the layout of its
+    experts."""
+    import repro_torch.launch.mesh as LMESH
+    import repro_torch.launch.train as T
+    seen = {"production": 0, "restores": []}
+    real_prod, real_restore = T._production, T.ckpt.restore
+
+    def production_(*a, **k):
+        seen["production"] += 1
+        return real_prod(*a, **k)
+
+    def restore_(d, step, like, **k):
+        mesh_ = k["shardings"][0] if k.get("shardings") else None
+        seen["restores"].append({
+            "step": step, "like": like.params["embed"].device.type,
+            "mesh": None if mesh_ is None else tuple(mesh_.shape)})
+        return real_restore(d, step, like, **k)
+    T._production, T.ckpt.restore = production_, restore_
+    LMESH.make_production_mesh = lambda **k: mesh
+    kw = dict(smoke=True, batch=inp["batch"], seq=inp["seq"],
+              production_mesh=True, device="cpu", log_every=1000)
+    n, d = inp["steps"], os.path.join(inp["folder"], "resumed")
+    _, first = T.train(inp["arch"], steps=n, ckpt_dir=d, **kw)
+    calls = seen["production"]
+    resumed, second = T.train(inp["arch"], steps=n, ckpt_dir=d, resume=True,
+                              **kw)
+    out = {"first_production": calls,
+           "resume_production": seen["production"] - calls,
+           "restores": seen["restores"], "losses": first + second,
+           "state": _state_tree(resumed),
+           "placements": {k: _dims(v) for k, v in
+                          resumed.params["layers"]["moe"].items()}}
+    whole, losses = T.train(inp["arch"], steps=2 * n, **kw)
+    out.update(whole_losses=losses, whole_state=_state_tree(whole))
+    return out
+
+
+def _ckpt_step(cfg, batch, mesh):
+    """(the train step of ``train``'s hyper-parameters, the plan of
+    ``cfg``'s state on ``mesh``, a ``meta`` state)."""
+    from repro_torch.models.transformer import LM
+    from repro_torch.sharding import make_plan
+    from repro_torch.training.optimizer import AdamWHyper
+    from repro_torch.training.train_step import (init_train_state,
+                                                 make_train_step)
+    b, s = batch["tokens"].shape
+    like = init_train_state(LM(cfg), 0, device="meta")
+    plan = make_plan(cfg, mesh, "train", batch=b, seq=s,
+                     param_tree=like.params)
+    step = make_train_step(LM(cfg), hyper=AdamWHyper(warmup_steps=1),
+                           microbatches=2, compute_dtype=torch.float32)
+    return step, plan, like
+
+
+def elastic_save(inp, mesh):
+    """On the 2x2 mesh: a checkpoint of the whole state (``inp["ref_dir"]``,
+    step 0, if given: the reference's) restored onto the mesh by the plan
+    (``shardings``), gathered; then one step of ``inp["state"]``
+    distributed by the plan, saved to ``<folder>/elastic`` (step 1, data
+    cursor 1). Returns the restored state and the saved one (gathered)
+    and the restored leaves' layouts."""
+    from repro_torch.sharding.ctx import use_mesh
+    from repro_torch.sharding.planner import distribute_tree
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training.train_step import (distribute_batch,
+                                                 train_state_specs)
+    cfg, batch = inp["cfg"], inp["batch"]
+    step, plan, like = _ckpt_step(cfg, batch, mesh)
+    specs = train_state_specs(plan, like)
+    out = {}
+    if inp.get("ref_dir"):
+        got, _ = ckpt.restore(inp["ref_dir"], 0, like,
+                              shardings=(mesh, specs))
+        out["ref_restored"] = _state_tree(got)
+        out["ref_layouts"] = _layouts(got.params)
+    dstate = distribute_tree(inp["state"], specs, mesh)
+    with use_mesh(mesh):
+        new, _ = step(dstate, distribute_batch(batch, plan, mesh, 2))
+    ckpt.save(os.path.join(inp["folder"], "elastic"), 1, new,
+              extra={"data_step": 1})
+    out["saved"] = _state_tree(new)
+    return out
+
+
+def elastic(inp, mesh):
+    """The elastic restart: of the 2x2 world's ranks 0-3, rank 3 failed;
+    ``remesh_after_failure`` keeps 2 on a (1, 2) mesh (this world). The
+    2x2 checkpoint ``<folder>/elastic`` restored onto it by the new plan
+    and with ``shardings=None``, gathered, then one step on the (1, 2)
+    mesh (``train``'s outputs); and a decode session moved into an
+    engine with ``transfer(dst_shardings=)`` (the cache laid out on the
+    mesh by the decode plan) and into one without, with its
+    fingerprints and the next tokens of each."""
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.sharding.ctx import use_mesh
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training.fault_tolerance import remesh_after_failure
+    from repro_torch.training.train_step import (distribute_batch,
+                                                 train_state_specs)
+    keep, shape = remesh_after_failure(range(4), {3}, 2)
+    assert list(keep) == list(range(dist.get_world_size())), keep
+    mesh = make_test_mesh(shape, ("data", "model"), device_type="cpu")
+    cfg, batch = inp["cfg"], inp["batch"]
+    step, plan, like = _ckpt_step(cfg, batch, mesh)
+    d = os.path.join(inp["folder"], "elastic")
+    last = ckpt.latest_step(d)
+    state, extra = ckpt.restore(d, last, like,
+                                shardings=(mesh, train_state_specs(plan,
+                                                                   like)))
+    plain, _ = ckpt.restore(d, last, like, device="cpu")
+    out = {"mesh": tuple(mesh.shape), "extra": extra,
+           "restored": _state_tree(state), "plain": _state_tree(plain),
+           "layouts": _layouts(state.params)}
+    with use_mesh(mesh):
+        new, metrics = step(state, distribute_batch(batch, plan, mesh, 2))
+    out.update(params=_numpy_tree(new.params), m=_numpy_tree(new.opt["m"]),
+               v=_numpy_tree(new.opt["v"]),
+               loss=float(_full(metrics["loss"])))
+    out["transfer"] = _elastic_transfer(inp["engine_cfg"], mesh)
+    return out
+
+
+def _elastic_transfer(cfg, mesh):
+    """A session prefilled on a plain engine, moved with ``dst_shardings``
+    (the decode plan's cache specs on ``mesh``) and without; the
+    fingerprints, the DTensor leaves the import saw and 4 greedy tokens
+    of each engine after."""
+    from repro_torch.bridge import leaves
+    from repro_torch.kernels.sharded import is_dtensor
+    from repro_torch.serving.engine import InferenceEngine
+    from repro_torch.serving.state_transfer import fingerprint, transfer
+    from repro_torch.sharding import make_plan
+
+    def engine():
+        return InferenceEngine(cfg, slots=2, max_len=64, seed=0,
+                               device="cpu")
+    src, dst, plain = engine(), engine(), engine()
+    prompt = torch.arange(3, 24, dtype=torch.int32).numpy() % cfg.vocab_size
+    src.prefill_session("s", prompt)
+    cache = src.export_slot("s")["cache"]
+    plan = make_plan(cfg, mesh, "decode", batch=1, seq=64,
+                     cache_tree=cache)
+    seen = {}
+    real = dst.import_slot
+
+    def import_slot(sid, payload):
+        seen["dtensors"] = sum(map(is_dtensor, leaves(payload["cache"])))
+        seen["leaves"] = len(leaves(payload["cache"]))
+        return real(sid, payload)
+    dst.import_slot = import_slot
+    meta = transfer(src, dst, "s", dst_shardings=(mesh, plan.cache_specs))
+    transfer(src, plain, "s")
+    return dict(seen, src=meta["fingerprint"],
+                dst=fingerprint(dst.export_slot("s")),
+                plain=fingerprint(plain.export_slot("s")),
+                tokens=[e.decode_round(steps=4)["s"]
+                        for e in (src, dst, plain)])
+
+
 CASES = {"train": (train, (2, 2), ("data", "model")),
          "rec_serve": (rec_serve, (2, 2), ("data", "model")),
          "scans": (scans, (2, 2), ("data", "model")),
          "production": (production, (2, 2), ("data", "model")),
          "serve": (serve, (2, 2), ("data", "model")),
-         "pipeline": (pipeline, (4,), ("pipe",))}
+         "pipeline": (pipeline, (4,), ("pipe",)),
+         "ckpt_resume": (ckpt_resume, (2, 2), ("data", "model")),
+         "elastic_save": (elastic_save, (2, 2), ("data", "model")),
+         "elastic": (elastic, None, None)}
 
 
 def _rank(rank, world, case, folder, port):
@@ -375,8 +553,10 @@ def _rank(rank, world, case, folder, port):
     try:
         from repro_torch.launch.mesh import make_test_mesh
         fn, shape, axes = CASES[case]
-        mesh = make_test_mesh(shape, axes, device_type="cpu")
+        mesh = None if shape is None else \
+            make_test_mesh(shape, axes, device_type="cpu")  # else its own
         inp = torch.load(os.path.join(folder, "in.pt"), weights_only=False)
+        inp.setdefault("folder", folder)
         out = fn(inp, mesh)
         if rank == 0:
             torch.save(out, os.path.join(folder, "out.pt"))
@@ -490,6 +670,7 @@ def check(step_rel: float = 2e-3, tol: float = 1e-5,
           f"{out['placements']['w_gate']}", flush=True)
     if rel > loss_tol:
         bad.append("production")
+    bad += _check_ckpt(step_rel, tol)
     print(f"[check] torch {torch.__version__}: "
           + ("every case matches" if not bad else f"FAILED {bad}"),
           flush=True)
@@ -532,6 +713,117 @@ def _step_errs(out, want, before) -> dict:
                      m_got=float(torch.as_tensor(ma).flatten()[i]),
                      m_want=float(mb.flatten()[i]))
     return e
+
+
+def spawn_with(case, inp, folder, world=4):
+    """``_spawn`` of ``case`` on ``inp`` (written to ``folder``/in.pt)."""
+    torch.save(inp, os.path.join(folder, "in.pt"))
+    return _spawn(case, folder, world)
+
+
+def elastic_run(spawn, cfg, state, batch, folder, ref_dir=None):
+    """The elastic restart on ``cfg`` (its engine too): ``elastic_save``
+    of ``state`` on a 2x2 world, then ``elastic`` on the 2 ranks
+    ``remesh_after_failure`` keeps, through ``spawn(case, inp, folder,
+    world)``; then the unsharded port's step from the same checkpoint.
+    Returns (the 2x2 world's output, the 2-rank world's, (the unsharded
+    step's TrainState, its loss), the params it stepped from)."""
+    from repro_torch.bridge import tree_map
+    from repro_torch.models.transformer import LM
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training.optimizer import AdamWHyper
+    from repro_torch.training.train_step import (init_train_state,
+                                                 make_train_step)
+    saved = spawn("elastic_save", {"cfg": cfg, "state": state,
+                                   "batch": batch, "ref_dir": ref_dir},
+                  folder, 4)
+    out = spawn("elastic", {"cfg": cfg, "batch": batch, "engine_cfg": cfg},
+                folder, 2)
+    plain, _ = ckpt.restore(os.path.join(folder, "elastic"), 1,
+                            init_train_state(LM(cfg), 0, device="meta"),
+                            device="cpu")
+    before = tree_map(torch.clone, plain.params)   # the step is in place
+    want, metrics = make_train_step(
+        LM(cfg), hyper=AdamWHyper(warmup_steps=1), microbatches=2,
+        compute_dtype=torch.float32)(plain, batch)
+    return saved, out, (want, float(metrics["loss"])), before
+
+
+def same_bits(a, b) -> list:
+    """Leaf indices where two trees (numpy or tensors) differ in bits."""
+    import numpy as np
+    from repro_torch.bridge import leaves
+    la, lb = leaves(a), leaves(b)
+    if len(la) != len(lb):
+        return [f"{len(la)} leaves against {len(lb)}"]
+    return [i for i, (x, y) in enumerate(zip(la, lb))
+            if not np.array_equal(np.asarray(x), np.asarray(y))]
+
+
+def _check_ckpt(step_rel: float, tol: float) -> list:
+    """The checkpoint cases with the port's own seeded state: the
+    production launcher's 2 + 2 resumed steps against 4 (qwen3-moe's
+    smoke config: losses, every leaf and the data cursor bit for bit),
+    then the elastic restart (recurrentgemma-2b's: the 2x2 checkpoint
+    restored onto the (1, 2) mesh and with no mesh bit for bit, the next
+    step by the test files' rule, a session moved with
+    ``dst_shardings`` fingerprinting equal)."""
+    import dataclasses
+    import json
+    import tempfile
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.transformer import LM
+    from repro_torch.training.train_step import init_train_state
+    bad = []
+    with tempfile.TemporaryDirectory() as d:
+        out = spawn_with("ckpt_resume", {"arch": "qwen3-moe-30b-a3b",
+                                         "steps": 2, "batch": 4, "seq": 64},
+                         d)
+        cursors = []
+        for k in (2, 4):
+            with open(os.path.join(d, "resumed", f"step_{k:08d}",
+                                   "manifest.json")) as f:
+                cursors.append(json.load(f)["extra"]["data_step"])
+    diff = same_bits(out["state"], out["whole_state"])
+    ok = (out["losses"] == out["whole_losses"] and not diff
+          and cursors == [2, 4] and out["resume_production"] == 0
+          and out["restores"] == [{"step": 2, "like": "meta",
+                                   "mesh": (2, 2)}])
+    print(f"[check] ckpt resume qwen3-moe smoke 2x2: losses "
+          f"{out['losses']} vs uninterrupted {out['whole_losses']}; leaves "
+          f"differing {diff}; data cursors {cursors}; restores "
+          f"{out['restores']}", flush=True)
+    if not ok:
+        bad.append("ckpt resume")
+    cfg = dataclasses.replace(get_smoke_config("recurrentgemma-2b"),
+                              dtype="float32")
+    g = torch.Generator().manual_seed(3)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 32), generator=g,
+                           dtype=torch.int32)
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
+    with tempfile.TemporaryDirectory() as d:
+        saved, out, (want, loss), before = elastic_run(
+            spawn_with, cfg, init_train_state(LM(cfg), 0, device="cpu"),
+            batch, d)
+    e = _step_errs(out, want, before)
+    lerr = abs(out["loss"] - loss) / max(1.0, abs(loss))
+    t = out["transfer"]
+    diffs = {k: same_bits(out[k], saved["saved"])
+             for k in ("restored", "plain")}
+    print(f"[check] ckpt elastic recurrentgemma smoke 2x2 -> "
+          f"{out['mesh']}: restored leaves differing {diffs}; next step "
+          f"loss within {lerr:.2e}, m, v within {e['m']:.2e}, {e['v']:.2e}, "
+          f"updates within "
+          f"{e['update']:.2e} of their norm; transfer fingerprints "
+          f"{t['src']} / {t['dst']} / {t['plain']}, {t['dtensors']} of "
+          f"{t['leaves']} leaves DTensors", flush=True)
+    if (any(diffs.values()) or max(e["m"], e["v"], lerr) > tol
+            or e["update"] > step_rel or out["mesh"] != (1, 2)
+            or not t["src"] == t["dst"] == t["plain"]
+            or t["dtensors"] != t["leaves"]
+            or not t["tokens"][0] == t["tokens"][1] == t["tokens"][2]):
+        bad.append("ckpt elastic")
+    return bad
 
 
 def _check_serve(name, cfg, prompt, steps, q8, tol) -> list:

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """``chip_smoke.py``'s distributed phase alone, on one CUDA card.
 
-    python3 tools/dist_phase.py [--turns 5] [--no-dryrun]
+    python3 tools/dist_phase.py [--turns 5] [--no-dryrun] [--recurrent]
 
 Builds the kernels, checks decode_attention's lse output (``phase_lse``)
 and the expert, scan and flash kernels at the local shapes of a 16-way
@@ -14,9 +14,11 @@ steps against the plain steps from the same seed (bit for bit, then
 4-layer, int8 mixtral-8x7b's 4-layer, recurrentgemma-2b's 26-layer,
 mamba2-1.3b's 48-layer and seamless-m4t-medium's 12 + 12-layer DTensor
 prefill and decode against the plain path's tokens, and (unless
-``--no-dryrun``) the dry-run cells in subprocesses. The same
-checks fail it as fail ``chip_smoke.py``. Run from this repository's root;
-it prints the card's name and power limit last.
+``--no-dryrun``) the dry-run cells in subprocesses. ``--recurrent``
+runs only the recurrent families' paths (``dist_recurrent_paths``, with
+mamba2-1.3b's checkpoint saved, restored into the plan's layout and
+resumed). The same checks fail it as fail ``chip_smoke.py``. Run from
+this repository's root; it prints the card's name and power limit last.
 """
 
 from __future__ import annotations
@@ -36,6 +38,8 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--turns", type=int, default=C.DIST_TURNS)
     ap.add_argument("--no-dryrun", action="store_true")
+    ap.add_argument("--recurrent", action="store_true",
+                    help="only the recurrent families' paths")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -50,7 +54,7 @@ def main() -> None:
     C.DIST_TURNS = args.turns
     t0 = time.perf_counter()
     C.phase_build()
-    procs = [] if args.no_dryrun else C.start_dryruns()
+    procs = [] if args.no_dryrun or args.recurrent else C.start_dryruns()
     cfg = get_config("minitron-8b")
     moe_cfg = get_config("qwen3-moe-30b-a3b")
     mx_cfg = dataclasses.replace(get_config("mixtral-8x7b"),
@@ -58,6 +62,12 @@ def main() -> None:
     rg_cfg = get_config("recurrentgemma-2b")
     mb_cfg = get_config("mamba2-1.3b")
     sm_cfg = get_config("seamless-m4t-medium")
+    if args.recurrent:
+        C.init_nccl()
+        C.dist_recurrent_paths(rg_cfg, mb_cfg, (DA, FA, MG, RS, SC))
+        C.log(f"[dist_phase] {time.perf_counter() - t0:.1f} s")
+        C.log(C.card())
+        return
     C.phase_lse(cfg, get_config("qwen2-vl-72b"))
     C.phase_split_kernels(moe_cfg, mx_cfg, rg_cfg, mb_cfg, sm_cfg)
     C.phase_distributed(cfg, (DA, FA, MG, RS, SC), procs, moe_cfg, mx_cfg,
